@@ -1,0 +1,44 @@
+// Raw Philox words of the kernels' stream, for holding csrc/philox.cuh
+// against ops/philox.stream_words bit for bit; the error-string lookup the
+// Python wrappers use to report a failed launch.
+#include "philox.cuh"
+
+namespace omt {
+
+__global__ void __launch_bounds__(kBlockThreads)
+philox_words_kernel(uint32_t* __restrict__ out, uint64_t seed, int first_tile, int n_tiles,
+                    int width, int n_draws) {
+  const long long n_slots = static_cast<long long>(n_tiles) * width;
+  const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (slot >= n_slots) return;
+  const uint32_t j = static_cast<uint32_t>(slot % width);
+  const uint32_t global_tile = static_cast<uint32_t>(first_tile + slot / width);
+  for (int k = 0; k < n_draws; ++k) {
+    const Words w = slot_draw(j, static_cast<uint32_t>(k), global_tile, seed);
+    uint32_t* row = out + static_cast<size_t>(4 * k) * n_slots + slot;
+    row[0] = w.x;
+    row[n_slots] = w.y;
+    row[2 * n_slots] = w.z;
+    row[3 * n_slots] = w.w;
+  }
+}
+
+}  // namespace omt
+
+extern "C" {
+
+// out: device (n_draws, 4, n_tiles*width) 32-bit words.
+int omt_philox_words(void* out, uint64_t seed, int first_tile, int n_tiles, int width,
+                     int n_draws, void* stream) {
+  const long long n_slots = static_cast<long long>(n_tiles) * width;
+  omt::philox_words_kernel<<<omt::grid_for(n_slots), omt::kBlockThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), seed, first_tile, n_tiles, width, n_draws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* omt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,133 @@
+"""Counter-based random stream shared by the CUDA kernels and their plain
+versions: Philox4x32-10 (Salmon et al., SC'11) in plain torch, bit-equal to
+csrc/philox.cuh.
+
+It replaces the TPU kernels' hardware PRNG plumbing (_seed_array, _tile_seed,
+_uniform_from_bits and _box_muller, options_model_tpu/ops/pallas_heston.py:
+78-114). The TPU's bits cannot be reproduced off the chip, so the stream is
+new; what carries over is its contract:
+
+- the draw of a path slot is a pure function of (seed, global tile, draw
+  index, slot in the tile): counter = (slot, draw, first_tile + tile, 0),
+  key = (seed & 0xFFFFFFFF, seed >> 32). A run at offset ``first_tile``
+  therefore reproduces those tiles of a longer run bit for bit;
+- uniforms are ((bits >> 9) | 0x3F800000) bit-cast to f32, minus 1, in [0, 1);
+- Box-Muller takes log(1 - u1), which stays finite.
+
+One Philox call yields four words, which Box-Muller turns into four normals
+(w0, w1) -> (n0, n1) and (w2, w3) -> (n2, n3): normal q of a slot comes from
+draw q // 4. A slot is one antithetic pair when the caller mirrors, so a
+tile of ``tile`` paths has ``tile // 2`` slots, path j + tile/2 being the
+mirror of path j.
+
+32x32-bit products are formed in int64 from 16-bit halves (int64 cannot hold
+a full 64-bit unsigned product) and every word is masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+_TWO_PI = 6.283185307179586
+
+
+def _mulhilo(m: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product m * b, b in [0, 2^32)."""
+    p_lo = m * (b & 0xFFFF)            # < 2^48
+    p_hi = m * (b >> 16)               # < 2^48
+    s = ((p_hi & 0xFFFF) << 16) + p_lo  # < 2^49
+    return (p_hi >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors holding uint32 words; c1 and c3 may
+    also be Python ints."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & _MASK32
+        k1 = (k1 + PHILOX_W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def seed_from_generator(generator: torch.Generator) -> int:
+    """A 64-bit kernel seed drawn from an explicit generator (the port's
+    counterpart of seed_from_key on a JAX key)."""
+    w = torch.randint(0, 1 << 32, (2,), generator=generator,
+                      device=generator.device, dtype=torch.int64).tolist()
+    return w[0] | (w[1] << 32)
+
+
+def _slot_counters(first_tile: int, n_tiles: int, width: int, device):
+    """(slot-in-tile, global tile) counter words of every slot, tile-major."""
+    slot = torch.arange(n_tiles * width, device=device, dtype=torch.int64)
+    return slot % width, (first_tile + slot // width) & _MASK32
+
+
+def stream_words(seed: int, first_tile: int, n_tiles: int, width: int,
+                 n_draws: int, device=None) -> torch.Tensor:
+    """Raw Philox words (n_draws, 4, n_tiles * width) as int64 in [0, 2^32)."""
+    j, g = _slot_counters(first_tile, n_tiles, width, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    return torch.stack([torch.stack(philox4x32(j, k, g, 0, k0, k1))
+                        for k in range(n_draws)])
+
+
+def stream_words_cuda(seed: int, first_tile: int, n_tiles: int, width: int,
+                      n_draws: int, device) -> torch.Tensor:
+    """The same words as ``stream_words``, drawn on the card by the kernels'
+    own Philox (csrc/philox.cu): the bit-for-bit check of csrc/philox.cuh."""
+    from options_model_tpu_torch.ops import _build
+
+    device = torch.device(device)
+    _build.require_cuda(device)
+    out = torch.empty((n_draws, 4, n_tiles * width), dtype=torch.int32, device=device)
+    _build.launch("omt_philox_words", device, out.data_ptr(), seed, first_tile,
+                  n_tiles, width, n_draws)
+    return out.to(torch.int64) & _MASK32
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (in int64) -> float32 uniforms in [0, 1)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor):
+    """Two independent N(0, 1) from two uniforms; 1 - u1 in (0, 1]."""
+    rad = torch.sqrt(-2.0 * torch.log(1.0 - u1))
+    ang = _TWO_PI * u2
+    return rad * torch.cos(ang), rad * torch.sin(ang)
+
+
+def stream_normals(seed: int, first_tile: int, n_tiles: int, width: int,
+                   n_normals: int, device=None) -> torch.Tensor:
+    """The first ``n_normals`` normals of every slot: (n_normals, n_tiles * width)."""
+    j, g = _slot_counters(first_tile, n_tiles, width, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    out = []
+    for k in range((n_normals + 3) // 4):
+        w = [uniform_from_bits(x) for x in philox4x32(j, k, g, 0, k0, k1)]
+        out += [*box_muller(w[0], w[1]), *box_muller(w[2], w[3])]
+    return torch.stack(out[:n_normals])
+
+
+def mirror_tiles(z: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(n, n_tiles * half) slot normals -> (n, n_tiles * 2 * half) path
+    normals, each tile laid out as [z, -z]."""
+    zt = z.reshape(z.shape[0], n_tiles, -1)
+    return torch.cat([zt, -zt], dim=2).reshape(z.shape[0], -1)
+
+
+def path_normals(seed: int, first_tile: int, n_tiles: int, tile: int,
+                 n_normals: int, antithetic: bool, device=None) -> torch.Tensor:
+    """(n_normals, n_tiles * tile) normals in path order: one slot per
+    antithetic pair (mirrored within its tile) or per path."""
+    width = tile // 2 if antithetic else tile
+    z = stream_normals(seed, first_tile, n_tiles, width, n_normals, device)
+    return mirror_tiles(z, n_tiles) if antithetic else z

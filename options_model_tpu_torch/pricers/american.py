@@ -1,0 +1,371 @@
+"""American option pricing by Longstaff-Schwartz Monte Carlo, as
+options_model_tpu/pricers/american.py (the polynomial regressor under GBM
+and Heston).
+
+Paths come from the Philox path kernels (csrc/, or their plain versions on
+the CPU) in the flat (n_steps+1, n_paths) layout. The backward induction is
+a Python loop over exercise dates; each date is a masked weighted least
+squares on the centered basis, all on the device and with no host read-back
+until the caller asks for the price. The dispatcher ``price_american``
+adds the same-path European control variate (COS leg under Heston, BS under
+GBM), common-path Richardson extrapolation, or the European terminal
+sampler, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from options_model_tpu_torch._unported import not_ported
+from options_model_tpu_torch.core.config import (HestonParams, LSMConfig,
+                                                  MCConfig, OptionSpec)
+from options_model_tpu_torch.core.payoff import vanilla_payoff
+from options_model_tpu_torch.core.stats import masked_mean_stderr, optimal_cv_beta
+from options_model_tpu_torch.models.gbm import simulate_gbm
+from options_model_tpu_torch.models.heston import simulate_heston
+from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
+from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
+from options_model_tpu_torch.ops.philox import seed_from_generator
+from options_model_tpu_torch.pricers.blackscholes import bs_price
+from options_model_tpu_torch.pricers.regressors import masked_wls_predict_centered
+
+# Standardized-covariate clamp for the regression basis (build_centered_basis).
+_BASIS_CLAMP = 6.0
+
+
+def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) -> None:
+    """Raise for what this port does not carry yet."""
+    if model not in ("gbm", "heston"):
+        raise not_ported(f"model={model!r}", "pricers.american.simulate_paths")
+    if lsm is not None and lsm.regressor != "poly":
+        raise not_ported(f"regressor={lsm.regressor!r}",
+                         "pricers.american.lsm_nn_backward")
+    if axis_name is not None:
+        raise not_ported("axis_name (path-sharded LSM)",
+                         "pricers.american.lsm_poly_backward")
+
+
+def _discount(rate, tau) -> float:
+    """exp(-rate tau) in float32 arithmetic, as the reference computes it."""
+    return float(np.exp(-np.float32(rate) * np.float32(tau)))
+
+
+def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
+                   model: str = "gbm", *, sigma=None, rate=0.0,
+                   heston: Optional[HestonParams] = None, engine: str = "auto",
+                   heston_scheme: str = "euler", div_yield=0.0,
+                   return_variance: bool = False, layout: str = "flat",
+                   device=None):
+    """Full path matrix (n_steps+1, n_pad) [and, for Heston with
+    ``return_variance``, the variance matrix] from the path kernels.
+
+    One 64-bit kernel seed is drawn from ``generator``. ``div_yield``: the
+    simulated drift is rate - q; discounting stays the pricer's job."""
+    _check_slice(model)
+    if layout != "flat":
+        raise not_ported(f"layout={layout!r}", "ops.layout")
+    if return_variance and model != "heston":
+        raise ValueError("return_variance is a Heston feature")
+    device = resolve_device(device)
+    resolve_engine(engine, device)
+    seed = seed_from_generator(generator)
+    drift = rate - div_yield
+    if model == "gbm":
+        if sigma is None:
+            raise ValueError("sigma is required for model='gbm'")
+        return simulate_gbm(seed, S0, drift, sigma, T, cfg, device=device)
+    if heston is None:
+        raise ValueError("heston params required for model='heston'")
+    return simulate_heston(seed, S0, drift, T, heston, cfg, return_paths=True,
+                           return_variance=return_variance, scheme=heston_scheme,
+                           device=device)
+
+
+def _cv_adjustment(S_paths: torch.Tensor, spec: OptionSpec, T,
+                   heston: Optional[HestonParams] = None,
+                   model: str = "gbm") -> torch.Tensor:
+    """Per-path beta=1 control-variate adjustment: the European closed form
+    minus the discounted terminal payoff of the same path.
+
+    The closed-form leg must match the simulated dynamics: COS under Heston,
+    BS under GBM. A BS leg on Heston paths has E[BS - EU_heston] != 0 and
+    biases the price by that gap (~130% in the reference's measurement)."""
+    S_init = S_paths[0, 0]
+    pay_T = vanilla_payoff(S_paths[-1], spec.strike, spec.cp) * _discount(spec.rate, T)
+    if model == "heston":
+        if heston is None:
+            raise ValueError("model='heston' control variate needs heston "
+                             "params for the COS leg")
+        from options_model_tpu_torch.calibration.charfn import heston_cos_price
+        eu = heston_cos_price(S_init, spec.strike, T, spec.rate, heston,
+                              cp=spec.cp, q=spec.div_yield)
+    elif model == "gbm":
+        eu = bs_price(S_init, spec.strike, T, spec.rate, spec.sigma, spec.cp,
+                      q=spec.div_yield)
+    else:
+        raise not_ported(f"control variate for model={model!r}",
+                         "pricers.american._cv_adjustment")
+    return eu - pay_T
+
+
+def _apply_cv(stat: torch.Tensor, adj: torch.Tensor, cv_beta: str,
+              mask=None, pair_block=None) -> torch.Tensor:
+    """stat + beta * adj; 'opt' estimates the variance-minimizing beta over
+    antithetic pair means, 'one' is the fixed beta = 1."""
+    if cv_beta == "opt":
+        return stat + optimal_cv_beta(stat, adj, mask, pair_block) * adj
+    return stat + adj
+
+
+def _pair_block(mc: MCConfig, model: str) -> int:
+    """Antithetic-pair granularity of the simulated paths: the path kernels
+    (and their plain versions) mirror within PATH_TILE, the stderr and the
+    out-of-sample split within mc.path_block, so the unit is their lcm (a
+    block that merely exceeds the tile can still cut a tile mid-mirror)."""
+    _check_slice(model)
+    return math.lcm(mc.path_block, PATH_TILE)
+
+
+def build_centered_basis(S_t: torch.Tensor, K, itm: torch.Tensor,
+                         poly_degree: int, v_t: Optional[torch.Tensor] = None,
+                         return_stats: bool = False, v_degree: int = 2):
+    """[1, u, ..., u^degree, (x-1)^+] with u = S/K centered and scaled
+    against the masked (ITM) measure before taking powers, which keeps the
+    Gram's condition number O(10) in f32.
+
+    ``v_t`` (Heston): appends [w, w^2, u w] with w the masked-centered
+    variance, and with ``v_degree=3`` also [w^3, u^2 w, u w^2]; the
+    continuation value is a function of the state (S, v). u and w are
+    clamped to +-_BASIS_CLAMP standardized units before the powers.
+    ``return_stats`` also returns the affine maps (x_mean, x_rstd[, v_mean,
+    v_rstd])."""
+    x = S_t / K
+    wsum = torch.clamp_min(itm.sum(), 1.0)
+    x_mean = (x * itm).sum() / wsum
+    x_var = ((x - x_mean) ** 2 * itm).sum() / wsum
+    x_rstd = torch.rsqrt(torch.clamp_min(x_var, 1e-12))
+    u = torch.clamp((x - x_mean) * x_rstd, -_BASIS_CLAMP, _BASIS_CLAMP)
+    cols = [u**d for d in range(poly_degree + 1)]
+    cols.append(torch.clamp_min(x - 1.0, 0.0))
+    if v_t is not None:
+        v_mean = (v_t * itm).sum() / wsum
+        v_var = ((v_t - v_mean) ** 2 * itm).sum() / wsum
+        v_rstd = torch.rsqrt(torch.clamp_min(v_var, 1e-12))
+        w = torch.clamp((v_t - v_mean) * v_rstd, -_BASIS_CLAMP, _BASIS_CLAMP)
+        cols += [w, w**2, u * w]
+        if v_degree >= 3:
+            cols += [w**3, u * u * w, u * w * w]
+    X = torch.stack(cols, dim=-1)
+    if return_stats:
+        if v_t is not None:
+            return X, (x_mean, x_rstd, v_mean, v_rstd)
+        return X, (x_mean, x_rstd)
+    return X
+
+
+def oos_masks(n_paths: int, pair_block: int, dtype=torch.float32, device=None):
+    """(train_mask, eval_mask) of the out-of-sample estimator: alternating
+    whole pair blocks, so no antithetic mirror of a training path lands in
+    the evaluation set."""
+    block_id = torch.arange(n_paths, device=device) // pair_block
+    train = (block_id % 2 == 0).to(dtype)
+    return train, 1.0 - train
+
+
+def lsm_poly_backward(S_paths: torch.Tensor, spec: OptionSpec, T,
+                      axis_name=None, poly_degree: int = 3, v_degree: int = 2,
+                      out_of_sample: bool = False,
+                      pair_block: Optional[int] = None,
+                      stat_pair_block: Optional[int] = None,
+                      return_cash: bool = False, exercise_stride: int = 1,
+                      v_paths: Optional[torch.Tensor] = None):
+    """Longstaff-Schwartz backward induction with a masked WLS regression
+    per exercise date, on the flat path matrix S (n_steps+1, n_paths) [and
+    v likewise]. Returns (price, stderr) [, (cash, eval_mask)].
+
+    ``out_of_sample`` fits on alternating ``pair_block`` blocks and prices
+    on the others. ``exercise_stride`` > 1 regresses and exercises only on
+    every stride-th date (the coarse Bermudan level of the Richardson
+    extrapolation), still discounting every step.
+
+    The Grams must run in full float32: TF32 keeps ~3 digits and breaks the
+    regression (the reference saw a 40% price error from bf16 passes), so
+    this raises if TF32 matmuls are enabled."""
+    if axis_name is not None:
+        raise not_ported("axis_name (path-sharded LSM)",
+                         "pricers.american.lsm_poly_backward")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("lsm_poly_backward needs full float32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    n_steps = S_paths.shape[0] - 1
+    n_paths = S_paths.shape[1]
+    dtype, device = S_paths.dtype, S_paths.device
+    disc = _discount(spec.rate, np.float32(T) / np.float32(n_steps))
+    K = spec.strike
+
+    cash = vanilla_payoff(S_paths[-1], K, spec.cp)  # t = n_steps
+    if out_of_sample:
+        if pair_block is None:
+            raise ValueError(
+                "out_of_sample=True requires pair_block (the simulator's "
+                "mirror granularity) so the split respects antithetic pairs")
+        if n_paths < 2 * pair_block:
+            raise ValueError("out_of_sample needs at least two path blocks")
+        train_mask, eval_mask = oos_masks(n_paths, pair_block, dtype, device)
+    else:
+        train_mask = eval_mask = torch.ones(n_paths, dtype=dtype, device=device)
+
+    for t in range(n_steps - 1, 0, -1):  # exercise dates, backward
+        cash = cash * disc  # roll value back one step to date t
+        if t % exercise_stride != 0:
+            continue
+        S_t = S_paths[t]
+        immediate = vanilla_payoff(S_t, K, spec.cp)
+        itm = (immediate > 0).to(dtype) * train_mask
+        X = build_centered_basis(S_t, K, itm, poly_degree,
+                                 v_t=None if v_paths is None else v_paths[t],
+                                 v_degree=v_degree)
+        continuation = masked_wls_predict_centered(X, cash, itm)
+        exercise = (immediate > continuation) & (immediate > 0)
+        cash = torch.where(exercise, immediate, cash)
+    cash = cash * disc  # the final step t = dt -> 0
+
+    price, stderr, _ = masked_mean_stderr(cash, eval_mask, stat_pair_block)
+    if return_cash:
+        return price, stderr, (cash, eval_mask)
+    return price, stderr
+
+
+def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
+                  heston_scheme, device):
+    """(S_paths, v_paths or None) for the LSM pricers."""
+    want_v = model == "heston" and lsm.variance_basis
+    out = simulate_paths(generator, S0, T, mc, model, sigma=spec.sigma,
+                         rate=spec.rate, heston=heston, engine=engine,
+                         heston_scheme=heston_scheme, div_yield=spec.div_yield,
+                         return_variance=want_v, device=device)
+    return out if want_v else (out, None)
+
+
+def _has_cv_leg(spec: OptionSpec, model: str, heston) -> bool:
+    return ((model == "gbm" and spec.sigma is not None)
+            or (model == "heston" and heston is not None))
+
+
+def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
+                       mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
+                       heston: Optional[HestonParams] = None, axis_name=None,
+                       engine: str = "auto", heston_scheme: str = "euler",
+                       device=None):
+    """Simulate + LSM backward induction. Returns (price, stderr)."""
+    _check_slice(model, lsm, axis_name)
+    S_paths, v_paths = _simulate_for(generator, S0, T, spec, mc, lsm, model,
+                                     heston, engine, heston_scheme, device)
+    pb = _pair_block(mc, model)
+    return lsm_poly_backward(
+        S_paths, spec, T, poly_degree=lsm.poly_degree,
+        v_degree=lsm.variance_basis_degree, out_of_sample=lsm.out_of_sample,
+        pair_block=pb, stat_pair_block=pb if mc.antithetic else None,
+        v_paths=v_paths)
+
+
+def price_american_with_control_variate(
+        generator: torch.Generator, S0, T, spec: OptionSpec, mc: MCConfig,
+        lsm: LSMConfig, model: str = "gbm", *,
+        heston: Optional[HestonParams] = None, axis_name=None,
+        engine: str = "auto", heston_scheme: str = "euler", device=None):
+    """American price with the same-path European control variate:
+    AM_cv = AM_lsm + beta (EU_closed_form - EU_mc_same_paths), the stderr
+    taken over the per-path CV statistic. Without a closed-form leg this is
+    price_american_lsm."""
+    _check_slice(model, lsm, axis_name)
+    if not _has_cv_leg(spec, model, heston):
+        return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
+                                  heston=heston, engine=engine,
+                                  heston_scheme=heston_scheme, device=device)
+    S_paths, v_paths = _simulate_for(generator, S0, T, spec, mc, lsm, model,
+                                     heston, engine, heston_scheme, device)
+    pb = _pair_block(mc, model)
+    _, _, (cash, eval_mask) = lsm_poly_backward(
+        S_paths, spec, T, poly_degree=lsm.poly_degree,
+        v_degree=lsm.variance_basis_degree, out_of_sample=lsm.out_of_sample,
+        pair_block=pb, return_cash=True, v_paths=v_paths)
+    stat_pb = pb if mc.antithetic else None
+    cv = _apply_cv(cash, _cv_adjustment(S_paths, spec, T, heston=heston, model=model),
+                   lsm.cv_beta, eval_mask, stat_pb)
+    return masked_mean_stderr(cv, eval_mask, stat_pb)[:2]
+
+
+def richardson_cv_stat(S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
+                       spec: OptionSpec, T, lsm: LSMConfig, *,
+                       heston: Optional[HestonParams] = None, model: str = "gbm",
+                       pair_block: Optional[int] = None, axis_name=None):
+    """(per-path Richardson statistic, eval mask) on given paths: the fine
+    level exercises at every date, the coarse level on every 2nd date of
+    the same paths, stat = 2 cash_fine - cash_coarse, plus the control
+    variate when it is on and a closed-form leg exists."""
+    _check_slice(model, lsm, axis_name)
+    kwargs = dict(poly_degree=lsm.poly_degree, v_degree=lsm.variance_basis_degree,
+                  out_of_sample=lsm.out_of_sample, pair_block=pair_block,
+                  return_cash=True, v_paths=v_paths)
+    _, _, (cash_f, mask) = lsm_poly_backward(S_paths, spec, T, **kwargs)
+    _, _, (cash_c, _) = lsm_poly_backward(S_paths, spec, T, exercise_stride=2,
+                                          **kwargs)
+    stat = 2.0 * cash_f - cash_c
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston):
+        stat = _apply_cv(stat, _cv_adjustment(S_paths, spec, T, heston=heston,
+                                              model=model),
+                         lsm.cv_beta, mask, pair_block)
+    return stat, mask
+
+
+def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpec,
+                              mc: MCConfig, lsm: LSMConfig, model: str = "gbm",
+                              *, heston: Optional[HestonParams] = None,
+                              engine: str = "auto", heston_scheme: str = "euler",
+                              device=None):
+    """Richardson-extrapolated continuous-exercise American price: an n-date
+    LSM prices a Bermudan option whose gap to the American is O(1/n); the
+    two levels share paths, so 2 P_n - P_{n/2} is nearly noise-free.
+    Returns (price, stderr of the extrapolated per-path statistic)."""
+    _check_slice(model, lsm)
+    S_paths, v_paths = _simulate_for(generator, S0, T, spec, mc, lsm, model,
+                                     heston, engine, heston_scheme, device)
+    pb = _pair_block(mc, model)
+    stat, mask = richardson_cv_stat(S_paths, v_paths, spec, T, lsm, heston=heston,
+                                    model=model, pair_block=pb)
+    price, stderr, _ = masked_mean_stderr(stat, mask, pb if mc.antithetic else None)
+    return price, stderr
+
+
+def price_american(generator: torch.Generator, S0, T, spec: OptionSpec,
+                   mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
+                   heston: Optional[HestonParams] = None, axis_name=None,
+                   engine: str = "auto", device=None):
+    """The public dispatcher: the European terminal sampler when
+    ``lsm.european_approximation``, Richardson when ``lsm.richardson``, the
+    control variate when it is on and a closed-form leg exists, plain LSM
+    otherwise. Returns (price, stderr) as 0-dim tensors on ``device``."""
+    _check_slice(model, lsm, axis_name)
+    if lsm.european_approximation:
+        from options_model_tpu_torch.pricers.european import (
+            make_terminal_sampler, price_european_mc)
+        sampler = make_terminal_sampler(model, S0, spec.rate, T, sigma=spec.sigma,
+                                        heston=heston, engine=engine,
+                                        div_yield=spec.div_yield, device=device)
+        price, stderr, _ = price_european_mc(generator, sampler, spec, T, mc)
+        return price, stderr
+    if lsm.richardson:
+        return price_american_richardson(generator, S0, T, spec, mc, lsm, model,
+                                         heston=heston, engine=engine,
+                                         device=device)
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston):
+        return price_american_with_control_variate(
+            generator, S0, T, spec, mc, lsm, model, heston=heston, engine=engine,
+            device=device)
+    return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
+                              heston=heston, engine=engine, device=device)

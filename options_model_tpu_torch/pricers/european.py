@@ -1,0 +1,95 @@
+"""European Monte-Carlo pricing with streaming Welford statistics, as
+options_model_tpu/pricers/european.py (GBM and Heston-Euler terminal samplers).
+
+The terminal kernels (csrc/, or their plain versions on the CPU) never
+materialize a path matrix. Chunks are keyed by global tile: chunk c runs
+tiles [c * chunk_tiles, ...) of one seed's stream, so the price is the same
+for every chunk size, where the reference's TPU sampler folds the chunk into
+the key instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from options_model_tpu_torch._unported import not_ported
+from options_model_tpu_torch.core.config import HestonParams, MCConfig, OptionSpec
+from options_model_tpu_torch.core.payoff import vanilla_payoff
+from options_model_tpu_torch.core.stats import (pair_mean_reduce, welford_empty,
+                                                welford_from_batch, welford_merge)
+from options_model_tpu_torch.models.blocks import paths_rounded
+from options_model_tpu_torch.ops.cuda_gbm import gbm_terminal
+from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE, heston_terminal
+from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
+from options_model_tpu_torch.ops.philox import seed_from_generator
+
+# sampler(seed, first_tile, chunk_cfg) -> S_T (chunk_cfg.n_paths,), where
+# chunk_cfg.n_paths is a whole number of the sampler's ``pair_block`` tiles;
+# the sampler also carries the ``device`` its samples land on.
+TerminalSampler = Callable[[int, int, MCConfig], torch.Tensor]
+
+
+def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
+                          heston: Optional[HestonParams] = None,
+                          engine: str = "auto", heston_scheme: str = "euler",
+                          div_yield=0.0, device=None) -> TerminalSampler:
+    """Terminal-price sampler for GBM (log-Euler) or Heston (full-truncation
+    Euler) on the terminal kernels. ``div_yield``: the sampler's drift is
+    r - q; the pricer still discounts at r. The sampler's ``pair_block`` is
+    TERMINAL_TILE, the kernels' antithetic mirror granularity and the unit
+    of ``first_tile``."""
+    device = resolve_device(device)
+    resolve_engine(engine, device)
+    drift = r - div_yield
+    if model == "gbm":
+        if sigma is None:
+            raise ValueError("sigma is required for model='gbm'")
+
+        def fn(seed, first_tile, c):
+            return gbm_terminal(seed, S0, drift, sigma, T, c.n_paths, c.n_steps,
+                                c.antithetic, first_tile, device)
+    elif model == "heston":
+        if heston is None:
+            raise ValueError("heston params required for model='heston'")
+        if heston_scheme != "euler":
+            raise not_ported(f"heston_scheme={heston_scheme!r}",
+                             "ops.pallas_heston.heston_terminal_qe_pallas")
+
+        def fn(seed, first_tile, c):
+            return heston_terminal(seed, S0, drift, T, heston, c.n_paths, c.n_steps,
+                                   c.antithetic, first_tile, device)
+    else:
+        raise not_ported(f"model={model!r}", "pricers.european.make_terminal_sampler")
+    fn.pair_block = TERMINAL_TILE
+    fn.device = device
+    return fn
+
+
+def price_european_mc(generator: torch.Generator, sampler: TerminalSampler,
+                      spec: OptionSpec, T, cfg: MCConfig,
+                      max_paths_per_chunk: int = 1 << 21):
+    """Price a European option by streaming chunks of terminal samples.
+
+    Returns (price, stderr, n_paths) as tensors. The path count rounds up to
+    whole sampler tiles; chunking only bounds memory. The stderr is over
+    antithetic pair means, the i.i.d. unit (core/stats.pair_mean_reduce)."""
+    seed = seed_from_generator(generator)
+    tile = sampler.pair_block
+    n_tiles = -(-paths_rounded(cfg) // tile)
+    chunk_tiles = max(1, min(n_tiles, max_paths_per_chunk // tile))
+    discount = float(np.exp(-np.float32(spec.rate) * np.float32(T)))
+
+    state = welford_empty(cfg.dtype, sampler.device)
+    for first in range(0, n_tiles, chunk_tiles):
+        c = dataclasses.replace(cfg, n_paths=min(chunk_tiles, n_tiles - first) * tile)
+        payoffs = vanilla_payoff(sampler(seed, first, c), spec.strike, spec.cp) * discount
+        if cfg.antithetic:
+            payoffs = pair_mean_reduce(payoffs, tile)
+        state = welford_merge(state, welford_from_batch(payoffs))
+    # count reports simulated paths (pairs count double under the reduction)
+    n = state.count * (2.0 if cfg.antithetic else 1.0)
+    return state.mean, state.stderr, n
