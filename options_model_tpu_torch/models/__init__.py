@@ -1,1 +1,1 @@
-"""Path simulators: GBM and Heston (full-truncation Euler)."""
+"""Path simulators: GBM, Heston (full-truncation Euler, QE-M) and local vol."""

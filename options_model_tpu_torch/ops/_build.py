@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels in csrc/.
 
-At first use, nvcc compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface:
+At first use, nvcc compiles each ``csrc/*.cu`` into an object, one process
+per source, all started together, and links them into one shared library
+with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/libomt_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o <name>.o csrc/<name>.cu                               (each source)
+    nvcc -shared -o build/torch_kernels/libomt_<hash>.so <objects>
 
 The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing library. The library goes
@@ -28,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,10 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "omt_heston_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_heston_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_heston_paths_qe": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_heston_terminal_qe": [_P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_localvol_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_localvol_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_paths": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _P],
@@ -70,19 +76,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libomt_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise, with their output, if any failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = out.with_name(f"{out.stem}.{os.getpid()}.obj")
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [obj_dir / f"{src.stem}.o" for src in _sources()[0]]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_sources()[0], objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources()[0])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
+    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)
+    shutil.rmtree(obj_dir)
     return out
 
 

@@ -18,7 +18,14 @@ One Philox call yields four words, which Box-Muller turns into four normals
 (w0, w1) -> (n0, n1) and (w2, w3) -> (n2, n3): normal q of a slot comes from
 draw q // 4. A slot is one antithetic pair when the caller mirrors, so a
 tile of ``tile`` paths has ``tile // 2`` slots, path j + tile/2 being the
-mirror of path j.
+mirror of path j. The GBM, Euler-Heston and local-vol streams use this
+layout (``path_normals``).
+
+The QE-M Heston stream (``qe_path_draws``) takes one Philox call per step:
+draw t gives (w0, w1) -> Box-Muller -> (z_v, z_s), w2 -> the raw uniform u,
+and w3 is unused. The antithetic mirror of (z_v, z_s, u) is
+(-z_v, -z_s, 1 - u), as in the TPU kernel (pallas_heston.py:394-400); 1 - u
+is exact in f32.
 
 32x32-bit products are formed in int64 from 16-bit halves (int64 cannot hold
 a full 64-bit unsigned product) and every word is masked to 32 bits.
@@ -131,3 +138,25 @@ def path_normals(seed: int, first_tile: int, n_tiles: int, tile: int,
     width = tile // 2 if antithetic else tile
     z = stream_normals(seed, first_tile, n_tiles, width, n_normals, device)
     return mirror_tiles(z, n_tiles) if antithetic else z
+
+
+def qe_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int,
+                  n_steps: int, antithetic: bool, device=None):
+    """(z_v, z_s, u), each (n_steps, n_tiles * tile) in path order: the
+    QE-M layout of the module docstring, one Philox call per step."""
+    width = tile // 2 if antithetic else tile
+    j, g = _slot_counters(first_tile, n_tiles, width, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    z_v, z_s, u = [], [], []
+    for t in range(n_steps):
+        w0, w1, w2, _ = philox4x32(j, t, g, 0, k0, k1)
+        a, b = box_muller(uniform_from_bits(w0), uniform_from_bits(w1))
+        z_v.append(a)
+        z_s.append(b)
+        u.append(uniform_from_bits(w2))
+    z_v, z_s, u = torch.stack(z_v), torch.stack(z_s), torch.stack(u)
+    if not antithetic:
+        return z_v, z_s, u
+    ut = u.reshape(n_steps, n_tiles, width)
+    u = torch.cat([ut, 1.0 - ut], dim=2).reshape(n_steps, -1)
+    return mirror_tiles(z_v, n_tiles), mirror_tiles(z_s, n_tiles), u

@@ -1,6 +1,7 @@
 """American option pricing by Longstaff-Schwartz Monte Carlo, as
 options_model_tpu/pricers/american.py (the polynomial regressor under GBM
-and Heston).
+and Heston, Euler or QE-M; and under local vol over a compiled table, which
+has no control-variate leg).
 
 Paths come from the Philox path kernels (csrc/, or their plain versions on
 the CPU) in the flat (n_steps+1, n_paths) layout. The backward induction is
@@ -27,6 +28,7 @@ from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import masked_mean_stderr, optimal_cv_beta
 from options_model_tpu_torch.models.gbm import simulate_gbm
 from options_model_tpu_torch.models.heston import simulate_heston
+from options_model_tpu_torch.models.localvol import simulate_local_vol
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
@@ -38,8 +40,11 @@ _BASIS_CLAMP = 6.0
 
 
 def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) -> None:
-    """Raise for what this port does not carry yet."""
-    if model not in ("gbm", "heston"):
+    """Raise for what this port does not carry yet. Local vol runs only over
+    a compiled table (models/localvol.simulate_local_vol raises without one),
+    so the per-option pricers, which take no table, refuse it as in the
+    reference's sigma_fn route."""
+    if model not in ("gbm", "heston", "localvol"):
         raise not_ported(f"model={model!r}", "pricers.american.simulate_paths")
     if lsm is not None and lsm.regressor != "poly":
         raise not_ported(f"regressor={lsm.regressor!r}",
@@ -54,35 +59,52 @@ def _discount(rate, tau) -> float:
     return float(np.exp(-np.float32(rate) * np.float32(tau)))
 
 
-def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
-                   model: str = "gbm", *, sigma=None, rate=0.0,
-                   heston: Optional[HestonParams] = None, engine: str = "auto",
-                   heston_scheme: str = "euler", div_yield=0.0,
-                   return_variance: bool = False, layout: str = "flat",
-                   device=None):
-    """Full path matrix (n_steps+1, n_pad) [and, for Heston with
-    ``return_variance``, the variance matrix] from the path kernels.
-
-    One 64-bit kernel seed is drawn from ``generator``. ``div_yield``: the
-    simulated drift is rate - q; discounting stays the pricer's job."""
+def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str, *,
+                    sigma=None, drift=0.0, heston: Optional[HestonParams] = None,
+                    heston_scheme: str = "euler", localvol_table=None,
+                    return_variance: bool = False, device=None):
+    """The path kernels' dispatch on an explicit (seed, first_tile): tiles
+    [first_tile, first_tile + n_tiles) of that seed's stream. ``drift`` is
+    the simulated growth rate (rate - q)."""
     _check_slice(model)
-    if layout != "flat":
-        raise not_ported(f"layout={layout!r}", "ops.layout")
     if return_variance and model != "heston":
         raise ValueError("return_variance is a Heston feature")
-    device = resolve_device(device)
-    resolve_engine(engine, device)
-    seed = seed_from_generator(generator)
-    drift = rate - div_yield
     if model == "gbm":
         if sigma is None:
             raise ValueError("sigma is required for model='gbm'")
-        return simulate_gbm(seed, S0, drift, sigma, T, cfg, device=device)
+        return simulate_gbm(seed, S0, drift, sigma, T, cfg, first_tile=first_tile,
+                            device=device)
+    if model == "localvol":
+        return simulate_local_vol(seed, S0, drift, T, cfg, table=localvol_table,
+                                  first_tile=first_tile, device=device)
     if heston is None:
         raise ValueError("heston params required for model='heston'")
     return simulate_heston(seed, S0, drift, T, heston, cfg, return_paths=True,
-                           return_variance=return_variance, scheme=heston_scheme,
-                           device=device)
+                           return_variance=return_variance, first_tile=first_tile,
+                           scheme=heston_scheme, device=device)
+
+
+def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
+                   model: str = "gbm", *, sigma=None, rate=0.0,
+                   heston: Optional[HestonParams] = None, engine: str = "auto",
+                   heston_scheme: str = "euler", localvol_table=None, div_yield=0.0,
+                   return_variance: bool = False, layout: str = "flat",
+                   device=None):
+    """Full path matrix (n_steps+1, n_pad) [and, for Heston with
+    ``return_variance``, the variance matrix] from the path kernels: GBM,
+    Heston (``heston_scheme`` "euler" or "qe") or local vol over a compiled
+    Chebyshev ``localvol_table`` (surface/cheb.compile_localvol_table).
+
+    One 64-bit kernel seed is drawn from ``generator``. ``div_yield``: the
+    simulated drift is rate - q; discounting stays the pricer's job."""
+    if layout != "flat":
+        raise not_ported(f"layout={layout!r}", "ops.layout")
+    device = resolve_device(device)
+    resolve_engine(engine, device)
+    return simulate_seeded(seed_from_generator(generator), 0, S0, T, cfg, model,
+                           sigma=sigma, drift=rate - div_yield, heston=heston,
+                           heston_scheme=heston_scheme, localvol_table=localvol_table,
+                           return_variance=return_variance, device=device)
 
 
 def _cv_adjustment(S_paths: torch.Tensor, spec: OptionSpec, T,

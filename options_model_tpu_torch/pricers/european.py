@@ -1,5 +1,6 @@
 """European Monte-Carlo pricing with streaming Welford statistics, as
-options_model_tpu/pricers/european.py (GBM and Heston-Euler terminal samplers).
+options_model_tpu/pricers/european.py (GBM, Heston Euler and QE-M, and
+table local-vol terminal samplers).
 
 The terminal kernels (csrc/, or their plain versions on the CPU) never
 materialize a path matrix. Chunks are keyed by global tile: chunk c runs
@@ -23,9 +24,12 @@ from options_model_tpu_torch.core.stats import (pair_mean_reduce, welford_empty,
                                                 welford_from_batch, welford_merge)
 from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.ops.cuda_gbm import gbm_terminal
-from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE, heston_terminal
+from options_model_tpu_torch.ops.cuda_heston import (TERMINAL_TILE, heston_terminal,
+                                                     heston_terminal_qe)
+from options_model_tpu_torch.ops.cuda_localvol import localvol_terminal
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
+from options_model_tpu_torch.surface.cheb import LocalVolTable
 
 # sampler(seed, first_tile, chunk_cfg) -> S_T (chunk_cfg.n_paths,), where
 # chunk_cfg.n_paths is a whole number of the sampler's ``pair_block`` tiles;
@@ -36,12 +40,14 @@ TerminalSampler = Callable[[int, int, MCConfig], torch.Tensor]
 def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                           heston: Optional[HestonParams] = None,
                           engine: str = "auto", heston_scheme: str = "euler",
+                          localvol_table: Optional[LocalVolTable] = None,
                           div_yield=0.0, device=None) -> TerminalSampler:
-    """Terminal-price sampler for GBM (log-Euler) or Heston (full-truncation
-    Euler) on the terminal kernels. ``div_yield``: the sampler's drift is
-    r - q; the pricer still discounts at r. The sampler's ``pair_block`` is
-    TERMINAL_TILE, the kernels' antithetic mirror granularity and the unit
-    of ``first_tile``."""
+    """Terminal-price sampler for GBM (log-Euler), Heston (full-truncation
+    Euler, or QE-M with ``heston_scheme="qe"``) or local vol over a compiled
+    Chebyshev ``localvol_table``, on the terminal kernels. ``div_yield``:
+    the sampler's drift is r - q; the pricer still discounts at r. The
+    sampler's ``pair_block`` is TERMINAL_TILE, the kernels' antithetic
+    mirror granularity and the unit of ``first_tile``."""
     device = resolve_device(device)
     resolve_engine(engine, device)
     drift = r - div_yield
@@ -55,13 +61,23 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
     elif model == "heston":
         if heston is None:
             raise ValueError("heston params required for model='heston'")
-        if heston_scheme != "euler":
-            raise not_ported(f"heston_scheme={heston_scheme!r}",
-                             "ops.pallas_heston.heston_terminal_qe_pallas")
+        if heston_scheme not in ("euler", "qe"):
+            raise ValueError(f"heston_scheme must be 'euler' or 'qe', got "
+                             f"{heston_scheme!r}")
+        kernel = heston_terminal_qe if heston_scheme == "qe" else heston_terminal
 
         def fn(seed, first_tile, c):
-            return heston_terminal(seed, S0, drift, T, heston, c.n_paths, c.n_steps,
-                                   c.antithetic, first_tile, device)
+            return kernel(seed, S0, drift, T, heston, c.n_paths, c.n_steps,
+                          c.antithetic, first_tile, device)
+    elif model == "localvol":
+        if localvol_table is None:
+            raise not_ported("model='localvol' without a compiled localvol_table "
+                             "(the surface-network route)",
+                             "models.localvol.simulate_local_vol")
+
+        def fn(seed, first_tile, c):
+            return localvol_terminal(seed, S0, drift, T, localvol_table, c.n_paths,
+                                     c.n_steps, c.antithetic, first_tile, device)
     else:
         raise not_ported(f"model={model!r}", "pricers.european.make_terminal_sampler")
     fn.pair_block = TERMINAL_TILE

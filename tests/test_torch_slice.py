@@ -149,7 +149,7 @@ def test_no_silent_fallback_to_the_cpu():
         price_american(*args, heston=HESTON, device="cuda")
 
 
-@pytest.mark.parametrize("case", ["merton", "nn", "qe", "axis_name", "blocked"])
+@pytest.mark.parametrize("case", ["merton", "nn", "localvol", "axis_name", "blocked"])
 def test_unported_features_name_their_reference(case):
     _, _, spec, lsm = _port(None)
     with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
@@ -158,9 +158,9 @@ def test_unported_features_name_their_reference(case):
         elif case == "nn":
             price_american(_gen(8), 100.0, 0.5, spec, MC, LSMConfig(regressor="nn"),
                            "heston", heston=HESTON, device="cpu")
-        elif case == "qe":
-            simulate_paths(_gen(8), 100.0, 0.5, MC, "heston", heston=HESTON,
-                           heston_scheme="qe", device="cpu")
+        elif case == "localvol":
+            # local vol without a compiled table: the surface-network route
+            simulate_paths(_gen(8), 100.0, 0.5, MC, "localvol", rate=0.05, device="cpu")
         elif case == "axis_name":
             price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "heston", heston=HESTON,
                            axis_name="paths", device="cpu")
