@@ -8,12 +8,17 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit;
-2. each of the eight kernels against its plain PyTorch version on the card,
-   at 2 and 64 tiles and at its path's shape: equal Philox bits, S (and v)
-   within the stated tolerances, and bit-equal chunks at a ``first_tile``
-   offset; a constant-sigma local-vol table against the GBM kernel;
-3. the two paths, each driven with every launch count set to 0 just before
-   it and read just after:
+2. each of the eight path kernels against its plain PyTorch version on the
+   card, at 2 and 64 tiles and at its path's shape: equal Philox bits, S
+   (and v) within the stated tolerances, and bit-equal chunks at a
+   ``first_tile`` offset; a constant-sigma local-vol table against the GBM
+   kernel; kernel 4 bit-equal to its output before heston_common.cuh (a
+   recorded digest); every store/exp/layout variant of
+   csrc/heston_variants.cu against its plain version (rtol 1e-5 on S) and
+   against kernel 4 (bit for bit; the log-only form within rtol 1e-6 after
+   exp), with bit-equal ``first_tile`` chunks;
+3. the paths, each driven with every launch count set to 0 just before it
+   and read just after:
    a. the main path through ``price_american``: the pooled Heston American
       put against the extrapolated ADI oracle, the GBM put against CRR, and
       the European branch (Heston against COS, GBM against Black-Scholes);
@@ -23,19 +28,26 @@ Phases, in order; any failure exits non-zero:
       against Black-Scholes), the local-vol American put against CRR, and
       the 64x64 strike x maturity surface (Euler and QE) with three cells
       against the ADI oracle;
+   c. the NN-LSM path through ``price_american``: the GBM put (the JAX
+      bench's NN+CV leg) against CRR and the Heston put against ADI, with
+      the seconds of simulation, fit and predict;
+   d. the two kernel-4 experiments (options_model_tpu_torch/scripts/
+      exp_paths_kernel.py and exp_fullpath_layout.py) at their scripts'
+      shapes, each variant also held against its plain version there;
 4. the launch counts of each path, none of its kernels at 0;
 5. each kernel's time and its plain version's (CUDA events, median of 7
-   after warm-up), seconds per price and per surface.
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+   after warm-up) beside its bound, seconds per price and per surface.
+The second-to-last line is a JSON object with one entry per TPU kernel (the
+variants of kernels 9 and 10 listed under theirs); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -56,6 +68,35 @@ QE_GATE = 0.0025               # the pooled QE American put against the ADI orac
 EURO_QE_BIAS = 0.001           # QE-M at 100 steps, beyond the stderr
 SURFACE_BIAS = 0.005           # 50-date Bermudan gap and degree-3 basis, beyond the stderr
 LV_RTOL = 2e-5                 # constant-sigma table vs GBM: drift and diffusion rounded apart
+LOG_RTOL = 1e-6                # torch's exp of the log-only variant against the kernel's expf
+GBM_CRR = 4.655534             # CRR(4096) of the GBM put, S0 = K = 100, T = 0.5, r = 0.05, 0.2
+NN_GBM_BIAS = 0.0015           # NN+CV put vs CRR: 4 stderr + 0.15% (50-date Bermudan, net error)
+NN_HESTON_BIAS = 0.01          # NN+CV Heston put vs ADI: 4 stderr + 1%
+JAX_NN_BAR = 0.000327          # BENCH_r05 american_put_nn_rel_err_vs_crr (an accuracy, not a speed)
+# sha256 of kernel 4's bytes before heston_common.cuh existed: heston_paths S
+# and V (64 tiles x 50 steps, T 0.5) then heston_terminal S_T (16 tiles x
+# 100 steps, T 1), seed 0x9E3779B97F4A7C15, recorded by kernel4_digest on an
+# H100 (nvcc 12.9) from the sources that still defined the step in heston.cu.
+KERNEL4_DIGEST = "99c2e49a1a0fc1af6cd697e95da4771a75a48862b5872a9fb6d488595c458096"
+# The card's peaks (NVIDIA H100 SXM data sheet): f32 outside the tensor
+# cores (an FMA counts as two operations) and device-memory bandwidth.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# f32 operations per path-step, counted from csrc/ (each add, multiply,
+# compare and min/max one operation, a transcendental one). Philox's ~100
+# integer operations per draw are not counted, so the bound is loose.
+#   Box-Muller: 2 uniform subtractions, 1 - u1, log, * -2, sqrt, 2 pi u2,
+#   cos, sin, 2 multiplies = 11 per two normals.
+#   heston_step 20; the mirror's negated normals 2 per pair.
+OPS_HESTON = 20 + 11 / 2 + 1            # per path-step: one normal pair per pair-step
+OPS_GBM = 11 / 4 + 1 / 2                # terminal: a += z per slot, 2 normals per 2 steps
+OPS_GBM_PATHS = 11 / 4 + 5 + 1 / 2      # drift, diffusion * z, add, expf, * s0
+#   QE-M: qe_step 51 on its quadratic branch (the one these parameters take),
+#   a Box-Muller per pair-step, u, 1 - u and the negations.
+OPS_QE = 51 + 11 / 2 + 1 / 2 + 1 / 2 + 1
+#   Local vol at degree d: 17 + 4 d per step (clip, Clenshaw, update).
+OPS_LV = 17 + 4 * 7 + 11 / 4 + 1 / 2
+OPS_EXP = 2                             # expf(log_s0 + ls) per stored path-step
 N_TIMED = 7
 DEVICE = "cuda"
 
@@ -69,27 +110,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, n: int = N_TIMED) -> float:
-    """Median milliseconds of fn() over n timed runs after one warm-up."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def bound(n_paths: int, steps: int, ops_per_path_step: float, out_bytes: float):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take, the larger of the output's bytes over PEAK_BYTES and the counted
+    f32 operations over PEAK_F32_OPS."""
+    t_bytes = out_bytes / PEAK_BYTES
+    t_ops = n_paths * steps * ops_per_path_step / PEAK_F32_OPS
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
 def bench_smile(S, tau):
@@ -100,9 +127,10 @@ def bench_smile(S, tau):
 
 
 def kernel_specs():
-    """Per kernel: name, source, replaced Pallas function, the path that
-    runs it ("main" or "second"), its path's (tile count, steps), the timed
-    (tile count, steps), and run(plain, n_tiles, first_tile, n_steps,
+    """Per kernel: name, source, replaced Pallas function, the paths that
+    run it ("main", "second", "nn"), its path's (tile count, steps), the
+    timed (tile count, steps), f32 operations per path-step (and the
+    local-vol table it reads), and run(plain, n_tiles, first_tile, n_steps,
     variance, antithetic)."""
     from options_model_tpu_torch.core.config import HestonParams
     from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_localvol
@@ -161,36 +189,41 @@ def kernel_specs():
     src = "options_model_tpu_torch/csrc/"
     return [
         dict(name="heston_paths", run=heston_paths, source=src + "heston.cu",
-             replaces="options_model_tpu/ops/pallas_heston.py:319", path="main",
+             replaces="options_model_tpu/ops/pallas_heston.py:319", paths=("main", "nn"),
              tile=cuda_heston.PATH_TILE, main=(256, 50), timed=(256, 50), variance=(False, True),
-             counter=(cuda_heston.launches, "heston_paths")),
+             ops=OPS_HESTON + OPS_EXP, counter=(cuda_heston.launches, "heston_paths")),
         dict(name="heston_terminal", run=heston_terminal, source=src + "heston.cu",
-             replaces="options_model_tpu/ops/pallas_heston.py:263", path="main",
+             replaces="options_model_tpu/ops/pallas_heston.py:263", paths=("main",),
              tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), counter=(cuda_heston.launches, "heston_terminal")),
+             variance=(False,), ops=OPS_HESTON,
+             counter=(cuda_heston.launches, "heston_terminal")),
         dict(name="gbm_paths", run=gbm_paths, source=src + "gbm.cu",
-             replaces="options_model_tpu/ops/pallas_gbm.py:126", path="main",
+             replaces="options_model_tpu/ops/pallas_gbm.py:126", paths=("main", "nn"),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
-             counter=(cuda_gbm.launches, "gbm_paths")),
+             ops=OPS_GBM_PATHS, counter=(cuda_gbm.launches, "gbm_paths")),
         dict(name="gbm_terminal", run=gbm_terminal, source=src + "gbm.cu",
-             replaces="options_model_tpu/ops/pallas_gbm.py:100", path="main",
+             replaces="options_model_tpu/ops/pallas_gbm.py:100", paths=("main",),
              tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), counter=(cuda_gbm.launches, "gbm_terminal")),
+             variance=(False,), ops=OPS_GBM, counter=(cuda_gbm.launches, "gbm_terminal")),
         dict(name="heston_terminal_qe", run=heston_terminal_qe, source=src + "heston_qe.cu",
-             replaces="options_model_tpu/ops/pallas_heston.py:512", path="second",
+             replaces="options_model_tpu/ops/pallas_heston.py:512", paths=("second",),
              tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), counter=(cuda_heston.launches, "heston_terminal_qe")),
+             variance=(False,), ops=OPS_QE,
+             counter=(cuda_heston.launches, "heston_terminal_qe")),
         dict(name="heston_paths_qe", run=heston_paths_qe, source=src + "heston_qe.cu",
-             replaces="options_model_tpu/ops/pallas_heston.py:543", path="second",
+             replaces="options_model_tpu/ops/pallas_heston.py:543", paths=("second",),
              tile=cuda_heston.PATH_TILE, main=(256, 50), timed=(256, 50),
-             variance=(False, True), counter=(cuda_heston.launches, "heston_paths_qe")),
+             variance=(False, True), ops=OPS_QE + OPS_EXP,
+             counter=(cuda_heston.launches, "heston_paths_qe")),
         dict(name="localvol_terminal", run=localvol_terminal, source=src + "localvol.cu",
-             replaces="options_model_tpu/ops/pallas_localvol.py:62", path="second",
+             replaces="options_model_tpu/ops/pallas_localvol.py:62", paths=("second",),
              tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), counter=(cuda_localvol.launches, "localvol_terminal")),
+             variance=(False,), ops=OPS_LV, table=smile_terminal,
+             counter=(cuda_localvol.launches, "localvol_terminal")),
         dict(name="localvol_paths", run=localvol_paths, source=src + "localvol.cu",
-             replaces="options_model_tpu/ops/pallas_localvol.py:149", path="second",
+             replaces="options_model_tpu/ops/pallas_localvol.py:149", paths=("second",),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
+             ops=OPS_LV + 1, table=smile_paths,
              counter=(cuda_localvol.launches, "localvol_paths")),
     ]
 
@@ -204,6 +237,8 @@ def phase_build() -> None:
     path = _build.build()
     _build.load_library()
     log(f"[1] built {path.name} in {time.perf_counter() - t0:.2f} s")
+    from options_model_tpu_torch.utils.profiling import card_line
+
     log(f"[1] card: {card_line()}")
     log(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} "
@@ -294,6 +329,200 @@ def phase_constant_sigma() -> None:
                  f"tiles: max rel {err:.3e} > {LV_RTOL}")
         log(f"[2] constant-sigma localvol_paths == gbm_paths at {n_tiles} tiles x 50 steps "
             f"(first_tile {first_tile}): max rel {err:.3e} (rtol {LV_RTOL})")
+
+
+def kernel4_digest() -> str:
+    """sha256 of kernel 4's output at the KERNEL4_DIGEST arguments."""
+    import torch
+
+    from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.ops import cuda_heston
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    seed = 0x9E3779B97F4A7C15
+    S, V = cuda_heston.heston_paths(seed, 100.0, 0.05, 0.5, hp, 64 * 4096, 50, True, True,
+                                    0, DEVICE)
+    ST = cuda_heston.heston_terminal(seed, 100.0, 0.05, 1.0, hp, 16 * 16384, 100, True, 0,
+                                     DEVICE)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in (S, V, ST):
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_kernel4_digest() -> None:
+    got = kernel4_digest()
+    if got != KERNEL4_DIGEST:
+        fail(f"kernel 4's output changed with heston_common.cuh: digest {got}, recorded "
+             f"{KERNEL4_DIGEST}")
+    log("[2] kernel 4 (heston_paths with v, heston_terminal) bit-equal to its output "
+        f"before heston_common.cuh: sha256 {got[:16]}...")
+
+
+def check_variant(hv, exp_mode, layout, unroll, tile, n_tiles, steps, seed=0x9E3779B97F4A7C15,
+                  T=1.0) -> float:
+    """A variant against its plain version on the same Philox bits: S (after
+    exp(log S0 + out) for the log-only form) within rtol S_RTOL. Returns the
+    max |kernel - plain| of S."""
+    import torch
+
+    from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.models.heston import heston_constants
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    args = (seed, 100.0, 0.05, T, hp, n_tiles * tile, steps, exp_mode, layout, unroll, tile)
+    got = hv.heston_variant(*args, device=DEVICE)
+    want = hv.heston_variant_reference(*args, device=DEVICE)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"variant {exp_mode}/{layout}/{unroll} tile {tile}: shape {tuple(got.shape)} "
+             f"vs {tuple(want.shape)} or non-finite")
+    if exp_mode == "none":
+        log_s0 = float(heston_constants(100.0, 0.05, T, hp, steps)["log_s0"])
+        got, want = torch.exp(log_s0 + got), torch.exp(log_s0 + want)
+    err = float((got - want).abs().max())
+    if bool(((got - want).abs() > S_RTOL * want.abs()).any()):
+        fail(f"variant {exp_mode}/{layout}/{unroll} tile {tile}: differs from its plain "
+             f"version (max abs {err:.3e}, rtol {S_RTOL})")
+    return err
+
+
+def phase_variants() -> dict:
+    """Every built variant of csrc/heston_variants.cu at tile 4096, 64 tiles
+    x 100 steps: against its plain version, against kernel 4 (bit for bit;
+    the log-only form within LOG_RTOL after exp), and a first_tile chunk.
+    Returns the max |kernel - plain| of S per variant key."""
+    import torch
+
+    from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.models.heston import heston_constants
+    from options_model_tpu_torch.ops import cuda_heston
+    from options_model_tpu_torch.ops import cuda_heston_variants as hv
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    seed, steps, tile = 0x9E3779B97F4A7C15, 100, cuda_heston.PATH_TILE
+    k4 = cuda_heston.heston_paths(seed, 100.0, 0.05, 1.0, hp, 64 * tile, steps, device=DEVICE)
+    log_s0 = float(heston_constants(100.0, 0.05, 1.0, hp, steps)["log_s0"])
+    errs = {}
+    for e, lay, u in hv.VARIANTS:
+        key = f"{e}/{lay}/{u}"
+        errs[key] = max(check_variant(hv, e, lay, u, tile, n, steps, seed) for n in (2, 64))
+        out = hv.heston_variant(seed, 100.0, 0.05, 1.0, hp, 64 * tile, steps, e, lay, u, tile,
+                                device=DEVICE)
+        flat = out.permute(1, 0, 2).reshape(steps + 1, -1) if lay == "blocked" else out
+        ref = k4[-1] if lay == "terminal" else k4
+        if e == "none":
+            rel = float(((torch.exp(log_s0 + flat) - ref).abs() / ref).max())
+            if not rel <= LOG_RTOL:
+                fail(f"variant {key}: exp(log S0 + out) differs from kernel 4 by {rel:.3e} "
+                     f"relative (rtol {LOG_RTOL})")
+            how = f"exp(log S0 + out) == kernel 4 within {rel:.2e} relative"
+        elif torch.equal(flat, ref):
+            how = "== kernel 4 bit for bit"
+        else:
+            fail(f"variant {key} differs from kernel 4")
+        part = hv.heston_variant(seed, 100.0, 0.05, 1.0, hp, 32 * tile, steps, e, lay, u,
+                                 tile, first_tile=32, device=DEVICE)
+        tail = (out[:, 32 * tile:] if lay == "flat" else out[32:] if lay == "blocked"
+                else out[32 * tile:])
+        if not torch.equal(tail, part):
+            fail(f"variant {key}: a run at first_tile 32 differs from the full run's slice")
+        log(f"[2] variant {key}: kernel == plain within rtol {S_RTOL} at 2 and 64 tiles x "
+            f"{steps} steps (max abs {errs[key]:.3e}); {how}; first_tile=32 chunk bit-equal")
+    return errs
+
+
+def phase_experiments() -> list:
+    """The two kernel-4 experiments at their scripts' shapes, each driven
+    with the variant counts at 0 and read after; every variant of them also
+    held against its plain version at that shape, and the plain version
+    timed. Returns one dict per experiment: rows, launches."""
+    from options_model_tpu_torch.ops import cuda_heston_variants as hv
+    from options_model_tpu_torch.scripts import exp_fullpath_layout, exp_paths_kernel
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    out = []
+    for number, mod in ((9, exp_paths_kernel), (10, exp_fullpath_layout)):
+        for k in hv.launches:
+            hv.launches[k] = 0
+        rows = mod.run(mod.N_PATHS, mod.N_STEPS, log=lambda m, n=number: log(f"[3d] {n}: {m}"))
+        launches = dict(hv.launches)
+        log(f"[4] variant launches during experiment {number}: {launches}")
+        for row in rows:
+            e, lay, u, tile = row["variant"]
+            if e is None:                  # kernel 4 itself, row A of experiment 9
+                continue
+            key = f"{e}/{lay}/{u}"
+            if not launches[key]:
+                fail(f"experiment {number}: variant {key} was never launched")
+            n_paths, steps = mod.N_PATHS, mod.N_STEPS
+            row["launches"] = launches[key]
+            row["max_abs_err"] = check_variant(hv, e, lay, u, tile, n_paths // tile, steps)
+
+            def plain(row=row, e=e, lay=lay, u=u, tile=tile):
+                out = hv.heston_variant_reference(1, 100.0, 0.05, 1.0, mod.HESTON, n_paths,
+                                                  steps, e, lay, u, tile, device=DEVICE)
+                return out.permute(1, 0, 2).contiguous() if row.get("transpose") else out
+
+            row["plain_ms"] = time_per_call(plain)
+            stored = lay != "terminal"
+            ops = OPS_HESTON + (OPS_EXP if stored and e != "none" else 0)
+            row["bound_ms"], row["bound_by"] = bound(
+                n_paths, steps, ops, (steps + 1 if stored else 1) * n_paths * 4)
+        out.append(dict(number=number, rows=rows, launches=launches))
+    return out
+
+
+def phase_nn() -> dict:
+    """The NN-LSM path through price_american (LSMConfig(regressor="nn") at
+    its defaults: 128 x 3, 25 epochs, batch 4096, lr 1e-3, dropout 0.1, 3
+    policy iterations, optimal CV beta): the GBM put of the JAX bench's NN+CV
+    leg against CRR, and the Heston put (BASELINE configs[2]) against ADI.
+    Returns seconds per leg and per span."""
+    import torch
+
+    from options_model_tpu_torch.core.config import (PUT, HestonParams, LSMConfig,
+                                                      MCConfig, OptionSpec)
+    from options_model_tpu_torch.pricers.american import price_american
+    from options_model_tpu_torch.pricers.binomial import crr_american
+    from options_model_tpu_torch.utils.profiling import spans
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    mc = MCConfig(n_paths=1 << 18, n_steps=50, path_block=4096)
+    lsm = LSMConfig(regressor="nn")
+    crr = crr_american(100.0, 100.0, 0.5, 0.05, 0.2, cp=-1.0, n_steps=4096)
+    if abs(crr - GBM_CRR) > 1e-6:
+        fail(f"CRR(4096) {crr} differs from the recorded {GBM_CRR}")
+    secs = {}
+    legs = (("nn_gbm", OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=0.2), "gbm",
+             None, crr, NN_GBM_BIAS, "CRR(4096)"),
+            ("nn_heston", OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None), "heston",
+             hp, HESTON_ADI_ORACLE, NN_HESTON_BIAS, "ADI"))
+    for label, spec, model, heston, oracle, bias, oracle_name in legs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with spans() as sp:
+            p, se = price_american(torch.Generator().manual_seed(2026), 100.0, 0.5, spec, mc,
+                                   lsm, model, heston=heston, device=DEVICE)
+            p, se = float(p), float(se)
+        total = time.perf_counter() - t0
+        secs[label] = dict(sp, total=total)
+        if not (math.isfinite(p) and math.isfinite(se) and se > 0):
+            fail(f"{label}: non-finite price {p} +- {se}")
+        rel = p / oracle - 1.0
+        gate = 4.0 * se + bias * oracle
+        log(f"[3c] {model} NN+CV American put (2^18 x 50, 128 x 3 MLP, 25 epochs, 3 policy "
+            f"iterations): {p:.6f} +- {se:.6f}; {oracle_name} {oracle:.6f}; rel "
+            f"{rel * 100:+.4f}% ({(p - oracle) / se:+.2f} stderr; gate 4 stderr + "
+            f"{bias * 100}% = {gate:.6f})"
+            + (f"; the JAX estimator's bar {JAX_NN_BAR * 100:.4f}% (BENCH_r05)"
+               if model == "gbm" else ""))
+        log(f"[3c] {label} seconds: total {total:.3f}, simulate {sp['simulate']:.3f}, fit "
+            f"{sp['fit']:.3f}, predict {sp['predict']:.3f}")
+        if not abs(p - oracle) <= gate:
+            fail(f"{label} outside its gate")
+    return secs
 
 
 def phase_main_path() -> dict:
@@ -551,20 +780,56 @@ def phase_second_path() -> dict:
 def phase_timing(specs) -> dict:
     """CUDA-event medians of each kernel and its plain version: 2^22 x 100
     for the terminal kernels, 2^20 x 50 (with v where there is one) for the
-    paths kernels."""
+    paths kernels; and each one's bound at that shape."""
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
     out = {}
     for k in specs:
         n_tiles, steps = k["timed"]
         variance = k["variance"][-1]
-        ms = cuda_ms(lambda: k["run"](False, n_tiles, 0, steps, variance))
-        plain_ms = cuda_ms(lambda: k["run"](True, n_tiles, 0, steps, variance))
-        rate = n_tiles * k["tile"] * steps
-        log(f"[5] {k['name']} {n_tiles * k['tile']} paths x {steps} steps"
-            f"{' with v' if variance else ''}: kernel {ms:.4f} ms "
-            f"({rate / ms * 1e3:.4e} path-steps/s), plain {plain_ms:.4f} ms "
-            f"({rate / plain_ms * 1e3:.4e} path-steps/s)")
-        out[k["name"]] = (ms, plain_ms)
+        n = n_tiles * k["tile"]
+        ms = time_per_call(lambda: k["run"](False, n_tiles, 0, steps, variance), N_TIMED)
+        plain_ms = time_per_call(lambda: k["run"](True, n_tiles, 0, steps, variance), N_TIMED)
+        paths = k["tile"] == 4096
+        out_bytes = ((steps + 1) * (2 if variance else 1) if paths else 1) * n * 4
+        if "table" in k:
+            out_bytes += k["table"].coeffs.numel() * 4   # the table, read once
+        bound_ms, bound_by = bound(n, steps, k["ops"], out_bytes)
+        rate = n * steps
+        log(f"[5] {k['name']} {n} paths x {steps} steps{' with v' if variance else ''}: "
+            f"kernel {ms:.4f} ms ({rate / ms * 1e3:.4e} path-steps/s"
+            + (f", {out_bytes / ms / 1e9:.3f} TB/s written" if paths else "")
+            + f"), plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({k['ops']:.2f} f32 operations per path-step, {out_bytes / 1e6:.1f} MB out); "
+              f"{bound_ms / ms * 100:.1f}% of bound")
+        out[k["name"]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def experiment_entry(exp: dict, headline: str, replaces: str, var_errs: dict) -> dict:
+    """The kernels-line entry of kernel 9 or 10: the headline variant's
+    numbers, the experiment's launches, and every variant under it."""
+    src = "options_model_tpu_torch/csrc/heston_variants.cu"
+    variants = []
+    for row in exp["rows"]:
+        if row["variant"][0] is None:
+            continue
+        e, lay, u, tile = row["variant"]
+        variants.append(dict(
+            name=row["label"], variant=f"{e}/{lay}/{u}", tile=tile, route="cuda",
+            source=src, replaces=replaces, launches=row["launches"],
+            max_abs_err=max(row["max_abs_err"], var_errs.get(f"{e}/{lay}/{u}", 0.0)),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None))
+    head = next(v for v in variants if v["name"] == headline)
+    script = "exp_paths_kernel" if exp["number"] == 9 else "exp_fullpath_layout"
+    return dict(name=f"heston_variant ({script})",
+                route="cuda", source=src, replaces=replaces,
+                launches=sum(exp["launches"].values()),
+                max_abs_err=max(v["max_abs_err"] for v in variants), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=None, headline=headline,
+                variants=variants)
 
 
 def main() -> int:
@@ -576,12 +841,15 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from options_model_tpu_torch.utils.profiling import card_line
 
     phase_build()
     specs = kernel_specs()
     phase_philox()
     errs = phase_kernels(specs)
     phase_constant_sigma()
+    phase_kernel4_digest()
+    var_errs = phase_variants()
 
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
@@ -591,7 +859,7 @@ def main() -> int:
         out = fn()
         counts = {k["name"]: k["counter"][0][k["counter"][1]] for k in specs}
         log(f"[4] kernel launches during the {path} path: {counts}")
-        mine = {k["name"]: counts[k["name"]] for k in specs if k["path"] == path}
+        mine = {k["name"]: counts[k["name"]] for k in specs if path in k["paths"]}
         if not all(mine.values()):
             fail(f"a kernel of the {path} path was never launched: {mine}")
         return out, mine
@@ -599,19 +867,28 @@ def main() -> int:
     secs, launches = drive("main", phase_main_path)
     secs2, launches2 = drive("second", phase_second_path)
     launches.update(launches2)
+    secs_nn, launches_nn = drive("nn", phase_nn)
+    experiments = phase_experiments()
 
     times = phase_timing(specs)
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs2.items()))
+    log("[5] NN-LSM path seconds per price: "
+        + "; ".join(f"{k} " + ", ".join(f"{s} {v:.3f}" for s, v in d.items())
+                    for k, d in secs_nn.items()))
+    log(f"[5] NN-LSM path launches: {launches_nn}")
     log(f"[5] card: {card_line()}")
 
-    print(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": k["source"],
-         "replaces": k["replaces"], "launches": launches[k["name"]],
-         "max_abs_err": errs[k["name"]], "ms": times[k["name"]][0],
-         "plain_ms": times[k["name"]][1]} for k in specs]}))
+    entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+                    launches=launches[k["name"]], max_abs_err=errs[k["name"]],
+                    library_ms=None, **times[k["name"]]) for k in specs]
+    entries.append(experiment_entry(experiments[0], "B bulk exp",
+                                    "scripts/exp_paths_kernel.py:31", var_errs))
+    entries.append(experiment_entry(experiments[1], "C  blocked, tile 4096",
+                                    "scripts/exp_fullpath_layout.py:36", var_errs))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,19 +2,23 @@
 
 The JAX package ``options_model_tpu`` is the reference; this package mirrors
 its layout (core/, models/, ops/, surface/, pricers/, calibration/) and
-function names so each counterpart is easy to find. The eight
-path-simulation kernels are CUDA C++ for Hopper (csrc/), built with nvcc at
-first use and bound through ctypes; every kernel has a plain PyTorch
-version in the same module, which is what runs for tensors on the CPU.
+function names so each counterpart is easy to find. The path-simulation
+kernels, and the store/exp/layout variants of the Heston paths kernel that
+the JAX package's experiments ran, are CUDA C++ for Hopper (csrc/), built
+with nvcc at first use and bound through ctypes; every kernel has a plain
+PyTorch version in the same module, which is what runs for tensors on the
+CPU.
 
 Ported so far: the American put under Heston (full-truncation Euler or
-QE-M) and GBM priced by masked-WLS Longstaff-Schwartz with the European
+QE-M) and GBM priced by Longstaff-Schwartz, with the masked-WLS polynomial
+regressor or the shared continuation MLP (the NN-LSM), the European
 control variate and common-path Richardson extrapolation
 (``pricers.american.price_american``) and the European terminal-sampler
 branch of the same dispatcher; local vol over a compiled Chebyshev table
-(``surface.cheb``); and the single-device strike x maturity surface
-(``pricers.surface_american``). Features outside these raise
-NotImplementedError naming their JAX counterpart.
+(``surface.cheb``); the single-device strike x maturity surface
+(``pricers.surface_american``); and the kernel experiments
+(``scripts``). Features outside these raise NotImplementedError naming
+their JAX counterpart.
 
 This package imports torch and numpy only, never jax.
 """

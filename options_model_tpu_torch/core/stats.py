@@ -1,6 +1,7 @@
 """Monte-Carlo statistics, as options_model_tpu/core/stats.py: the Welford/Chan
 merge that streams European chunks, antithetic pair means, masked
-mean/stderr and the variance-minimizing control-variate coefficient.
+mean/stderr, the variance-minimizing control-variate coefficient and the
+cashflow report.
 
 Every function returns tensors and never reads a value back to the host, so
 a caller on the card does not wait for it.
@@ -97,3 +98,20 @@ def optimal_cv_beta(cash: torch.Tensor, adj: torch.Tensor,
     cov = ((cash - mc) * (adj - ma) * mask).sum() / n
     var = ((adj - ma) ** 2 * mask).sum() / n
     return -cov / torch.clamp_min(var, 1e-12)
+
+
+def cashflow_statistics(cash: torch.Tensor, mask: Optional[torch.Tensor] = None) -> dict:
+    """Distribution of the per-path discounted cashflows, the reference's
+    verbose pricing report: mean, std (n - 1 denominator), min, max,
+    P(worthless) and n over the masked paths (``mask`` 0/1, e.g. the
+    out-of-sample evaluation mask). 0-dim tensors."""
+    if mask is None:
+        mask = torch.ones_like(cash)
+    n = torch.clamp_min(mask.sum(), 1.0)
+    mean = (cash * mask).sum() / n
+    var = ((cash - mean) ** 2 * mask).sum() / torch.clamp_min(n - 1.0, 1.0)
+    big = torch.finfo(cash.dtype).max
+    return {"mean": mean, "std": torch.sqrt(var),
+            "min": torch.where(mask > 0, cash, big).min(),
+            "max": torch.where(mask > 0, cash, -big).max(),
+            "p_worthless": ((cash == 0.0) * mask).sum() / n, "n": n}

@@ -24,29 +24,14 @@
 // - heston_terminal: arithmetic. Per pair-step one Box-Muller (log, sqrt,
 //   sin, cos), half a Philox call, and two Euler steps; one store per path.
 // Both are a simple first version; wider stores and fewer transcendentals
-// are later work. Built without --use_fast_math.
+// are later work. Built without --use_fast_math. The per-step arithmetic
+// (HestonConsts, heston_step, step_normals) is in heston_common.cuh, which
+// the store/exp/layout variants of heston_variants.cu share.
 #include <cstring>
 
-#include "philox.cuh"
+#include "heston_common.cuh"
 
 namespace omt {
-
-constexpr int kPathTile = 4096;
-constexpr int kTerminalTile = 16384;
-
-// Same order as models/heston.heston_constants.
-struct HestonConsts {
-  float log_s0, r, dt, sqrt_dt, kappa, theta, xi, rho, rho_bar, v0;
-};
-
-__device__ __forceinline__ void heston_step(float& log_s, float& v, float z1, float z2,
-                                            const HestonConsts& p) {
-  const float w2 = p.rho * z1 + p.rho_bar * z2;
-  const float v_plus = fmaxf(v, 0.0f);
-  const float sq = sqrtf(v_plus) * p.sqrt_dt;
-  v = fmaxf(v_plus + p.kappa * (p.theta - v_plus) * p.dt + p.xi * sq * w2, 0.0f);
-  log_s = log_s + (p.r - 0.5f * v_plus) * p.dt + sq * z1;
-}
 
 // kPaths: write the (n_steps+1, n_pad) S matrix (and V when non-null);
 // otherwise write S_T only, into S[0:n_pad].
@@ -75,11 +60,8 @@ heston_kernel(float* __restrict__ S, float* __restrict__ V, HestonConsts p, uint
   }
   Words w{};
   for (int t = 0; t < n_steps; ++t) {
-    // normals 2t, 2t+1 of this slot: draw t/2, word pair t%2
-    if ((t & 1) == 0) w = slot_draw(j, static_cast<uint32_t>(t >> 1), global_tile, seed);
     float z1, z2;
-    if ((t & 1) == 0) box_muller(w.x, w.y, z1, z2);
-    else box_muller(w.z, w.w, z1, z2);
+    step_normals(t, j, global_tile, seed, w, z1, z2);
     heston_step(ls_a, v_a, z1, z2, p);
     if (antithetic) heston_step(ls_b, v_b, -z1, -z2, p);
     if (kPaths) {

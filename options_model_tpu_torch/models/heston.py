@@ -30,6 +30,18 @@ from options_model_tpu_torch.core.config import HestonParams, MCConfig
 from options_model_tpu_torch.models.blocks import paths_rounded
 
 
+def effective_bs_sigma(v, tau, heston: HestonParams) -> torch.Tensor:
+    """Effective Black-Scholes vol matching the expected integrated Heston
+    variance over the remaining time tau from variance state v:
+    E[bar v] = theta + (v - theta)(1 - e^{-kappa tau}) / (kappa tau). The
+    NN-LSM's residual baseline under Heston (pricers/american._nn_continuation)."""
+    v = torch.as_tensor(v)
+    tau = torch.as_tensor(tau, dtype=v.dtype, device=v.device)
+    kt = torch.clamp_min(heston.kappa * tau, 1e-6)
+    frac = -torch.expm1(-kt) / kt
+    return torch.sqrt(torch.clamp_min(heston.theta + (v - heston.theta) * frac, 1e-8))
+
+
 def heston_constants(S0, r, T, params: HestonParams, n_steps: int) -> dict:
     """The recursion's float32 constants, rounded as the TPU kernel's
     _params_array rounds them (pallas_heston.py:249): dt = f32(T) / n_steps,
@@ -46,18 +58,25 @@ def heston_constants(S0, r, T, params: HestonParams, n_steps: int) -> dict:
 def heston_euler_from_normals(z1: torch.Tensor, z2: torch.Tensor, S0, r, T,
                               params: HestonParams,
                               return_variance: bool = False,
-                              return_paths: bool = True):
+                              return_paths: bool = True,
+                              log_relative: bool = False):
     """Full-truncation Euler on normals z1, z2 of shape (n_steps, n_paths).
 
     Carries log S relative to log S0 and writes S = exp(log S0 + rel), the
     TPU kernel's formula (row 0 included). Returns S (n_steps+1, n_paths)
     [and v likewise], or with ``return_paths=False`` S_T (n_paths,) [and v_T].
+    ``log_relative`` returns the carried log(S / S0) (row 0 = 0) in place of
+    S: the log-only form of the kernel-4 experiments (ops/cuda_heston_variants).
     """
     c = {k: float(v) for k, v in heston_constants(S0, r, T, params, z1.shape[0]).items()}
     n_paths = z1.shape[1]
     log_s = torch.zeros(n_paths, dtype=torch.float32, device=z1.device)
     v = torch.full((n_paths,), c["v0"], dtype=torch.float32, device=z1.device)
-    s_rows, v_rows = [torch.exp(c["log_s0"] + log_s)], [v]
+
+    def emit(x):
+        return x if log_relative else torch.exp(c["log_s0"] + x)
+
+    s_rows, v_rows = [emit(log_s)], [v]
     for z1_t, z2_t in zip(z1, z2):
         w2 = c["rho"] * z1_t + c["rho_bar"] * z2_t
         v_plus = torch.clamp_min(v, 0.0)
@@ -66,10 +85,10 @@ def heston_euler_from_normals(z1: torch.Tensor, z2: torch.Tensor, S0, r, T,
                             + c["xi"] * sq * w2, 0.0)
         log_s = log_s + (c["r"] - 0.5 * v_plus) * c["dt"] + sq * z1_t
         if return_paths:
-            s_rows.append(torch.exp(c["log_s0"] + log_s))
+            s_rows.append(emit(log_s))
             v_rows.append(v)
     if not return_paths:
-        S_T = torch.exp(c["log_s0"] + log_s)
+        S_T = emit(log_s)
         return (S_T, v) if return_variance else S_T
     S = torch.stack(s_rows)
     return (S, torch.stack(v_rows)) if return_variance else S

@@ -39,6 +39,7 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "omt_heston_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_heston_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_heston_variant": [_P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_heston_paths_qe": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_heston_terminal_qe": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_localvol_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],

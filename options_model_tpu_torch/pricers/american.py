@@ -1,16 +1,23 @@
 """American option pricing by Longstaff-Schwartz Monte Carlo, as
-options_model_tpu/pricers/american.py (the polynomial regressor under GBM
-and Heston, Euler or QE-M; and under local vol over a compiled table, which
-has no control-variate leg).
+options_model_tpu/pricers/american.py: the polynomial regressor and the
+shared continuation network (NN-LSM) under GBM and Heston, Euler or QE-M;
+and under local vol over a compiled table, which has no control-variate leg.
 
 Paths come from the Philox path kernels (csrc/, or their plain versions on
 the CPU) in the flat (n_steps+1, n_paths) layout. The backward induction is
 a Python loop over exercise dates; each date is a masked weighted least
 squares on the centered basis, all on the device and with no host read-back
-until the caller asks for the price. The dispatcher ``price_american``
-adds the same-path European control variate (COS leg under Heston, BS under
-GBM), common-path Richardson extrapolation, or the European terminal
-sampler, as in the reference.
+until the caller asks for the price. The NN-LSM trains one continuation
+MLP over all (date, path) states (pricers/regressors.fit_continuation_mlp)
+and reads the stopping policy off its predictions. The dispatcher
+``price_american`` adds the same-path European control variate (COS leg
+under Heston, BS under GBM), common-path Richardson extrapolation, or the
+European terminal sampler, as in the reference.
+
+Randomness: one ``torch.Generator`` fixes a price. The simulation draws the
+first 64-bit seed from it; the NN-LSM's fit draws the next one, and each
+policy iteration trains on a device generator seeded from (that seed,
+iteration).
 """
 
 from __future__ import annotations
@@ -25,15 +32,20 @@ from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import (HestonParams, LSMConfig,
                                                   MCConfig, OptionSpec)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
-from options_model_tpu_torch.core.stats import masked_mean_stderr, optimal_cv_beta
+from options_model_tpu_torch.core.stats import (cashflow_statistics, masked_mean_stderr,
+                                                 optimal_cv_beta)
 from options_model_tpu_torch.models.gbm import simulate_gbm
-from options_model_tpu_torch.models.heston import simulate_heston
+from options_model_tpu_torch.models.heston import effective_bs_sigma, simulate_heston
 from options_model_tpu_torch.models.localvol import simulate_local_vol
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
-from options_model_tpu_torch.ops.philox import seed_from_generator
+from options_model_tpu_torch.ops.lsm_basis import regression_features
+from options_model_tpu_torch.ops.philox import philox4x32, seed_from_generator
 from options_model_tpu_torch.pricers.blackscholes import bs_price
-from options_model_tpu_torch.pricers.regressors import masked_wls_predict_centered
+from options_model_tpu_torch.pricers.regressors import (fit_continuation_mlp,
+                                                        masked_wls_predict_centered,
+                                                        mlp_predict)
+from options_model_tpu_torch.utils.profiling import span
 
 # Standardized-covariate clamp for the regression basis (build_centered_basis).
 _BASIS_CLAMP = 6.0
@@ -46,9 +58,8 @@ def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) ->
     reference's sigma_fn route."""
     if model not in ("gbm", "heston", "localvol"):
         raise not_ported(f"model={model!r}", "pricers.american.simulate_paths")
-    if lsm is not None and lsm.regressor != "poly":
-        raise not_ported(f"regressor={lsm.regressor!r}",
-                         "pricers.american.lsm_nn_backward")
+    if lsm is not None and lsm.regressor not in ("poly", "nn"):
+        raise ValueError(f"regressor must be 'poly' or 'nn', got {lsm.regressor!r}")
     if axis_name is not None:
         raise not_ported("axis_name (path-sharded LSM)",
                          "pricers.american.lsm_poly_backward")
@@ -198,6 +209,19 @@ def oos_masks(n_paths: int, pair_block: int, dtype=torch.float32, device=None):
     return train, 1.0 - train
 
 
+def _oos_split(n_paths: int, out_of_sample: bool, pair_block: Optional[int], dtype, device):
+    """(train_mask, eval_mask) of the LSM estimators: without
+    ``out_of_sample`` no training mask (None) and every path evaluated."""
+    if not out_of_sample:
+        return None, torch.ones(n_paths, dtype=dtype, device=device)
+    if pair_block is None:
+        raise ValueError("out_of_sample=True requires pair_block (the simulator's "
+                         "mirror granularity) so the split respects antithetic pairs")
+    if n_paths < 2 * pair_block:
+        raise ValueError("out_of_sample needs at least two path blocks")
+    return oos_masks(n_paths, pair_block, dtype, device)
+
+
 def lsm_poly_backward(S_paths: torch.Tensor, spec: OptionSpec, T,
                       axis_name=None, poly_degree: int = 3, v_degree: int = 2,
                       out_of_sample: bool = False,
@@ -230,16 +254,9 @@ def lsm_poly_backward(S_paths: torch.Tensor, spec: OptionSpec, T,
     K = spec.strike
 
     cash = vanilla_payoff(S_paths[-1], K, spec.cp)  # t = n_steps
-    if out_of_sample:
-        if pair_block is None:
-            raise ValueError(
-                "out_of_sample=True requires pair_block (the simulator's "
-                "mirror granularity) so the split respects antithetic pairs")
-        if n_paths < 2 * pair_block:
-            raise ValueError("out_of_sample needs at least two path blocks")
-        train_mask, eval_mask = oos_masks(n_paths, pair_block, dtype, device)
-    else:
-        train_mask = eval_mask = torch.ones(n_paths, dtype=dtype, device=device)
+    train_mask, eval_mask = _oos_split(n_paths, out_of_sample, pair_block, dtype, device)
+    if train_mask is None:
+        train_mask = eval_mask
 
     for t in range(n_steps - 1, 0, -1):  # exercise dates, backward
         cash = cash * disc  # roll value back one step to date t
@@ -262,15 +279,228 @@ def lsm_poly_backward(S_paths: torch.Tensor, spec: OptionSpec, T,
     return price, stderr
 
 
+def _fit_generator(seed: int, iteration: int, device) -> torch.Generator:
+    """The generator of policy iteration ``iteration`` of the NN fit seeded
+    ``seed``, on ``device``: one Philox block keyed by the seed at counter
+    (iteration, 0, 0, 0) gives its 64-bit seed (the port's fold_in)."""
+    w0, w1, _, _ = philox4x32(torch.tensor(iteration), 0, torch.tensor(0), 0,
+                              seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF)
+    return torch.Generator(device=device).manual_seed(int(w0) | (int(w1) << 32))
+
+
+def _policy_targets(immediate: torch.Tensor, cont: torch.Tensor, terminal: torch.Tensor,
+                    disc1) -> torch.Tensor:
+    """Per-(date, path) continuation targets under the current policy: the
+    cashflow, discounted to date t, of not exercising at t and then following
+    the stopping rule ``cont`` induces over dates t+1..n (the Longstaff-
+    Schwartz target). One backward pass over the dates."""
+    exercise = (immediate > cont) & (immediate > 0)
+    out = torch.empty_like(immediate)
+    value = terminal
+    for t in range(immediate.shape[0] - 1, -1, -1):
+        out[t] = disc1 * value
+        value = torch.where(exercise[t], immediate[t], out[t])
+    return out
+
+
+def _nn_continuation(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T,
+                     lsm: LSMConfig, v_paths: Optional[torch.Tensor],
+                     train_mask: Optional[torch.Tensor], return_net: bool = False,
+                     heston: Optional[HestonParams] = None):
+    """The two passes of the NN-LSM: train the shared continuation MLP on
+    every (exercise date, path) state, then evaluate it on all of them.
+    Returns (immediate, cont, terminal, ts) [, (net, x_mean, x_std, y_mean,
+    y_std, has_baseline) with ``return_net``].
+
+    ``train_mask`` (0/1 per path) restricts the training rows (the
+    out-of-sample split); every path is evaluated. With a closed-form
+    European baseline (GBM: BS at spec.sigma; Heston: BS at
+    models.heston.effective_bs_sigma of the variance state) the net fits the
+    targets minus the baseline, and the residual, floored at 0, is added
+    back: holding to expiry is one admissible policy, so continuation >=
+    European. Under Heston ``v`` is the 8th feature. The first fit's targets
+    are the discounted terminal cashflows; each of the lsm.nn_policy_iters - 1
+    refits trains on the cashflows realised under the current policy
+    (_policy_targets), on the generator _fit_generator(seed, iteration)."""
+    n_steps = S_paths.shape[0] - 1
+    dtype, device = S_paths.dtype, S_paths.device
+    T_ = torch.tensor(T, dtype=dtype, device=device)
+    r = torch.tensor(spec.rate, dtype=dtype, device=device)
+    dt = T_ / n_steps
+    K = spec.strike
+
+    ts = torch.arange(1, n_steps, device=device)     # exercise dates
+    taus = T_ - ts.to(dtype) * dt
+    S_ex = S_paths[1:n_steps]                        # (n_dates, n_paths)
+    immediate = vanilla_payoff(S_ex, K, spec.cp)
+    itm = (immediate > 0).to(dtype)
+
+    # First-fit targets: the terminal cashflow discounted back to each date.
+    terminal = vanilla_payoff(S_paths[-1], K, spec.cp)
+    targets = torch.exp(-r * taus)[:, None] * terminal[None, :]
+
+    if v_paths is not None:
+        v_ex = v_paths[1:n_steps]
+        sig_b = (effective_bs_sigma(v_ex, taus[:, None], heston) if heston is not None
+                 else torch.sqrt(torch.clamp_min(v_ex, 1e-8)))
+        baseline = bs_price(S_ex, K, taus[:, None], r, sig_b, spec.cp, q=spec.div_yield)
+        has_baseline = True
+    elif spec.sigma is not None:
+        baseline = bs_price(S_ex, K, taus[:, None], r, spec.sigma, spec.cp,
+                            q=spec.div_yield)
+        has_baseline = True
+    else:
+        baseline = torch.zeros_like(immediate)
+        has_baseline = False
+
+    feats = regression_features(S_ex, K, taus[:, None])
+    if v_paths is not None:
+        feats = torch.cat([feats, v_paths[1:n_steps, :, None]], dim=-1)
+    X = feats.reshape(-1, feats.shape[-1])
+    W = itm.reshape(-1)
+    if train_mask is not None:
+        # Fit on the training paths only (every date of them), so the
+        # standardization below describes the training distribution.
+        W = W * train_mask.to(dtype).repeat(immediate.shape[0])
+    del feats
+
+    wsum = torch.clamp_min(W.sum(), 1.0)
+    x_mean = (X * W[:, None]).sum(0) / wsum
+    x_var = ((X - x_mean) ** 2 * W[:, None]).sum(0) / wsum
+    x_std = torch.sqrt(torch.clamp_min(x_var, 1e-12))
+    Xn = (X - x_mean) / x_std
+    del X
+
+    def fit_and_eval(generator, tgts):
+        """Standardize the (residual) targets over the weighted rows, train,
+        and evaluate every (date, path); with a baseline the net's output is
+        the early-exercise premium, floored at 0 and added back."""
+        Yf = (tgts - baseline).reshape(-1)
+        ym = (Yf * W).sum() / wsum
+        ys = torch.sqrt(torch.clamp_min(((Yf - ym) ** 2 * W).sum() / wsum, 1e-12))
+        with span("fit", device):
+            net, _ = fit_continuation_mlp(generator, Xn, (Yf - ym) / ys, W, lsm)
+        with span("predict", device):
+            out = mlp_predict(net, Xn).reshape(immediate.shape) * ys + ym
+        c = baseline + torch.clamp_min(out, 0.0) if has_baseline else out
+        return net, ym, ys, c
+
+    net, y_mean, y_std, cont = fit_and_eval(_fit_generator(seed, 0, device), targets)
+    disc1 = torch.exp(-r * dt)
+    for it in range(1, lsm.nn_policy_iters):
+        targets = _policy_targets(immediate, cont, terminal, disc1)
+        net, y_mean, y_std, cont = fit_and_eval(_fit_generator(seed, it, device), targets)
+    if return_net:
+        return immediate, cont, terminal, ts, (net, x_mean, x_std, y_mean, y_std,
+                                               has_baseline)
+    return immediate, cont, terminal, ts
+
+
+def _nn_stopped_cash(immediate: torch.Tensor, cont: torch.Tensor, terminal: torch.Tensor,
+                     ts: torch.Tensor, spec: OptionSpec, T, n_steps: int,
+                     exercise_stride: int = 1) -> torch.Tensor:
+    """Per-path discounted cashflow of the earliest-exercise policy read off
+    the (dates, paths) continuation grid; ``exercise_stride`` restricts
+    exercise to every stride-th date (the coarse Richardson level)."""
+    dtype, device = immediate.dtype, immediate.device
+    dt = torch.tensor(T, dtype=dtype, device=device) / n_steps
+    r = torch.tensor(spec.rate, dtype=dtype, device=device)
+    exercise = (immediate > cont) & (immediate > 0)
+    if exercise_stride > 1:
+        exercise = exercise & (ts % exercise_stride == 0)[:, None]
+    any_ex = exercise.any(dim=0)
+    first_idx = torch.argmax(exercise.to(torch.int32), dim=0)   # the first True
+    t_star = torch.where(any_ex, ts[first_idx].to(dtype),
+                         torch.tensor(float(n_steps), dtype=dtype, device=device))
+    value = torch.where(any_ex, immediate.gather(0, first_idx[None])[0], terminal)
+    return torch.exp(-r * t_star * dt) * value
+
+
+def lsm_nn_backward(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T,
+                    lsm: LSMConfig, stat_pair_block: Optional[int] = None,
+                    v_paths: Optional[torch.Tensor] = None, out_of_sample: bool = False,
+                    pair_block: Optional[int] = None, return_cash: bool = False,
+                    heston: Optional[HestonParams] = None):
+    """Two-pass LSM with one shared continuation MLP (_nn_continuation),
+    trained from the 64-bit ``seed``. Returns (price, stderr) [, (cash,
+    eval_mask)]. ``stat_pair_block`` makes the stderr pair-aware;
+    ``v_paths`` (Heston) is the 8th feature; ``out_of_sample`` trains on
+    alternating ``pair_block`` blocks and prices on the others."""
+    n_steps, n_paths = S_paths.shape[0] - 1, S_paths.shape[1]
+    train_mask, eval_mask = _oos_split(n_paths, out_of_sample, pair_block, S_paths.dtype,
+                                      S_paths.device)
+    immediate, cont, terminal, ts = _nn_continuation(seed, S_paths, spec, T, lsm, v_paths,
+                                                     train_mask, heston=heston)
+    cash = _nn_stopped_cash(immediate, cont, terminal, ts, spec, T, n_steps)
+    price, stderr, _ = masked_mean_stderr(cash, eval_mask, stat_pair_block)
+    if return_cash:
+        return price, stderr, (cash, eval_mask)
+    return price, stderr
+
+
+def richardson_nn_stat(seed: int, S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
+                       spec: OptionSpec, T, lsm: LSMConfig, *,
+                       heston: Optional[HestonParams] = None, model: str = "gbm",
+                       pair_block: Optional[int] = None):
+    """(per-path Richardson statistic, eval mask) of the NN-LSM: one net is
+    trained; the fine and coarse levels are two stopping policies read off
+    the same continuation grid (every date, every 2nd date), stat = 2
+    cash_fine - cash_coarse, plus the control variate when it is on and a
+    closed-form leg exists."""
+    n_steps, n_paths = S_paths.shape[0] - 1, S_paths.shape[1]
+    train_mask, eval_mask = _oos_split(n_paths, lsm.out_of_sample, pair_block,
+                                      S_paths.dtype, S_paths.device)
+    immediate, cont, terminal, ts = _nn_continuation(seed, S_paths, spec, T, lsm, v_paths,
+                                                     train_mask, heston=heston)
+    cash_f = _nn_stopped_cash(immediate, cont, terminal, ts, spec, T, n_steps)
+    cash_c = _nn_stopped_cash(immediate, cont, terminal, ts, spec, T, n_steps,
+                              exercise_stride=2)
+    stat = 2.0 * cash_f - cash_c
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston):
+        stat = _apply_cv(stat, _cv_adjustment(S_paths, spec, T, heston=heston, model=model),
+                         lsm.cv_beta, eval_mask, pair_block)
+    return stat, eval_mask
+
+
+def _vol_params(heston, bates=None):
+    """The HestonParams governing the variance state (nested in Bates
+    params in the reference, whose Bates model is not ported)."""
+    if heston is not None:
+        return heston
+    return bates.heston if bates is not None else None
+
+
 def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
                   heston_scheme, device):
-    """(S_paths, v_paths or None) for the LSM pricers."""
+    """(S_paths, v_paths or None, fit seed or None) for the LSM pricers. The
+    simulation draws its seed from ``generator`` first; the NN-LSM's fit
+    draws the next one."""
     want_v = model == "heston" and lsm.variance_basis
-    out = simulate_paths(generator, S0, T, mc, model, sigma=spec.sigma,
-                         rate=spec.rate, heston=heston, engine=engine,
-                         heston_scheme=heston_scheme, div_yield=spec.div_yield,
-                         return_variance=want_v, device=device)
-    return out if want_v else (out, None)
+    with span("simulate", resolve_device(device)):
+        out = simulate_paths(generator, S0, T, mc, model, sigma=spec.sigma,
+                             rate=spec.rate, heston=heston, engine=engine,
+                             heston_scheme=heston_scheme, div_yield=spec.div_yield,
+                             return_variance=want_v, device=device)
+    S_paths, v_paths = out if want_v else (out, None)
+    fit_seed = seed_from_generator(generator) if lsm.regressor == "nn" else None
+    return S_paths, v_paths, fit_seed
+
+
+def _lsm_backward(fit_seed, S_paths, v_paths, spec: OptionSpec, T, lsm: LSMConfig,
+                  pair_block: int, stat_pair_block=None, return_cash: bool = False,
+                  heston: Optional[HestonParams] = None):
+    """The configured regressor's backward on simulated paths:
+    lsm_poly_backward or lsm_nn_backward."""
+    if lsm.regressor == "nn":
+        return lsm_nn_backward(fit_seed, S_paths, spec, T, lsm,
+                               stat_pair_block=stat_pair_block, v_paths=v_paths,
+                               out_of_sample=lsm.out_of_sample, pair_block=pair_block,
+                               return_cash=return_cash, heston=_vol_params(heston))
+    return lsm_poly_backward(S_paths, spec, T, poly_degree=lsm.poly_degree,
+                             v_degree=lsm.variance_basis_degree,
+                             out_of_sample=lsm.out_of_sample, pair_block=pair_block,
+                             stat_pair_block=stat_pair_block, return_cash=return_cash,
+                             v_paths=v_paths)
 
 
 def _has_cv_leg(spec: OptionSpec, model: str, heston) -> bool:
@@ -283,16 +513,14 @@ def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
                        heston: Optional[HestonParams] = None, axis_name=None,
                        engine: str = "auto", heston_scheme: str = "euler",
                        device=None):
-    """Simulate + LSM backward induction. Returns (price, stderr)."""
+    """Simulate + LSM backward induction (either regressor). Returns (price,
+    stderr)."""
     _check_slice(model, lsm, axis_name)
-    S_paths, v_paths = _simulate_for(generator, S0, T, spec, mc, lsm, model,
-                                     heston, engine, heston_scheme, device)
+    S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
+                                               heston, engine, heston_scheme, device)
     pb = _pair_block(mc, model)
-    return lsm_poly_backward(
-        S_paths, spec, T, poly_degree=lsm.poly_degree,
-        v_degree=lsm.variance_basis_degree, out_of_sample=lsm.out_of_sample,
-        pair_block=pb, stat_pair_block=pb if mc.antithetic else None,
-        v_paths=v_paths)
+    return _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
+                         stat_pair_block=pb if mc.antithetic else None, heston=heston)
 
 
 def price_american_with_control_variate(
@@ -302,24 +530,43 @@ def price_american_with_control_variate(
         engine: str = "auto", heston_scheme: str = "euler", device=None):
     """American price with the same-path European control variate:
     AM_cv = AM_lsm + beta (EU_closed_form - EU_mc_same_paths), the stderr
-    taken over the per-path CV statistic. Without a closed-form leg this is
-    price_american_lsm."""
+    taken over the per-path CV statistic. Both regressors compose: the
+    variate acts on the stopped per-path cashflows (around the shared
+    network it is the reference's flagship estimator). Without a
+    closed-form leg this is price_american_lsm."""
     _check_slice(model, lsm, axis_name)
     if not _has_cv_leg(spec, model, heston):
         return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
                                   heston=heston, engine=engine,
                                   heston_scheme=heston_scheme, device=device)
-    S_paths, v_paths = _simulate_for(generator, S0, T, spec, mc, lsm, model,
-                                     heston, engine, heston_scheme, device)
+    S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
+                                               heston, engine, heston_scheme, device)
     pb = _pair_block(mc, model)
-    _, _, (cash, eval_mask) = lsm_poly_backward(
-        S_paths, spec, T, poly_degree=lsm.poly_degree,
-        v_degree=lsm.variance_basis_degree, out_of_sample=lsm.out_of_sample,
-        pair_block=pb, return_cash=True, v_paths=v_paths)
+    _, _, (cash, eval_mask) = _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
+                                            return_cash=True, heston=heston)
     stat_pb = pb if mc.antithetic else None
     cv = _apply_cv(cash, _cv_adjustment(S_paths, spec, T, heston=heston, model=model),
                    lsm.cv_beta, eval_mask, stat_pb)
     return masked_mean_stderr(cv, eval_mask, stat_pb)[:2]
+
+
+def price_american_with_stats(generator: torch.Generator, S0, T, spec: OptionSpec,
+                              mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
+                              heston: Optional[HestonParams] = None,
+                              engine: str = "auto", device=None):
+    """(price, stderr, cashflow statistics): the reference's verbose pricing
+    report (mean, std, min, max and P(worthless) of the per-path discounted
+    cashflows, core/stats.cashflow_statistics, as Python floats). Both
+    regressors."""
+    _check_slice(model, lsm)
+    S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
+                                               heston, engine, "euler", device)
+    pb = _pair_block(mc, model)
+    price, stderr, (cash, eval_mask) = _lsm_backward(
+        fit_seed, S_paths, v_paths, spec, T, lsm, pb,
+        stat_pair_block=pb if mc.antithetic else None, return_cash=True, heston=heston)
+    stats = {k: float(v) for k, v in cashflow_statistics(cash, eval_mask).items()}
+    return price, stderr, stats
 
 
 def richardson_cv_stat(S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
@@ -353,13 +600,20 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
     """Richardson-extrapolated continuous-exercise American price: an n-date
     LSM prices a Bermudan option whose gap to the American is O(1/n); the
     two levels share paths, so 2 P_n - P_{n/2} is nearly noise-free.
-    Returns (price, stderr of the extrapolated per-path statistic)."""
+    Returns (price, stderr of the extrapolated per-path statistic). The poly
+    backward re-regresses the coarse level (richardson_cv_stat); the NN-LSM
+    reads both policies off one trained net (richardson_nn_stat)."""
     _check_slice(model, lsm)
-    S_paths, v_paths = _simulate_for(generator, S0, T, spec, mc, lsm, model,
-                                     heston, engine, heston_scheme, device)
+    S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
+                                               heston, engine, heston_scheme, device)
     pb = _pair_block(mc, model)
-    stat, mask = richardson_cv_stat(S_paths, v_paths, spec, T, lsm, heston=heston,
-                                    model=model, pair_block=pb)
+    if lsm.regressor == "nn":
+        stat, mask = richardson_nn_stat(fit_seed, S_paths, v_paths, spec, T, lsm,
+                                        heston=_vol_params(heston), model=model,
+                                        pair_block=pb)
+    else:
+        stat, mask = richardson_cv_stat(S_paths, v_paths, spec, T, lsm, heston=heston,
+                                        model=model, pair_block=pb)
     price, stderr, _ = masked_mean_stderr(stat, mask, pb if mc.antithetic else None)
     return price, stderr
 

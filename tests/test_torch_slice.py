@@ -149,15 +149,15 @@ def test_no_silent_fallback_to_the_cpu():
         price_american(*args, heston=HESTON, device="cuda")
 
 
-@pytest.mark.parametrize("case", ["merton", "nn", "localvol", "axis_name", "blocked"])
+@pytest.mark.parametrize("case", ["merton", "bates", "localvol", "axis_name", "blocked"])
 def test_unported_features_name_their_reference(case):
     _, _, spec, lsm = _port(None)
     with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
         if case == "merton":
             price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "merton", device="cpu")
-        elif case == "nn":
+        elif case == "bates":
             price_american(_gen(8), 100.0, 0.5, spec, MC, LSMConfig(regressor="nn"),
-                           "heston", heston=HESTON, device="cpu")
+                           "bates", heston=HESTON, device="cpu")
         elif case == "localvol":
             # local vol without a compiled table: the surface-network route
             simulate_paths(_gen(8), 100.0, 0.5, MC, "localvol", rate=0.05, device="cpu")
