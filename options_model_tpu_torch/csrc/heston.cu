@@ -30,6 +30,7 @@
 #include <cstring>
 
 #include "heston_common.cuh"
+#include "kernel_attrs.cuh"
 
 namespace omt {
 
@@ -111,6 +112,11 @@ int omt_heston_terminal(void* out, const void* consts, uint64_t seed, int first_
   return omt::launch_heston<false>(static_cast<float*>(out), nullptr,
                                    static_cast<const float*>(consts), seed, first_tile,
                                    n_tiles, omt::kTerminalTile, n_steps, antithetic, stream);
+}
+
+// out[4]: registers, spill bytes, blocks per SM, block threads of the paths kernel.
+int omt_heston_paths_attrs(int* out) {
+  return omt::kernel_attrs(omt::heston_kernel<true>, omt::kBlockThreads, out);
 }
 
 }  // extern "C"

@@ -31,6 +31,7 @@
 // A simple first version, built without --use_fast_math.
 #include <cstring>
 
+#include "kernel_attrs.cuh"
 #include "philox.cuh"
 
 namespace omt {
@@ -162,6 +163,11 @@ int omt_heston_terminal_qe(void* out, const void* consts, uint64_t seed, int fir
                                       static_cast<const float*>(consts), seed, first_tile,
                                       n_tiles, omt::kQeTerminalTile, n_steps, antithetic,
                                       stream);
+}
+
+// out[4]: registers, spill bytes, blocks per SM, block threads of the paths kernel.
+int omt_heston_paths_qe_attrs(int* out) {
+  return omt::kernel_attrs(omt::heston_qe_kernel<true>, omt::kBlockThreads, out);
 }
 
 }  // extern "C"

@@ -7,9 +7,11 @@
     W1 = z1,  W2 = rho z1 + sqrt(1 - rho^2) z2.
 
 ``heston_euler_from_normals`` is that recursion on given normals — the plain
-version the CUDA kernels (csrc/heston.cu) are held against, and the function
-the tests feed with the reference simulator's own normals. ``simulate_heston``
-draws from the kernels' Philox stream and dispatches on the device.
+version the CUDA kernels (csrc/heston.cu, csrc/heston_paths.cu) are held
+against, and the function the tests feed with the reference simulator's own
+normals. ``simulate_heston`` draws from the kernels' Philox stream and
+dispatches on the device; ``simulate_heston_maturities`` simulates several
+maturities in one paths launch.
 
 ``scheme="qe"`` is Andersen's (2008) quadratic-exponential scheme with the
 martingale correction (QE-M, models/heston._simulate_heston_qe in the
@@ -209,3 +211,18 @@ def simulate_heston(seed: int, S0, r, T, params: HestonParams, cfg: MCConfig,
     fn = cuda_heston.heston_terminal_qe if qe else cuda_heston.heston_terminal
     return fn(seed, S0, r, T, params, paths_rounded(cfg), cfg.n_steps,
               cfg.antithetic, first_tile, device)
+
+
+def simulate_heston_maturities(seed: int, S0, r, Ts, params: HestonParams, cfg: MCConfig,
+                               return_variance: bool = False, first_tile: int = 0,
+                               scheme: str = "euler",
+                               device: Optional[torch.device] = None):
+    """Path matrices of every maturity in ``Ts`` from one launch of the
+    batched paths kernel (csrc/heston_paths.cu on a CUDA device, its plain
+    version on the CPU): S (n_mat, n_steps+1, n_pad) [and v]. Maturity m is
+    simulate_heston at first_tile + m n_tiles, n_tiles = n_pad / PATH_TILE."""
+    from options_model_tpu_torch.ops import cuda_heston
+
+    return cuda_heston.heston_paths_batched(seed, S0, r, Ts, params, paths_rounded(cfg),
+                                            cfg.n_steps, cfg.antithetic, return_variance,
+                                            first_tile, device, scheme)

@@ -41,12 +41,20 @@ _SIGNATURES = {
     "omt_heston_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_heston_variant": [_P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_heston_paths_qe": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_heston_paths_batched": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P],
     "omt_heston_terminal_qe": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_localvol_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_localvol_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_paths": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _P],
+}
+
+# Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).
+_ATTRS = {
+    "omt_heston_paths_attrs": [_P],
+    "omt_heston_paths_qe_attrs": [_P],
+    "omt_heston_paths_batched_attrs": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -117,6 +125,10 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _ATTRS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.omt_error_string.argtypes = [ctypes.c_int]
         lib.omt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -155,6 +167,18 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.omt_error_string(err).decode()} ({err})")
+
+
+def kernel_attrs(name: str, *args) -> dict:
+    """Registers per thread, spill bytes, resident blocks per SM and block
+    threads of a built kernel, from its C entry ``name`` (one of _ATTRS)."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, name)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: {lib.omt_error_string(err).decode()} ({err})")
+    regs, spill, blocks, threads = out
+    return dict(registers=regs, spill_bytes=spill, blocks_per_sm=blocks, block=threads)
 
 
 def float_args(values) -> ctypes.Array:

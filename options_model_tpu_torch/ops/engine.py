@@ -4,7 +4,8 @@ Two engines, one random stream: "cuda" launches the hand-written kernels
 (csrc/) on a CUDA device; "torch" runs their plain PyTorch versions, on the
 CPU only. They give the same Philox bits (ops/philox.py), so a price depends
 on the device only through f32 rounding. There is no interpret engine and no
-fallback: a CUDA device always goes to the kernels or raises.
+fallback: a CUDA device always goes to the kernels or raises, and the CPU
+runs only when the caller asks for it (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ ENGINES = ("cuda", "torch")
 
 
 def default_device() -> torch.device:
-    """The card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card, whether or not torch can see one: a call without a device
+    on a machine without CUDA raises where the kernels are reached
+    (resolve_engine, _build.require_cuda), never prices on the CPU."""
+    return torch.device("cuda")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -10,11 +10,21 @@ options_model_tpu/pricers/surface_american.py (single device).
    mask. Each date's all-strike regression is therefore two matmuls,
    masks and mask-weighted cash (n_K, P) against the products of B, and a
    batched (n_K, d, d) Cholesky solve.
-3. Maturities run one after another, so peak memory is one path matrix.
+3. Under Heston, maturities are simulated in groups of
+   g = max(1, 2^20 * 51 // (n_pad * (n_steps + 1))), one launch of the
+   batched paths kernel per group (models/heston.simulate_heston_maturities),
+   and the backward runs on each maturity's slice. A group holds at most the
+   path-steps of 2^20 paths x 50 steps (428 MB with v) unless one maturity
+   needs more: a 64-maturity surface at 16,384 paths x 50 steps is one
+   launch; from 2^20 paths x 50 steps per maturity on, g = 1 and peak memory
+   is one path matrix. (The reference runs maturities
+   one after another: batching them lost its tuned Pallas tile on the TPU.)
+   GBM maturities run one after another.
 
 Maturity i draws tiles [i * n_tiles, (i + 1) * n_tiles) of one seed's
 stream, so row i of a surface does not depend on how many maturities follow
-it (the reference folds the maturity index into its key instead).
+it, nor on how they are grouped (the reference folds the maturity index into
+its key instead).
 
 The curve sweep (price_american_curves_shared, price_american_curve_shared)
 is not ported yet.
@@ -31,6 +41,7 @@ import torch
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import HestonParams, MCConfig
 from options_model_tpu_torch.models.blocks import paths_rounded, round_up
+from options_model_tpu_torch.models.heston import simulate_heston_maturities
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
@@ -38,6 +49,18 @@ from options_model_tpu_torch.pricers.american import (_discount, _pair_block,
                                                       simulate_seeded)
 from options_model_tpu_torch.pricers.european import make_terminal_sampler
 from options_model_tpu_torch.pricers.regressors import solve_spd_small
+
+
+# Path matrix entries ((n_steps+1) x paths) per batched paths launch: 2^20
+# paths x 50 steps, the shape at which the paths kernels fill the card
+# (2^19 antithetic pairs), 214 MB of S and as much of v.
+BATCH_ENTRIES = 51 << 20
+
+
+def maturity_group(n_pad: int, n_steps: int) -> int:
+    """Maturities per batched paths launch at n_pad paths x n_steps steps
+    per maturity."""
+    return max(1, BATCH_ENTRIES // (n_pad * (n_steps + 1)))
 
 
 def _gram_index(d: int):
@@ -124,7 +147,8 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
                            div_yield=0.0, variance_basis: bool = True, mesh=None,
                            return_stderr: bool = False, device=None):
     """American option surface (n_maturities, n_strikes), GBM or Heston
-    (Euler or QE-M), one path matrix per maturity shared by every strike.
+    (Euler or QE-M), one path matrix per maturity shared by every strike;
+    Heston maturities simulated maturity_group(n_pad, n_steps) at a time.
 
     ``return_stderr`` also returns the per-cell stderr over antithetic pair
     means, (prices, stderrs). ``mesh``: a ``torch.distributed`` DeviceMesh;
@@ -144,17 +168,33 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
     stat_pb = _pair_block(mc, model) if mc.antithetic else None
 
     prices, stderrs = [], []
-    for i, T in enumerate(np.asarray(maturities, np.float32).reshape(-1).tolist()):
-        out = simulate_seeded(seed, i * n_tiles, S0, T, mc, model, sigma=sigma,
-                              drift=rate - div_yield, heston=heston,
-                              heston_scheme=heston_scheme, return_variance=want_v,
-                              device=device)
-        S_paths, v_paths = out if want_v else (out, None)
+
+    def price_maturity(S_paths, v_paths, T):
         cash = lsm_surface_backward(S_paths, strikes, rate, T, cp, return_cash=True,
                                     v_paths=v_paths)
         prices.append(cash.mean(dim=1))
         if return_stderr:
             stderrs.append(_pair_stderr(cash, stat_pb))
+
+    Ts = np.asarray(maturities, np.float32).reshape(-1).tolist()
+    if model == "heston":
+        if heston is None:
+            raise ValueError("heston params required for model='heston'")
+        g = maturity_group(n_tiles * PATH_TILE, mc.n_steps)
+        for i0 in range(0, len(Ts), g):
+            group = Ts[i0:i0 + g]
+            out = simulate_heston_maturities(seed, S0, rate - div_yield, group, heston, mc,
+                                             return_variance=want_v,
+                                             first_tile=i0 * n_tiles,
+                                             scheme=heston_scheme, device=device)
+            S_all, v_all = out if want_v else (out, None)
+            for m, T in enumerate(group):
+                price_maturity(S_all[m], None if v_all is None else v_all[m], T)
+    else:
+        for i, T in enumerate(Ts):
+            S_paths = simulate_seeded(seed, i * n_tiles, S0, T, mc, model, sigma=sigma,
+                                      drift=rate - div_yield, device=device)
+            price_maturity(S_paths, None, T)
     if return_stderr:
         return torch.stack(prices), torch.stack(stderrs)
     return torch.stack(prices)

@@ -1,5 +1,6 @@
-"""Experiment on the card: kernel 4 (the Heston Euler paths kernel,
-csrc/heston.cu) against its store and exp variants (csrc/heston_variants.cu).
+"""Experiment on the card: kernel 4 in its first design (the Heston Euler
+paths kernel of csrc/heston.cu, ``cuda_heston.heston_paths_accurate``)
+against its store and exp variants (csrc/heston_variants.cu).
 The counterpart of scripts/exp_paths_kernel.py, which asked the same of the
 TPU kernel: does the per-step ``exp`` or the store pattern hold the paths
 kernel below the device's write rate?
@@ -47,8 +48,8 @@ VARIANTS = (
 
 def _call(seed: int, exp_mode, unroll: int, tile: int, n_paths: int, n_steps: int):
     if exp_mode is None:
-        return cuda_heston.heston_paths(seed, S0, R, T, HESTON, n_paths, n_steps,
-                                        device="cuda")
+        return cuda_heston.heston_paths_accurate(seed, S0, R, T, HESTON, n_paths, n_steps,
+                                                 device="cuda")
     return cuda_heston_variants.heston_variant(seed, S0, R, T, HESTON, n_paths, n_steps,
                                                exp_mode, "flat", unroll, tile,
                                                device="cuda")

@@ -147,3 +147,61 @@ def test_wrappers_refuse_a_cuda_device_without_cuda():
         cuda_heston.heston_paths(1, S0, R, T, HESTON, 4096, 4, device="cuda")
     with pytest.raises((RuntimeError, ValueError)):
         cuda_gbm.gbm_terminal(1, S0, R, SIGMA, T, 4096, 4, device="cuda")
+
+
+def test_default_device_is_the_card():
+    """No device means the card, whether or not torch sees one: the port
+    never prices on the CPU unless the caller asks for it."""
+    from options_model_tpu_torch.ops.engine import default_device, resolve_device
+
+    assert default_device() == torch.device("cuda")
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _price_american():
+    from options_model_tpu_torch.core.config import LSMConfig, MCConfig, OptionSpec
+    from options_model_tpu_torch.pricers.american import price_american
+
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=-1.0, sigma=None)
+    return price_american(torch.Generator().manual_seed(1), S0, T, spec,
+                          MCConfig(n_paths=4096, n_steps=4), LSMConfig(), "heston",
+                          heston=HESTON)
+
+
+def _price_surface():
+    from options_model_tpu_torch.core.config import MCConfig
+    from options_model_tpu_torch.pricers.surface_american import price_american_surface
+
+    return price_american_surface(torch.Generator().manual_seed(1), S0, [100.0], [0.5], R,
+                                  MCConfig(n_paths=4096, n_steps=4), heston=HESTON)
+
+
+def _simulate_paths():
+    from options_model_tpu_torch.core.config import MCConfig
+    from options_model_tpu_torch.pricers.american import simulate_paths
+
+    return simulate_paths(torch.Generator().manual_seed(1), S0, T,
+                          MCConfig(n_paths=4096, n_steps=4), "gbm", sigma=SIGMA, rate=R)
+
+
+def _terminal_sampler():
+    from options_model_tpu_torch.pricers.european import make_terminal_sampler
+
+    return make_terminal_sampler("heston", S0, R, T, heston=HESTON)
+
+
+@pytest.mark.parametrize("call", [
+    _price_american, _price_surface, _simulate_paths, _terminal_sampler,
+    lambda: cuda_heston.heston_paths(1, S0, R, T, HESTON, 4096, 4),
+    lambda: cuda_heston.heston_terminal_qe(1, S0, R, T, HESTON, 16384, 4),
+    lambda: cuda_gbm.gbm_paths(1, S0, R, SIGMA, T, 4096, 4),
+], ids=["price_american", "price_american_surface", "simulate_paths",
+        "make_terminal_sampler", "heston_paths", "heston_terminal_qe", "gbm_paths"])
+def test_entry_points_without_a_device_raise_without_cuda(call):
+    """Called with no device on a machine without CUDA, an entry point
+    raises where the kernels are reached instead of pricing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
