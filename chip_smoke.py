@@ -8,19 +8,24 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit; count the time loops of kernels
-   4 and 6 (both designs) in SASS, and there the integer instructions of a
-   Philox call;
+   4, 5, 6 and 7 (both designs) in SASS, with their registers and stack,
+   and there the integer instructions of a Philox call;
 2. each of the eight path kernels against its plain PyTorch version on the
    card, at 2 and 64 tiles and at its path's shape: equal Philox bits, S
    (and v) within the stated tolerances, and bit-equal chunks at a
    ``first_tile`` offset; the same for the first design of kernels 4 and 6
    (csrc/heston.cu, csrc/heston_qe.cu), which no pricer reaches any more;
+   the redesigned terminal kernels 5 and 7 (csrc/terminal.cu) within rtol
+   1e-4 on S, kernel 7 at degrees 3, 7 and 17 (a compile-time and the
+   run-time instance), and their first designs (csrc/heston_qe.cu,
+   csrc/localvol.cu) within rtol 1e-5;
    the maturity-batched paths kernel (csrc/heston_paths.cu) at the 64 x
    16,384 x 50 surface shape: each maturity's slice bit-equal to a
    single-maturity launch, bit-equal ``first_tile`` chunks, within its
    tolerances of the plain version (QE-M's v bit for bit); a constant-sigma
    local-vol table against the GBM kernel; kernel 4's first design
-   bit-equal to its output before heston_common.cuh (a recorded digest);
+   bit-equal to its output before heston_common.cuh, and the redesigned
+   kernels 4 and 6 to theirs before hopper_fast.cuh (recorded digests);
    every store/exp/layout variant of csrc/heston_variants.cu against its
    plain version (rtol 1e-5 on S) and against that first design (bit for
    bit; the log-only form within rtol 1e-6 after exp), with bit-equal
@@ -43,14 +48,17 @@ Phases, in order; any failure exits non-zero:
       exp_paths_kernel.py and exp_fullpath_layout.py) at their scripts'
       shapes, each variant also held against its plain version there;
 4. the launch counts of each path, none of its kernels at 0, the first
-   design of kernels 4 and 6 at 0, and one paths launch per 64x64 Heston
-   surface;
+   design of kernels 4, 5, 6 and 7 at 0, and one paths launch per 64x64
+   Heston surface;
 5. each kernel's time and its plain version's (CUDA events, median of 7
-   after warm-up) beside its bound; for kernels 4 and 6 also the first
-   design's time, the surface shape (one batched launch against 64 single
-   launches of either design), registers and occupancy; the American puts
-   and the surface's ADI cells beside the first design's; seconds per
-   price and per surface.
+   after warm-up) beside its bound; for kernels 4, 5, 6 and 7 also the
+   first design's time, in turns with the redesign, and registers and
+   occupancy; for kernels 4 and 6 the surface shape (one batched launch
+   against 64 single launches of either design); kernel 7 at degree 17;
+   the American puts, the surface's ADI cells and the European legs of
+   kernels 5 and 7 beside the first design's on the same seeds;
+   seconds per price and per surface, each European leg beside its
+   kernel's time.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs); the last line is
 {"ok": true, "device": {...}}.
@@ -59,6 +67,7 @@ variants of kernels 9 and 10 listed under theirs); the last line is
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import math
 import re
@@ -93,6 +102,12 @@ JAX_NN_BAR = 0.000327          # BENCH_r05 american_put_nn_rel_err_vs_crr (an ac
 # 100 steps, T 1), seed 0x9E3779B97F4A7C15, recorded by kernel4_digest on an
 # H100 (nvcc 12.9) from the sources that still defined the step in heston.cu.
 KERNEL4_DIGEST = "99c2e49a1a0fc1af6cd697e95da4771a75a48862b5872a9fb6d488595c458096"
+# sha256 of the redesigned kernels 4 and 6 (csrc/heston_paths.cu) before
+# their Hopper pieces moved to hopper_fast.cuh: heston_paths_batched S and
+# V, Euler then QE-M, each with and without antithetics, maturities (0.5,
+# 1.0) x 16 tiles x 50 steps at first_tile 3, seed 0x9E3779B97F4A7C15,
+# recorded by paths_digest on an H100 (nvcc 12.9).
+PATHS_DIGEST = "4406f23463bbea653c0e6d92ca817af3cc86328c874feac6e306412196cfef73"
 # The redesigned paths kernels (csrc/heston_paths.cu) against the plain
 # version on the same Philox bits. Euler trades the last ulps (SFU sincos,
 # lg2, sqrt and ex2; FMAs): the normals move by up to ~3e-6 absolute and the
@@ -106,6 +121,16 @@ EULER_V_RTOL = 1e-4
 # chain (lg2.approx's ~3.6e-7 absolute error in k0 a step, FMAs, the stored
 # ex2.approx) moves log S by ~1e-6-1e-5 over 50-100 steps.
 QE_S_RTOL = 1e-4
+# The redesigned local-vol terminal kernel (csrc/terminal.cu) trades the
+# last ulps of the whole step (SFU Box-Muller, folded constants, FMAs) and
+# carries log S - log S0, where the plain version adds (r - sigma^2/2) dt to
+# the absolute log S (~4.6, ulp 4.8e-7): a rounding that, where sigma is
+# constant, goes the same way at every step (-6.9e-6 in S_T over 100 steps
+# at sigma = 0.2, against ~1e-8 for the kernel).
+LV_S_RTOL = 1e-4
+# Degrees at which kernel 7 is held against its plain version: two with a
+# compile-time instance (7 the default), one past them (the run-time one).
+LV_DEGREES = (3, 7, 17)
 # The pooled 4-seed American puts of phase 3 with the first design of
 # kernels 4 and 6 (accurate math) on an H100, price and stderr.
 EARLIER_EULER_PUT = (4.588986, 0.001954)
@@ -148,11 +173,16 @@ OPS_GBM_PATHS = 11 / 4 + 5 + 1 / 2      # drift, diffusion * z, add, expf, * s0
 #   QE-M: qe_step 51 on its quadratic branch (the one these parameters take),
 #   a Box-Muller per pair-step, u, 1 - u and the negations.
 OPS_QE = 51 + 11 / 2 + 1 / 2 + 1 / 2 + 1
-#   Local vol at degree d: 17 + 4 d per step (clip, Clenshaw, update).
-OPS_LV = 17 + 4 * 7 + 11 / 4 + 1 / 2
 OPS_EXP = 2                             # expf(log_s0 + ls) per stored path-step
 N_TIMED = 7
 DEVICE = "cuda"
+
+
+def ops_lv(degree: int) -> float:
+    """f32 operations per path-step of local vol at ``degree``: 17 + 4
+    degree (clip, Clenshaw, update), the Box-Muller's 11 per two normals at
+    one normal a pair-step, and the mirror's negation."""
+    return 17 + 4 * degree + 11 / 4 + 1 / 2
 
 
 def log(msg: str) -> None:
@@ -207,8 +237,10 @@ def kernel_specs():
     timed (tile count, steps), f32 operations and Philox draws (DRAWS_*)
     per path-step (and the local-vol table it reads), the tolerances against
     its plain version (S rtol, v atol, v rtol), and run(plain, n_tiles,
-    first_tile, n_steps, variance, antithetic). Kernels 4 and 6 also carry
-    ``earlier``, the same for their first design, and their scheme."""
+    first_tile, n_steps, variance, antithetic). Kernels 4, 5, 6 and 7 also
+    carry ``earlier``, the same for their first design; kernels 4 and 6
+    their scheme; kernel 7 ``checks``, (label, run, table) per degree of
+    LV_DEGREES."""
     from options_model_tpu_torch.core.config import HestonParams
     from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_localvol
     from options_model_tpu_torch.surface.cheb import compile_localvol_table
@@ -218,6 +250,8 @@ def kernel_specs():
     dev = DEVICE
     smile_paths = compile_localvol_table(bench_smile, 100.0, 0.5, 50, 100.0)
     smile_terminal = compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0)
+    smiles = {d: compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0, degree=d)
+              for d in LV_DEGREES}
 
     def paths_run(kernel, reference):
         def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
@@ -242,25 +276,27 @@ def kernel_specs():
         return (fn(seed, 100.0, 0.05, 0.2, 1.0, n_tiles * cuda_heston.TERMINAL_TILE,
                    n_steps, anti, first_tile, dev),)
 
-    def heston_terminal_qe(plain, n_tiles, first_tile, n_steps, variance, anti=True):
-        fn = (cuda_heston.heston_terminal_qe_reference if plain
-              else cuda_heston.heston_terminal_qe)
-        return (fn(seed, 100.0, 0.05, 1.0, hp, n_tiles * cuda_heston.TERMINAL_TILE,
-                   n_steps, anti, first_tile, dev),)
+    def terminal_qe(kernel):
+        def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
+            fn = cuda_heston.heston_terminal_qe_reference if plain else kernel
+            return (fn(seed, 100.0, 0.05, 1.0, hp, n_tiles * cuda_heston.TERMINAL_TILE,
+                       n_steps, anti, first_tile, dev),)
+        return run
 
     def localvol_paths(plain, n_tiles, first_tile, n_steps, variance, anti=True):
         fn = cuda_localvol.localvol_paths_reference if plain else cuda_localvol.localvol_paths
         return (fn(seed, 100.0, 0.05, 0.5, smile_paths, n_tiles * cuda_heston.PATH_TILE,
                    n_steps, anti, first_tile, dev),)
 
-    def localvol_terminal(plain, n_tiles, first_tile, n_steps, variance, anti=True):
-        fn = (cuda_localvol.localvol_terminal_reference if plain
-              else cuda_localvol.localvol_terminal)
-        return (fn(seed, 100.0, 0.05, 1.0, smile_terminal,
-                   n_tiles * cuda_heston.TERMINAL_TILE, n_steps, anti, first_tile, dev),)
+    def terminal_lv(kernel, table):
+        def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
+            fn = cuda_localvol.localvol_terminal_reference if plain else kernel
+            return (fn(seed, 100.0, 0.05, 1.0, table, n_tiles * cuda_heston.TERMINAL_TILE,
+                       n_steps, anti, first_tile, dev),)
+        return run
 
     src = "options_model_tpu_torch/csrc/"
-    L = cuda_heston.launches
+    L, LV = cuda_heston.launches, cuda_localvol.launches
     euler_tol = (EULER_S_RTOL, EULER_V_ATOL, EULER_V_RTOL)
     return [
         dict(name="heston_paths", source=src + "heston_paths.cu", scheme="euler",
@@ -287,11 +323,14 @@ def kernel_specs():
              tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
              variance=(False,), ops=OPS_GBM, draws=DRAWS_GBM,
              counter=(cuda_gbm.launches, "gbm_terminal")),
-        dict(name="heston_terminal_qe", run=heston_terminal_qe, source=src + "heston_qe.cu",
-             replaces="options_model_tpu/ops/pallas_heston.py:512", paths=("second",),
-             tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), ops=OPS_QE, draws=DRAWS_QE,
-             counter=(cuda_heston.launches, "heston_terminal_qe")),
+        dict(name="heston_terminal_qe", run=terminal_qe(cuda_heston.heston_terminal_qe),
+             source=src + "terminal.cu", replaces="options_model_tpu/ops/pallas_heston.py:512",
+             paths=("second",), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
+             timed=(256, 100), variance=(False,), ops=OPS_QE, draws=DRAWS_QE,
+             tol=(QE_S_RTOL, 0.0, 0.0), counter=(L, "heston_terminal_qe"),
+             earlier=dict(name="heston_terminal_qe_accurate", source=src + "heston_qe.cu",
+                          run=terminal_qe(cuda_heston.heston_terminal_qe_accurate),
+                          counter=(L, "heston_terminal_qe_accurate"))),
         dict(name="heston_paths_qe", source=src + "heston_paths.cu", scheme="qe",
              run=paths_run(cuda_heston.heston_paths_qe, cuda_heston.heston_paths_qe_reference),
              replaces="options_model_tpu/ops/pallas_heston.py:543", paths=("second",),
@@ -302,16 +341,23 @@ def kernel_specs():
                           run=paths_run(cuda_heston.heston_paths_qe_accurate,
                                         cuda_heston.heston_paths_qe_reference),
                           counter=(L, "heston_paths_qe_accurate"))),
-        dict(name="localvol_terminal", run=localvol_terminal, source=src + "localvol.cu",
+        dict(name="localvol_terminal", source=src + "terminal.cu",
+             run=terminal_lv(cuda_localvol.localvol_terminal, smile_terminal),
+             checks=[(f"degree {d}", terminal_lv(cuda_localvol.localvol_terminal, t), t)
+                    for d, t in smiles.items()],
              replaces="options_model_tpu/ops/pallas_localvol.py:62", paths=("second",),
              tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), ops=OPS_LV, draws=DRAWS_GBM, table=smile_terminal,
-             counter=(cuda_localvol.launches, "localvol_terminal")),
+             variance=(False,), ops=ops_lv(smile_terminal.degree), draws=DRAWS_GBM,
+             table=smile_terminal, tol=(LV_S_RTOL, 0.0, 0.0), counter=(LV, "localvol_terminal"),
+             earlier=dict(name="localvol_terminal_accurate", source=src + "localvol.cu",
+                          run=terminal_lv(cuda_localvol.localvol_terminal_accurate,
+                                          smile_terminal),
+                          checks=None, counter=(LV, "localvol_terminal_accurate"))),
         dict(name="localvol_paths", run=localvol_paths, source=src + "localvol.cu",
              replaces="options_model_tpu/ops/pallas_localvol.py:149", paths=("second",),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
-             ops=OPS_LV + 1, draws=DRAWS_GBM, table=smile_paths,
-             counter=(cuda_localvol.launches, "localvol_paths")),
+             ops=ops_lv(smile_paths.degree) + 1, draws=DRAWS_GBM, table=smile_paths,
+             counter=(LV, "localvol_paths")),
     ]
 
 
@@ -332,11 +378,18 @@ def phase_build() -> None:
         f"x{torch.cuda.device_count()}")
 
 
-# Mangled-name pieces of the paths kernels' pricing instances (antithetic,
-# with v): the redesign (csrc/heston_paths.cu) and the first design.
+# Mangled-name pieces of the pricing instances of kernels 4 and 6
+# (antithetic, with v) and of kernels 5 and 7 (antithetic; local vol at
+# degree 7): the redesigns (csrc/heston_paths.cu, csrc/terminal.cu) and the
+# first designs, with the steps one pass of each time loop covers.
 SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kernelILb1ELb1E",
                 "euler, first design": "13heston_kernelILb1E",
-                "qe, first design": "16heston_qe_kernelILb1E"}
+                "qe, first design": "16heston_qe_kernelILb1E",
+                "localvol terminal": "24localvol_terminal_kernelILi7ELb1E",
+                "localvol terminal, first design": "15localvol_kernelILb0E",
+                "qe terminal": "18qe_terminal_kernelILb1E",
+                "qe terminal, first design": "16heston_qe_kernelILb0E"}
+SASS_STEPS = {"euler": 2, "localvol terminal": 4}
 
 
 def sass_loops(text: str) -> dict:
@@ -401,9 +454,23 @@ def phase_sass() -> dict:
     text = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     loops = sass_loops(text)
-    log("[1] SASS time loops (static instructions; the redesigned Euler loop covers two "
-        "steps and one Philox call, the first design's one step with a Philox call every "
-        "other step): " + ", ".join(f"{k} {len(v)}" for k, v in loops.items()))
+    log("[1] SASS time loops (static instructions of the largest backward-branch span; "
+        "the redesigned Euler loop covers two steps and one Philox call, the local-vol "
+        "redesign four steps, one Philox call and two Box-Mullers, every other loop one "
+        "step; the first designs' Euler and local vol call Philox every other or every "
+        "fourth step, the local-vol one holds its Clenshaw loop): "
+        + ", ".join(f"{k} {len(v)}" + (f" ({len(v) / SASS_STEPS[k]:g} a step)"
+                                       if k in SASS_STEPS else "")
+                    for k, v in loops.items()))
+    usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
+                           capture_output=True, text=True, timeout=300).stdout
+    regs = {}
+    for name, reg, stack in re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", usage):
+        key = next((k for k, piece in SASS_KERNELS.items() if piece in name), None)
+        if key is not None:
+            regs[key] = (int(reg), int(stack))
+    log("[1] registers and stack bytes a thread (cuobjdump -res-usage): "
+        + (", ".join(f"{k} {r} / {st}" for k, (r, st) in regs.items()) or "not read"))
     imm = [f"0x{m:x}" for m in PHILOX_MULTIPLIERS] + [f"-0x{(1 << 32) - m:x}"
                                                        for m in PHILOX_MULTIPLIERS]
     loop = loops.get("euler", [])
@@ -444,8 +511,8 @@ def phase_philox() -> None:
 
 
 def earlier_specs(specs) -> list:
-    """The first design of kernels 4 and 6 as specs of their own, held to
-    the tolerances they were built to (S_RTOL, V_ATOL, V_RTOL)."""
+    """The first design of kernels 4, 5, 6 and 7 as specs of their own, held
+    to the tolerances they were built to (S_RTOL, V_ATOL, V_RTOL)."""
     return [dict(k, **k["earlier"], tol=(S_RTOL, V_ATOL, V_RTOL)) for k in specs
             if "earlier" in k]
 
@@ -453,8 +520,9 @@ def earlier_specs(specs) -> list:
 def phase_kernels(specs) -> dict:
     """Kernel vs plain at 2 and 64 tiles and at the main path's shape (and
     at 2 tiles without antithetic mirroring), within each spec's tolerances,
-    and the first_tile chunk property. Returns per name the max |kernel -
-    plain| of S, the max relative one, and the max |kernel - plain| of v."""
+    for each of its ``checks`` (kernel 7: one table per degree), and the
+    first_tile chunk property. Returns per name the max |kernel - plain| of
+    S, the max relative one, and the max |kernel - plain| of v."""
     import torch
 
     errs = {}
@@ -462,21 +530,23 @@ def phase_kernels(specs) -> dict:
         n_main, steps = k["main"]
         s_rtol, v_atol, v_rtol = k.get("tol", (S_RTOL, V_ATOL, V_RTOL))
         err = dict(s_abs=0.0, s_rel=0.0, v_abs=0.0)
+        checks = k.get("checks") or [("", k["run"], None)]
         for variance in k["variance"]:
-            for n_tiles, anti in ((2, True), (64, True), (n_main, True), (2, False)):
-                got = k["run"](False, n_tiles, 0, steps, variance, anti)
-                want = k["run"](True, n_tiles, 0, steps, variance, anti)
+            for (label, run, _), (n_tiles, anti) in itertools.product(
+                    checks, ((2, True), (64, True), (n_main, True), (2, False))):
+                got = run(False, n_tiles, 0, steps, variance, anti)
+                want = run(True, n_tiles, 0, steps, variance, anti)
                 torch.cuda.synchronize()
                 for name, g, w in zip("Sv", got, want):
                     if g.shape != w.shape or not bool(torch.isfinite(g).all()):
-                        fail(f"{k['name']}: {name} shape {tuple(g.shape)} vs "
+                        fail(f"{k['name']} {label}: {name} shape {tuple(g.shape)} vs "
                              f"{tuple(w.shape)} or non-finite")
                     rtol, atol = (s_rtol, 0.0) if name == "S" else (v_rtol, v_atol)
                     diff = (g - w).abs()
                     bad = diff > atol + rtol * w.abs()
                     e = float(diff.max())
                     if bool(bad.any()):
-                        fail(f"{k['name']} {n_tiles} tiles: {name} differs from the "
+                        fail(f"{k['name']} {label} {n_tiles} tiles: {name} differs from the "
                              f"plain version (max abs {e:.3e}, {int(bad.sum())} "
                              f"entries beyond rtol {rtol}, atol {atol})")
                     if name == "S":
@@ -495,8 +565,9 @@ def phase_kernels(specs) -> dict:
                          "matching slice of the full run")
             v_txt = ("v bit for bit" if v_atol == v_rtol == 0.0
                      else f"rtol {v_rtol} + atol {v_atol} on v")
-            log(f"[2] {k['name']} (variance={variance}): kernel == plain within "
-                f"rtol {s_rtol} on S" + (f", {v_txt}" if variance else "")
+            labels = ", ".join(label for label, _, _ in checks if label)
+            log(f"[2] {k['name']} (variance={variance}{'; ' + labels if labels else ''}): "
+                f"kernel == plain within rtol {s_rtol} on S" + (f", {v_txt}" if variance else "")
                 + f" at 2, 64, {n_main} tiles x {steps} steps (and 2 tiles without "
                   f"antithetics): max |dS| {err['s_abs']:.3e} (max rel {err['s_rel']:.3e})"
                 + (f", max |dv| {err['v_abs']:.3e}" if variance else "")
@@ -618,7 +689,28 @@ def kernel4_digest() -> str:
     return h.hexdigest()
 
 
-def phase_kernel4_digest() -> None:
+def paths_digest() -> str:
+    """sha256 of the redesigned paths kernels (csrc/heston_paths.cu) at the
+    PATHS_DIGEST arguments."""
+    import torch
+
+    from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.ops import cuda_heston
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    h = hashlib.sha256()
+    for scheme in ("euler", "qe"):
+        for anti in (True, False):
+            S, V = cuda_heston.heston_paths_batched(0x9E3779B97F4A7C15, 100.0, 0.05, [0.5, 1.0],
+                                                    hp, 16 * 4096, 50, anti, True, 3, DEVICE,
+                                                    scheme)
+            torch.cuda.synchronize()
+            for x in (S, V):
+                h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_digests() -> None:
     got = kernel4_digest()
     if got != KERNEL4_DIGEST:
         fail(f"kernel 4's output changed with heston_common.cuh: digest {got}, recorded "
@@ -626,6 +718,12 @@ def phase_kernel4_digest() -> None:
     log("[2] kernel 4's first design (heston_paths_accurate with v, heston_terminal) "
         "bit-equal to its output "
         f"before heston_common.cuh: sha256 {got[:16]}...")
+    got = paths_digest()
+    if got != PATHS_DIGEST:
+        fail(f"the redesigned kernels 4 and 6 changed with hopper_fast.cuh: digest {got}, "
+             f"recorded {PATHS_DIGEST}")
+    log("[2] the redesigned kernels 4 and 6 (heston_paths_batched, Euler and QE-M with v) "
+        f"bit-equal to their output before hopper_fast.cuh: sha256 {got[:16]}...")
 
 
 def check_variant(hv, exp_mode, layout, unroll, tile, n_tiles, steps, seed=0x9E3779B97F4A7C15,
@@ -885,8 +983,9 @@ def phase_second_path() -> dict:
     """The QE-M and local-vol path: Heston QE American and European, local
     vol European and American, the 64x64 surface (Euler and QE), each
     surface one launch of the batched paths kernel. Returns seconds per
-    price or per surface, and per scheme the three ADI cells (strike index,
-    maturity index, price, stderr, ADI)."""
+    price or per surface, per scheme the three ADI cells (strike index,
+    maturity index, price, stderr, ADI), and the European legs of kernels 5
+    and 7 by label (price, stderr)."""
     import dataclasses
 
     import numpy as np
@@ -964,6 +1063,7 @@ def phase_second_path() -> dict:
         f"{EURO_QE_BIAS * 100}%)")
     if not abs(gap) <= 4.0 * se + EURO_QE_BIAS * cos:
         fail("QE European put outside its gate")
+    euro = {"qe_european": (p, se)}
 
     # Local-vol European call on the bench smile: the terminal local-vol kernel.
     smile = compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0, degree=7)
@@ -974,6 +1074,7 @@ def phase_second_path() -> dict:
                      1.0, mc_e)
     log(f"[3b] local-vol European call on the bench smile (2^22 x 100, degree 7): "
         f"{float(p):.6f} +- {float(se):.6f}")
+    euro["localvol_european"] = (float(p), float(se))
     seed = seed_from_generator(gen(23))
     n_tiles = (1 << 22) // TERMINAL_TILE
     S_T = sampler(seed, 0, dataclasses.replace(mc_e, n_paths=n_tiles * TERMINAL_TILE))
@@ -984,6 +1085,7 @@ def phase_second_path() -> dict:
         f"{m - 100.0:+.6f} ({(m - 100.0) / m_se:+.2f} stderr; gate 4 stderr)")
     if not (math.isfinite(m) and abs(m - 100.0) <= 4.0 * m_se):
         fail("local-vol terminal prices are not a martingale within 4 stderr")
+    euro["localvol_martingale"] = (m, m_se)
     flat = compile_localvol_table(lambda S, tau: torch.full_like(S, 0.2), 100.0, 1.0, 100,
                                   100.0)
     sampler = make_terminal_sampler("localvol", 100.0, 0.05, 1.0, localvol_table=flat,
@@ -995,6 +1097,7 @@ def phase_second_path() -> dict:
         f"{se:.6f}; BS {bs:.6f}; gap {(p - bs) / se:+.2f} stderr (gate 4)")
     if not abs(p - bs) <= 4.0 * se:
         fail("constant-sigma local-vol European call outside its gate")
+    euro["localvol_constant"] = (p, se)
 
     # Local-vol American put: simulate_paths + richardson_cv_stat, as the JAX
     # grid pricer runs each task (no control-variate leg under local vol).
@@ -1066,7 +1169,66 @@ def phase_second_path() -> dict:
         one_launch(scheme, lambda: timed(f"surface_{scheme}", lambda: (price_american_surface(
             gen(41), 100.0, Ks, Ts, 0.05, mc_s, cp=-1.0, heston=hp, heston_scheme=scheme,
             device=DEVICE),)))
-    return {k: statistics.median(v) for k, v in secs.items()}, surface_cells
+    return {k: statistics.median(v) for k, v in secs.items()}, surface_cells, euro
+
+
+def phase_earlier_europeans(euro: dict) -> None:
+    """The European legs of kernels 5 and 7 with their first design: the
+    same seeds and tiles through heston_terminal_qe_accurate and
+    localvol_terminal_accurate, beside the prices of phase 3b (which
+    launched the redesign). Run outside the paths' counts."""
+    import dataclasses
+
+    import torch
+
+    from options_model_tpu_torch.core.config import (CALL, PUT, HestonParams, MCConfig,
+                                                      OptionSpec)
+    from options_model_tpu_torch.core.stats import masked_mean_stderr
+    from options_model_tpu_torch.ops import cuda_heston, cuda_localvol
+    from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
+    from options_model_tpu_torch.ops.philox import seed_from_generator
+    from options_model_tpu_torch.pricers.european import price_european_mc
+    from options_model_tpu_torch.surface.cheb import compile_localvol_table
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    mc_e = MCConfig(n_paths=1 << 22, n_steps=100, path_block=4096)
+
+    def sampler(fn, model):
+        def run(seed, first_tile, c):
+            return fn(seed, 100.0, 0.05, 1.0, model, c.n_paths, c.n_steps, c.antithetic,
+                      first_tile, DEVICE)
+        run.pair_block, run.device = TERMINAL_TILE, torch.device(DEVICE)
+        return run
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    smile = sampler(cuda_localvol.localvol_terminal_accurate,
+                    compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0, degree=7))
+    flat = sampler(cuda_localvol.localvol_terminal_accurate,
+                   compile_localvol_table(lambda S, tau: torch.full_like(S, 0.2), 100.0, 1.0,
+                                          100, 100.0))
+    put = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None)
+    call = OptionSpec(strike=100.0, rate=0.05, cp=CALL, sigma=None)
+    first, secs = {}, {}
+    for label, seed, fn, spec in (
+            ("qe_european", 17, sampler(cuda_heston.heston_terminal_qe_accurate, hp), put),
+            ("localvol_european", 19, smile, call), ("localvol_constant", 29, flat, call)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, se, _ = price_european_mc(gen(seed), fn, spec, 1.0, mc_e)
+        first[label] = (float(p), float(se))
+        secs[label] = time.perf_counter() - t0
+    n_tiles = (1 << 22) // TERMINAL_TILE
+    S_T = smile(seed_from_generator(gen(23)), 0,
+                dataclasses.replace(mc_e, n_paths=n_tiles * TERMINAL_TILE))
+    first["localvol_martingale"] = masked_mean_stderr(S_T.double() * math.exp(-0.05), None,
+                                                      TERMINAL_TILE)
+    for label, (p, se) in euro.items():
+        p0, se0 = float(first[label][0]), float(first[label][1])
+        log(f"[5] {label}: {p:.6f} +- {se:.6f}; first design of kernels 5 and 7 {p0:.6f} +- "
+            f"{se0:.6f}; difference {p - p0:+.6f} ({(p - p0) / se:+.3f} stderr)"
+            + (f"; first design's seconds per price {secs[label]:.6f}" if label in secs else ""))
 
 
 def phase_earlier_cells(cells: dict) -> None:
@@ -1103,15 +1265,10 @@ def phase_earlier_cells(cells: dict) -> None:
                 f"({(p - p0) / se:+.3f} stderr); ADI {fd:.6f}")
 
 
-def phase_timing(specs, per_call: float) -> dict:
-    """CUDA-event medians of each kernel and its plain version: 2^22 x 100
-    for the terminal kernels, 2^20 x 50 (with v where there is one) for the
-    paths kernels; and each one's bound at that shape. Kernels 4 and 6 also:
-    their first design at 2^20 x 50, timed in turns with the redesign
-    (earlier, new, new, earlier; each the mean of its two medians); the
-    64 x 16,384 x 50 surface shape as one batched launch and as 64 single
-    launches of either design; registers and occupancy of both designs.
-    Bounds at ``per_call`` integer instructions a Philox call."""
+def surface_shape(k: dict, bound_ms: float) -> dict:
+    """Kernel 4 or 6 (spec ``k``) at the 64 x 16,384 x 50 surface shape with
+    v: one batched launch, 64 single launches of either design, and the
+    batched launch's host time for its constants."""
     import numpy as np
 
     from options_model_tpu_torch.core.config import HestonParams
@@ -1122,7 +1279,53 @@ def phase_timing(specs, per_call: float) -> dict:
     seed = 0x9E3779B97F4A7C15
     Ts = np.linspace(0.1, 1.0, SURFACE_MATS).astype(np.float32).tolist()
     n_surface_tiles = SURFACE_PATHS // cuda_heston.PATH_TILE
-    attrs = cuda_heston.paths_kernel_attrs()
+    scheme = k["scheme"]
+    single, single0 = ((cuda_heston.heston_paths_qe, cuda_heston.heston_paths_qe_accurate)
+                       if scheme == "qe" else
+                       (cuda_heston.heston_paths, cuda_heston.heston_paths_accurate))
+
+    def batched():
+        return cuda_heston.heston_paths_batched(seed, 100.0, 0.05, Ts, hp, SURFACE_PATHS,
+                                                SURFACE_STEPS, True, True, 0, DEVICE, scheme)
+
+    def singles(fn):
+        return lambda: [fn(seed, 100.0, 0.05, T, hp, SURFACE_PATHS, SURFACE_STEPS, True,
+                           True, m * n_surface_tiles, DEVICE)
+                        for m, T in enumerate(Ts)]
+
+    surface = dict(surface_batched_ms=time_per_call(batched, N_TIMED),
+                   surface_single_ms=time_per_call(singles(single), N_TIMED),
+                   earlier_surface_single_ms=time_per_call(singles(single0), N_TIMED))
+    host = []
+    for _ in range(N_TIMED):
+        t0 = time.perf_counter()
+        cuda_heston.batched_consts(scheme, 100.0, 0.05, Ts, hp, SURFACE_STEPS, DEVICE)
+        host.append((time.perf_counter() - t0) * 1e3)
+    surface["surface_consts_host_ms"] = statistics.median(host)
+    log(f"[5] {k['name']} at the surface shape {SURFACE_MATS} x {SURFACE_PATHS} x "
+        f"{SURFACE_STEPS} with v: one batched launch {surface['surface_batched_ms']:.4f} "
+        f"ms ({bound_ms / surface['surface_batched_ms'] * 100:.1f}% of the same "
+        f"bound); {SURFACE_MATS} single launches {surface['surface_single_ms']:.4f} ms "
+        f"(redesign), {surface['earlier_surface_single_ms']:.4f} ms (first design); "
+        f"the batched launch's host time for its constants "
+        f"{surface['surface_consts_host_ms']:.4f} ms (within its time)")
+    return surface
+
+
+def phase_timing(specs, per_call: float) -> dict:
+    """CUDA-event medians of each kernel and its plain version: 2^22 x 100
+    for the terminal kernels, 2^20 x 50 (with v where there is one) for the
+    paths kernels; and each one's bound at that shape. Kernels 4-7 also:
+    their first design at the same shape, timed in turns with the redesign
+    (earlier, new, new, earlier; each the mean of its two medians), and
+    registers and occupancy. Kernels 4 and 6 also: the surface shape
+    (surface_shape). Kernel 7 also: its other tables (LV_DEGREES), each with
+    its own bound. Bounds at ``per_call`` integer instructions a Philox
+    call."""
+    from options_model_tpu_torch.ops import cuda_heston
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    attrs = dict(cuda_heston.paths_kernel_attrs(), **cuda_heston.terminal_kernel_attrs())
     out = {}
     for k in specs:
         n_tiles, steps = k["timed"]
@@ -1158,55 +1361,42 @@ def phase_timing(specs, per_call: float) -> dict:
               f"{b['bound_ms_f32_bytes']:.4f} ms)")
         row = dict(ms=ms, plain_ms=plain_ms, **b)
         if "earlier" in k:
-            scheme = k["scheme"]
-            single, single0 = (
-                (cuda_heston.heston_paths_qe, cuda_heston.heston_paths_qe_accurate)
-                if scheme == "qe" else
-                (cuda_heston.heston_paths, cuda_heston.heston_paths_accurate))
-
-            def batched():
-                return cuda_heston.heston_paths_batched(seed, 100.0, 0.05, Ts, hp,
-                                                        SURFACE_PATHS, SURFACE_STEPS, True,
-                                                        True, 0, DEVICE, scheme)
-
-            def singles(fn):
-                return lambda: [fn(seed, 100.0, 0.05, T, hp, SURFACE_PATHS, SURFACE_STEPS, True,
-                                   True, m * n_surface_tiles, DEVICE)
-                                for m, T in enumerate(Ts)]
-
-            surface = dict(surface_batched_ms=time_per_call(batched, N_TIMED),
-                           surface_single_ms=time_per_call(singles(single), N_TIMED),
-                           earlier_surface_single_ms=time_per_call(singles(single0), N_TIMED))
-            host = []
-            for _ in range(N_TIMED):
-                t0 = time.perf_counter()
-                cuda_heston.batched_consts(scheme, 100.0, 0.05, Ts, hp, SURFACE_STEPS, DEVICE)
-                host.append((time.perf_counter() - t0) * 1e3)
-            surface["surface_consts_host_ms"] = statistics.median(host)
-            new_a, old_a = attrs[k["name"]], attrs[k["earlier"]["name"]]
-            occ = {key: a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
-                   for key, a in (("new", new_a), ("old", old_a))}
-            row.update(earlier_ms=earlier_ms, **surface, registers=new_a["registers"],
-                       spill_bytes=new_a["spill_bytes"], block=new_a["block"],
-                       occupancy=occ["new"], earlier_registers=old_a["registers"],
-                       earlier_spill_bytes=old_a["spill_bytes"], earlier_occupancy=occ["old"])
-            log(f"[5] {k['name']} first design ({k['earlier']['source']}) at {n} x {steps} "
-                f"with v: {earlier_ms:.4f} ms, {b['bound_ms'] / earlier_ms * 100:.1f}% of "
-                f"bound; redesign {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}; first design "
-                f"{t[0]:.4f}, {t[3]:.4f})")
-            log(f"[5] {k['name']} at the surface shape {SURFACE_MATS} x {SURFACE_PATHS} x "
-                f"{SURFACE_STEPS} with v: one batched launch {surface['surface_batched_ms']:.4f} "
-                f"ms ({b['bound_ms'] / surface['surface_batched_ms'] * 100:.1f}% of the same "
-                f"bound); {SURFACE_MATS} single launches {surface['surface_single_ms']:.4f} ms "
-                f"(redesign), {surface['earlier_surface_single_ms']:.4f} ms (first design); "
-                f"the batched launch's host time for its constants "
-                f"{surface['surface_consts_host_ms']:.4f} ms (within its time)")
-            log(f"[5] {k['name']} registers and occupancy: redesign {new_a['registers']} "
-                f"registers, {new_a['spill_bytes']} spill bytes, {new_a['blocks_per_sm']} "
-                f"blocks of {new_a['block']} per SM ({occ['new'] * 100:.1f}% occupancy); first "
-                f"design {old_a['registers']} registers, {old_a['spill_bytes']} spill bytes, "
-                f"{old_a['blocks_per_sm']} blocks of {old_a['block']} "
-                f"({occ['old'] * 100:.1f}%)")
+            row["earlier_ms"] = earlier_ms
+            log(f"[5] {k['name']} first design ({k['earlier']['source']}) at {n} x {steps}"
+                f"{' with v' if variance else ''}: {earlier_ms:.4f} ms, "
+                f"{b['bound_ms'] / earlier_ms * 100:.1f}% of bound; redesign {ms:.4f} ms "
+                f"({t[1]:.4f}, {t[2]:.4f}; first design {t[0]:.4f}, {t[3]:.4f}; "
+                f"{ms / earlier_ms:.3f}x)")
+            new_a, old_a = attrs[k["name"]], attrs.get(k["earlier"]["name"])
+            row.update(registers=new_a["registers"], spill_bytes=new_a["spill_bytes"],
+                       block=new_a["block"],
+                       occupancy=new_a["blocks_per_sm"] * new_a["block"] / THREADS_PER_SM)
+            txt = (f"[5] {k['name']} registers and occupancy: redesign {new_a['registers']} "
+                   f"registers, {new_a['spill_bytes']} spill bytes, {new_a['blocks_per_sm']} "
+                   f"blocks of {new_a['block']} per SM ({row['occupancy'] * 100:.1f}% "
+                   "occupancy)")
+            if old_a is not None:
+                row.update(earlier_registers=old_a["registers"],
+                           earlier_spill_bytes=old_a["spill_bytes"],
+                           earlier_occupancy=old_a["blocks_per_sm"] * old_a["block"]
+                           / THREADS_PER_SM)
+                txt += (f"; first design {old_a['registers']} registers, "
+                        f"{old_a['spill_bytes']} spill bytes, {old_a['blocks_per_sm']} blocks "
+                        f"of {old_a['block']} ({row['earlier_occupancy'] * 100:.1f}%)")
+            log(txt)
+        if "scheme" in k:
+            row.update(surface_shape(k, b["bound_ms"]))
+        for label, run, table in k.get("checks") or []:
+            if table.degree == k["table"].degree:
+                continue
+            ms_d = time_per_call(lambda run=run: run(False, n_tiles, 0, steps, variance),
+                                 N_TIMED)
+            b_d = bound(n, steps, ops_lv(table.degree), n_int,
+                        n * 4 + table.coeffs.numel() * 4)
+            row.setdefault("degrees", {})[table.degree] = dict(ms=ms_d, **b_d)
+            log(f"[5] {k['name']} at {label}: {ms_d:.4f} ms; bound {b_d['bound_ms']:.4f} ms by "
+                f"{b_d['bound_term']} ({ops_lv(table.degree):.2f} f32 operations per "
+                f"path-step); {b_d['bound_ms'] / ms_d * 100:.1f}% of bound")
         out[k["name"]] = row
     return out
 
@@ -1258,14 +1448,14 @@ def main() -> int:
     errs = phase_kernels(specs + earlier_specs(specs))
     phase_batched(specs)
     phase_constant_sigma()
-    phase_kernel4_digest()
+    phase_digests()
     var_errs = phase_variants()
 
     counters = [k["counter"] for k in specs + earlier_specs(specs)]
 
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
-        was never launched, or if the first design of kernels 4 and 6 was.
+        was never launched, or if the first design of kernels 4-7 was.
         Returns (fn's result, that path's counts)."""
         for d, key in counters:
             d[key] = 0
@@ -1278,16 +1468,18 @@ def main() -> int:
         earlier = {k["name"]: k["counter"][0][k["counter"][1]] for k in earlier_specs(specs)}
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 4 and 6: {earlier}")
+            fail(f"the {path} path reached the first design of kernels 4, 5, 6 or 7: "
+                 f"{earlier}")
         return out, mine
 
     secs, launches = drive("main", phase_main_path)
-    (secs2, surface_cells), launches2 = drive("second", phase_second_path)
+    (secs2, surface_cells, euro), launches2 = drive("second", phase_second_path)
     launches.update(launches2)
     secs_nn, launches_nn = drive("nn", phase_nn)
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
+    phase_earlier_europeans(euro)
     times = phase_timing(specs, sass["per_call"])
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
@@ -1297,6 +1489,16 @@ def main() -> int:
         + "; ".join(f"{k} " + ", ".join(f"{s} {v:.3f}" for s, v in d.items())
                     for k, d in secs_nn.items()))
     log(f"[5] NN-LSM path launches: {launches_nn}")
+    # A European price at 2^22 x 100 is two launches of 2^21 paths
+    # (price_european_mc's chunks): about the kernel's time at 2^22 x 100.
+    legs = (("heston_european", secs, "heston_terminal"), ("gbm_european", secs, "gbm_terminal"),
+            ("qe_european", secs2, "heston_terminal_qe"),
+            ("localvol_european", secs2, "localvol_terminal"))
+    log("[5] European legs, seconds per price beside the kernel's ms at 2^22 x 100: "
+        + "; ".join(f"{leg} {d[leg]:.6f} s, {name} {times[name]['ms']:.4f} ms"
+                    + (f" (first design {times[name]['earlier_ms']:.4f} ms)"
+                       if "earlier_ms" in times[name] else "")
+                    for leg, d, name in legs))
     log(f"[5] card: {card_line()}")
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],

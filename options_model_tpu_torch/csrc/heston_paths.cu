@@ -56,14 +56,18 @@
 // divergent branch), at ~1/3 of its bound.
 // The tolerances against the plain version are chip_smoke.py's (S rtol
 // 1e-4; Euler v atol 1e-5 + rtol 1e-4; QE v exact). Built without
-// --use_fast_math: the fast forms are named here, nowhere else.
+// --use_fast_math: the fast forms are named here and in hopper_fast.cuh
+// (keyed Philox, the SFU helpers, box_muller_fast, qe_step), nowhere else.
 #include <cstdint>
 
 #include "heston_common.cuh"
+#include "hopper_fast.cuh"
 #include "kernel_attrs.cuh"
 
 namespace omt {
 namespace paths {
+
+using namespace fast;
 
 // Threads per block and the minimum resident blocks per SM handed to
 // __launch_bounds__, chosen from the registers and occupancy the card
@@ -78,71 +82,7 @@ constexpr int kBlock = 256;
 constexpr int kEulerMinBlocks = 6;
 constexpr int kQeMinBlocks = 1;
 constexpr int kTile = kPathTile;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 static_assert((kTile / 2) % kBlock == 0, "a block must not span two maturities");
-
-// The round keys (seed lo + i W0, seed hi + i W1) of rounds i = 0..9.
-struct PhiloxKeys {
-  uint32_t k0[10], k1[10];
-};
-
-inline PhiloxKeys philox_keys(uint64_t seed) {
-  PhiloxKeys k;
-  uint32_t a = static_cast<uint32_t>(seed), b = static_cast<uint32_t>(seed >> 32);
-  for (int i = 0; i < 10; ++i) {
-    k.k0[i] = a;
-    k.k1[i] = b;
-    a += kPhiloxW0;
-    b += kPhiloxW1;
-  }
-  return k;
-}
-
-// philox4x32_10 of philox.cuh with the key schedule read from ``k``.
-__device__ __forceinline__ Words philox_keyed(Words c, const PhiloxKeys& k) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
-    c = Words{hi1 ^ c.y ^ k.k0[i], lo1, hi0 ^ c.w ^ k.k1[i], lo0};
-  }
-  return c;
-}
-
-__device__ __forceinline__ float lg2_approx(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float sqrt_approx(float x) {
-  float y;
-  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// box_muller of philox.cuh on the SFU: (z1, z2) = rad (cos, sin)(2 pi u2),
-// rad = sqrt(-2 log(1 - u1)). Absolute error in z: ~3.6e-7 rad from the
-// angle, below 3e-6 from the radius.
-__device__ __forceinline__ void box_muller_fast(uint32_t b1, uint32_t b2, float& z1,
-                                                float& z2) {
-  const float u1 = uniform_from_bits(b1);
-  const float u2 = uniform_from_bits(b2);
-  const float series = u1 * fmaf(u1, fmaf(u1, 0.333333343f, 0.5f), 1.0f);
-  const float nlog = u1 < 0.0078125f ? series : -kLn2 * lg2_approx(1.0f - u1);
-  const float rad = sqrt_approx(fmaxf(2.0f * nlog, 0.0f));
-  float s, c;
-  __sincosf(6.28318548f * (u2 - 0.5f), &s, &c);  // u2 - 1/2 is exact
-  z1 = -rad * c;
-  z2 = -rad * s;
-}
 
 // The Euler step's constants, folded from row m of HestonConsts.
 struct EulerK {
@@ -240,63 +180,6 @@ euler_paths_kernel(float* __restrict__ S, float* __restrict__ V,
         Words{at.j, static_cast<uint32_t>(n_draws), at.global_tile, 0u}, keys);
     step(w.x, w.y);
   }
-}
-
-// The variance chain's arithmetic, as in heston_qe.cu: never contracted.
-__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
-
-// The QE-M constants of row m of QeConsts (log_s0, r_dt, theta, v0, ekt, c1,
-// c2, K1, K2, K3, K4, A, k0_shift), with K1 - k0_shift folded for the log-S
-// chain.
-struct QeK {
-  float log2_s0, r_dt, theta, v0, ekt, c1, c2, K1s, K2, K3, K4, A;
-};
-
-__device__ __forceinline__ QeK qe_consts(const float* __restrict__ row) {
-  return QeK{__ldg(row) * kLog2e, __ldg(row + 1), __ldg(row + 2), __ldg(row + 3),
-             __ldg(row + 4), __ldg(row + 5), __ldg(row + 6), __ldg(row + 7) - __ldg(row + 12),
-             __ldg(row + 8), __ldg(row + 9), __ldg(row + 10), __ldg(row + 11)};
-}
-
-// qe_step of heston_qe.cu with its log-S chain on the fast pipes.
-__device__ __forceinline__ void qe_step(float& log_s, float& v, float z_v, float z_s,
-                                        float u, const QeK& p) {
-  const float m = fadd(p.theta, fmul(fsub(v, p.theta), p.ekt));
-  const float s2 = fadd(fmul(v, p.c1), p.c2);
-  const float psi = fdiv(s2, fmaxf(fmul(m, m), 1e-20f));
-  float v_new, k0;
-  if (psi <= 1.5f) {
-    const float two_over = fdiv(2.0f, fmaxf(psi, 1e-12f));
-    const float b2 = fmaxf(fadd(fsub(two_over, 1.0f),
-                                fmul(sqrtf(fmaxf(two_over, 0.0f)),
-                                     sqrtf(fmaxf(fsub(two_over, 1.0f), 0.0f)))),
-                           0.0f);
-    const float a = fdiv(m, fadd(1.0f, b2));
-    const float bz = fadd(sqrtf(b2), z_v);
-    v_new = fmul(a, fmul(bz, bz));
-    // log-S chain: k0 = -A a b^2 / (1 - 2 A a) + log(1 - 2 A a) / 2
-    const float Aa = p.A * a;
-    const float one_m = fmaxf(fmaf(-2.0f, Aa, 1.0f), 1e-6f);
-    k0 = fmaf(0.5f * kLn2, lg2_approx(one_m), __fdividef(-Aa * b2, one_m));
-  } else {
-    const float q = fminf(fmaxf(fdiv(fsub(psi, 1.0f), fadd(psi, 1.0f)), 0.0f), 1.0f - 1e-7f);
-    const float one_q = fsub(1.0f, q);
-    const float beta = fdiv(one_q, fmaxf(m, 1e-20f));
-    v_new = (u <= q) ? 0.0f
-                     : fdiv(logf(fdiv(one_q, fmaxf(fsub(1.0f, u), 1e-12f))),
-                            fmaxf(beta, 1e-20f));
-    // log-S chain: k0 = -log(q + beta (1 - q) / (beta - A))
-    k0 = -kLn2 * lg2_approx(
-                     fmaxf(q + __fdividef(beta * one_q, fmaxf(beta - p.A, 1e-12f)), 1e-12f));
-  }
-  // log S + r dt + K0* + K1 v + K2 v_new + sqrt(K3 v + K4 v_new) z_s,
-  // K0* = k0 - (K1 + K3/2) v folded into K1s
-  const float drift = fmaf(p.K1s, v, fmaf(p.K2, v_new, (log_s + p.r_dt) + k0));
-  log_s = fmaf(sqrt_approx(fmaxf(fmaf(p.K3, v, p.K4 * v_new), 0.0f)), z_s, drift);
-  v = v_new;
 }
 
 template <bool kAnti, bool kV>

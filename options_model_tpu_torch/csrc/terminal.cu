@@ -1,0 +1,340 @@
+// Terminal-price kernels redesigned for Hopper (sm_90a): local vol over a
+// Chebyshev table, and Heston QE-M.
+//
+// Replaces the Pallas TPU kernels
+//   options_model_tpu/ops/pallas_localvol.py  localvol_terminal_pallas
+//                                             (_localvol_terminal_kernel)
+//   options_model_tpu/ops/pallas_heston.py    heston_terminal_qe_pallas
+//                                             (_qe_terminal_kernel)
+// and computes what they compute: S_T of shape (n_tiles * 16384,) in
+// float32, from the Philox stream of ops/philox.py with the tiles, mirrors
+// and first_tile of the first designs, csrc/localvol.cu (omt_localvol_
+// terminal) and csrc/heston_qe.cu (omt_heston_terminal_qe), which stay built
+// as the yardstick. One thread owns one antithetic pair (or one path when
+// antithetic is off) and carries both mirror paths in registers; nothing
+// but S_T touches device memory, 4 bytes a path.
+//
+// What bounds them on the card: the rate at which its schedulers dispatch
+// instructions (one a clock each). A terminal kernel writes
+// 16 MB at 2^22 paths, so its time is the arithmetic of 2^22 x 100
+// path-steps.
+//
+// Local vol (per step t):
+//   u = clip(((log K - log S) - m_center) / m_half, -1, 1),
+//   sigma = max(Clenshaw(row t, u), 1e-6),
+//   log S <- log S + (r - sigma^2 / 2) dt + sigma sqrt(dt) z.
+// The first design ran Clenshaw to a run-time degree with a scalar __ldg a
+// coefficient and path, an accurate Box-Muller (logf, sqrtf, sinf, cosf)
+// with the key schedule rebuilt at every Philox call, and branched on t % 4
+// every step. Here:
+//   * the degree is a template parameter (0..kMaxStaticDegree, 7 the
+//     default of compile_localvol_table), Clenshaw fully unrolled as
+//     b <- fmaf(2u, b1, c_k - b2); one run-time-degree instance of the same
+//     kernel serves any wider table;
+//   * the wrapper pads every row with zeros to 4 (degree / 4 + 1) floats
+//     (ops/cuda_localvol.padded_coeffs), and a step reads its row once, as
+//     float4 loads at a warp-uniform address (2 LDG.128 at degree 7; the
+//     3.2 KB table stays in L1), for both mirror paths; the zero columns
+//     leave Clenshaw's result bit for bit as it was;
+//   * one Philox call (keys once per launch) and two SFU Box-Mullers serve
+//     four steps: steps 4d..4d+3 take (x, y) cos, (x, y) sin, (z, w) cos,
+//     (z, w) sin of draw d, the mapping of localvol.cu, with no per-step
+//     branch; a tail takes n_steps % 4;
+//   * log S is carried as x = log S - log S0, and each step adds its whole
+//     increment fmaf(sigma, fmaf(sigma, -dt/2, sqrt(dt) z), r dt) at once,
+//     sqrt(dt) z shared by the mirrors; u = fmaf(-1/m_half, x, u0) with
+//     u0 = ((log K - log S0) - m_center) / m_half folded on the host. A
+//     constant added on its own to the absolute log S (~4.6, ulp 4.8e-7)
+//     rounds the same way at every step: log S + r dt did (+0.42 ulp a step
+//     at r dt = 5e-4, +2.0e-5 in S_T over 100 steps), and the plain
+//     version's log S + (r - sigma^2/2) dt does where sigma is constant
+//     (-6.9e-6 at sigma = 0.2); x and a random increment round both ways.
+// No branch reads a rounding (the clip and the floor on sigma are
+// continuous), so the whole step trades the last ulps: S_T within rtol 1e-4
+// of the plain version (chip_smoke.py).
+//
+// QE-M: the design of csrc/heston_paths.cu's QE-M kernel (hopper_fast.cuh's
+// qe_step): the variance chain (m, s2, psi, the psi <= 1.5 branch, q,
+// u <= q, v_new, 2/psi, b^2, a, the branches' sqrtf and logf) and the
+// accurate Box-Muller, which feeds v_new through z_v, are the first
+// design's operation for operation, every add, multiply and divide an _rn
+// intrinsic, so no path changes branch; the log-S chain feeds no branch and
+// goes to FMAs, __fdividef, lg2.approx and sqrt.approx; the Philox keys come
+// once per launch, one call a pair-step. S_T within rtol 1e-4 (QE_S_RTOL):
+// a path whose branch flipped would leave that far behind.
+//
+// Built without --use_fast_math: the fast forms are named here and in
+// hopper_fast.cuh, nowhere else.
+#include <cstdint>
+#include <cstring>
+
+#include "hopper_fast.cuh"
+#include "kernel_attrs.cuh"
+
+namespace omt {
+namespace terminal {
+
+using namespace fast;
+
+constexpr int kTile = 16384;
+// Threads per block, and the minimum resident blocks per SM of QE-M's
+// __launch_bounds__ (1: ptxas's own register count; local vol names none).
+// Chosen from the registers and occupancy the card reports (both kernels
+// 40 registers, no spill, 6 blocks of 256 per SM) and from timing other
+// values on an H100 (scripts/sweep_terminal_bounds.py): blocks of 128 or
+// 512 threads and 4 or 8 minimum blocks (32 registers, 100% occupancy, a
+// 16-byte spill in QE-M) moved neither kernel beyond its spread from run to
+// run.
+constexpr int kBlock = 256;
+constexpr int kQeMinBlocks = 1;
+// Degrees with a compile-time instance; wider tables take the run-time one.
+constexpr int kMaxStaticDegree = 12;
+constexpr int kRuntimeDegree = -1;
+
+// Local-vol constants, folded on the host from LvConsts (log_s0, r, dt,
+// sqrt_dt, log_k, m_center, inv_m_half; ops/cuda_localvol._consts).
+struct LvK {
+  float log_s0, u0, neg_inv_m_half, rdt, mhdt, sqrt_dt;
+};
+
+inline LvK lv_fold(const float* c) {
+  return LvK{c[0], ((c[4] - c[0]) - c[5]) * c[6], -c[6], c[1] * c[2], -0.5f * c[2], c[3]};
+}
+
+// Row groups of 4 floats in a padded table row of degree d.
+__host__ __device__ constexpr int row_groups(int degree) { return degree / 4 + 1; }
+
+// One Clenshaw step b_k = c_k + 2u b_{k+1} - b_{k+2}; (b1, b2) <- (b_k, b1).
+__device__ __forceinline__ void clenshaw(float& b1, float& b2, float two_u, float c) {
+  const float b0 = fmaf(two_u, b1, c - b2);
+  b2 = b1;
+  b1 = b0;
+}
+
+// One step of the kP (1 or 2) mirror paths' x = log S - log S0, the row
+// read once for both; sz = sqrt(dt) z of the first path, -sz for its mirror.
+template <int D, int kP>
+__device__ __forceinline__ void lv_step(float (&ls)[2], float sz, const float4* __restrict__ row,
+                                        int groups, const LvK& k) {
+  float u[kP], two_u[kP], b1[kP], b2[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    u[p] = fminf(fmaxf(fmaf(k.neg_inv_m_half, ls[p], k.u0), -1.0f), 1.0f);
+    two_u[p] = u[p] + u[p];
+    b1[p] = 0.0f;
+    b2[p] = 0.0f;
+  }
+  float c0 = 0.0f;
+  if constexpr (D != kRuntimeDegree) {
+    constexpr int kG = row_groups(D);
+    float c[4 * kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      const float4 q = __ldg(row + g);
+      c[4 * g] = q.x;
+      c[4 * g + 1] = q.y;
+      c[4 * g + 2] = q.z;
+      c[4 * g + 3] = q.w;
+    }
+#pragma unroll
+    for (int i = D; i >= 1; --i) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) clenshaw(b1[p], b2[p], two_u[p], c[i]);
+    }
+    c0 = c[0];
+  } else {
+    // the zero columns above the degree keep b1 = b2 = 0 exactly
+    for (int g = groups - 1; g >= 0; --g) {
+      const float4 q = __ldg(row + g);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        clenshaw(b1[p], b2[p], two_u[p], q.w);
+        clenshaw(b1[p], b2[p], two_u[p], q.z);
+        clenshaw(b1[p], b2[p], two_u[p], q.y);
+        if (g > 0) clenshaw(b1[p], b2[p], two_u[p], q.x);
+      }
+      c0 = q.x;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const float sig = fmaxf(fmaf(u[p], b1[p], c0 - b2[p]), 1e-6f);
+    ls[p] += fmaf(sig, fmaf(sig, k.mhdt, p ? -sz : sz), k.rdt);
+  }
+}
+
+// A thread's slot: its column of S_T (its mirror's is col + kTile / 2 when
+// antithetic), slot j and global tile of the stream; false past the grid.
+struct Slot {
+  uint32_t j, global_tile;
+  size_t col;
+};
+
+template <bool kAnti>
+__device__ __forceinline__ bool locate(Slot& s, int first_tile, int n_tiles) {
+  constexpr int kWidth = kAnti ? kTile / 2 : kTile;
+  const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (slot >= static_cast<long long>(n_tiles) * kWidth) return false;
+  const int local_tile = static_cast<int>(slot / kWidth);
+  s.j = static_cast<uint32_t>(slot % kWidth);
+  s.global_tile = static_cast<uint32_t>(first_tile + local_tile);
+  s.col = static_cast<size_t>(local_tile) * kTile + s.j;
+  return true;
+}
+
+template <int D, bool kAnti>
+__global__ void __launch_bounds__(kBlock)
+localvol_terminal_kernel(float* __restrict__ out, const float4* __restrict__ table,
+                         const __grid_constant__ LvK k, const __grid_constant__ PhiloxKeys keys,
+                         int first_tile, int n_tiles, int n_steps, int n_groups) {
+  constexpr int kP = kAnti ? 2 : 1;
+  Slot at;
+  if (!locate<kAnti>(at, first_tile, n_tiles)) return;
+  const int groups = D != kRuntimeDegree ? row_groups(D) : n_groups;
+
+  float ls[2] = {0.0f, 0.0f};
+  const float4* row = table;
+  auto step = [&](float z) {
+    lv_step<D, kP>(ls, k.sqrt_dt * z, row, groups, k);
+    row += groups;
+  };
+  const int n_draws = n_steps >> 2;
+#pragma unroll 1
+  for (int d = 0; d < n_draws; ++d) {
+    const Words w =
+        philox_keyed(Words{at.j, static_cast<uint32_t>(d), at.global_tile, 0u}, keys);
+    float z0, z1, z2, z3;
+    box_muller_fast(w.x, w.y, z0, z1);
+    box_muller_fast(w.z, w.w, z2, z3);
+    step(z0);
+    step(z1);
+    step(z2);
+    step(z3);
+  }
+  if (const int rem = n_steps & 3) {
+    const Words w =
+        philox_keyed(Words{at.j, static_cast<uint32_t>(n_draws), at.global_tile, 0u}, keys);
+    float z0, z1;
+    box_muller_fast(w.x, w.y, z0, z1);
+    step(z0);
+    if (rem > 1) step(z1);
+    if (rem > 2) {
+      box_muller_fast(w.z, w.w, z0, z1);
+      step(z0);
+    }
+  }
+  out[at.col] = expf(k.log_s0 + ls[0]);
+  if (kAnti) out[at.col + kTile / 2] = expf(k.log_s0 + ls[1]);
+}
+
+template <bool kAnti>
+__global__ void __launch_bounds__(kBlock, kQeMinBlocks)
+qe_terminal_kernel(float* __restrict__ out, const __grid_constant__ QeK p,
+                   const __grid_constant__ PhiloxKeys keys, int first_tile, int n_tiles,
+                   int n_steps) {
+  Slot at;
+  if (!locate<kAnti>(at, first_tile, n_tiles)) return;
+  float ls_a = 0.0f, v_a = p.v0, ls_b = 0.0f, v_b = p.v0;
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    const Words w =
+        philox_keyed(Words{at.j, static_cast<uint32_t>(t), at.global_tile, 0u}, keys);
+    float z_v, z_s;
+    box_muller(w.x, w.y, z_v, z_s);
+    const float u = uniform_from_bits(w.z);
+    qe_step(ls_a, v_a, z_v, z_s, u, p);
+    if (kAnti) qe_step(ls_b, v_b, -z_v, -z_s, fsub(1.0f, u), p);
+  }
+  out[at.col] = ex2_approx(fmaf(ls_a, kLog2e, p.log2_s0));
+  if (kAnti) out[at.col + kTile / 2] = ex2_approx(fmaf(ls_b, kLog2e, p.log2_s0));
+}
+
+inline unsigned int grid_of(int n_tiles, bool antithetic) {
+  const long long n_slots = static_cast<long long>(n_tiles) * (antithetic ? kTile / 2 : kTile);
+  return static_cast<unsigned int>((n_slots + kBlock - 1) / kBlock);
+}
+
+// The instance of ``degree``: D when degree == D <= kMaxStaticDegree, else
+// the run-time one.
+template <int D>
+int launch_localvol(int degree, float* out, const float4* table, const LvK& k,
+                    const PhiloxKeys& keys, int first_tile, int n_tiles, int n_steps,
+                    bool antithetic, cudaStream_t stream) {
+  if constexpr (D <= kMaxStaticDegree) {
+    if (degree != D) {
+      return launch_localvol<D + 1>(degree, out, table, k, keys, first_tile, n_tiles, n_steps,
+                                    antithetic, stream);
+    }
+  }
+  constexpr int kD = D <= kMaxStaticDegree ? D : kRuntimeDegree;
+  const unsigned int grid = grid_of(n_tiles, antithetic);
+  const int groups = row_groups(degree);
+  if (antithetic) {
+    localvol_terminal_kernel<kD, true><<<grid, kBlock, 0, stream>>>(
+        out, table, k, keys, first_tile, n_tiles, n_steps, groups);
+  } else {
+    localvol_terminal_kernel<kD, false><<<grid, kBlock, 0, stream>>>(
+        out, table, k, keys, first_tile, n_tiles, n_steps, groups);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace terminal
+}  // namespace omt
+
+extern "C" {
+
+// out: device (n_tiles*16384,) float32 terminal prices. table: device
+// (>= n_steps, 4 (degree/4 + 1)) float32, row-major, 16-byte aligned, the
+// columns past ``degree`` zero (ops/cuda_localvol.padded_coeffs). consts:
+// host pointer to the 7 floats of LvConsts.
+int omt_terminal_localvol(void* out, const void* table, const void* consts, uint64_t seed,
+                          int first_tile, int n_tiles, int n_steps, int degree, int antithetic,
+                          void* stream) {
+  using namespace omt::terminal;
+  if (degree < 0 || n_tiles < 1 || n_steps < 1 ||
+      reinterpret_cast<uintptr_t>(table) % sizeof(float4) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_localvol<0>(degree, static_cast<float*>(out),
+                            static_cast<const float4*>(table),
+                            lv_fold(static_cast<const float*>(consts)), philox_keys(seed),
+                            first_tile, n_tiles, n_steps, antithetic != 0,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// out: device (n_tiles*16384,) float32 terminal prices. consts: host
+// pointer to the 13 floats of QeConsts.
+int omt_terminal_qe(void* out, const void* consts, uint64_t seed, int first_tile, int n_tiles,
+                    int n_steps, int antithetic, void* stream) {
+  using namespace omt::terminal;
+  if (n_tiles < 1 || n_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  float c[13];
+  std::memcpy(c, consts, sizeof(c));
+  const QeK p = qe_fold(c);
+  const PhiloxKeys keys = philox_keys(seed);
+  const unsigned int grid = grid_of(n_tiles, antithetic != 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (antithetic) {
+    qe_terminal_kernel<true><<<grid, kBlock, 0, st>>>(o, p, keys, first_tile, n_tiles, n_steps);
+  } else {
+    qe_terminal_kernel<false><<<grid, kBlock, 0, st>>>(o, p, keys, first_tile, n_tiles, n_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[4]: registers, spill bytes, blocks per SM, block threads of the
+// antithetic instance of ``which``: 0 local vol at degree 7, 1 local vol at
+// a run-time degree, 2 QE-M.
+int omt_terminal_attrs(int which, int* out) {
+  using namespace omt::terminal;
+  switch (which) {
+    case 0: return omt::kernel_attrs(localvol_terminal_kernel<7, true>, kBlock, out);
+    case 1: return omt::kernel_attrs(localvol_terminal_kernel<kRuntimeDegree, true>, kBlock, out);
+    case 2: return omt::kernel_attrs(qe_terminal_kernel<true>, kBlock, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

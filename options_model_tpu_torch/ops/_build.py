@@ -45,6 +45,8 @@ _SIGNATURES = {
     "omt_heston_terminal_qe": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_localvol_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_localvol_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_terminal_localvol": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_terminal_qe": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_paths": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _P],
@@ -55,6 +57,7 @@ _ATTRS = {
     "omt_heston_paths_attrs": [_P],
     "omt_heston_paths_qe_attrs": [_P],
     "omt_heston_paths_batched_attrs": [_I, _P],
+    "omt_terminal_attrs": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

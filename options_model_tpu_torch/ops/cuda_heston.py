@@ -1,10 +1,13 @@
 """Heston path kernels and their plain PyTorch versions:
 - csrc/heston_paths.cu: the paths kernels (full-truncation Euler and QE-M)
   over a batch of maturities, the route of every pricer;
-- csrc/heston.cu, csrc/heston_qe.cu: the terminal kernels, and the first
-  design of the two paths kernels (accurate math, one maturity per launch),
-  kept for comparison under ``heston_paths_accurate`` and
-  ``heston_paths_qe_accurate``.
+- csrc/terminal.cu: the QE-M terminal kernel redesigned for Hopper, the
+  route of every pricer;
+- csrc/heston.cu, csrc/heston_qe.cu: the Euler terminal kernel, and the
+  first design of the two paths kernels and of the QE-M terminal kernel
+  (accurate math, one maturity per launch), kept for comparison under
+  ``heston_paths_accurate``, ``heston_paths_qe_accurate`` and
+  ``heston_terminal_qe_accurate``.
 
 Counterparts of heston_terminal_pallas, heston_paths_pallas,
 heston_terminal_qe_pallas and heston_paths_qe_pallas
@@ -36,7 +39,8 @@ SCHEMES = ("euler", "qe")
 # Kernel launches since the last reset, one integer per kernel entry.
 launches = {"heston_terminal": 0, "heston_paths": 0,
             "heston_terminal_qe": 0, "heston_paths_qe": 0,
-            "heston_paths_accurate": 0, "heston_paths_qe_accurate": 0}
+            "heston_paths_accurate": 0, "heston_paths_qe_accurate": 0,
+            "heston_terminal_qe_accurate": 0}
 
 
 def _tiles(n_paths: int, tile: int, seed: int, first_tile: int, n_steps: int) -> int:
@@ -164,11 +168,8 @@ def _qe_consts(S0, r, T, params, n_steps):
     return _build.float_args(_const_row("qe", S0, r, T, params, n_steps))
 
 
-def heston_terminal_qe(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
-                       antithetic: bool = True, first_tile: int = 0,
-                       device=None) -> torch.Tensor:
-    """QE-M terminal prices S_T (n_pad,) from csrc/heston_qe.cu, or from
-    the plain version for a CPU device."""
+def _terminal_qe(name, key, seed, S0, r, T, params, n_paths, n_steps, antithetic,
+                 first_tile, device) -> torch.Tensor:
     device = resolve_device(device)
     if device.type == "cpu":
         return heston_terminal_qe_reference(seed, S0, r, T, params, n_paths, n_steps,
@@ -176,11 +177,30 @@ def heston_terminal_qe(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
     _build.require_cuda(device)
     n_tiles = _tiles(n_paths, TERMINAL_TILE, seed, first_tile, n_steps)
     out = torch.empty(n_tiles * TERMINAL_TILE, dtype=torch.float32, device=device)
-    _build.launch("omt_heston_terminal_qe", device, out.data_ptr(),
-                  _qe_consts(S0, r, T, params, n_steps), seed, first_tile, n_tiles,
-                  n_steps, int(antithetic))
-    launches["heston_terminal_qe"] += 1
+    _build.launch(name, device, out.data_ptr(), _qe_consts(S0, r, T, params, n_steps), seed,
+                  first_tile, n_tiles, n_steps, int(antithetic))
+    launches[key] += 1
     return out
+
+
+def heston_terminal_qe(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                       antithetic: bool = True, first_tile: int = 0,
+                       device=None) -> torch.Tensor:
+    """QE-M terminal prices S_T (n_pad,) from csrc/terminal.cu, or from the
+    plain version for a CPU device."""
+    return _terminal_qe("omt_terminal_qe", "heston_terminal_qe", seed, S0, r, T, params,
+                        n_paths, n_steps, antithetic, first_tile, device)
+
+
+def heston_terminal_qe_accurate(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                                antithetic: bool = True, first_tile: int = 0,
+                                device=None) -> torch.Tensor:
+    """QE-M terminal prices S_T (n_pad,) from the first design of the QE-M
+    terminal kernel (csrc/heston_qe.cu: every operation an _rn intrinsic,
+    the key schedule at every Philox call), or from the plain version for a
+    CPU device. No pricer reaches it: it is the redesign's yardstick."""
+    return _terminal_qe("omt_heston_terminal_qe", "heston_terminal_qe_accurate", seed, S0, r,
+                        T, params, n_paths, n_steps, antithetic, first_tile, device)
 
 
 def heston_paths_qe_accurate(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
@@ -314,3 +334,12 @@ def paths_kernel_attrs() -> dict:
             "heston_paths_qe": _build.kernel_attrs("omt_heston_paths_batched_attrs", 1),
             "heston_paths_accurate": _build.kernel_attrs("omt_heston_paths_attrs"),
             "heston_paths_qe_accurate": _build.kernel_attrs("omt_heston_paths_qe_attrs")}
+
+
+def terminal_kernel_attrs() -> dict:
+    """Registers, spills and occupancy of the redesigned terminal kernels of
+    csrc/terminal.cu as built (the antithetic instance), by name: local vol
+    at degree 7 and at a run-time degree, and QE-M."""
+    return {name: _build.kernel_attrs("omt_terminal_attrs", i) for i, name in
+            enumerate(("localvol_terminal", "localvol_terminal (run-time degree)",
+                       "heston_terminal_qe"))}

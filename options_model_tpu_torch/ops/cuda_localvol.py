@@ -1,4 +1,9 @@
-"""Local-vol path kernels: csrc/localvol.cu and their plain PyTorch versions.
+"""Local-vol path kernels and their plain PyTorch versions:
+- csrc/terminal.cu: the terminal kernel redesigned for Hopper (static
+  degree, one padded row load per step for both mirrors), the route of
+  every pricer;
+- csrc/localvol.cu: the paths kernel, and the first design of the terminal
+  kernel, kept for comparison under ``localvol_terminal_accurate``.
 
 Counterparts of localvol_terminal_pallas and localvol_paths_pallas
 (options_model_tpu/ops/pallas_localvol.py:62, :149), flat layout only. The
@@ -19,7 +24,8 @@ from options_model_tpu_torch.ops.philox import path_normals
 from options_model_tpu_torch.surface.cheb import LocalVolTable
 
 # Kernel launches since the last reset, one integer per kernel.
-launches = {"localvol_terminal": 0, "localvol_paths": 0}
+launches = {"localvol_terminal": 0, "localvol_paths": 0,
+            "localvol_terminal_accurate": 0}
 
 
 def localvol_terminal_reference(seed: int, S0, r, T, table: LocalVolTable,
@@ -43,23 +49,44 @@ def localvol_paths_reference(seed: int, S0, r, T, table: LocalVolTable,
     return localvol_euler_from_normals(z, S0, r, T, table)
 
 
-def _launch(name, out, S0, r, T, table, seed, first_tile, n_tiles, n_steps,
-            antithetic, device) -> None:
+def padded_coeffs(table: LocalVolTable, n_steps: int) -> torch.Tensor:
+    """Rows 0..n_steps-1 of the table as float32 (n_steps, 4 (degree // 4 +
+    1)), each row zero-padded to whole float4 groups: the layout of
+    csrc/terminal.cu, which reads a row as float4 loads. The zero columns
+    leave Clenshaw's result bit for bit as it was."""
+    check_table(table, n_steps)
+    rows = table.coeffs[:n_steps].to(torch.float32)
+    width = 4 * (table.degree // 4 + 1)
+    return torch.nn.functional.pad(rows, (0, width - rows.shape[1])).contiguous()
+
+
+def _rows_on(rows: torch.Tensor, device) -> torch.Tensor:
+    """``rows`` on ``device``; a host tensor goes through pinned memory, so
+    the copy does not wait for the work already queued on the stream (a
+    pageable copy would, holding the host until the last kernel ends)."""
+    if rows.device.type != "cpu":
+        return rows.to(device)
+    return rows.pin_memory().to(device, non_blocking=True)
+
+
+def _launch(name, out, coeffs, S0, r, T, table, seed, first_tile, n_tiles, n_steps,
+            antithetic, device, width) -> None:
+    """Launch C entry ``name`` over ``coeffs`` (kept alive by the caller
+    until the stream has run the kernel: the caching allocator orders reuse
+    by stream); ``width`` is its last argument before antithetic (the
+    coefficient count, or the degree)."""
     c = localvol_constants(S0, r, T, table, n_steps)
     consts = _build.float_args([c[k] for k in ("log_s0", "r", "dt", "sqrt_dt", "log_k",
                                                "m_center", "inv_m_half")])
-    # rows past n_steps are never read; the copy stays alive until the
-    # stream has run the kernel (the caching allocator orders reuse by stream)
-    coeffs = table.coeffs[:n_steps].to(device=device, dtype=torch.float32).contiguous()
     _build.launch(name, device, out.data_ptr(), coeffs.data_ptr(), consts, seed,
-                  first_tile, n_tiles, n_steps, coeffs.shape[1], int(antithetic))
+                  first_tile, n_tiles, n_steps, width, int(antithetic))
 
 
-def localvol_terminal(seed: int, S0, r, T, table: LocalVolTable, n_paths: int,
-                      n_steps: int, antithetic: bool = True, first_tile: int = 0,
-                      device=None) -> torch.Tensor:
-    """Terminal prices S_T (n_pad,) from csrc/localvol.cu, or from the plain
-    version for a CPU device."""
+def _terminal(accurate: bool, seed, S0, r, T, table, n_paths, n_steps, antithetic,
+              first_tile, device):
+    """S_T (n_pad,) from the redesign (csrc/terminal.cu: padded rows, the
+    degree) or the first design (csrc/localvol.cu: the rows as they are, the
+    coefficient count), or from the plain version for a CPU device."""
     device = resolve_device(device)
     if device.type == "cpu":
         return localvol_terminal_reference(seed, S0, r, T, table, n_paths, n_steps,
@@ -68,10 +95,36 @@ def localvol_terminal(seed: int, S0, r, T, table: LocalVolTable, n_paths: int,
     check_table(table, n_steps)
     n_tiles = _tiles(n_paths, TERMINAL_TILE, seed, first_tile, n_steps)
     out = torch.empty(n_tiles * TERMINAL_TILE, dtype=torch.float32, device=device)
-    _launch("omt_localvol_terminal", out, S0, r, T, table, seed, first_tile, n_tiles,
-            n_steps, antithetic, device)
-    launches["localvol_terminal"] += 1
+    if accurate:
+        coeffs = _rows_on(table.coeffs[:n_steps].to(torch.float32).contiguous(), device)
+        name, width, key = "omt_localvol_terminal", coeffs.shape[1], "localvol_terminal_accurate"
+    else:
+        coeffs = _rows_on(padded_coeffs(table, n_steps), device)
+        name, width, key = "omt_terminal_localvol", table.degree, "localvol_terminal"
+    _launch(name, out, coeffs, S0, r, T, table, seed, first_tile, n_tiles, n_steps,
+            antithetic, device, width)
+    launches[key] += 1
     return out
+
+
+def localvol_terminal(seed: int, S0, r, T, table: LocalVolTable, n_paths: int,
+                      n_steps: int, antithetic: bool = True, first_tile: int = 0,
+                      device=None) -> torch.Tensor:
+    """Terminal prices S_T (n_pad,) from csrc/terminal.cu, or from the plain
+    version for a CPU device."""
+    return _terminal(False, seed, S0, r, T, table, n_paths, n_steps, antithetic, first_tile,
+                     device)
+
+
+def localvol_terminal_accurate(seed: int, S0, r, T, table: LocalVolTable, n_paths: int,
+                               n_steps: int, antithetic: bool = True, first_tile: int = 0,
+                               device=None) -> torch.Tensor:
+    """Terminal prices S_T (n_pad,) from the first design of the terminal
+    kernel (csrc/localvol.cu: run-time Clenshaw, accurate Box-Muller), or
+    from the plain version for a CPU device. No pricer reaches it: it is the
+    redesign's yardstick."""
+    return _terminal(True, seed, S0, r, T, table, n_paths, n_steps, antithetic, first_tile,
+                     device)
 
 
 def localvol_paths(seed: int, S0, r, T, table: LocalVolTable, n_paths: int,
@@ -88,7 +141,8 @@ def localvol_paths(seed: int, S0, r, T, table: LocalVolTable, n_paths: int,
     n_tiles = _tiles(n_paths, PATH_TILE, seed, first_tile, n_steps)
     S = torch.empty((n_steps + 1, n_tiles * PATH_TILE), dtype=torch.float32,
                     device=device)
-    _launch("omt_localvol_paths", S, S0, r, T, table, seed, first_tile, n_tiles,
-            n_steps, antithetic, device)
+    coeffs = _rows_on(table.coeffs[:n_steps].to(torch.float32).contiguous(), device)
+    _launch("omt_localvol_paths", S, coeffs, S0, r, T, table, seed, first_tile, n_tiles,
+            n_steps, antithetic, device, coeffs.shape[1])
     launches["localvol_paths"] += 1
     return S

@@ -1,0 +1,191 @@
+"""The redesigned terminal kernels' host side (csrc/terminal.cu: local vol,
+kernel 7, and Heston QE-M, kernel 5) held against the JAX package and the
+port's plain versions on the CPU.
+
+- The padded table the local-vol kernel reads: every row zero-padded to
+  whole float4 groups, rows bit-equal, and Clenshaw over it (the plain
+  versions eval_table and localvol_euler_from_normals) bit-equal to the
+  unpadded table, since zero coefficients keep b1 = b2 = 0 exactly.
+- Every degree the kernel has an instance for (a compile-time one up to
+  its maximum, 12, and the run-time one past it): the plain version on zero
+  normals against localvol_terminal_pallas in interpret mode, rtol 1e-6.
+- On a CPU tensor the redesigned wrappers and the first designs'
+  (``*_accurate``) are their plain versions and launch nothing; without
+  CUDA each raises for device="cuda" and for no device.
+- The local-vol kernel's log-S update in a float32 emulation: no bias in
+  S_T, where adding r dt on its own to the absolute log S has one.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from options_model_tpu.ops.pallas_localvol import localvol_terminal_pallas
+from options_model_tpu.surface import cheb as jcheb
+from options_model_tpu_torch.core.config import HestonParams
+from options_model_tpu_torch.models.localvol import localvol_euler_from_normals
+from options_model_tpu_torch.ops import cuda_heston, cuda_localvol
+from options_model_tpu_torch.surface.cheb import (LocalVolTable, compile_localvol_table,
+                                                  eval_table)
+
+S0, R, T = 100.0, 0.05, 0.5
+N_STEPS = 16
+DEGREES = (1, 3, 7, 12, 17)
+HESTON = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+
+
+def _smile_jax(S, tau):
+    m = jnp.log(jnp.asarray(S) / 100.0)
+    iv = 0.2 + 0.1 * jnp.abs(m) + 0.05 * m**2 + 0.02 * jnp.sqrt(tau)
+    return jnp.clip(iv, 0.05, 1.0)
+
+
+def _smile_torch(S, tau):
+    m = torch.log(S / 100.0)
+    iv = 0.2 + 0.1 * torch.abs(m) + 0.05 * m * m + 0.02 * torch.sqrt(tau)
+    return torch.clamp(iv, 0.05, 1.0)
+
+
+def _table(degree: int) -> LocalVolTable:
+    return compile_localvol_table(_smile_torch, 100.0, T, N_STEPS, S0, degree=degree)
+
+
+def _padded(table: LocalVolTable) -> LocalVolTable:
+    return LocalVolTable(coeffs=cuda_localvol.padded_coeffs(table, N_STEPS),
+                         m_center=table.m_center, m_half=table.m_half, K=table.K)
+
+
+@pytest.mark.parametrize("degree", (0,) + DEGREES)
+def test_padded_table_has_zero_columns_and_equal_rows(degree):
+    table = _table(degree)
+    P = cuda_localvol.padded_coeffs(table, N_STEPS)
+    width = 4 * (degree // 4 + 1)
+    assert P.shape == (N_STEPS, width) and P.dtype == torch.float32 and P.is_contiguous()
+    assert width % 4 == 0 and degree + 1 <= width < degree + 5
+    assert torch.equal(P[:, :degree + 1], table.coeffs)
+    assert not bool(P[:, degree + 1:].any())
+
+
+def test_padded_table_keeps_only_the_steps_asked_for():
+    table = _table(7)
+    assert torch.equal(cuda_localvol.padded_coeffs(table, 5), cuda_localvol.padded_coeffs(
+        table, N_STEPS)[:5])
+    with pytest.raises(ValueError, match="step slices"):
+        cuda_localvol.padded_coeffs(table, N_STEPS + 1)
+
+
+@pytest.mark.parametrize("degree", DEGREES)
+def test_clenshaw_over_the_padded_table_is_bit_equal(degree):
+    table = _table(degree)
+    padded = _padded(table)
+    assert padded.degree > degree or degree % 4 == 3
+    rng = np.random.default_rng(degree)
+    S = torch.from_numpy(rng.uniform(40.0, 250.0, 4096).astype(np.float32))
+    for t in (0, N_STEPS // 2, N_STEPS - 1):
+        assert torch.equal(eval_table(padded, S, t), eval_table(table, S, t))
+    z = torch.from_numpy(rng.standard_normal((N_STEPS, 4096)).astype(np.float32))
+    assert torch.equal(localvol_euler_from_normals(z, S0, R, T, padded),
+                       localvol_euler_from_normals(z, S0, R, T, table))
+
+
+@pytest.mark.parametrize("degree", DEGREES)
+def test_localvol_terminal_zero_normals_match_interpret_kernel_at_degree(degree):
+    jt = jcheb.compile_localvol_table(_smile_jax, 100.0, T, N_STEPS, S0, degree=degree)
+    t = LocalVolTable.from_reference(vars(jt))
+    assert t.degree == degree
+    ST_j = localvol_terminal_pallas(1, S0, R, T, jt, 16384, N_STEPS, interpret=True)
+    ST = localvol_euler_from_normals(torch.zeros((N_STEPS, 16384)), S0, R, T, t,
+                                     return_paths=False)
+    np.testing.assert_allclose(ST.numpy(), np.asarray(ST_j), rtol=1e-6)
+
+
+def _localvol(fn, **kw):
+    return fn(21, S0, R, T, _table(7), 5000, N_STEPS, True, 1, **kw)
+
+
+def _qe(fn, **kw):
+    return fn(21, S0, R, T, HESTON, 5000, N_STEPS, True, 1, **kw)
+
+
+WRAPPERS = {
+    "localvol_terminal": lambda **kw: _localvol(cuda_localvol.localvol_terminal, **kw),
+    "localvol_terminal_accurate":
+        lambda **kw: _localvol(cuda_localvol.localvol_terminal_accurate, **kw),
+    "heston_terminal_qe": lambda **kw: _qe(cuda_heston.heston_terminal_qe, **kw),
+    "heston_terminal_qe_accurate":
+        lambda **kw: _qe(cuda_heston.heston_terminal_qe_accurate, **kw),
+}
+PLAIN = {
+    "localvol_terminal": lambda: _localvol(cuda_localvol.localvol_terminal_reference,
+                                           device="cpu"),
+    "heston_terminal_qe": lambda: _qe(cuda_heston.heston_terminal_qe_reference,
+                                      device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_cpu_wrappers_are_the_plain_versions_and_launch_nothing(name):
+    before = dict(cuda_localvol.launches, **cuda_heston.launches)
+    got = WRAPPERS[name](device="cpu")
+    assert got.shape == (16384,) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, PLAIN[name.removesuffix("_accurate")]())
+    assert dict(cuda_localvol.launches, **cuda_heston.launches) == before
+
+
+@pytest.mark.parametrize("device", ["cuda", None], ids=["cuda", "no_device"])
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_terminal_wrappers_raise_without_cuda(name, device):
+    """A CUDA device, or none (the card by default), goes to the kernel or
+    raises; neither falls back to the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py covers the kernels")
+    before = dict(cuda_localvol.launches, **cuda_heston.launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WRAPPERS[name](device=device)
+    assert dict(cuda_localvol.launches, **cuda_heston.launches) == before
+
+
+def _log_s_bias(form: str) -> float:
+    """Mean relative error of S_T against float64 after 100 log-Euler steps
+    at sigma 0.2, r 0.05, T 1 in a float32 emulation (an FMA rounds once:
+    its float64 value of two float32 factors is exact before the sum) of
+    the local-vol update in one of three forms: "kernel" carries log S -
+    log S0 and adds each step's whole increment; "absolute" adds r dt to
+    the absolute log S first; "plain" is the plain version's log S + (r -
+    sigma^2/2) dt + sigma sqrt(dt) z on the absolute log S."""
+    f = np.float32
+    z = np.random.default_rng(5).standard_normal((100, 1 << 14)).astype(f)
+    sig, dt = f(0.2), f(1.0) / f(100)
+    rdt, mhdt, sdt = f(0.05) * dt, f(-0.5) * dt, np.sqrt(dt)
+    log_s0 = np.log(f(100.0))
+
+    def fma(a, b, c):
+        return (np.float64(a) * np.float64(b) + np.float64(c)).astype(f)
+
+    x = np.full(z.shape[1], 0.0 if form == "kernel" else log_s0, f)
+    exact = np.zeros(z.shape[1])
+    for zt in z:
+        inc = fma(sig, mhdt, sdt * zt)
+        if form == "kernel":
+            x = x + fma(sig, inc, rdt)
+        elif form == "absolute":
+            x = fma(sig, inc, x + rdt)
+        else:
+            x = (x + (f(0.05) - f(0.5) * sig * sig) * dt) + sig * sdt * zt
+        exact += (np.float64(rdt) + np.float64(mhdt) * np.float64(sig) ** 2
+                  + np.float64(sig) * np.float64(sdt) * zt.astype(np.float64))
+    got = (log_s0 + x).astype(f) if form == "kernel" else x
+    return float(np.mean(np.expm1(got.astype(np.float64) - (np.float64(log_s0) + exact))))
+
+
+def test_log_s_update_rounds_without_bias():
+    """Why csrc/terminal.cu carries log S - log S0: a constant added on its
+    own to the absolute log S (~4.6, ulp 4.8e-7) rounds the same way at
+    every step. r dt = 5e-4 rounds up by 0.42 ulp (+2e-5 in S_T over 100
+    steps); the plain version's (r - sigma^2/2) dt, constant at constant
+    sigma, rounds down (-7e-6), which is what the kernel is held against at
+    rtol 1e-4; the kernel's form stays at ~1e-8."""
+    assert abs(_log_s_bias("kernel")) < 1e-7
+    assert _log_s_bias("absolute") > 1.5e-5
+    assert -1e-5 < _log_s_bias("plain") < -5e-6
