@@ -8,17 +8,18 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit; count the time loops of kernels
-   4, 5, 6 and 7 (both designs) in SASS, with their registers and stack,
-   and there the integer instructions of a Philox call;
+   1 and 3-7 (both designs) in SASS, with their registers and stack, and
+   there the integer instructions of a Philox call;
 2. each of the eight path kernels against its plain PyTorch version on the
    card, at 2 and 64 tiles and at its path's shape: equal Philox bits, S
    (and v) within the stated tolerances, and bit-equal chunks at a
    ``first_tile`` offset; the same for the first design of kernels 4 and 6
    (csrc/heston.cu, csrc/heston_qe.cu), which no pricer reaches any more;
-   the redesigned terminal kernels 5 and 7 (csrc/terminal.cu) within rtol
-   1e-4 on S, kernel 7 at degrees 3, 7 and 17 (a compile-time and the
-   run-time instance), and their first designs (csrc/heston_qe.cu,
-   csrc/localvol.cu) within rtol 1e-5;
+   the redesigned terminal kernels 1, 3, 5 and 7 (csrc/terminal.cu) within
+   rtol 1e-4 on S, kernel 7 at degrees 3, 7 and 17 (a compile-time and the
+   run-time instance), kernels 1 and 3 also at step counts that end in each
+   tail of their draw loop, and their first designs (csrc/gbm.cu,
+   csrc/heston.cu, csrc/heston_qe.cu, csrc/localvol.cu) within rtol 1e-5;
    the maturity-batched paths kernel (csrc/heston_paths.cu) at the 64 x
    16,384 x 50 surface shape: each maturity's slice bit-equal to a
    single-maturity launch, bit-equal ``first_tile`` chunks, within its
@@ -48,15 +49,16 @@ Phases, in order; any failure exits non-zero:
       exp_paths_kernel.py and exp_fullpath_layout.py) at their scripts'
       shapes, each variant also held against its plain version there;
 4. the launch counts of each path, none of its kernels at 0, the first
-   design of kernels 4, 5, 6 and 7 at 0, and one paths launch per 64x64
+   design of kernels 1 and 3-7 at 0, and one paths launch per 64x64
    Heston surface;
 5. each kernel's time and its plain version's (CUDA events, median of 7
-   after warm-up) beside its bound; for kernels 4, 5, 6 and 7 also the
-   first design's time, in turns with the redesign, and registers and
+   after warm-up) beside its bound; for kernels 1 and 3-7 also the first
+   design's time, in turns with the redesign, and registers and
    occupancy; for kernels 4 and 6 the surface shape (one batched launch
    against 64 single launches of either design); kernel 7 at degree 17;
    the American puts, the surface's ADI cells and the European legs of
-   kernels 5 and 7 beside the first design's on the same seeds;
+   kernels 1, 3, 5 and 7 beside the first design's on the same seeds (the
+   European legs within EARLIER_EURO_GATE stderr of it);
    seconds per price and per surface, each European leg beside its
    kernel's time.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
@@ -97,13 +99,16 @@ GBM_CRR = 4.655534             # CRR(4096) of the GBM put, S0 = K = 100, T = 0.5
 NN_GBM_BIAS = 0.0015           # NN+CV put vs CRR: 4 stderr + 0.15% (50-date Bermudan, net error)
 NN_HESTON_BIAS = 0.01          # NN+CV Heston put vs ADI: 4 stderr + 1%
 JAX_NN_BAR = 0.000327          # BENCH_r05 american_put_nn_rel_err_vs_crr (an accuracy, not a speed)
-# sha256 of kernel 4's bytes before heston_common.cuh existed: heston_paths S
-# and V (64 tiles x 50 steps, T 0.5) then heston_terminal S_T (16 tiles x
-# 100 steps, T 1), seed 0x9E3779B97F4A7C15, recorded by kernel4_digest on an
-# H100 (nvcc 12.9) from the sources that still defined the step in heston.cu.
+# sha256 of kernel 4's bytes before heston_common.cuh existed: the first
+# design's paths S and V (64 tiles x 50 steps, T 0.5), then its terminal S_T
+# (16 tiles x 100 steps, T 1; now heston_paths_accurate and
+# heston_terminal_accurate), seed 0x9E3779B97F4A7C15, recorded by
+# kernel4_digest on an H100 (nvcc 12.9) from the sources that still defined
+# the step in heston.cu.
 KERNEL4_DIGEST = "99c2e49a1a0fc1af6cd697e95da4771a75a48862b5872a9fb6d488595c458096"
 # sha256 of the redesigned kernels 4 and 6 (csrc/heston_paths.cu) before
-# their Hopper pieces moved to hopper_fast.cuh: heston_paths_batched S and
+# their Hopper pieces (keyed Philox, the SFU helpers, the QE-M step and,
+# later, the Euler step) moved to hopper_fast.cuh: heston_paths_batched S and
 # V, Euler then QE-M, each with and without antithetics, maturities (0.5,
 # 1.0) x 16 tiles x 50 steps at first_tile 3, seed 0x9E3779B97F4A7C15,
 # recorded by paths_digest on an H100 (nvcc 12.9).
@@ -128,9 +133,20 @@ QE_S_RTOL = 1e-4
 # constant, goes the same way at every step (-6.9e-6 in S_T over 100 steps
 # at sigma = 0.2, against ~1e-8 for the kernel).
 LV_S_RTOL = 1e-4
+# The redesigned GBM terminal kernel (csrc/terminal.cu): the SFU
+# Box-Muller's ~3e-6 absolute error a normal, summed over 100 steps and
+# scaled by sigma sqrt(dt), and ex2.approx's ~2 ulps.
+GBM_S_RTOL = 1e-4
 # Degrees at which kernel 7 is held against its plain version: two with a
 # compile-time instance (7 the default), one past them (the run-time one).
 LV_DEGREES = (3, 7, 17)
+# A European leg of a redesigned terminal kernel against its first design on
+# the same seeds and tiles: the same Philox draws, so the prices differ only
+# through f32 rounding, and by at most this many stderr.
+EARLIER_EURO_GATE = 0.5
+# Rounds of (first, new, new, first) European prices per leg, timed on the
+# host clock, so both designs' seconds per price come from one stretch.
+EURO_TURNS = 5
 # The pooled 4-seed American puts of phase 3 with the first design of
 # kernels 4 and 6 (accurate math) on an H100, price and stderr.
 EARLIER_EULER_PUT = (4.588986, 0.001954)
@@ -237,10 +253,12 @@ def kernel_specs():
     timed (tile count, steps), f32 operations and Philox draws (DRAWS_*)
     per path-step (and the local-vol table it reads), the tolerances against
     its plain version (S rtol, v atol, v rtol), and run(plain, n_tiles,
-    first_tile, n_steps, variance, antithetic). Kernels 4, 5, 6 and 7 also
+    first_tile, n_steps, variance, antithetic). Kernels 1 and 3-7 also
     carry ``earlier``, the same for their first design; kernels 4 and 6
     their scheme; kernel 7 ``checks``, (label, run, table) per degree of
-    LV_DEGREES."""
+    LV_DEGREES; kernels 1 and 3 ``tails``, step counts that end in each tail
+    of their draw loop (an odd count for Euler's two steps a draw, each
+    n_steps % 4 for GBM's four)."""
     from options_model_tpu_torch.core.config import HestonParams
     from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_localvol
     from options_model_tpu_torch.surface.cheb import compile_localvol_table
@@ -261,20 +279,24 @@ def kernel_specs():
             return out if variance else (out,)
         return run
 
-    def heston_terminal(plain, n_tiles, first_tile, n_steps, variance, anti=True):
-        fn = cuda_heston.heston_terminal_reference if plain else cuda_heston.heston_terminal
-        return (fn(seed, 100.0, 0.05, 1.0, hp, n_tiles * cuda_heston.TERMINAL_TILE,
-                   n_steps, anti, first_tile, dev),)
+    def heston_terminal(kernel):
+        def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
+            fn = cuda_heston.heston_terminal_reference if plain else kernel
+            return (fn(seed, 100.0, 0.05, 1.0, hp, n_tiles * cuda_heston.TERMINAL_TILE,
+                       n_steps, anti, first_tile, dev),)
+        return run
 
     def gbm_paths(plain, n_tiles, first_tile, n_steps, variance, anti=True):
         fn = cuda_gbm.gbm_paths_reference if plain else cuda_gbm.gbm_paths
         return (fn(seed, 100.0, 0.05, 0.2, 0.5, n_tiles * cuda_heston.PATH_TILE, n_steps,
                    anti, first_tile, dev),)
 
-    def gbm_terminal(plain, n_tiles, first_tile, n_steps, variance, anti=True):
-        fn = cuda_gbm.gbm_terminal_reference if plain else cuda_gbm.gbm_terminal
-        return (fn(seed, 100.0, 0.05, 0.2, 1.0, n_tiles * cuda_heston.TERMINAL_TILE,
-                   n_steps, anti, first_tile, dev),)
+    def gbm_terminal(kernel):
+        def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
+            fn = cuda_gbm.gbm_terminal_reference if plain else kernel
+            return (fn(seed, 100.0, 0.05, 0.2, 1.0, n_tiles * cuda_heston.TERMINAL_TILE,
+                       n_steps, anti, first_tile, dev),)
+        return run
 
     def terminal_qe(kernel):
         def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
@@ -296,7 +318,7 @@ def kernel_specs():
         return run
 
     src = "options_model_tpu_torch/csrc/"
-    L, LV = cuda_heston.launches, cuda_localvol.launches
+    L, LV, G = cuda_heston.launches, cuda_localvol.launches, cuda_gbm.launches
     euler_tol = (EULER_S_RTOL, EULER_V_ATOL, EULER_V_RTOL)
     return [
         dict(name="heston_paths", source=src + "heston_paths.cu", scheme="euler",
@@ -309,20 +331,27 @@ def kernel_specs():
                           run=paths_run(cuda_heston.heston_paths_accurate,
                                         cuda_heston.heston_paths_reference),
                           counter=(L, "heston_paths_accurate"))),
-        dict(name="heston_terminal", run=heston_terminal, source=src + "heston.cu",
-             replaces="options_model_tpu/ops/pallas_heston.py:263", paths=("main",),
-             tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), ops=OPS_HESTON, draws=DRAWS_HESTON,
-             counter=(cuda_heston.launches, "heston_terminal")),
+        dict(name="heston_terminal", run=heston_terminal(cuda_heston.heston_terminal),
+             source=src + "terminal.cu", replaces="options_model_tpu/ops/pallas_heston.py:263",
+             paths=("main",), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
+             timed=(256, 100), variance=(False,), ops=OPS_HESTON, draws=DRAWS_HESTON,
+             tol=(EULER_S_RTOL, 0.0, 0.0), tails=(99, 1), counter=(L, "heston_terminal"),
+             earlier=dict(name="heston_terminal_accurate", source=src + "heston.cu",
+                          run=heston_terminal(cuda_heston.heston_terminal_accurate),
+                          counter=(L, "heston_terminal_accurate"))),
         dict(name="gbm_paths", run=gbm_paths, source=src + "gbm.cu",
              replaces="options_model_tpu/ops/pallas_gbm.py:126", paths=("main", "nn"),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
-             ops=OPS_GBM_PATHS, draws=DRAWS_GBM, counter=(cuda_gbm.launches, "gbm_paths")),
-        dict(name="gbm_terminal", run=gbm_terminal, source=src + "gbm.cu",
-             replaces="options_model_tpu/ops/pallas_gbm.py:100", paths=("main",),
-             tile=cuda_heston.TERMINAL_TILE, main=(256, 100), timed=(256, 100),
-             variance=(False,), ops=OPS_GBM, draws=DRAWS_GBM,
-             counter=(cuda_gbm.launches, "gbm_terminal")),
+             ops=OPS_GBM_PATHS, draws=DRAWS_GBM, counter=(G, "gbm_paths")),
+        dict(name="gbm_terminal", run=gbm_terminal(cuda_gbm.gbm_terminal),
+             source=src + "terminal.cu", replaces="options_model_tpu/ops/pallas_gbm.py:100",
+             paths=("main",), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
+             timed=(256, 100), variance=(False,), ops=OPS_GBM, draws=DRAWS_GBM,
+             tol=(GBM_S_RTOL, 0.0, 0.0), tails=(97, 98, 99, 1, 2, 3),
+             counter=(G, "gbm_terminal"),
+             earlier=dict(name="gbm_terminal_accurate", source=src + "gbm.cu",
+                          run=gbm_terminal(cuda_gbm.gbm_terminal_accurate),
+                          counter=(G, "gbm_terminal_accurate"))),
         dict(name="heston_terminal_qe", run=terminal_qe(cuda_heston.heston_terminal_qe),
              source=src + "terminal.cu", replaces="options_model_tpu/ops/pallas_heston.py:512",
              paths=("second",), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
@@ -379,17 +408,22 @@ def phase_build() -> None:
 
 
 # Mangled-name pieces of the pricing instances of kernels 4 and 6
-# (antithetic, with v) and of kernels 5 and 7 (antithetic; local vol at
-# degree 7): the redesigns (csrc/heston_paths.cu, csrc/terminal.cu) and the
-# first designs, with the steps one pass of each time loop covers.
+# (antithetic, with v) and of kernels 1, 3, 5 and 7 (antithetic; local vol
+# at degree 7): the redesigns (csrc/heston_paths.cu, csrc/terminal.cu) and
+# the first designs, with the steps of a pair one pass of each time loop
+# covers where that is not one.
 SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kernelILb1ELb1E",
                 "euler, first design": "13heston_kernelILb1E",
                 "qe, first design": "16heston_qe_kernelILb1E",
                 "localvol terminal": "24localvol_terminal_kernelILi7ELb1E",
                 "localvol terminal, first design": "15localvol_kernelILb0E",
                 "qe terminal": "18qe_terminal_kernelILb1E",
-                "qe terminal, first design": "16heston_qe_kernelILb0E"}
-SASS_STEPS = {"euler": 2, "localvol terminal": 4}
+                "qe terminal, first design": "16heston_qe_kernelILb0E",
+                "euler terminal": "21euler_terminal_kernelILb1E",
+                "euler terminal, first design": "13heston_kernelILb0E",
+                "gbm terminal": "19gbm_terminal_kernelILb1E",
+                "gbm terminal, first design": "10gbm_kernelILb0E"}
+SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm terminal": 4}
 
 
 def sass_loops(text: str) -> dict:
@@ -430,9 +464,25 @@ def opcode(ins: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", ins.strip()).split()[0]
 
 
+# Opcode prefixes by the unit that runs them (the first match counts): the
+# SFU, integer multiplies, 3-input logic, other integer work, f32 arithmetic.
+PIPES = (("MUFU", ("MUFU",)), ("IMAD", ("IMAD",)), ("LOP3", ("LOP3",)),
+         ("other int", ("IADD", "ISETP", "LEA", "SHF", "SEL", "IABS", "IMNMX", "PRMT")),
+         ("f32", ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP", "FCHK")))
+
+
+def pipe_mix(loop: list) -> dict:
+    """Instructions of a SASS loop per PIPES class, the rest as "other"."""
+    out = dict.fromkeys([name for name, _ in PIPES] + ["other"], 0)
+    for ins in loop:
+        op = opcode(ins)
+        out[next((name for name, pre in PIPES if op.startswith(pre)), "other")] += 1
+    return out
+
+
 def phase_sass() -> dict:
-    """The time loops of both designs of the paths kernels in SASS
-    (cuobjdump -sass of the built library, static instructions) and, from the
+    """The time loops of both designs of the paths and terminal kernels in
+    SASS (cuobjdump -sass of the built library, static instructions) and, from the
     Euler redesign's loop, the integer instructions of one Philox call: the
     multiplies (the instructions whose immediate is a Philox multiplier; one
     IMAD.WIDE.U32 gives hi and lo) and the XORs (LOP3 with LUT 0x96, a ^ b ^
@@ -455,13 +505,19 @@ def phase_sass() -> dict:
                           text=True, check=True, timeout=300).stdout
     loops = sass_loops(text)
     log("[1] SASS time loops (static instructions of the largest backward-branch span; "
-        "the redesigned Euler loop covers two steps and one Philox call, the local-vol "
-        "redesign four steps, one Philox call and two Box-Mullers, every other loop one "
-        "step; the first designs' Euler and local vol call Philox every other or every "
-        "fourth step, the local-vol one holds its Clenshaw loop): "
-        + ", ".join(f"{k} {len(v)}" + (f" ({len(v) / SASS_STEPS[k]:g} a step)"
+        "the redesigned Euler loops (paths and terminal) cover two steps of a pair and one "
+        "Philox call, the local-vol and GBM terminal redesigns four steps, one Philox call "
+        "and two Box-Mullers, every other loop one step; the first designs' Euler, GBM and "
+        "local vol call Philox every other or every fourth step, the local-vol one holds "
+        "its Clenshaw loop; a pair-step is both mirror paths' step): "
+        + ", ".join(f"{k} {len(v)}" + (f" ({len(v) / SASS_STEPS[k]:g} a pair-step, "
+                                       f"{len(v) / SASS_STEPS[k] / 2:g} a path-step)"
                                        if k in SASS_STEPS else "")
                     for k, v in loops.items()))
+    for key in ("euler terminal", "gbm terminal", "localvol terminal"):
+        if key in loops:
+            log(f"[1] SASS {key} loop by unit (a pass of {SASS_STEPS[key]} pair-steps): "
+                + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items()))
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -511,8 +567,8 @@ def phase_philox() -> None:
 
 
 def earlier_specs(specs) -> list:
-    """The first design of kernels 4, 5, 6 and 7 as specs of their own, held
-    to the tolerances they were built to (S_RTOL, V_ATOL, V_RTOL)."""
+    """The first design of kernels 1 and 3-7 as specs of their own, held to
+    the tolerances they were built to (S_RTOL, V_ATOL, V_RTOL)."""
     return [dict(k, **k["earlier"], tol=(S_RTOL, V_ATOL, V_RTOL)) for k in specs
             if "earlier" in k]
 
@@ -520,7 +576,8 @@ def earlier_specs(specs) -> list:
 def phase_kernels(specs) -> dict:
     """Kernel vs plain at 2 and 64 tiles and at the main path's shape (and
     at 2 tiles without antithetic mirroring), within each spec's tolerances,
-    for each of its ``checks`` (kernel 7: one table per degree), and the
+    for each of its ``checks`` (kernel 7: one table per degree) and, at 2
+    tiles with and without antithetics, each of its ``tails``; and the
     first_tile chunk property. Returns per name the max |kernel - plain| of
     S, the max relative one, and the max |kernel - plain| of v."""
     import torch
@@ -531,30 +588,35 @@ def phase_kernels(specs) -> dict:
         s_rtol, v_atol, v_rtol = k.get("tol", (S_RTOL, V_ATOL, V_RTOL))
         err = dict(s_abs=0.0, s_rel=0.0, v_abs=0.0)
         checks = k.get("checks") or [("", k["run"], None)]
+
+        def check(label, run, n_tiles, n_steps, variance, anti):
+            got = run(False, n_tiles, 0, n_steps, variance, anti)
+            want = run(True, n_tiles, 0, n_steps, variance, anti)
+            torch.cuda.synchronize()
+            for name, g, w in zip("Sv", got, want):
+                if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                    fail(f"{k['name']} {label}: {name} shape {tuple(g.shape)} vs "
+                         f"{tuple(w.shape)} or non-finite")
+                rtol, atol = (s_rtol, 0.0) if name == "S" else (v_rtol, v_atol)
+                diff = (g - w).abs()
+                bad = diff > atol + rtol * w.abs()
+                e = float(diff.max())
+                if bool(bad.any()):
+                    fail(f"{k['name']} {label} {n_tiles} tiles x {n_steps} steps: {name} "
+                         f"differs from the plain version (max abs {e:.3e}, "
+                         f"{int(bad.sum())} entries beyond rtol {rtol}, atol {atol})")
+                if name == "S":
+                    err["s_abs"] = max(err["s_abs"], e)
+                    err["s_rel"] = max(err["s_rel"], float((diff / w.abs()).max()))
+                else:
+                    err["v_abs"] = max(err["v_abs"], e)
+
         for variance in k["variance"]:
             for (label, run, _), (n_tiles, anti) in itertools.product(
                     checks, ((2, True), (64, True), (n_main, True), (2, False))):
-                got = run(False, n_tiles, 0, steps, variance, anti)
-                want = run(True, n_tiles, 0, steps, variance, anti)
-                torch.cuda.synchronize()
-                for name, g, w in zip("Sv", got, want):
-                    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
-                        fail(f"{k['name']} {label}: {name} shape {tuple(g.shape)} vs "
-                             f"{tuple(w.shape)} or non-finite")
-                    rtol, atol = (s_rtol, 0.0) if name == "S" else (v_rtol, v_atol)
-                    diff = (g - w).abs()
-                    bad = diff > atol + rtol * w.abs()
-                    e = float(diff.max())
-                    if bool(bad.any()):
-                        fail(f"{k['name']} {label} {n_tiles} tiles: {name} differs from the "
-                             f"plain version (max abs {e:.3e}, {int(bad.sum())} "
-                             f"entries beyond rtol {rtol}, atol {atol})")
-                    if name == "S":
-                        err["s_abs"] = max(err["s_abs"], e)
-                        err["s_rel"] = max(err["s_rel"], float((diff / w.abs()).max()))
-                    else:
-                        err["v_abs"] = max(err["v_abs"], e)
-                del got, want
+                check(label, run, n_tiles, steps, variance, anti)
+            for n_steps, anti in itertools.product(k.get("tails", ()), (True, False)):
+                check("tail", k["run"], 2, n_steps, variance, anti)
             # chunk property: tiles [half, n) of a 64-tile run at offset half
             full = k["run"](False, 64, 0, steps, variance)
             part = k["run"](False, 32, 32, steps, variance)
@@ -566,10 +628,14 @@ def phase_kernels(specs) -> dict:
             v_txt = ("v bit for bit" if v_atol == v_rtol == 0.0
                      else f"rtol {v_rtol} + atol {v_atol} on v")
             labels = ", ".join(label for label, _, _ in checks if label)
+            tails = k.get("tails")
             log(f"[2] {k['name']} (variance={variance}{'; ' + labels if labels else ''}): "
                 f"kernel == plain within rtol {s_rtol} on S" + (f", {v_txt}" if variance else "")
                 + f" at 2, 64, {n_main} tiles x {steps} steps (and 2 tiles without "
-                  f"antithetics): max |dS| {err['s_abs']:.3e} (max rel {err['s_rel']:.3e})"
+                  "antithetics)"
+                + (f", at 2 tiles x {', '.join(map(str, tails))} steps with and without "
+                   "antithetics" if tails else "")
+                + f": max |dS| {err['s_abs']:.3e} (max rel {err['s_rel']:.3e})"
                 + (f", max |dv| {err['v_abs']:.3e}" if variance else "")
                 + "; first_tile=32 chunk equals the full run's slice bit for bit")
         errs[k["name"]] = err
@@ -669,8 +735,8 @@ def phase_constant_sigma() -> None:
 
 
 def kernel4_digest() -> str:
-    """sha256 of the output of kernel 4's first design (csrc/heston.cu) at
-    the KERNEL4_DIGEST arguments."""
+    """sha256 of the output of kernel 4's first design (csrc/heston.cu, the
+    paths and the terminal kernel) at the KERNEL4_DIGEST arguments."""
     import torch
 
     from options_model_tpu_torch.core.config import HestonParams
@@ -680,8 +746,8 @@ def kernel4_digest() -> str:
     seed = 0x9E3779B97F4A7C15
     S, V = cuda_heston.heston_paths_accurate(seed, 100.0, 0.05, 0.5, hp, 64 * 4096, 50, True,
                                              True, 0, DEVICE)
-    ST = cuda_heston.heston_terminal(seed, 100.0, 0.05, 1.0, hp, 16 * 16384, 100, True, 0,
-                                     DEVICE)
+    ST = cuda_heston.heston_terminal_accurate(seed, 100.0, 0.05, 1.0, hp, 16 * 16384, 100,
+                                              True, 0, DEVICE)
     torch.cuda.synchronize()
     h = hashlib.sha256()
     for x in (S, V, ST):
@@ -715,7 +781,8 @@ def phase_digests() -> None:
     if got != KERNEL4_DIGEST:
         fail(f"kernel 4's output changed with heston_common.cuh: digest {got}, recorded "
              f"{KERNEL4_DIGEST}")
-    log("[2] kernel 4's first design (heston_paths_accurate with v, heston_terminal) "
+    log("[2] kernel 4's first design (heston_paths_accurate with v, "
+        "heston_terminal_accurate) "
         "bit-equal to its output "
         f"before heston_common.cuh: sha256 {got[:16]}...")
     got = paths_digest()
@@ -894,8 +961,9 @@ def phase_nn() -> dict:
     return secs
 
 
-def phase_main_path() -> dict:
-    """The main path through price_american. Returns seconds per price."""
+def phase_main_path() -> tuple:
+    """The main path through price_american. Returns seconds per price, and
+    the European legs of kernels 3 and 1 by label (price, stderr)."""
     import numpy as np
     import torch
 
@@ -976,7 +1044,8 @@ def phase_main_path() -> dict:
         f"gap {gap:+.6f} ({gap / se_c:+.2f} stderr; gate 4 stderr)")
     if abs(gap) > 4.0 * se_c:
         fail("GBM European call outside its gate")
-    return {k: statistics.median(v) for k, v in secs.items()}
+    euro = {"heston_european": (p_e, se_e), "gbm_european": (p_c, se_c)}
+    return {k: statistics.median(v) for k, v in secs.items()}, euro
 
 
 def phase_second_path() -> dict:
@@ -1173,10 +1242,13 @@ def phase_second_path() -> dict:
 
 
 def phase_earlier_europeans(euro: dict) -> None:
-    """The European legs of kernels 5 and 7 with their first design: the
-    same seeds and tiles through heston_terminal_qe_accurate and
-    localvol_terminal_accurate, beside the prices of phase 3b (which
-    launched the redesign). Run outside the paths' counts."""
+    """The European legs of kernels 3, 1, 5 and 7 with their first design:
+    the same seeds and tiles through heston_terminal_accurate,
+    gbm_terminal_accurate, heston_terminal_qe_accurate and
+    localvol_terminal_accurate, beside the prices of phases 3a and 3b (which
+    launched the redesigns); fails if a leg moved by more than
+    EARLIER_EURO_GATE of its stderr. Also each leg's seconds per price with
+    either design, in turns. Run outside the paths' counts."""
     import dataclasses
 
     import torch
@@ -1184,7 +1256,7 @@ def phase_earlier_europeans(euro: dict) -> None:
     from options_model_tpu_torch.core.config import (CALL, PUT, HestonParams, MCConfig,
                                                       OptionSpec)
     from options_model_tpu_torch.core.stats import masked_mean_stderr
-    from options_model_tpu_torch.ops import cuda_heston, cuda_localvol
+    from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_localvol
     from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
     from options_model_tpu_torch.ops.philox import seed_from_generator
     from options_model_tpu_torch.pricers.european import price_european_mc
@@ -1193,9 +1265,9 @@ def phase_earlier_europeans(euro: dict) -> None:
     hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
     mc_e = MCConfig(n_paths=1 << 22, n_steps=100, path_block=4096)
 
-    def sampler(fn, model):
+    def sampler(fn, *model):
         def run(seed, first_tile, c):
-            return fn(seed, 100.0, 0.05, 1.0, model, c.n_paths, c.n_steps, c.antithetic,
+            return fn(seed, 100.0, 0.05, *model, c.n_paths, c.n_steps, c.antithetic,
                       first_tile, DEVICE)
         run.pair_block, run.device = TERMINAL_TILE, torch.device(DEVICE)
         return run
@@ -1203,22 +1275,35 @@ def phase_earlier_europeans(euro: dict) -> None:
     def gen(seed):
         return torch.Generator().manual_seed(seed)
 
-    smile = sampler(cuda_localvol.localvol_terminal_accurate,
-                    compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0, degree=7))
-    flat = sampler(cuda_localvol.localvol_terminal_accurate,
-                   compile_localvol_table(lambda S, tau: torch.full_like(S, 0.2), 100.0, 1.0,
-                                          100, 100.0))
+    smile_t = compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0, degree=7)
+    flat_t = compile_localvol_table(lambda S, tau: torch.full_like(S, 0.2), 100.0, 1.0, 100,
+                                    100.0)
     put = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None)
     call = OptionSpec(strike=100.0, rate=0.05, cp=CALL, sigma=None)
+    H, G, LV = cuda_heston, cuda_gbm, cuda_localvol
+    legs = (("heston_european", 11, put, H.heston_terminal_accurate, H.heston_terminal,
+             (1.0, hp)),
+            ("gbm_european", 13, call, G.gbm_terminal_accurate, G.gbm_terminal, (0.2, 1.0)),
+            ("qe_european", 17, put, H.heston_terminal_qe_accurate, H.heston_terminal_qe,
+             (1.0, hp)),
+            ("localvol_european", 19, call, LV.localvol_terminal_accurate, LV.localvol_terminal,
+             (1.0, smile_t)),
+            ("localvol_constant", 29, call, LV.localvol_terminal_accurate, LV.localvol_terminal,
+             (1.0, flat_t)))
     first, secs = {}, {}
-    for label, seed, fn, spec in (
-            ("qe_european", 17, sampler(cuda_heston.heston_terminal_qe_accurate, hp), put),
-            ("localvol_european", 19, smile, call), ("localvol_constant", 29, flat, call)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p, se, _ = price_european_mc(gen(seed), fn, spec, 1.0, mc_e)
-        first[label] = (float(p), float(se))
-        secs[label] = time.perf_counter() - t0
+    for label, seed, spec, old, new, model in legs:
+        samplers = {"first": sampler(old, *model), "new": sampler(new, *model)}
+        t = {"first": [], "new": []}
+        for which in ("first", "new", "new", "first") * EURO_TURNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, se, _ = price_european_mc(gen(seed), samplers[which], spec, 1.0, mc_e)
+            p, se = float(p), float(se)
+            t[which].append(time.perf_counter() - t0)
+            if which == "first":
+                first[label] = (p, se)
+        secs[label] = {k: statistics.median(v) for k, v in t.items()}
+    smile = sampler(LV.localvol_terminal_accurate, 1.0, smile_t)
     n_tiles = (1 << 22) // TERMINAL_TILE
     S_T = smile(seed_from_generator(gen(23)), 0,
                 dataclasses.replace(mc_e, n_paths=n_tiles * TERMINAL_TILE))
@@ -1226,9 +1311,15 @@ def phase_earlier_europeans(euro: dict) -> None:
                                                       TERMINAL_TILE)
     for label, (p, se) in euro.items():
         p0, se0 = float(first[label][0]), float(first[label][1])
-        log(f"[5] {label}: {p:.6f} +- {se:.6f}; first design of kernels 5 and 7 {p0:.6f} +- "
-            f"{se0:.6f}; difference {p - p0:+.6f} ({(p - p0) / se:+.3f} stderr)"
-            + (f"; first design's seconds per price {secs[label]:.6f}" if label in secs else ""))
+        log(f"[5] {label}: {p:.6f} +- {se:.6f}; first design of its terminal kernel "
+            f"{p0:.6f} +- {se0:.6f}; difference {p - p0:+.6f} ({(p - p0) / se:+.3f} stderr; "
+            f"gate {EARLIER_EURO_GATE})"
+            + (f"; seconds per price in turns (first, new, new, first) x {EURO_TURNS}, "
+               f"medians: first design {secs[label]['first']:.6f}, redesign "
+               f"{secs[label]['new']:.6f}" if label in secs else ""))
+        if not abs(p - p0) <= EARLIER_EURO_GATE * se:
+            fail(f"{label}: the redesign's price moved by more than {EARLIER_EURO_GATE} stderr "
+                 "from its first design's on the same draws")
 
 
 def phase_earlier_cells(cells: dict) -> None:
@@ -1315,8 +1406,8 @@ def surface_shape(k: dict, bound_ms: float) -> dict:
 def phase_timing(specs, per_call: float) -> dict:
     """CUDA-event medians of each kernel and its plain version: 2^22 x 100
     for the terminal kernels, 2^20 x 50 (with v where there is one) for the
-    paths kernels; and each one's bound at that shape. Kernels 4-7 also:
-    their first design at the same shape, timed in turns with the redesign
+    paths kernels; and each one's bound at that shape. Kernels 1 and 3-7
+    also: their first design at the same shape, timed in turns with the redesign
     (earlier, new, new, earlier; each the mean of its two medians), and
     registers and occupancy. Kernels 4 and 6 also: the surface shape
     (surface_shape). Kernel 7 also: its other tables (LV_DEGREES), each with
@@ -1455,7 +1546,7 @@ def main() -> int:
 
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
-        was never launched, or if the first design of kernels 4-7 was.
+        was never launched, or if the first design of kernels 1 or 3-7 was.
         Returns (fn's result, that path's counts)."""
         for d, key in counters:
             d[key] = 0
@@ -1468,12 +1559,13 @@ def main() -> int:
         earlier = {k["name"]: k["counter"][0][k["counter"][1]] for k in earlier_specs(specs)}
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 4, 5, 6 or 7: "
+            fail(f"the {path} path reached the first design of kernels 1, 3, 4, 5, 6 or 7: "
                  f"{earlier}")
         return out, mine
 
-    secs, launches = drive("main", phase_main_path)
-    (secs2, surface_cells, euro), launches2 = drive("second", phase_second_path)
+    (secs, euro), launches = drive("main", phase_main_path)
+    (secs2, surface_cells, euro2), launches2 = drive("second", phase_second_path)
+    euro.update(euro2)
     launches.update(launches2)
     secs_nn, launches_nn = drive("nn", phase_nn)
     experiments = phase_experiments(sass["per_call"])
@@ -1503,7 +1595,12 @@ def main() -> int:
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[k["name"]], max_abs_err=errs[k["name"]]["s_abs"],
-                    library_ms=None, **times[k["name"]]) for k in specs]
+                    library_ms=None, **times[k["name"]],
+                    **({"earlier_name": k["earlier"]["name"],
+                        "earlier_source": k["earlier"]["source"],
+                        "earlier_max_abs_err": errs[k["earlier"]["name"]]["s_abs"]}
+                       if "earlier" in k else {}))
+               for k in specs]
     entries.append(experiment_entry(experiments[0], "B bulk exp",
                                     "scripts/exp_paths_kernel.py:31", var_errs))
     entries.append(experiment_entry(experiments[1], "C  blocked, tile 4096",

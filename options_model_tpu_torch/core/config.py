@@ -72,8 +72,9 @@ class MCConfig(_FromReference):
 @dataclasses.dataclass(frozen=True)
 class LSMConfig(_FromReference):
     """Longstaff-Schwartz configuration; field meanings as in the reference
-    (options_model_tpu/core/config.py LSMConfig). Only regressor='poly' is
-    ported; the nn_* fields are kept so configs carry over unchanged."""
+    (options_model_tpu/core/config.py LSMConfig). Both regressors are
+    ported: 'poly' (masked WLS per date) and 'nn' (the shared continuation
+    MLP, pricers/regressors.py)."""
 
     regressor: str = "poly"
     poly_degree: int = 3

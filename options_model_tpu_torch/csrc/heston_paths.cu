@@ -57,7 +57,8 @@
 // The tolerances against the plain version are chip_smoke.py's (S rtol
 // 1e-4; Euler v atol 1e-5 + rtol 1e-4; QE v exact). Built without
 // --use_fast_math: the fast forms are named here and in hopper_fast.cuh
-// (keyed Philox, the SFU helpers, box_muller_fast, qe_step), nowhere else.
+// (keyed Philox, the SFU helpers, box_muller_fast, euler_step, qe_step),
+// nowhere else.
 #include <cstdint>
 
 #include "heston_common.cuh"
@@ -83,29 +84,6 @@ constexpr int kEulerMinBlocks = 6;
 constexpr int kQeMinBlocks = 1;
 constexpr int kTile = kPathTile;
 static_assert((kTile / 2) % kBlock == 0, "a block must not span two maturities");
-
-// The Euler step's constants, folded from row m of HestonConsts.
-struct EulerK {
-  float log2_s0, rdt, mhdt, ca, cb, xi_sdt, sqrt_dt, rho, rho_bar, v0;
-};
-
-__device__ __forceinline__ EulerK euler_consts(const float* __restrict__ row) {
-  // row: log_s0, r, dt, sqrt_dt, kappa, theta, xi, rho, rho_bar, v0
-  const float dt = __ldg(row + 2), sqrt_dt = __ldg(row + 3), kd = __ldg(row + 4) * dt;
-  return EulerK{__ldg(row) * kLog2e, __ldg(row + 1) * dt, -0.5f * dt, 1.0f - kd,
-                kd * __ldg(row + 5), __ldg(row + 6) * sqrt_dt, sqrt_dt, __ldg(row + 7),
-                __ldg(row + 8), __ldg(row + 9)};
-}
-
-// v <- max(v+ (1 - kappa dt) + kappa theta dt + xi sqrt(dt v+) w2, 0),
-// log S <- log S + r dt - v+ dt / 2 + sqrt(dt v+) z1: heston_step.
-__device__ __forceinline__ void euler_step(float& ls, float& v, float z1, float w2,
-                                           const EulerK& k) {
-  const float vp = fmaxf(v, 0.0f);
-  const float sv = sqrt_approx(vp);
-  v = fmaxf(fmaf(k.xi_sdt * sv, w2, fmaf(vp, k.ca, k.cb)), 0.0f);
-  ls = fmaf(k.sqrt_dt * sv, z1, fmaf(vp, k.mhdt, ls + k.rdt));
-}
 
 // Row of both mirror paths: S = 2^(log2 S0 + log S / ln 2), and v.
 template <bool kAnti, bool kV>

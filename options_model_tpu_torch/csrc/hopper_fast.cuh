@@ -1,9 +1,10 @@
 // The pieces of the Hopper redesigns (heston_paths.cu, terminal.cu) that
 // make a path-step cheaper than the first designs' without changing the
 // stream: Philox with its round keys computed once per launch, the SFU's
-// approximate lg2, ex2 and sqrt, an SFU Box-Muller, the never-contracted
-// _rn arithmetic of QE-M's variance chain, and the QE-M step whose variance
-// chain stays exact while its log-S chain goes to the fast pipes.
+// approximate lg2, ex2 and sqrt, an SFU Box-Muller, the full-truncation
+// Euler step on the SFU and FMAs, the never-contracted _rn arithmetic of
+// QE-M's variance chain, and the QE-M step whose variance chain stays exact
+// while its log-S chain goes to the fast pipes.
 //
 // Nothing here is compiled with --use_fast_math: the fast forms are named
 // where they are used, and every other operation keeps IEEE rounding.
@@ -79,6 +80,45 @@ __device__ __forceinline__ void box_muller_fast(uint32_t b1, uint32_t b2, float&
   __sincosf(6.28318548f * (u2 - 0.5f), &s, &c);  // u2 - 1/2 is exact
   z1 = -rad * c;
   z2 = -rad * s;
+}
+
+// The full-truncation Euler step's constants, folded from the 10 floats of
+// HestonConsts (log_s0, r, dt, sqrt_dt, kappa, theta, xi, rho, rho_bar, v0).
+struct EulerK {
+  float log2_s0, rdt, mhdt, ca, cb, xi_sdt, sqrt_dt, rho, rho_bar, v0;
+};
+
+__host__ __device__ __forceinline__ EulerK euler_fold(const float* c) {
+  const float dt = c[2], sqrt_dt = c[3], kd = c[4] * dt;
+  return EulerK{c[0] * kLog2e, c[1] * dt, -0.5f * dt, 1.0f - kd, kd * c[5], c[6] * sqrt_dt,
+                sqrt_dt, c[7], c[8], c[9]};
+}
+
+// euler_fold of a row in device memory.
+__device__ __forceinline__ EulerK euler_consts(const float* __restrict__ row) {
+  float c[10];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) c[i] = __ldg(row + i);
+  return euler_fold(c);
+}
+
+// v <- max(v+ (1 - kappa dt) + kappa theta dt + xi sqrt(dt v+) w2, 0) and
+// log S <- log S + r dt - v+ dt / 2 + sqrt(dt v+) z1 (heston_common.cuh's
+// heston_step), ls = log S - log S0. kWhole adds the step's whole increment
+// to ls at once; otherwise (ls + r dt) is rounded first, the paths kernel's
+// form, which PATHS_DIGEST pins. A constant added on its own rounds the same
+// way wherever ls stays in one binade; a random increment rounds both ways.
+template <bool kWhole = false>
+__device__ __forceinline__ void euler_step(float& ls, float& v, float z1, float w2,
+                                           const EulerK& k) {
+  const float vp = fmaxf(v, 0.0f);
+  const float sv = sqrt_approx(vp);
+  v = fmaxf(fmaf(k.xi_sdt * sv, w2, fmaf(vp, k.ca, k.cb)), 0.0f);
+  if constexpr (kWhole) {
+    ls += fmaf(k.sqrt_dt * sv, z1, fmaf(vp, k.mhdt, k.rdt));
+  } else {
+    ls = fmaf(k.sqrt_dt * sv, z1, fmaf(vp, k.mhdt, ls + k.rdt));
+  }
 }
 
 // The variance chain's arithmetic, as in heston_qe.cu: never contracted.

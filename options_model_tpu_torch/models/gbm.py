@@ -3,7 +3,8 @@
     log S_t = log S_{t-1} + (r - sigma^2/2) dt + sigma sqrt(dt) z_t.
 
 ``gbm_euler_from_normals`` is the recursion on given normals — the plain
-version the CUDA kernels (csrc/gbm.cu) are held against. ``simulate_gbm``
+version the CUDA kernels (the paths kernel of csrc/gbm.cu, the terminal
+kernel of csrc/terminal.cu) are held against. ``simulate_gbm``
 draws from the kernels' Philox stream and dispatches on the device.
 """
 
@@ -51,9 +52,10 @@ def gbm_euler_from_normals(z: torch.Tensor, S0, r, sigma, T,
 def simulate_gbm(seed: int, S0, r, sigma, T, cfg: MCConfig,
                  return_paths: bool = True, first_tile: int = 0,
                  device: Optional[torch.device] = None) -> torch.Tensor:
-    """GBM paths from the kernels' stream (csrc/gbm.cu on a CUDA device, its
-    plain version on the CPU): (n_steps+1, n_pad) or S_T (n_pad,), n_pad
-    rounding paths_rounded(cfg) up to the kernel tile."""
+    """GBM paths from the kernels' stream (on a CUDA device csrc/gbm.cu for
+    paths, csrc/terminal.cu for terminal values; on the CPU their plain
+    versions): (n_steps+1, n_pad) or S_T (n_pad,), n_pad rounding
+    paths_rounded(cfg) up to the kernel tile."""
     from options_model_tpu_torch.ops import cuda_gbm
 
     fn = cuda_gbm.gbm_paths if return_paths else cuda_gbm.gbm_terminal

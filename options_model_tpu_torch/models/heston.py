@@ -7,17 +7,20 @@
     W1 = z1,  W2 = rho z1 + sqrt(1 - rho^2) z2.
 
 ``heston_euler_from_normals`` is that recursion on given normals — the plain
-version the CUDA kernels (csrc/heston.cu, csrc/heston_paths.cu) are held
-against, and the function the tests feed with the reference simulator's own
-normals. ``simulate_heston`` draws from the kernels' Philox stream and
-dispatches on the device; ``simulate_heston_maturities`` simulates several
-maturities in one paths launch.
+version the CUDA kernels (csrc/heston_paths.cu, csrc/terminal.cu, and the
+first designs in csrc/heston.cu) are held against, and the function the
+tests feed with the reference simulator's own normals. ``simulate_heston``
+draws from the kernels' Philox stream and dispatches on the device;
+``simulate_heston_maturities`` simulates several maturities in one paths
+launch.
 
 ``scheme="qe"`` is Andersen's (2008) quadratic-exponential scheme with the
 martingale correction (QE-M, models/heston._simulate_heston_qe in the
 reference). ``heston_qe_from_normals`` is its recursion on given draws
 (z_v, z_s, u), with the formulas and operation order of the TPU kernel's
-_qe_body (pallas_heston.py:369-436); csrc/heston_qe.cu is held against it.
+_qe_body (pallas_heston.py:369-436); the QE-M kernels of csrc/heston_paths.cu
+and csrc/terminal.cu, and their first designs in csrc/heston_qe.cu, are
+held against it.
 """
 
 from __future__ import annotations
@@ -190,9 +193,9 @@ def simulate_heston(seed: int, S0, r, T, params: HestonParams, cfg: MCConfig,
                     return_paths: bool = True, return_variance: bool = False,
                     first_tile: int = 0, scheme: str = "euler",
                     device: Optional[torch.device] = None):
-    """Heston paths from the kernels' stream (the port's single engine:
-    csrc/heston.cu or csrc/heston_qe.cu on a CUDA device, their plain
-    versions on the CPU).
+    """Heston paths from the kernels' stream (the port's single engine: on a
+    CUDA device the paths go to csrc/heston_paths.cu and the Euler and QE-M
+    terminal values to csrc/terminal.cu; on the CPU their plain versions).
 
     Returns S (n_steps+1, n_pad) [and v] with return_paths, else S_T (n_pad,);
     n_pad rounds paths_rounded(cfg) up to the kernel tile (PATH_TILE for

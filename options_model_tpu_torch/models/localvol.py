@@ -8,9 +8,11 @@
 ``localvol_euler_from_normals`` follows the TPU kernel's formula (absolute
 log S, the moneyness from log K - log S, 1/m_half as a multiplier), not the
 XLA simulator's log(K / exp(log S)): the two differ in the last ulps. It is
-the plain version csrc/localvol.cu is held against. ``simulate_local_vol``
-draws the GBM stream (one normal per step, ops/philox.path_normals), so a
-constant-sigma table reproduces the GBM kernels' draws.
+the plain version the local-vol kernels (the paths kernel of
+csrc/localvol.cu, the terminal kernel of csrc/terminal.cu) are held against.
+``simulate_local_vol`` draws the GBM stream (one normal per step,
+ops/philox.path_normals), so a constant-sigma table reproduces the GBM
+kernels' draws.
 
 The surface-network route (a bare ``sigma_fn`` evaluated inside the time
 loop) is not ported.
@@ -78,8 +80,9 @@ def simulate_local_vol(seed: int, S0, r, T, cfg: MCConfig, *,
                        table: Optional[LocalVolTable] = None, sigma_fn=None,
                        return_paths: bool = True, first_tile: int = 0,
                        device: Optional[torch.device] = None) -> torch.Tensor:
-    """Local-vol paths under a compiled table from the kernels' stream
-    (csrc/localvol.cu on a CUDA device, its plain version on the CPU):
+    """Local-vol paths under a compiled table from the kernels' stream (on a
+    CUDA device csrc/localvol.cu for paths, csrc/terminal.cu for terminal
+    values; on the CPU their plain versions):
     (n_steps+1, n_pad) or S_T (n_pad,), n_pad rounding paths_rounded(cfg)
     up to the kernel tile."""
     if table is None:

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "omt_localvol_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_terminal_localvol": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_terminal_qe": [_P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_terminal_euler": [_P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_terminal_gbm": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_paths": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _P],

@@ -1,4 +1,10 @@
-"""GBM log-Euler path kernels: csrc/gbm.cu and their plain PyTorch versions.
+"""GBM log-Euler path kernels and their plain PyTorch versions:
+- csrc/terminal.cu: the terminal kernel redesigned for Hopper, the route of
+  every pricer;
+- csrc/gbm.cu: the paths kernel, the route of every pricer, and the first
+  design of the terminal kernel (accurate math, the key schedule at every
+  Philox call), kept only as the redesign's yardstick under
+  ``gbm_terminal_accurate``; no pricer reaches it.
 
 Counterparts of gbm_terminal_pallas and gbm_paths_pallas
 (options_model_tpu/ops/pallas_gbm.py:100, :126), flat layout only. The
@@ -12,12 +18,13 @@ import torch
 
 from options_model_tpu_torch.models.gbm import gbm_constants, gbm_euler_from_normals
 from options_model_tpu_torch.ops import _build
-from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE, _tiles
+from options_model_tpu_torch.ops.cuda_heston import (PATH_TILE, TERMINAL_TILE, _tiles,
+                                                    launch_terminal)
 from options_model_tpu_torch.ops.engine import resolve_device
 from options_model_tpu_torch.ops.philox import path_normals
 
 # Kernel launches since the last reset, one integer per kernel.
-launches = {"gbm_terminal": 0, "gbm_paths": 0}
+launches = {"gbm_terminal": 0, "gbm_paths": 0, "gbm_terminal_accurate": 0}
 
 
 def gbm_terminal_reference(seed: int, S0, r, sigma, T, n_paths: int, n_steps: int,
@@ -46,23 +53,34 @@ def _consts(S0, r, sigma, T, n_steps):
     return _build.float_args([c[k] for k in ("s0", "drift", "diffusion", "drift_n")])
 
 
+def _terminal(name, key, seed, S0, r, sigma, T, n_paths, n_steps, antithetic, first_tile,
+              device) -> torch.Tensor:
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return gbm_terminal_reference(seed, S0, r, sigma, T, n_paths, n_steps, antithetic,
+                                      first_tile, device)
+    return launch_terminal(name, (launches, key), _consts(S0, r, sigma, T, n_steps), seed,
+                           n_paths, n_steps, antithetic, first_tile, device)
+
+
 def gbm_terminal(seed: int, S0, r, sigma, T, n_paths: int, n_steps: int,
                  antithetic: bool = True, first_tile: int = 0,
                  device=None) -> torch.Tensor:
-    """Terminal prices S_T (n_pad,) from csrc/gbm.cu, or from the plain
+    """Terminal prices S_T (n_pad,) from csrc/terminal.cu, or from the plain
     version for a CPU device."""
-    device = resolve_device(device)
-    if device.type == "cpu":
-        return gbm_terminal_reference(seed, S0, r, sigma, T, n_paths, n_steps,
-                                      antithetic, first_tile, device)
-    _build.require_cuda(device)
-    n_tiles = _tiles(n_paths, TERMINAL_TILE, seed, first_tile, n_steps)
-    out = torch.empty(n_tiles * TERMINAL_TILE, dtype=torch.float32, device=device)
-    _build.launch("omt_gbm_terminal", device, out.data_ptr(),
-                  _consts(S0, r, sigma, T, n_steps), seed, first_tile, n_tiles,
-                  n_steps, int(antithetic))
-    launches["gbm_terminal"] += 1
-    return out
+    return _terminal("omt_terminal_gbm", "gbm_terminal", seed, S0, r, sigma, T, n_paths,
+                     n_steps, antithetic, first_tile, device)
+
+
+def gbm_terminal_accurate(seed: int, S0, r, sigma, T, n_paths: int, n_steps: int,
+                          antithetic: bool = True, first_tile: int = 0,
+                          device=None) -> torch.Tensor:
+    """Terminal prices S_T (n_pad,) from the first design of the terminal
+    kernel (csrc/gbm.cu: accurate logf/sinf/cosf/sqrtf/expf, the key
+    schedule at every Philox call), or from the plain version for a CPU
+    device. No pricer reaches it: it is the redesign's yardstick."""
+    return _terminal("omt_gbm_terminal", "gbm_terminal_accurate", seed, S0, r, sigma, T,
+                     n_paths, n_steps, antithetic, first_tile, device)
 
 
 def gbm_paths(seed: int, S0, r, sigma, T, n_paths: int, n_steps: int,

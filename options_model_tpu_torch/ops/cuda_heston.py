@@ -1,13 +1,13 @@
 """Heston path kernels and their plain PyTorch versions:
 - csrc/heston_paths.cu: the paths kernels (full-truncation Euler and QE-M)
   over a batch of maturities, the route of every pricer;
-- csrc/terminal.cu: the QE-M terminal kernel redesigned for Hopper, the
-  route of every pricer;
-- csrc/heston.cu, csrc/heston_qe.cu: the Euler terminal kernel, and the
-  first design of the two paths kernels and of the QE-M terminal kernel
-  (accurate math, one maturity per launch), kept for comparison under
-  ``heston_paths_accurate``, ``heston_paths_qe_accurate`` and
-  ``heston_terminal_qe_accurate``.
+- csrc/terminal.cu: the Euler and QE-M terminal kernels redesigned for
+  Hopper, the route of every pricer;
+- csrc/heston.cu, csrc/heston_qe.cu: the first design of all four kernels
+  (accurate math, the key schedule at every Philox call, one maturity per
+  launch), kept only as yardsticks under ``heston_terminal_accurate``,
+  ``heston_paths_accurate``, ``heston_terminal_qe_accurate`` and
+  ``heston_paths_qe_accurate``; no pricer reaches them.
 
 Counterparts of heston_terminal_pallas, heston_paths_pallas,
 heston_terminal_qe_pallas and heston_paths_qe_pallas
@@ -39,14 +39,29 @@ SCHEMES = ("euler", "qe")
 # Kernel launches since the last reset, one integer per kernel entry.
 launches = {"heston_terminal": 0, "heston_paths": 0,
             "heston_terminal_qe": 0, "heston_paths_qe": 0,
-            "heston_paths_accurate": 0, "heston_paths_qe_accurate": 0,
-            "heston_terminal_qe_accurate": 0}
+            "heston_terminal_accurate": 0, "heston_paths_accurate": 0,
+            "heston_paths_qe_accurate": 0, "heston_terminal_qe_accurate": 0}
 
 
 def _tiles(n_paths: int, tile: int, seed: int, first_tile: int, n_steps: int) -> int:
     n_tiles = round_up(n_paths, tile) // tile
     _build.check_launch(seed, first_tile, n_tiles, n_steps)
     return n_tiles
+
+
+def launch_terminal(name: str, counter: tuple, consts, seed: int, n_paths: int,
+                    n_steps: int, antithetic: bool, first_tile: int,
+                    device: torch.device) -> torch.Tensor:
+    """S_T (n_pad,) from the terminal kernel of C entry ``name`` on a CUDA
+    ``device`` (raises for any other); ``consts`` the host float array of its
+    constants; ``counter`` = (launch dict, key) counts the launch."""
+    _build.require_cuda(device)
+    n_tiles = _tiles(n_paths, TERMINAL_TILE, seed, first_tile, n_steps)
+    out = torch.empty(n_tiles * TERMINAL_TILE, dtype=torch.float32, device=device)
+    _build.launch(name, device, out.data_ptr(), consts, seed, first_tile, n_tiles, n_steps,
+                  int(antithetic))
+    counter[0][counter[1]] += 1
+    return out
 
 
 def _normals(seed, n_tiles, tile, n_steps, antithetic, first_tile, device):
@@ -97,23 +112,37 @@ def _consts(S0, r, T, params, n_steps):
     return _build.float_args(_const_row("euler", S0, r, T, params, n_steps))
 
 
+def _terminal(scheme, name, key, seed, S0, r, T, params, n_paths, n_steps, antithetic,
+              first_tile, device) -> torch.Tensor:
+    """S_T of ``scheme`` ("euler" or "qe"): the plain version on a CPU device,
+    else C entry ``name``, counted under ``key``."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        plain = heston_terminal_qe_reference if scheme == "qe" else heston_terminal_reference
+        return plain(seed, S0, r, T, params, n_paths, n_steps, antithetic, first_tile, device)
+    consts = _build.float_args(_const_row(scheme, S0, r, T, params, n_steps))
+    return launch_terminal(name, (launches, key), consts, seed, n_paths, n_steps, antithetic,
+                           first_tile, device)
+
+
 def heston_terminal(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
                     antithetic: bool = True, first_tile: int = 0,
                     device=None) -> torch.Tensor:
-    """Terminal prices S_T (n_pad,) from csrc/heston.cu, or from the plain
+    """Terminal prices S_T (n_pad,) from csrc/terminal.cu, or from the plain
     version for a CPU device."""
-    device = resolve_device(device)
-    if device.type == "cpu":
-        return heston_terminal_reference(seed, S0, r, T, params, n_paths, n_steps,
-                                         antithetic, first_tile, device)
-    _build.require_cuda(device)
-    n_tiles = _tiles(n_paths, TERMINAL_TILE, seed, first_tile, n_steps)
-    out = torch.empty(n_tiles * TERMINAL_TILE, dtype=torch.float32, device=device)
-    _build.launch("omt_heston_terminal", device, out.data_ptr(),
-                  _consts(S0, r, T, params, n_steps), seed, first_tile, n_tiles,
-                  n_steps, int(antithetic))
-    launches["heston_terminal"] += 1
-    return out
+    return _terminal("euler", "omt_terminal_euler", "heston_terminal", seed, S0, r, T, params,
+                     n_paths, n_steps, antithetic, first_tile, device)
+
+
+def heston_terminal_accurate(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                             antithetic: bool = True, first_tile: int = 0,
+                             device=None) -> torch.Tensor:
+    """Terminal prices S_T (n_pad,) from the first design of the Euler
+    terminal kernel (csrc/heston.cu: accurate logf/sinf/cosf/sqrtf/expf, the
+    key schedule at every Philox call), or from the plain version for a CPU
+    device. No pricer reaches it: it is the redesign's yardstick."""
+    return _terminal("euler", "omt_heston_terminal", "heston_terminal_accurate", seed, S0, r,
+                     T, params, n_paths, n_steps, antithetic, first_tile, device)
 
 
 def heston_paths_accurate(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
@@ -168,28 +197,13 @@ def _qe_consts(S0, r, T, params, n_steps):
     return _build.float_args(_const_row("qe", S0, r, T, params, n_steps))
 
 
-def _terminal_qe(name, key, seed, S0, r, T, params, n_paths, n_steps, antithetic,
-                 first_tile, device) -> torch.Tensor:
-    device = resolve_device(device)
-    if device.type == "cpu":
-        return heston_terminal_qe_reference(seed, S0, r, T, params, n_paths, n_steps,
-                                            antithetic, first_tile, device)
-    _build.require_cuda(device)
-    n_tiles = _tiles(n_paths, TERMINAL_TILE, seed, first_tile, n_steps)
-    out = torch.empty(n_tiles * TERMINAL_TILE, dtype=torch.float32, device=device)
-    _build.launch(name, device, out.data_ptr(), _qe_consts(S0, r, T, params, n_steps), seed,
-                  first_tile, n_tiles, n_steps, int(antithetic))
-    launches[key] += 1
-    return out
-
-
 def heston_terminal_qe(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
                        antithetic: bool = True, first_tile: int = 0,
                        device=None) -> torch.Tensor:
     """QE-M terminal prices S_T (n_pad,) from csrc/terminal.cu, or from the
     plain version for a CPU device."""
-    return _terminal_qe("omt_terminal_qe", "heston_terminal_qe", seed, S0, r, T, params,
-                        n_paths, n_steps, antithetic, first_tile, device)
+    return _terminal("qe", "omt_terminal_qe", "heston_terminal_qe", seed, S0, r, T, params,
+                     n_paths, n_steps, antithetic, first_tile, device)
 
 
 def heston_terminal_qe_accurate(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
@@ -199,8 +213,8 @@ def heston_terminal_qe_accurate(seed: int, S0, r, T, params, n_paths: int, n_ste
     terminal kernel (csrc/heston_qe.cu: every operation an _rn intrinsic,
     the key schedule at every Philox call), or from the plain version for a
     CPU device. No pricer reaches it: it is the redesign's yardstick."""
-    return _terminal_qe("omt_heston_terminal_qe", "heston_terminal_qe_accurate", seed, S0, r,
-                        T, params, n_paths, n_steps, antithetic, first_tile, device)
+    return _terminal("qe", "omt_heston_terminal_qe", "heston_terminal_qe_accurate", seed, S0,
+                     r, T, params, n_paths, n_steps, antithetic, first_tile, device)
 
 
 def heston_paths_qe_accurate(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
@@ -339,7 +353,7 @@ def paths_kernel_attrs() -> dict:
 def terminal_kernel_attrs() -> dict:
     """Registers, spills and occupancy of the redesigned terminal kernels of
     csrc/terminal.cu as built (the antithetic instance), by name: local vol
-    at degree 7 and at a run-time degree, and QE-M."""
+    at degree 7 and at a run-time degree, QE-M, Euler and GBM."""
     return {name: _build.kernel_attrs("omt_terminal_attrs", i) for i, name in
             enumerate(("localvol_terminal", "localvol_terminal (run-time degree)",
-                       "heston_terminal_qe"))}
+                       "heston_terminal_qe", "heston_terminal", "gbm_terminal"))}

@@ -2,8 +2,9 @@
 - csrc/terminal.cu: the terminal kernel redesigned for Hopper (static
   degree, one padded row load per step for both mirrors), the route of
   every pricer;
-- csrc/localvol.cu: the paths kernel, and the first design of the terminal
-  kernel, kept for comparison under ``localvol_terminal_accurate``.
+- csrc/localvol.cu: the paths kernel, the route of every pricer, and the
+  first design of the terminal kernel, kept only as the redesign's
+  yardstick under ``localvol_terminal_accurate``; no pricer reaches it.
 
 Counterparts of localvol_terminal_pallas and localvol_paths_pallas
 (options_model_tpu/ops/pallas_localvol.py:62, :149), flat layout only. The

@@ -22,6 +22,7 @@ iteration).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -34,6 +35,7 @@ from options_model_tpu_torch.core.config import (HestonParams, LSMConfig,
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (cashflow_statistics, masked_mean_stderr,
                                                  optimal_cv_beta)
+from options_model_tpu_torch.models.blocks import round_up
 from options_model_tpu_torch.models.gbm import simulate_gbm
 from options_model_tpu_torch.models.heston import effective_bs_sigma, simulate_heston
 from options_model_tpu_torch.models.localvol import simulate_local_vol
@@ -161,6 +163,16 @@ def _pair_block(mc: MCConfig, model: str) -> int:
     block that merely exceeds the tile can still cut a tile mid-mirror)."""
     _check_slice(model)
     return math.lcm(mc.path_block, PATH_TILE)
+
+
+def simulated_config(mc: MCConfig, model: str) -> MCConfig:
+    """``mc`` with n_paths rounded up to whole _pair_block units: the width
+    the pricers simulate, so that pair means, the stderr and the out-of-
+    sample split tile it. Where path_block divides PATH_TILE or is a
+    multiple of it, this is the width the kernels round to anyway (the same
+    tiles, the same paths); otherwise it is the same estimator on more
+    paths."""
+    return dataclasses.replace(mc, n_paths=round_up(mc.n_paths, _pair_block(mc, model)))
 
 
 def build_centered_basis(S_t: torch.Tensor, K, itm: torch.Tensor,
@@ -472,12 +484,13 @@ def _vol_params(heston, bates=None):
 
 def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
                   heston_scheme, device):
-    """(S_paths, v_paths or None, fit seed or None) for the LSM pricers. The
-    simulation draws its seed from ``generator`` first; the NN-LSM's fit
-    draws the next one."""
+    """(S_paths, v_paths or None, fit seed or None) for the LSM pricers, at
+    the width of simulated_config. The simulation draws its seed from
+    ``generator`` first; the NN-LSM's fit draws the next one."""
     want_v = model == "heston" and lsm.variance_basis
     with span("simulate", resolve_device(device)):
-        out = simulate_paths(generator, S0, T, mc, model, sigma=spec.sigma,
+        out = simulate_paths(generator, S0, T, simulated_config(mc, model), model,
+                             sigma=spec.sigma,
                              rate=spec.rate, heston=heston, engine=engine,
                              heston_scheme=heston_scheme, div_yield=spec.div_yield,
                              return_variance=want_v, device=device)

@@ -40,13 +40,13 @@ import torch
 
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import HestonParams, MCConfig
-from options_model_tpu_torch.models.blocks import paths_rounded, round_up
+from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.models.heston import simulate_heston_maturities
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
 from options_model_tpu_torch.pricers.american import (_discount, _pair_block,
-                                                      simulate_seeded)
+                                                      simulate_seeded, simulated_config)
 from options_model_tpu_torch.pricers.european import make_terminal_sampler
 from options_model_tpu_torch.pricers.regressors import solve_spd_small
 
@@ -162,7 +162,8 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
     device = resolve_device(device)
     resolve_engine(engine, device)
     seed = seed_from_generator(generator)
-    n_tiles = round_up(paths_rounded(mc), PATH_TILE) // PATH_TILE
+    mc = simulated_config(mc, model)
+    n_tiles = mc.n_paths // PATH_TILE
     strikes = torch.as_tensor(np.asarray(strikes, np.float32), device=device)
     want_v = model == "heston" and heston is not None and variance_basis
     stat_pb = _pair_block(mc, model) if mc.antithetic else None

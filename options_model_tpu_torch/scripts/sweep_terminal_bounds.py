@@ -4,9 +4,10 @@ the card.
 Each variant is a copy of csrc/ under build/ with terminal.cu's block size
 or minimum resident blocks edited, built into a library of its own (the
 build's file name hashes the sources). The local-vol (degree 7, the bench
-smile) and QE-M terminal kernels of every variant are then timed at 2^22 x
-100 in one process, the variants in turns (forward, then backward), and
-printed beside the registers, spills and occupancy the card reports.
+smile), QE-M, Euler and GBM terminal kernels of every variant are then
+timed at 2^22 x 100 in one process, the variants in turns (forward, then
+backward), and printed beside the registers, spills and occupancy the card
+reports.
 
     python -m options_model_tpu_torch.scripts.sweep_terminal_bounds
 
@@ -21,7 +22,7 @@ import shutil
 import torch
 
 from options_model_tpu_torch.core.config import HestonParams
-from options_model_tpu_torch.ops import _build, cuda_heston, cuda_localvol
+from options_model_tpu_torch.ops import _build, cuda_gbm, cuda_heston, cuda_localvol
 from options_model_tpu_torch.surface.cheb import compile_localvol_table
 from options_model_tpu_torch.utils.profiling import card_line, time_per_call
 
@@ -29,17 +30,18 @@ _LV_BOUNDS = r"__launch_bounds__\(kBlock\)\nlocalvol_terminal_kernel"
 
 
 def _min_blocks(n: int) -> list:
-    return [(r"constexpr int kQeMinBlocks = 1;", f"constexpr int kQeMinBlocks = {n};"),
-            (_LV_BOUNDS, f"__launch_bounds__(kBlock, {n})\nlocalvol_terminal_kernel")]
+    return [(rf"constexpr int k{kernel}MinBlocks = 1;",
+             f"constexpr int k{kernel}MinBlocks = {n};") for kernel in ("Qe", "Euler", "Gbm")] + [
+        (_LV_BOUNDS, f"__launch_bounds__(kBlock, {n})\nlocalvol_terminal_kernel")]
 
 
 # name -> (pattern, replacement) edits of terminal.cu
 VARIANTS = {
-    "as built (256 threads, no minimum)": [],
+    "as built (128 threads, no minimum)": [],
+    "min 16 blocks": _min_blocks(16),
     "min 8 blocks": _min_blocks(8),
-    "min 4 blocks": _min_blocks(4),
-    "block 128": [(r"constexpr int kBlock = 256;", "constexpr int kBlock = 128;")],
-    "block 512": [(r"constexpr int kBlock = 256;", "constexpr int kBlock = 512;")],
+    "block 256": [(r"constexpr int kBlock = 128;", "constexpr int kBlock = 256;")],
+    "block 512": [(r"constexpr int kBlock = 128;", "constexpr int kBlock = 512;")],
 }
 N_PATHS, N_STEPS, N_TIMED = 1 << 22, 100, 7
 
@@ -77,7 +79,11 @@ def run(log=print) -> dict:
         fns = {"localvol_terminal": lambda: cuda_localvol.localvol_terminal(
                    seed, 100.0, 0.05, 1.0, table, N_PATHS, N_STEPS, device="cuda"),
                "heston_terminal_qe": lambda: cuda_heston.heston_terminal_qe(
-                   seed, 100.0, 0.05, 1.0, hp, N_PATHS, N_STEPS, device="cuda")}
+                   seed, 100.0, 0.05, 1.0, hp, N_PATHS, N_STEPS, device="cuda"),
+               "heston_terminal": lambda: cuda_heston.heston_terminal(
+                   seed, 100.0, 0.05, 1.0, hp, N_PATHS, N_STEPS, device="cuda"),
+               "gbm_terminal": lambda: cuda_gbm.gbm_terminal(
+                   seed, 100.0, 0.05, 0.2, 1.0, N_PATHS, N_STEPS, device="cuda")}
         times: dict = {}
         for name in list(VARIANTS) + list(VARIANTS)[::-1]:
             _build._lib = libs[name]

@@ -6,9 +6,10 @@ log-moneyness:
 
     sigma_t(m) ~= sum_k c[t, k] T_k((m - m_center) / m_half),  m = log(K / S)
 
-which the kernels (csrc/localvol.cu) evaluate by Clenshaw from their
-carried log S. The fit is numpy ``chebfit`` on the reference's nodes, cast
-to float32; ``sigma_fn`` is called on float32 torch tensors.
+which the kernels (csrc/localvol.cu, csrc/terminal.cu) evaluate by
+Clenshaw from their carried log S. The fit is numpy ``chebfit`` on the
+reference's nodes, cast to float32; ``sigma_fn`` is called on float32 torch
+tensors.
 """
 
 from __future__ import annotations

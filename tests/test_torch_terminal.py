@@ -1,6 +1,6 @@
 """The redesigned terminal kernels' host side (csrc/terminal.cu: local vol,
-kernel 7, and Heston QE-M, kernel 5) held against the JAX package and the
-port's plain versions on the CPU.
+kernel 7, Heston QE-M, kernel 5, Heston Euler, kernel 3, and GBM, kernel 1)
+held against the JAX package and the port's plain versions on the CPU.
 
 - The padded table the local-vol kernel reads: every row zero-padded to
   whole float4 groups, rows bit-equal, and Clenshaw over it (the plain
@@ -14,6 +14,9 @@ port's plain versions on the CPU.
   CUDA each raises for device="cuda" and for no device.
 - The local-vol kernel's log-S update in a float32 emulation: no bias in
   S_T, where adding r dt on its own to the absolute log S has one.
+- The Euler kernel's log-S update in a float32 emulation at the main
+  path's Heston parameters: no bias in S_T against float64 on the same
+  normals, where the paths kernel's form (x + r dt rounded first) has one.
 """
 
 import jax.numpy as jnp
@@ -25,7 +28,7 @@ from options_model_tpu.ops.pallas_localvol import localvol_terminal_pallas
 from options_model_tpu.surface import cheb as jcheb
 from options_model_tpu_torch.core.config import HestonParams
 from options_model_tpu_torch.models.localvol import localvol_euler_from_normals
-from options_model_tpu_torch.ops import cuda_heston, cuda_localvol
+from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_localvol
 from options_model_tpu_torch.surface.cheb import (LocalVolTable, compile_localvol_table,
                                                   eval_table)
 
@@ -104,33 +107,48 @@ def _localvol(fn, **kw):
     return fn(21, S0, R, T, _table(7), 5000, N_STEPS, True, 1, **kw)
 
 
-def _qe(fn, **kw):
+def _heston(fn, **kw):
     return fn(21, S0, R, T, HESTON, 5000, N_STEPS, True, 1, **kw)
+
+
+def _gbm(fn, **kw):
+    return fn(21, S0, R, 0.2, T, 5000, N_STEPS + 1, True, 1, **kw)
+
+
+def _counts() -> dict:
+    return dict(cuda_localvol.launches, **cuda_heston.launches, **cuda_gbm.launches)
 
 
 WRAPPERS = {
     "localvol_terminal": lambda **kw: _localvol(cuda_localvol.localvol_terminal, **kw),
     "localvol_terminal_accurate":
         lambda **kw: _localvol(cuda_localvol.localvol_terminal_accurate, **kw),
-    "heston_terminal_qe": lambda **kw: _qe(cuda_heston.heston_terminal_qe, **kw),
+    "heston_terminal_qe": lambda **kw: _heston(cuda_heston.heston_terminal_qe, **kw),
     "heston_terminal_qe_accurate":
-        lambda **kw: _qe(cuda_heston.heston_terminal_qe_accurate, **kw),
+        lambda **kw: _heston(cuda_heston.heston_terminal_qe_accurate, **kw),
+    "heston_terminal": lambda **kw: _heston(cuda_heston.heston_terminal, **kw),
+    "heston_terminal_accurate":
+        lambda **kw: _heston(cuda_heston.heston_terminal_accurate, **kw),
+    "gbm_terminal": lambda **kw: _gbm(cuda_gbm.gbm_terminal, **kw),
+    "gbm_terminal_accurate": lambda **kw: _gbm(cuda_gbm.gbm_terminal_accurate, **kw),
 }
 PLAIN = {
     "localvol_terminal": lambda: _localvol(cuda_localvol.localvol_terminal_reference,
                                            device="cpu"),
-    "heston_terminal_qe": lambda: _qe(cuda_heston.heston_terminal_qe_reference,
+    "heston_terminal_qe": lambda: _heston(cuda_heston.heston_terminal_qe_reference,
                                       device="cpu"),
+    "heston_terminal": lambda: _heston(cuda_heston.heston_terminal_reference, device="cpu"),
+    "gbm_terminal": lambda: _gbm(cuda_gbm.gbm_terminal_reference, device="cpu"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_cpu_wrappers_are_the_plain_versions_and_launch_nothing(name):
-    before = dict(cuda_localvol.launches, **cuda_heston.launches)
+    before = _counts()
     got = WRAPPERS[name](device="cpu")
     assert got.shape == (16384,) and bool(torch.isfinite(got).all())
     assert torch.equal(got, PLAIN[name.removesuffix("_accurate")]())
-    assert dict(cuda_localvol.launches, **cuda_heston.launches) == before
+    assert _counts() == before
 
 
 @pytest.mark.parametrize("device", ["cuda", None], ids=["cuda", "no_device"])
@@ -140,10 +158,10 @@ def test_terminal_wrappers_raise_without_cuda(name, device):
     raises; neither falls back to the plain version."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: chip_smoke.py covers the kernels")
-    before = dict(cuda_localvol.launches, **cuda_heston.launches)
+    before = _counts()
     with pytest.raises(RuntimeError, match="CUDA"):
         WRAPPERS[name](device=device)
-    assert dict(cuda_localvol.launches, **cuda_heston.launches) == before
+    assert _counts() == before
 
 
 def _log_s_bias(form: str) -> float:
@@ -189,3 +207,63 @@ def test_log_s_update_rounds_without_bias():
     assert abs(_log_s_bias("kernel")) < 1e-7
     assert _log_s_bias("absolute") > 1.5e-5
     assert -1e-5 < _log_s_bias("plain") < -5e-6
+
+
+def _euler_log_s_bias(seed: int = 5) -> dict:
+    """Mean relative error of S_T against float64 on the same normals, after
+    100 full-truncation Euler steps at the main path's Heston parameters
+    (kappa 2, theta 0.04, xi 0.3, rho -0.7, v0 0.04, r 0.05, T 1), in a
+    float32 emulation (an FMA rounds once) of x = log S - log S0 updated in
+    one of three forms, each with its own variance chain: "kernel" (the
+    terminal kernel) adds each step's whole increment fmaf(sqrt(dt v+), z1,
+    fmaf(v+, -dt/2, r dt)); "paths" (the paths kernel, hopper_fast.cuh's
+    euler_step without kWhole) rounds x + r dt first; "plain" is the plain
+    version's x + (r - v+/2) dt + sqrt(v+) sqrt(dt) z1. S0 is a common
+    factor, so the relative error of S_T is expm1(x - x_exact)."""
+    f = np.float32
+    rng = np.random.default_rng(seed)
+    z1, z2 = rng.standard_normal((2, 100, 1 << 14)).astype(f)
+    dt = f(1.0) / f(100)
+    sdt, rho, rho_bar = np.sqrt(dt), f(-0.7), np.sqrt(f(1.0) - f(-0.7) * f(-0.7))
+    kd = f(2.0) * dt
+    ca, cb, rdt, mhdt, xi_sdt = f(1.0) - kd, kd * f(0.04), f(0.05) * dt, f(-0.5) * dt, f(0.3) * sdt
+
+    def fma(a, b, c):
+        return (np.float64(a) * np.float64(b) + np.float64(c)).astype(f)
+
+    out = {}
+    for form in ("kernel", "paths", "plain"):
+        x, v = np.zeros(z1.shape[1], f), np.full(z1.shape[1], f(0.04))
+        x64, v64 = np.zeros(z1.shape[1]), np.full(z1.shape[1], 0.04)
+        for a, b in zip(z1, z2):
+            vp, w2 = np.maximum(v, f(0.0)), fma(rho, a, rho_bar * b)
+            sv = np.sqrt(vp)
+            if form == "plain":
+                sq = sv * sdt
+                v = np.maximum(vp + f(2.0) * (f(0.04) - vp) * dt + f(0.3) * sq * w2, f(0.0))
+                x = (x + (f(0.05) - f(0.5) * vp) * dt) + sq * a
+            else:
+                v = np.maximum(fma(xi_sdt * sv, w2, fma(vp, ca, cb)), f(0.0))
+                x = (x + fma(sdt * sv, a, fma(vp, mhdt, rdt)) if form == "kernel"
+                     else fma(sdt * sv, a, fma(vp, mhdt, x + rdt)))
+            a64, b64 = a.astype(np.float64), b.astype(np.float64)
+            vp64 = np.maximum(v64, 0.0)
+            sq64 = np.sqrt(vp64 * 0.01)
+            x64 = x64 + (0.05 - 0.5 * vp64) * 0.01 + sq64 * a64
+            v64 = np.maximum(vp64 + 2.0 * (0.04 - vp64) * 0.01
+                             + 0.3 * sq64 * (-0.7 * a64 + np.sqrt(1.0 - 0.49) * b64), 0.0)
+        out[form] = float(np.mean(np.expm1(x.astype(np.float64) - x64)))
+    return out
+
+
+def test_euler_log_s_update_rounds_without_bias():
+    """Why the Euler terminal kernel (csrc/terminal.cu) adds each step's
+    whole increment to x = log S - log S0: x + r dt rounded on its own rounds
+    the same way wherever x stays in one binade, -1.6e-7 in S_T over 100
+    steps at these parameters; the kernel's form and the plain version's
+    stay within ~1e-8 of float64 on the same normals."""
+    bias = _euler_log_s_bias()
+    print(f"mean relative bias of S_T vs float64: {bias}")
+    assert abs(bias["kernel"]) <= 1e-6 and abs(bias["kernel"]) < 5e-8
+    assert abs(bias["plain"]) < 5e-8
+    assert bias["paths"] < -1e-7
