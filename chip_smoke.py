@@ -8,29 +8,33 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit; count the time loops of kernels
-   1 and 3-7 (both designs) in SASS, with their registers and stack, and
+   1 and 3-8 (both designs) in SASS, with their registers and stack, and
    there the integer instructions of a Philox call;
 2. each of the eight path kernels against its plain PyTorch version on the
    card, at 2 and 64 tiles and at its path's shape: equal Philox bits, S
    (and v) within the stated tolerances, and bit-equal chunks at a
    ``first_tile`` offset; the same for the first design of kernels 4 and 6
    (csrc/heston.cu, csrc/heston_qe.cu), which no pricer reaches any more;
-   the redesigned terminal kernels 1, 3, 5 and 7 (csrc/terminal.cu) within
-   rtol 1e-4 on S, kernel 7 at degrees 3, 7 and 17 (a compile-time and the
-   run-time instance), kernels 1 and 3 also at step counts that end in each
-   tail of their draw loop, and their first designs (csrc/gbm.cu,
+   the redesigned terminal kernels 1, 3, 5 and 7 (csrc/terminal.cu) and
+   local-vol paths kernel 8 (csrc/localvol_paths.cu) within rtol 1e-4 on
+   S, kernels 7 and 8 at degrees 3, 7 and 17 (compile-time instances and
+   the run-time one), kernels 1, 3 and 8 also at step counts that end in
+   each tail of their draw loop, and their first designs (csrc/gbm.cu,
    csrc/heston.cu, csrc/heston_qe.cu, csrc/localvol.cu) within rtol 1e-5;
    the maturity-batched paths kernel (csrc/heston_paths.cu) at the 64 x
    16,384 x 50 surface shape: each maturity's slice bit-equal to a
    single-maturity launch, bit-equal ``first_tile`` chunks, within its
    tolerances of the plain version (QE-M's v bit for bit); a constant-sigma
    local-vol table against the GBM kernel; kernel 4's first design
-   bit-equal to its output before heston_common.cuh, and the redesigned
-   kernels 4 and 6 to theirs before hopper_fast.cuh (recorded digests);
-   every store/exp/layout variant of csrc/heston_variants.cu against its
-   plain version (rtol 1e-5 on S) and against that first design (bit for
-   bit; the log-only form within rtol 1e-6 after exp), with bit-equal
-   ``first_tile`` chunks;
+   bit-equal to its output before heston_common.cuh, the redesigned
+   kernels 4 and 6 to theirs before hopper_fast.cuh, and kernel 7 to its
+   output before its step moved to hopper_fast.cuh (recorded digests);
+   every store/exp/layout variant of csrc/paths_variants.cu against its
+   plain version (rtol 1e-4 on S) and against kernel 4 as the pricers run
+   it (bit for bit; the log-only form within rtol 1e-6 after exp), and of
+   its first design, csrc/heston_variants.cu, against its plain version
+   (rtol 1e-5) and kernel 4's first design (the same equalities), with
+   bit-equal ``first_tile`` chunks;
 3. the paths, each driven with every launch count set to 0 just before it
    and read just after:
    a. the main path through ``price_american``: the pooled Heston American
@@ -49,16 +53,18 @@ Phases, in order; any failure exits non-zero:
       exp_paths_kernel.py and exp_fullpath_layout.py) at their scripts'
       shapes, each variant also held against its plain version there;
 4. the launch counts of each path, none of its kernels at 0, the first
-   design of kernels 1 and 3-7 at 0, and one paths launch per 64x64
-   Heston surface;
+   design of kernels 1 and 3-8 and of the variants at 0, and one paths
+   launch per 64x64 Heston surface; the experiments reach the variants'
+   first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
-   after warm-up) beside its bound; for kernels 1 and 3-7 also the first
+   after warm-up) beside its bound; for kernels 1 and 3-8 also the first
    design's time, in turns with the redesign, and registers and
    occupancy; for kernels 4 and 6 the surface shape (one batched launch
-   against 64 single launches of either design); kernel 7 at degree 17;
-   the American puts, the surface's ADI cells and the European legs of
-   kernels 1, 3, 5 and 7 beside the first design's on the same seeds (the
-   European legs within EARLIER_EURO_GATE stderr of it);
+   against 64 single launches of either design); kernels 7 and 8 at
+   degrees 3 and 17; the American puts, the surface's ADI cells, the
+   European legs of kernels 1, 3, 5 and 7 and the local-vol American put
+   of kernel 8 beside the first design's on the same seeds (the European
+   legs and the local-vol put within EARLIER_EURO_GATE stderr of it);
    seconds per price and per surface, each European leg beside its
    kernel's time.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
@@ -113,6 +119,13 @@ KERNEL4_DIGEST = "99c2e49a1a0fc1af6cd697e95da4771a75a48862b5872a9fb6d488595c4580
 # 1.0) x 16 tiles x 50 steps at first_tile 3, seed 0x9E3779B97F4A7C15,
 # recorded by paths_digest on an H100 (nvcc 12.9).
 PATHS_DIGEST = "4406f23463bbea653c0e6d92ca817af3cc86328c874feac6e306412196cfef73"
+# sha256 of the redesigned local-vol terminal kernel (kernel 7,
+# csrc/terminal.cu) before its step (LvK, lv_fold, row_groups, clenshaw,
+# lv_step) moved to hopper_fast.cuh: localvol_terminal S_T on the bench smile
+# at degrees 3, 7 and 17, each with and without antithetics, 8 tiles x 100
+# steps, T 1, first_tile 3, seed 0x9E3779B97F4A7C15, recorded by
+# lv_terminal_digest on an H100 (nvcc 12.9).
+LV_TERMINAL_DIGEST = "0925abc8c5d4d5d38bb650b9d44647db1371bc2d3c1da58d1306411948f1646d"
 # The redesigned paths kernels (csrc/heston_paths.cu) against the plain
 # version on the same Philox bits. Euler trades the last ulps (SFU sincos,
 # lg2, sqrt and ex2; FMAs): the normals move by up to ~3e-6 absolute and the
@@ -126,24 +139,32 @@ EULER_V_RTOL = 1e-4
 # chain (lg2.approx's ~3.6e-7 absolute error in k0 a step, FMAs, the stored
 # ex2.approx) moves log S by ~1e-6-1e-5 over 50-100 steps.
 QE_S_RTOL = 1e-4
-# The redesigned local-vol terminal kernel (csrc/terminal.cu) trades the
-# last ulps of the whole step (SFU Box-Muller, folded constants, FMAs) and
-# carries log S - log S0, where the plain version adds (r - sigma^2/2) dt to
-# the absolute log S (~4.6, ulp 4.8e-7): a rounding that, where sigma is
-# constant, goes the same way at every step (-6.9e-6 in S_T over 100 steps
-# at sigma = 0.2, against ~1e-8 for the kernel).
+# The redesigned local-vol kernels (the terminal kernel of csrc/terminal.cu,
+# the paths kernel of csrc/localvol_paths.cu) trade the last ulps of the
+# whole step (SFU Box-Muller, folded constants, FMAs; the paths kernel's
+# stored ex2.approx) and carry log S - log S0, where the plain version adds
+# (r - sigma^2/2) dt to the absolute log S (~4.6, ulp 4.8e-7): a rounding
+# that, where sigma is constant, goes the same way at every step (-6.9e-6 in
+# S_T over 100 steps at sigma = 0.2, against ~1e-8 for the kernels).
 LV_S_RTOL = 1e-4
 # The redesigned GBM terminal kernel (csrc/terminal.cu): the SFU
 # Box-Muller's ~3e-6 absolute error a normal, summed over 100 steps and
 # scaled by sigma sqrt(dt), and ex2.approx's ~2 ulps.
 GBM_S_RTOL = 1e-4
-# Degrees at which kernel 7 is held against its plain version: two with a
-# compile-time instance (7 the default), one past them (the run-time one).
+# Degrees at which kernels 7 and 8 are held against their plain versions:
+# two with a compile-time instance (7 the default), one past them (the
+# run-time one).
 LV_DEGREES = (3, 7, 17)
+# Step counts of kernel 8 that end in each tail of its draw loop (four steps
+# a draw): 49, 50 (the path's), 51, and 1-3 alone.
+LV_PATHS_TAILS = (49, 50, 51, 1, 2, 3)
 # A European leg of a redesigned terminal kernel against its first design on
 # the same seeds and tiles: the same Philox draws, so the prices differ only
 # through f32 rounding, and by at most this many stderr.
 EARLIER_EURO_GATE = 0.5
+# A price repeated with the same kernel on the same seed: the same paths bit
+# for bit, so only the order of the regression's reductions may move it.
+SAME_DRAWS_GATE = 0.01
 # Rounds of (first, new, new, first) European prices per leg, timed on the
 # host clock, so both designs' seconds per price come from one stretch.
 EURO_TURNS = 5
@@ -253,12 +274,12 @@ def kernel_specs():
     timed (tile count, steps), f32 operations and Philox draws (DRAWS_*)
     per path-step (and the local-vol table it reads), the tolerances against
     its plain version (S rtol, v atol, v rtol), and run(plain, n_tiles,
-    first_tile, n_steps, variance, antithetic). Kernels 1 and 3-7 also
+    first_tile, n_steps, variance, antithetic). Kernels 1 and 3-8 also
     carry ``earlier``, the same for their first design; kernels 4 and 6
-    their scheme; kernel 7 ``checks``, (label, run, table) per degree of
-    LV_DEGREES; kernels 1 and 3 ``tails``, step counts that end in each tail
-    of their draw loop (an odd count for Euler's two steps a draw, each
-    n_steps % 4 for GBM's four)."""
+    their scheme; kernels 7 and 8 ``checks``, (label, run, table) per degree
+    of LV_DEGREES; kernels 1, 3 and 8 ``tails``, step counts that end in
+    each tail of their draw loop (an odd count for Euler's two steps a draw,
+    each n_steps % 4 for GBM's and local vol's four)."""
     from options_model_tpu_torch.core.config import HestonParams
     from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_localvol
     from options_model_tpu_torch.surface.cheb import compile_localvol_table
@@ -266,10 +287,13 @@ def kernel_specs():
     hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
     seed = 0x9E3779B97F4A7C15
     dev = DEVICE
-    smile_paths = compile_localvol_table(bench_smile, 100.0, 0.5, 50, 100.0)
     smile_terminal = compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0)
     smiles = {d: compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0, degree=d)
               for d in LV_DEGREES}
+    # kernel 8's tables: the path's T and enough rows for every tail
+    smiles_paths = {d: compile_localvol_table(bench_smile, 100.0, 0.5, max(LV_PATHS_TAILS),
+                                              100.0, degree=d) for d in LV_DEGREES}
+    smile_paths = smiles_paths[7]
 
     def paths_run(kernel, reference):
         def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
@@ -305,10 +329,12 @@ def kernel_specs():
                        n_steps, anti, first_tile, dev),)
         return run
 
-    def localvol_paths(plain, n_tiles, first_tile, n_steps, variance, anti=True):
-        fn = cuda_localvol.localvol_paths_reference if plain else cuda_localvol.localvol_paths
-        return (fn(seed, 100.0, 0.05, 0.5, smile_paths, n_tiles * cuda_heston.PATH_TILE,
-                   n_steps, anti, first_tile, dev),)
+    def paths_lv(kernel, table):
+        def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
+            fn = cuda_localvol.localvol_paths_reference if plain else kernel
+            return (fn(seed, 100.0, 0.05, 0.5, table, n_tiles * cuda_heston.PATH_TILE,
+                       n_steps, anti, first_tile, dev),)
+        return run
 
     def terminal_lv(kernel, table):
         def run(plain, n_tiles, first_tile, n_steps, variance, anti=True):
@@ -382,11 +408,17 @@ def kernel_specs():
                           run=terminal_lv(cuda_localvol.localvol_terminal_accurate,
                                           smile_terminal),
                           checks=None, counter=(LV, "localvol_terminal_accurate"))),
-        dict(name="localvol_paths", run=localvol_paths, source=src + "localvol.cu",
+        dict(name="localvol_paths", source=src + "localvol_paths.cu",
+             run=paths_lv(cuda_localvol.localvol_paths, smile_paths),
+             checks=[(f"degree {d}", paths_lv(cuda_localvol.localvol_paths, t), t)
+                     for d, t in smiles_paths.items()],
              replaces="options_model_tpu/ops/pallas_localvol.py:149", paths=("second",),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
-             ops=ops_lv(smile_paths.degree) + 1, draws=DRAWS_GBM, table=smile_paths,
-             counter=(LV, "localvol_paths")),
+             ops=ops_lv(smile_paths.degree) + OPS_EXP, draws=DRAWS_GBM, table=smile_paths,
+             tol=(LV_S_RTOL, 0.0, 0.0), tails=LV_PATHS_TAILS, counter=(LV, "localvol_paths"),
+             earlier=dict(name="localvol_paths_accurate", source=src + "localvol.cu",
+                          run=paths_lv(cuda_localvol.localvol_paths_accurate, smile_paths),
+                          checks=None, counter=(LV, "localvol_paths_accurate"))),
     ]
 
 
@@ -408,10 +440,11 @@ def phase_build() -> None:
 
 
 # Mangled-name pieces of the pricing instances of kernels 4 and 6
-# (antithetic, with v) and of kernels 1, 3, 5 and 7 (antithetic; local vol
-# at degree 7): the redesigns (csrc/heston_paths.cu, csrc/terminal.cu) and
-# the first designs, with the steps of a pair one pass of each time loop
-# covers where that is not one.
+# (antithetic, with v) and of kernels 1, 3, 5, 7 and 8 (antithetic; local
+# vol at degree 7, the redesigns also at degree 3): the redesigns
+# (csrc/heston_paths.cu, csrc/terminal.cu, csrc/localvol_paths.cu) and the
+# first designs, with the steps of a pair one pass of each time loop covers
+# where that is not one.
 SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kernelILb1ELb1E",
                 "euler, first design": "13heston_kernelILb1E",
                 "qe, first design": "16heston_qe_kernelILb1E",
@@ -422,8 +455,14 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "euler terminal": "21euler_terminal_kernelILb1E",
                 "euler terminal, first design": "13heston_kernelILb0E",
                 "gbm terminal": "19gbm_terminal_kernelILb1E",
-                "gbm terminal, first design": "10gbm_kernelILb0E"}
-SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm terminal": 4}
+                "gbm terminal, first design": "10gbm_kernelILb0E",
+                "localvol paths": "21localvol_paths_kernelILi7ELb1E",
+                "localvol paths, first design": "15localvol_kernelILb1E",
+                "localvol terminal, degree 3": "24localvol_terminal_kernelILi3ELb1E",
+                "localvol paths, degree 3": "21localvol_paths_kernelILi3ELb1E"}
+SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm terminal": 4,
+              "localvol paths": 4, "localvol terminal, degree 3": 4,
+              "localvol paths, degree 3": 4}
 
 
 def sass_loops(text: str) -> dict:
@@ -506,15 +545,17 @@ def phase_sass() -> dict:
     loops = sass_loops(text)
     log("[1] SASS time loops (static instructions of the largest backward-branch span; "
         "the redesigned Euler loops (paths and terminal) cover two steps of a pair and one "
-        "Philox call, the local-vol and GBM terminal redesigns four steps, one Philox call "
-        "and two Box-Mullers, every other loop one step; the first designs' Euler, GBM and "
-        "local vol call Philox every other or every fourth step, the local-vol one holds "
-        "its Clenshaw loop; a pair-step is both mirror paths' step): "
+        "Philox call, the local-vol (terminal and paths) and GBM terminal redesigns four "
+        "steps, one Philox call and two Box-Mullers, every other loop one step; the first "
+        "designs' Euler, GBM and local vol call Philox every other or every fourth step, "
+        "the local-vol ones hold their Clenshaw loop; a pair-step is both mirror paths' "
+        "step): "
         + ", ".join(f"{k} {len(v)}" + (f" ({len(v) / SASS_STEPS[k]:g} a pair-step, "
                                        f"{len(v) / SASS_STEPS[k] / 2:g} a path-step)"
                                        if k in SASS_STEPS else "")
                     for k, v in loops.items()))
-    for key in ("euler terminal", "gbm terminal", "localvol terminal"):
+    for key in ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
+                "localvol terminal, degree 3", "localvol paths, degree 3"):
         if key in loops:
             log(f"[1] SASS {key} loop by unit (a pass of {SASS_STEPS[key]} pair-steps): "
                 + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items()))
@@ -567,7 +608,7 @@ def phase_philox() -> None:
 
 
 def earlier_specs(specs) -> list:
-    """The first design of kernels 1 and 3-7 as specs of their own, held to
+    """The first design of kernels 1 and 3-8 as specs of their own, held to
     the tolerances they were built to (S_RTOL, V_ATOL, V_RTOL)."""
     return [dict(k, **k["earlier"], tol=(S_RTOL, V_ATOL, V_RTOL)) for k in specs
             if "earlier" in k]
@@ -776,6 +817,25 @@ def paths_digest() -> str:
     return h.hexdigest()
 
 
+def lv_terminal_digest() -> str:
+    """sha256 of the redesigned local-vol terminal kernel (csrc/terminal.cu)
+    at the LV_TERMINAL_DIGEST arguments."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_localvol
+    from options_model_tpu_torch.surface.cheb import compile_localvol_table
+
+    h = hashlib.sha256()
+    for degree in LV_DEGREES:
+        table = compile_localvol_table(bench_smile, 100.0, 1.0, 100, 100.0, degree=degree)
+        for anti in (True, False):
+            ST = cuda_localvol.localvol_terminal(0x9E3779B97F4A7C15, 100.0, 0.05, 1.0, table,
+                                                 8 * 16384, 100, anti, 3, DEVICE)
+            torch.cuda.synchronize()
+            h.update(ST.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def phase_digests() -> None:
     got = kernel4_digest()
     if got != KERNEL4_DIGEST:
@@ -791,13 +851,20 @@ def phase_digests() -> None:
              f"recorded {PATHS_DIGEST}")
     log("[2] the redesigned kernels 4 and 6 (heston_paths_batched, Euler and QE-M with v) "
         f"bit-equal to their output before hopper_fast.cuh: sha256 {got[:16]}...")
+    got = lv_terminal_digest()
+    if got != LV_TERMINAL_DIGEST:
+        fail(f"the redesigned kernel 7 changed with hopper_fast.cuh: digest {got}, recorded "
+             f"{LV_TERMINAL_DIGEST}")
+    log("[2] the redesigned kernel 7 (localvol_terminal, degrees 3, 7, 17, with and without "
+        f"antithetics) bit-equal to its output before hopper_fast.cuh: sha256 {got[:16]}...")
 
 
 def check_variant(hv, exp_mode, layout, unroll, tile, n_tiles, steps, seed=0x9E3779B97F4A7C15,
-                  T=1.0) -> float:
-    """A variant against its plain version on the same Philox bits: S (after
-    exp(log S0 + out) for the log-only form) within rtol S_RTOL. Returns the
-    max |kernel - plain| of S."""
+                  T=1.0, accurate=False) -> float:
+    """A variant of the redesign (or of the first design) against its plain
+    version on the same Philox bits: S (after exp(log S0 + out) for the
+    log-only form) within rtol EULER_S_RTOL (S_RTOL). Returns the max
+    |kernel - plain| of S."""
     import torch
 
     from options_model_tpu_torch.core.config import HestonParams
@@ -805,28 +872,30 @@ def check_variant(hv, exp_mode, layout, unroll, tile, n_tiles, steps, seed=0x9E3
 
     hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
     args = (seed, 100.0, 0.05, T, hp, n_tiles * tile, steps, exp_mode, layout, unroll, tile)
-    got = hv.heston_variant(*args, device=DEVICE)
+    fn = hv.heston_variant_accurate if accurate else hv.heston_variant
+    rtol = S_RTOL if accurate else EULER_S_RTOL
+    name = f"variant {hv.launch_key(exp_mode, layout, unroll, accurate)} tile {tile}"
+    got = fn(*args, device=DEVICE)
     want = hv.heston_variant_reference(*args, device=DEVICE)
     torch.cuda.synchronize()
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        fail(f"variant {exp_mode}/{layout}/{unroll} tile {tile}: shape {tuple(got.shape)} "
-             f"vs {tuple(want.shape)} or non-finite")
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
     if exp_mode == "none":
         log_s0 = float(heston_constants(100.0, 0.05, T, hp, steps)["log_s0"])
         got, want = torch.exp(log_s0 + got), torch.exp(log_s0 + want)
     err = float((got - want).abs().max())
-    if bool(((got - want).abs() > S_RTOL * want.abs()).any()):
-        fail(f"variant {exp_mode}/{layout}/{unroll} tile {tile}: differs from its plain "
-             f"version (max abs {err:.3e}, rtol {S_RTOL})")
+    if bool(((got - want).abs() > rtol * want.abs()).any()):
+        fail(f"{name}: differs from its plain version (max abs {err:.3e}, rtol {rtol})")
     return err
 
 
 def phase_variants() -> dict:
-    """Every built variant of csrc/heston_variants.cu at tile 4096, 64 tiles
-    x 100 steps: against its plain version, against kernel 4's first design
-    (bit for bit; the log-only form within LOG_RTOL after exp), and a
-    first_tile chunk.
-    Returns the max |kernel - plain| of S per variant key."""
+    """Every built variant of both designs at tile 4096, 64 tiles x 100
+    steps: against its plain version, against its design of kernel 4
+    (csrc/paths_variants.cu against heston_paths, csrc/heston_variants.cu
+    against heston_paths_accurate; bit for bit, the log-only form within
+    LOG_RTOL after exp), and a first_tile chunk. Returns the max |kernel -
+    plain| of S per launch key."""
     import torch
 
     from options_model_tpu_torch.core.config import HestonParams
@@ -836,43 +905,66 @@ def phase_variants() -> dict:
 
     hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
     seed, steps, tile = 0x9E3779B97F4A7C15, 100, cuda_heston.PATH_TILE
-    k4 = cuda_heston.heston_paths_accurate(seed, 100.0, 0.05, 1.0, hp, 64 * tile, steps,
-                                           device=DEVICE)
     log_s0 = float(heston_constants(100.0, 0.05, 1.0, hp, steps)["log_s0"])
     errs = {}
-    for e, lay, u in hv.VARIANTS:
-        key = f"{e}/{lay}/{u}"
-        errs[key] = max(check_variant(hv, e, lay, u, tile, n, steps, seed) for n in (2, 64))
-        out = hv.heston_variant(seed, 100.0, 0.05, 1.0, hp, 64 * tile, steps, e, lay, u, tile,
-                                device=DEVICE)
-        flat = out.permute(1, 0, 2).reshape(steps + 1, -1) if lay == "blocked" else out
-        ref = k4[-1] if lay == "terminal" else k4
-        if e == "none":
-            rel = float(((torch.exp(log_s0 + flat) - ref).abs() / ref).max())
-            if not rel <= LOG_RTOL:
-                fail(f"variant {key}: exp(log S0 + out) differs from kernel 4 by {rel:.3e} "
-                     f"relative (rtol {LOG_RTOL})")
-            how = f"exp(log S0 + out) == kernel 4 within {rel:.2e} relative"
-        elif torch.equal(flat, ref):
-            how = "== kernel 4 bit for bit"
-        else:
-            fail(f"variant {key} differs from kernel 4")
-        part = hv.heston_variant(seed, 100.0, 0.05, 1.0, hp, 32 * tile, steps, e, lay, u,
-                                 tile, first_tile=32, device=DEVICE)
-        tail = (out[:, 32 * tile:] if lay == "flat" else out[32:] if lay == "blocked"
-                else out[32 * tile:])
-        if not torch.equal(tail, part):
-            fail(f"variant {key}: a run at first_tile 32 differs from the full run's slice")
-        log(f"[2] variant {key}: kernel == plain within rtol {S_RTOL} at 2 and 64 tiles x "
-            f"{steps} steps (max abs {errs[key]:.3e}); {how}; first_tile=32 chunk bit-equal")
+    for accurate in (False, True):
+        k4_fn = cuda_heston.heston_paths_accurate if accurate else cuda_heston.heston_paths
+        fn = hv.heston_variant_accurate if accurate else hv.heston_variant
+        k4_name = "kernel 4's first design" if accurate else "kernel 4 (heston_paths)"
+        k4 = k4_fn(seed, 100.0, 0.05, 1.0, hp, 64 * tile, steps, device=DEVICE)
+        for e, lay, u in hv.VARIANTS:
+            key = hv.launch_key(e, lay, u, accurate)
+            errs[key] = max(check_variant(hv, e, lay, u, tile, n, steps, seed,
+                                          accurate=accurate) for n in (2, 64))
+            out = fn(seed, 100.0, 0.05, 1.0, hp, 64 * tile, steps, e, lay, u, tile,
+                     device=DEVICE)
+            flat = out.permute(1, 0, 2).reshape(steps + 1, -1) if lay == "blocked" else out
+            ref = k4[-1] if lay == "terminal" else k4
+            if e == "none":
+                rel = float(((torch.exp(log_s0 + flat) - ref).abs() / ref).max())
+                if not rel <= LOG_RTOL:
+                    fail(f"variant {key}: exp(log S0 + out) differs from {k4_name} by "
+                         f"{rel:.3e} relative (rtol {LOG_RTOL})")
+                how = f"exp(log S0 + out) == {k4_name} within {rel:.2e} relative"
+            elif torch.equal(flat, ref):
+                how = f"== {k4_name} bit for bit"
+            else:
+                bad = int((flat != ref).sum())
+                fail(f"variant {key} differs from {k4_name} in {bad} entries (max rel "
+                     f"{float(((flat - ref).abs() / ref).max()):.3e})")
+            part = fn(seed, 100.0, 0.05, 1.0, hp, 32 * tile, steps, e, lay, u, tile,
+                      first_tile=32, device=DEVICE)
+            tail = (out[:, 32 * tile:] if lay == "flat" else out[32:] if lay == "blocked"
+                    else out[32 * tile:])
+            if not torch.equal(tail, part):
+                fail(f"variant {key}: a run at first_tile 32 differs from the full run's slice")
+            log(f"[2] variant {key}: kernel == plain within rtol "
+                f"{S_RTOL if accurate else EULER_S_RTOL} at 2 and 64 tiles x {steps} steps "
+                f"(max abs {errs[key]:.3e}); {how}; first_tile=32 chunk bit-equal")
     return errs
+
+
+def variant_bytes(exp_mode: str, layout: str, n_paths: int, steps: int,
+                  transpose: bool = False) -> int:
+    """Device-memory bytes a variant row moves: the matrix written once
+    (per-step exp, log only), three times over for the bulk exp (x written,
+    read back, S written), twice more for a read-back to the flat layout
+    (read and write), or S_T alone (terminal only)."""
+    if layout == "terminal":
+        return n_paths * 4
+    passes = (3 if exp_mode == "bulk" else 1) + (2 if transpose else 0)
+    return passes * (steps + 1) * n_paths * 4
 
 
 def phase_experiments(per_call: float) -> list:
     """The two kernel-4 experiments at their scripts' shapes, each driven
-    with the variant counts at 0 and read after; every variant of them also
-    held against its plain version at that shape, and the plain version
-    timed; bounds at ``per_call`` integer instructions a Philox call.
+    with the variant counts at 0 and read after; the first design of the
+    variants launched only by the experiments' first-design rows; every
+    variant of them also held against its plain version at that shape, and
+    the plain version timed; bounds at ``per_call`` integer instructions a
+    Philox call and the bytes the function must move (its output written
+    once), and beside them a bound at the bytes each row moves
+    (variant_bytes).
     Returns one dict per experiment: rows, launches."""
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
     from options_model_tpu_torch.scripts import exp_fullpath_layout, exp_paths_kernel
@@ -883,18 +975,25 @@ def phase_experiments(per_call: float) -> list:
         for k in hv.launches:
             hv.launches[k] = 0
         rows = mod.run(mod.N_PATHS, mod.N_STEPS, log=lambda m, n=number: log(f"[3d] {n}: {m}"))
-        launches = dict(hv.launches)
+        launches = {k: n for k, n in hv.launches.items() if n}
         log(f"[4] variant launches during experiment {number}: {launches}")
+        first_rows = {hv.launch_key(*row["variant"][:3], True) for row in rows
+                      if row["accurate"]}
+        stray = {k: n for k, n in launches.items() if "first design" in k and k not in first_rows}
+        if stray:
+            fail(f"experiment {number} reached the variants' first design outside its "
+                 f"first-design rows: {stray}")
         for row in rows:
             e, lay, u, tile = row["variant"]
             if e is None:                  # kernel 4 itself, row A of experiment 9
                 continue
-            key = f"{e}/{lay}/{u}"
-            if not launches[key]:
+            key = hv.launch_key(e, lay, u, row["accurate"])
+            if not launches.get(key):
                 fail(f"experiment {number}: variant {key} was never launched")
             n_paths, steps = mod.N_PATHS, mod.N_STEPS
             row["launches"] = launches[key]
-            row["max_abs_err"] = check_variant(hv, e, lay, u, tile, n_paths // tile, steps)
+            row["max_abs_err"] = check_variant(hv, e, lay, u, tile, n_paths // tile, steps,
+                                               accurate=row["accurate"])
 
             def plain(row=row, e=e, lay=lay, u=u, tile=tile):
                 out = hv.heston_variant_reference(1, 100.0, 0.05, 1.0, mod.HESTON, n_paths,
@@ -904,8 +1003,17 @@ def phase_experiments(per_call: float) -> list:
             row["plain_ms"] = time_per_call(plain)
             stored = lay != "terminal"
             ops = OPS_HESTON + (OPS_EXP if stored and e != "none" else 0)
-            row.update(bound(n_paths, steps, ops, int_ops(DRAWS_HESTON, per_call),
-                             (steps + 1 if stored else 1) * n_paths * 4))
+            moved = variant_bytes(e, lay, n_paths, steps, row.get("transpose", False))
+            n_int = int_ops(DRAWS_HESTON, per_call)
+            once = (steps + 1 if stored else 1) * n_paths * 4
+            row.update(bound(n_paths, steps, ops, n_int, once), bytes_moved=moved,
+                       bound_ms_moved=bound(n_paths, steps, ops, n_int, moved)["bound_ms"])
+            log(f"[5] experiment {number}, {row['label']}: {row['ms']:.4f} ms; bound "
+                f"{row['bound_ms']:.4f} ms by {row['bound_term']} ({once / 1e6:.1f} MB out), "
+                f"{row['bound_ms'] / row['ms'] * 100:.1f}% of it; at the bytes the row moves "
+                f"({moved / 1e6:.1f} MB) {row['bound_ms_moved']:.4f} ms, "
+                f"{row['bound_ms_moved'] / row['ms'] * 100:.1f}%; plain "
+                f"{row['plain_ms']:.4f} ms")
         out.append(dict(number=number, rows=rows, launches=launches))
     return out
 
@@ -1048,13 +1156,40 @@ def phase_main_path() -> tuple:
     return {k: statistics.median(v) for k, v in secs.items()}, euro
 
 
+def localvol_put():
+    """The local-vol American put of phases 3b and 5: a constant 0.2 table
+    (T 0.5, 50 rows), MCConfig 2^21 x 50, and price(S), the put's price and
+    stderr on a path matrix S by Richardson with no control-variate leg
+    (richardson_cv_stat, as the JAX grid pricer runs each task)."""
+    import torch
+
+    from options_model_tpu_torch.core.config import PUT, LSMConfig, MCConfig, OptionSpec
+    from options_model_tpu_torch.core.stats import masked_mean_stderr
+    from options_model_tpu_torch.pricers.american import _pair_block, richardson_cv_stat
+    from options_model_tpu_torch.surface.cheb import compile_localvol_table
+
+    table = compile_localvol_table(lambda S, tau: torch.full_like(S, 0.2), 100.0, 0.5, 50,
+                                   100.0)
+    mc = MCConfig(n_paths=1 << 21, n_steps=50, path_block=4096)
+    pb = _pair_block(mc, "localvol")
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None)
+
+    def price(S) -> tuple:
+        stat, mask = richardson_cv_stat(S, None, spec, 0.5, LSMConfig(richardson=True),
+                                        model="localvol", pair_block=pb)
+        return tuple(float(x) for x in masked_mean_stderr(stat, mask, pb)[:2])
+
+    return table, mc, price
+
+
 def phase_second_path() -> dict:
     """The QE-M and local-vol path: Heston QE American and European, local
     vol European and American, the 64x64 surface (Euler and QE), each
     surface one launch of the batched paths kernel. Returns seconds per
     price or per surface, per scheme the three ADI cells (strike index,
-    maturity index, price, stderr, ADI), and the European legs of kernels 5
-    and 7 by label (price, stderr)."""
+    maturity index, price, stderr, ADI), the European legs of kernels 5
+    and 7 by label (price, stderr), and the local-vol American put (price,
+    stderr)."""
     import dataclasses
 
     import numpy as np
@@ -1067,9 +1202,8 @@ def phase_second_path() -> dict:
     from options_model_tpu_torch.ops import cuda_heston
     from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
     from options_model_tpu_torch.ops.philox import seed_from_generator
-    from options_model_tpu_torch.pricers.american import (_pair_block,
-                                                          price_american_richardson,
-                                                          richardson_cv_stat, simulate_paths)
+    from options_model_tpu_torch.pricers.american import (price_american_richardson,
+                                                          simulate_paths)
     from options_model_tpu_torch.pricers.binomial import crr_american
     from options_model_tpu_torch.pricers.blackscholes import bs_price
     from options_model_tpu_torch.pricers.european import (make_terminal_sampler,
@@ -1168,28 +1302,18 @@ def phase_second_path() -> dict:
         fail("constant-sigma local-vol European call outside its gate")
     euro["localvol_constant"] = (p, se)
 
-    # Local-vol American put: simulate_paths + richardson_cv_stat, as the JAX
-    # grid pricer runs each task (no control-variate leg under local vol).
-    flat_h = compile_localvol_table(lambda S, tau: torch.full_like(S, 0.2), 100.0, 0.5, 50,
-                                    100.0)
-    mc_l = MCConfig(n_paths=1 << 21, n_steps=50, path_block=4096)
-    pb = _pair_block(mc_l, "localvol")
-
-    def localvol_american():
-        S = simulate_paths(gen(31), 100.0, 0.5, mc_l, "localvol", rate=0.05,
-                           localvol_table=flat_h, device=DEVICE)
-        stat, mask = richardson_cv_stat(S, None, spec_put, 0.5, LSMConfig(richardson=True),
-                                        model="localvol", pair_block=pb)
-        return masked_mean_stderr(stat, mask, pb)[:2]
-
-    p, se = timed("localvol_american", localvol_american)
-    p, se = float(p), float(se)
+    # Local-vol American put: simulate_paths, then localvol_put's pricing.
+    flat_h, mc_l, lv_price = localvol_put()
+    p, se = timed("localvol_american", lambda: lv_price(simulate_paths(
+        gen(31), 100.0, 0.5, mc_l, "localvol", rate=0.05, localvol_table=flat_h,
+        device=DEVICE)))
     crr = crr_american(100.0, 100.0, 0.5, 0.05, 0.2, cp=-1.0, n_steps=4096)
     log(f"[3b] local-vol American put, constant 0.2 table (2^21 x 50, Richardson, no CV): "
         f"{p:.6f} +- {se:.6f}; CRR(4096) {crr:.6f}; gap {(p - crr) / se:+.2f} stderr "
         f"({(p / crr - 1.0) * 100:+.4f}%; gate 4 stderr)")
     if not abs(p - crr) <= 4.0 * se:
         fail("local-vol American put outside its gate")
+    lv_put = (p, se)
 
     # The 64 x 64 surface (bench.py:546-550), Euler and QE.
     Ks = np.linspace(70.0, 130.0, 64).astype(np.float32)
@@ -1238,7 +1362,53 @@ def phase_second_path() -> dict:
         one_launch(scheme, lambda: timed(f"surface_{scheme}", lambda: (price_american_surface(
             gen(41), 100.0, Ks, Ts, 0.05, mc_s, cp=-1.0, heston=hp, heston_scheme=scheme,
             device=DEVICE),)))
-    return {k: statistics.median(v) for k, v in secs.items()}, surface_cells, euro
+    return {k: statistics.median(v) for k, v in secs.items()}, surface_cells, euro, lv_put
+
+
+def phase_earlier_localvol_american(lv_put: tuple) -> None:
+    """The local-vol American put of phase 3b (2^21 x 50, constant 0.2
+    table, seed 31) with either design of kernel 8 on the same seed and
+    tiles, in turns (first, new, new, first) x EURO_TURNS: each price
+    against CRR within 4 stderr (the redesign's as phase 3b priced it), the
+    redesign's here within SAME_DRAWS_GATE stderr of phase 3b's (the same
+    draws), and the first design's within EARLIER_EURO_GATE stderr of phase
+    3b's. Run outside the paths' counts."""
+    import torch
+
+    from options_model_tpu_torch.models.blocks import paths_rounded
+    from options_model_tpu_torch.ops import cuda_localvol
+    from options_model_tpu_torch.ops.philox import seed_from_generator
+    from options_model_tpu_torch.pricers.binomial import crr_american
+
+    flat_h, mc_l, lv_price = localvol_put()
+    seed = seed_from_generator(torch.Generator().manual_seed(31))
+    fns = {"first": cuda_localvol.localvol_paths_accurate, "new": cuda_localvol.localvol_paths}
+    crr = crr_american(100.0, 100.0, 0.5, 0.05, 0.2, cp=-1.0, n_steps=4096)
+    prices, t = {}, {"first": [], "new": []}
+    for which in ("first", "new", "new", "first") * EURO_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prices[which] = lv_price(fns[which](seed, 100.0, 0.05, 0.5, flat_h,
+                                            paths_rounded(mc_l), mc_l.n_steps,
+                                            mc_l.antithetic, 0, DEVICE))
+        t[which].append(time.perf_counter() - t0)
+    secs = {k: statistics.median(v) for k, v in t.items()}
+    (p0, se0), (p1, se1), (p, se) = prices["first"], prices["new"], lv_put
+    log(f"[5] localvol_american: {p:.6f} +- {se:.6f} (phase 3b); redesign here {p1:.6f} "
+        f"+- {se1:.6f}; first design of kernel 8 {p0:.6f} +- {se0:.6f}; difference "
+        f"{p - p0:+.6f} ({(p - p0) / se:+.3f} stderr; gate {EARLIER_EURO_GATE}); against "
+        f"CRR(4096) {crr:.6f}: redesign {(p - crr) / se:+.2f}, first design "
+        f"{(p0 - crr) / se0:+.2f} stderr (gate 4); seconds per price in turns (first, new, "
+        f"new, first) x {EURO_TURNS}, medians: first design {secs['first']:.6f}, redesign "
+        f"{secs['new']:.6f}")
+    if not abs(p1 - p) <= SAME_DRAWS_GATE * se:
+        fail(f"localvol_american: the redesign's price on phase 3b's seed differs from phase "
+             f"3b's by more than {SAME_DRAWS_GATE} stderr")
+    if not abs(p - p0) <= EARLIER_EURO_GATE * se:
+        fail(f"localvol_american: the redesign's price moved by more than {EARLIER_EURO_GATE} "
+             "stderr from its first design's on the same draws")
+    if not abs(p0 - crr) <= 4.0 * se0:
+        fail("localvol_american: the first design's price is outside its CRR gate")
 
 
 def phase_earlier_europeans(euro: dict) -> None:
@@ -1406,17 +1576,19 @@ def surface_shape(k: dict, bound_ms: float) -> dict:
 def phase_timing(specs, per_call: float) -> dict:
     """CUDA-event medians of each kernel and its plain version: 2^22 x 100
     for the terminal kernels, 2^20 x 50 (with v where there is one) for the
-    paths kernels; and each one's bound at that shape. Kernels 1 and 3-7
+    paths kernels; and each one's bound at that shape. Kernels 1 and 3-8
     also: their first design at the same shape, timed in turns with the redesign
     (earlier, new, new, earlier; each the mean of its two medians), and
     registers and occupancy. Kernels 4 and 6 also: the surface shape
-    (surface_shape). Kernel 7 also: its other tables (LV_DEGREES), each with
-    its own bound. Bounds at ``per_call`` integer instructions a Philox
-    call."""
-    from options_model_tpu_torch.ops import cuda_heston
+    (surface_shape). Kernels 7 and 8 also: their other tables (LV_DEGREES),
+    in turns with each other (each the mean of its two medians), each with
+    its own bound. Bounds at ``per_call`` integer instructions a
+    Philox call."""
+    from options_model_tpu_torch.ops import cuda_heston, cuda_localvol
     from options_model_tpu_torch.utils.profiling import time_per_call
 
-    attrs = dict(cuda_heston.paths_kernel_attrs(), **cuda_heston.terminal_kernel_attrs())
+    attrs = dict(cuda_heston.paths_kernel_attrs(), **cuda_heston.terminal_kernel_attrs(),
+                 **cuda_localvol.paths_kernel_attrs())
     out = {}
     for k in specs:
         n_tiles, steps = k["timed"]
@@ -1436,7 +1608,8 @@ def phase_timing(specs, per_call: float) -> dict:
             ms = time_per_call(kernel, N_TIMED)
         plain_ms = time_per_call(lambda: k["run"](True, n_tiles, 0, steps, variance), N_TIMED)
         paths = k["tile"] == 4096
-        out_bytes = ((steps + 1) * (2 if variance else 1) if paths else 1) * n * 4
+        matrix_bytes = ((steps + 1) * (2 if variance else 1) if paths else 1) * n * 4
+        out_bytes = matrix_bytes
         if "table" in k:
             out_bytes += k["table"].coeffs.numel() * 4   # the table, read once
         n_int = int_ops(k["draws"], per_call)
@@ -1477,48 +1650,61 @@ def phase_timing(specs, per_call: float) -> dict:
             log(txt)
         if "scheme" in k:
             row.update(surface_shape(k, b["bound_ms"]))
-        for label, run, table in k.get("checks") or []:
-            if table.degree == k["table"].degree:
-                continue
-            ms_d = time_per_call(lambda run=run: run(False, n_tiles, 0, steps, variance),
-                                 N_TIMED)
-            b_d = bound(n, steps, ops_lv(table.degree), n_int,
-                        n * 4 + table.coeffs.numel() * 4)
-            row.setdefault("degrees", {})[table.degree] = dict(ms=ms_d, **b_d)
-            log(f"[5] {k['name']} at {label}: {ms_d:.4f} ms; bound {b_d['bound_ms']:.4f} ms by "
-                f"{b_d['bound_term']} ({ops_lv(table.degree):.2f} f32 operations per "
-                f"path-step); {b_d['bound_ms'] / ms_d * 100:.1f}% of bound")
+        others = [c for c in k.get("checks") or [] if c[2].degree != k["table"].degree]
+        turns: dict = {}
+        for label, run, _ in others + others[::-1]:     # in turns: d3, d17, d17, d3
+            turns.setdefault(label, []).append(time_per_call(
+                lambda run=run: run(False, n_tiles, 0, steps, variance), N_TIMED))
+        for label, _, table in others:
+            ms_d = sum(turns[label]) / 2
+            ops_d = ops_lv(table.degree) + k["ops"] - ops_lv(k["table"].degree)
+            b_d = bound(n, steps, ops_d, n_int, matrix_bytes + table.coeffs.numel() * 4)
+            row.setdefault("degrees", {})[table.degree] = dict(ms=ms_d, turns=turns[label],
+                                                               **b_d)
+            log(f"[5] {k['name']} at {label}: {ms_d:.4f} ms (in turns "
+                + ", ".join(f"{x:.4f}" for x in turns[label])
+                + f"); bound {b_d['bound_ms']:.4f} ms by {b_d['bound_term']} ({ops_d:.2f} f32 "
+                f"operations per path-step); {b_d['bound_ms'] / ms_d * 100:.1f}% of bound")
         out[k["name"]] = row
     return out
 
 
-def experiment_entry(exp: dict, headline: str, replaces: str, var_errs: dict) -> dict:
+def experiment_entry(exp: dict, headline: str, earlier: str, replaces: str,
+                     var_errs: dict) -> dict:
     """The kernels-line entry of kernel 9 or 10: the headline variant's
-    numbers, the experiment's launches, and every variant under it."""
-    src = "options_model_tpu_torch/csrc/heston_variants.cu"
+    numbers (bound_ms at its output written once, bound_ms_moved at the
+    bytes it moves), beside them its first design's row ``earlier``, the
+    experiment's launches, and every variant under it."""
+    src = "options_model_tpu_torch/csrc/"
     variants = []
     for row in exp["rows"]:
         if row["variant"][0] is None:
             continue
         e, lay, u, tile = row["variant"]
+        key = f"{e}/{lay}/{u}"
+        full_key = key + (" (first design)" if row["accurate"] else "")
         variants.append(dict(
-            name=row["label"], variant=f"{e}/{lay}/{u}", tile=tile, route="cuda",
-            source=src, replaces=replaces, launches=row["launches"],
-            max_abs_err=max(row["max_abs_err"], var_errs.get(f"{e}/{lay}/{u}", 0.0)),
+            name=row["label"], variant=key, tile=tile, route="cuda",
+            source=src + ("heston_variants.cu" if row["accurate"] else "paths_variants.cu"),
+            replaces=replaces, launches=row["launches"],
+            max_abs_err=max(row["max_abs_err"], var_errs.get(full_key, 0.0)),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], bound_term=row["bound_term"],
-            bound_ms_f32_bytes=row["bound_ms_f32_bytes"], library_ms=None))
+            bound_ms_f32_bytes=row["bound_ms_f32_bytes"], bytes_moved=row["bytes_moved"],
+            bound_ms_moved=row["bound_ms_moved"], library_ms=None))
     head = next(v for v in variants if v["name"] == headline)
+    first = next(v for v in variants if v["name"] == earlier)
     script = "exp_paths_kernel" if exp["number"] == 9 else "exp_fullpath_layout"
     return dict(name=f"heston_variant ({script})",
-                route="cuda", source=src, replaces=replaces,
+                route="cuda", source=head["source"], replaces=replaces,
                 launches=sum(exp["launches"].values()),
                 max_abs_err=max(v["max_abs_err"] for v in variants), ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], bound_term=head["bound_term"],
-                bound_ms_f32_bytes=head["bound_ms_f32_bytes"], library_ms=None,
-                headline=headline,
-                variants=variants)
+                bound_ms_f32_bytes=head["bound_ms_f32_bytes"], bytes_moved=head["bytes_moved"],
+                bound_ms_moved=head["bound_ms_moved"], library_ms=None,
+                headline=headline, earlier_name=earlier, earlier_source=first["source"],
+                earlier_ms=first["ms"], variants=variants)
 
 
 def main() -> int:
@@ -1542,12 +1728,15 @@ def main() -> int:
     phase_digests()
     var_errs = phase_variants()
 
+    from options_model_tpu_torch.ops import cuda_heston_variants as hv
+
     counters = [k["counter"] for k in specs + earlier_specs(specs)]
+    counters += [(hv.launches, key) for key in hv.launches]
 
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
-        was never launched, or if the first design of kernels 1 or 3-7 was.
-        Returns (fn's result, that path's counts)."""
+        was never launched, or if the first design of kernels 1 or 3-8, or
+        of the variants, was. Returns (fn's result, that path's counts)."""
         for d, key in counters:
             d[key] = 0
         out = fn()
@@ -1557,14 +1746,16 @@ def main() -> int:
         if not all(mine.values()):
             fail(f"a kernel of the {path} path was never launched: {mine}")
         earlier = {k["name"]: k["counter"][0][k["counter"][1]] for k in earlier_specs(specs)}
+        earlier["heston_variant_accurate"] = sum(n for key, n in hv.launches.items()
+                                                 if "first design" in key)
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3, 4, 5, 6 or 7: "
-                 f"{earlier}")
+            fail(f"the {path} path reached the first design of kernels 1, 3, 4, 5, 6, 7 or 8, "
+                 f"or of the variants: {earlier}")
         return out, mine
 
     (secs, euro), launches = drive("main", phase_main_path)
-    (secs2, surface_cells, euro2), launches2 = drive("second", phase_second_path)
+    (secs2, surface_cells, euro2, lv_put), launches2 = drive("second", phase_second_path)
     euro.update(euro2)
     launches.update(launches2)
     secs_nn, launches_nn = drive("nn", phase_nn)
@@ -1572,6 +1763,7 @@ def main() -> int:
 
     phase_earlier_cells(surface_cells)
     phase_earlier_europeans(euro)
+    phase_earlier_localvol_american(lv_put)
     times = phase_timing(specs, sass["per_call"])
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
@@ -1601,9 +1793,10 @@ def main() -> int:
                         "earlier_max_abs_err": errs[k["earlier"]["name"]]["s_abs"]}
                        if "earlier" in k else {}))
                for k in specs]
-    entries.append(experiment_entry(experiments[0], "B bulk exp",
+    entries.append(experiment_entry(experiments[0], "B bulk exp", "B0 bulk exp, first design",
                                     "scripts/exp_paths_kernel.py:31", var_errs))
     entries.append(experiment_entry(experiments[1], "C  blocked, tile 4096",
+                                    "C0 blocked, tile 4096, first design",
                                     "scripts/exp_fullpath_layout.py:36", var_errs))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

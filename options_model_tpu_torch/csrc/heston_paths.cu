@@ -57,8 +57,8 @@
 // The tolerances against the plain version are chip_smoke.py's (S rtol
 // 1e-4; Euler v atol 1e-5 + rtol 1e-4; QE v exact). Built without
 // --use_fast_math: the fast forms are named here and in hopper_fast.cuh
-// (keyed Philox, the SFU helpers, box_muller_fast, euler_step, qe_step),
-// nowhere else.
+// (keyed Philox, the SFU helpers, box_muller_fast, store_s, euler_step,
+// qe_step), nowhere else.
 #include <cstdint>
 
 #include "heston_common.cuh"
@@ -89,8 +89,8 @@ static_assert((kTile / 2) % kBlock == 0, "a block must not span two maturities")
 template <bool kAnti, bool kV>
 __device__ __forceinline__ void store_row(float* s, float* vv, float ls_a, float v_a,
                                           float ls_b, float v_b, float log2_s0) {
-  __stcs(s, ex2_approx(fmaf(ls_a, kLog2e, log2_s0)));
-  if (kAnti) __stcs(s + kTile / 2, ex2_approx(fmaf(ls_b, kLog2e, log2_s0)));
+  store_s(s, ls_a, log2_s0);
+  if (kAnti) store_s(s + kTile / 2, ls_b, log2_s0);
   if (kV) {
     __stcs(vv, v_a);
     if (kAnti) __stcs(vv + kTile / 2, v_b);

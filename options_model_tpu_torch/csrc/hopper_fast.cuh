@@ -1,16 +1,19 @@
-// The pieces of the Hopper redesigns (heston_paths.cu, terminal.cu) that
-// make a path-step cheaper than the first designs' without changing the
-// stream: Philox with its round keys computed once per launch, the SFU's
-// approximate lg2, ex2 and sqrt, an SFU Box-Muller, the full-truncation
-// Euler step on the SFU and FMAs, the never-contracted _rn arithmetic of
-// QE-M's variance chain, and the QE-M step whose variance chain stays exact
-// while its log-S chain goes to the fast pipes.
+// The pieces of the Hopper redesigns (heston_paths.cu, terminal.cu,
+// localvol_paths.cu, paths_variants.cu) that make a path-step cheaper than
+// the first designs' without changing the stream: Philox with its round keys
+// computed once per launch, the SFU's approximate lg2, ex2 and sqrt, an SFU
+// Box-Muller, the streamed row store of S, the full-truncation Euler step on
+// the SFU and FMAs, the local-vol step over a padded Chebyshev row and its
+// draw schedule, the never-contracted _rn arithmetic of QE-M's variance chain, and the QE-M step
+// whose variance chain stays exact while its log-S chain goes to the fast
+// pipes.
 //
 // Nothing here is compiled with --use_fast_math: the fast forms are named
 // where they are used, and every other operation keeps IEEE rounding.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -82,6 +85,13 @@ __device__ __forceinline__ void box_muller_fast(uint32_t b1, uint32_t b2, float&
   z2 = -rad * s;
 }
 
+// One entry of a stored row: S = 2^(log2 S0 + x log2 e), x = log S - log S0,
+// with the streaming hint (st.global.cs): nothing reads the matrix back in
+// the kernel that writes it.
+__device__ __forceinline__ void store_s(float* p, float x, float log2_s0) {
+  __stcs(p, ex2_approx(fmaf(x, kLog2e, log2_s0)));
+}
+
 // The full-truncation Euler step's constants, folded from the 10 floats of
 // HestonConsts (log_s0, r, dt, sqrt_dt, kappa, theta, xi, rho, rho_bar, v0).
 struct EulerK {
@@ -118,6 +128,137 @@ __device__ __forceinline__ void euler_step(float& ls, float& v, float z1, float 
     ls += fmaf(k.sqrt_dt * sv, z1, fmaf(vp, k.mhdt, k.rdt));
   } else {
     ls = fmaf(k.sqrt_dt * sv, z1, fmaf(vp, k.mhdt, ls + k.rdt));
+  }
+}
+
+// Degrees with a compile-time instance; wider tables take the run-time one.
+constexpr int kMaxStaticDegree = 12;
+constexpr int kRuntimeDegree = -1;
+
+// f(std::integral_constant<int, D>{}) for the local-vol instance of
+// ``degree``: D == degree when degree <= kMaxStaticDegree, else
+// kRuntimeDegree. Host code: f launches the instance.
+template <int D = 0, typename F>
+int with_degree(int degree, F&& f) {
+  if constexpr (D <= kMaxStaticDegree) {
+    if (degree != D) return with_degree<D + 1>(degree, f);
+    return f(std::integral_constant<int, D>{});
+  } else {
+    return f(std::integral_constant<int, kRuntimeDegree>{});
+  }
+}
+
+// Local-vol constants, folded on the host from LvConsts (log_s0, r, dt,
+// sqrt_dt, log_k, m_center, inv_m_half; ops/cuda_localvol._consts).
+struct LvK {
+  float log_s0, u0, neg_inv_m_half, rdt, mhdt, sqrt_dt;
+};
+
+inline LvK lv_fold(const float* c) {
+  return LvK{c[0], ((c[4] - c[0]) - c[5]) * c[6], -c[6], c[1] * c[2], -0.5f * c[2], c[3]};
+}
+
+// Row groups of 4 floats in a padded table row of degree d.
+__host__ __device__ constexpr int row_groups(int degree) { return degree / 4 + 1; }
+
+// One Clenshaw step b_k = c_k + 2u b_{k+1} - b_{k+2}; (b1, b2) <- (b_k, b1).
+__device__ __forceinline__ void clenshaw(float& b1, float& b2, float two_u, float c) {
+  const float b0 = fmaf(two_u, b1, c - b2);
+  b2 = b1;
+  b1 = b0;
+}
+
+// One step of the kP (1 or 2) mirror paths' x = log S - log S0, the row
+// read once for both; sz = sqrt(dt) z of the first path, -sz for its mirror.
+template <int D, int kP>
+__device__ __forceinline__ void lv_step(float (&ls)[2], float sz, const float4* __restrict__ row,
+                                        int groups, const LvK& k) {
+  float u[kP], two_u[kP], b1[kP], b2[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    u[p] = fminf(fmaxf(fmaf(k.neg_inv_m_half, ls[p], k.u0), -1.0f), 1.0f);
+    two_u[p] = u[p] + u[p];
+    b1[p] = 0.0f;
+    b2[p] = 0.0f;
+  }
+  float c0 = 0.0f;
+  if constexpr (D != kRuntimeDegree) {
+    constexpr int kG = row_groups(D);
+    float c[4 * kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      const float4 q = __ldg(row + g);
+      c[4 * g] = q.x;
+      c[4 * g + 1] = q.y;
+      c[4 * g + 2] = q.z;
+      c[4 * g + 3] = q.w;
+    }
+#pragma unroll
+    for (int i = D; i >= 1; --i) {
+#pragma unroll
+      for (int p = 0; p < kP; ++p) clenshaw(b1[p], b2[p], two_u[p], c[i]);
+    }
+    c0 = c[0];
+  } else {
+    // the zero columns above the degree keep b1 = b2 = 0 exactly
+    for (int g = groups - 1; g >= 0; --g) {
+      const float4 q = __ldg(row + g);
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        clenshaw(b1[p], b2[p], two_u[p], q.w);
+        clenshaw(b1[p], b2[p], two_u[p], q.z);
+        clenshaw(b1[p], b2[p], two_u[p], q.y);
+        if (g > 0) clenshaw(b1[p], b2[p], two_u[p], q.x);
+      }
+      c0 = q.x;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const float sig = fmaxf(fmaf(u[p], b1[p], c0 - b2[p]), 1e-6f);
+    ls[p] += fmaf(sig, fmaf(sig, k.mhdt, p ? -sz : sz), k.rdt);
+  }
+}
+
+// The draw schedule of the local-vol kernels (terminal.cu, localvol_paths.cu):
+// n_steps lv_steps of slot (j, global_tile) over the padded table from
+// ``row``, one Philox call and two SFU Box-Mullers serving four steps (4d..4d+3
+// take (x, y) cos, (x, y) sin, (z, w) cos, (z, w) sin of draw d), with no
+// per-step branch, and a tail for n_steps % 4. after_step() runs after each
+// step: the paths kernel stores its row there, the terminal kernel nothing.
+template <int D, int kP, typename F>
+__device__ __forceinline__ void lv_walk(float (&ls)[2], const float4* __restrict__ row,
+                                        int groups, const LvK& k, const PhiloxKeys& keys,
+                                        uint32_t j, uint32_t global_tile, int n_steps,
+                                        F&& after_step) {
+  auto step = [&](float z) {
+    lv_step<D, kP>(ls, k.sqrt_dt * z, row, groups, k);
+    row += groups;
+    after_step();
+  };
+  const int n_draws = n_steps >> 2;
+#pragma unroll 1
+  for (int d = 0; d < n_draws; ++d) {
+    const Words w = philox_keyed(Words{j, static_cast<uint32_t>(d), global_tile, 0u}, keys);
+    float z0, z1, z2, z3;
+    box_muller_fast(w.x, w.y, z0, z1);
+    box_muller_fast(w.z, w.w, z2, z3);
+    step(z0);
+    step(z1);
+    step(z2);
+    step(z3);
+  }
+  if (const int rem = n_steps & 3) {
+    const Words w =
+        philox_keyed(Words{j, static_cast<uint32_t>(n_draws), global_tile, 0u}, keys);
+    float z0, z1;
+    box_muller_fast(w.x, w.y, z0, z1);
+    step(z0);
+    if (rem > 1) step(z1);
+    if (rem > 2) {
+      box_muller_fast(w.z, w.w, z0, z1);
+      step(z0);
+    }
   }
 }
 

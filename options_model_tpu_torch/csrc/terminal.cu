@@ -49,7 +49,8 @@
 //   * one Philox call (keys once per launch) and two SFU Box-Mullers serve
 //     four steps: steps 4d..4d+3 take (x, y) cos, (x, y) sin, (z, w) cos,
 //     (z, w) sin of draw d, the mapping of localvol.cu, with no per-step
-//     branch; a tail takes n_steps % 4;
+//     branch; a tail takes n_steps % 4 (hopper_fast.cuh's lv_walk, which
+//     the paths kernel of localvol_paths.cu shares);
 //   * log S is carried as x = log S - log S0, and each step adds its whole
 //     increment fmaf(sigma, fmaf(sigma, -dt/2, sqrt(dt) z), r dt) at once,
 //     sqrt(dt) z shared by the mirrors; u = fmaf(-1/m_half, x, u0) with
@@ -119,81 +120,6 @@ constexpr int kBlock = 128;
 constexpr int kQeMinBlocks = 1;
 constexpr int kEulerMinBlocks = 1;
 constexpr int kGbmMinBlocks = 1;
-// Degrees with a compile-time instance; wider tables take the run-time one.
-constexpr int kMaxStaticDegree = 12;
-constexpr int kRuntimeDegree = -1;
-
-// Local-vol constants, folded on the host from LvConsts (log_s0, r, dt,
-// sqrt_dt, log_k, m_center, inv_m_half; ops/cuda_localvol._consts).
-struct LvK {
-  float log_s0, u0, neg_inv_m_half, rdt, mhdt, sqrt_dt;
-};
-
-inline LvK lv_fold(const float* c) {
-  return LvK{c[0], ((c[4] - c[0]) - c[5]) * c[6], -c[6], c[1] * c[2], -0.5f * c[2], c[3]};
-}
-
-// Row groups of 4 floats in a padded table row of degree d.
-__host__ __device__ constexpr int row_groups(int degree) { return degree / 4 + 1; }
-
-// One Clenshaw step b_k = c_k + 2u b_{k+1} - b_{k+2}; (b1, b2) <- (b_k, b1).
-__device__ __forceinline__ void clenshaw(float& b1, float& b2, float two_u, float c) {
-  const float b0 = fmaf(two_u, b1, c - b2);
-  b2 = b1;
-  b1 = b0;
-}
-
-// One step of the kP (1 or 2) mirror paths' x = log S - log S0, the row
-// read once for both; sz = sqrt(dt) z of the first path, -sz for its mirror.
-template <int D, int kP>
-__device__ __forceinline__ void lv_step(float (&ls)[2], float sz, const float4* __restrict__ row,
-                                        int groups, const LvK& k) {
-  float u[kP], two_u[kP], b1[kP], b2[kP];
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    u[p] = fminf(fmaxf(fmaf(k.neg_inv_m_half, ls[p], k.u0), -1.0f), 1.0f);
-    two_u[p] = u[p] + u[p];
-    b1[p] = 0.0f;
-    b2[p] = 0.0f;
-  }
-  float c0 = 0.0f;
-  if constexpr (D != kRuntimeDegree) {
-    constexpr int kG = row_groups(D);
-    float c[4 * kG];
-#pragma unroll
-    for (int g = 0; g < kG; ++g) {
-      const float4 q = __ldg(row + g);
-      c[4 * g] = q.x;
-      c[4 * g + 1] = q.y;
-      c[4 * g + 2] = q.z;
-      c[4 * g + 3] = q.w;
-    }
-#pragma unroll
-    for (int i = D; i >= 1; --i) {
-#pragma unroll
-      for (int p = 0; p < kP; ++p) clenshaw(b1[p], b2[p], two_u[p], c[i]);
-    }
-    c0 = c[0];
-  } else {
-    // the zero columns above the degree keep b1 = b2 = 0 exactly
-    for (int g = groups - 1; g >= 0; --g) {
-      const float4 q = __ldg(row + g);
-#pragma unroll
-      for (int p = 0; p < kP; ++p) {
-        clenshaw(b1[p], b2[p], two_u[p], q.w);
-        clenshaw(b1[p], b2[p], two_u[p], q.z);
-        clenshaw(b1[p], b2[p], two_u[p], q.y);
-        if (g > 0) clenshaw(b1[p], b2[p], two_u[p], q.x);
-      }
-      c0 = q.x;
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < kP; ++p) {
-    const float sig = fmaxf(fmaf(u[p], b1[p], c0 - b2[p]), 1e-6f);
-    ls[p] += fmaf(sig, fmaf(sig, k.mhdt, p ? -sz : sz), k.rdt);
-  }
-}
 
 // A thread's slot: its column of S_T (its mirror's is col + kTile / 2 when
 // antithetic), slot j and global tile of the stream; false past the grid.
@@ -225,36 +151,7 @@ localvol_terminal_kernel(float* __restrict__ out, const float4* __restrict__ tab
   const int groups = D != kRuntimeDegree ? row_groups(D) : n_groups;
 
   float ls[2] = {0.0f, 0.0f};
-  const float4* row = table;
-  auto step = [&](float z) {
-    lv_step<D, kP>(ls, k.sqrt_dt * z, row, groups, k);
-    row += groups;
-  };
-  const int n_draws = n_steps >> 2;
-#pragma unroll 1
-  for (int d = 0; d < n_draws; ++d) {
-    const Words w =
-        philox_keyed(Words{at.j, static_cast<uint32_t>(d), at.global_tile, 0u}, keys);
-    float z0, z1, z2, z3;
-    box_muller_fast(w.x, w.y, z0, z1);
-    box_muller_fast(w.z, w.w, z2, z3);
-    step(z0);
-    step(z1);
-    step(z2);
-    step(z3);
-  }
-  if (const int rem = n_steps & 3) {
-    const Words w =
-        philox_keyed(Words{at.j, static_cast<uint32_t>(n_draws), at.global_tile, 0u}, keys);
-    float z0, z1;
-    box_muller_fast(w.x, w.y, z0, z1);
-    step(z0);
-    if (rem > 1) step(z1);
-    if (rem > 2) {
-      box_muller_fast(w.z, w.w, z0, z1);
-      step(z0);
-    }
-  }
+  lv_walk<D, kP>(ls, table, groups, k, keys, at.j, at.global_tile, n_steps, [] {});
   out[at.col] = expf(k.log_s0 + ls[0]);
   if (kAnti) out[at.col + kTile / 2] = expf(k.log_s0 + ls[1]);
 }
@@ -376,31 +273,6 @@ int launch_terminal(TerminalKernel<P> anti, TerminalKernel<P> plain, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance of ``degree``: D when degree == D <= kMaxStaticDegree, else
-// the run-time one.
-template <int D>
-int launch_localvol(int degree, float* out, const float4* table, const LvK& k,
-                    const PhiloxKeys& keys, int first_tile, int n_tiles, int n_steps,
-                    bool antithetic, cudaStream_t stream) {
-  if constexpr (D <= kMaxStaticDegree) {
-    if (degree != D) {
-      return launch_localvol<D + 1>(degree, out, table, k, keys, first_tile, n_tiles, n_steps,
-                                    antithetic, stream);
-    }
-  }
-  constexpr int kD = D <= kMaxStaticDegree ? D : kRuntimeDegree;
-  const unsigned int grid = grid_of(n_tiles, antithetic);
-  const int groups = row_groups(degree);
-  if (antithetic) {
-    localvol_terminal_kernel<kD, true><<<grid, kBlock, 0, stream>>>(
-        out, table, k, keys, first_tile, n_tiles, n_steps, groups);
-  } else {
-    localvol_terminal_kernel<kD, false><<<grid, kBlock, 0, stream>>>(
-        out, table, k, keys, first_tile, n_tiles, n_steps, groups);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace terminal
 }  // namespace omt
 
@@ -418,11 +290,24 @@ int omt_terminal_localvol(void* out, const void* table, const void* consts, uint
       reinterpret_cast<uintptr_t>(table) % sizeof(float4) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_localvol<0>(degree, static_cast<float*>(out),
-                            static_cast<const float4*>(table),
-                            lv_fold(static_cast<const float*>(consts)), philox_keys(seed),
-                            first_tile, n_tiles, n_steps, antithetic != 0,
-                            static_cast<cudaStream_t>(stream));
+  float* S = static_cast<float*>(out);
+  const float4* rows = static_cast<const float4*>(table);
+  const LvK k = lv_fold(static_cast<const float*>(consts));
+  const PhiloxKeys keys = philox_keys(seed);
+  const unsigned int grid = grid_of(n_tiles, antithetic != 0);
+  const int groups = row_groups(degree);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_degree(degree, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (antithetic) {
+      localvol_terminal_kernel<kD, true><<<grid, kBlock, 0, st>>>(
+          S, rows, k, keys, first_tile, n_tiles, n_steps, groups);
+    } else {
+      localvol_terminal_kernel<kD, false><<<grid, kBlock, 0, st>>>(
+          S, rows, k, keys, first_tile, n_tiles, n_steps, groups);
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // out: device (n_tiles*16384,) float32 terminal prices. consts: host

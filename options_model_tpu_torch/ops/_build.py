@@ -46,6 +46,8 @@ _SIGNATURES = {
     "omt_localvol_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_localvol_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_terminal_localvol": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_paths_localvol": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_paths_variant": [_P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_terminal_qe": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_terminal_euler": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_terminal_gbm": [_P, _P, _U64, _I, _I, _I, _I, _P],
@@ -60,6 +62,7 @@ _ATTRS = {
     "omt_heston_paths_qe_attrs": [_P],
     "omt_heston_paths_batched_attrs": [_I, _P],
     "omt_terminal_attrs": [_I, _P],
+    "omt_paths_localvol_attrs": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

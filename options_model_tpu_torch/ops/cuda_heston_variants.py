@@ -1,5 +1,11 @@
-"""Store, exp and layout variants of the Heston Euler paths kernel:
-csrc/heston_variants.cu, and their plain PyTorch versions.
+"""Store, exp and layout variants of the Heston Euler paths kernel, and
+their plain PyTorch versions:
+- csrc/paths_variants.cu: the variants on the redesigned kernel 4's step
+  (csrc/heston_paths.cu, ``cuda_heston.heston_paths``), the experiments'
+  route (``heston_variant``);
+- csrc/heston_variants.cu: the same variants on kernel 4's first design
+  (``cuda_heston.heston_paths_accurate``), kept only as the redesign's
+  yardstick under ``heston_variant_accurate``.
 
 Counterparts of the TPU experiment kernels of scripts/exp_paths_kernel.py
 (``_make_paths_fn``: per-step vs bulk exp, batched stores, row counts) and
@@ -31,21 +37,31 @@ import torch
 
 from options_model_tpu_torch.models.heston import heston_euler_from_normals
 from options_model_tpu_torch.ops import _build
-from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, _consts, _tiles
+from options_model_tpu_torch.ops.cuda_heston import (PATH_TILE, _consts, _tiles,
+                                                    batched_consts)
 from options_model_tpu_torch.ops.engine import resolve_device
 from options_model_tpu_torch.ops.philox import path_normals
 
 EXP_MODES = ("per_step", "bulk", "none")
 LAYOUTS = ("flat", "blocked", "terminal")
-# The (exp_mode, layout, unroll) combinations csrc/heston_variants.cu builds.
+# The (exp_mode, layout, unroll) combinations csrc/paths_variants.cu and
+# csrc/heston_variants.cu build.
 VARIANTS = tuple(
     [(e, lay, u) for lay in ("flat", "blocked")
      for e, u in (("per_step", 1), ("bulk", 1), ("bulk", 2), ("bulk", 4), ("bulk", 10),
                   ("none", 1))]
     + [("per_step", "terminal", 1)])
 
-# Kernel launches since the last reset, one integer per built variant.
-launches = {f"{e}/{lay}/{u}": 0 for e, lay, u in VARIANTS}
+
+
+def launch_key(exp_mode: str, layout: str, unroll: int, accurate: bool = False) -> str:
+    """The ``launches`` key of a variant of either design."""
+    return f"{exp_mode}/{layout}/{unroll}" + (" (first design)" if accurate else "")
+
+
+# Kernel launches since the last reset, one integer per built variant of
+# each design.
+launches = {launch_key(e, lay, u, a): 0 for a in (False, True) for e, lay, u in VARIANTS}
 
 
 def _check(exp_mode: str, layout: str, unroll: int, tile: int, n_steps: int,
@@ -89,12 +105,12 @@ def heston_variant_reference(seed: int, S0, r, T, params, n_paths: int, n_steps:
                                        layout, tile)
 
 
-def heston_variant(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
-                   exp_mode: str = "per_step", layout: str = "flat", unroll: int = 1,
-                   tile: int = PATH_TILE, antithetic: bool = True, first_tile: int = 0,
-                   device=None) -> torch.Tensor:
-    """A variant's output from csrc/heston_variants.cu, or from the plain
-    version for a CPU device."""
+def _variant(accurate: bool, seed, S0, r, T, params, n_paths, n_steps, exp_mode, layout,
+             unroll, tile, antithetic, first_tile, device) -> torch.Tensor:
+    """A variant's output from csrc/paths_variants.cu (its constants a
+    device row, as kernel 4 reads them) or csrc/heston_variants.cu (the
+    first design: host constants), or from the plain version for a CPU
+    device."""
     device = resolve_device(device)
     if device.type == "cpu":
         return heston_variant_reference(seed, S0, r, T, params, n_paths, n_steps, exp_mode,
@@ -105,9 +121,34 @@ def heston_variant(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
     shape = {"flat": (n_steps + 1, n_tiles * tile), "blocked": (n_tiles, n_steps + 1, tile),
              "terminal": (n_tiles * tile,)}[layout]
     out = torch.empty(shape, dtype=torch.float32, device=device)
-    _build.launch("omt_heston_variant", device, out.data_ptr(),
-                  _consts(S0, r, T, params, n_steps), seed, first_tile, n_tiles, tile,
-                  n_steps, int(antithetic), EXP_MODES.index(exp_mode),
-                  LAYOUTS.index(layout), unroll)
-    launches[f"{exp_mode}/{layout}/{unroll}"] += 1
+    if accurate:
+        name, consts = "omt_heston_variant", _consts(S0, r, T, params, n_steps)
+    else:
+        row = batched_consts("euler", S0, r, [T], params, n_steps, device)
+        name, consts = "omt_paths_variant", row.data_ptr()
+    _build.launch(name, device, out.data_ptr(), consts, seed, first_tile, n_tiles, tile,
+                  n_steps, int(antithetic), EXP_MODES.index(exp_mode), LAYOUTS.index(layout),
+                  unroll)
+    launches[launch_key(exp_mode, layout, unroll, accurate)] += 1
     return out
+
+
+def heston_variant(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                   exp_mode: str = "per_step", layout: str = "flat", unroll: int = 1,
+                   tile: int = PATH_TILE, antithetic: bool = True, first_tile: int = 0,
+                   device=None) -> torch.Tensor:
+    """A variant's output from csrc/paths_variants.cu, or from the plain
+    version for a CPU device."""
+    return _variant(False, seed, S0, r, T, params, n_paths, n_steps, exp_mode, layout, unroll,
+                    tile, antithetic, first_tile, device)
+
+
+def heston_variant_accurate(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                            exp_mode: str = "per_step", layout: str = "flat",
+                            unroll: int = 1, tile: int = PATH_TILE, antithetic: bool = True,
+                            first_tile: int = 0, device=None) -> torch.Tensor:
+    """A variant's output from the first design (csrc/heston_variants.cu, on
+    kernel 4's first-design step), or from the plain version for a CPU
+    device. Only the experiments' first-design rows reach it."""
+    return _variant(True, seed, S0, r, T, params, n_paths, n_steps, exp_mode, layout, unroll,
+                    tile, antithetic, first_tile, device)

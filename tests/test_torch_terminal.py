@@ -12,8 +12,9 @@ held against the JAX package and the port's plain versions on the CPU.
 - On a CPU tensor the redesigned wrappers and the first designs'
   (``*_accurate``) are their plain versions and launch nothing; without
   CUDA each raises for device="cuda" and for no device.
-- The local-vol kernel's log-S update in a float32 emulation: no bias in
-  S_T, where adding r dt on its own to the absolute log S has one.
+- The local-vol kernels' log-S update in a float32 emulation: no bias in
+  S_T, nor in any stored row of the paths kernel, where adding r dt on its
+  own to the absolute log S has one.
 - The Euler kernel's log-S update in a float32 emulation at the main
   path's Heston parameters: no bias in S_T against float64 on the same
   normals, where the paths kernel's form (x + r dt rounded first) has one.
@@ -164,17 +165,18 @@ def test_terminal_wrappers_raise_without_cuda(name, device):
     assert _counts() == before
 
 
-def _log_s_bias(form: str) -> float:
-    """Mean relative error of S_T against float64 after 100 log-Euler steps
-    at sigma 0.2, r 0.05, T 1 in a float32 emulation (an FMA rounds once:
-    its float64 value of two float32 factors is exact before the sum) of
-    the local-vol update in one of three forms: "kernel" carries log S -
-    log S0 and adds each step's whole increment; "absolute" adds r dt to
-    the absolute log S first; "plain" is the plain version's log S + (r -
-    sigma^2/2) dt + sigma sqrt(dt) z on the absolute log S."""
+def _log_s_bias(form: str, n_steps: int = 100, T: float = 1.0) -> np.ndarray:
+    """Mean relative error of S against float64 at each of rows 1..n_steps
+    of a log-Euler path at sigma 0.2, r 0.05 in a float32 emulation (an FMA
+    rounds once: its float64 value of two float32 factors is exact before
+    the sum) of the local-vol update in one of three forms: "kernel" (both
+    redesigned local-vol kernels) carries log S - log S0 and adds each
+    step's whole increment; "absolute" adds r dt to the absolute log S
+    first; "plain" is the plain version's log S + (r - sigma^2/2) dt +
+    sigma sqrt(dt) z on the absolute log S. The last entry is S_T's."""
     f = np.float32
-    z = np.random.default_rng(5).standard_normal((100, 1 << 14)).astype(f)
-    sig, dt = f(0.2), f(1.0) / f(100)
+    z = np.random.default_rng(5).standard_normal((n_steps, 1 << 14)).astype(f)
+    sig, dt = f(0.2), f(T) / f(n_steps)
     rdt, mhdt, sdt = f(0.05) * dt, f(-0.5) * dt, np.sqrt(dt)
     log_s0 = np.log(f(100.0))
 
@@ -183,6 +185,7 @@ def _log_s_bias(form: str) -> float:
 
     x = np.full(z.shape[1], 0.0 if form == "kernel" else log_s0, f)
     exact = np.zeros(z.shape[1])
+    rows = []
     for zt in z:
         inc = fma(sig, mhdt, sdt * zt)
         if form == "kernel":
@@ -193,8 +196,9 @@ def _log_s_bias(form: str) -> float:
             x = (x + (f(0.05) - f(0.5) * sig * sig) * dt) + sig * sdt * zt
         exact += (np.float64(rdt) + np.float64(mhdt) * np.float64(sig) ** 2
                   + np.float64(sig) * np.float64(sdt) * zt.astype(np.float64))
-    got = (log_s0 + x).astype(f) if form == "kernel" else x
-    return float(np.mean(np.expm1(got.astype(np.float64) - (np.float64(log_s0) + exact))))
+        got = (log_s0 + x).astype(f) if form == "kernel" else x
+        rows.append(np.mean(np.expm1(got.astype(np.float64) - (np.float64(log_s0) + exact))))
+    return np.asarray(rows)
 
 
 def test_log_s_update_rounds_without_bias():
@@ -204,9 +208,23 @@ def test_log_s_update_rounds_without_bias():
     steps); the plain version's (r - sigma^2/2) dt, constant at constant
     sigma, rounds down (-7e-6), which is what the kernel is held against at
     rtol 1e-4; the kernel's form stays at ~1e-8."""
-    assert abs(_log_s_bias("kernel")) < 1e-7
-    assert _log_s_bias("absolute") > 1.5e-5
-    assert -1e-5 < _log_s_bias("plain") < -5e-6
+    assert abs(_log_s_bias("kernel")[-1]) < 1e-7
+    assert _log_s_bias("absolute")[-1] > 1.5e-5
+    assert -1e-5 < _log_s_bias("plain")[-1] < -5e-6
+
+
+def test_localvol_paths_stored_rows_round_without_bias():
+    """The paths kernel (csrc/localvol_paths.cu) stores every row of the
+    kernel's form, so no row may carry a bias: at the local-vol American
+    put's shape (50 steps, T 0.5) every stored row's mean relative error
+    stays below 1e-7 (7e-9), while r dt added on its own to the absolute
+    log S drifts up row by row (+0.42 ulp a step at r dt = 5e-4, +1.0e-5 at
+    row 50) and the plain version's form down (-3.5e-6)."""
+    kernel, absolute, plain = (_log_s_bias(form, 50, 0.5)
+                               for form in ("kernel", "absolute", "plain"))
+    assert kernel.shape == (50,) and float(np.abs(kernel).max()) < 1e-7
+    assert absolute[-1] > 5e-6 and bool((np.diff(absolute[::10]) > 0).all())
+    assert plain[-1] < -2e-6
 
 
 def _euler_log_s_bias(seed: int = 5) -> dict:

@@ -21,6 +21,12 @@ package on the CPU.
   (``cuda_heston.heston_paths_reference``) rearranged: bit-equal layouts,
   the storeless S_T equal to the last row, the log-only form within rtol
   1e-6 after exp, and ``first_tile`` chunks equal to the full run's slice.
+- On a CPU tensor both designs' wrappers (``heston_variant``, csrc/
+  paths_variants.cu; ``heston_variant_accurate``, csrc/heston_variants.cu)
+  are the plain version; without CUDA both raise.
+- The experiment scripts pin and time the redesign against kernel 4 as the
+  pricers run it (``cuda_heston.heston_paths``); only their first-design
+  row reaches ``heston_paths_accurate`` and ``heston_variant_accurate``.
 """
 
 import functools
@@ -169,6 +175,29 @@ def test_variant_wrapper_refuses_a_cuda_device_without_cuda():
         hv.heston_variant(1, S0, R, T, HESTON, 4096, 4, device="cuda")
 
 
+@pytest.mark.parametrize("exp_mode,layout,unroll", [("bulk", "blocked", 2), ("none", "flat", 1),
+                                                    ("per_step", "terminal", 1)])
+def test_cpu_first_design_wrapper_is_the_plain_version(exp_mode, layout, unroll):
+    args = (5, S0, R, T, HESTON, 5000, 8, exp_mode, layout, unroll)
+    got = hv.heston_variant_accurate(*args, device="cpu")
+    assert torch.equal(got, hv.heston_variant_reference(*args, device="cpu"))
+    assert torch.equal(got, hv.heston_variant(*args, device="cpu"))
+    assert sum(hv.launches.values()) == 0
+
+
+@pytest.mark.parametrize("device", ["cuda", None], ids=["cuda", "no_device"])
+@pytest.mark.parametrize("fn", [hv.heston_variant, hv.heston_variant_accurate],
+                         ids=["redesign", "first_design"])
+def test_variant_wrappers_raise_without_cuda(fn, device):
+    """A CUDA device, or none (the card by default), goes to the kernel or
+    raises; neither falls back to the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py covers the variants")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(1, S0, R, T, HESTON, 4096, 4, device=device)
+    assert sum(hv.launches.values()) == 0
+
+
 @pytest.mark.parametrize("script", [exp_paths_kernel, exp_fullpath_layout])
 def test_experiment_entry_points_raise_without_a_card(script):
     if torch.cuda.is_available():
@@ -178,14 +207,58 @@ def test_experiment_entry_points_raise_without_a_card(script):
 
 
 def test_experiment_sets_are_the_scripts_own():
+    """Each script's set at its own shape, every variant built, and one
+    first-design row: its old headline (9: B bulk exp; 10: C blocked)."""
     assert (exp_paths_kernel.N_PATHS, exp_paths_kernel.N_STEPS) == (1 << 19, 100)
     assert (exp_fullpath_layout.N_PATHS, exp_fullpath_layout.N_STEPS) == (1 << 20, 100)
     built = set(hv.VARIANTS)
-    for _, e, u, tile in exp_paths_kernel.VARIANTS[1:]:
+    assert exp_paths_kernel.VARIANTS[0][1:] == (None, 1, 4096, False)
+    for _, e, u, tile, _ in exp_paths_kernel.VARIANTS[1:]:
         assert (e, "flat", u) in built and N_STEPS % u == 0 and tile in (2048, 4096)
-    for _, layout, tile, _ in exp_fullpath_layout.VARIANTS:
+    for _, layout, tile, _, _ in exp_fullpath_layout.VARIANTS:
         assert ("per_step" if layout == "terminal" else "bulk", layout, 1) in built
         assert tile // 128 in (32, 64, 128, 256)
+    first_9 = [v[1:4] for v in exp_paths_kernel.VARIANTS if v[-1]]
+    first_10 = [v[1:4] for v in exp_fullpath_layout.VARIANTS if v[-1]]
+    assert first_9 == [("bulk", 1, 4096)] and first_10 == [("blocked", 4096, False)]
+
+
+def _counting(monkeypatch, module, names):
+    """Wrap ``module``'s functions ``names`` to count their calls."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(module, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("script", [exp_paths_kernel, exp_fullpath_layout],
+                         ids=["exp_paths_kernel", "exp_fullpath_layout"])
+def test_experiments_pin_and_time_against_heston_paths(monkeypatch, script):
+    """The redesign's rows (and row A of experiment 9) run
+    cuda_heston.heston_paths and csrc/paths_variants.cu; only the
+    first-design row runs heston_paths_accurate and heston_variant_accurate.
+    The pins hold on the CPU's plain versions at a small shape."""
+    monkeypatch.setattr(script, "PIN_PATHS", TILE)
+    monkeypatch.setattr(script, "PIN_STEPS", N_STEPS)
+    k4 = _counting(monkeypatch, cuda_heston, ("heston_paths", "heston_paths_accurate"))
+    var = _counting(monkeypatch, hv, ("heston_variant", "heston_variant_accurate"))
+    if script is exp_paths_kernel:
+        script._call(1, None, 1, TILE, TILE, 4, device="cpu")    # row A, as timed
+        assert k4 == {"heston_paths": 1, "heston_paths_accurate": 0}
+        for _, e, u, tile, accurate in script.VARIANTS:
+            if tile == TILE:
+                assert script.pin(e, u, accurate, device="cpu") <= script.LOG_RTOL
+    else:
+        script.pin(device="cpu")
+    # one first-design pin: its variant against its kernel 4
+    assert k4["heston_paths"] > 0 and k4["heston_paths_accurate"] == 1
+    assert var["heston_variant"] > 0 and var["heston_variant_accurate"] == 1
+    assert sum(hv.launches.values()) == 0
 
 
 def test_timer_and_runtime_estimate_match_the_reference():
