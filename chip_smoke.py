@@ -34,7 +34,12 @@ Phases, in order; any failure exits non-zero:
    it (bit for bit; the log-only form within rtol 1e-6 after exp), and of
    its first design, csrc/heston_variants.cu, against its plain version
    (rtol 1e-5) and kernel 4's first design (the same equalities), with
-   bit-equal ``first_tile`` chunks;
+   bit-equal ``first_tile`` chunks; the three VJP kernels of
+   csrc/greeks.cu (the backward of kernels 1, 2 and 4 on the Greeks path)
+   against their plain versions at 2^14 x 50, with and without
+   antithetics, within 1e-4 of the paths' absolute shares, and each
+   gradient component against the central difference of its own forward
+   kernel on the same seed;
 3. the paths, each driven with every launch count set to 0 just before it
    and read just after:
    a. the main path through ``price_american``: the pooled Heston American
@@ -49,7 +54,12 @@ Phases, in order; any failure exits non-zero:
    c. the NN-LSM path through ``price_american``: the GBM put (the JAX
       bench's NN+CV leg) against CRR and the Heston put against ADI, with
       the seconds of simulation, fit and predict;
-   d. the two kernel-4 experiments (options_model_tpu_torch/scripts/
+   d. the Greeks path (pricers/greeks.py): GBM European call Greeks at
+      2^22 x 100 against the closed form (G1), the GBM American put at 2^21
+      x 50 (G2) and the Heston American put at 2^20 x 50 (G3) against
+      common-random-number bumps, exact COS Greeks against central
+      differences (G4), bs_greeks and implied_vol on a 64 x 64 grid (G5);
+   e. the two kernel-4 experiments (options_model_tpu_torch/scripts/
       exp_paths_kernel.py and exp_fullpath_layout.py) at their scripts'
       shapes, each variant also held against its plain version there;
 4. the launch counts of each path, none of its kernels at 0, the first
@@ -66,9 +76,11 @@ Phases, in order; any failure exits non-zero:
    of kernel 8 beside the first design's on the same seeds (the European
    legs and the local-vol put within EARLIER_EURO_GATE stderr of it);
    seconds per price and per surface, each European leg beside its
-   kernel's time.
+   kernel's time; the VJP kernels' times beside their bounds, and the
+   seconds of a Greeks call (G1-G3) with the share of its kernels.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
-variants of kernels 9 and 10 listed under theirs); the last line is
+variants of kernels 9 and 10 listed under theirs) and one per VJP kernel;
+the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -349,7 +361,7 @@ def kernel_specs():
     return [
         dict(name="heston_paths", source=src + "heston_paths.cu", scheme="euler",
              run=paths_run(cuda_heston.heston_paths, cuda_heston.heston_paths_reference),
-             replaces="options_model_tpu/ops/pallas_heston.py:319", paths=("main", "nn"),
+             replaces="options_model_tpu/ops/pallas_heston.py:319", paths=("main", "nn", "greeks"),
              tile=cuda_heston.PATH_TILE, main=(256, 50), timed=(256, 50), variance=(False, True),
              ops=OPS_HESTON + OPS_EXP, draws=DRAWS_HESTON, tol=euler_tol,
              counter=(L, "heston_paths"),
@@ -366,12 +378,12 @@ def kernel_specs():
                           run=heston_terminal(cuda_heston.heston_terminal_accurate),
                           counter=(L, "heston_terminal_accurate"))),
         dict(name="gbm_paths", run=gbm_paths, source=src + "gbm.cu",
-             replaces="options_model_tpu/ops/pallas_gbm.py:126", paths=("main", "nn"),
+             replaces="options_model_tpu/ops/pallas_gbm.py:126", paths=("main", "nn", "greeks"),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
              ops=OPS_GBM_PATHS, draws=DRAWS_GBM, counter=(G, "gbm_paths")),
         dict(name="gbm_terminal", run=gbm_terminal(cuda_gbm.gbm_terminal),
              source=src + "terminal.cu", replaces="options_model_tpu/ops/pallas_gbm.py:100",
-             paths=("main",), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
+             paths=("main", "greeks"), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
              timed=(256, 100), variance=(False,), ops=OPS_GBM, draws=DRAWS_GBM,
              tol=(GBM_S_RTOL, 0.0, 0.0), tails=(97, 98, 99, 1, 2, 3),
              counter=(G, "gbm_terminal"),
@@ -1136,7 +1148,7 @@ def phase_main_path() -> tuple:
     p_e, se_e = priced("heston_european", torch.Generator().manual_seed(11), 100.0, 1.0,
                        spec_ep, mc_e, euro, "heston", heston=hp)
     cos = float(heston_cos_price(100.0, 100.0, 1.0, 0.05, hp, cp=-1.0,
-                                 dtype=torch.float64))
+                                 dtype=torch.float64, device="cpu"))
     gap = p_e - cos
     log(f"[3] Heston European put (2^22 x 100): {p_e:.6f} +- {se_e:.6f}; COS f64 "
         f"{cos:.6f}; gap {gap:+.6f} ({gap / cos * 100:+.4f}%, "
@@ -1146,7 +1158,8 @@ def phase_main_path() -> tuple:
     spec_ec = OptionSpec(strike=100.0, rate=0.05, cp=CALL, sigma=0.2)
     p_c, se_c = priced("gbm_european", torch.Generator().manual_seed(13), 100.0, 1.0,
                        spec_ec, mc_e, euro, "gbm")
-    bs = float(bs_price(100.0, 100.0, 1.0, 0.05, 0.2, 1.0, dtype=torch.float64))
+    bs = float(bs_price(100.0, 100.0, 1.0, 0.05, 0.2, 1.0, dtype=torch.float64,
+                        device="cpu"))
     gap = p_c - bs
     log(f"[3] GBM European call (2^22 x 100): {p_c:.6f} +- {se_c:.6f}; BS {bs:.6f}; "
         f"gap {gap:+.6f} ({gap / se_c:+.2f} stderr; gate 4 stderr)")
@@ -1259,7 +1272,7 @@ def phase_second_path() -> dict:
                      mc_e)
     p, se = float(p), float(se)
     cos = float(heston_cos_price(100.0, 100.0, 1.0, 0.05, hp, cp=-1.0,
-                                 dtype=torch.float64))
+                                 dtype=torch.float64, device="cpu"))
     gap = p - cos
     log(f"[3b] QE European put (2^22 x 100): {p:.6f} +- {se:.6f}; COS f64 {cos:.6f}; gap "
         f"{gap:+.6f} ({gap / cos * 100:+.4f}%, {gap / se:+.2f} stderr; gate 4 stderr + "
@@ -1295,7 +1308,8 @@ def phase_second_path() -> dict:
                                     device=DEVICE)
     p, se, _ = price_european_mc(gen(29), sampler, spec_call, 1.0, mc_e)
     p, se = float(p), float(se)
-    bs = float(bs_price(100.0, 100.0, 1.0, 0.05, 0.2, 1.0, dtype=torch.float64))
+    bs = float(bs_price(100.0, 100.0, 1.0, 0.05, 0.2, 1.0, dtype=torch.float64,
+                        device="cpu"))
     log(f"[3b] local-vol European call, constant 0.2 table (2^22 x 100): {p:.6f} +- "
         f"{se:.6f}; BS {bs:.6f}; gap {(p - bs) / se:+.2f} stderr (gate 4)")
     if not abs(p - bs) <= 4.0 * se:
@@ -1707,6 +1721,586 @@ def experiment_entry(exp: dict, headline: str, earlier: str, replaces: str,
                 earlier_ms=first["ms"], variants=variants)
 
 
+# The VJP kernels of csrc/greeks.cu, the backward of kernels 1, 2 and 4 on
+# the Greeks path.
+# Kernel vs plain: |kernel - plain| within VJP_RTOL of the sum over paths of
+# each path's absolute share (the plain version's per_path form): the
+# kernel sums in float32 by thread and float64 by block, the plain version
+# by path in float64, and the kernel's states come from its own SFU
+# Box-Muller and ex2 (or, for the terminal VJP, W from S_T), ~1e-6 apart.
+VJP_RTOL = 1e-4
+VJP_SHAPE = (1 << 14, 50)
+# The same comparison at the shapes the Greeks path gives each VJP kernel
+# (G1, G2, G3 of phase_greeks): there the terminal VJP runs its grid-stride
+# loop (above kTerminalBlocks x 256 = 2^18 paths), which VJP_SHAPE does not
+# reach, and every kernel its path's grid and row sums.
+VJP_GREEKS_SHAPE = {"gbm_terminal_vjp": (1 << 22, 100), "gbm_paths_vjp": (1 << 21, 50),
+                    "euler_paths_vjp": (1 << 20, 50)}
+# Directional check: each component against (<g, F(theta + h)> - <g,
+# F(theta - h)>) / 2h of the forward kernel on the same seed, inner
+# products in float64, h = 1e-3 |theta| (the step the float32 parameter
+# really takes). The tolerance is FD_RTOL |fd| plus the float32 rounding of
+# the two forward runs: FD_NOISE roundings of every output as a standard
+# deviation (2^-23 relative each, the ulp of S and v), and one rounding of
+# all of them at once (2^-23 of sum |g out|): the recursion's additions of
+# a small constant (drift, r dt) round alike on every path, and that bias
+# moves with theta (measured: 0.3 ulp coherent between sigma +- h at 50
+# steps, which a constant cotangent, whose sigma component cancels, turns
+# into a 57% error of the quotient).
+# Heston is looser: a path can cross the v = 0 clamp between theta +- h,
+# and near it 0.5/sqrt(v) makes the secant over 2h differ from the
+# tangent, so the shares of the paths whose v comes below V_KINK are
+# added to the tolerance (they are printed).
+FD_RTOL_GBM = 1e-3
+FD_RTOL_HESTON = 2e-3
+FD_NOISE = 4.0
+V_KINK = 1e-4
+# f32 operations per path-step of the VJP kernels, counted from
+# csrc/greeks.cu (each add, multiply, compare, select and min/max one
+# operation, an FMA two, a transcendental one):
+#   euler_paths_vjp, per path: vp, sqrt, v > 0, the _safe_sqrt factor (4)
+#   7; euler_step 12; v' > 0, theta - vp, sv w2 3; the direct terms of
+#   T, kappa, xi, rho 11; dls_T 6; xi_sdt w2, sqrt_dt z1 2; per carried
+#   tangent 11 (6 of them, + 1 for T's dls) 67; the row: ex2 and its FMA,
+#   g S, the S and S t sums, 6 tangents x 2 FMAs (ls and v) 31; the
+#   Box-Muller's 11 per two normals at one pair a pair-step, w2 and the
+#   mirror's negations.
+OPS_EULER_VJP = 7 + 12 + 3 + 11 + 6 + 2 + 67 + 31 + 11 / 2 + 1
+#   gbm_paths_vjp: the draw as kernel 2 (11 per two normals, one normal a
+#   slot-step), the recursion 3, expf and * s0 2, g S 1, the sums 6, W 1/2.
+OPS_GBM_VJP = 11 / 4 + 3 + 2 + 1 + 6 + 1 / 2
+#   gbm_terminal_vjp, per path: S / s0, log2, - a, / b, g S, two sums.
+OPS_GBM_TERMINAL_VJP = 8
+
+
+def vjp_specs():
+    """The VJP kernels as specs: name, the forward kernel's spec name, the
+    replaced JAX gradient, launch counter, paths that run them, the timed
+    shape, f32 operations and Philox draws per path-step, bytes read per
+    path-step."""
+    from options_model_tpu_torch.ops import cuda_gbm, cuda_heston
+
+    src = "options_model_tpu_torch/csrc/greeks.cu"
+    jax_gbm = ("options_model_tpu/pricers/greeks.py:49 _greeks_impl, through "
+               "options_model_tpu/models/gbm.py:35 simulate_gbm")
+    return [
+        dict(name="gbm_terminal_vjp", forward="gbm_terminal", source=src,
+             replaces=jax_gbm + " (return_paths=False)", paths=("greeks",),
+             counter=(cuda_gbm.launches, "gbm_terminal_vjp"), timed=(1 << 22, 100),
+             ops=OPS_GBM_TERMINAL_VJP, draws=(0, 0), bytes=8),
+        dict(name="gbm_paths_vjp", forward="gbm_paths", source=src, replaces=jax_gbm,
+             paths=("greeks",), counter=(cuda_gbm.launches, "gbm_paths_vjp"),
+             timed=(1 << 20, 50), ops=OPS_GBM_VJP, draws=DRAWS_GBM, bytes=4),
+        dict(name="euler_paths_vjp", forward="heston_paths", source=src,
+             replaces="options_model_tpu/pricers/greeks.py:83 _heston_greeks_impl, through "
+                      "options_model_tpu/models/heston.py:63 simulate_heston",
+             paths=("greeks",), counter=(cuda_heston.launches, "euler_paths_vjp"),
+             timed=(1 << 20, 50), ops=OPS_EULER_VJP, draws=DRAWS_HESTON, bytes=8),
+    ]
+
+
+VJP_PARAMS = {"gbm_terminal_vjp": ("S0", "r", "sigma", "T"),
+              "gbm_paths_vjp": ("S0", "r", "sigma", "T"),
+              "euler_paths_vjp": ("S0", "r", "T", "kappa", "theta", "xi", "rho", "v0")}
+
+
+def vjp_case(name: str, n_paths: int, n_steps: int, anti: bool, with_v: bool = True,
+             seed: int = 0x5DEECE66D):
+    """One VJP kernel at (n_paths, n_steps): its forward F(params) -> outputs
+    on the card, numpy-seeded positive cotangents g, and vjp(g) of the kernel
+    and of the plain version, with the plain version's per-path shares."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.models.gbm import gbm_euler_vjp_from_normals
+    from options_model_tpu_torch.models.heston import heston_euler_vjp_from_normals
+    from options_model_tpu_torch.ops import cuda_gbm, cuda_heston
+    from options_model_tpu_torch.ops.philox import path_normals
+
+    rng = np.random.default_rng(n_paths + n_steps + anti)
+
+    def cot(out, ref, scale=1.0):
+        """u + 4 (out / ref - 1), u uniform on [0.5, 1.5], times scale / n: a
+        cotangent that weighs the paths by where they went, so that no
+        component of the gradient cancels to the float32 rounding of the
+        forward (with a constant one the sigma component does: E S_t does
+        not move with sigma)."""
+        u = torch.from_numpy(rng.uniform(0.5, 1.5, tuple(out.shape)).astype(np.float32))
+        return (u.to(DEVICE) + 4.0 * (out / ref - 1.0)) * (scale / out.shape[-1])
+
+    if name == "euler_paths_vjp":
+        params = [100.0, 0.05, 0.5, 2.0, 0.04, 0.3, -0.7, 0.04]
+
+        def F(p):
+            return cuda_heston.heston_paths(seed, p[0], p[1], p[2], HestonParams(*p[3:]),
+                                            n_paths, n_steps, anti, True, 0, DEVICE)
+
+        S, v = F(params)
+        g = (cot(S, params[0]), cot(v, params[4], 100.0) if with_v else None)
+        kernel = cuda_heston.euler_paths_vjp(*g, seed, *params[:3], HestonParams(*params[3:]),
+                                             n_paths, n_steps, anti)
+        z1, z2 = cuda_heston._normals(seed, S.shape[1] // cuda_heston.PATH_TILE,
+                                      cuda_heston.PATH_TILE, n_steps, anti, 0, DEVICE)
+        shares = heston_euler_vjp_from_normals(z1, z2, *g, *params[:3],
+                                               HestonParams(*params[3:]), per_path=True)
+        plain = cuda_heston.euler_paths_vjp_reference(*g, seed, *params[:3],
+                                                      HestonParams(*params[3:]), n_paths,
+                                                      n_steps, anti)
+        g = tuple(x for x in g if x is not None)
+        F_out = (lambda p: F(p)) if with_v else (lambda p: F(p)[:1])
+        return dict(params=params, F=F_out, g=g, kernel=kernel, plain=plain, shares=shares,
+                    near=v.min(0).values < V_KINK)
+    paths = name == "gbm_paths_vjp"
+    params = [100.0, 0.05, 0.2, 0.5 if paths else 1.0]
+    fwd = cuda_gbm.gbm_paths if paths else cuda_gbm.gbm_terminal
+
+    def F(p):
+        return (fwd(seed, *p, n_paths, n_steps, anti, 0, DEVICE),)
+
+    (out,) = F(params)
+    g = cot(out, params[0])
+    tile = cuda_heston.PATH_TILE if paths else cuda_heston.TERMINAL_TILE
+    z = path_normals(seed, 0, out.shape[-1] // tile, tile, n_steps, anti, DEVICE)
+    shares = gbm_euler_vjp_from_normals(z, g, *params, return_paths=paths, per_path=True)
+    if paths:
+        kernel = cuda_gbm.gbm_paths_vjp(g, seed, *params, n_paths, n_steps, anti)
+        plain = cuda_gbm.gbm_paths_vjp_reference(g, seed, *params, n_paths, n_steps, anti)
+    else:
+        kernel = cuda_gbm.gbm_terminal_vjp(g, out, seed, *params, n_paths, n_steps, anti)
+        plain = cuda_gbm.gbm_terminal_vjp_reference(g, seed, *params, n_paths, n_steps, anti)
+    return dict(params=params, F=F, g=(g,), kernel=kernel, plain=plain, shares=shares)
+
+
+def directional(case: dict, idx: int, rtol: float) -> tuple:
+    """(fd, tolerance, kink) of component idx: the central difference of
+    <g, F> in float64 over the step the float32 parameter takes; FD_RTOL
+    |fd| plus FD_NOISE float32 roundings of every output of both runs plus
+    ``kink``, the absolute shares of the paths that come near v = 0."""
+    import numpy as np
+
+    p = case["params"]
+    up, dn = list(p), list(p)
+    up[idx] = float(np.float32(p[idx] * (1 + 1e-3)))
+    dn[idx] = float(np.float32(p[idx] * (1 - 1e-3)))
+
+    def dot(q):
+        return [float((g.double() * o.double()).sum()) for g, o in zip(case["g"], case["F"](q))]
+
+    du, dd = dot(up), dot(dn)
+    h2 = up[idx] - dn[idx]
+    fd = (sum(du) - sum(dd)) / h2
+    terms = [(g.double() * o.double()) for g, o in zip(case["g"], case["F"](p))]
+    rms = math.sqrt(sum(float((t * t).sum()) for t in terms))
+    coherent = sum(float(t.abs().sum()) for t in terms)
+    noise = (FD_NOISE * math.sqrt(2.0) * rms + coherent) * 2.0**-23 / abs(h2)
+    near = case.get("near")
+    kink = 0.0 if near is None else float(case["shares"][idx][near].abs().sum())
+    return fd, rtol * abs(fd) + noise + kink, kink
+
+
+def phase_vjp() -> dict:
+    """Each VJP kernel against its plain version on the card at VJP_SHAPE
+    and at VJP_GREEKS_SHAPE, with and without antithetics (the Euler kernel
+    also without a cotangent on v at VJP_SHAPE: its kV = false instance),
+    within VJP_RTOL of the paths' absolute shares; then, at VJP_SHAPE, each
+    component against the directional difference of its own forward kernel
+    on the same seed (antithetic). Returns per kernel the max |kernel -
+    plain|, that over the scale, and the worst |vjp - fd| over its
+    tolerance."""
+    import torch
+
+    out = {}
+    for name, params in VJP_PARAMS.items():
+        row = dict(max_abs_err=0.0, max_scaled_err=0.0, fd_worst=0.0)
+        variants = [(VJP_SHAPE, True, True), (VJP_SHAPE, False, True)]
+        if name == "euler_paths_vjp":
+            variants.append((VJP_SHAPE, True, False))
+        variants += [(VJP_GREEKS_SHAPE[name], anti, True) for anti in (True, False)]
+        for (n, steps), anti, with_v in variants:
+            c = vjp_case(name, n, steps, anti, with_v)
+            torch.cuda.synchronize()
+            k, p = c["kernel"].cpu(), c["plain"].cpu()
+            scale = c["shares"].abs().sum(1).cpu()
+            if not bool(torch.isfinite(k).all()):
+                fail(f"{name}: non-finite gradient {k.tolist()}")
+            err = (k - p).abs()
+            row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
+            row["max_scaled_err"] = max(row["max_scaled_err"], float((err / scale).max()))
+            if (n, steps) == VJP_GREEKS_SHAPE[name]:
+                row["greeks_shape_scaled_err"] = max(row.get("greeks_shape_scaled_err", 0.0),
+                                                     float((err / scale).max()))
+            log(f"[2v] {name} {n} x {steps}, antithetic={anti}"
+                + ("" if with_v else ", no cotangent on v") + ": kernel "
+                + ", ".join(f"{q} {x:.6e}" for q, x in zip(params, k.tolist()))
+                + f"; max |kernel - plain| / sum of |path shares| "
+                f"{float((err / scale).max()):.2e} (rtol {VJP_RTOL})")
+            if not bool((err <= VJP_RTOL * scale).all()):
+                fail(f"{name} differs from its plain version beyond {VJP_RTOL} of the "
+                     f"paths' absolute shares: kernel {k.tolist()}, plain {p.tolist()}")
+            if (n, steps) != VJP_SHAPE or not anti or not with_v:
+                continue
+            rtol = FD_RTOL_HESTON if name == "euler_paths_vjp" else FD_RTOL_GBM
+            txt = []
+            for i, q in enumerate(params):
+                fd, tol, kink = directional(c, i, rtol)
+                ratio = abs(float(k[i]) - fd) / tol
+                row["fd_worst"] = max(row["fd_worst"], ratio)
+                txt.append(f"{q} {float(k[i]):.6e} vs {fd:.6e} ({ratio:.2f} of tol"
+                           + (f", {kink / tol * 100:.0f}% of it near v = 0)" if "near" in c
+                              else ")"))
+                if ratio > 1.0:
+                    fail(f"{name}: d/d{q} {float(k[i])} against the forward kernel's "
+                         f"central difference {fd} beyond {tol}")
+            log(f"[2v] {name} against the central differences of its forward kernel "
+                f"(h = 1e-3 |theta|, rtol {rtol} + {FD_NOISE} float32 roundings"
+                + (f" + the shares of the {int(c['near'].sum())} paths with v below "
+                   f"{V_KINK}" if "near" in c else "") + "): " + "; ".join(txt))
+        out[name] = row
+    return out
+
+
+# The Greeks path's gates. G1: the JAX test's tolerances at 2^16 paths
+# (tests/test_mc_greeks.py:17-35) scaled by sqrt(2^16 / 2^22) = 1/8.
+G1_GATES = {"Delta": 0.01 / 8, "Vega": 0.01 / 8, "Rho": 0.01 / 8, "Theta": 0.003 / 8,
+            "Gamma": 0.005 / 8}
+# G2, G3: the AD Delta within 0.02 of the common-random-number central
+# difference of the port's own price at h = 0.5 (tests/test_mc_greeks.py:
+# 39-47), not scaled: AD holds the exercise decisions fixed and a bump does
+# not, so the gap need not shrink with the path count.
+BUMP_GATE, BUMP_H = 0.02, 0.5
+# G4: cos_greeks_heston in float64 against float64 central differences of
+# the COS price (h = 1e-4 |theta|; 1e-3 S0 for Gamma's second difference,
+# rtol 1e-5): truncation ~1e-8 relative (Gamma ~2e-6), cancellation ~1e-12.
+COS_RTOL, COS_ATOL = 1e-6, 1e-9
+# G5: bs_greeks (float32 autograd) against the closed form on a 64 x 64
+# (K, T) grid, rtol 1e-4 with a floor of 1e-5 of the Greek's largest
+# magnitude (deep out-of-the-money Deltas near 0); implied_vol (float64)
+# round trip within 1e-4 where vega > 1e-3, and its gradient (price, S)
+# against the implicit formula (1 / vega, -delta / vega) at rtol 1e-6.
+BS_RTOL, IV_ATOL, IV_GRAD_RTOL = 1e-4, 1e-4, 1e-6
+GREEKS_SEEDS = 4
+
+
+def _greeks_text(g: dict, keys) -> str:
+    return ", ".join(f"{k} {float(g[k]):+.6f}" for k in keys)
+
+
+def phase_greeks() -> tuple:
+    """The Greeks path (BASELINE configs[1], "MC error + Greeks via AD"):
+    G1 GBM European call Greeks at 2^22 x 100 against the closed form; G2
+    GBM American put at 2^21 x 50 (degree 3) against common-random-number
+    bumps and CRR(4096); G3 Heston American put at 2^20 x 50 with every
+    parameter gradient beside its bump; G4 cos_greeks_heston against
+    central differences; G5 bs_greeks and implied_vol on a 64 x 64 grid.
+    Returns (seconds per Greeks call of G1-G3, the launches of one call of
+    each, the numbers for PERF.md)."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.calibration.charfn import heston_cos_price
+    from options_model_tpu_torch.core.config import (CALL, PUT, HestonParams, LSMConfig,
+                                                      MCConfig, OptionSpec)
+    from options_model_tpu_torch.models.gbm import simulate_gbm
+    from options_model_tpu_torch.models.heston import simulate_heston
+    from options_model_tpu_torch.ops import cuda_gbm, cuda_heston
+    from options_model_tpu_torch.ops.philox import seed_from_generator
+    from options_model_tpu_torch.pricers.american import lsm_poly_backward
+    from options_model_tpu_torch.pricers.binomial import crr_american
+    from options_model_tpu_torch.pricers.blackscholes import (bs_greeks,
+                                                              bs_greeks_closed_form,
+                                                              bs_price, bs_vega, bs_delta,
+                                                              implied_vol)
+    from options_model_tpu_torch.pricers.greeks import (cos_greeks_heston, mc_greeks,
+                                                        mc_greeks_heston)
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    counted = [(cuda_gbm.launches, k) for k in ("gbm_terminal", "gbm_paths", "gbm_terminal_vjp",
+                                                "gbm_paths_vjp")]
+    counted += [(cuda_heston.launches, k) for k in ("heston_paths", "euler_paths_vjp")]
+    secs, per_call, res = {}, {}, {}
+
+    def timed(label, fn, *args, **kwargs):
+        before = {k: d[k] for d, k in counted}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        out = {k: float(v) for k, v in out.items()}
+        secs.setdefault(label, []).append(time.perf_counter() - t0)
+        per_call[label] = {k: d[k] - before[k] for d, k in counted if d[k] != before[k]}
+        for k, v in out.items():
+            if not math.isfinite(v):
+                fail(f"{label}: {k} is {v}")
+        return out
+
+    def pooled(runs, keys):
+        return {k: (float(np.mean([r[k] for r in runs])),
+                    float(np.std([r[k] for r in runs], ddof=1) / math.sqrt(len(runs))))
+                for k in keys}
+
+    # G1: GBM European call, 2^22 x 100, against the closed form.
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=CALL, sigma=0.2)
+    mc = MCConfig(n_paths=1 << 22, n_steps=100, path_block=4096)
+    runs = [timed("G1", mc_greeks, torch.Generator().manual_seed(31 + s), 100.0, 1.0, spec,
+                  mc, style="european", device=DEVICE) for s in range(GREEKS_SEEDS)]
+    cf = {k: float(v) for k, v in bs_greeks_closed_form(100.0, 100.0, 1.0, 0.05, 0.2, CALL,
+                                                        dtype=torch.float64,
+                                                        device="cpu").items()}
+    pool = pooled(runs, ("Price",) + tuple(G1_GATES))
+    txt = []
+    for k, gate in G1_GATES.items():
+        m, se = pool[k]
+        txt.append(f"{k} {m:+.6f} +- {se:.6f} vs {cf[k]:+.6f} (gap {m - cf[k]:+.6f}, "
+                   f"gate {gate:.6f})")
+        if not abs(m - cf[k]) <= gate:
+            fail(f"G1 {k} {m} outside {gate} of the closed form {cf[k]}")
+    log(f"[3g] G1 GBM European call Greeks (S0 = K = 100, T = 1, 2^22 x 100, pooled over "
+        f"{GREEKS_SEEDS} seeds, +- the seeds' stderr), against bs_greeks_closed_form: "
+        + "; ".join(txt) + f"; price {pool['Price'][0]:.6f} +- {pool['Price'][1]:.6f}")
+    res["G1"] = dict(pool=pool, closed_form=cf)
+
+    def bump_gap(label, greeks_fn, price_at, seeds):
+        gaps, runs = [], []
+        for s in seeds:
+            gen = torch.Generator().manual_seed(s)
+            seed = seed_from_generator(torch.Generator().manual_seed(s))
+            g = timed(label, greeks_fn, gen)
+            fd = (price_at(seed, 100.0 + BUMP_H) - price_at(seed, 100.0 - BUMP_H)) / (2 * BUMP_H)
+            gaps.append(g["Delta"] - fd)
+            runs.append(dict(g, fd_delta=fd))
+        return runs, float(np.mean(gaps)), float(np.std(gaps, ddof=1) / math.sqrt(len(gaps)))
+
+    # G2: GBM American put, 2^21 x 50, degree 3.
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=0.2)
+    mc = MCConfig(n_paths=1 << 21, n_steps=50, path_block=4096)
+
+    def gbm_price(seed, s0):
+        with torch.no_grad():
+            S = simulate_gbm(seed, s0, 0.05, 0.2, 0.5, mc, device=DEVICE)
+            return float(lsm_poly_backward(S, spec, 0.5, poly_degree=3)[0])
+
+    runs, gap, gap_se = bump_gap(
+        "G2", lambda gen: mc_greeks(gen, 100.0, 0.5, spec, mc, style="american",
+                                    lsm=LSMConfig(poly_degree=3), device=DEVICE),
+        gbm_price, [41 + s for s in range(GREEKS_SEEDS)])
+    crr_fd = (crr_american(100.0 + BUMP_H, 100.0, 0.5, 0.05, 0.2, cp=-1.0, n_steps=4096,
+                           use_native=True)
+              - crr_american(100.0 - BUMP_H, 100.0, 0.5, 0.05, 0.2, cp=-1.0, n_steps=4096,
+                             use_native=True)) / (2 * BUMP_H)
+    keys = ("Price", "Delta", "Gamma", "Vega", "Theta", "Rho")
+    pool = pooled(runs, keys + ("fd_delta",))
+    g0 = runs[0]
+    log(f"[3g] G2 GBM American put Greeks (S0 = K = 100, T = 0.5, 2^21 x 50, degree 3), "
+        f"seed 0: {_greeks_text(g0, keys)}; pooled over {GREEKS_SEEDS} seeds: "
+        + ", ".join(f"{k} {pool[k][0]:+.6f} +- {pool[k][1]:.6f}" for k in keys)
+        + f"; AD Delta - common-random-number bump Delta (h = {BUMP_H}) {gap:+.6f} +- "
+        f"{gap_se:.6f} (gate {BUMP_GATE}); CRR(4096) central-difference Delta {crr_fd:+.6f} "
+        f"(no gate)")
+    if not abs(gap) <= BUMP_GATE:
+        fail(f"G2: AD Delta {gap:+.4f} from its bump")
+    for r in runs:
+        if not (-1.0 < r["Delta"] < 0.0 and r["Vega"] > 0 and r["Gamma"] > 0
+                and r["Theta"] < 0 and r["Rho"] < 0):
+            fail(f"G2: a Greek has the wrong sign: {r}")
+    res["G2"] = dict(pool=pool, gap=(gap, gap_se), crr_fd_delta=crr_fd)
+
+    # G3: Heston American put, 2^20 x 50, degree 3 (LSMConfig's default), v-degree 2.
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None)
+    mc = MCConfig(n_paths=1 << 20, n_steps=50, path_block=4096)
+    fields = ("kappa", "theta", "xi", "rho", "v0")
+
+    def heston_price(seed, s0=100.0, r=0.05, T=0.5, **p):
+        with torch.no_grad():
+            S, v = simulate_heston(seed, s0, r, T, HestonParams(**dict(vars(hp), **p)), mc,
+                                   return_variance=True, device=DEVICE)
+            return float(lsm_poly_backward(S, OptionSpec(strike=100.0, rate=r, cp=PUT), T,
+                                           poly_degree=3, v_paths=v)[0])
+
+    runs, gap, gap_se = bump_gap(
+        "G3", lambda gen: mc_greeks_heston(gen, 100.0, 0.5, spec, mc, hp, device=DEVICE),
+        lambda seed, s0: heston_price(seed, s0), [51 + s for s in range(GREEKS_SEEDS)])
+    keys3 = ("Price", "Delta", "Gamma", "Theta", "Rho", "dKappa", "dTheta", "dXi",
+             "dRhoCorr", "dV0", "Vega")
+    pool = pooled(runs, keys3)
+    seed0 = seed_from_generator(torch.Generator().manual_seed(51))
+    fds = {}
+    for key, arg, base in (("Theta", "T", 0.5), ("Rho", "r", 0.05),
+                           *((f"d{f[0].upper()}{f[1:]}" if f != "rho" else "dRhoCorr", f,
+                              getattr(hp, f)) for f in fields)):
+        h = 1e-2 * abs(base)
+        d = (heston_price(seed0, **{arg: base + h}) - heston_price(seed0, **{arg: base - h})) \
+            / (2 * h)
+        fds[key] = -d / 365.0 if key == "Theta" else d / 100.0 if key == "Rho" else d
+    log(f"[3g] G3 Heston American put Greeks (S0 = K = 100, T = 0.5, Heston (2, 0.04, 0.3, "
+        f"-0.7, 0.04), 2^20 x 50, degree 3, v-degree 2), seed 0: "
+        f"{_greeks_text(runs[0], keys3)}; pooled over {GREEKS_SEEDS} seeds: "
+        + ", ".join(f"{k} {pool[k][0]:+.6f} +- {pool[k][1]:.6f}" for k in keys3)
+        + f"; AD Delta - bump Delta (h = {BUMP_H}) {gap:+.6f} +- {gap_se:.6f} "
+        f"(gate {BUMP_GATE})")
+    log("[3g] G3 seed 0, each parameter's AD gradient beside its common-random-number "
+        "central difference (h = 1e-2 |theta|; the bump re-decides exercise, AD does not): "
+        + "; ".join(f"{k} {runs[0][k]:+.6f} vs {fds[k]:+.6f}" for k in fds))
+    if not abs(gap) <= BUMP_GATE:
+        fail(f"G3: AD Delta {gap:+.4f} from its bump")
+    for r in runs:
+        if not (-1.0 < r["Delta"] < 0.0 and r["dV0"] > 0 and r["dTheta"] > 0
+                and r["Theta"] < 0):
+            fail(f"G3: a Greek has the wrong sign: {r}")
+    res["G3"] = dict(pool=pool, gap=(gap, gap_se), seed0=runs[0], fd=fds)
+
+    # G4: exact European Heston Greeks through the COS price, float64.
+    g = {k: float(v) for k, v in cos_greeks_heston(100.0, 100.0, 1.0, 0.05, hp, cp=PUT,
+                                                   dtype=torch.float64,
+                                                   device=DEVICE).items()}
+
+    def cos(**p):
+        a = dict(S0=100.0, K=100.0, T=1.0, r=0.05)
+        a.update({k: v for k, v in p.items() if k in a})
+        params = HestonParams(**dict(vars(hp), **{k: v for k, v in p.items() if k in fields}))
+        return float(heston_cos_price(a["S0"], a["K"], a["T"], a["r"], params, cp=PUT,
+                                      dtype=torch.float64, device=DEVICE))
+
+    def cd(arg, base, h_rel=1e-4):
+        h = h_rel * abs(base)
+        return (cos(**{arg: base + h}) - cos(**{arg: base - h})) / (2 * h)
+
+    h_g = 1e-3 * 100.0
+    want = {"Price": cos(), "Delta": cd("S0", 100.0),
+            "Gamma": (cos(S0=100.0 + h_g) - 2 * cos() + cos(S0=100.0 - h_g)) / h_g**2,
+            "Theta": -cd("T", 1.0) / 365.0, "Rho": cd("r", 0.05) / 100.0,
+            "dKappa": cd("kappa", hp.kappa), "dTheta": cd("theta", hp.theta),
+            "dXi": cd("xi", hp.xi), "dRhoCorr": cd("rho", hp.rho), "dV0": cd("v0", hp.v0)}
+    worst = 0.0
+    for k, w in want.items():
+        tol = (1e-5 if k == "Gamma" else COS_RTOL) * abs(w) + COS_ATOL
+        worst = max(worst, abs(g[k] - w) / tol)
+        if not abs(g[k] - w) <= tol:
+            fail(f"G4: cos_greeks_heston {k} {g[k]} vs central difference {w}")
+    log("[3g] G4 cos_greeks_heston (European put, K = 100, T = 1, float64 on the card) "
+        "against central differences of the float64 COS price: "
+        + ", ".join(f"{k} {g[k]:+.9f} ({g[k] - w:+.1e})" for k, w in want.items())
+        + f"; worst {worst:.2f} of its tolerance (rtol {COS_RTOL}, Gamma 1e-5, atol "
+          f"{COS_ATOL})")
+    res["G4"] = dict(greeks=g, worst=worst)
+
+    # G5: bs_greeks and implied_vol on a 64 x 64 (K, T) grid on the card.
+    K, T = torch.meshgrid(torch.linspace(70.0, 130.0, 64, device=DEVICE),
+                          torch.linspace(0.1, 1.0, 64, device=DEVICE), indexing="ij")
+    sig = 0.15 + 0.25 * (K - 70.0) / 60.0 * T      # a smile-free ramp over the grid
+    worst = {}
+    for cp in (CALL, PUT):
+        ad = bs_greeks(100.0, K, T, 0.05, sig, cp, q=0.01)
+        cf2 = bs_greeks_closed_form(100.0, K, T, 0.05, sig, cp, q=0.01)
+        for k in ad:
+            diff = (ad[k] - cf2[k]).abs()
+            tol = BS_RTOL * cf2[k].abs() + 1e-5 * float(cf2[k].abs().max())
+            worst[k] = max(worst.get(k, 0.0), float((diff / tol).max()))
+            if not bool((diff <= tol).all()):
+                fail(f"G5: bs_greeks {k} differs from the closed form beyond rtol {BS_RTOL}")
+    K64, T64, sig64 = K.double(), T.double(), sig.double()
+    prices = bs_price(100.0, K64, T64, 0.05, sig64, CALL)
+    p = prices.clone().requires_grad_()
+    S = torch.full_like(p, 100.0, requires_grad=True)
+    iv = implied_vol(p, S, K64, T64, 0.05, CALL)
+    dp, dS = torch.autograd.grad(iv.sum(), (p, S))
+    vega = bs_vega(100.0, K64, T64, 0.05, sig64)
+    live = vega > 1e-3
+    iv_err = float((iv.detach() - sig64).abs()[live].max())
+    grad_err = max(float(((dp - 1.0 / vega).abs() / (1.0 / vega))[live].max()),
+                   float(((dS + bs_delta(100.0, K64, T64, 0.05, sig64, CALL) / vega).abs()
+                          / (bs_delta(100.0, K64, T64, 0.05, sig64, CALL) / vega).abs())[
+                              live].max()))
+    log(f"[3g] G5 64 x 64 (K, T) grid, K 70-130, T 0.1-1: bs_greeks (float32 autograd, "
+        f"Gamma by double backward) against bs_greeks_closed_form, worst over calls and "
+        f"puts as a share of rtol {BS_RTOL} (+ 1e-5 of the largest): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+        + f"; implied_vol (float64) round trip max |iv - sigma| {iv_err:.2e} over "
+        f"{int(live.sum())} cells with vega > 1e-3 (gate {IV_ATOL}); its autograd gradient "
+        f"against the implicit formula (1/vega, -delta/vega) max rel {grad_err:.2e} "
+        f"(gate {IV_GRAD_RTOL})")
+    if not (iv_err <= IV_ATOL and grad_err <= IV_GRAD_RTOL):
+        fail("G5: implied_vol round trip or gradient outside its gate")
+    res["G5"] = dict(worst=worst, iv_err=iv_err, grad_err=grad_err)
+    return {k: statistics.median(v) for k, v in secs.items()}, per_call, res
+
+
+# G2 runs kernel 2 and its VJP at 2^21 paths, twice the timed 2^20.
+GREEKS_SHAPE = {"G2": {"gbm_paths": 2.0, "gbm_paths_vjp": 2.0}}
+
+
+def phase_vjp_timing(specs, per_call: float) -> dict:
+    """CUDA-event medians of each VJP kernel's launch (its rows of block
+    sums), of its whole wrapper and of its plain version at its timed shape
+    (euler_paths_vjp with v), beside its bound:
+    the cotangent's bytes (and S_T's) read once, its counted f32 operations
+    and Philox instructions; and registers and occupancy."""
+    import torch
+
+    from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.ops import cuda_gbm, cuda_heston
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    attrs = cuda_heston.vjp_kernel_attrs()
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    seed = 0x9E3779B97F4A7C15
+    out = {}
+    for k in specs:
+        n, steps = k["timed"]
+        g = torch.full((n,) if k["name"] == "gbm_terminal_vjp" else (steps + 1, n),
+                       1.0 / n, device=DEVICE)
+        if k["name"] == "gbm_terminal_vjp":
+            S_T = cuda_gbm.gbm_terminal(seed, 100.0, 0.05, 0.2, 1.0, n, steps, device=DEVICE)
+            run = (lambda: cuda_gbm.gbm_terminal_vjp_rows(g, S_T, seed, 100.0, 0.05, 0.2,
+                                                          1.0, n, steps))
+            whole = (lambda: cuda_gbm.gbm_terminal_vjp(g, S_T, seed, 100.0, 0.05, 0.2, 1.0,
+                                                       n, steps))
+            plain = (lambda: cuda_gbm.gbm_terminal_vjp_reference(g, seed, 100.0, 0.05, 0.2,
+                                                                 1.0, n, steps))
+            b = bound(n, 1, k["ops"], 0, k["bytes"] * n)
+        elif k["name"] == "gbm_paths_vjp":
+            run = lambda: cuda_gbm.gbm_paths_vjp_rows(g, seed, 100.0, 0.05, 0.2, 0.5, n,
+                                                      steps)
+            whole = lambda: cuda_gbm.gbm_paths_vjp(g, seed, 100.0, 0.05, 0.2, 0.5, n, steps)
+            plain = lambda: cuda_gbm.gbm_paths_vjp_reference(g, seed, 100.0, 0.05, 0.2, 0.5,
+                                                             n, steps)
+            b = bound(n, steps, k["ops"], int_ops(k["draws"], per_call),
+                      k["bytes"] * n * (steps + 1))
+        else:
+            # gS and gv apart, as the Greeks path passes them: one tensor
+            # for both would read each address twice, the second time from
+            # cache, and move half the bytes the bound counts.
+            gv = g.clone()
+            run = lambda: cuda_heston.euler_paths_vjp_rows(g, gv, seed, 100.0, 0.05, 0.5, hp,
+                                                           n, steps)
+            whole = lambda: cuda_heston.euler_paths_vjp(g, gv, seed, 100.0, 0.05, 0.5, hp, n,
+                                                        steps)
+            plain = lambda: cuda_heston.euler_paths_vjp_reference(g, gv, seed, 100.0, 0.05,
+                                                                  0.5, hp, n, steps)
+            b = bound(n, steps, k["ops"], int_ops(k["draws"], per_call),
+                      k["bytes"] * n * (steps + 1))
+        ms = time_per_call(run, N_TIMED)
+        whole_ms = time_per_call(whole, N_TIMED)
+        plain_ms = time_per_call(plain, N_TIMED)
+        a = attrs[k["name"]]
+        terminal = k["name"] == "gbm_terminal_vjp"
+        occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
+        out[k["name"]] = dict(ms=ms, wrapper_ms=whole_ms, plain_ms=plain_ms,
+                              registers=a["registers"],
+                              spill_bytes=a["spill_bytes"], block=a["block"], occupancy=occ,
+                              **b)
+        log(f"[5] {k['name']} {n} paths" + ("" if k["name"] == "gbm_terminal_vjp" else
+                                            f" x {steps} steps")
+            + f": kernel {ms:.4f} ms (the wrapper with its row sums and chain rule "
+              f"{whole_ms:.4f} ms), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_term']} "
+              f"({k['ops']:.2f} f32 operations per path-step, "
+              f"{k['bytes'] * n * (1 if terminal else steps + 1) / 1e6:.1f} MB read; f32 alone "
+              f"{n * (1 if terminal else steps) * k['ops'] / PEAK_F32_OPS * 1e3:.4f} ms); "
+              f"{b['bound_ms'] / ms * 100:.1f}% of bound; {a['registers']} registers, "
+              f"{a['spill_bytes']} spill bytes, {a['blocks_per_sm']} blocks of {a['block']} "
+              f"per SM ({occ * 100:.1f}% occupancy)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1727,10 +2321,13 @@ def main() -> int:
     phase_constant_sigma()
     phase_digests()
     var_errs = phase_variants()
+    vjp = vjp_specs()
+    vjp_errs = phase_vjp()
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
-    counters = [k["counter"] for k in specs + earlier_specs(specs)]
+    counted = specs + vjp
+    counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
 
     def drive(path, fn):
@@ -1740,9 +2337,9 @@ def main() -> int:
         for d, key in counters:
             d[key] = 0
         out = fn()
-        counts = {k["name"]: k["counter"][0][k["counter"][1]] for k in specs}
+        counts = {k["name"]: k["counter"][0][k["counter"][1]] for k in counted}
         log(f"[4] kernel launches during the {path} path: {counts}")
-        mine = {k["name"]: counts[k["name"]] for k in specs if path in k["paths"]}
+        mine = {k["name"]: counts[k["name"]] for k in counted if path in k["paths"]}
         if not all(mine.values()):
             fail(f"a kernel of the {path} path was never launched: {mine}")
         earlier = {k["name"]: k["counter"][0][k["counter"][1]] for k in earlier_specs(specs)}
@@ -1759,12 +2356,14 @@ def main() -> int:
     euro.update(euro2)
     launches.update(launches2)
     secs_nn, launches_nn = drive("nn", phase_nn)
+    (secs_g, per_call_g, greeks_res), launches_g = drive("greeks", phase_greeks)
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
     phase_earlier_europeans(euro)
     phase_earlier_localvol_american(lv_put)
     times = phase_timing(specs, sass["per_call"])
+    times.update(phase_vjp_timing(vjp, sass["per_call"]))
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -1783,11 +2382,19 @@ def main() -> int:
                     + (f" (first design {times[name]['earlier_ms']:.4f} ms)"
                        if "earlier_ms" in times[name] else "")
                     for leg, d, name in legs))
+    for label, calls in per_call_g.items():
+        kernel_ms = sum(n * times[name]["ms"] * GREEKS_SHAPE.get(label, {}).get(name, 1.0)
+                        for name, n in calls.items())
+        log(f"[5] Greeks call {label}: {secs_g[label]:.4f} s (median, host clock to "
+            f"synchronize); kernel launches {calls}; forward and VJP kernels "
+            f"{kernel_ms:.4f} ms, {kernel_ms / 1e3 / secs_g[label] * 100:.2f}% of the call")
     log(f"[5] card: {card_line()}")
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[k["name"]], max_abs_err=errs[k["name"]]["s_abs"],
                     library_ms=None, **times[k["name"]],
+                    **({"greeks_launches": launches_g[k["name"]]} if k["name"] in launches_g
+                       else {}),
                     **({"earlier_name": k["earlier"]["name"],
                         "earlier_source": k["earlier"]["source"],
                         "earlier_max_abs_err": errs[k["earlier"]["name"]]["s_abs"]}
@@ -1798,6 +2405,15 @@ def main() -> int:
     entries.append(experiment_entry(experiments[1], "C  blocked, tile 4096",
                                     "C0 blocked, tile 4096, first design",
                                     "scripts/exp_fullpath_layout.py:36", var_errs))
+    entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+                     launches=launches_g[k["name"]],
+                     max_abs_err=vjp_errs[k["name"]]["max_abs_err"],
+                     max_scaled_err=vjp_errs[k["name"]]["max_scaled_err"],
+                     fd_worst=vjp_errs[k["name"]]["fd_worst"],
+                     greeks_shape_scaled_err=vjp_errs[k["name"]]["greeks_shape_scaled_err"],
+                     backward_of=k["forward"],
+                     library_ms=None, **times[k["name"]])
+                for k in vjp]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,12 @@ control variate and common-path Richardson extrapolation
 (``pricers.american.price_american``) and the European terminal-sampler
 branch of the same dispatcher; local vol over a compiled Chebyshev table
 (``surface.cheb``); the single-device strike x maturity surface
-(``pricers.surface_american``); and the kernel experiments
-(``scripts``). Features outside these raise NotImplementedError naming
-their JAX counterpart.
+(``pricers.surface_american``); the kernel experiments (``scripts``);
+and Greeks by automatic differentiation (``pricers.greeks``,
+``pricers.blackscholes``): the pathwise Monte-Carlo Greeks pass through
+the path kernels, whose backward is a hand-written VJP kernel
+(csrc/greeks.cu, ops/autodiff.py). Features outside these raise
+NotImplementedError naming their JAX counterpart.
 
 This package imports torch and numpy only, never jax.
 """

@@ -15,6 +15,7 @@ import math
 import torch
 
 from options_model_tpu_torch.core.config import HestonParams
+from options_model_tpu_torch.ops.engine import checked_device
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -83,9 +84,9 @@ def _cos_price_core(S0, K, T, r, q, cp, n_terms: int, L: float, dtype,
     """Shared COS machinery: truncation range from the first two cumulants,
     call coefficients, put-call parity. ``charfn_fn`` maps (omega (M, N),
     Tf (M, 1), complex dtype) -> phi; ``cumulant_fn`` maps Tf (M,) -> (c1, c2).
-    A tensor S0 sets the device."""
-    if isinstance(S0, torch.Tensor):
-        device = S0.device
+    A tensor among S0, K and T sets the device, else checked_device(device)."""
+    ref = next((a for a in (S0, K, T) if isinstance(a, torch.Tensor)), None)
+    device = ref.device if ref is not None else checked_device(device)
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     K, T = torch.broadcast_tensors(as_t(K), as_t(T))
     shape = K.shape
@@ -125,8 +126,8 @@ def heston_cos_price(S0, K, T, r, params: HestonParams, cp=1.0,
     K, T and cp broadcast elementwise; puts come from calls by put-call
     parity. ``dtype``: float32 (the default) carries an ~2e-3 absolute price
     noise floor (each of the n_terms terms is f32-rounded, coherently across
-    k); float64 drops it below 1e-7. A tensor S0 sets the device, else
-    ``device`` (default CPU)."""
+    k); float64 drops it below 1e-7. A tensor among S0, K and T sets the
+    device, else ``device``: the card by default, never quietly the CPU."""
     return _cos_price_core(
         S0, K, T, r, q, cp, n_terms, L, dtype,
         lambda om, Tf, cd: heston_charfn(om, Tf, r, params, dtype=cd, q=q),

@@ -1,6 +1,8 @@
 """Frozen-dataclass configs with the field names and defaults of
 options_model_tpu/core/config.py (OptionSpec, HestonParams, MCConfig,
-LSMConfig). ``dataclasses.replace`` takes the place of the flax ``.replace``.
+LSMConfig), their eager ``validate()`` checks (the same conditions, exception
+types and messages), and ``cp_from_str`` / ``cp_to_str``.
+``dataclasses.replace`` takes the place of the flax ``.replace``.
 
 ``from_reference(fields)`` builds a port config from the reference object's
 fields (``dataclasses.asdict`` or ``vars`` of it), given as plain Python or
@@ -18,6 +20,19 @@ import torch
 
 CALL: float = 1.0
 PUT: float = -1.0
+
+
+def cp_from_str(option_type: str) -> float:
+    ot = option_type.strip().lower()
+    if ot in ("call", "c"):
+        return CALL
+    if ot in ("put", "p"):
+        return PUT
+    raise ValueError(f"option_type must be 'call' or 'put', got {option_type!r}")
+
+
+def cp_to_str(cp: float) -> str:
+    return "call" if cp > 0 else "put"
 
 
 def _plain(name: str, value):
@@ -46,6 +61,20 @@ class OptionSpec(_FromReference):
     sigma: Optional[float] = None  # constant (BS) vol; None when Heston drives
     div_yield: float = 0.0          # continuous dividend yield q
 
+    def validate(self) -> "OptionSpec":
+        if self.strike <= 0:
+            raise ValueError(f"strike must be positive, got {self.strike}")
+        if self.rate < 0:
+            raise ValueError(f"rate must be non-negative, got {self.rate}")
+        if self.cp not in (CALL, PUT):
+            raise ValueError(f"cp must be +1 (call) or -1 (put), got {self.cp}")
+        if self.sigma is not None and self.sigma <= 0:
+            raise ValueError(f"sigma must be positive, got {self.sigma}")
+        if self.div_yield < 0:
+            raise ValueError(f"div_yield must be non-negative, "
+                             f"got {self.div_yield}")
+        return self
+
 
 @dataclasses.dataclass(frozen=True)
 class HestonParams(_FromReference):
@@ -57,6 +86,19 @@ class HestonParams(_FromReference):
     rho: float    # spot/vol correlation
     v0: float     # initial variance
 
+    def validate(self) -> "HestonParams":
+        if not (0 < self.kappa < 20):
+            raise ValueError(f"kappa={self.kappa} must be in (0, 20)")
+        if not (0 < self.theta < 2):
+            raise ValueError(f"theta={self.theta} must be in (0, 2)")
+        if not (0 < self.xi < 3):
+            raise ValueError(f"xi={self.xi} must be in (0, 3)")
+        if not (-1 < self.rho < 1):
+            raise ValueError(f"rho={self.rho} must be in (-1, 1)")
+        if not (0 < self.v0 < 2):
+            raise ValueError(f"v0={self.v0} must be in (0, 2)")
+        return self
+
 
 @dataclasses.dataclass(frozen=True)
 class MCConfig(_FromReference):
@@ -67,6 +109,13 @@ class MCConfig(_FromReference):
     antithetic: bool = True
     path_block: int = 4096
     dtype: torch.dtype = torch.float32
+
+    def validate(self) -> "MCConfig":
+        if self.n_paths <= 0 or self.n_steps <= 0:
+            raise ValueError("n_paths and n_steps must be positive")
+        if self.path_block % 256 != 0:
+            raise ValueError("path_block must be a multiple of 256 (TPU lane tiling)")
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +141,19 @@ class LSMConfig(_FromReference):
     variance_basis_degree: int = 2
     out_of_sample: bool = False
     richardson: bool = False
+
+    def validate(self) -> "LSMConfig":
+        if self.regressor not in ("poly", "nn"):
+            raise ValueError(f"regressor must be 'poly' or 'nn', got {self.regressor}")
+        if not (1 <= self.poly_degree <= 8):
+            raise ValueError(f"poly_degree must be in [1, 8], got {self.poly_degree}")
+        if self.nn_policy_iters < 1:
+            raise ValueError(
+                f"nn_policy_iters must be >= 1, got {self.nn_policy_iters}")
+        if self.cv_beta not in ("one", "opt"):
+            raise ValueError(
+                f"cv_beta must be 'one' or 'opt', got {self.cv_beta!r}")
+        if self.variance_basis_degree not in (2, 3):
+            raise ValueError(f"variance_basis_degree must be 2 or 3, got "
+                             f"{self.variance_basis_degree}")
+        return self

@@ -21,6 +21,29 @@ reference). ``heston_qe_from_normals`` is its recursion on given draws
 _qe_body (pallas_heston.py:369-436); the QE-M kernels of csrc/heston_paths.cu
 and csrc/terminal.cu, and their first designs in csrc/heston_qe.cu, are
 held against it.
+
+``simulate_heston``'s Euler paths are differentiable in (S0, r, T, kappa,
+theta, xi, rho, v0) when one of them is a tensor that requires grad: the
+paths kernel runs and its VJP kernel is the backward
+(ops/cuda_heston.euler_paths_ad); ``heston_euler_vjp_from_normals`` is the
+VJP on given normals, its plain version. Their tangent rules, with dt = T/n, s = sqrt(dt), ds = s dT / (2T), for one step
+from (ls, v) to (ls', v'):
+
+    vp = max(v, 0)                     dvp = dv [v > 0]
+    sv = sqrt(vp)                      dsv = dvp 0.5 / max(sv, 1e-6) [vp > 1e-12]
+    w2 = rho z1 + rho_bar z2           dw2 = (z1 - (rho / rho_bar) z2) drho
+    x = vp + kappa (theta - vp) dt + xi s sv w2,  v' = max(x, 0):
+      dv' = [x > 0] (dvp (1 - kappa dt) + (theta - vp)(dkappa dt + kappa d(dt))
+                     + kappa dt dtheta + w2 (dxi s sv + xi ds sv + xi s dsv)
+                     + xi s sv dw2)
+    dls' = dls + (dr - dvp / 2) dt + (r - vp / 2) d(dt) + (ds sv + s dsv) z1
+    S_t = exp(log S0 + ls_t):  dS_t = S_t (dS0 / S0 + dls_t);  at t = 0 dls = 0,
+    dv = dv0.
+
+The subgradient of sqrt is the reference's _safe_sqrt (models/heston.py:
+44-60): 0 below 1e-12, so a path pinned at v = 0 gives no infinite
+derivative. QE-M, terminal values and the maturity batch take no gradient
+(the reference's Greeks use none of them) and raise if asked for one.
 """
 
 from __future__ import annotations
@@ -33,6 +56,11 @@ import torch
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import HestonParams, MCConfig
 from options_model_tpu_torch.models.blocks import paths_rounded
+from options_model_tpu_torch.ops.autodiff import requires_grad
+
+
+def _heston_fields(params: HestonParams) -> tuple:
+    return (params.kappa, params.theta, params.xi, params.rho, params.v0)
 
 
 def effective_bs_sigma(v, tau, heston: HestonParams) -> torch.Tensor:
@@ -58,6 +86,69 @@ def heston_constants(S0, r, T, params: HestonParams, n_steps: int) -> dict:
     return dict(log_s0=np.log(f(S0)), r=f(r), dt=dt, sqrt_dt=np.sqrt(dt),
                 kappa=f(params.kappa), theta=f(params.theta), xi=f(params.xi),
                 rho=rho, rho_bar=np.sqrt(f(1.0) - rho * rho), v0=f(params.v0))
+
+
+def heston_euler_vjp_from_normals(z1: torch.Tensor, z2: torch.Tensor, gS: torch.Tensor,
+                                  gv: Optional[torch.Tensor], S0, r, T,
+                                  params: HestonParams, per_path: bool = False) -> torch.Tensor:
+    """<gS, dS/dp> + <gv, dv/dp> of the Euler paths on normals z1, z2
+    (n_steps, n_paths) for p = (S0, r, T, kappa, theta, xi, rho, v0):
+    float64 (8,), or with
+    ``per_path`` each path's share (8, n_paths), whose absolute sum is the
+    scale a reduction's rounding is held against. The states (and so every
+    clamp decision) are heston_euler_from_normals' own float32 ones; the
+    eight tangents of (log S, v), the products and the sums follow the
+    module's tangent rules in float64. ``gv`` None: v takes no cotangent."""
+    n_steps = z1.shape[0]
+    c = {k: float(v) for k, v in heston_constants(S0, r, T, params, n_steps).items()}
+    f64 = dict(dtype=torch.float64, device=z1.device)
+    s0 = float(np.float32(S0))
+    T_ = float(np.float32(T))
+    s = c["sqrt_dt"]
+    unit = torch.eye(8, **f64)[:, :, None]                   # (param, 8, 1)
+    d_S0, d_r, d_T, d_kappa, d_theta, d_xi, d_rho, d_v0 = unit
+    d_dt = d_T / n_steps
+    d_s = d_T * s / (2.0 * T_)
+    rho_ratio = c["rho"] / c["rho_bar"]
+
+    n_paths = z1.shape[1]
+    log_s = torch.zeros(n_paths, dtype=torch.float32, device=z1.device)
+    v = torch.full((n_paths,), c["v0"], dtype=torch.float32, device=z1.device)
+    dls = torch.zeros((8, n_paths), **f64)
+    dv = d_v0.expand(8, n_paths).clone()
+
+    def contract(t):
+        S = torch.exp(c["log_s0"] + log_s).double()
+        acc = gS[t].double() * S * (d_S0 / s0 + dls)
+        return acc if gv is None else acc + gv[t].double() * dv
+
+    acc = contract(0)
+    for t in range(n_steps):
+        z1_t, z2_t = z1[t], z2[t]
+        w2 = c["rho"] * z1_t + c["rho_bar"] * z2_t
+        v_plus = torch.clamp_min(v, 0.0)
+        sv32 = torch.sqrt(v_plus)
+        sq = sv32 * c["sqrt_dt"]
+        v_new = torch.clamp_min(v_plus + c["kappa"] * (c["theta"] - v_plus) * c["dt"]
+                                + c["xi"] * sq * w2, 0.0)
+        log_s = log_s + (c["r"] - 0.5 * v_plus) * c["dt"] + sq * z1_t
+
+        vp, sv = v_plus.double(), sv32.double()
+        z1d, z2d, w2d = z1_t.double(), z2_t.double(), w2.double()
+        dvp = dv * (v > 0)
+        dsv = dvp * torch.where(vp > 1e-12, 0.5 / torch.clamp_min(sv, 1e-6),
+                                torch.zeros_like(sv))
+        dw2 = (z1d - rho_ratio * z2d) * d_rho
+        dv = (v_new > 0) * (dvp * (1.0 - c["kappa"] * c["dt"])
+                            + (c["theta"] - vp) * (d_kappa * c["dt"] + c["kappa"] * d_dt)
+                            + c["kappa"] * c["dt"] * d_theta
+                            + w2d * (d_xi * s * sv + c["xi"] * d_s * sv + c["xi"] * s * dsv)
+                            + c["xi"] * s * sv * dw2)
+        dls = (dls + (d_r - 0.5 * dvp) * c["dt"] + (c["r"] - 0.5 * vp) * d_dt
+               + (d_s * sv + s * dsv) * z1d)
+        v = v_new
+        acc = acc + contract(t + 1)
+    return acc if per_path else acc.sum(1)
 
 
 def heston_euler_from_normals(z1: torch.Tensor, z2: torch.Tensor, S0, r, T,
@@ -205,6 +296,13 @@ def simulate_heston(seed: int, S0, r, T, params: HestonParams, cfg: MCConfig,
     from options_model_tpu_torch.ops import cuda_heston
 
     qe = scheme == "qe"
+    if requires_grad(S0, r, T, *_heston_fields(params)):
+        if qe or not return_paths:
+            raise not_ported("gradients of QE-M or terminal Heston values",
+                             "models.heston.simulate_heston")
+        return cuda_heston.euler_paths_ad(seed, S0, r, T, params, paths_rounded(cfg),
+                                          cfg.n_steps, cfg.antithetic, return_variance,
+                                          first_tile, device)
     if return_paths:
         fn = cuda_heston.heston_paths_qe if qe else cuda_heston.heston_paths
         return fn(seed, S0, r, T, params, paths_rounded(cfg), cfg.n_steps,
@@ -226,6 +324,10 @@ def simulate_heston_maturities(seed: int, S0, r, Ts, params: HestonParams, cfg: 
     simulate_heston at first_tile + m n_tiles, n_tiles = n_pad / PATH_TILE."""
     from options_model_tpu_torch.ops import cuda_heston
 
+    if requires_grad(S0, r, *Ts if isinstance(Ts, (list, tuple)) else (Ts,),
+                     *_heston_fields(params)):
+        raise not_ported("gradients of the maturity-batched paths",
+                         "models.heston.simulate_heston")
     return cuda_heston.heston_paths_batched(seed, S0, r, Ts, params, paths_rounded(cfg),
                                             cfg.n_steps, cfg.antithetic, return_variance,
                                             first_tile, device, scheme)

@@ -14,6 +14,13 @@ heston_terminal_qe_pallas and heston_paths_qe_pallas
 (options_model_tpu/ops/pallas_heston.py:263, :319, :512, :543), flat layout
 only. The wrappers take the plain version for a CPU device and launch the
 kernel for a CUDA device; there is no fallback between the two.
+
+``euler_paths_ad`` is the Euler paths kernel in the autograd graph of
+(S0, r, T, kappa, theta, xi, rho, v0), the counterpart of jax.grad through
+the reference's XLA simulator (models/heston.py:63); its backward is
+``euler_paths_vjp``, the VJP kernel of csrc/greeks.cu (or its plain version
+for a CPU cotangent), which redraws the forward's normals, repeats its
+steps and carries their tangents (models/heston.py states the rules).
 """
 
 from __future__ import annotations
@@ -22,11 +29,14 @@ import numpy as np
 import torch
 
 from options_model_tpu_torch.models.blocks import round_up
+from options_model_tpu_torch.core.config import HestonParams
 from options_model_tpu_torch.models.heston import (heston_constants,
                                                    heston_euler_from_normals,
+                                                   heston_euler_vjp_from_normals,
                                                    heston_qe_from_normals,
                                                    qe_constants)
 from options_model_tpu_torch.ops import _build
+from options_model_tpu_torch.ops.autodiff import VJP_BLOCK, cotangent, differentiable
 from options_model_tpu_torch.ops.engine import resolve_device
 from options_model_tpu_torch.ops.philox import path_normals, qe_path_draws
 
@@ -40,7 +50,8 @@ SCHEMES = ("euler", "qe")
 launches = {"heston_terminal": 0, "heston_paths": 0,
             "heston_terminal_qe": 0, "heston_paths_qe": 0,
             "heston_terminal_accurate": 0, "heston_paths_accurate": 0,
-            "heston_paths_qe_accurate": 0, "heston_terminal_qe_accurate": 0}
+            "heston_paths_qe_accurate": 0, "heston_terminal_qe_accurate": 0,
+            "euler_paths_vjp": 0}
 
 
 def _tiles(n_paths: int, tile: int, seed: int, first_tile: int, n_steps: int) -> int:
@@ -357,3 +368,93 @@ def terminal_kernel_attrs() -> dict:
     return {name: _build.kernel_attrs("omt_terminal_attrs", i) for i, name in
             enumerate(("localvol_terminal", "localvol_terminal (run-time degree)",
                        "heston_terminal_qe", "heston_terminal", "gbm_terminal"))}
+
+
+def euler_paths_vjp_reference(gS: torch.Tensor, gv, seed: int, S0, r, T, params,
+                              n_paths: int, n_steps: int, antithetic: bool = True,
+                              first_tile: int = 0) -> torch.Tensor:
+    """Plain version of the Euler VJP kernel: <gS, dS/dp> + <gv, dv/dp> for
+    p = (S0, r, T, kappa, theta, xi, rho, v0), float64 (8,), on the normals
+    heston_paths_reference draws. ``gv`` None: v takes no cotangent."""
+    n_tiles = _tiles(n_paths, PATH_TILE, seed, first_tile, n_steps)
+    z1, z2 = _normals(seed, n_tiles, PATH_TILE, n_steps, antithetic, first_tile, gS.device)
+    return heston_euler_vjp_from_normals(z1, z2, gS, gv, S0, r, T, params)
+
+
+def _vjp_extras(T, params, n_steps: int):
+    """The tangents' constants beside the forward's row: d(dt)/dT = 1/n,
+    d(sqrt dt)/dT = sqrt(dt) / (2T) and rho / rho_bar (host float32)."""
+    c = heston_constants(1.0, 0.0, T, params, n_steps)
+    return _build.float_args([1.0 / n_steps, c["sqrt_dt"] / (2.0 * np.float32(T)),
+                              c["rho"] / c["rho_bar"]])
+
+
+def euler_paths_vjp_rows(gS: torch.Tensor, gv, seed: int, S0, r, T, params, n_paths: int,
+                         n_steps: int, antithetic: bool = True,
+                         first_tile: int = 0) -> torch.Tensor:
+    """One launch of csrc/greeks.cu's euler_paths_vjp_kernel on CUDA
+    cotangents gS, gv (n_steps+1, n_pad): its (n_blocks, 8) float64 rows of
+    block sums (g S, g S t, then the six carried tangents). It reads gS and
+    gv only; ``gv`` None is a kernel flag, not a zero matrix."""
+    _build.require_cuda(gS.device)
+    n_tiles = _tiles(n_paths, PATH_TILE, seed, first_tile, n_steps)
+    shape = (n_steps + 1, n_tiles * PATH_TILE)
+    gS = cotangent(gS, shape)
+    gv = None if gv is None else cotangent(gv, shape)
+    consts = batched_consts("euler", S0, r, [T], params, n_steps, gS.device)
+    n_slots = n_tiles * (PATH_TILE // 2 if antithetic else PATH_TILE)
+    rows = torch.empty((-(-n_slots // VJP_BLOCK), 8), dtype=torch.float64, device=gS.device)
+    _build.launch("omt_euler_paths_vjp", gS.device, rows.data_ptr(), gS.data_ptr(),
+                  None if gv is None else gv.data_ptr(), consts.data_ptr(),
+                  _vjp_extras(T, params, n_steps), seed, first_tile, n_tiles, n_steps,
+                  int(antithetic), rows.shape[0])
+    launches["euler_paths_vjp"] += 1
+    return rows
+
+
+def euler_paths_vjp(gS: torch.Tensor, gv, seed: int, S0, r, T, params, n_paths: int,
+                    n_steps: int, antithetic: bool = True,
+                    first_tile: int = 0) -> torch.Tensor:
+    """<gS, dS/dp> + <gv, dv/dp> of heston_paths for p = (S0, r, T, kappa,
+    theta, xi, rho, v0), float64 (8,): the kernel's rows summed in a fixed
+    order for CUDA cotangents, the plain version for CPU ones; dS0 and dr
+    follow from the
+    first two sums (dS_t/dS0 = S_t/S0, dls_t/dr = t dt)."""
+    if gS.device.type == "cpu":
+        return euler_paths_vjp_reference(gS, gv, seed, S0, r, T, params, n_paths, n_steps,
+                                         antithetic, first_tile)
+    sums = euler_paths_vjp_rows(gS, gv, seed, S0, r, T, params, n_paths, n_steps, antithetic,
+                                first_tile).sum(0)
+    dt = float(np.float32(T)) / n_steps
+    return torch.cat([(sums[0] / float(np.float32(S0)))[None], (sums[1] * dt)[None],
+                      sums[2:]])
+
+
+def euler_paths_ad(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                   antithetic: bool = True, return_variance: bool = False,
+                   first_tile: int = 0, device=None):
+    """heston_paths (Euler) in the autograd graph of (S0, r, T, kappa, theta,
+    xi, rho, v0), any of them a 0-d tensor: the forward is the same launch
+    with the same bits, the backward euler_paths_vjp."""
+    fields = (params.kappa, params.theta, params.xi, params.rho, params.v0)
+
+    def run(S0_, r_, T_, *p):
+        return heston_paths(seed, S0_, r_, T_, HestonParams(*p), n_paths, n_steps,
+                            antithetic, return_variance, first_tile, device)
+
+    def vjp(grads, outs, S0_, r_, T_, *p):
+        # S always takes a cotangent in the pricers; one that does not
+        # (a loss on v alone) gets a zero matrix here.
+        gS = torch.zeros_like(outs[0]) if grads[0] is None else grads[0]
+        return euler_paths_vjp(gS, grads[1] if return_variance else None, seed, S0_,
+                               r_, T_, HestonParams(*p), n_paths, n_steps, antithetic,
+                               first_tile)
+
+    return differentiable(run, vjp, S0, r, T, *fields)
+
+
+def vjp_kernel_attrs() -> dict:
+    """Registers, spills and occupancy of the VJP kernels of csrc/greeks.cu
+    as built (the antithetic instances; Euler with v), by name."""
+    return {name: _build.kernel_attrs("omt_greeks_attrs", i) for i, name in
+            enumerate(("gbm_terminal_vjp", "gbm_paths_vjp", "euler_paths_vjp"))}

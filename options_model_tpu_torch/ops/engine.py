@@ -26,16 +26,25 @@ def resolve_device(device=None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-def resolve_engine(engine: str, device=None) -> str:
-    """'auto' -> 'cuda' on a CUDA device, 'torch' on the CPU. An explicit
-    engine that does not fit the device raises."""
+def checked_device(device=None) -> torch.device:
+    """resolve_device, raising for a device the port does not run on and for
+    a CUDA device torch cannot reach: the entry points that compute with
+    plain tensor ops (the closed forms, the Greeks) run on the card unless
+    the caller asks for the CPU, as the kernels' entry points do."""
     dev = resolve_device(device)
-    if engine not in ENGINES + ("auto",):
-        raise ValueError(f"engine must be 'auto', 'cuda' or 'torch', got {engine!r}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the port runs on a CPU or CUDA device, got {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available to torch")
+    return dev
+
+
+def resolve_engine(engine: str, device=None) -> str:
+    """'auto' -> 'cuda' on a CUDA device, 'torch' on the CPU. An explicit
+    engine that does not fit the device raises."""
+    if engine not in ENGINES + ("auto",):
+        raise ValueError(f"engine must be 'auto', 'cuda' or 'torch', got {engine!r}")
+    dev = checked_device(device)
     if engine == "auto":
         return "cuda" if dev.type == "cuda" else "torch"
     if (engine == "cuda") != (dev.type == "cuda"):

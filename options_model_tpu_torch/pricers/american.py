@@ -67,8 +67,14 @@ def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) ->
                          "pricers.american.lsm_poly_backward")
 
 
-def _discount(rate, tau) -> float:
-    """exp(-rate tau) in float32 arithmetic, as the reference computes it."""
+def _discount(rate, tau):
+    """exp(-rate tau) in float32 arithmetic, as the reference computes it: a
+    Python float for numbers, and a float32 tensor in the autograd graph
+    when ``rate`` or ``tau`` is a tensor, so that d/dr and d/dT flow through
+    the discount as through the reference's traced value."""
+    if isinstance(rate, torch.Tensor) or isinstance(tau, torch.Tensor):
+        return torch.exp(-torch.as_tensor(rate, dtype=torch.float32)
+                         * torch.as_tensor(tau, dtype=torch.float32))
     return float(np.exp(-np.float32(rate) * np.float32(tau)))
 
 
@@ -262,10 +268,17 @@ def lsm_poly_backward(S_paths: torch.Tensor, spec: OptionSpec, T,
     n_steps = S_paths.shape[0] - 1
     n_paths = S_paths.shape[1]
     dtype, device = S_paths.dtype, S_paths.device
-    disc = _discount(spec.rate, np.float32(T) / np.float32(n_steps))
+    dt = (T / n_steps if isinstance(T, torch.Tensor)
+          else np.float32(T) / np.float32(n_steps))
+    disc = _discount(spec.rate, dt)
     K = spec.strike
+    # One view per date: with a path matrix in the autograd graph, the
+    # backward stacks the dates' gradients once instead of scattering each
+    # into a zero matrix of its own.
+    S_rows = S_paths.unbind(0)
+    v_rows = None if v_paths is None else v_paths.unbind(0)
 
-    cash = vanilla_payoff(S_paths[-1], K, spec.cp)  # t = n_steps
+    cash = vanilla_payoff(S_rows[-1], K, spec.cp)  # t = n_steps
     train_mask, eval_mask = _oos_split(n_paths, out_of_sample, pair_block, dtype, device)
     if train_mask is None:
         train_mask = eval_mask
@@ -274,13 +287,17 @@ def lsm_poly_backward(S_paths: torch.Tensor, spec: OptionSpec, T,
         cash = cash * disc  # roll value back one step to date t
         if t % exercise_stride != 0:
             continue
-        S_t = S_paths[t]
+        S_t = S_rows[t]
         immediate = vanilla_payoff(S_t, K, spec.cp)
         itm = (immediate > 0).to(dtype) * train_mask
-        X = build_centered_basis(S_t, K, itm, poly_degree,
-                                 v_t=None if v_paths is None else v_paths[t],
-                                 v_degree=v_degree)
-        continuation = masked_wls_predict_centered(X, cash, itm)
+        # The regression only feeds the exercise comparison, which carries
+        # no gradient (the reference's pathwise Greeks hold the decisions
+        # fixed), so it runs outside the graph.
+        with torch.no_grad():
+            X = build_centered_basis(S_t, K, itm, poly_degree,
+                                     v_t=None if v_rows is None else v_rows[t],
+                                     v_degree=v_degree)
+            continuation = masked_wls_predict_centered(X, cash, itm)
         exercise = (immediate > continuation) & (immediate > 0)
         cash = torch.where(exercise, immediate, cash)
     cash = cash * disc  # the final step t = dt -> 0

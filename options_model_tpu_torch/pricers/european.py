@@ -1,6 +1,6 @@
 """European Monte-Carlo pricing with streaming Welford statistics, as
 options_model_tpu/pricers/european.py (GBM, Heston Euler and QE-M, and
-table local-vol terminal samplers).
+table local-vol terminal samplers), and the one-draw exact GBM price.
 
 The terminal kernels (csrc/, or their plain versions on the CPU) never
 materialize a path matrix. Chunks are keyed by global tile: chunk c runs
@@ -23,11 +23,12 @@ from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (pair_mean_reduce, welford_empty,
                                                 welford_from_batch, welford_merge)
 from options_model_tpu_torch.models.blocks import paths_rounded
+from options_model_tpu_torch.models.gbm import gbm_terminal_exact
 from options_model_tpu_torch.ops.cuda_gbm import gbm_terminal
 from options_model_tpu_torch.ops.cuda_heston import (TERMINAL_TILE, heston_terminal,
                                                      heston_terminal_qe)
 from options_model_tpu_torch.ops.cuda_localvol import localvol_terminal
-from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
+from options_model_tpu_torch.ops.engine import checked_device, resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
 from options_model_tpu_torch.surface.cheb import LocalVolTable
 
@@ -109,3 +110,23 @@ def price_european_mc(generator: torch.Generator, sampler: TerminalSampler,
     # count reports simulated paths (pairs count double under the reduction)
     n = state.count * (2.0 if cfg.antithetic else 1.0)
     return state.mean, state.stderr, n
+
+
+def price_european_gbm_exact(generator: torch.Generator, S0, spec: OptionSpec, T,
+                             n_paths: int = 1 << 20, antithetic: bool = True,
+                             device=None):
+    """One-draw exact-terminal GBM European price (models/gbm.
+    gbm_terminal_exact, the terminal kernel at one step): (price, stderr,
+    n_paths) as tensors. The path count rounds up to whole TERMINAL_TILE
+    tiles, and antithetic pairs reduce at that tile, the kernel's mirror
+    granularity (the reference pairs (i, i + n/2))."""
+    device = checked_device(device)
+    S_T = gbm_terminal_exact(seed_from_generator(generator), S0,
+                             spec.rate - spec.div_yield, spec.sigma, T, n_paths,
+                             antithetic, device=device)
+    discount = float(np.exp(-np.float32(spec.rate) * np.float32(T)))
+    payoffs = vanilla_payoff(S_T, spec.strike, spec.cp) * discount
+    if antithetic:
+        payoffs = pair_mean_reduce(payoffs, TERMINAL_TILE)
+    st = welford_from_batch(payoffs)
+    return st.mean, st.stderr, st.count * (2.0 if antithetic else 1.0)

@@ -47,7 +47,7 @@ def test_bs_price_matches(cp, q):
     T = RNG.uniform(0.05, 3.0, 256).astype(np.float32)
     sig = RNG.uniform(0.1, 0.6, 256).astype(np.float32)
     got = bs_price(torch.from_numpy(S), 100.0, torch.from_numpy(T), 0.05,
-                   torch.from_numpy(sig), cp, q=q).numpy()
+                   torch.from_numpy(sig), cp, q=q, device="cpu").numpy()
     want = np.asarray(j_bs_price(jnp.asarray(S), 100.0, jnp.asarray(T), 0.05,
                                  jnp.asarray(sig), cp, q=q))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * float(np.abs(want).max()))
@@ -57,7 +57,7 @@ def test_bs_price_matches(cp, q):
 def test_heston_cos_float32_matches_within_noise_floor(cp):
     K, T = np.meshgrid(K_GRID, T_GRID)
     got = heston_cos_price(100.0, torch.from_numpy(K), torch.from_numpy(T), 0.05, HESTON,
-                           cp=cp, q=0.01).numpy()
+                           cp=cp, q=0.01, device="cpu").numpy()
     want = np.asarray(j_heston_cos_price(100.0, jnp.asarray(K), jnp.asarray(T), 0.05,
                                          J_HESTON, cp=cp, q=0.01))
     assert got.shape == want.shape == K.shape
@@ -69,7 +69,7 @@ def test_heston_cos_float64_matches():
         pytest.skip("explicit x64 dtypes unavailable in this JAX")
     K, T = np.meshgrid(K_GRID.astype(np.float64), T_GRID.astype(np.float64))
     got = heston_cos_price(100.0, torch.from_numpy(K), torch.from_numpy(T), 0.05, HESTON,
-                           cp=-1.0, dtype=torch.float64).numpy()
+                           cp=-1.0, dtype=torch.float64, device="cpu").numpy()
     with contextlib.ExitStack() as st:
         st.enter_context(_explicit_x64_scope())
         st.enter_context(jax.default_device(jax.devices("cpu")[0]))

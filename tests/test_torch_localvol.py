@@ -185,7 +185,7 @@ def test_constant_sigma_european_call_matches_bs():
     spec = OptionSpec(strike=100.0, rate=R, cp=CALL)
     p, se, _ = price_european_mc(torch.Generator().manual_seed(3), sampler, spec, 1.0,
                                  MCConfig(n_paths=1 << 15, n_steps=N_STEPS))
-    bs = float(bs_price(S0, 100.0, 1.0, R, 0.2, 1.0, dtype=torch.float64))
+    bs = float(bs_price(S0, 100.0, 1.0, R, 0.2, 1.0, dtype=torch.float64, device="cpu"))
     assert abs(float(p) - bs) <= 4.0 * float(se), (float(p), float(se), bs)
 
 
