@@ -62,6 +62,14 @@ Phases, in order; any failure exits non-zero:
    e. the two kernel-4 experiments (options_model_tpu_torch/scripts/
       exp_paths_kernel.py and exp_fullpath_layout.py) at their scripts'
       shapes, each variant also held against its plain version there;
+   f. the calibration path (calibration/calibrator.py, float64 on the
+      card): C1 bench.py's exact Heston round trip, C2 its noisy surface
+      with L-BFGS-B against the JAX package's fit, C3 the default cascade
+      at max_iterations 50, C4 and C5 the Bates and VG round trips, C6 the
+      recorded chain (tests/data/chain_fixture.json) calibrated and
+      repriced (COS and American puts, kernel 4), C7 apps.calibrate with
+      --price-surface (one batched kernel-4 launch for 64 x 64); the ms and
+      device kernels of one objective evaluation per model;
 4. the launch counts of each path, none of its kernels at 0, the first
    design of kernels 1 and 3-8 and of the variants at 0, and one paths
    launch per 64x64 Heston surface; the experiments reach the variants'
@@ -224,6 +232,16 @@ OPS_GBM_PATHS = 11 / 4 + 5 + 1 / 2      # drift, diffusion * z, add, expf, * s0
 OPS_QE = 51 + 11 / 2 + 1 / 2 + 1 / 2 + 1
 OPS_EXP = 2                             # expf(log_s0 + ls) per stored path-step
 N_TIMED = 7
+# Calibration (phase 3f). The JAX package's noisy L-BFGS-B fit of bench.py's
+# surface (noise 0.005, seed 7), run on the CPU (x86-64, JAX_PLATFORMS=cpu):
+# its weighted IV RMSE and the relative RMSE of its (theta, xi, rho, v0);
+# tests/test_torch_calibration.py::test_noisy_lbfgsb_fit_matches_jax holds
+# both. BENCH_r04's full-cascade noisy IV RMSE is printed beside them.
+JAX_C2_IV_RMSE = 0.004150032314746727
+JAX_C2_PARAM_RMSE = 0.06939227109145878
+BENCH_R04_NOISY_IV_RMSE = 0.00415003
+C2_IV_RTOL = 0.005             # C2's IV RMSE within 0.5% of the JAX package's
+C2_PARAM_SLACK = 0.01          # C2's parameter RMSE at most JAX's + 0.01
 DEVICE = "cuda"
 
 
@@ -361,7 +379,8 @@ def kernel_specs():
     return [
         dict(name="heston_paths", source=src + "heston_paths.cu", scheme="euler",
              run=paths_run(cuda_heston.heston_paths, cuda_heston.heston_paths_reference),
-             replaces="options_model_tpu/ops/pallas_heston.py:319", paths=("main", "nn", "greeks"),
+             replaces="options_model_tpu/ops/pallas_heston.py:319",
+             paths=("main", "nn", "greeks", "calibration"),
              tile=cuda_heston.PATH_TILE, main=(256, 50), timed=(256, 50), variance=(False, True),
              ops=OPS_HESTON + OPS_EXP, draws=DRAWS_HESTON, tol=euler_tol,
              counter=(L, "heston_paths"),
@@ -2224,6 +2243,201 @@ def phase_greeks() -> tuple:
     return {k: statistics.median(v) for k, v in secs.items()}, per_call, res
 
 
+# C1: bench.py's exact round trip; C4, C5: tests/test_bates.py:223 and
+# tests/test_vg.py:162 with their gates; C6: tests/test_livechain_e2e.py's
+# gates on the recorded chain.
+C1_PARAM_RMSE = 1e-4
+C1_IV_RMSE = 1e-6
+C4_IV_RMSE = 1e-6
+C5_IV_RMSE = 5e-4
+C6_IV_RMSE = 0.01
+C6_COS_REL = 0.01
+C6_AMERICAN_REL = 0.015
+# The default cascade's evaluations on C2's surface (CalibrationConfig(),
+# the port on the CPU: python -m options_model_tpu_torch.scripts.
+# profile_calibration --count-cascade); times C3's ms per evaluation of each
+# method, the default cascade's projected seconds on the card.
+DEFAULT_CASCADE_NFEV = {"L-BFGS-B": 311, "differential_evolution": 10068,
+                        "dual_annealing": 4583}
+
+
+def phase_calibration() -> dict:
+    """The calibration path (BASELINE configs[3], "Heston calibration to
+    market IV surface via char-fn least-squares"), float64 on the card:
+    C1 bench.py's exact Heston round trip (default config); C2 its noisy
+    surface (0.005, seed 7) with ("L-BFGS-B",) against the JAX package's
+    fit; C3 the default cascade at max_iterations=50 on C2's surface; C4
+    the Bates and C5 the VG f64 round trips of the JAX slow tests; C6 the
+    recorded chain (calibrate, then reprice COS Europeans and American puts
+    at 2^20 x 50 under the fitted and true parameters); C7 apps.calibrate
+    --test --methods L-BFGS-B --price-surface (64 x 64, one batched paths
+    launch). Also the ms and device kernels of one objective evaluation of
+    each model (scripts/profile_calibration.py). Returns the numbers for
+    PERF.md."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.apps import calibrate as app
+    from options_model_tpu_torch.calibration.calibrator import HestonCalibrator, MarketSurface
+    from options_model_tpu_torch.calibration.charfn import heston_cos_price
+    from options_model_tpu_torch.calibration.synthetic import create_synthetic_heston_surface
+    from options_model_tpu_torch.core.config import (PUT, CalibrationConfig, HestonParams,
+                                                      LSMConfig, MCConfig, OptionSpec)
+    from options_model_tpu_torch.ops import cuda_heston
+    from options_model_tpu_torch.pricers.american import price_american
+    from options_model_tpu_torch.scripts.profile_calibration import (profile_objective,
+                                                                     read_chain_fixture,
+                                                                     surfaces)
+
+    t_phase = time.perf_counter()
+    res = {}
+    lbfgsb = CalibrationConfig(optimization_methods=("L-BFGS-B",))
+    synth = surfaces(DEVICE)
+
+    for model, (surface, _) in synth.items():
+        r = profile_objective(surface, model, DEVICE)
+        res[f"profile_{model}"] = r
+        log(f"[3f] one {model} objective evaluation ({r['points']} points x {r['n_terms']} "
+            f"terms, float64): value and gradient {r['ms_value_and_grad']:.3f} ms, value "
+            f"{r['ms_value']:.3f} ms (host clock, median of {r['n_timed']}); {r['kernels']} device "
+            f"kernels, {r['copies_htod']} host-to-device and {r['copies_dtoh']} "
+            f"device-to-host copies, device busy {r['device_busy_share'] * 100:.1f}% "
+            f"(torch.profiler, one value-and-gradient evaluation)")
+
+    def fit(label, model, surface, cfg):
+        cal = HestonCalibrator(cfg, model=model, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = cal.calibrate(surface)
+        secs = time.perf_counter() - t0
+        n = cal.n_evaluations
+        methods = "; ".join(f"{m} error {v['error']:.9g}, {v['nfev']} evaluations, "
+                            f"{v['seconds']:.3f} s" for m, v in cal.method_results.items())
+        log(f"[3f] {label}: {params}; weighted IV RMSE {cal.best_error:.9g}; {secs:.3f} s, "
+            f"{n} evaluations, {secs / n * 1e3:.3f} ms per evaluation; {methods}")
+        if not math.isfinite(cal.best_error):
+            fail(f"{label}: the fit's error is {cal.best_error}")
+        res[label] = dict(seconds=secs, nfev=n, error=cal.best_error,
+                          methods=cal.method_results, params=params.to_array().tolist())
+        return cal, params
+
+    # C1: the exact round trip, default config.
+    surface, true = synth["heston"]
+    _, p1 = fit("C1", "heston", surface, CalibrationConfig())
+    rel = p1.to_array() / true.to_array() - 1.0
+    rmse = float(np.sqrt(np.mean(rel**2)))
+    log(f"[3f] C1 parameter rel RMSE {rmse:.3e} (gate {C1_PARAM_RMSE}), IV RMSE "
+        f"{res['C1']['error']:.3e} (gate {C1_IV_RMSE}); BENCH_r04: 0.0 and 0.0 (rounded to "
+        f"6 and 8 places)")
+    if not (rmse < C1_PARAM_RMSE and res["C1"]["error"] < C1_IV_RMSE):
+        fail("C1: the exact Heston round trip outside its gates")
+
+    # C2: the noisy surface, L-BFGS-B (with its least-squares polish).
+    K, T, iv = create_synthetic_heston_surface(true, noise_std=0.005, seed=7,
+                                               dtype=np.float64, device=DEVICE)
+    noisy = MarketSurface(K, T, iv, 100.0, 0.05)
+    _, p2 = fit("C2", "heston", noisy, lbfgsb)
+    rel2 = p2.to_array() / true.to_array() - 1.0
+    rmse4 = float(np.sqrt(np.mean(rel2[1:]**2)))
+    err2 = res["C2"]["error"]
+    log(f"[3f] C2 IV RMSE {err2:.9g} vs the JAX package's {JAX_C2_IV_RMSE:.9g} (ratio "
+        f"{err2 / JAX_C2_IV_RMSE:.9f}, gate within {C2_IV_RTOL:.1%}); BENCH_r04's full "
+        f"cascade {BENCH_R04_NOISY_IV_RMSE}; (theta, xi, rho, v0) rel RMSE {rmse4:.6f} vs "
+        f"JAX {JAX_C2_PARAM_RMSE:.6f} (gate + {C2_PARAM_SLACK}); kappa rel err "
+        f"{abs(rel2[0]):.6f}")
+    if not (abs(err2 / JAX_C2_IV_RMSE - 1.0) <= C2_IV_RTOL
+            and rmse4 <= JAX_C2_PARAM_RMSE + C2_PARAM_SLACK):
+        fail("C2: the noisy fit is off the JAX package's")
+
+    # C3: the default three-method cascade at max_iterations=50.
+    cal3, _ = fit("C3", "heston", noisy, CalibrationConfig(max_iterations=50))
+    if set(cal3.method_results) != {"L-BFGS-B", "differential_evolution", "dual_annealing"}:
+        fail(f"C3: not every method ran: {list(cal3.method_results)}")
+    if not res["C3"]["error"] <= err2:
+        fail(f"C3: the cascade's best {res['C3']['error']} is above C2's {err2}")
+    per_eval = {m: v["seconds"] / v["nfev"] for m, v in cal3.method_results.items()}
+    projected = sum(DEFAULT_CASCADE_NFEV[m] * per_eval[m] for m in per_eval)
+    log(f"[3f] the default cascade on C2's surface, projected: "
+        + ", ".join(f"{m} {DEFAULT_CASCADE_NFEV[m]} evaluations x {per_eval[m] * 1e3:.3f} ms"
+                    for m in per_eval) + f" = {projected:.1f} s")
+    res["projected_default_cascade_s"] = projected
+
+    # C4: the Bates round trip (tests/test_bates.py:223).
+    surface, true_b = synth["bates"]
+    _, p4 = fit("C4", "bates", surface, lbfgsb)
+    got, want = p4.to_array(), true_b.to_array()
+    if not (res["C4"]["error"] < C4_IV_RMSE
+            and np.all(np.abs(got - want) <= 1e-3 + 0.01 * np.abs(want))):
+        fail(f"C4: the Bates round trip outside its gates: {got} vs {want}")
+
+    # C5: the VG round trip (tests/test_vg.py:162).
+    surface, true_v = synth["vg"]
+    _, p5 = fit("C5", "vg", surface, lbfgsb)
+    if not (res["C5"]["error"] < C5_IV_RMSE
+            and abs(p5.sigma / true_v.sigma - 1.0) < 1e-3
+            and abs(p5.theta / true_v.theta - 1.0) < 1e-2
+            and abs(p5.nu / true_v.nu - 1.0) < 1e-2):
+        fail(f"C5: the VG round trip outside its gates: {p5}")
+
+    # C6: the recorded chain, calibrated, then repriced.
+    Kc, Tc, ivc, S0, meta = read_chain_fixture()
+    r = meta["rate"]
+    true_c = HestonParams(**meta["true_params"])
+    chain = MarketSurface(Kc, Tc, ivc, S0, r)
+    cal6, p6 = fit("C6", "heston", chain, lbfgsb)
+    ok = (chain.regime == "normal_vol" and res["C6"]["error"] < C6_IV_RMSE
+          and abs(p6.theta - true_c.theta) < 0.01 and abs(p6.v0 - true_c.v0) < 0.01
+          and abs(p6.rho - true_c.rho) < 0.15 and abs(p6.xi / true_c.xi - 1.0) < 0.35)
+    log(f"[3f] C6 the recorded chain ({len(chain)} quotes, S0 {S0}): fitted {p6} vs true "
+        f"{true_c}; regime {chain.regime}")
+    if not ok:
+        fail("C6: the recorded chain's fit outside tests/test_livechain_e2e.py's gates")
+    Ks = torch.tensor([0.9 * S0, S0, 1.1 * S0], dtype=torch.float64, device=DEVICE)
+    Ts = torch.full((3,), 0.5, dtype=torch.float64, device=DEVICE)
+    cos = [heston_cos_price(S0, Ks, Ts, r, p, cp=1.0, dtype=torch.float64).cpu().numpy()
+           for p in (p6, true_c)]
+    cos_rel = float(np.abs(cos[0] / cos[1] - 1.0).max())
+    spec = OptionSpec(strike=float(S0), rate=r, cp=PUT)
+    mc = MCConfig(n_paths=1 << 20, n_steps=50)
+    am = [price_american(torch.Generator().manual_seed(7), S0, 0.5, spec, mc, LSMConfig(),
+                         "heston", heston=p, device=DEVICE) for p in (p6, true_c)]
+    am = [(float(p), float(se)) for p, se in am]
+    am_rel = am[0][0] / am[1][0] - 1.0
+    log(f"[3f] C6 reprice under the fitted vs the true parameters: COS calls at 0.9, 1, 1.1 "
+        f"S0, T 0.5: max rel {cos_rel:.3e} (gate {C6_COS_REL}); American put K = S0, T 0.5, "
+        f"2^20 x 50, one generator: {am[0][0]:.6f} +- {am[0][1]:.6f} vs {am[1][0]:.6f} +- "
+        f"{am[1][1]:.6f}, rel {am_rel:+.4%} (gate {C6_AMERICAN_REL:.1%})")
+    if not (cos_rel < C6_COS_REL and abs(am_rel) < C6_AMERICAN_REL):
+        fail("C6: the fitted dynamics do not reprice near the truth")
+    res["C6_reprice"] = dict(cos_rel=cos_rel, american=am, american_rel=am_rel)
+
+    # C7: calibrate -> price through the app.
+    csv_path = Path(__file__).resolve().parent / "build" / "calibrated_surface.csv"
+    csv_path.parent.mkdir(parents=True, exist_ok=True)
+    before = cuda_heston.launches["heston_paths"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s7 = app.run(app.parse_args(["--test", "--methods", "L-BFGS-B", "--price-surface",
+                                 str(csv_path)]), device=DEVICE)
+    secs7 = time.perf_counter() - t0
+    n7 = cuda_heston.launches["heston_paths"] - before
+    lines = csv_path.read_text().splitlines()
+    rows = np.array([[float(v) for v in ln.split(",")] for ln in lines[1:]])
+    P = rows[:, 2].reshape(64, 64) if rows.shape == (4096, 3) else None
+    worst = float(np.diff(P, axis=1).min()) if P is not None else -math.inf
+    log(f"[3f] C7 apps.calibrate --test --methods L-BFGS-B --price-surface: {secs7:.3f} s; "
+        f"{s7['params']}, IV RMSE {s7['error']:.6g}; {n7} launch of heston_paths; "
+        f"{len(lines) - 1} rows, header {lines[0]!r}; min step in K {worst:+.3e} (gate -1e-3)")
+    if not (n7 == 1 and lines[0] == "K,T,price" and P is not None and np.isfinite(P).all()
+            and worst >= -1e-3):
+        fail("C7: the calibrated 64x64 surface: not one launch, not 4096 finite rows, or "
+             "not monotone in K")
+    res["C7"] = dict(seconds=secs7, error=s7["error"], launches=n7)
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[3f] the calibration phase: {res['phase_seconds']:.1f} s")
+    return res
+
+
 # G2 runs kernel 2 and its VJP at 2^21 paths, twice the timed 2^20.
 GREEKS_SHAPE = {"G2": {"gbm_paths": 2.0, "gbm_paths_vjp": 2.0}}
 
@@ -2357,6 +2571,7 @@ def main() -> int:
     launches.update(launches2)
     secs_nn, launches_nn = drive("nn", phase_nn)
     (secs_g, per_call_g, greeks_res), launches_g = drive("greeks", phase_greeks)
+    cal_res, launches_c = drive("calibration", phase_calibration)
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
@@ -2388,6 +2603,13 @@ def main() -> int:
         log(f"[5] Greeks call {label}: {secs_g[label]:.4f} s (median, host clock to "
             f"synchronize); kernel launches {calls}; forward and VJP kernels "
             f"{kernel_ms:.4f} ms, {kernel_ms / 1e3 / secs_g[label] * 100:.2f}% of the call")
+    log("[5] calibration path, seconds per calibration (evaluations, ms per evaluation): "
+        + "; ".join(f"{c} {cal_res[c]['seconds']:.3f} s ({cal_res[c]['nfev']}, "
+                    f"{cal_res[c]['seconds'] / cal_res[c]['nfev'] * 1e3:.3f} ms)"
+                    for c in ("C1", "C2", "C3", "C4", "C5", "C6"))
+        + f"; C7 {cal_res['C7']['seconds']:.3f} s with its 64x64 surface; the default "
+        f"cascade projected {cal_res['projected_default_cascade_s']:.1f} s; the phase "
+        f"{cal_res['phase_seconds']:.1f} s; kernel launches {launches_c}")
     log(f"[5] card: {card_line()}")
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
@@ -2395,6 +2617,8 @@ def main() -> int:
                     library_ms=None, **times[k["name"]],
                     **({"greeks_launches": launches_g[k["name"]]} if k["name"] in launches_g
                        else {}),
+                    **({"calibration_launches": launches_c[k["name"]]}
+                       if k["name"] in launches_c else {}),
                     **({"earlier_name": k["earlier"]["name"],
                         "earlier_source": k["earlier"]["source"],
                         "earlier_max_abs_err": errs[k["earlier"]["name"]]["s_abs"]}

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of options_model_tpu.
 
 The JAX package ``options_model_tpu`` is the reference; this package mirrors
-its layout (core/, models/, ops/, surface/, pricers/, calibration/) and
+its layout (core/, models/, ops/, surface/, pricers/, calibration/, apps/) and
 function names so each counterpart is easy to find. The path-simulation
 kernels, and the store/exp/layout variants of the Heston paths kernel that
 the JAX package's experiments ran, are CUDA C++ for Hopper (csrc/), built
@@ -20,7 +20,10 @@ branch of the same dispatcher; local vol over a compiled Chebyshev table
 and Greeks by automatic differentiation (``pricers.greeks``,
 ``pricers.blackscholes``): the pathwise Monte-Carlo Greeks pass through
 the path kernels, whose backward is a hand-written VJP kernel
-(csrc/greeks.cu, ops/autodiff.py). Features outside these raise
+(csrc/greeks.cu, ops/autodiff.py); and calibration (``calibration``):
+the Heston, Bates and Variance Gamma COS pricers, the float64 calibrator
+with its scipy cascade, the synthetic oracle surfaces, and the
+calibrate -> price app (``apps.calibrate``). Features outside these raise
 NotImplementedError naming their JAX counterpart.
 
 This package imports torch and numpy only, never jax.

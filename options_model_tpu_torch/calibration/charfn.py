@@ -1,11 +1,17 @@
-"""Heston characteristic function and COS European pricing, as
-options_model_tpu/calibration/charfn.py (the Heston part).
+"""Characteristic functions and COS European pricing (Heston, Bates,
+Variance Gamma), as options_model_tpu/calibration/charfn.py.
 
-The characteristic function is the "little Heston trap" form (Albrecher et
-al. 2007) with (beta - d) computed without cancellation; pricing is the COS
-method of Fang & Oosterlee (2008) with cumulant-based truncation, in torch
-complex64 (float32) or complex128 (float64). The Monte-Carlo pricers use it
-as the closed-form leg of the Heston control variate.
+The Heston characteristic function is the "little Heston trap" form
+(Albrecher et al. 2007) with (beta - d) computed without cancellation;
+Bates multiplies it by the compensated lognormal-jump factor; VG is
+assembled from a real log-modulus and argument. Pricing is the COS method
+of Fang & Oosterlee (2008) with cumulant-based truncation, in torch
+complex64 (float32) or complex128 (float64), differentiable in every
+parameter by torch.autograd (``torch.real`` transposes to a complex
+cotangent of the same precision, so the reference's ``creal`` has no
+counterpart). The Monte-Carlo pricers use the Heston price as the
+closed-form leg of the control variate; the calibrator prices through all
+three.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ import math
 
 import torch
 
-from options_model_tpu_torch.core.config import HestonParams
+from options_model_tpu_torch.core.config import BatesParams, HestonParams, VGParams
 from options_model_tpu_torch.ops.engine import checked_device
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -107,15 +113,20 @@ def _cos_price_core(S0, K, T, r, q, cp, n_terms: int, L: float, dtype,
     Fk = torch.real(phi * torch.complex(torch.cos(ang), torch.sin(ang)))
     Uk = _cos_coeffs_call(k[None, :], a[:, None], b[:, None])
     weights = torch.ones(n_terms, dtype=dtype, device=device)
-    weights[0] = 0.5
+    weights[:1].fill_(0.5)   # the scalar goes to the fill kernel as its argument
 
     call = Kf * torch.exp(-r * Tf) * torch.sum(weights[None, :] * Fk * Uk, dim=-1)
     call = torch.clamp_min(call, 0.0)
-    cp_f = torch.broadcast_to(as_t(cp), shape).reshape(-1)
+    if isinstance(cp, (int, float)) and cp > 0:
+        # a Python cp makes no device tensor: a host-to-device copy would
+        # synchronise the calibrator's objective mid-chain
+        return call.reshape(shape)
     # parity: P = C - S0 e^{-qT} + K e^{-rT}
-    put = call - S0 * torch.exp(-q * Tf) + Kf * torch.exp(-r * Tf)
-    price = torch.where(cp_f > 0, call, torch.clamp_min(put, 0.0))
-    return price.reshape(shape)
+    put = torch.clamp_min(call - S0 * torch.exp(-q * Tf) + Kf * torch.exp(-r * Tf), 0.0)
+    if isinstance(cp, (int, float)):
+        return put.reshape(shape)
+    cp_f = torch.broadcast_to(as_t(cp), shape).reshape(-1)
+    return torch.where(cp_f > 0, call, put).reshape(shape)
 
 
 def heston_cos_price(S0, K, T, r, params: HestonParams, cp=1.0,
@@ -132,3 +143,83 @@ def heston_cos_price(S0, K, T, r, params: HestonParams, cp=1.0,
         S0, K, T, r, q, cp, n_terms, L, dtype,
         lambda om, Tf, cd: heston_charfn(om, Tf, r, params, dtype=cd, q=q),
         lambda Tf: _heston_cumulants(Tf, r, params, q), device)
+
+
+def vg_cos_price(S0, K, T, r, params: VGParams, cp=1.0, n_terms: int = 256,
+                 L: float = 12.0, q=0.0, dtype=torch.float32, device=None) -> torch.Tensor:
+    """European price(s) under Variance Gamma via COS.
+
+    phi(u) = e^{iu(r-q+omega)T} (1 - iu theta nu + sigma^2 nu u^2 / 2)^{-T/nu}
+    (Madan-Carr-Chang 1998), omega = ln(1 - theta nu - sigma^2 nu/2)/nu, the
+    complex power taken from its real log-modulus and argument. The fat
+    tails widen the truncation: c2 + sqrt(c4) stands in for c2 (Fang-
+    Oosterlee Table 11). Device and dtype as heston_cos_price."""
+
+    def charfn_fn(om, Tf, cd):
+        rd = om.dtype
+        as_t = lambda v: torch.as_tensor(v, dtype=rd, device=om.device)  # noqa: E731
+        sig, th, nu = as_t(params.sigma), as_t(params.theta), as_t(params.nu)
+        # log1p throughout: at small nu the factor is (1 + O(nu))^{-T/nu},
+        # and a plain log of 1 + tiny loses the tiny in f32, then multiplies
+        # the error by T/nu (the BS limit at nu = 1e-5 came out 6.6% off).
+        w = torch.log1p(-th * nu - 0.5 * sig**2 * nu) / nu
+        a_ = 0.5 * sig**2 * nu * om**2          # Re z = 1 + a_
+        b_ = th * nu * om                         # Im z = -b_
+        logmod = 0.5 * torch.log1p(2.0 * a_ + a_**2 + b_**2)
+        arg = torch.atan2(-b_, 1.0 + a_)
+        modulus = torch.exp(-(Tf / nu) * logmod)
+        angle = -(Tf / nu) * arg + om * (r - q + w) * Tf
+        return modulus * torch.complex(torch.cos(angle), torch.sin(angle))
+
+    def cumulant_fn(Tf):
+        as_t = lambda v: torch.as_tensor(v, dtype=Tf.dtype, device=Tf.device)  # noqa: E731
+        sig, th, nu = as_t(params.sigma), as_t(params.theta), as_t(params.nu)
+        w = torch.log1p(-th * nu - 0.5 * sig**2 * nu) / nu
+        c1 = (r - q + w + th) * Tf
+        c2 = (sig**2 + nu * th**2) * Tf
+        c4 = 3.0 * (sig**4 * nu + 2.0 * th**4 * nu**3 + 4.0 * sig**2 * th**2 * nu**2) * Tf
+        return c1, c2 + torch.sqrt(torch.clamp_min(c4, 0.0))
+
+    return _cos_price_core(S0, K, T, r, q, cp, n_terms, L, dtype, charfn_fn, cumulant_fn,
+                           device)
+
+
+def _jump_cf_factor(u: torch.Tensor, T, lam, mu_j, sigma_j) -> torch.Tensor:
+    """exp(lam T (phi_J(u) - 1) - i u lam kbar T) for lognormal jumps: the
+    compensated compound-Poisson factor of the Bates characteristic function,
+    for real frequencies u, in u's dtype and on its device."""
+    as_t = lambda v: torch.as_tensor(v, dtype=u.dtype, device=u.device)  # noqa: E731
+    lam, mu_j, sigma_j = as_t(lam), as_t(mu_j), as_t(sigma_j)
+    kbar = torch.exp(mu_j + 0.5 * sigma_j**2) - 1.0
+    lamT = lam * as_t(T)
+    env = torch.exp(-0.5 * u**2 * sigma_j**2)        # |phi_J| envelope
+    re = lamT * (env * torch.cos(u * mu_j) - 1.0)
+    im = lamT * (env * torch.sin(u * mu_j) - u * kbar)
+    return torch.exp(re) * torch.complex(torch.cos(im), torch.sin(im))
+
+
+def bates_cos_price(S0, K, T, r, params: BatesParams, cp=1.0, n_terms: int = 256,
+                    L: float = 12.0, q=0.0, dtype=torch.float32, device=None) -> torch.Tensor:
+    """European price(s) under Bates (Heston + lognormal jumps) via COS.
+
+    The characteristic function factorizes (the jumps are independent of the
+    diffusion), phi_bates = phi_heston * _jump_cf_factor, and the cumulants
+    add: c1 += lam T (mu_j - kbar), c2 += lam T (mu_j^2 + sigma_j^2). Device
+    and dtype as heston_cos_price."""
+    hp = params.heston
+    lam, mu_j, sigma_j = params.lam, params.mu_j, params.sigma_j
+
+    def charfn_fn(om, Tf, cd):
+        return (heston_charfn(om, Tf, r, hp, dtype=cd, q=q)
+                * _jump_cf_factor(om, Tf, lam, mu_j, sigma_j))
+
+    def cumulant_fn(Tf):
+        c1, c2 = _heston_cumulants(Tf, r, hp, q)
+        as_t = lambda v: torch.as_tensor(v, dtype=Tf.dtype, device=Tf.device)  # noqa: E731
+        mj, sj = as_t(mu_j), as_t(sigma_j)
+        lamT = as_t(lam) * Tf
+        kbar = torch.exp(mj + 0.5 * sj**2) - 1.0
+        return c1 + lamT * (mj - kbar), c2 + lamT * (mj**2 + sj**2)
+
+    return _cos_price_core(S0, K, T, r, q, cp, n_terms, L, dtype, charfn_fn, cumulant_fn,
+                           device)

@@ -1,19 +1,23 @@
 """Frozen-dataclass configs with the field names and defaults of
-options_model_tpu/core/config.py (OptionSpec, HestonParams, MCConfig,
-LSMConfig), their eager ``validate()`` checks (the same conditions, exception
-types and messages), and ``cp_from_str`` / ``cp_to_str``.
+options_model_tpu/core/config.py (OptionSpec, HestonParams, BatesParams,
+VGParams, MCConfig, LSMConfig, CalibrationConfig), their eager
+``validate()`` checks (the same conditions, exception types and messages),
+the parameter vectors of the calibrator (``to_array`` / ``from_array``, as
+float64 numpy), and ``cp_from_str`` / ``cp_to_str``.
 ``dataclasses.replace`` takes the place of the flax ``.replace``.
 
 ``from_reference(fields)`` builds a port config from the reference object's
 fields (``dataclasses.asdict`` or ``vars`` of it), given as plain Python or
 numpy values, so configs cross between the packages without this package
-importing JAX.
+importing JAX. BatesParams takes its nested ``heston`` as a dict or as the
+reference's object.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +103,108 @@ class HestonParams(_FromReference):
             raise ValueError(f"v0={self.v0} must be in (0, 2)")
         return self
 
+    def feller_condition(self) -> bool:
+        """2*kappa*theta >= xi^2 keeps the variance process strictly positive."""
+        return bool(2.0 * self.kappa * self.theta >= self.xi**2)
+
+    def to_array(self) -> np.ndarray:
+        return np.array([self.kappa, self.theta, self.xi, self.rho, self.v0], np.float64)
+
+    @classmethod
+    def from_array(cls, x) -> "HestonParams":
+        return cls(kappa=float(x[0]), theta=float(x[1]), xi=float(x[2]),
+                   rho=float(x[3]), v0=float(x[4]))
+
+    def __str__(self) -> str:
+        feller = "ok" if self.feller_condition() else "VIOLATED"
+        return (f"HestonParams(kappa={self.kappa:.4f}, theta={self.theta:.4f}, "
+                f"xi={self.xi:.4f}, rho={self.rho:.4f}, v0={self.v0:.4f}) "
+                f"Feller: {feller}")
+
+
+@dataclasses.dataclass(frozen=True)
+class BatesParams:
+    """Bates (1996): Heston variance dynamics plus a compound-Poisson
+    lognormal jump in the spot, independent of both Brownian drivers."""
+
+    heston: HestonParams
+    lam: float      # jump intensity (expected jumps / year)
+    mu_j: float     # mean log-jump size
+    sigma_j: float  # log-jump-size volatility
+
+    @classmethod
+    def from_reference(cls, fields: dict) -> "BatesParams":
+        fields = dict(fields)
+        hp = fields.pop("heston")
+        hp = HestonParams.from_reference(hp if isinstance(hp, dict) else vars(hp))
+        return cls(heston=hp, **{k: _plain(k, v) for k, v in fields.items()})
+
+    def validate(self) -> "BatesParams":
+        self.heston.validate()
+        if self.lam < 0:
+            raise ValueError(f"lam={self.lam} must be non-negative")
+        if self.sigma_j < 0:
+            raise ValueError(f"sigma_j={self.sigma_j} must be non-negative")
+        return self
+
+    def kbar(self) -> float:
+        return math.exp(self.mu_j + 0.5 * self.sigma_j**2) - 1.0
+
+    def feller_condition(self) -> bool:
+        return self.heston.feller_condition()
+
+    def to_array(self) -> np.ndarray:
+        """(kappa, theta, xi, rho, v0, lam, mu_j, sigma_j): the calibrator's x."""
+        return np.concatenate([self.heston.to_array(),
+                               np.array([self.lam, self.mu_j, self.sigma_j], np.float64)])
+
+    @classmethod
+    def from_array(cls, x) -> "BatesParams":
+        return cls(heston=HestonParams.from_array(x[:5]), lam=float(x[5]),
+                   mu_j=float(x[6]), sigma_j=float(x[7]))
+
+    def __str__(self) -> str:
+        return (f"BatesParams({self.heston}, lam={self.lam:.4f}, "
+                f"mu_j={self.mu_j:.4f}, sigma_j={self.sigma_j:.4f})")
+
+
+@dataclasses.dataclass(frozen=True)
+class VGParams(_FromReference):
+    """Variance Gamma (Madan-Carr-Chang 1998): X_t = theta G_t + sigma W_{G_t},
+    G a gamma clock of unit mean rate and variance rate nu."""
+
+    sigma: float  # volatility of the subordinated Brownian motion
+    theta: float  # its drift (skew)
+    nu: float     # variance rate of the gamma clock (kurtosis)
+
+    def validate(self) -> "VGParams":
+        if self.sigma <= 0:
+            raise ValueError(f"sigma={self.sigma} must be positive")
+        if self.nu <= 0:
+            raise ValueError(f"nu={self.nu} must be positive")
+        if 1.0 - self.theta * self.nu - 0.5 * self.sigma**2 * self.nu <= 0:
+            raise ValueError(
+                "martingale compensator undefined: need "
+                f"theta*nu + sigma^2*nu/2 < 1, got theta={self.theta}, "
+                f"sigma={self.sigma}, nu={self.nu}")
+        return self
+
+    def omega(self) -> float:
+        """Martingale drift correction ln(1 - theta nu - sigma^2 nu/2)/nu."""
+        return math.log(1.0 - self.theta * self.nu
+                        - 0.5 * self.sigma**2 * self.nu) / self.nu
+
+    def to_array(self) -> np.ndarray:
+        return np.array([self.sigma, self.theta, self.nu], np.float64)
+
+    @classmethod
+    def from_array(cls, x) -> "VGParams":
+        return cls(sigma=float(x[0]), theta=float(x[1]), nu=float(x[2]))
+
+    def __str__(self) -> str:
+        return (f"VGParams(sigma={self.sigma:.4f}, theta={self.theta:.4f}, "
+                f"nu={self.nu:.4f})")
+
 
 @dataclasses.dataclass(frozen=True)
 class MCConfig(_FromReference):
@@ -156,4 +262,27 @@ class LSMConfig(_FromReference):
         if self.variance_basis_degree not in (2, 3):
             raise ValueError(f"variance_basis_degree must be 2 or 3, got "
                              f"{self.variance_basis_degree}")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibrationConfig(_FromReference):
+    """Calibration knobs, as the reference's CalibrationConfig: the objective
+    prices by COS, so ``max_iterations`` of a few hundred is cheap."""
+
+    use_vega_weighting: bool = True
+    min_vega_weight: float = 0.01
+    max_iterations: int = 2000
+    tolerance: float = 1e-8
+    cos_n: int = 256           # COS series terms
+    cos_L: float = 12.0        # truncation width in std devs
+    seed: int = 42
+    verbose: bool = False
+    regime_detection: bool = True
+    optimization_methods: Tuple[str, ...] = (
+        "L-BFGS-B", "differential_evolution", "dual_annealing")
+
+    def validate(self) -> "CalibrationConfig":
+        if self.cos_n < 16:
+            raise ValueError("cos_n must be >= 16")
         return self

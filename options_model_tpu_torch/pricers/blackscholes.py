@@ -118,17 +118,36 @@ def bs_greeks_closed_form(S, K, T, r, sigma, cp=1.0, q=0.0, dtype=torch.float32,
 def _solve_implied_vol(price, S, K, T, r, cp, q, n_iter: int, lo: float, hi: float):
     """``n_iter`` bisections on [lo, hi], then 8 Newton steps clipped to
     +-0.5 and to [lo, hi]: a fixed iteration count, no data-dependent control
-    flow, as the reference."""
+    flow, as the reference.
+
+    Every step prices with bs_price's own expressions in its own order, with
+    the terms that do not depend on sigma (sqrt T, log S/K, r - q, S e^{-qT},
+    K e^{-rT}) taken once, and a Newton step's vega from the same d1: the
+    bits of bs_price and bs_vega (tests/test_torch_bs_greeks.py), in about
+    half the launches, which is what an objective evaluation of the
+    calibrator pays on the card."""
+    sqrt_T = torch.sqrt(T)
+    log_sk = torch.log(S / K)
+    r_q = r - q
+    s_disc = S * torch.exp(-q * T)
+    k_disc = K * torch.exp(-r * T)
+
+    def price_and_d1(sigma):
+        sig_t = sigma * sqrt_T
+        d1 = (log_sk + (r_q + 0.5 * sigma**2) * T) / sig_t
+        return cp * (s_disc * ndtr(cp * d1) - k_disc * ndtr(cp * (d1 - sig_t))), d1
+
     lo_b = torch.full_like(price, lo)
     hi_b = torch.full_like(price, hi)
     for _ in range(n_iter):
         mid = 0.5 * (lo_b + hi_b)
-        too_high = bs_price(S, K, T, r, mid, cp, q) > price
+        too_high = price_and_d1(mid)[0] > price
         lo_b, hi_b = torch.where(too_high, lo_b, mid), torch.where(too_high, mid, hi_b)
     sig = 0.5 * (lo_b + hi_b)
     for _ in range(8):
-        diff = bs_price(S, K, T, r, sig, cp, q) - price
-        v = torch.clamp_min(bs_vega(S, K, T, r, sig, q), 1e-10)
+        p, d1 = price_and_d1(sig)
+        diff = p - price
+        v = torch.clamp_min(s_disc * _npdf(d1) * sqrt_T, 1e-10)
         sig = torch.clamp(sig - torch.clamp(diff / v, -0.5, 0.5), lo, hi)
     return sig
 

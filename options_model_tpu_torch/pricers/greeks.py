@@ -13,8 +13,9 @@ plain versions on the CPU), and the backward is their VJP kernels
 kernel seed is drawn and reused by all three passes (the price and both
 Gamma bumps), common random numbers as the reference's key gives them.
 
-``cos_greeks_heston`` differentiates the COS price: exact European Heston
-Greeks, Gamma by a nested grad.
+``cos_greeks_heston``, ``cos_greeks_bates`` and ``cos_greeks_vg``
+differentiate the COS prices: exact European Greeks with every model
+parameter's gradient, Gamma by a nested grad.
 
 Conventions follow the reference: Theta per calendar day (/365), Vega and
 Rho per 1% (/100). TF32 stays off: lsm_poly_backward raises if it is on,
@@ -28,9 +29,10 @@ from typing import Callable, Dict, Optional
 import torch
 
 from options_model_tpu_torch._unported import not_ported
-from options_model_tpu_torch.calibration.charfn import heston_cos_price
-from options_model_tpu_torch.core.config import (HestonParams, LSMConfig, MCConfig,
-                                                  OptionSpec)
+from options_model_tpu_torch.calibration.charfn import (bates_cos_price, heston_cos_price,
+                                                        vg_cos_price)
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig, MCConfig,
+                                                  OptionSpec, VGParams)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.models.gbm import simulate_gbm
 from options_model_tpu_torch.models.heston import simulate_heston
@@ -186,20 +188,59 @@ def cos_greeks_heston(S0, K, T, r, heston: HestonParams, cp=1.0, q=0.0,
         return heston_cos_price(x[0], x[1], x[2], x[3], HestonParams(*x[4:].unbind()), cp,
                                 q=q, dtype=dtype).sum()
 
+    price, g, gamma = _cos_value_grad_gamma(f, x)
+    return _heston_dict(price, g, gamma, x[8])
+
+
+def _cos_value_grad_gamma(f, x: torch.Tensor):
+    """f(x), its gradient, and Gamma as the second derivative in x[0]."""
     price, g = _value_and_grad(f, x)
     s = x[0].detach().requires_grad_()
     with torch.enable_grad():
         (delta,) = torch.autograd.grad(f(torch.cat([s[None], x[1:]])), s, create_graph=True)
         (gamma,) = torch.autograd.grad(delta, s)
-    return _heston_dict(price, g, gamma, x[8])
+    return price, g, gamma
 
 
-def cos_greeks_bates(*args, **kwargs):
-    raise not_ported("cos_greeks_bates (the Bates COS price)", "pricers.greeks.cos_greeks_bates")
+def cos_greeks_bates(S0, K, T, r, bates: BatesParams, cp=1.0, q=0.0, dtype=torch.float32,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Exact European Bates Greeks: torch.autograd through the COS price
+    (calibration/charfn.bates_cos_price): price, spot Greeks, the diffusion
+    parameters' and the jump triple's gradients (dLam, dMuJ, dSigmaJ), where
+    pathwise MC has none for lam (the Poisson count does not move with it)."""
+    device = checked_device(device)
+    hp = bates.heston
+    x = torch.tensor([S0, K, T, r, hp.kappa, hp.theta, hp.xi, hp.rho, hp.v0, bates.lam,
+                      bates.mu_j, bates.sigma_j], dtype=dtype, device=device)
+
+    def f(x):
+        bp = BatesParams(heston=HestonParams(*x[4:9].unbind()), lam=x[9], mu_j=x[10],
+                         sigma_j=x[11])
+        return bates_cos_price(x[0], x[1], x[2], x[3], bp, cp, q=q, dtype=dtype).sum()
+
+    price, g, gamma = _cos_value_grad_gamma(f, x)
+    out = _heston_dict(price, g, gamma, x[8])
+    out.update({"dLam": g[9], "dMuJ": g[10], "dSigmaJ": g[11]})
+    return out
 
 
-def cos_greeks_vg(*args, **kwargs):
-    raise not_ported("cos_greeks_vg (the VG COS price)", "pricers.greeks.cos_greeks_vg")
+def cos_greeks_vg(S0, K, T, r, vg: VGParams, cp=1.0, q=0.0, dtype=torch.float32,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Exact European Variance Gamma Greeks: torch.autograd through the COS
+    price at 1024 terms, with the parameter gradient (dSigma, dThetaVG, dNu).
+    Vega is dPrice/dSigma (the subordinated Brownian motion's vol) per 1%."""
+    device = checked_device(device)
+    x = torch.tensor([S0, K, T, r, vg.sigma, vg.theta, vg.nu], dtype=dtype, device=device)
+
+    def f(x):
+        vp = VGParams(sigma=x[4], theta=x[5], nu=x[6])
+        return vg_cos_price(x[0], x[1], x[2], x[3], vp, cp, n_terms=1024, q=q,
+                            dtype=dtype).sum()
+
+    price, g, gamma = _cos_value_grad_gamma(f, x)
+    return {"Price": price, "Delta": g[0], "Gamma": gamma, "Theta": -g[2] / 365.0,
+            "Rho": g[3] / 100.0, "Vega": g[4] / 100.0, "dSigma": g[4], "dThetaVG": g[5],
+            "dNu": g[6]}
 
 
 def merton_greeks(*args, **kwargs):

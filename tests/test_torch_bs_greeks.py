@@ -9,6 +9,9 @@ held against the JAX package.
   its gradient in price, S, K, T and r within rtol 1e-4 of jax.grad of the
   reference's (both implicit: the same formula, f32 vega), and 0 on the
   [lo, hi] clamp.
+- implied_vol's solve, which takes bs_price's sigma-free terms out of its
+  loop, equals the same solve written with bs_price and bs_vega bit for bit
+  (float32 and float64, calls and puts, q = 0 and q > 0).
 - validate() and cp_from_str / cp_to_str: the same exception type and
   message, or the same value.
 - The native CRR equals the NumPy CRR to 1e-12 relative (one tree in C++
@@ -273,3 +276,32 @@ def test_closed_forms_resolve_to_the_card_by_default(monkeypatch):
     assert seen == [None, None]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert checked_device(None) == torch.device("cuda")
+
+
+def _solve_with_bs_price(price, S, K, T, r, cp, q, n_iter=64, lo=1e-4, hi=5.0):
+    """implied_vol's solve written with bs_price and bs_vega themselves: the
+    reference the loop-hoisted solve must equal bit for bit."""
+    lo_b, hi_b = torch.full_like(price, lo), torch.full_like(price, hi)
+    for _ in range(n_iter):
+        mid = 0.5 * (lo_b + hi_b)
+        too_high = bs.bs_price(S, K, T, r, mid, cp, q) > price
+        lo_b, hi_b = torch.where(too_high, lo_b, mid), torch.where(too_high, mid, hi_b)
+    sig = 0.5 * (lo_b + hi_b)
+    for _ in range(8):
+        diff = bs.bs_price(S, K, T, r, sig, cp, q) - price
+        v = torch.clamp_min(bs.bs_vega(S, K, T, r, sig, q), 1e-10)
+        sig = torch.clamp(sig - torch.clamp(diff / v, -0.5, 0.5), lo, hi)
+    return sig
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cp", [1.0, -1.0])
+@pytest.mark.parametrize("q", [0.0, 0.03])
+def test_implied_vol_solve_equals_bs_price_bit_for_bit(dtype, cp, q):
+    S, K_, T_, r, sig = (t.to(dtype) for t in _torch_grid())
+    price = bs.bs_price(S, K_, T_, r, sig, cp, q)
+    args = torch.broadcast_tensors(price, S, K_, T_, r, torch.full_like(S, q))
+    price, S, K_, T_, r, qt = args
+    got = bs._solve_implied_vol(price, S, K_, T_, r, cp, qt, 64, 1e-4, 5.0)
+    want = _solve_with_bs_price(price, S, K_, T_, r, cp, qt)
+    assert torch.equal(got, want)

@@ -23,6 +23,9 @@
 - cos_greeks_heston in float64 within 1e-6 of jax.grad through the JAX COS
   price in its explicit-x64 mode (the closed-form test's bound: that mode's
   complex128 functions on the CPU are good to ~3e-7).
+- cos_greeks_bates and cos_greeks_vg in float32 against the JAX functions
+  (float32 too), with cos_greeks_heston's float32 bar: rel 2e-3 / abs 2e-3,
+  the f32 COS series' noise floor.
 - lsm_poly_backward with a tensor rate and T: the same price bits as with
   floats, and d/dr on identical paths as jax.grad.
 - The VJP wrappers on the CPU are their plain versions; each plain version
@@ -38,7 +41,9 @@ import torch
 
 from options_model_tpu.calibration.charfn import heston_cos_price as j_heston_cos_price
 from options_model_tpu.core.config import PUT, CALL
+from options_model_tpu.core.config import BatesParams as JBatesParams
 from options_model_tpu.core.config import HestonParams as JHestonParams
+from options_model_tpu.core.config import VGParams as JVGParams
 from options_model_tpu.core.config import MCConfig as JMCConfig
 from options_model_tpu.core.config import OptionSpec as JOptionSpec
 from options_model_tpu.models.blocks import block_normals
@@ -46,7 +51,8 @@ from options_model_tpu.models.gbm import simulate_gbm as j_simulate_gbm
 from options_model_tpu.models.heston import simulate_heston as j_simulate_heston
 from options_model_tpu.pricers import american as jam
 from options_model_tpu.pricers import greeks as jgreeks
-from options_model_tpu_torch.core.config import HestonParams, MCConfig, OptionSpec
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, MCConfig,
+                                                 OptionSpec, VGParams)
 from options_model_tpu_torch.models.gbm import (gbm_euler_from_normals,
                                                 gbm_euler_vjp_from_normals)
 from options_model_tpu_torch.models.heston import (heston_euler_from_normals,
@@ -273,6 +279,29 @@ def test_cos_greeks_heston_float32_matches_jax():
     got = greeks.cos_greeks_heston(S0, K, 1.0, R, HestonParams(**FIELDS), 1.0, device="cpu")
     want = jgreeks.cos_greeks_heston(S0, K, 1.0, R, JHestonParams(**FIELDS), 1.0)
     for name in ("Price", "Delta", "Theta", "Rho", "dV0", "Vega"):
+        assert float(got[name]) == pytest.approx(float(want[name]), rel=2e-3, abs=2e-3), name
+
+
+JUMPS = dict(lam=0.4, mu_j=-0.12, sigma_j=0.18)
+VG_FIELDS = dict(sigma=0.18, theta=-0.14, nu=0.35)
+
+
+@pytest.mark.parametrize("model", ["bates", "vg"])
+def test_cos_greeks_jump_families_float32_match_jax(model):
+    """cos_greeks_bates (an OTM-ish put, T = 0.5) and cos_greeks_vg (an ATM
+    call) against the reference's, every key, with cos_greeks_heston's
+    float32 bar."""
+    if model == "bates":
+        got = greeks.cos_greeks_bates(S0, K, 0.5, 0.04, BatesParams(HestonParams(**FIELDS),
+                                                                    **JUMPS), -1.0,
+                                      device="cpu")
+        want = jgreeks.cos_greeks_bates(S0, K, 0.5, 0.04, JBatesParams(JHestonParams(**FIELDS),
+                                                                       **JUMPS), -1.0)
+    else:
+        got = greeks.cos_greeks_vg(S0, K, 0.5, 0.05, VGParams(**VG_FIELDS), 1.0, device="cpu")
+        want = jgreeks.cos_greeks_vg(S0, K, 0.5, 0.05, JVGParams(**VG_FIELDS), 1.0)
+    assert set(got) == set(want)
+    for name in want:
         assert float(got[name]) == pytest.approx(float(want[name]), rel=2e-3, abs=2e-3), name
 
 
