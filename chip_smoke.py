@@ -39,7 +39,11 @@ Phases, in order; any failure exits non-zero:
    against their plain versions at 2^14 x 50, with and without
    antithetics, within 1e-4 of the paths' absolute shares, and each
    gradient component against the central difference of its own forward
-   kernel on the same seed;
+   kernel on the same seed; J0, the four jump kernels of csrc/jumps.cu
+   (Merton paths and terminal, the Bates overlay on paths and terminal
+   values) against their plain versions at the jumps path's shapes and at
+   lam dt = 1, with and without antithetics: S within rtol 1e-5, every
+   Poisson count bit for bit, bit-equal ``first_tile`` chunks;
 3. the paths, each driven with every launch count set to 0 just before it
    and read just after:
    a. the main path through ``price_american``: the pooled Heston American
@@ -70,6 +74,14 @@ Phases, in order; any failure exits non-zero:
       repriced (COS and American puts, kernel 4), C7 apps.calibrate with
       --price-surface (one batched kernel-4 launch for 64 x 64); the ms and
       device kernels of one objective evaluation per model;
+   g. the jumps path (models/merton.py, models/bates.py): J1 the Merton
+      American put (bench.py's leg, 2^18 x 50, 16 seeds pooled) against the
+      COS-Bermudan oracle at degrees 5 and 3, J2 the Merton and Bates
+      (Euler, QE-M) European puts at 2^22 x 100 against the series and
+      COS, J3 the Bates American put against its COS European and, at
+      lam = 0, its paths and plain LSM price against Heston's bit for bit,
+      J4 the 64 x 64 Bates and Merton surfaces, apps.calibrate --model
+      bates --price-surface, merton_greeks against f64 central differences;
 4. the launch counts of each path, none of its kernels at 0, the first
    design of kernels 1 and 3-8 and of the variants at 0, and one paths
    launch per 64x64 Heston surface; the experiments reach the variants'
@@ -85,9 +97,11 @@ Phases, in order; any failure exits non-zero:
    legs and the local-vol put within EARLIER_EURO_GATE stderr of it);
    seconds per price and per surface, each European leg beside its
    kernel's time; the VJP kernels' times beside their bounds, and the
-   seconds of a Greeks call (G1-G3) with the share of its kernels.
+   seconds of a Greeks call (G1-G3) with the share of its kernels; the
+   jump kernels' times beside their bounds and the jumps path's seconds.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
-variants of kernels 9 and 10 listed under theirs) and one per VJP kernel;
+variants of kernels 9 and 10 listed under theirs), one per VJP kernel and
+one per jump kernel;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -125,6 +139,11 @@ GBM_CRR = 4.655534             # CRR(4096) of the GBM put, S0 = K = 100, T = 0.5
 NN_GBM_BIAS = 0.0015           # NN+CV put vs CRR: 4 stderr + 0.15% (50-date Bermudan, net error)
 NN_HESTON_BIAS = 0.01          # NN+CV Heston put vs ADI: 4 stderr + 1%
 JAX_NN_BAR = 0.000327          # BENCH_r05 american_put_nn_rel_err_vs_crr (an accuracy, not a speed)
+# Epochs of the NN legs' fit, cut from the default 25 to keep the script
+# well inside its time limit: the fit's steps are capped at 512 an epoch,
+# so its seconds follow the epochs, not the paths (25 epochs took 111-144 s
+# a leg on an H100, with the gates met by 20x (GBM) and 5x (Heston)).
+NN_EPOCHS = 10
 # sha256 of kernel 4's bytes before heston_common.cuh existed: the first
 # design's paths S and V (64 tiles x 50 steps, T 0.5), then its terminal S_T
 # (16 tiles x 100 steps, T 1; now heston_paths_accurate and
@@ -380,7 +399,7 @@ def kernel_specs():
         dict(name="heston_paths", source=src + "heston_paths.cu", scheme="euler",
              run=paths_run(cuda_heston.heston_paths, cuda_heston.heston_paths_reference),
              replaces="options_model_tpu/ops/pallas_heston.py:319",
-             paths=("main", "nn", "greeks", "calibration"),
+             paths=("main", "nn", "greeks", "calibration", "jumps"),
              tile=cuda_heston.PATH_TILE, main=(256, 50), timed=(256, 50), variance=(False, True),
              ops=OPS_HESTON + OPS_EXP, draws=DRAWS_HESTON, tol=euler_tol,
              counter=(L, "heston_paths"),
@@ -390,7 +409,7 @@ def kernel_specs():
                           counter=(L, "heston_paths_accurate"))),
         dict(name="heston_terminal", run=heston_terminal(cuda_heston.heston_terminal),
              source=src + "terminal.cu", replaces="options_model_tpu/ops/pallas_heston.py:263",
-             paths=("main",), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
+             paths=("main", "jumps"), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
              timed=(256, 100), variance=(False,), ops=OPS_HESTON, draws=DRAWS_HESTON,
              tol=(EULER_S_RTOL, 0.0, 0.0), tails=(99, 1), counter=(L, "heston_terminal"),
              earlier=dict(name="heston_terminal_accurate", source=src + "heston.cu",
@@ -411,7 +430,7 @@ def kernel_specs():
                           counter=(G, "gbm_terminal_accurate"))),
         dict(name="heston_terminal_qe", run=terminal_qe(cuda_heston.heston_terminal_qe),
              source=src + "terminal.cu", replaces="options_model_tpu/ops/pallas_heston.py:512",
-             paths=("second",), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
+             paths=("second", "jumps"), tile=cuda_heston.TERMINAL_TILE, main=(256, 100),
              timed=(256, 100), variance=(False,), ops=OPS_QE, draws=DRAWS_QE,
              tol=(QE_S_RTOL, 0.0, 0.0), counter=(L, "heston_terminal_qe"),
              earlier=dict(name="heston_terminal_qe_accurate", source=src + "heston_qe.cu",
@@ -1051,8 +1070,8 @@ def phase_experiments(per_call: float) -> list:
 
 def phase_nn() -> dict:
     """The NN-LSM path through price_american (LSMConfig(regressor="nn") at
-    its defaults: 128 x 3, 25 epochs, batch 4096, lr 1e-3, dropout 0.1, 3
-    policy iterations, optimal CV beta): the GBM put of the JAX bench's NN+CV
+    its defaults but the epochs: 128 x 3, NN_EPOCHS epochs, batch 4096, lr
+    1e-3, dropout 0.1, 3 policy iterations, optimal CV beta): the GBM put of the JAX bench's NN+CV
     leg against CRR, and the Heston put (BASELINE configs[2]) against ADI.
     Returns seconds per leg and per span."""
     import torch
@@ -1065,7 +1084,7 @@ def phase_nn() -> dict:
 
     hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
     mc = MCConfig(n_paths=1 << 18, n_steps=50, path_block=4096)
-    lsm = LSMConfig(regressor="nn")
+    lsm = LSMConfig(regressor="nn", nn_epochs=NN_EPOCHS)
     crr = crr_american(100.0, 100.0, 0.5, 0.05, 0.2, cp=-1.0, n_steps=4096)
     if abs(crr - GBM_CRR) > 1e-6:
         fail(f"CRR(4096) {crr} differs from the recorded {GBM_CRR}")
@@ -1087,8 +1106,8 @@ def phase_nn() -> dict:
             fail(f"{label}: non-finite price {p} +- {se}")
         rel = p / oracle - 1.0
         gate = 4.0 * se + bias * oracle
-        log(f"[3c] {model} NN+CV American put (2^18 x 50, 128 x 3 MLP, 25 epochs, 3 policy "
-            f"iterations): {p:.6f} +- {se:.6f}; {oracle_name} {oracle:.6f}; rel "
+        log(f"[3c] {model} NN+CV American put (2^18 x 50, 128 x 3 MLP, {NN_EPOCHS} epochs, 3 "
+            f"policy iterations): {p:.6f} +- {se:.6f}; {oracle_name} {oracle:.6f}; rel "
             f"{rel * 100:+.4f}% ({(p - oracle) / se:+.2f} stderr; gate 4 stderr + "
             f"{bias * 100}% = {gate:.6f})"
             + (f"; the JAX estimator's bar {JAX_NN_BAR * 100:.4f}% (BENCH_r05)"
@@ -2515,6 +2534,432 @@ def phase_vjp_timing(specs, per_call: float) -> dict:
     return out
 
 
+# ---- the jumps path (csrc/jumps.cu, models/merton.py, models/bates.py) -----
+# bench.py:496 (the Merton American leg) and bench.py:470 (the Bates legs).
+MERTON_BENCH = dict(sigma=0.2, lam=1.0, mu_j=-0.10, sigma_j=0.15)
+BATES_JUMPS = dict(lam=0.3, mu_j=-0.1, sigma_j=0.15)
+# lam dt = 1 over 50 steps of T = 0.5: counts up to ~10 a step, so a count
+# that differed would move S far beyond its tolerance as well.
+HEAVY_LAM = 100.0
+JUMP_S_RTOL = 1e-5             # kernels 14-17 vs their plain versions on S
+J1_GATE = 0.001                # pooled Merton American put vs the COS-Bermudan oracle
+# Seeds J1 pools. At 2^18 x 50 one seed's stderr is ~0.14% of the price in
+# both packages (the JAX package's 0.1415%, the port's 0.1414% on the CPU:
+# tests/test_torch_slice.py::test_merton_bench_leg_stderr_matches_reference),
+# so 4 seeds pool to ~0.071% and J1_GATE would be a 1.4-sigma bar that an
+# unbiased estimator misses one time in six; BENCH_r05's 0.036% spread was
+# a tight draw of 4 (the same test: the JAX package's own 4 keys spread
+# 0.050%). 16 seeds pool to ~0.035%, making the gate a 2.8-sigma bar. The
+# first four are printed as the 4-seed reading beside BENCH_r05's.
+J1_SEEDS = 16
+J1_DEGREE_GATE = 0.04          # every degree (tests/test_merton.py's clamp test)
+BENCH_R05_MERTON_REL = 0.000113        # BENCH_r05 merton_american_rel_err_vs_cos_bermudan
+BENCH_R05_MERTON_SPREAD_PCT = 0.0362   # BENCH_r05 merton_american_seed_spread_pct
+J2_BIAS = 0.001                # Europeans: 4 stderr + 0.1%
+J3_PREMIUM_Z = -3.0            # Bates American minus COS European, in pooled stderr
+J4_GREEKS_TOL = 1e-6           # merton_greeks vs f64 central differences
+J4_APP_MAX_ITERATIONS = 50     # the Bates app's L-BFGS-B iterations a start
+# Philox draws per path-step (calls, words made uniform): Merton one call a
+# pair-step (four words); the overlay one call a path-step (three words).
+DRAWS_MERTON = (1 / 2, 2)
+DRAWS_OVERLAY = (1, 3)
+# f32 operations per path-step, counted from csrc/jumps.cu: Merton the
+# Box-Muller's 11 per pair-step, the count's subtraction and compares (2),
+# the jump sum (sqrt, 2 multiplies, an FMA: 5), the drift FMA (2), two adds
+# and the mirror's negations (1); the overlay a whole Box-Muller a
+# path-step, the count (2), the jump sum (5), two adds, the exponent's
+# multiply and ex2, the multiply into S.
+OPS_MERTON = 11 / 2 + 12
+OPS_OVERLAY = 11 + 12
+
+
+def jump_specs():
+    """Kernels 14-17 (csrc/jumps.cu): name, source, the XLA function they
+    replace, the paths that run them, their launch counter, and the timed
+    shape (paths, steps) with its f32 operations and Philox draws a
+    path-step and the bytes the function must move: kernel 16 reads and
+    writes rows 1..n_steps of S (row 0's factor is 1, left untouched)."""
+    from options_model_tpu_torch.ops import cuda_jumps as cj
+
+    src = "options_model_tpu_torch/csrc/jumps.cu"
+    L = cj.launches
+    n20, n22 = 1 << 20, 1 << 22
+    return [
+        dict(name="merton_paths", source=src, replaces="options_model_tpu/models/merton.py:26",
+             paths=("jumps",), counter=(L, "merton_paths"), timed=(n20, 50),
+             ops=OPS_MERTON + OPS_EXP, draws=DRAWS_MERTON, bytes=51 * n20 * 4),
+        dict(name="merton_terminal", source=src,
+             replaces="options_model_tpu/models/merton.py:26", paths=("jumps",),
+             counter=(L, "merton_terminal"), timed=(n22, 100), ops=OPS_MERTON,
+             draws=DRAWS_MERTON, bytes=n22 * 4),
+        dict(name="jump_overlay_paths", source=src,
+             replaces="options_model_tpu/models/bates.py:37", paths=("jumps",),
+             counter=(L, "jump_overlay_paths"), timed=(n20, 50), ops=OPS_OVERLAY,
+             draws=DRAWS_OVERLAY, bytes=2 * 50 * n20 * 4),
+        dict(name="jump_overlay_terminal", source=src,
+             replaces="options_model_tpu/models/bates.py:37", paths=("jumps",),
+             counter=(L, "jump_overlay_terminal"), timed=(n22, 1), ops=OPS_OVERLAY,
+             draws=DRAWS_OVERLAY, bytes=2 * n22 * 4),
+    ]
+
+
+def _jump_inputs():
+    """(seed, bench Merton, heavy Merton, bench overlay jumps, heavy jumps,
+    bench Heston) of J0."""
+    from types import SimpleNamespace
+
+    from options_model_tpu_torch.core.config import HestonParams, MertonParams
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    return (0x9E3779B97F4A7C15, MertonParams(**MERTON_BENCH),
+            MertonParams(**dict(MERTON_BENCH, lam=HEAVY_LAM)), SimpleNamespace(**BATES_JUMPS),
+            SimpleNamespace(**dict(BATES_JUMPS, lam=HEAVY_LAM)), hp)
+
+
+def phase_jump_kernels() -> dict:
+    """J0: kernels 14-17 against their plain versions on the card at the
+    jumps path's shapes (Merton 2^18 x 50 and 2^20 x 50 paths, 2^22 x 100
+    terminal, with and without antithetics; the overlay on a 2^20 x 50
+    Heston matrix, on the 64 x 16,384 x 50 surface batch and on 2^22
+    terminal values), and at lam = 100 (lam dt = 1): S within JUMP_S_RTOL,
+    every Poisson count equal bit for bit (the kernels' debug output);
+    bit-equal first_tile chunks. Returns per name max |dS| and the max
+    relative one."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_heston as ch
+    from options_model_tpu_torch.ops import cuda_jumps as cj
+
+    seed, mp, mp_heavy, jb, jb_heavy, hp = _jump_inputs()
+    errs = {k["name"]: dict(s_abs=0.0, s_rel=0.0) for k in jump_specs()}
+
+    def held(name, tag, got, want):
+        torch.cuda.synchronize()
+        (S, n), (S0, n0) = got, want
+        if S.shape != S0.shape or not bool(torch.isfinite(S).all()):
+            fail(f"{name} {tag}: shape {tuple(S.shape)} vs {tuple(S0.shape)} or non-finite")
+        if not torch.equal(n, n0):
+            fail(f"{name} {tag}: {int((n != n0).sum())} Poisson counts differ from the plain "
+                 "version's")
+        diff = (S - S0).abs()
+        rel = float((diff / S0.abs()).max())
+        if rel > JUMP_S_RTOL:
+            fail(f"{name} {tag}: S differs from the plain version (max rel {rel:.3e}, "
+                 f"rtol {JUMP_S_RTOL})")
+        e = errs[name]
+        e["s_abs"], e["s_rel"] = max(e["s_abs"], float(diff.max())), max(e["s_rel"], rel)
+        log(f"[J0] {name} {tag}: kernel == plain within rtol {JUMP_S_RTOL} (max |dS| "
+            f"{float(diff.max()):.3e}, max rel {rel:.3e}); {n.numel()} counts bit for bit "
+            f"(max {int(n.max())}, mean {float(n.float().mean()):.4f})")
+
+    def chunk(name, full, part, cols):
+        if not torch.equal(full[..., cols:], part):
+            fail(f"{name}: a run at first_tile 32 differs from the matching slice of the "
+                 "full run")
+        log(f"[J0] {name}: first_tile=32 chunk equals the full run's slice bit for bit")
+
+    for fn, ref, cases in (
+            (cj.merton_paths, cj.merton_paths_reference,
+             ((mp, 1 << 18, 50), (mp, 1 << 20, 50), (mp_heavy, 8 * ch.PATH_TILE, 50))),
+            (cj.merton_terminal, cj.merton_terminal_reference,
+             ((mp, 1 << 22, 100), (mp_heavy, 2 * ch.TERMINAL_TILE, 100)))):
+        for (p, n_paths, steps), anti in itertools.product(cases, (True, False)):
+            args = (seed, 100.0, 0.05, 0.5, p, n_paths, steps, anti, 0, DEVICE)
+            held(fn.__name__, f"lam {p.lam} at {n_paths} x {steps}, antithetic {anti}",
+                 fn(*args, return_counts=True), ref(*args, return_counts=True))
+        tile = ch.PATH_TILE if fn is cj.merton_paths else ch.TERMINAL_TILE
+        chunk(fn.__name__, fn(seed, 100.0, 0.05, 0.5, mp, 64 * tile, 50, True, 0, DEVICE),
+              fn(seed, 100.0, 0.05, 0.5, mp, 32 * tile, 50, True, 32, DEVICE), 32 * tile)
+
+    Ts = np.linspace(0.1, 1.0, SURFACE_MATS).astype(np.float32).tolist()
+    for jumps, n_paths, mats, anti in ((jb, 1 << 20, [0.5], True), (jb, 1 << 20, [0.5], False),
+                                       (jb, SURFACE_PATHS, Ts, True),
+                                       (jb_heavy, 8 * ch.PATH_TILE, [0.5, 1.0], True)):
+        base = ch.heston_paths_batched(seed, 100.0, 0.05, mats, hp, n_paths, 50, anti,
+                                       device=DEVICE)
+        S = base if len(mats) > 1 else base[0]
+        T = mats if len(mats) > 1 else mats[0]
+        held("jump_overlay_paths", f"lam {jumps.lam}, {len(mats)} maturities x {n_paths} x 50, "
+             f"Heston antithetic {anti}",
+             cj.jump_overlay_paths(S.clone(), seed, T, jumps, 0, return_counts=True),
+             cj.jump_overlay_paths_reference(S.clone(), seed, T, jumps, 0, return_counts=True))
+    base = ch.heston_paths(seed, 100.0, 0.05, 0.5, hp, 64 * ch.PATH_TILE, 50, device=DEVICE)
+    chunk("jump_overlay_paths", cj.jump_overlay_paths(base.clone(), seed, 0.5, jb),
+          cj.jump_overlay_paths(base[:, 32 * ch.PATH_TILE:].contiguous(), seed, 0.5, jb, 32),
+          32 * ch.PATH_TILE)
+    for jumps, n_paths, anti in ((jb, 1 << 22, True), (jb, 1 << 22, False),
+                                 (jb_heavy, 2 * ch.TERMINAL_TILE, True)):
+        base = ch.heston_terminal(seed, 100.0, 0.05, 0.5, hp, n_paths, 100, anti, device=DEVICE)
+        held("jump_overlay_terminal", f"lam {jumps.lam} on {n_paths} Heston terminal values, "
+             f"antithetic {anti}",
+             cj.jump_overlay_terminal(base.clone(), seed, 0.5, jumps, 100, 0, True),
+             cj.jump_overlay_terminal_reference(base.clone(), seed, 0.5, jumps, 100, 0, True))
+    base = ch.heston_terminal(seed, 100.0, 0.05, 0.5, hp, 64 * ch.TERMINAL_TILE, 100,
+                              device=DEVICE)
+    chunk("jump_overlay_terminal", cj.jump_overlay_terminal(base.clone(), seed, 0.5, jb, 100),
+          cj.jump_overlay_terminal(base[32 * ch.TERMINAL_TILE:].clone(), seed, 0.5, jb, 100, 32),
+          32 * ch.TERMINAL_TILE)
+    return errs
+
+
+def phase_jumps() -> tuple:
+    """The jumps path (ROADMAP item 4), through the entry points a user
+    calls: J1 the Merton American put (bench.py's leg, not cut) pooled over
+    J1_SEEDS seeds against the COS-Bermudan oracle at degree 5, and at
+    degree 3;
+    J2 the Merton and Bates (Euler, QE-M) European puts at 2^22 x 100
+    against the series and COS; J3 the Bates American put against its COS
+    European, and at lam = 0 its paths and plain LSM price against Heston's
+    bit for bit; J4 the 64 x 64 Bates and Merton surfaces, the Bates
+    calibrate -> price app, and merton_greeks against float64 central
+    differences. Returns (seconds per price or surface, results)."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.apps import calibrate as app
+    from options_model_tpu_torch.calibration.charfn import bates_cos_price
+    from options_model_tpu_torch.core.config import (PUT, BatesParams, HestonParams,
+                                                      LSMConfig, MCConfig, MertonParams,
+                                                      OptionSpec)
+    from options_model_tpu_torch.models.merton import merton_price
+    from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
+    from options_model_tpu_torch.pricers.american import (price_american, price_american_lsm,
+                                                          simulate_paths)
+    from options_model_tpu_torch.pricers.cos_bermudan import cos_bermudan_price
+    from options_model_tpu_torch.pricers.european import (make_terminal_sampler,
+                                                          price_european_mc)
+    from options_model_tpu_torch.pricers.greeks import merton_greeks
+    from options_model_tpu_torch.pricers.surface_american import price_american_surface
+
+    t_phase = time.perf_counter()
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    mp = MertonParams(**MERTON_BENCH)
+    bp = BatesParams(heston=hp, **BATES_JUMPS)
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    secs, res = {}, {}
+
+    def timed(label, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs.setdefault(label, []).append(time.perf_counter() - t0)
+        return out
+
+    def priced(label, *args, **kwargs):
+        p, se = (float(x) for x in timed(label, price_american, *args, device=DEVICE,
+                                         **kwargs))
+        if not (math.isfinite(p) and math.isfinite(se) and se > 0):
+            fail(f"{label}: non-finite price {p} +- {se}")
+        return p, se
+
+    def pooled(label, n, *args, **kwargs):
+        ps, ses = zip(*(priced(label, gen(33 + s), *args, **kwargs) for s in range(n)))
+        return (float(np.mean(ps)), math.sqrt(sum(x * x for x in ses)) / n,
+                float(np.std(ps)), ps, ses)
+
+    # J1: the Merton American put, bench.py's leg (2^18 x 50), J1_SEEDS seeds pooled.
+    spec_m = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=0.2)
+    mc_m = MCConfig(n_paths=1 << 18, n_steps=50, path_block=4096)
+    berm = cos_bermudan_price(100.0, 100.0, 0.5, 0.05, "merton", merton=mp, cp=-1.0,
+                              n_dates=50)
+    for deg in (5, 3):
+        p, se, spread, ps, ses = pooled(f"merton_american_deg{deg}", J1_SEEDS, 100.0, 0.5,
+                                        spec_m, mc_m, LSMConfig(poly_degree=deg), "merton",
+                                        merton=mp)
+        rel = p / berm - 1.0
+        p4, se4 = float(np.mean(ps[:4])), math.sqrt(sum(x * x for x in ses[:4])) / 4
+        res[f"J1_deg{deg}"] = dict(price=p, stderr=se, rel=rel, spread_pct=spread / berm * 100,
+                                   rel_4_seeds=p4 / berm - 1.0, stderr_4_seeds=se4)
+        log(f"[J1] Merton American put, degree {deg} + series CV, pooled over {J1_SEEDS} seeds "
+            f"(2^18 x 50): {p:.6f} +- {se:.6f} (seeds " + ", ".join(f"{x:.6f}" for x in ps)
+            + f"); COS-Bermudan oracle (50 dates) {berm:.6f}; rel {rel * 100:+.4f}% "
+            f"({(p - berm) / se:+.2f} pooled stderr), seed spread {spread / berm * 100:.4f}%; "
+            f"the first 4 seeds {p4:.6f} +- {se4:.6f}, rel {(p4 / berm - 1.0) * 100:+.4f}% (the "
+            f"JAX package, 4 seeds: {BENCH_R05_MERTON_REL:.4%}, spread "
+            f"{BENCH_R05_MERTON_SPREAD_PCT}%); gate "
+            + (f"{J1_GATE:.2%}" if deg == 5 else f"{J1_DEGREE_GATE:.0%}"))
+        if abs(rel) > (J1_GATE if deg == 5 else J1_DEGREE_GATE):
+            fail(f"J1: the degree-{deg} Merton American put outside its gate")
+
+    # J2: Europeans at 2^22 x 100 (terminal kernels 15, and 3 or 5 with 17).
+    mc_e = MCConfig(n_paths=1 << 22, n_steps=100, path_block=4096)
+    spec_p = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None)
+    legs = (("merton_european", "merton", dict(merton=mp), "euler",
+             float(merton_price(100.0, 100.0, 0.5, 0.05, mp, cp=-1.0, dtype=torch.float64,
+                                device="cpu"))),)
+    cos_b = float(bates_cos_price(100.0, 100.0, 0.5, 0.05, bp, cp=-1.0, dtype=torch.float64,
+                                  device="cpu"))
+    legs += tuple((f"bates_european_{sch}", "bates", dict(bates=bp), sch, cos_b)
+                  for sch in ("euler", "qe"))
+    for i, (label, model, kw, scheme, ref) in enumerate(legs):
+        sampler = make_terminal_sampler(model, 100.0, 0.05, 0.5, heston_scheme=scheme,
+                                        device=DEVICE, **kw)
+        p, se, _ = timed(label, price_european_mc, gen(31 + i), sampler, spec_p, 0.5, mc_e)
+        p, se = float(p), float(se)
+        gap = p - ref
+        res[f"J2_{label}"] = dict(price=p, stderr=se, ref=ref, z=gap / se)
+        log(f"[J2] {label} put (2^22 x 100): {p:.6f} +- {se:.6f}; "
+            f"{'series' if model == 'merton' else 'COS'} f64 {ref:.6f}; gap {gap:+.6f} "
+            f"({gap / ref * 100:+.4f}%, {gap / se:+.2f} stderr; gate 4 stderr + "
+            f"{J2_BIAS:.1%})")
+        if abs(gap) > 4.0 * se + J2_BIAS * ref:
+            fail(f"J2: the {label} put outside its gate")
+
+    # J3: the Bates American put (2^20 x 50, degree 5 / 3, COS CV, 4 seeds).
+    mc_b = MCConfig(n_paths=1 << 20, n_steps=50, path_block=4096)
+    lsm_b = LSMConfig(poly_degree=5, variance_basis_degree=3)
+    p, se, spread, ps, _ = pooled("bates_american", 4, 100.0, 0.5, spec_p, mc_b, lsm_b, "bates",
+                               bates=bp)
+    z = (p - cos_b) / se
+    res["J3"] = dict(price=p, stderr=se, premium=p - cos_b, premium_z=z)
+    log(f"[J3] Bates American put, degree 5 / 3 + COS CV, pooled over 4 seeds (2^20 x 50): "
+        f"{p:.6f} +- {se:.6f} (seeds " + ", ".join(f"{x:.6f}" for x in ps) + f"); COS "
+        f"European {cos_b:.6f}; premium {p - cos_b:+.6f} ({z:+.2f} pooled stderr; gate >= "
+        f"{J3_PREMIUM_Z}; BENCH_r05's bates_american_premium_z 21.57 at 2^17)")
+    if z < J3_PREMIUM_Z:
+        fail("J3: the Bates American put below its European")
+    bp0 = BatesParams(heston=hp, lam=0.0, mu_j=-0.1, sigma_j=0.15)
+    S_b, v_b = simulate_paths(gen(5), 100.0, 0.5, mc_b, "bates", rate=0.05, bates=bp0,
+                              return_variance=True, device=DEVICE)
+    S_h, v_h = simulate_paths(gen(5), 100.0, 0.5, mc_b, "heston", rate=0.05, heston=hp,
+                              return_variance=True, device=DEVICE)
+    plain = LSMConfig(poly_degree=5, variance_basis_degree=3, use_control_variate=False)
+    pb0 = price_american_lsm(gen(6), 100.0, 0.5, spec_p, mc_b, plain, "bates", bates=bp0,
+                             device=DEVICE)
+    ph0 = price_american_lsm(gen(6), 100.0, 0.5, spec_p, mc_b, plain, "heston", heston=hp,
+                             device=DEVICE)
+    same = (torch.equal(S_b, S_h), torch.equal(v_b, v_h),
+            all(torch.equal(a, b) for a, b in zip(pb0, ph0)))
+    log(f"[J3] lam = 0 on one generator: Bates S == Heston S {same[0]}, v {same[1]}, plain "
+        f"LSM price {float(pb0[0]):.6f} == {float(ph0[0]):.6f} bit for bit {same[2]}")
+    if not all(same):
+        fail("J3: at lam = 0 the Bates paths or price differ from Heston's")
+
+    # J4: the 64 x 64 surfaces (16,384 x 50 per maturity), the app, merton_greeks.
+    Ks = np.linspace(70.0, 130.0, SURFACE_MATS)
+    Ts = np.linspace(0.1, 1.0, SURFACE_MATS)
+    mc_s = MCConfig(n_paths=SURFACE_PATHS, n_steps=SURFACE_STEPS)
+    for label, kw in (("bates_surface", dict(model="bates", bates=bp)),
+                      ("merton_surface", dict(model="merton", merton=mp))):
+        before = dict(cuda_heston.launches, **cuda_jumps.launches)
+        P = timed(label, price_american_surface, gen(41), 100.0, Ks, Ts, 0.05, mc_s,
+                  device=DEVICE, **kw).cpu().numpy()
+        n = {k: v - before[k] for k, v in dict(cuda_heston.launches,
+                                               **cuda_jumps.launches).items() if v > before[k]}
+        worst = float(np.diff(P, axis=1).min())
+        log(f"[J4] {label} 64 x 64 (16,384 x 50 per maturity): {secs[label][-1]:.3f} s; "
+            f"launches {n}; finite {bool(np.isfinite(P).all())}; min step in K {worst:+.3e} "
+            f"(gate -1e-3); middle cell {float(P[len(Ts) // 2, len(Ks) // 2]):.4f}")
+        want = ({"heston_paths": 1, "jump_overlay_paths": 1} if label == "bates_surface"
+                else {"merton_paths": SURFACE_MATS})
+        if not (np.isfinite(P).all() and worst >= -1e-3 and n == want):
+            fail(f"J4: the {label}: not finite, not monotone in K, or launches {n} != {want}")
+    csv_path = Path(__file__).resolve().parent / "build" / "calibrated_bates_surface.csv"
+    csv_path.parent.mkdir(parents=True, exist_ok=True)
+    before = cuda_jumps.launches["jump_overlay_paths"]
+    # --max-iterations caps each L-BFGS-B start (2000 by default): on the
+    # app's --test surface the fit ends at the same parameters and IV RMSE
+    # in about a third of the time, keeping the script inside its limit.
+    s4 = timed("app_bates_surface", app.run,
+               app.parse_args(["--model", "bates", "--test", "--methods", "L-BFGS-B",
+                               "--max-iterations", str(J4_APP_MAX_ITERATIONS),
+                               "--price-surface", str(csv_path)]), device=DEVICE)
+    n4 = cuda_jumps.launches["jump_overlay_paths"] - before
+    lines = csv_path.read_text().splitlines()
+    rows = np.array([[float(v) for v in ln.split(",")] for ln in lines[1:]])
+    P = rows[:, 2].reshape(64, 64) if rows.shape == (4096, 3) else None
+    worst = float(np.diff(P, axis=1).min()) if P is not None else -math.inf
+    log(f"[J4] apps.calibrate --model bates --test --methods L-BFGS-B --max-iterations "
+        f"{J4_APP_MAX_ITERATIONS} --price-surface: "
+        f"{secs['app_bates_surface'][-1]:.3f} s; {s4['params']}, IV RMSE {s4['error']:.6g}; "
+        f"{n4} launch of jump_overlay_paths; {len(lines) - 1} rows, header {lines[0]!r}; min "
+        f"step in K {worst:+.3e} (gate -1e-3)")
+    if not (n4 == 1 and lines[0] == "K,T,price" and P is not None and np.isfinite(P).all()
+            and worst >= -1e-3):
+        fail("J4: the calibrated Bates 64x64 surface: not one overlay launch, not 4096 finite "
+             "rows, or not monotone in K")
+    args = dict(S0=100.0, K=100.0, T=0.5, r=0.05, sigma=0.2, lam=1.0, mu_j=-0.1, sigma_j=0.15)
+    g = merton_greeks(100.0, 100.0, 0.5, 0.05, mp, cp=-1.0, dtype=torch.float64,
+                      device=DEVICE)
+
+    def f(**kw):
+        a = dict(args, **kw)
+        return float(merton_price(a["S0"], a["K"], a["T"], a["r"],
+                                  MertonParams(a["sigma"], a["lam"], a["mu_j"], a["sigma_j"]),
+                                  cp=-1.0, dtype=torch.float64, device=DEVICE))
+
+    def cd(name, h):
+        x = args[name]
+        return (f(**{name: x + h}) - f(**{name: x - h})) / (2 * h)
+
+    h = 1e-4
+    fd = {"Delta": cd("S0", h), "Theta": -cd("T", h) / 365.0, "Rho": cd("r", h) / 100.0,
+          "Vega": cd("sigma", h) / 100.0, "dLam": cd("lam", h), "dMuJ": cd("mu_j", h),
+          "dSigmaJ": cd("sigma_j", h),
+          "Gamma": (f(S0=100.0 + 1e-2) - 2 * f() + f(S0=100.0 - 1e-2)) / 1e-4}
+    worst = max(abs(float(g[k]) - v) / max(1.0, abs(v)) for k, v in fd.items())
+    res["J4_greeks_worst"] = worst
+    log("[J4] merton_greeks (f64 on the card) vs f64 central differences: "
+        + ", ".join(f"{k} {float(g[k]):.9f} / {v:.9f}" for k, v in fd.items())
+        + f"; worst {worst:.3e} (gate {J4_GREEKS_TOL})")
+    if worst > J4_GREEKS_TOL:
+        fail("J4: merton_greeks away from the central differences")
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[J] the jumps phase: {res['phase_seconds']:.1f} s (target 150 s)")
+    return {k: statistics.median(v) for k, v in secs.items()}, res
+
+
+def phase_jump_timing(per_call: float) -> dict:
+    """CUDA-event medians of kernels 14-17 and of their plain versions at
+    their timed shapes (Merton paths 2^20 x 50, terminal 2^22 x 100; the
+    overlay on a 2^20 x 50 Heston matrix and on 2^22 terminal values, in
+    place), each beside its bound; registers and occupancy."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_heston as ch
+    from options_model_tpu_torch.ops import cuda_jumps as cj
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    seed, mp, _, jb, _, hp = _jump_inputs()
+    S = ch.heston_paths(seed, 100.0, 0.05, 0.5, hp, 1 << 20, 50, device=DEVICE)
+    S_T = ch.heston_terminal(seed, 100.0, 0.05, 0.5, hp, 1 << 22, 100, device=DEVICE)
+    runs = {
+        "merton_paths": lambda plain: (cj.merton_paths_reference if plain else cj.merton_paths)(
+            seed, 100.0, 0.05, 0.5, mp, 1 << 20, 50, device=DEVICE),
+        "merton_terminal": lambda plain: (cj.merton_terminal_reference if plain
+                                          else cj.merton_terminal)(
+            seed, 100.0, 0.05, 0.5, mp, 1 << 22, 100, device=DEVICE),
+        "jump_overlay_paths": lambda plain: (cj.jump_overlay_paths_reference if plain
+                                             else cj.jump_overlay_paths)(S, seed, 0.5, jb),
+        "jump_overlay_terminal": lambda plain: (cj.jump_overlay_terminal_reference if plain
+                                                else cj.jump_overlay_terminal)(
+            S_T, seed, 0.5, jb, 100),
+    }
+    attrs = cj.jumps_kernel_attrs()
+    out = {}
+    for k in jump_specs():
+        n, steps = k["timed"]
+        ms = time_per_call(lambda: runs[k["name"]](False), N_TIMED)
+        plain_ms = time_per_call(lambda: runs[k["name"]](True), 3)
+        n_int = int_ops(k["draws"], per_call)
+        b = bound(n, steps, k["ops"], n_int, k["bytes"])
+        a = attrs[k["name"]]
+        out[k["name"]] = dict(ms=ms, plain_ms=plain_ms, registers=a["registers"],
+                              spill_bytes=a["spill_bytes"], block=a["block"],
+                              occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
+        log(f"[5] {k['name']} {n} paths x {steps} steps: kernel {ms:.4f} ms "
+            f"({n * steps / ms * 1e3:.4e} path-steps/s, {k['bytes'] / ms / 1e9:.3f} TB/s "
+            f"moved), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_term']} ({k['ops']:.2f} f32 operations and {n_int:.2f} int32 "
+            f"instructions per path-step, {k['bytes'] / 1e6:.1f} MB moved); "
+            f"{b['bound_ms'] / ms * 100:.1f}% of bound; {a['registers']} registers, "
+            f"{a['spill_bytes']} spill bytes, {a['blocks_per_sm']} blocks of {a['block']} "
+            f"per SM ({out[k['name']]['occupancy'] * 100:.1f}% occupancy)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2537,10 +2982,12 @@ def main() -> int:
     var_errs = phase_variants()
     vjp = vjp_specs()
     vjp_errs = phase_vjp()
+    jumps = jump_specs()
+    jump_errs = phase_jump_kernels()
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
-    counted = specs + vjp
+    counted = specs + vjp + jumps
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
 
@@ -2572,6 +3019,7 @@ def main() -> int:
     secs_nn, launches_nn = drive("nn", phase_nn)
     (secs_g, per_call_g, greeks_res), launches_g = drive("greeks", phase_greeks)
     cal_res, launches_c = drive("calibration", phase_calibration)
+    (secs_j, jump_res), launches_j = drive("jumps", phase_jumps)
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
@@ -2579,6 +3027,7 @@ def main() -> int:
     phase_earlier_localvol_american(lv_put)
     times = phase_timing(specs, sass["per_call"])
     times.update(phase_vjp_timing(vjp, sass["per_call"]))
+    times.update(phase_jump_timing(sass["per_call"]))
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -2610,6 +3059,9 @@ def main() -> int:
         + f"; C7 {cal_res['C7']['seconds']:.3f} s with its 64x64 surface; the default "
         f"cascade projected {cal_res['projected_default_cascade_s']:.1f} s; the phase "
         f"{cal_res['phase_seconds']:.1f} s; kernel launches {launches_c}")
+    log("[5] jumps path, seconds per price or surface: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in secs_j.items())
+        + f"; the phase {jump_res['phase_seconds']:.1f} s; kernel launches {launches_j}")
     log(f"[5] card: {card_line()}")
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
@@ -2617,6 +3069,8 @@ def main() -> int:
                     library_ms=None, **times[k["name"]],
                     **({"greeks_launches": launches_g[k["name"]]} if k["name"] in launches_g
                        else {}),
+                **({"jumps_launches": launches_j[k["name"]]} if k["name"] in launches_j
+                   else {}),
                     **({"calibration_launches": launches_c[k["name"]]}
                        if k["name"] in launches_c else {}),
                     **({"earlier_name": k["earlier"]["name"],
@@ -2638,6 +3092,11 @@ def main() -> int:
                      backward_of=k["forward"],
                      library_ms=None, **times[k["name"]])
                 for k in vjp]
+    entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+                     launches=launches_j[k["name"]], max_abs_err=jump_errs[k["name"]]["s_abs"],
+                     max_rel_err=jump_errs[k["name"]]["s_rel"], library_ms=None,
+                     **times[k["name"]])
+                for k in jumps]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,16 @@
     python -m options_model_tpu_torch.apps.calibrate --test
     python -m options_model_tpu_torch.apps.calibrate --test --price-surface surface.csv
 
+    python -m options_model_tpu_torch.apps.calibrate --model bates --test --price-surface b.csv
+
 ``--test`` calibrates against the synthetic oracle surface with known true
 parameters and reports the recovery error; ``--price-surface`` then prices
-the ``--surface-size`` American put surface under the fitted Heston
-parameters (one batched paths launch, then the LSM backwards) and writes it
-as CSV (``K,T,price``). Everything runs on the card; ``run(args,
-device="cpu")`` runs on the CPU. Not ported yet: a live ``--ticker`` chain,
-``--model rbergomi``, ``--diagnostics-dir`` and the Bates surface.
+the ``--surface-size`` American put surface under the fitted Heston or Bates
+parameters (one batched Heston paths launch; Bates adds one jump-overlay
+launch over it; then the LSM backwards) and writes it as CSV
+(``K,T,price``). Everything runs on the card; ``run(args, device="cpu")``
+runs on the CPU. Not ported yet: a live ``--ticker`` chain, ``--model
+rbergomi`` and ``--diagnostics-dir``.
 """
 
 from __future__ import annotations
@@ -68,6 +71,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
+    """Raise for what the app does not carry yet (rbergomi, a live chain,
+    diagnostics plots), and exit as the reference does for a VG surface."""
     if args.model == "rbergomi":
         raise not_ported("--model rbergomi (models/rbergomi.py)", "apps.calibrate._run_rbergomi")
     if not args.test:
@@ -79,23 +84,22 @@ def _check_ported(args) -> None:
     if args.price_surface and args.model == "vg":
         raise SystemExit("--price-surface supports heston/bates (the shared-path surface "
                          "backward rides the (S, v) variance state)")
-    if args.price_surface and args.model == "bates":
-        raise not_ported("--model bates --price-surface (the Bates jump overlay)",
-                         "pricers.surface_american.price_american_surface")
 
 
-def _price_surface(args, params: HestonParams, S0: float, device) -> None:
-    """The calibrated American put surface, K in [0.7, 1.3] S0 by T in
-    [0.1, 1], 16384 x 50 paths per maturity, written as K,T,price."""
+def _price_surface(args, params, S0: float, device) -> None:
+    """The calibrated American put surface under HestonParams or BatesParams
+    ``params``, K in [0.7, 1.3] S0 by T in [0.1, 1], 16384 x 50 paths per
+    maturity, written as K,T,price."""
     from options_model_tpu_torch.pricers.surface_american import price_american_surface
 
     nt, nk = args.surface_size
     Ks = np.linspace(0.7 * S0, 1.3 * S0, nk).astype(np.float32)
     Ts = np.linspace(0.1, 1.0, nt).astype(np.float32)
+    model_kw = (dict(model="bates", bates=params) if args.model == "bates"
+                else dict(model="heston", heston=params))
     P = price_american_surface(torch.Generator().manual_seed(args.seed), S0, Ks, Ts,
                                args.rate, MCConfig(n_paths=16384, n_steps=50), cp=-1.0,
-                               div_yield=args.div_yield, model="heston", heston=params,
-                               device=device)
+                               div_yield=args.div_yield, device=device, **model_kw)
     Km, Tm = np.meshgrid(Ks, Ts)
     with open(args.price_surface, "w", newline="") as fh:
         w = csv.writer(fh)

@@ -1,6 +1,6 @@
 """Frozen-dataclass configs with the field names and defaults of
-options_model_tpu/core/config.py (OptionSpec, HestonParams, BatesParams,
-VGParams, MCConfig, LSMConfig, CalibrationConfig), their eager
+options_model_tpu/core/config.py (OptionSpec, HestonParams, MertonParams,
+BatesParams, VGParams, MCConfig, LSMConfig, CalibrationConfig), their eager
 ``validate()`` checks (the same conditions, exception types and messages),
 the parameter vectors of the calibrator (``to_array`` / ``from_array``, as
 float64 numpy), and ``cp_from_str`` / ``cp_to_str``.
@@ -120,6 +120,33 @@ class HestonParams(_FromReference):
         return (f"HestonParams(kappa={self.kappa:.4f}, theta={self.theta:.4f}, "
                 f"xi={self.xi:.4f}, rho={self.rho:.4f}, v0={self.v0:.4f}) "
                 f"Feller: {feller}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MertonParams(_FromReference):
+    """Merton (1976) jump diffusion:
+
+        dS/S = (r - q - lam kbar) dt + sigma dW + (J - 1) dN,
+        N ~ Poisson(lam), log J ~ N(mu_j, sigma_j^2),
+
+    kbar = E[J - 1] = exp(mu_j + sigma_j^2/2) - 1, the drift compensator."""
+
+    sigma: float    # diffusive volatility
+    lam: float      # jump intensity (expected jumps / year)
+    mu_j: float     # mean log-jump size
+    sigma_j: float  # log-jump-size volatility
+
+    def validate(self) -> "MertonParams":
+        if self.sigma <= 0:
+            raise ValueError(f"sigma={self.sigma} must be positive")
+        if self.lam < 0:
+            raise ValueError(f"lam={self.lam} must be non-negative")
+        if self.sigma_j < 0:
+            raise ValueError(f"sigma_j={self.sigma_j} must be non-negative")
+        return self
+
+    def kbar(self) -> float:
+        return math.exp(self.mu_j + 0.5 * self.sigma_j**2) - 1.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -57,6 +57,10 @@ _SIGNATURES = {
     "omt_gbm_paths_vjp": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_terminal_vjp": [_P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     "omt_euler_paths_vjp": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_merton_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_merton_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_jump_overlay_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_jump_overlay_terminal": [_P, _P, _P, _U64, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).
@@ -67,6 +71,7 @@ _ATTRS = {
     "omt_terminal_attrs": [_I, _P],
     "omt_paths_localvol_attrs": [_I, _P],
     "omt_greeks_attrs": [_I, _P],
+    "omt_jumps_attrs": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,18 +1,22 @@
 """American option pricing by Longstaff-Schwartz Monte Carlo, as
 options_model_tpu/pricers/american.py: the polynomial regressor and the
-shared continuation network (NN-LSM) under GBM and Heston, Euler or QE-M;
-and under local vol over a compiled table, which has no control-variate leg.
+shared continuation network (NN-LSM) under GBM, Heston (Euler or QE-M),
+Merton and Bates (Heston, Euler or QE-M, times the jump overlay); and under
+local vol over a compiled table, which has no control-variate leg.
 
 Paths come from the Philox path kernels (csrc/, or their plain versions on
 the CPU) in the flat (n_steps+1, n_paths) layout. The backward induction is
 a Python loop over exercise dates; each date is a masked weighted least
 squares on the centered basis, all on the device and with no host read-back
-until the caller asks for the price. The NN-LSM trains one continuation
+until the caller asks for the price. Under the jump families the basis's
+clamp at +-6 standardized units keeps the jump outliers from bending a
+high-degree fit (build_centered_basis). The NN-LSM trains one continuation
 MLP over all (date, path) states (pricers/regressors.fit_continuation_mlp)
 and reads the stopping policy off its predictions. The dispatcher
 ``price_american`` adds the same-path European control variate (COS leg
-under Heston, BS under GBM), common-path Richardson extrapolation, or the
-European terminal sampler, as in the reference.
+under Heston and Bates, the jump-count series under Merton, BS under GBM),
+common-path Richardson extrapolation, or the European terminal sampler, as
+in the reference.
 
 Randomness: one ``torch.Generator`` fixes a price. The simulation draws the
 first 64-bit seed from it; the NN-LSM's fit draws the next one, and each
@@ -30,15 +34,17 @@ import numpy as np
 import torch
 
 from options_model_tpu_torch._unported import not_ported
-from options_model_tpu_torch.core.config import (HestonParams, LSMConfig,
-                                                  MCConfig, OptionSpec)
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig,
+                                                  MCConfig, MertonParams, OptionSpec)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (cashflow_statistics, masked_mean_stderr,
                                                  optimal_cv_beta)
+from options_model_tpu_torch.models.bates import simulate_bates
 from options_model_tpu_torch.models.blocks import round_up
 from options_model_tpu_torch.models.gbm import simulate_gbm
 from options_model_tpu_torch.models.heston import effective_bs_sigma, simulate_heston
 from options_model_tpu_torch.models.localvol import simulate_local_vol
+from options_model_tpu_torch.models.merton import merton_price, simulate_merton
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.lsm_basis import regression_features
@@ -53,12 +59,16 @@ from options_model_tpu_torch.utils.profiling import span
 _BASIS_CLAMP = 6.0
 
 
+MODELS = ("gbm", "heston", "localvol", "merton", "bates")
+
+
 def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) -> None:
-    """Raise for what this port does not carry yet. Local vol runs only over
-    a compiled table (models/localvol.simulate_local_vol raises without one),
-    so the per-option pricers, which take no table, refuse it as in the
-    reference's sigma_fn route."""
-    if model not in ("gbm", "heston", "localvol"):
+    """Raise for what this port does not carry yet: the models outside
+    MODELS (VG, SABR, rBergomi) and the path-sharded LSM. Local vol runs
+    only over a compiled table (models/localvol.simulate_local_vol raises
+    without one), so the per-option pricers, which take no table, refuse it
+    as in the reference's sigma_fn route."""
+    if model not in MODELS:
         raise not_ported(f"model={model!r}", "pricers.american.simulate_paths")
     if lsm is not None and lsm.regressor not in ("poly", "nn"):
         raise ValueError(f"regressor must be 'poly' or 'nn', got {lsm.regressor!r}")
@@ -80,14 +90,18 @@ def _discount(rate, tau):
 
 def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str, *,
                     sigma=None, drift=0.0, heston: Optional[HestonParams] = None,
+                    merton: Optional[MertonParams] = None,
+                    bates: Optional[BatesParams] = None,
                     heston_scheme: str = "euler", localvol_table=None,
                     return_variance: bool = False, device=None):
     """The path kernels' dispatch on an explicit (seed, first_tile): tiles
     [first_tile, first_tile + n_tiles) of that seed's stream. ``drift`` is
-    the simulated growth rate (rate - q)."""
+    the simulated growth rate (rate - q). Bates is the Heston kernel
+    (``heston_scheme``) with the jump overlay multiplied in on the same
+    seed and tiles."""
     _check_slice(model)
-    if return_variance and model != "heston":
-        raise ValueError("return_variance is a Heston feature")
+    if return_variance and model not in ("heston", "bates"):
+        raise ValueError("return_variance is a Heston/Bates feature")
     if model == "gbm":
         if sigma is None:
             raise ValueError("sigma is required for model='gbm'")
@@ -96,6 +110,16 @@ def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str
     if model == "localvol":
         return simulate_local_vol(seed, S0, drift, T, cfg, table=localvol_table,
                                   first_tile=first_tile, device=device)
+    if model == "merton":
+        if merton is None:
+            raise ValueError("merton params required for model='merton'")
+        return simulate_merton(seed, S0, drift, T, merton, cfg, first_tile=first_tile,
+                               device=device)
+    if model == "bates":
+        if bates is None:
+            raise ValueError("bates params required for model='bates'")
+        return simulate_bates(seed, S0, drift, T, bates, cfg, return_variance=return_variance,
+                              first_tile=first_tile, scheme=heston_scheme, device=device)
     if heston is None:
         raise ValueError("heston params required for model='heston'")
     return simulate_heston(seed, S0, drift, T, heston, cfg, return_paths=True,
@@ -105,14 +129,17 @@ def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str
 
 def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
                    model: str = "gbm", *, sigma=None, rate=0.0,
-                   heston: Optional[HestonParams] = None, engine: str = "auto",
+                   heston: Optional[HestonParams] = None,
+                   merton: Optional[MertonParams] = None,
+                   bates: Optional[BatesParams] = None, engine: str = "auto",
                    heston_scheme: str = "euler", localvol_table=None, div_yield=0.0,
                    return_variance: bool = False, layout: str = "flat",
                    device=None):
-    """Full path matrix (n_steps+1, n_pad) [and, for Heston with
+    """Full path matrix (n_steps+1, n_pad) [and, for Heston or Bates with
     ``return_variance``, the variance matrix] from the path kernels: GBM,
-    Heston (``heston_scheme`` "euler" or "qe") or local vol over a compiled
-    Chebyshev ``localvol_table`` (surface/cheb.compile_localvol_table).
+    Heston (``heston_scheme`` "euler" or "qe"), Merton, Bates (Heston times
+    the jump overlay) or local vol over a compiled Chebyshev
+    ``localvol_table`` (surface/cheb.compile_localvol_table).
 
     One 64-bit kernel seed is drawn from ``generator``. ``div_yield``: the
     simulated drift is rate - q; discounting stays the pricer's job."""
@@ -122,19 +149,22 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
     resolve_engine(engine, device)
     return simulate_seeded(seed_from_generator(generator), 0, S0, T, cfg, model,
                            sigma=sigma, drift=rate - div_yield, heston=heston,
+                           merton=merton, bates=bates,
                            heston_scheme=heston_scheme, localvol_table=localvol_table,
                            return_variance=return_variance, device=device)
 
 
 def _cv_adjustment(S_paths: torch.Tensor, spec: OptionSpec, T,
                    heston: Optional[HestonParams] = None,
-                   model: str = "gbm") -> torch.Tensor:
+                   model: str = "gbm", merton: Optional[MertonParams] = None,
+                   bates: Optional[BatesParams] = None) -> torch.Tensor:
     """Per-path beta=1 control-variate adjustment: the European closed form
     minus the discounted terminal payoff of the same path.
 
-    The closed-form leg must match the simulated dynamics: COS under Heston,
-    BS under GBM. A BS leg on Heston paths has E[BS - EU_heston] != 0 and
-    biases the price by that gap (~130% in the reference's measurement)."""
+    The closed-form leg must match the simulated dynamics: COS under Heston
+    and Bates, the jump-count series under Merton, BS under GBM. A BS leg on
+    Heston paths has E[BS - EU_heston] != 0 and biases the price by that gap
+    (~130% in the reference's measurement)."""
     S_init = S_paths[0, 0]
     pay_T = vanilla_payoff(S_paths[-1], spec.strike, spec.cp) * _discount(spec.rate, T)
     if model == "heston":
@@ -144,6 +174,19 @@ def _cv_adjustment(S_paths: torch.Tensor, spec: OptionSpec, T,
         from options_model_tpu_torch.calibration.charfn import heston_cos_price
         eu = heston_cos_price(S_init, spec.strike, T, spec.rate, heston,
                               cp=spec.cp, q=spec.div_yield)
+    elif model == "merton":
+        if merton is None:
+            raise ValueError("model='merton' control variate needs merton "
+                             "params for the jump-series leg")
+        eu = merton_price(S_init, spec.strike, T, spec.rate, merton, cp=spec.cp,
+                          q=spec.div_yield, dtype=S_paths.dtype)
+    elif model == "bates":
+        if bates is None:
+            raise ValueError("model='bates' control variate needs bates "
+                             "params for the COS leg")
+        from options_model_tpu_torch.calibration.charfn import bates_cos_price
+        eu = bates_cos_price(S_init, spec.strike, T, spec.rate, bates, cp=spec.cp,
+                             q=spec.div_yield)
     elif model == "gbm":
         eu = bs_price(S_init, spec.strike, T, spec.rate, spec.sigma, spec.cp,
                       q=spec.div_yield)
@@ -469,46 +512,53 @@ def lsm_nn_backward(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T,
 
 def richardson_nn_stat(seed: int, S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
                        spec: OptionSpec, T, lsm: LSMConfig, *,
-                       heston: Optional[HestonParams] = None, model: str = "gbm",
+                       heston: Optional[HestonParams] = None,
+                       bates: Optional[BatesParams] = None, model: str = "gbm",
                        pair_block: Optional[int] = None):
     """(per-path Richardson statistic, eval mask) of the NN-LSM: one net is
     trained; the fine and coarse levels are two stopping policies read off
     the same continuation grid (every date, every 2nd date), stat = 2
     cash_fine - cash_coarse, plus the control variate when it is on and a
-    closed-form leg exists."""
+    closed-form leg exists. As in the reference, Merton has no leg here."""
     n_steps, n_paths = S_paths.shape[0] - 1, S_paths.shape[1]
     train_mask, eval_mask = _oos_split(n_paths, lsm.out_of_sample, pair_block,
                                       S_paths.dtype, S_paths.device)
     immediate, cont, terminal, ts = _nn_continuation(seed, S_paths, spec, T, lsm, v_paths,
-                                                     train_mask, heston=heston)
+                                                     train_mask,
+                                                     heston=_vol_params(heston, bates))
     cash_f = _nn_stopped_cash(immediate, cont, terminal, ts, spec, T, n_steps)
     cash_c = _nn_stopped_cash(immediate, cont, terminal, ts, spec, T, n_steps,
                               exercise_stride=2)
     stat = 2.0 * cash_f - cash_c
-    if lsm.use_control_variate and _has_cv_leg(spec, model, heston):
-        stat = _apply_cv(stat, _cv_adjustment(S_paths, spec, T, heston=heston, model=model),
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, bates=bates):
+        stat = _apply_cv(stat, _cv_adjustment(S_paths, spec, T, heston=heston, model=model,
+                                              bates=bates),
                          lsm.cv_beta, eval_mask, pair_block)
     return stat, eval_mask
 
 
 def _vol_params(heston, bates=None):
-    """The HestonParams governing the variance state (nested in Bates
-    params in the reference, whose Bates model is not ported)."""
+    """The HestonParams governing the variance state: Bates carries them
+    nested. The NN-LSM's residual baseline uses their diffusion-only
+    effective vol; the floored residual fit absorbs the jumps' part of the
+    European, as in the reference."""
     if heston is not None:
         return heston
     return bates.heston if bates is not None else None
 
 
 def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
-                  heston_scheme, device):
+                  heston_scheme, device, merton=None, bates=None):
     """(S_paths, v_paths or None, fit seed or None) for the LSM pricers, at
     the width of simulated_config. The simulation draws its seed from
-    ``generator`` first; the NN-LSM's fit draws the next one."""
-    want_v = model == "heston" and lsm.variance_basis
+    ``generator`` first (Bates's overlay takes the same seed); the NN-LSM's
+    fit draws the next one."""
+    want_v = model in ("heston", "bates") and lsm.variance_basis
     with span("simulate", resolve_device(device)):
         out = simulate_paths(generator, S0, T, simulated_config(mc, model), model,
                              sigma=spec.sigma,
-                             rate=spec.rate, heston=heston, engine=engine,
+                             rate=spec.rate, heston=heston, merton=merton, bates=bates,
+                             engine=engine,
                              heston_scheme=heston_scheme, div_yield=spec.div_yield,
                              return_variance=want_v, device=device)
     S_paths, v_paths = out if want_v else (out, None)
@@ -518,14 +568,15 @@ def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
 
 def _lsm_backward(fit_seed, S_paths, v_paths, spec: OptionSpec, T, lsm: LSMConfig,
                   pair_block: int, stat_pair_block=None, return_cash: bool = False,
-                  heston: Optional[HestonParams] = None):
+                  heston: Optional[HestonParams] = None,
+                  bates: Optional[BatesParams] = None):
     """The configured regressor's backward on simulated paths:
     lsm_poly_backward or lsm_nn_backward."""
     if lsm.regressor == "nn":
         return lsm_nn_backward(fit_seed, S_paths, spec, T, lsm,
                                stat_pair_block=stat_pair_block, v_paths=v_paths,
                                out_of_sample=lsm.out_of_sample, pair_block=pair_block,
-                               return_cash=return_cash, heston=_vol_params(heston))
+                               return_cash=return_cash, heston=_vol_params(heston, bates))
     return lsm_poly_backward(S_paths, spec, T, poly_degree=lsm.poly_degree,
                              v_degree=lsm.variance_basis_degree,
                              out_of_sample=lsm.out_of_sample, pair_block=pair_block,
@@ -533,30 +584,37 @@ def _lsm_backward(fit_seed, S_paths, v_paths, spec: OptionSpec, T, lsm: LSMConfi
                              v_paths=v_paths)
 
 
-def _has_cv_leg(spec: OptionSpec, model: str, heston) -> bool:
+def _has_cv_leg(spec: OptionSpec, model: str, heston, merton=None, bates=None) -> bool:
     return ((model == "gbm" and spec.sigma is not None)
-            or (model == "heston" and heston is not None))
+            or (model == "heston" and heston is not None)
+            or (model == "merton" and merton is not None)
+            or (model == "bates" and bates is not None))
 
 
 def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
                        mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
-                       heston: Optional[HestonParams] = None, axis_name=None,
+                       heston: Optional[HestonParams] = None,
+                       merton: Optional[MertonParams] = None,
+                       bates: Optional[BatesParams] = None, axis_name=None,
                        engine: str = "auto", heston_scheme: str = "euler",
                        device=None):
     """Simulate + LSM backward induction (either regressor). Returns (price,
     stderr)."""
     _check_slice(model, lsm, axis_name)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
-                                               heston, engine, heston_scheme, device)
+                                               heston, engine, heston_scheme, device,
+                                               merton, bates)
     pb = _pair_block(mc, model)
     return _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
-                         stat_pair_block=pb if mc.antithetic else None, heston=heston)
+                         stat_pair_block=pb if mc.antithetic else None, heston=heston,
+                         bates=bates)
 
 
 def price_american_with_control_variate(
         generator: torch.Generator, S0, T, spec: OptionSpec, mc: MCConfig,
         lsm: LSMConfig, model: str = "gbm", *,
-        heston: Optional[HestonParams] = None, axis_name=None,
+        heston: Optional[HestonParams] = None, merton: Optional[MertonParams] = None,
+        bates: Optional[BatesParams] = None, axis_name=None,
         engine: str = "auto", heston_scheme: str = "euler", device=None):
     """American price with the same-path European control variate:
     AM_cv = AM_lsm + beta (EU_closed_form - EU_mc_same_paths), the stderr
@@ -565,17 +623,19 @@ def price_american_with_control_variate(
     network it is the reference's flagship estimator). Without a
     closed-form leg this is price_american_lsm."""
     _check_slice(model, lsm, axis_name)
-    if not _has_cv_leg(spec, model, heston):
+    if not _has_cv_leg(spec, model, heston, merton, bates):
         return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
-                                  heston=heston, engine=engine,
+                                  heston=heston, merton=merton, bates=bates, engine=engine,
                                   heston_scheme=heston_scheme, device=device)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
-                                               heston, engine, heston_scheme, device)
+                                               heston, engine, heston_scheme, device,
+                                               merton, bates)
     pb = _pair_block(mc, model)
     _, _, (cash, eval_mask) = _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
-                                            return_cash=True, heston=heston)
+                                            return_cash=True, heston=heston, bates=bates)
     stat_pb = pb if mc.antithetic else None
-    cv = _apply_cv(cash, _cv_adjustment(S_paths, spec, T, heston=heston, model=model),
+    cv = _apply_cv(cash, _cv_adjustment(S_paths, spec, T, heston=heston, model=model,
+                                        merton=merton, bates=bates),
                    lsm.cv_beta, eval_mask, stat_pb)
     return masked_mean_stderr(cv, eval_mask, stat_pb)[:2]
 
@@ -583,6 +643,8 @@ def price_american_with_control_variate(
 def price_american_with_stats(generator: torch.Generator, S0, T, spec: OptionSpec,
                               mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
                               heston: Optional[HestonParams] = None,
+                              merton: Optional[MertonParams] = None,
+                              bates: Optional[BatesParams] = None,
                               engine: str = "auto", device=None):
     """(price, stderr, cashflow statistics): the reference's verbose pricing
     report (mean, std, min, max and P(worthless) of the per-path discounted
@@ -590,18 +652,22 @@ def price_american_with_stats(generator: torch.Generator, S0, T, spec: OptionSpe
     regressors."""
     _check_slice(model, lsm)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
-                                               heston, engine, "euler", device)
+                                               heston, engine, "euler", device, merton,
+                                               bates)
     pb = _pair_block(mc, model)
     price, stderr, (cash, eval_mask) = _lsm_backward(
         fit_seed, S_paths, v_paths, spec, T, lsm, pb,
-        stat_pair_block=pb if mc.antithetic else None, return_cash=True, heston=heston)
+        stat_pair_block=pb if mc.antithetic else None, return_cash=True, heston=heston,
+        bates=bates)
     stats = {k: float(v) for k, v in cashflow_statistics(cash, eval_mask).items()}
     return price, stderr, stats
 
 
 def richardson_cv_stat(S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
                        spec: OptionSpec, T, lsm: LSMConfig, *,
-                       heston: Optional[HestonParams] = None, model: str = "gbm",
+                       heston: Optional[HestonParams] = None,
+                       merton: Optional[MertonParams] = None,
+                       bates: Optional[BatesParams] = None, model: str = "gbm",
                        pair_block: Optional[int] = None, axis_name=None):
     """(per-path Richardson statistic, eval mask) on given paths: the fine
     level exercises at every date, the coarse level on every 2nd date of
@@ -615,9 +681,9 @@ def richardson_cv_stat(S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
     _, _, (cash_c, _) = lsm_poly_backward(S_paths, spec, T, exercise_stride=2,
                                           **kwargs)
     stat = 2.0 * cash_f - cash_c
-    if lsm.use_control_variate and _has_cv_leg(spec, model, heston):
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, merton, bates):
         stat = _apply_cv(stat, _cv_adjustment(S_paths, spec, T, heston=heston,
-                                              model=model),
+                                              model=model, merton=merton, bates=bates),
                          lsm.cv_beta, mask, pair_block)
     return stat, mask
 
@@ -625,6 +691,8 @@ def richardson_cv_stat(S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
 def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpec,
                               mc: MCConfig, lsm: LSMConfig, model: str = "gbm",
                               *, heston: Optional[HestonParams] = None,
+                              merton: Optional[MertonParams] = None,
+                              bates: Optional[BatesParams] = None,
                               engine: str = "auto", heston_scheme: str = "euler",
                               device=None):
     """Richardson-extrapolated continuous-exercise American price: an n-date
@@ -635,43 +703,43 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
     reads both policies off one trained net (richardson_nn_stat)."""
     _check_slice(model, lsm)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
-                                               heston, engine, heston_scheme, device)
+                                               heston, engine, heston_scheme, device,
+                                               merton, bates)
     pb = _pair_block(mc, model)
+    kw = dict(heston=heston, bates=bates, model=model, pair_block=pb)
     if lsm.regressor == "nn":
-        stat, mask = richardson_nn_stat(fit_seed, S_paths, v_paths, spec, T, lsm,
-                                        heston=_vol_params(heston), model=model,
-                                        pair_block=pb)
+        stat, mask = richardson_nn_stat(fit_seed, S_paths, v_paths, spec, T, lsm, **kw)
     else:
-        stat, mask = richardson_cv_stat(S_paths, v_paths, spec, T, lsm, heston=heston,
-                                        model=model, pair_block=pb)
+        stat, mask = richardson_cv_stat(S_paths, v_paths, spec, T, lsm, merton=merton, **kw)
     price, stderr, _ = masked_mean_stderr(stat, mask, pb if mc.antithetic else None)
     return price, stderr
 
 
 def price_american(generator: torch.Generator, S0, T, spec: OptionSpec,
                    mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
-                   heston: Optional[HestonParams] = None, axis_name=None,
+                   heston: Optional[HestonParams] = None,
+                   merton: Optional[MertonParams] = None,
+                   bates: Optional[BatesParams] = None, axis_name=None,
                    engine: str = "auto", device=None):
     """The public dispatcher: the European terminal sampler when
     ``lsm.european_approximation``, Richardson when ``lsm.richardson``, the
     control variate when it is on and a closed-form leg exists, plain LSM
     otherwise. Returns (price, stderr) as 0-dim tensors on ``device``."""
     _check_slice(model, lsm, axis_name)
+    models = dict(heston=heston, merton=merton, bates=bates)
     if lsm.european_approximation:
         from options_model_tpu_torch.pricers.european import (
             make_terminal_sampler, price_european_mc)
         sampler = make_terminal_sampler(model, S0, spec.rate, T, sigma=spec.sigma,
-                                        heston=heston, engine=engine,
-                                        div_yield=spec.div_yield, device=device)
+                                        engine=engine, div_yield=spec.div_yield,
+                                        device=device, **models)
         price, stderr, _ = price_european_mc(generator, sampler, spec, T, mc)
         return price, stderr
     if lsm.richardson:
         return price_american_richardson(generator, S0, T, spec, mc, lsm, model,
-                                         heston=heston, engine=engine,
-                                         device=device)
-    if lsm.use_control_variate and _has_cv_leg(spec, model, heston):
+                                         engine=engine, device=device, **models)
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, merton, bates):
         return price_american_with_control_variate(
-            generator, S0, T, spec, mc, lsm, model, heston=heston, engine=engine,
-            device=device)
-    return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
-                              heston=heston, engine=engine, device=device)
+            generator, S0, T, spec, mc, lsm, model, engine=engine, device=device, **models)
+    return price_american_lsm(generator, S0, T, spec, mc, lsm, model, engine=engine,
+                              device=device, **models)

@@ -1,6 +1,7 @@
 """European Monte-Carlo pricing with streaming Welford statistics, as
-options_model_tpu/pricers/european.py (GBM, Heston Euler and QE-M, and
-table local-vol terminal samplers), and the one-draw exact GBM price.
+options_model_tpu/pricers/european.py (GBM, Heston Euler and QE-M, Merton,
+Bates and table local-vol terminal samplers), and the one-draw exact GBM
+price.
 
 The terminal kernels (csrc/, or their plain versions on the CPU) never
 materialize a path matrix. Chunks are keyed by global tile: chunk c runs
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from options_model_tpu_torch._unported import not_ported
-from options_model_tpu_torch.core.config import HestonParams, MCConfig, OptionSpec
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, MCConfig,
+                                                 MertonParams, OptionSpec)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (pair_mean_reduce, welford_empty,
                                                 welford_from_batch, welford_merge)
@@ -27,6 +29,7 @@ from options_model_tpu_torch.models.gbm import gbm_terminal_exact
 from options_model_tpu_torch.ops.cuda_gbm import gbm_terminal
 from options_model_tpu_torch.ops.cuda_heston import (TERMINAL_TILE, heston_terminal,
                                                      heston_terminal_qe)
+from options_model_tpu_torch.ops.cuda_jumps import jump_overlay_terminal, merton_terminal
 from options_model_tpu_torch.ops.cuda_localvol import localvol_terminal
 from options_model_tpu_torch.ops.engine import checked_device, resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
@@ -40,15 +43,22 @@ TerminalSampler = Callable[[int, int, MCConfig], torch.Tensor]
 
 def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                           heston: Optional[HestonParams] = None,
+                          merton: Optional[MertonParams] = None,
+                          bates: Optional[BatesParams] = None,
                           engine: str = "auto", heston_scheme: str = "euler",
                           localvol_table: Optional[LocalVolTable] = None,
                           div_yield=0.0, device=None) -> TerminalSampler:
     """Terminal-price sampler for GBM (log-Euler), Heston (full-truncation
-    Euler, or QE-M with ``heston_scheme="qe"``) or local vol over a compiled
+    Euler, or QE-M with ``heston_scheme="qe"``), Merton, Bates (the Heston
+    terminal kernel of ``heston_scheme``, then the terminal jump overlay
+    multiplied into its output in place) or local vol over a compiled
     Chebyshev ``localvol_table``, on the terminal kernels. ``div_yield``:
     the sampler's drift is r - q; the pricer still discounts at r. The
     sampler's ``pair_block`` is TERMINAL_TILE, the kernels' antithetic
-    mirror granularity and the unit of ``first_tile``."""
+    mirror granularity and the unit of ``first_tile``. A call draws tiles
+    [first_tile, ...) of its seed's stream; Bates's overlay takes the same
+    seed and tiles (counter word 3 = 1), so chunks never share a jump draw
+    and the price does not depend on the chunk size."""
     device = resolve_device(device)
     resolve_engine(engine, device)
     drift = r - div_yield
@@ -59,7 +69,11 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
         def fn(seed, first_tile, c):
             return gbm_terminal(seed, S0, drift, sigma, T, c.n_paths, c.n_steps,
                                 c.antithetic, first_tile, device)
-    elif model == "heston":
+    elif model in ("heston", "bates"):
+        if model == "bates":
+            if bates is None:
+                raise ValueError("bates params required for model='bates'")
+            heston = bates.heston
         if heston is None:
             raise ValueError("heston params required for model='heston'")
         if heston_scheme not in ("euler", "qe"):
@@ -68,8 +82,18 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
         kernel = heston_terminal_qe if heston_scheme == "qe" else heston_terminal
 
         def fn(seed, first_tile, c):
-            return kernel(seed, S0, drift, T, heston, c.n_paths, c.n_steps,
-                          c.antithetic, first_tile, device)
+            S_T = kernel(seed, S0, drift, T, heston, c.n_paths, c.n_steps,
+                         c.antithetic, first_tile, device)
+            if model == "bates":
+                jump_overlay_terminal(S_T, seed, T, bates, c.n_steps, first_tile)
+            return S_T
+    elif model == "merton":
+        if merton is None:
+            raise ValueError("merton params required for model='merton'")
+
+        def fn(seed, first_tile, c):
+            return merton_terminal(seed, S0, drift, T, merton, c.n_paths, c.n_steps,
+                                   c.antithetic, first_tile, device)
     elif model == "localvol":
         if localvol_table is None:
             raise not_ported("model='localvol' without a compiled localvol_table "

@@ -14,8 +14,9 @@ kernel seed is drawn and reused by all three passes (the price and both
 Gamma bumps), common random numbers as the reference's key gives them.
 
 ``cos_greeks_heston``, ``cos_greeks_bates`` and ``cos_greeks_vg``
-differentiate the COS prices: exact European Greeks with every model
-parameter's gradient, Gamma by a nested grad.
+differentiate the COS prices, ``merton_greeks`` the Merton jump-count
+series: exact European Greeks with every model parameter's gradient, Gamma
+by a nested grad.
 
 Conventions follow the reference: Theta per calendar day (/365), Vega and
 Rho per 1% (/100). TF32 stays off: lsm_poly_backward raises if it is on,
@@ -28,14 +29,14 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.calibration.charfn import (bates_cos_price, heston_cos_price,
                                                         vg_cos_price)
 from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig, MCConfig,
-                                                  OptionSpec, VGParams)
+                                                  MertonParams, OptionSpec, VGParams)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.models.gbm import simulate_gbm
 from options_model_tpu_torch.models.heston import simulate_heston
+from options_model_tpu_torch.models.merton import merton_price
 from options_model_tpu_torch.ops.engine import checked_device
 from options_model_tpu_torch.ops.philox import seed_from_generator
 from options_model_tpu_torch.pricers.american import lsm_poly_backward
@@ -243,5 +244,22 @@ def cos_greeks_vg(S0, K, T, r, vg: VGParams, cp=1.0, q=0.0, dtype=torch.float32,
             "dNu": g[6]}
 
 
-def merton_greeks(*args, **kwargs):
-    raise not_ported("merton_greeks (the Merton closed form)", "pricers.greeks.merton_greeks")
+def merton_greeks(S0, K, T, r, merton: MertonParams, cp=1.0, q=0.0, dtype=torch.float32,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """Exact European Merton Greeks: torch.autograd through the jump-count
+    series (models/merton.merton_price) in ``dtype``, on ``device`` (the card
+    by default). Vega is dPrice/dSigma (the diffusion vol) per 1%; the jump
+    triple gets its own gradients (dLam, dMuJ, dSigmaJ). Gamma is a nested
+    grad."""
+    device = checked_device(device)
+    x = torch.tensor([S0, K, T, r, merton.sigma, merton.lam, merton.mu_j, merton.sigma_j],
+                     dtype=dtype, device=device)
+
+    def f(x):
+        mp = MertonParams(*x[4:8].unbind())
+        return merton_price(x[0], x[1], x[2], x[3], mp, cp=cp, q=q, dtype=dtype)
+
+    price, g, gamma = _cos_value_grad_gamma(f, x)
+    return {"Price": price, "Delta": g[0], "Gamma": gamma, "Theta": -g[2] / 365.0,
+            "Rho": g[3] / 100.0, "Vega": g[4] / 100.0, "dLam": g[5], "dMuJ": g[6],
+            "dSigmaJ": g[7]}

@@ -10,16 +10,18 @@ options_model_tpu/pricers/surface_american.py (single device).
    mask. Each date's all-strike regression is therefore two matmuls,
    masks and mask-weighted cash (n_K, P) against the products of B, and a
    batched (n_K, d, d) Cholesky solve.
-3. Under Heston, maturities are simulated in groups of
+3. Under Heston and Bates, maturities are simulated in groups of
    g = max(1, 2^20 * 51 // (n_pad * (n_steps + 1))), one launch of the
-   batched paths kernel per group (models/heston.simulate_heston_maturities),
-   and the backward runs on each maturity's slice. A group holds at most the
+   batched paths kernel per group (models/heston.simulate_heston_maturities;
+   Bates adds one launch of the jump overlay over the same group,
+   models/bates.simulate_bates_maturities), and the backward runs on each
+   maturity's slice. A group holds at most the
    path-steps of 2^20 paths x 50 steps (428 MB with v) unless one maturity
    needs more: a 64-maturity surface at 16,384 paths x 50 steps is one
    launch; from 2^20 paths x 50 steps per maturity on, g = 1 and peak memory
    is one path matrix. (The reference runs maturities
    one after another: batching them lost its tuned Pallas tile on the TPU.)
-   GBM maturities run one after another.
+   GBM and Merton maturities run one after another, one paths launch each.
 
 Maturity i draws tiles [i * n_tiles, (i + 1) * n_tiles) of one seed's
 stream, so row i of a surface does not depend on how many maturities follow
@@ -39,7 +41,8 @@ import numpy as np
 import torch
 
 from options_model_tpu_torch._unported import not_ported
-from options_model_tpu_torch.core.config import HestonParams, MCConfig
+from options_model_tpu_torch.core.config import BatesParams, HestonParams, MCConfig, MertonParams
+from options_model_tpu_torch.models.bates import simulate_bates_maturities
 from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.models.heston import simulate_heston_maturities
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE
@@ -143,12 +146,15 @@ def _pair_stderr(cash: torch.Tensor, pair_block: Optional[int]) -> torch.Tensor:
 def price_american_surface(generator: torch.Generator, S0, strikes, maturities, rate,
                            mc: MCConfig, *, cp: float = -1.0, model: str = "heston",
                            sigma=None, heston: Optional[HestonParams] = None,
+                           merton: Optional[MertonParams] = None,
+                           bates: Optional[BatesParams] = None,
                            engine: str = "auto", heston_scheme: str = "euler",
                            div_yield=0.0, variance_basis: bool = True, mesh=None,
                            return_stderr: bool = False, device=None):
-    """American option surface (n_maturities, n_strikes), GBM or Heston
-    (Euler or QE-M), one path matrix per maturity shared by every strike;
-    Heston maturities simulated maturity_group(n_pad, n_steps) at a time.
+    """American option surface (n_maturities, n_strikes), GBM, Heston (Euler
+    or QE-M), Merton or Bates, one path matrix per maturity shared by every
+    strike; Heston and Bates maturities simulated maturity_group(n_pad,
+    n_steps) at a time.
 
     ``return_stderr`` also returns the per-cell stderr over antithetic pair
     means, (prices, stderrs). ``mesh``: a ``torch.distributed`` DeviceMesh;
@@ -156,7 +162,7 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
     if mesh is not None and mesh.size() > 1:
         raise not_ported("a multi-device mesh (maturity-sharded surface)",
                          "pricers.surface_american._surface_impl")
-    if model not in ("gbm", "heston"):
+    if model not in ("gbm", "heston", "merton", "bates"):
         raise not_ported(f"model={model!r}",
                          "pricers.surface_american.price_american_surface")
     device = resolve_device(device)
@@ -165,7 +171,11 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
     mc = simulated_config(mc, model)
     n_tiles = mc.n_paths // PATH_TILE
     strikes = torch.as_tensor(np.asarray(strikes, np.float32), device=device)
-    want_v = model == "heston" and heston is not None and variance_basis
+    if model == "bates":
+        if bates is None:
+            raise ValueError("bates params required for model='bates'")
+        heston = bates.heston
+    want_v = model in ("heston", "bates") and heston is not None and variance_basis
     stat_pb = _pair_block(mc, model) if mc.antithetic else None
 
     prices, stderrs = [], []
@@ -178,23 +188,25 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
             stderrs.append(_pair_stderr(cash, stat_pb))
 
     Ts = np.asarray(maturities, np.float32).reshape(-1).tolist()
-    if model == "heston":
+    if model in ("heston", "bates"):
         if heston is None:
             raise ValueError("heston params required for model='heston'")
         g = maturity_group(n_tiles * PATH_TILE, mc.n_steps)
         for i0 in range(0, len(Ts), g):
             group = Ts[i0:i0 + g]
-            out = simulate_heston_maturities(seed, S0, rate - div_yield, group, heston, mc,
-                                             return_variance=want_v,
-                                             first_tile=i0 * n_tiles,
-                                             scheme=heston_scheme, device=device)
+            kw = dict(return_variance=want_v, first_tile=i0 * n_tiles, scheme=heston_scheme,
+                      device=device)
+            out = (simulate_bates_maturities(seed, S0, rate - div_yield, group, bates, mc, **kw)
+                   if model == "bates" else
+                   simulate_heston_maturities(seed, S0, rate - div_yield, group, heston, mc,
+                                              **kw))
             S_all, v_all = out if want_v else (out, None)
             for m, T in enumerate(group):
                 price_maturity(S_all[m], None if v_all is None else v_all[m], T)
     else:
         for i, T in enumerate(Ts):
             S_paths = simulate_seeded(seed, i * n_tiles, S0, T, mc, model, sigma=sigma,
-                                      drift=rate - div_yield, device=device)
+                                      merton=merton, drift=rate - div_yield, device=device)
             price_maturity(S_paths, None, T)
     if return_stderr:
         return torch.stack(prices), torch.stack(stderrs)

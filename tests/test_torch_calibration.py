@@ -37,7 +37,7 @@ from options_model_tpu_torch.calibration import calibrator as tcal
 from options_model_tpu_torch.calibration import charfn as tcf
 from options_model_tpu_torch.calibration import synthetic as tsyn
 from options_model_tpu_torch.core import config as tcfg
-from options_model_tpu_torch.pricers import greeks as tgreeks
+from options_model_tpu_torch.models import merton as tmerton
 
 HESTON = dict(kappa=3.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.045)
 BATES_HESTON = dict(kappa=2.5, theta=0.05, xi=0.45, rho=-0.6, v0=0.045)
@@ -568,6 +568,20 @@ def test_app_parse_args_defaults_match_jax():
 
 # ---- what is not ported yet, and no quiet CPU ------------------------------
 
+def _bates_surface_on_two_devices():
+    """The maturity-sharded surface (a mesh of two devices) under Bates."""
+    from options_model_tpu_torch.pricers.surface_american import price_american_surface
+
+    class TwoDevices:
+        def size(self):
+            return 2
+
+    bp = tcfg.BatesParams(heston=tcfg.HestonParams(**BATES_HESTON), **JUMPS)
+    price_american_surface(torch.Generator().manual_seed(0), 100.0, [90.0, 100.0], [0.5], 0.05,
+                           tcfg.MCConfig(n_paths=4096, n_steps=4), model="bates", bates=bp,
+                           mesh=TwoDevices(), device="cpu")
+
+
 @pytest.mark.parametrize("call", [
     lambda: tcal.calibrate_heston_to_ticker("AAPL"),
     lambda: tcal_pkg.calibrate_rbergomi_to_data(),
@@ -578,11 +592,13 @@ def test_app_parse_args_defaults_match_jax():
     lambda: app.run(app.parse_args(["--test", "--model", "rbergomi"]), device="cpu"),
     lambda: app.run(app.parse_args(["--ticker", "AAPL"]), device="cpu"),
     lambda: app.run(app.parse_args(["--test", "--diagnostics-dir", "d"]), device="cpu"),
-    lambda: app.run(app.parse_args(["--test", "--model", "bates", "--price-surface", "x.csv"]),
-                    device="cpu"),
-    lambda: tgreeks.merton_greeks(100.0, 100.0, 1.0, 0.05, None),
+    lambda: _bates_surface_on_two_devices(),
+    lambda: tmerton.simulate_merton(1, torch.tensor(100.0, requires_grad=True), 0.05, 0.5,
+                                    tcfg.MertonParams(0.2, 1.0, -0.1, 0.15),
+                                    tcfg.MCConfig(n_paths=4096, n_steps=4), device="cpu"),
 ], ids=["ticker", "rbergomi_fit", "rbergomi_surface", "plot_diagnostics", "diagnostics_dir",
-        "app_rbergomi", "app_ticker", "app_diagnostics", "app_bates_surface", "merton_greeks"])
+        "app_rbergomi", "app_ticker", "app_diagnostics", "bates_surface_mesh",
+        "merton_paths_gradient"])
 def test_not_ported_names_its_reference(call):
     with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
         call()

@@ -28,15 +28,17 @@ import pytest
 import torch
 
 from options_model_tpu.core.config import PUT
+from options_model_tpu.core.config import BatesParams as JBatesParams
 from options_model_tpu.core.config import HestonParams as JHestonParams
 from options_model_tpu.core.config import LSMConfig as JLSMConfig
 from options_model_tpu.core.config import MCConfig as JMCConfig
+from options_model_tpu.core.config import MertonParams as JMertonParams
 from options_model_tpu.core.config import OptionSpec as JOptionSpec
 from options_model_tpu.core.stats import masked_mean_stderr as j_masked_mean_stderr
 from options_model_tpu.pricers import american as jam
 from options_model_tpu.pricers import regressors as jreg
-from options_model_tpu_torch.core.config import (HestonParams, LSMConfig, MCConfig,
-                                                  OptionSpec)
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig, MCConfig,
+                                                  MertonParams, OptionSpec)
 from options_model_tpu_torch.core.stats import masked_mean_stderr
 from options_model_tpu_torch.pricers import american as am
 from options_model_tpu_torch.pricers import regressors as reg
@@ -164,6 +166,43 @@ def test_richardson_cv_stat_matches_on_jax_paths(heston_paths, gbm_paths, model)
     stat, mask = am.richardson_cv_stat(_t(S), None if v is None else _t(v), spec, T,
                                        LSMConfig.from_reference(vars(jl)), heston=HESTON,
                                        model=model, pair_block=PB)
+    p_j, se_j, _ = j_masked_mean_stderr(stat_j, mask_j, None, PB)
+    p, se, _ = masked_mean_stderr(stat, mask, PB)
+    assert abs(float(p) / float(p_j) - 1.0) < 3e-3
+    assert abs(float(se) / float(se_j) - 1.0) < 1e-2
+
+
+J_JUMPS = {"merton": JMertonParams(sigma=0.2, lam=1.0, mu_j=-0.10, sigma_j=0.15),
+           "bates": JBatesParams(heston=J_HESTON, lam=0.3, mu_j=-0.1, sigma_j=0.15)}
+
+
+@pytest.mark.parametrize("model", ["merton", "bates"])
+def test_jump_cv_legs_match_on_jax_paths(model):
+    """The same XLA-simulated Merton or Bates path matrix through both
+    packages' control-variate legs (the jump-count series; the Bates COS
+    price) and the Richardson statistic with them. The per-path adjustment
+    agrees to f32 rounding of the closed form (the series to 1e-4 absolute,
+    the f32 COS price to its ~2e-3 noise floor); the price as the Heston
+    test above."""
+    jp = J_JUMPS[model]
+    kw = {model: jp}
+    port_kw = {model: (MertonParams if model == "merton" else BatesParams)
+               .from_reference(vars(jp))}
+    out = jam.simulate_paths(jax.random.key(9), 100.0, T, J_MC, model, sigma=0.2, rate=0.05,
+                             engine="xla", return_variance=model == "bates", **kw)
+    S, v = (np.asarray(out[0]), np.asarray(out[1])) if model == "bates" else (np.asarray(out),
+                                                                             None)
+    js, spec = _specs(0.2 if model == "merton" else None)
+    adj_j = jam._cv_adjustment(jnp.asarray(S), js, T, model=model, **kw)
+    adj = am._cv_adjustment(_t(S), spec, T, model=model, **port_kw)
+    np.testing.assert_allclose(adj.numpy(), np.asarray(adj_j),
+                               atol=1e-4 if model == "merton" else 2e-3)
+    jl = JLSMConfig(poly_degree=5 if model == "merton" else 3, richardson=True)
+    stat_j, mask_j = jam.richardson_cv_stat(jnp.asarray(S), None if v is None else jnp.asarray(v),
+                                            js, T, jl, model=model, pair_block=PB, **kw)
+    stat, mask = am.richardson_cv_stat(_t(S), None if v is None else _t(v), spec, T,
+                                       LSMConfig.from_reference(vars(jl)), model=model,
+                                       pair_block=PB, **port_kw)
     p_j, se_j, _ = j_masked_mean_stderr(stat_j, mask_j, None, PB)
     p, se, _ = masked_mean_stderr(stat, mask, PB)
     assert abs(float(p) / float(p_j) - 1.0) < 3e-3

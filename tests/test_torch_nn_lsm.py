@@ -23,6 +23,7 @@ from options_model_tpu.core.config import PUT
 from options_model_tpu.core.config import HestonParams as JHestonParams
 from options_model_tpu.core.config import LSMConfig as JLSMConfig
 from options_model_tpu.core.config import MCConfig as JMCConfig
+from options_model_tpu.core.config import MertonParams as JMertonParams
 from options_model_tpu.core.config import OptionSpec as JOptionSpec
 from options_model_tpu.core.stats import cashflow_statistics as j_cashflow_statistics
 from options_model_tpu.models.heston import effective_bs_sigma as j_effective_bs_sigma
@@ -30,7 +31,8 @@ from options_model_tpu.ops.lsm_basis import poly_features as j_poly_features
 from options_model_tpu.ops.lsm_basis import regression_features as j_regression_features
 from options_model_tpu.pricers import american as ja
 from options_model_tpu.pricers import regressors as jr
-from options_model_tpu_torch.core.config import HestonParams, LSMConfig, MCConfig, OptionSpec
+from options_model_tpu_torch.core.config import (HestonParams, LSMConfig, MCConfig,
+                                                  MertonParams, OptionSpec)
 from options_model_tpu_torch.core.stats import cashflow_statistics, masked_mean_stderr
 from options_model_tpu_torch.models.heston import effective_bs_sigma
 from options_model_tpu_torch.ops.lsm_basis import poly_features, regression_features
@@ -40,6 +42,8 @@ from options_model_tpu_torch.pricers import regressors as pr
 
 J_HESTON = JHestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
 HESTON = HestonParams.from_reference(vars(J_HESTON))
+J_MERTON = JMertonParams(sigma=0.2, lam=1.0, mu_j=-0.10, sigma_j=0.15)
+MERTON = MertonParams.from_reference(vars(J_MERTON))
 S0, T = 100.0, 0.5
 J_MC = JMCConfig(n_paths=4096, n_steps=8, path_block=2048)
 MC = MCConfig.from_reference(vars(J_MC))
@@ -68,13 +72,16 @@ def _gen(seed):
 
 @pytest.fixture(scope="module")
 def xla_paths():
-    """Identical paths for both packages: the JAX XLA simulators' GBM paths
-    and Heston (S, v) paths at 4096 x 8."""
+    """Identical paths for both packages: the JAX XLA simulators' GBM,
+    Merton and Heston (S, v) paths at 4096 x 8."""
     key = jax.random.key(11)
     S_g = ja.simulate_paths(key, S0, T, J_MC, "gbm", sigma=0.2, rate=0.05, engine="xla")
+    S_m = ja.simulate_paths(key, S0, T, J_MC, "merton", rate=0.05, engine="xla",
+                            merton=J_MERTON)
     S_h, v_h = ja.simulate_paths(key, S0, T, J_MC, "heston", rate=0.05, heston=J_HESTON,
                                  engine="xla", return_variance=True)
-    return {"gbm": (np.asarray(S_g), None), "heston": (np.asarray(S_h), np.asarray(v_h))}
+    return {"gbm": (np.asarray(S_g), None), "merton": (np.asarray(S_m), None),
+            "heston": (np.asarray(S_h), np.asarray(v_h))}
 
 
 def test_regression_and_poly_features_match_reference():
@@ -307,10 +314,14 @@ def test_lsm_nn_backward_matches_reference_on_identical_paths(xla_paths, model):
         pa.lsm_nn_backward(5, _t(S), spec, T, lsm, out_of_sample=True)
 
 
-@pytest.mark.parametrize("model", ["gbm", "heston"])
+@pytest.mark.parametrize("model", ["gbm", "merton", "heston"])
 def test_richardson_nn_stat_matches_reference_on_identical_paths(xla_paths, model):
+    """The NN Richardson statistic's price on the same paths. Merton takes
+    no control variate here, as in the reference: through the dispatcher,
+    its price and stderr with the CV on are those with it off, bit for
+    bit."""
     S, v = xla_paths[model]
-    js, spec = _spec(0.2 if model == "gbm" else None)
+    js, spec = _spec(None if model == "heston" else 0.2)
     jl, lsm = _lsm()
     hj, hp = (J_HESTON, HESTON) if model == "heston" else (None, None)
     stat, mask = pa.richardson_nn_stat(6, _t(S), None if v is None else _t(v), spec, T, lsm,
@@ -321,6 +332,12 @@ def test_richardson_nn_stat_matches_reference_on_identical_paths(xla_paths, mode
     p, se, _ = masked_mean_stderr(stat, mask, 2048)
     p_j, se_j = float(jnp.mean(stat_j)), float(jnp.std(stat_j)) / np.sqrt(S.shape[1] / 2)
     _agree(p, se, p_j, se_j)
+    if model == "merton":
+        on, off = (pa.price_american_richardson(torch.Generator().manual_seed(6), S0, T, spec,
+                                                MC, _lsm(use_control_variate=cv)[1], model,
+                                                merton=MERTON, device="cpu")
+                   for cv in (True, False))
+        assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
 
 
 @pytest.mark.parametrize("model", ["gbm", "heston"])

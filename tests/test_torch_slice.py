@@ -18,14 +18,19 @@ import pytest
 import torch
 
 from options_model_tpu.core.config import PUT
+from options_model_tpu.core.config import BatesParams as JBatesParams
 from options_model_tpu.core.config import HestonParams as JHestonParams
 from options_model_tpu.core.config import LSMConfig as JLSMConfig
 from options_model_tpu.core.config import MCConfig as JMCConfig
+from options_model_tpu.core.config import MertonParams as JMertonParams
 from options_model_tpu.core.config import OptionSpec as JOptionSpec
 from options_model_tpu.pricers.american import price_american as j_price_american
-from options_model_tpu_torch.core.config import (HestonParams, LSMConfig, MCConfig,
-                                                  OptionSpec)
-from options_model_tpu_torch.pricers.american import price_american, simulate_paths
+from options_model_tpu.pricers.american import (
+    price_american_with_stats as j_price_american_with_stats)
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig, MCConfig,
+                                                  MertonParams, OptionSpec)
+from options_model_tpu_torch.pricers.american import (price_american, price_american_with_stats,
+                                                      simulate_paths)
 from options_model_tpu_torch.pricers.binomial import crr_american
 from options_model_tpu_torch.pricers.european import (make_terminal_sampler,
                                                       price_european_mc)
@@ -35,6 +40,20 @@ J_HESTON = JHestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
 HESTON = HestonParams.from_reference(vars(J_HESTON))
 J_MC = JMCConfig(n_paths=1 << 14, n_steps=16, path_block=4096)
 MC = MCConfig.from_reference(vars(J_MC))
+J_MERTON = JMertonParams(sigma=0.2, lam=1.0, mu_j=-0.10, sigma_j=0.15)
+J_BATES = JBatesParams(heston=J_HESTON, lam=0.3, mu_j=-0.1, sigma_j=0.15)
+MERTON = MertonParams.from_reference(vars(J_MERTON))
+BATES = BatesParams.from_reference(vars(J_BATES))
+# The routes of the jump families through the reference's dispatchers; the
+# NN at 2^12 x 8 with a 16-unit net (tests/test_torch_nn_lsm.py's size).
+JUMP_ROUTES = {"cv": {}, "richardson": dict(richardson=True),
+               "european": dict(european_approximation=True), "stats": {},
+               "nn": dict(regressor="nn", nn_hidden=16, nn_layers=1, nn_epochs=3,
+                          nn_batch=512)}
+# The port's stderr over the JAX package's, off the NN, at J_MC: different
+# streams, so the two stderrs are each estimates (0.94-1.06 over three
+# seeds of every route).
+JUMP_SE_RATIO = 0.15
 
 
 def _port(sigma, **lsm):
@@ -94,6 +113,68 @@ def test_european_branch_matches_reference(model):
     _agree(p, se, p_j, se_j)
 
 
+@pytest.mark.parametrize("route", [pytest.param(r, marks=pytest.mark.slow) if r == "nn" else r
+                                   for r in sorted(JUMP_ROUTES)])
+@pytest.mark.parametrize("model", ["merton", "bates"])
+def test_jump_american_routes_match_reference(model, route):
+    """The Merton (degree 5, series CV) and Bates (degree 3, COS CV) American
+    puts through the CV, Richardson, European-approximation, stats and NN
+    routes, against the JAX package's XLA engine within MC error; off the
+    NN, each package's stderr within JUMP_SE_RATIO of the other's, so the
+    port's jump streams and CV legs are no noisier than the reference's.
+    The NN cases compile and train the JAX package's network (~12 s alone,
+    several times that beside other test workers): marked slow."""
+    sigma = 0.2 if model == "merton" else None
+    js, jl, spec, lsm = _port(sigma, poly_degree=5 if model == "merton" else 3,
+                              **JUMP_ROUTES[route])
+    jmc = JMCConfig(n_paths=1 << 12, n_steps=8, path_block=2048) if route == "nn" else J_MC
+    mc = MCConfig.from_reference(vars(jmc))
+    kw, jkw = ((dict(merton=MERTON), dict(merton=J_MERTON)) if model == "merton"
+               else (dict(bates=BATES), dict(bates=J_BATES)))
+    if route == "stats":
+        p, se, stats = price_american_with_stats(_gen(21), 100.0, 0.5, spec, mc, lsm, model,
+                                                 device="cpu", **kw)
+        p_j, se_j, stats_j = j_price_american_with_stats(jax.random.key(21), 100.0, 0.5, js,
+                                                         jmc, jl, model, engine="xla", **jkw)
+        assert set(stats) == set(stats_j)
+    else:
+        p, se = price_american(_gen(21), 100.0, 0.5, spec, mc, lsm, model, device="cpu", **kw)
+        p_j, se_j = j_price_american(jax.random.key(21), 100.0, 0.5, js, jmc, jl, model,
+                                     engine="xla", **jkw)
+    assert bool(torch.isfinite(p)) and 0 < float(se) < 0.2
+    _agree(p, se, p_j, se_j)
+    if route != "nn":
+        assert abs(float(se) / float(se_j) - 1.0) <= JUMP_SE_RATIO, (float(se), float(se_j))
+
+
+@pytest.mark.slow
+def test_merton_bench_leg_stderr_matches_reference():
+    """bench.py's Merton American leg as chip_smoke.py's J1 runs it (2^18 x
+    50, degree 5, series CV) on its first four seeds: the port's per-seed
+    stderr against the JAX package's, within 3% pooled. Run with -s, it
+    prints each seed's price and stderr and both packages' pooled stderr
+    and seed spread (~25 s on the CPU: marked slow)."""
+    js, jl, spec, lsm = _port(0.2, poly_degree=5)
+    jmc = JMCConfig(n_paths=1 << 18, n_steps=50, path_block=4096)
+    mc = MCConfig.from_reference(vars(jmc))
+    rows = []
+    for s in range(4):
+        p, se = price_american(_gen(33 + s), 100.0, 0.5, spec, mc, lsm, "merton",
+                               merton=MERTON, device="cpu")
+        p_j, se_j = j_price_american(jax.random.fold_in(jax.random.key(33), s), 100.0, 0.5,
+                                     js, jmc, jl, "merton", merton=J_MERTON, engine="xla")
+        rows.append((float(p), float(se), float(p_j), float(se_j)))
+    p, se, p_j, se_j = np.asarray(rows).T
+    ratio = float(np.sqrt(np.sum(se ** 2) / np.sum(se_j ** 2)))
+    for s, row in enumerate(rows):
+        print(f"seed {s}: port {row[0]:.6f} +- {row[1]:.6f}, JAX {row[2]:.6f} +- {row[3]:.6f}")
+    print(f"stderr ratio port/JAX {ratio:.4f}; per-seed stderr {se.mean() / p.mean():.4%} "
+          f"/ {se_j.mean() / p_j.mean():.4%}; 4-seed spread (ddof 1) "
+          f"{p.std(ddof=1) / p.mean():.4%} / {p_j.std(ddof=1) / p_j.mean():.4%}")
+    assert abs(ratio - 1.0) <= 0.03, rows
+    _agree(p.mean(), np.sqrt(np.sum(se ** 2)) / 4, p_j.mean(), np.sqrt(np.sum(se_j ** 2)) / 4)
+
+
 def test_european_price_does_not_depend_on_chunk_size():
     """Chunks are keyed by global tile, so chunking only bounds memory."""
     _, _, spec, _ = _port(None)
@@ -149,15 +230,15 @@ def test_no_silent_fallback_to_the_cpu():
         price_american(*args, heston=HESTON, device="cuda")
 
 
-@pytest.mark.parametrize("case", ["merton", "bates", "localvol", "axis_name", "blocked"])
+@pytest.mark.parametrize("case", ["vg", "sabr", "localvol", "axis_name", "blocked"])
 def test_unported_features_name_their_reference(case):
     _, _, spec, lsm = _port(None)
     with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
-        if case == "merton":
-            price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "merton", device="cpu")
-        elif case == "bates":
+        if case == "vg":
+            price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "vg", device="cpu")
+        elif case == "sabr":
             price_american(_gen(8), 100.0, 0.5, spec, MC, LSMConfig(regressor="nn"),
-                           "bates", heston=HESTON, device="cpu")
+                           "sabr", heston=HESTON, device="cpu")
         elif case == "localvol":
             # local vol without a compiled table: the surface-network route
             simulate_paths(_gen(8), 100.0, 0.5, MC, "localvol", rate=0.05, device="cpu")

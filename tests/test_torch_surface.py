@@ -143,7 +143,7 @@ def test_surface_refusals():
         price_american_surface(_gen(6), 100.0, STRIKES, [0.5], 0.05, mc, heston=HESTON,
                                mesh=TwoDevices(), device="cpu")
     with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
-        price_american_surface(_gen(6), 100.0, STRIKES, [0.5], 0.05, mc, model="merton",
+        price_american_surface(_gen(6), 100.0, STRIKES, [0.5], 0.05, mc, model="vg",
                                device="cpu")
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
