@@ -8,8 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit; count the time loops of kernels
-   1 and 3-8 (both designs) in SASS, with their registers and stack, and
-   there the integer instructions of a Philox call;
+   1, 3-8, 13 and 15 (both designs) in SASS, with their registers and
+   stack, and there the integer instructions of a Philox call;
 2. each of the eight path kernels against its plain PyTorch version on the
    card, at 2 and 64 tiles and at its path's shape: equal Philox bits, S
    (and v) within the stated tolerances, and bit-equal chunks at a
@@ -35,15 +35,18 @@ Phases, in order; any failure exits non-zero:
    its first design, csrc/heston_variants.cu, against its plain version
    (rtol 1e-5) and kernel 4's first design (the same equalities), with
    bit-equal ``first_tile`` chunks; the three VJP kernels of
-   csrc/greeks.cu (the backward of kernels 1, 2 and 4 on the Greeks path)
+   csrc/greeks.cu (the backward of kernels 1, 2 and 4 on the Greeks path;
+   the Euler one redesigned, kernel 13, its first design beside it)
    against their plain versions at 2^14 x 50, with and without
    antithetics, within 1e-4 of the paths' absolute shares, and each
    gradient component against the central difference of its own forward
-   kernel on the same seed; J0, the four jump kernels of csrc/jumps.cu
+   kernel on the same seed; kernel 13's rows bit-equal on two launches and
+   in a ``first_tile`` chunk; J0, the four jump kernels of csrc/jumps.cu
    (Merton paths and terminal, the Bates overlay on paths and terminal
-   values) against their plain versions at the jumps path's shapes and at
-   lam dt = 1, with and without antithetics: S within rtol 1e-5, every
-   Poisson count bit for bit, bit-equal ``first_tile`` chunks;
+   values; kernel 15 redesigned, its first design beside it) against their
+   plain versions at the jumps path's shapes and at lam dt = 1, with and
+   without antithetics: S within rtol 1e-5, every Poisson count bit for
+   bit, bit-equal ``first_tile`` chunks;
 3. the paths, each driven with every launch count set to 0 just before it
    and read just after:
    a. the main path through ``price_american``: the pooled Heston American
@@ -61,7 +64,8 @@ Phases, in order; any failure exits non-zero:
    d. the Greeks path (pricers/greeks.py): GBM European call Greeks at
       2^22 x 100 against the closed form (G1), the GBM American put at 2^21
       x 50 (G2) and the Heston American put at 2^20 x 50 (G3) against
-      common-random-number bumps, exact COS Greeks against central
+      common-random-number bumps (G3's first seed run twice, bit for bit
+      the same), exact COS Greeks against central
       differences (G4), bs_greeks and implied_vol on a 64 x 64 grid (G5);
    e. the two kernel-4 experiments (options_model_tpu_torch/scripts/
       exp_paths_kernel.py and exp_fullpath_layout.py) at their scripts'
@@ -83,7 +87,7 @@ Phases, in order; any failure exits non-zero:
       J4 the 64 x 64 Bates and Merton surfaces, apps.calibrate --model
       bates --price-surface, merton_greeks against f64 central differences;
 4. the launch counts of each path, none of its kernels at 0, the first
-   design of kernels 1 and 3-8 and of the variants at 0, and one paths
+   design of kernels 1, 3-8, 13 and 15 and of the variants at 0, and one paths
    launch per 64x64 Heston surface; the experiments reach the variants'
    first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -92,13 +96,16 @@ Phases, in order; any failure exits non-zero:
    occupancy; for kernels 4 and 6 the surface shape (one batched launch
    against 64 single launches of either design); kernels 7 and 8 at
    degrees 3 and 17; the American puts, the surface's ADI cells, the
-   European legs of kernels 1, 3, 5 and 7 and the local-vol American put
+   European legs of kernels 1, 3, 5, 7 and 15 and the local-vol American put
    of kernel 8 beside the first design's on the same seeds (the European
    legs and the local-vol put within EARLIER_EURO_GATE stderr of it);
    seconds per price and per surface, each European leg beside its
    kernel's time; the VJP kernels' times beside their bounds, and the
    seconds of a Greeks call (G1-G3) with the share of its kernels; the
-   jump kernels' times beside their bounds and the jumps path's seconds.
+   jump kernels' times beside their bounds and the jumps path's seconds;
+   kernels 13 and 15 in turns with their first designs, and kernel 14 at
+   the jumps path's own shapes (2^18 x 50 and 16,384 x 50) with its
+   launches x (time - bound) there.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel and
 one per jump kernel;
@@ -509,10 +516,22 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "localvol paths": "21localvol_paths_kernelILi7ELb1E",
                 "localvol paths, first design": "15localvol_kernelILb1E",
                 "localvol terminal, degree 3": "24localvol_terminal_kernelILi3ELb1E",
-                "localvol paths, degree 3": "21localvol_paths_kernelILi3ELb1E"}
+                "localvol paths, degree 3": "21localvol_paths_kernelILi3ELb1E",
+                "euler vjp": "16euler_vjp_kernelILb1ELb1E",
+                "euler vjp, first design": "22euler_paths_vjp_kernelILb1ELb1E",
+                "merton terminal": "22merton_terminal_kernelILb1ELb0E",
+                "merton terminal, first design": "13merton_kernelILb0ELb1E"}
+# Pair-steps a pass of the time loop covers where that is not one. The
+# redesigned Euler VJP's thread holds one path through four steps (two
+# pair-steps' worth of path-steps); its first design a pair through two.
 SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm terminal": 4,
               "localvol paths": 4, "localvol terminal, degree 3": 4,
-              "localvol paths, degree 3": 4}
+              "localvol paths, degree 3": 4, "euler vjp": 2, "euler vjp, first design": 2,
+              "merton terminal": 2}
+# The loops whose instructions phase_sass prints by unit.
+SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
+              "localvol terminal, degree 3", "localvol paths, degree 3", "euler vjp",
+              "euler vjp, first design", "merton terminal", "merton terminal, first design")
 
 
 def sass_loops(text: str) -> dict:
@@ -604,11 +623,10 @@ def phase_sass() -> dict:
                                        f"{len(v) / SASS_STEPS[k] / 2:g} a path-step)"
                                        if k in SASS_STEPS else "")
                     for k, v in loops.items()))
-    for key in ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
-                "localvol terminal, degree 3", "localvol paths, degree 3"):
+    for key in SASS_PIPES:
         if key in loops:
-            log(f"[1] SASS {key} loop by unit (a pass of {SASS_STEPS[key]} pair-steps): "
-                + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items()))
+            log(f"[1] SASS {key} loop by unit (a pass of {SASS_STEPS.get(key, 1)} "
+                "pair-steps): " + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items()))
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -1464,11 +1482,12 @@ def phase_earlier_localvol_american(lv_put: tuple) -> None:
 
 
 def phase_earlier_europeans(euro: dict) -> None:
-    """The European legs of kernels 3, 1, 5 and 7 with their first design:
+    """The European legs of kernels 3, 1, 5, 7 and 15 with their first design:
     the same seeds and tiles through heston_terminal_accurate,
-    gbm_terminal_accurate, heston_terminal_qe_accurate and
-    localvol_terminal_accurate, beside the prices of phases 3a and 3b (which
-    launched the redesigns); fails if a leg moved by more than
+    gbm_terminal_accurate, heston_terminal_qe_accurate,
+    localvol_terminal_accurate and merton_terminal_first, beside the prices
+    of phases 3a, 3b and J2 (which launched the redesigns); fails if a leg
+    moved by more than
     EARLIER_EURO_GATE of its stderr. Also each leg's seconds per price with
     either design, in turns. Run outside the paths' counts."""
     import dataclasses
@@ -1476,9 +1495,9 @@ def phase_earlier_europeans(euro: dict) -> None:
     import torch
 
     from options_model_tpu_torch.core.config import (CALL, PUT, HestonParams, MCConfig,
-                                                      OptionSpec)
+                                                      MertonParams, OptionSpec)
     from options_model_tpu_torch.core.stats import masked_mean_stderr
-    from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_localvol
+    from options_model_tpu_torch.ops import cuda_gbm, cuda_heston, cuda_jumps, cuda_localvol
     from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
     from options_model_tpu_torch.ops.philox import seed_from_generator
     from options_model_tpu_torch.pricers.european import price_european_mc
@@ -1503,23 +1522,27 @@ def phase_earlier_europeans(euro: dict) -> None:
     put = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None)
     call = OptionSpec(strike=100.0, rate=0.05, cp=CALL, sigma=None)
     H, G, LV = cuda_heston, cuda_gbm, cuda_localvol
+    # (label, seed, option, first design, redesign, model arguments, T)
     legs = (("heston_european", 11, put, H.heston_terminal_accurate, H.heston_terminal,
-             (1.0, hp)),
-            ("gbm_european", 13, call, G.gbm_terminal_accurate, G.gbm_terminal, (0.2, 1.0)),
+             (1.0, hp), 1.0),
+            ("gbm_european", 13, call, G.gbm_terminal_accurate, G.gbm_terminal, (0.2, 1.0), 1.0),
             ("qe_european", 17, put, H.heston_terminal_qe_accurate, H.heston_terminal_qe,
-             (1.0, hp)),
+             (1.0, hp), 1.0),
             ("localvol_european", 19, call, LV.localvol_terminal_accurate, LV.localvol_terminal,
-             (1.0, smile_t)),
+             (1.0, smile_t), 1.0),
             ("localvol_constant", 29, call, LV.localvol_terminal_accurate, LV.localvol_terminal,
-             (1.0, flat_t)))
+             (1.0, flat_t), 1.0),
+            # J2's leg and its first seed
+            ("merton_european", 31, put, cuda_jumps.merton_terminal_first,
+             cuda_jumps.merton_terminal, (0.5, MertonParams(**MERTON_BENCH)), 0.5))
     first, secs = {}, {}
-    for label, seed, spec, old, new, model in legs:
+    for label, seed, spec, old, new, model, T in legs:
         samplers = {"first": sampler(old, *model), "new": sampler(new, *model)}
         t = {"first": [], "new": []}
         for which in ("first", "new", "new", "first") * EURO_TURNS:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            p, se, _ = price_european_mc(gen(seed), samplers[which], spec, 1.0, mc_e)
+            p, se, _ = price_european_mc(gen(seed), samplers[which], spec, T, mc_e)
             p, se = float(p), float(se)
             t[which].append(time.perf_counter() - t0)
             if which == "first":
@@ -1774,6 +1797,9 @@ VJP_SHAPE = (1 << 14, 50)
 # reach, and every kernel its path's grid and row sums.
 VJP_GREEKS_SHAPE = {"gbm_terminal_vjp": (1 << 22, 100), "gbm_paths_vjp": (1 << 21, 50),
                     "euler_paths_vjp": (1 << 20, 50)}
+# Step counts at which the redesigned Euler VJP kernel runs each tail of its
+# four-step loop (50 ends in a tail of 2).
+VJP_TAILS = (49, 51, 52)
 # Directional check: each component against (<g, F(theta + h)> - <g,
 # F(theta - h)>) / 2h of the forward kernel on the same seed, inner
 # products in float64, h = 1e-3 |theta| (the step the float32 parameter
@@ -1878,6 +1904,9 @@ def vjp_case(name: str, n_paths: int, n_steps: int, anti: bool, with_v: bool = T
         g = (cot(S, params[0]), cot(v, params[4], 100.0) if with_v else None)
         kernel = cuda_heston.euler_paths_vjp(*g, seed, *params[:3], HestonParams(*params[3:]),
                                              n_paths, n_steps, anti)
+        first = cuda_heston.euler_paths_vjp_first(*g, seed, *params[:3],
+                                                  HestonParams(*params[3:]), n_paths, n_steps,
+                                                  anti)
         z1, z2 = cuda_heston._normals(seed, S.shape[1] // cuda_heston.PATH_TILE,
                                       cuda_heston.PATH_TILE, n_steps, anti, 0, DEVICE)
         shares = heston_euler_vjp_from_normals(z1, z2, *g, *params[:3],
@@ -1888,7 +1917,7 @@ def vjp_case(name: str, n_paths: int, n_steps: int, anti: bool, with_v: bool = T
         g = tuple(x for x in g if x is not None)
         F_out = (lambda p: F(p)) if with_v else (lambda p: F(p)[:1])
         return dict(params=params, F=F_out, g=g, kernel=kernel, plain=plain, shares=shares,
-                    near=v.min(0).values < V_KINK)
+                    near=v.min(0).values < V_KINK, first=first)
     paths = name == "gbm_paths_vjp"
     params = [100.0, 0.05, 0.2, 0.5 if paths else 1.0]
     fwd = cuda_gbm.gbm_paths if paths else cuda_gbm.gbm_terminal
@@ -1937,23 +1966,69 @@ def directional(case: dict, idx: int, rtol: float) -> tuple:
     return fd, rtol * abs(fd) + noise + kink, kink
 
 
+def euler_vjp_rows_checks() -> None:
+    """The redesigned Euler VJP kernel's rows at 64 tiles x 50 steps, with
+    and without antithetics and a cotangent on v: a second launch equals the
+    first bit for bit (no float atomics), and a launch over tiles 32..63 at
+    first_tile 32 equals rows 32 x 16.. of the 64-tile launch bit for bit (no
+    block straddles a tile)."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.ops import cuda_heston as ch
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    n, steps, seed = 64 * ch.PATH_TILE, 50, 0x5DEECE66D
+    rng = np.random.default_rng(11)
+    g = [torch.from_numpy(rng.uniform(0.5, 1.5, (steps + 1, n)).astype(np.float32)).to(DEVICE)
+         / n for _ in range(2)]
+    half = 32 * ch.PATH_TILE
+    for anti, with_v in itertools.product((True, False), (True, False)):
+        gv = g[1] if with_v else None
+
+        def rows(first_tile=0):
+            cols = slice(half, None) if first_tile else slice(None)
+            return ch.euler_paths_vjp_rows(g[0][:, cols].contiguous(),
+                                           None if gv is None else gv[:, cols].contiguous(),
+                                           seed, 100.0, 0.05, 0.5, hp, n - first_tile *
+                                           ch.PATH_TILE, steps, anti, first_tile)
+
+        full, again, part = rows(), rows(), rows(32)
+        torch.cuda.synchronize()
+        if full.shape[0] != ch.euler_vjp_blocks(64) or not torch.equal(full, again):
+            fail(f"euler_paths_vjp (antithetic {anti}, v {with_v}): {full.shape[0]} rows, or "
+                 "a second launch differs from the first")
+        if not torch.equal(full[32 * ch.euler_vjp_blocks(1):], part):
+            fail(f"euler_paths_vjp (antithetic {anti}, v {with_v}): a launch at first_tile 32 "
+                 "differs from the matching rows of the full launch")
+    log("[2v] euler_paths_vjp (the redesign) at 64 tiles x 50 steps, with and without "
+        "antithetics and a cotangent on v: two launches bit for bit the same; a first_tile=32 "
+        "launch equals the full launch's rows 512.. bit for bit")
+
+
 def phase_vjp() -> dict:
     """Each VJP kernel against its plain version on the card at VJP_SHAPE
     and at VJP_GREEKS_SHAPE, with and without antithetics (the Euler kernel
-    also without a cotangent on v at VJP_SHAPE: its kV = false instance),
-    within VJP_RTOL of the paths' absolute shares; then, at VJP_SHAPE, each
+    also without a cotangent on v at VJP_SHAPE: its kV = false instance, and
+    at VJP_TAILS steps), within VJP_RTOL of the paths' absolute shares, the
+    Euler kernel's first design too; then, at VJP_SHAPE, each
     component against the directional difference of its own forward kernel
-    on the same seed (antithetic). Returns per kernel the max |kernel -
-    plain|, that over the scale, and the worst |vjp - fd| over its
-    tolerance."""
+    on the same seed (antithetic); and euler_vjp_rows_checks. Returns per
+    kernel the max |kernel - plain|, that over the scale, and the worst
+    |vjp - fd| over its tolerance."""
     import torch
 
+    euler_vjp_rows_checks()
     out = {}
     for name, params in VJP_PARAMS.items():
         row = dict(max_abs_err=0.0, max_scaled_err=0.0, fd_worst=0.0)
         variants = [(VJP_SHAPE, True, True), (VJP_SHAPE, False, True)]
         if name == "euler_paths_vjp":
             variants.append((VJP_SHAPE, True, False))
+            variants += [((VJP_SHAPE[0], steps), anti, True)
+                         for steps, anti in itertools.product(VJP_TAILS, (True, False))]
+            row["first_max_scaled_err"] = 0.0
         variants += [(VJP_GREEKS_SHAPE[name], anti, True) for anti in (True, False)]
         for (n, steps), anti, with_v in variants:
             c = vjp_case(name, n, steps, anti, with_v)
@@ -1962,6 +2037,12 @@ def phase_vjp() -> dict:
             scale = c["shares"].abs().sum(1).cpu()
             if not bool(torch.isfinite(k).all()):
                 fail(f"{name}: non-finite gradient {k.tolist()}")
+            if "first" in c:
+                first_err = float(((c["first"].cpu() - p).abs() / scale).max())
+                row["first_max_scaled_err"] = max(row["first_max_scaled_err"], first_err)
+                if not first_err <= VJP_RTOL:
+                    fail(f"{name}'s first design differs from the plain version by {first_err} "
+                         "of the paths' absolute shares")
             err = (k - p).abs()
             row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
             row["max_scaled_err"] = max(row["max_scaled_err"], float((err / scale).max()))
@@ -1972,7 +2053,8 @@ def phase_vjp() -> dict:
                 + ("" if with_v else ", no cotangent on v") + ": kernel "
                 + ", ".join(f"{q} {x:.6e}" for q, x in zip(params, k.tolist()))
                 + f"; max |kernel - plain| / sum of |path shares| "
-                f"{float((err / scale).max()):.2e} (rtol {VJP_RTOL})")
+                f"{float((err / scale).max()):.2e} (rtol {VJP_RTOL})"
+                + (f"; first design {first_err:.2e}" if "first" in c else ""))
             if not bool((err <= VJP_RTOL * scale).all()):
                 fail(f"{name} differs from its plain version beyond {VJP_RTOL} of the "
                      f"paths' absolute shares: kernel {k.tolist()}, plain {p.tolist()}")
@@ -2184,6 +2266,13 @@ def phase_greeks() -> tuple:
         if not (-1.0 < r["Delta"] < 0.0 and r["dV0"] > 0 and r["dTheta"] > 0
                 and r["Theta"] < 0):
             fail(f"G3: a Greek has the wrong sign: {r}")
+    again = {k: float(v) for k, v in mc_greeks_heston(torch.Generator().manual_seed(51), 100.0,
+                                                      0.5, spec, mc, hp,
+                                                      device=DEVICE).items()}
+    differ = [k for k, v in again.items() if v != runs[0][k]]
+    log(f"[3g] G3 seed 0 run again: every Greek bit for bit the same {not differ}")
+    if differ:
+        fail(f"G3: a second run of the same seed changed {differ}")
     res["G3"] = dict(pool=pool, gap=(gap, gap_se), seed0=runs[0], fd=fds)
 
     # G4: exact European Heston Greeks through the COS price, float64.
@@ -2457,6 +2546,23 @@ def phase_calibration() -> dict:
     return res
 
 
+def first_design_row(name: str, source: str, shape: str, turns: list, bound_ms: float,
+                     a: dict) -> dict:
+    """The first design's fields of a redesigned kernel's timing row (kernels
+    13 and 15), from times in turns (first, new, new, first) and the first
+    design's registers and occupancy ``a``; logged beside the redesign's."""
+    ms, first_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
+    log(f"[5] {name} at {shape}: {first_ms:.4f} ms, {bound_ms / first_ms * 100:.1f}% of "
+        f"bound; redesign {ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}; first design "
+        f"{turns[0]:.4f}, {turns[3]:.4f}; {ms / first_ms:.3f}x); first design "
+        f"{a['registers']} registers, {a['spill_bytes']} spill bytes, {a['blocks_per_sm']} "
+        f"blocks of {a['block']} per SM ({occ * 100:.1f}% occupancy)")
+    return dict(earlier_name=name, earlier_source=source, earlier_ms=first_ms, turns=turns,
+                earlier_registers=a["registers"], earlier_spill_bytes=a["spill_bytes"],
+                earlier_occupancy=occ)
+
+
 # G2 runs kernel 2 and its VJP at 2^21 paths, twice the timed 2^20.
 GREEKS_SHAPE = {"G2": {"gbm_paths": 2.0, "gbm_paths_vjp": 2.0}}
 
@@ -2505,13 +2611,21 @@ def phase_vjp_timing(specs, per_call: float) -> dict:
             gv = g.clone()
             run = lambda: cuda_heston.euler_paths_vjp_rows(g, gv, seed, 100.0, 0.05, 0.5, hp,
                                                            n, steps)
+            first = lambda: cuda_heston.euler_paths_vjp_rows_first(g, gv, seed, 100.0, 0.05,
+                                                                   0.5, hp, n, steps)
             whole = lambda: cuda_heston.euler_paths_vjp(g, gv, seed, 100.0, 0.05, 0.5, hp, n,
                                                         steps)
             plain = lambda: cuda_heston.euler_paths_vjp_reference(g, gv, seed, 100.0, 0.05,
                                                                   0.5, hp, n, steps)
             b = bound(n, steps, k["ops"], int_ops(k["draws"], per_call),
                       k["bytes"] * n * (steps + 1))
-        ms = time_per_call(run, N_TIMED)
+        turns = None
+        if k["name"] == "euler_paths_vjp":
+            # in turns with the first design: first, new, new, first
+            turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
+            ms = (turns[1] + turns[2]) / 2
+        else:
+            ms = time_per_call(run, N_TIMED)
         whole_ms = time_per_call(whole, N_TIMED)
         plain_ms = time_per_call(plain, N_TIMED)
         a = attrs[k["name"]]
@@ -2521,6 +2635,10 @@ def phase_vjp_timing(specs, per_call: float) -> dict:
                               registers=a["registers"],
                               spill_bytes=a["spill_bytes"], block=a["block"], occupancy=occ,
                               **b)
+        if turns is not None:
+            out[k["name"]].update(first_design_row(
+                "euler_paths_vjp_first", k["source"], f"{n} x {steps} with v", turns,
+                b["bound_ms"], attrs["euler_paths_vjp_first"]))
         log(f"[5] {k['name']} {n} paths" + ("" if k["name"] == "gbm_terminal_vjp" else
                                             f" x {steps} steps")
             + f": kernel {ms:.4f} ms (the wrapper with its row sums and chain rule "
@@ -2617,7 +2735,8 @@ def _jump_inputs():
 
 
 def phase_jump_kernels() -> dict:
-    """J0: kernels 14-17 against their plain versions on the card at the
+    """J0: kernels 14-17 (and kernel 15's first design) against their plain
+    versions on the card at the
     jumps path's shapes (Merton 2^18 x 50 and 2^20 x 50 paths, 2^22 x 100
     terminal, with and without antithetics; the overlay on a 2^20 x 50
     Heston matrix, on the 64 x 16,384 x 50 surface batch and on 2^22
@@ -2633,6 +2752,7 @@ def phase_jump_kernels() -> dict:
 
     seed, mp, mp_heavy, jb, jb_heavy, hp = _jump_inputs()
     errs = {k["name"]: dict(s_abs=0.0, s_rel=0.0) for k in jump_specs()}
+    errs["merton_terminal_first"] = dict(s_abs=0.0, s_rel=0.0)
 
     def held(name, tag, got, want):
         torch.cuda.synchronize()
@@ -2666,8 +2786,20 @@ def phase_jump_kernels() -> dict:
              ((mp, 1 << 22, 100), (mp_heavy, 2 * ch.TERMINAL_TILE, 100)))):
         for (p, n_paths, steps), anti in itertools.product(cases, (True, False)):
             args = (seed, 100.0, 0.05, 0.5, p, n_paths, steps, anti, 0, DEVICE)
-            held(fn.__name__, f"lam {p.lam} at {n_paths} x {steps}, antithetic {anti}",
-                 fn(*args, return_counts=True), ref(*args, return_counts=True))
+            want = ref(*args, return_counts=True)
+            tag = f"lam {p.lam} at {n_paths} x {steps}, antithetic {anti}"
+            got = fn(*args, return_counts=True)
+            held(fn.__name__, tag, got, want)
+            if fn is cj.merton_terminal:
+                first = cj.merton_terminal_first(*args, return_counts=True)
+                held("merton_terminal_first", tag, first, want)
+                # the pricers' instance, without the counts output
+                bare = fn(*args)
+                if not (torch.equal(bare, got[0]) and torch.equal(bare, first[0])):
+                    fail(f"merton_terminal {tag}: S_T without the counts output differs from "
+                         "S_T with them or from the first design's")
+                log(f"[J0] merton_terminal {tag}: S_T without the counts output == with them "
+                    "== the first design's, bit for bit")
         tile = ch.PATH_TILE if fn is cj.merton_paths else ch.TERMINAL_TILE
         chunk(fn.__name__, fn(seed, 100.0, 0.05, 0.5, mp, 64 * tile, 50, True, 0, DEVICE),
               fn(seed, 100.0, 0.05, 0.5, mp, 32 * tile, 50, True, 32, DEVICE), 32 * tile)
@@ -2911,11 +3043,35 @@ def phase_jumps() -> tuple:
     return {k: statistics.median(v) for k, v in secs.items()}, res
 
 
-def phase_jump_timing(per_call: float) -> dict:
+def merton_paths_shapes(seed, mp, spec, n_int: float, shapes: dict) -> dict:
+    """Kernel 14 at each (n_pad, n_steps) at which the jumps path launched it,
+    ``shapes`` its launches there (cuda_jumps.shape_launches read after that
+    path; J1 runs it at 2^18 x 50, J4's Merton surface at 16,384 x 50, 64
+    blocks of 128 threads, under one wave of 132 SMs): its time, bound and
+    launches x (time - bound), the loss the redesign queue ranks it by."""
+    from options_model_tpu_torch.ops import cuda_jumps as cj
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    out = {}
+    for (n, steps), launches in sorted(shapes.items(), reverse=True):
+        ms = time_per_call(lambda: cj.merton_paths(seed, 100.0, 0.05, 0.5, mp, n, steps,
+                                                   device=DEVICE), N_TIMED)
+        b = bound(n, steps, spec["ops"], n_int, (steps + 1) * n * 4)
+        loss = launches * (ms - b["bound_ms"])
+        out[f"{n}x{steps}"] = dict(ms=ms, launches=launches, loss_ms=loss, **b)
+        log(f"[5] merton_paths at {n} x {steps}: {ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_term']} ({b['bound_ms'] / ms * 100:.1f}%); {launches} launches on the "
+            f"jumps path: loss {launches} x ({ms:.4f} - {b['bound_ms']:.4f}) = {loss:.3f} ms")
+    return out
+
+
+def phase_jump_timing(per_call: float, shapes: dict) -> dict:
     """CUDA-event medians of kernels 14-17 and of their plain versions at
     their timed shapes (Merton paths 2^20 x 50, terminal 2^22 x 100; the
     overlay on a 2^20 x 50 Heston matrix and on 2^22 terminal values, in
-    place), each beside its bound; registers and occupancy."""
+    place), each beside its bound; registers and occupancy; kernel 15 in
+    turns with its first design; kernel 14 also at the jumps path's own
+    shapes, ``shapes`` (merton_paths_shapes)."""
     import torch
 
     from options_model_tpu_torch.ops import cuda_heston as ch
@@ -2941,7 +3097,16 @@ def phase_jump_timing(per_call: float) -> dict:
     out = {}
     for k in jump_specs():
         n, steps = k["timed"]
-        ms = time_per_call(lambda: runs[k["name"]](False), N_TIMED)
+        turns = None
+        if k["name"] == "merton_terminal":
+            # in turns with the first design: first, new, new, first
+            first = lambda: cj.merton_terminal_first(seed, 100.0, 0.05, 0.5, mp, n, steps,
+                                                     device=DEVICE)
+            new = lambda: runs["merton_terminal"](False)
+            turns = [time_per_call(f, N_TIMED) for f in (first, new, new, first)]
+            ms = (turns[1] + turns[2]) / 2
+        else:
+            ms = time_per_call(lambda: runs[k["name"]](False), N_TIMED)
         plain_ms = time_per_call(lambda: runs[k["name"]](True), 3)
         n_int = int_ops(k["draws"], per_call)
         b = bound(n, steps, k["ops"], n_int, k["bytes"])
@@ -2949,6 +3114,12 @@ def phase_jump_timing(per_call: float) -> dict:
         out[k["name"]] = dict(ms=ms, plain_ms=plain_ms, registers=a["registers"],
                               spill_bytes=a["spill_bytes"], block=a["block"],
                               occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
+        if turns is not None:
+            out[k["name"]].update(first_design_row(
+                "merton_terminal_first", k["source"], f"{n} x {steps}", turns, b["bound_ms"],
+                attrs["merton_terminal_first"]))
+        if k["name"] == "merton_paths":
+            out[k["name"]]["path_shapes"] = merton_paths_shapes(seed, mp, k, n_int, shapes)
         log(f"[5] {k['name']} {n} paths x {steps} steps: kernel {ms:.4f} ms "
             f"({n * steps / ms * 1e3:.4e} path-steps/s, {k['bytes'] / ms / 1e9:.3f} TB/s "
             f"moved), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
@@ -2987,16 +3158,24 @@ def main() -> int:
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
+    from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
+
     counted = specs + vjp + jumps
+    # kernels 13 and 15's first designs: the yardsticks no path may reach
+    firsts = {"euler_paths_vjp_first": cuda_heston.launches,
+              "merton_terminal_first": cuda_jumps.launches}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
+    counters += [(d, key) for key, d in firsts.items()]
 
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
-        was never launched, or if the first design of kernels 1 or 3-8, or
-        of the variants, was. Returns (fn's result, that path's counts)."""
+        was never launched, or if the first design of kernels 1, 3-8, 13 or
+        15, or of the variants, was. Returns (fn's result, that path's
+        counts)."""
         for d, key in counters:
             d[key] = 0
+        cuda_jumps.shape_launches.clear()
         out = fn()
         counts = {k["name"]: k["counter"][0][k["counter"][1]] for k in counted}
         log(f"[4] kernel launches during the {path} path: {counts}")
@@ -3006,10 +3185,11 @@ def main() -> int:
         earlier = {k["name"]: k["counter"][0][k["counter"][1]] for k in earlier_specs(specs)}
         earlier["heston_variant_accurate"] = sum(n for key, n in hv.launches.items()
                                                  if "first design" in key)
+        earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3, 4, 5, 6, 7 or 8, "
-                 f"or of the variants: {earlier}")
+            fail(f"the {path} path reached the first design of kernels 1, 3, 4, 5, 6, 7, 8, 13 "
+                 f"or 15, or of the variants: {earlier}")
         return out, mine
 
     (secs, euro), launches = drive("main", phase_main_path)
@@ -3020,14 +3200,20 @@ def main() -> int:
     (secs_g, per_call_g, greeks_res), launches_g = drive("greeks", phase_greeks)
     cal_res, launches_c = drive("calibration", phase_calibration)
     (secs_j, jump_res), launches_j = drive("jumps", phase_jumps)
+    shapes_j = dict(cuda_jumps.shape_launches)
+    log(f"[4] merton_paths launches during the jumps path by (n_pad, n_steps): {shapes_j}")
+    if sum(shapes_j.values()) != launches_j["merton_paths"]:
+        fail(f"merton_paths' launches by shape {shapes_j} do not add up to its "
+             f"{launches_j['merton_paths']} launches on the jumps path")
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
-    phase_earlier_europeans(euro)
+    j2 = jump_res["J2_merton_european"]
+    phase_earlier_europeans(dict(euro, merton_european=(j2["price"], j2["stderr"])))
     phase_earlier_localvol_american(lv_put)
     times = phase_timing(specs, sass["per_call"])
     times.update(phase_vjp_timing(vjp, sass["per_call"]))
-    times.update(phase_jump_timing(sass["per_call"]))
+    times.update(phase_jump_timing(sass["per_call"], shapes_j))
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -3040,7 +3226,8 @@ def main() -> int:
     # (price_european_mc's chunks): about the kernel's time at 2^22 x 100.
     legs = (("heston_european", secs, "heston_terminal"), ("gbm_european", secs, "gbm_terminal"),
             ("qe_european", secs2, "heston_terminal_qe"),
-            ("localvol_european", secs2, "localvol_terminal"))
+            ("localvol_european", secs2, "localvol_terminal"),
+            ("merton_european", secs_j, "merton_terminal"))
     log("[5] European legs, seconds per price beside the kernel's ms at 2^22 x 100: "
         + "; ".join(f"{leg} {d[leg]:.6f} s, {name} {times[name]['ms']:.4f} ms"
                     + (f" (first design {times[name]['earlier_ms']:.4f} ms)"
@@ -3090,11 +3277,15 @@ def main() -> int:
                      fd_worst=vjp_errs[k["name"]]["fd_worst"],
                      greeks_shape_scaled_err=vjp_errs[k["name"]]["greeks_shape_scaled_err"],
                      backward_of=k["forward"],
+                     **({"earlier_max_scaled_err": vjp_errs[k["name"]]["first_max_scaled_err"]}
+                        if "first_max_scaled_err" in vjp_errs[k["name"]] else {}),
                      library_ms=None, **times[k["name"]])
                 for k in vjp]
     entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
                      launches=launches_j[k["name"]], max_abs_err=jump_errs[k["name"]]["s_abs"],
                      max_rel_err=jump_errs[k["name"]]["s_rel"], library_ms=None,
+                     **({"earlier_max_abs_err": jump_errs[k["name"] + "_first"]["s_abs"]}
+                        if k["name"] + "_first" in jump_errs else {}),
                      **times[k["name"]])
                 for k in jumps]
     print(json.dumps({"kernels": entries}))

@@ -18,7 +18,10 @@
 //   (w0, w1) -> Box-Muller -> (z, z_j), mirrored; w2, w3 -> the Poisson
 //   uniforms of the path and of its mirror. x += drift + sigma sqrt(dt) z +
 //   N mu_j + sigma_j sqrt(N) z_j. The paths instance stores every row as
-//   2^(log2 S0 + x log2 e) (store_s), the terminal instance S_T only.
+//   2^(log2 S0 + x log2 e) (store_s), the terminal instance S_T only. The
+//   terminal instance is the first design of kernel 15, kept as the
+//   yardstick of its redesign, merton_terminal_kernel (below), which the
+//   pricers reach.
 // - overlay_paths_kernel: one thread per path column of a (n_mat, n_steps+1,
 //   n_pad) Heston S, maturity m on global tiles first_tile + m n_tiles + ..,
 //   as the batched Heston kernel draws them. One Philox call per path-step
@@ -188,6 +191,95 @@ inline unsigned int blocks_for(long long n_threads) {
   return static_cast<unsigned int>((n_threads + kBlock - 1) / kBlock);
 }
 
+// ---- merton_terminal_kernel: the redesign of merton_kernel<false, *> ------
+//
+// The first design issued ~170 instructions a pair-step where Philox needs
+// 36 (its SASS, chip_smoke.phase_sass): each Poisson count a dependent
+// __ldg scan, each sqrtf(N) IEEE's, whose N = 0 takes its slow-path call,
+// and the counts output's address work on every step, null or not. The
+// redesign keeps the stream, the counts and the constants row, and:
+// - counts 0 and 1 by one comparison with F(0), a launch constant in the
+//   parameter space (PoissonHead); a uniform not below F(1), rare at the
+//   bench's lam dt (~1e-5), scans the row's table from entry 2. Every
+//   comparison is the plain version's float32 u >= F(n), so the counts are
+//   bit for bit the same;
+// - sqrt(N) from the host's table of IEEE square roots (0..15; sqrtf past
+//   it): the same bits as sqrtf, without its special-case branch;
+// - the counts output a template flag, so the pricing instance has none of
+//   its work;
+// - two steps an iteration, two Philox calls in flight.
+
+// CDF entries a thread compares against (F(0), F(1)) and counts whose
+// square root comes from the table (ops/cuda_jumps.POISSON_HEAD, SQRT_TABLE).
+constexpr int kHeadCdf = 2;
+constexpr int kSqrtTable = 16;
+
+// A launch's head of the Poisson table (entries past the table's end 2, above
+// every uniform) and the square roots of 0..kSqrtTable-1
+// (ops/cuda_jumps.poisson_head).
+struct PoissonHead {
+  float cdf[kHeadCdf];
+  float sqrt_n[kSqrtTable];
+};
+
+// (N, sqrt N) of the uniform u: N the number of table entries u is not below.
+__device__ __forceinline__ void poisson_head_count(float u, const PoissonHead& h,
+                                                   const JumpK& k, float& n, float& sn) {
+  const bool one = u >= h.cdf[0];
+  n = one ? 1.0f : 0.0f;
+  sn = one ? h.sqrt_n[1] : h.sqrt_n[0];
+  if (u >= h.cdf[1]) {
+    int m = kHeadCdf;
+    while (m < k.n_table && u >= __ldg(k.table + m)) ++m;
+    n = static_cast<float>(m);
+    sn = m < kSqrtTable ? h.sqrt_n[m] : sqrtf(n);
+  }
+}
+
+template <bool kAnti, bool kCounts>
+__global__ void __launch_bounds__(kBlock)
+merton_terminal_kernel(float* __restrict__ S, int* __restrict__ counts,
+                       const float* __restrict__ consts, const __grid_constant__ PhiloxKeys keys,
+                       const __grid_constant__ PoissonHead head, int first_tile, int n_tiles,
+                       int n_steps) {
+  constexpr int kWidth = kAnti ? kTerminalTile / 2 : kTerminalTile;
+  const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (slot >= static_cast<long long>(n_tiles) * kWidth) return;
+  const int local_tile = static_cast<int>(slot / kWidth);
+  const uint32_t j = static_cast<uint32_t>(slot % kWidth);
+  const uint32_t global_tile = static_cast<uint32_t>(first_tile + local_tile);
+  const size_t n_pad = static_cast<size_t>(n_tiles) * kTerminalTile;
+  const size_t col = static_cast<size_t>(local_tile) * kTerminalTile + j;
+  const JumpK k = jump_consts(consts);
+
+  float xa = 0.0f, xb = 0.0f;
+  auto step = [&](int t) {
+    const Words w =
+        philox_keyed(Words{j, static_cast<uint32_t>(t), global_tile, 0u}, keys);
+    float z, z_j, n, sn;
+    box_muller_fast(w.x, w.y, z, z_j);
+    poisson_head_count(uniform_from_bits(w.z), head, k, n, sn);
+    xa += fmaf(k.diffusion, z, k.a) + fmaf(n, k.mu_j, k.sigma_j * sn * z_j);
+    if constexpr (kCounts) counts[static_cast<size_t>(t) * n_pad + col] = static_cast<int>(n);
+    if constexpr (kAnti) {
+      poisson_head_count(uniform_from_bits(w.w), head, k, n, sn);
+      xb += fmaf(k.diffusion, -z, k.a) + fmaf(n, k.mu_j, k.sigma_j * sn * -z_j);
+      if constexpr (kCounts) {
+        counts[static_cast<size_t>(t) * n_pad + col + kWidth] = static_cast<int>(n);
+      }
+    }
+  };
+  int t = 0;
+#pragma unroll 1
+  for (; t + 2 <= n_steps; t += 2) {
+    step(t);
+    step(t + 1);
+  }
+  if (t < n_steps) step(t);
+  S[col] = ex2_approx(fmaf(xa, kLog2e, k.log2_s0));
+  if (kAnti) S[col + kWidth] = ex2_approx(fmaf(xb, kLog2e, k.log2_s0));
+}
+
 template <bool kPaths>
 int launch_merton(void* S, void* counts, const void* consts, uint64_t seed, int first_tile,
                   int n_tiles, int n_steps, int antithetic, void* stream) {
@@ -217,10 +309,35 @@ int omt_merton_paths(void* S, void* counts, const void* consts, uint64_t seed, i
                                          n_steps, antithetic, stream);
 }
 
-// out: device (n_tiles*16384,) float32; counts (n_steps, n_tiles*16384).
-int omt_merton_terminal(void* out, void* counts, const void* consts, uint64_t seed,
-                        int first_tile, int n_tiles, int n_steps, int antithetic,
+// The redesign. out: device (n_tiles*16384,) float32; counts (n_steps,
+// n_tiles*16384); head: host pointer to the kHeadCdf + kSqrtTable floats of
+// PoissonHead.
+int omt_merton_terminal(void* out, void* counts, const void* consts, const void* head,
+                        uint64_t seed, int first_tile, int n_tiles, int n_steps, int antithetic,
                         void* stream) {
+  using namespace omt::jumps;
+  if (n_tiles < 1 || n_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  PoissonHead h;
+  const float* src = static_cast<const float*>(head);
+  for (int i = 0; i < kHeadCdf; ++i) h.cdf[i] = src[i];
+  for (int i = 0; i < kSqrtTable; ++i) h.sqrt_n[i] = src[kHeadCdf + i];
+  const long long n_slots =
+      static_cast<long long>(n_tiles) * (antithetic ? kTerminalTile / 2 : kTerminalTile);
+  auto kernel = antithetic
+                    ? (counts ? merton_terminal_kernel<true, true> : merton_terminal_kernel<true, false>)
+                    : (counts ? merton_terminal_kernel<false, true>
+                              : merton_terminal_kernel<false, false>);
+  kernel<<<blocks_for(n_slots), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), static_cast<int*>(counts), static_cast<const float*>(consts),
+      omt::fast::philox_keys(seed), h, first_tile, n_tiles, n_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design, the redesign's yardstick: the same arguments without
+// the head.
+int omt_merton_terminal_first(void* out, void* counts, const void* consts, uint64_t seed,
+                              int first_tile, int n_tiles, int n_steps, int antithetic,
+                              void* stream) {
   return omt::jumps::launch_merton<false>(out, counts, consts, seed, first_tile, n_tiles,
                                           n_steps, antithetic, stream);
 }
@@ -251,15 +368,17 @@ int omt_jump_overlay_terminal(void* S, void* counts, const void* consts, uint64_
 }
 
 // out[4]: registers, spill bytes, blocks per SM, block threads of ``which``:
-// 0 Merton paths, 1 Merton terminal (antithetic instances), 2 overlay paths,
-// 3 overlay terminal.
+// 0 Merton paths, 1 Merton terminal (antithetic instances; the redesign's
+// without counts), 2 overlay paths, 3 overlay terminal, 4 Merton terminal's
+// first design.
 int omt_jumps_attrs(int which, int* out) {
   using namespace omt::jumps;
   switch (which) {
     case 0: return omt::kernel_attrs(merton_kernel<true, true>, kBlock, out);
-    case 1: return omt::kernel_attrs(merton_kernel<false, true>, kBlock, out);
+    case 1: return omt::kernel_attrs(merton_terminal_kernel<true, false>, kBlock, out);
     case 2: return omt::kernel_attrs(overlay_paths_kernel, kBlock, out);
     case 3: return omt::kernel_attrs(overlay_terminal_kernel, kBlock, out);
+    case 4: return omt::kernel_attrs(merton_kernel<false, true>, kBlock, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,7 +20,9 @@ kernel for a CUDA device; there is no fallback between the two.
 the reference's XLA simulator (models/heston.py:63); its backward is
 ``euler_paths_vjp``, the VJP kernel of csrc/greeks.cu (or its plain version
 for a CPU cotangent), which redraws the forward's normals, repeats its
-steps and carries their tangents (models/heston.py states the rules).
+steps and carries their tangents (models/heston.py states the rules): the
+Hopper redesign ``euler_vjp_kernel``; its first design stays under
+``euler_paths_vjp_first`` as the yardstick, and no pricer reaches it.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ launches = {"heston_terminal": 0, "heston_paths": 0,
             "heston_terminal_qe": 0, "heston_paths_qe": 0,
             "heston_terminal_accurate": 0, "heston_paths_accurate": 0,
             "heston_paths_qe_accurate": 0, "heston_terminal_qe_accurate": 0,
-            "euler_paths_vjp": 0}
+            "euler_paths_vjp": 0, "euler_paths_vjp_first": 0}
 
 
 def _tiles(n_paths: int, tile: int, seed: int, first_tile: int, n_steps: int) -> int:
@@ -382,52 +384,120 @@ def euler_paths_vjp_reference(gS: torch.Tensor, gv, seed: int, S0, r, T, params,
 
 
 def _vjp_extras(T, params, n_steps: int):
-    """The tangents' constants beside the forward's row: d(dt)/dT = 1/n,
-    d(sqrt dt)/dT = sqrt(dt) / (2T) and rho / rho_bar (host float32)."""
+    """The first design's tangent constants beside the forward's row: d(dt)/dT
+    = 1/n, d(sqrt dt)/dT = sqrt(dt) / (2T) and rho / rho_bar (host float32)."""
     c = heston_constants(1.0, 0.0, T, params, n_steps)
     return _build.float_args([1.0 / n_steps, c["sqrt_dt"] / (2.0 * np.float32(T)),
                               c["rho"] / c["rho_bar"]])
 
 
-def euler_paths_vjp_rows(gS: torch.Tensor, gv, seed: int, S0, r, T, params, n_paths: int,
-                         n_steps: int, antithetic: bool = True,
-                         first_tile: int = 0) -> torch.Tensor:
-    """One launch of csrc/greeks.cu's euler_paths_vjp_kernel on CUDA
-    cotangents gS, gv (n_steps+1, n_pad): its (n_blocks, 8) float64 rows of
-    block sums (g S, g S t, then the six carried tangents). It reads gS and
-    gv only; ``gv`` None is a kernel flag, not a zero matrix."""
+def _vjp_tangent_consts(r, T, params, n_steps: int):
+    """The redesign's tangent constants (csrc/greeks.cu EulerT), folded on the
+    host in float32: r / n, -1 / (2n), d(sqrt dt)/dT, kappa / n, xi
+    d(sqrt dt)/dT, dt, kappa dt, rho / rho_bar, theta, sqrt(dt) / 2 and xi
+    sqrt(dt) / 2."""
+    c = heston_constants(1.0, r, T, params, n_steps)
+    f = np.float32
+    inv_n = f(1.0) / f(n_steps)
+    ds_dT = c["sqrt_dt"] / (f(2.0) * f(T))
+    h_sdt = f(0.5) * c["sqrt_dt"]
+    return _build.float_args([c["r"] * inv_n, f(-0.5) * inv_n, ds_dT, c["kappa"] * inv_n,
+                              c["xi"] * ds_dT, c["dt"], c["kappa"] * c["dt"],
+                              c["rho"] / c["rho_bar"], c["theta"], h_sdt, c["xi"] * h_sdt])
+
+
+def euler_vjp_blocks(n_tiles: int) -> int:
+    """Blocks (rows of sums) of the redesigned Euler VJP kernel: VJP_BLOCK
+    paths a block, so PATH_TILE / VJP_BLOCK = 16 a tile with or without
+    antithetics, none straddling a tile. Raises for what the kernel refuses
+    (no tile, or a grid beyond 2^31 - 1 blocks)."""
+    n_blocks = n_tiles * (PATH_TILE // VJP_BLOCK)
+    if n_tiles < 1 or n_blocks >= 1 << 31:
+        raise ValueError(f"the Euler VJP kernel takes 1 to 2^27 - 1 tiles, got {n_tiles}")
+    return n_blocks
+
+
+def _vjp_inputs(gS: torch.Tensor, gv, seed: int, S0, r, T, params, n_paths: int,
+                n_steps: int, first_tile: int) -> tuple:
+    """A VJP launch's tiles, its CUDA cotangents as contiguous float32
+    (n_steps+1, n_pad) matrices and the forward's constants row."""
     _build.require_cuda(gS.device)
     n_tiles = _tiles(n_paths, PATH_TILE, seed, first_tile, n_steps)
     shape = (n_steps + 1, n_tiles * PATH_TILE)
     gS = cotangent(gS, shape)
     gv = None if gv is None else cotangent(gv, shape)
-    consts = batched_consts("euler", S0, r, [T], params, n_steps, gS.device)
-    n_slots = n_tiles * (PATH_TILE // 2 if antithetic else PATH_TILE)
-    rows = torch.empty((-(-n_slots // VJP_BLOCK), 8), dtype=torch.float64, device=gS.device)
-    _build.launch("omt_euler_paths_vjp", gS.device, rows.data_ptr(), gS.data_ptr(),
-                  None if gv is None else gv.data_ptr(), consts.data_ptr(),
-                  _vjp_extras(T, params, n_steps), seed, first_tile, n_tiles, n_steps,
-                  int(antithetic), rows.shape[0])
-    launches["euler_paths_vjp"] += 1
+    return n_tiles, gS, gv, batched_consts("euler", S0, r, [T], params, n_steps, gS.device)
+
+
+def _vjp_launch(name: str, n_blocks: int, extra, n_tiles: int, gS: torch.Tensor, gv, consts,
+                seed: int, n_steps: int, antithetic: bool, first_tile: int) -> torch.Tensor:
+    """One launch of C entry omt_``name`` on _vjp_inputs' tensors, ``extra``
+    its tangent constants: its (n_blocks, 8) float64 rows of block sums."""
+    rows = torch.empty((n_blocks, 8), dtype=torch.float64, device=gS.device)
+    _build.launch(f"omt_{name}", gS.device, rows.data_ptr(), gS.data_ptr(),
+                  None if gv is None else gv.data_ptr(), consts.data_ptr(), extra, seed,
+                  first_tile, n_tiles, n_steps, int(antithetic), n_blocks)
+    launches[name] += 1
     return rows
+
+
+def euler_paths_vjp_rows(gS: torch.Tensor, gv, seed: int, S0, r, T, params, n_paths: int,
+                         n_steps: int, antithetic: bool = True,
+                         first_tile: int = 0) -> torch.Tensor:
+    """One launch of csrc/greeks.cu's euler_vjp_kernel (the redesign) on CUDA
+    cotangents gS, gv (n_steps+1, n_pad): its (euler_vjp_blocks, 8) float64
+    rows of block sums (g S, g S t, then the six carried tangents), 16 a
+    tile. It reads gS and gv only; ``gv`` None is a kernel flag, not a zero
+    matrix."""
+    n_tiles, gS, gv, consts = _vjp_inputs(gS, gv, seed, S0, r, T, params, n_paths, n_steps,
+                                          first_tile)
+    return _vjp_launch("euler_paths_vjp", euler_vjp_blocks(n_tiles),
+                       _vjp_tangent_consts(r, T, params, n_steps), n_tiles, gS, gv, consts,
+                       seed, n_steps, antithetic, first_tile)
+
+
+def euler_paths_vjp_rows_first(gS: torch.Tensor, gv, seed: int, S0, r, T, params,
+                               n_paths: int, n_steps: int, antithetic: bool = True,
+                               first_tile: int = 0) -> torch.Tensor:
+    """euler_paths_vjp_rows of the first design (euler_paths_vjp_kernel), the
+    redesign's yardstick, which no pricer reaches: one row a 256 slots."""
+    n_tiles, gS, gv, consts = _vjp_inputs(gS, gv, seed, S0, r, T, params, n_paths, n_steps,
+                                          first_tile)
+    n_slots = n_tiles * (PATH_TILE // 2 if antithetic else PATH_TILE)
+    return _vjp_launch("euler_paths_vjp_first", -(-n_slots // VJP_BLOCK),
+                       _vjp_extras(T, params, n_steps), n_tiles, gS, gv, consts, seed,
+                       n_steps, antithetic, first_tile)
+
+
+def _vjp_gradient(sums: torch.Tensor, S0, T, n_steps: int) -> torch.Tensor:
+    """The 8 parameters' gradient from a launch's summed rows: dS0 and dr
+    follow from the first two sums (dS_t/dS0 = S_t/S0, dls_t/dr = t dt)."""
+    dt = float(np.float32(T)) / n_steps
+    return torch.cat([(sums[0] / float(np.float32(S0)))[None], (sums[1] * dt)[None],
+                      sums[2:]])
 
 
 def euler_paths_vjp(gS: torch.Tensor, gv, seed: int, S0, r, T, params, n_paths: int,
                     n_steps: int, antithetic: bool = True,
                     first_tile: int = 0) -> torch.Tensor:
     """<gS, dS/dp> + <gv, dv/dp> of heston_paths for p = (S0, r, T, kappa,
-    theta, xi, rho, v0), float64 (8,): the kernel's rows summed in a fixed
-    order for CUDA cotangents, the plain version for CPU ones; dS0 and dr
-    follow from the
-    first two sums (dS_t/dS0 = S_t/S0, dls_t/dr = t dt)."""
+    theta, xi, rho, v0), float64 (8,): the redesigned kernel's rows summed in
+    a fixed order for CUDA cotangents, the plain version for CPU ones."""
     if gS.device.type == "cpu":
         return euler_paths_vjp_reference(gS, gv, seed, S0, r, T, params, n_paths, n_steps,
                                          antithetic, first_tile)
     sums = euler_paths_vjp_rows(gS, gv, seed, S0, r, T, params, n_paths, n_steps, antithetic,
                                 first_tile).sum(0)
-    dt = float(np.float32(T)) / n_steps
-    return torch.cat([(sums[0] / float(np.float32(S0)))[None], (sums[1] * dt)[None],
-                      sums[2:]])
+    return _vjp_gradient(sums, S0, T, n_steps)
+
+
+def euler_paths_vjp_first(gS: torch.Tensor, gv, seed: int, S0, r, T, params, n_paths: int,
+                          n_steps: int, antithetic: bool = True,
+                          first_tile: int = 0) -> torch.Tensor:
+    """euler_paths_vjp through the first design, on CUDA cotangents only."""
+    sums = euler_paths_vjp_rows_first(gS, gv, seed, S0, r, T, params, n_paths, n_steps,
+                                      antithetic, first_tile).sum(0)
+    return _vjp_gradient(sums, S0, T, n_steps)
 
 
 def euler_paths_ad(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
@@ -455,6 +525,8 @@ def euler_paths_ad(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
 
 def vjp_kernel_attrs() -> dict:
     """Registers, spills and occupancy of the VJP kernels of csrc/greeks.cu
-    as built (the antithetic instances; Euler with v), by name."""
+    as built (the antithetic instances; Euler with v, and its first design),
+    by name."""
     return {name: _build.kernel_attrs("omt_greeks_attrs", i) for i, name in
-            enumerate(("gbm_terminal_vjp", "gbm_paths_vjp", "euler_paths_vjp"))}
+            enumerate(("gbm_terminal_vjp", "gbm_paths_vjp", "euler_paths_vjp",
+                       "euler_paths_vjp_first"))}

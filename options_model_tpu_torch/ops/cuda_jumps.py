@@ -1,7 +1,9 @@
 """The jump kernels of csrc/jumps.cu and their plain PyTorch versions:
 - 14 ``merton_paths`` and 15 ``merton_terminal``: the Merton walk, the
   counterparts of options_model_tpu/models/merton.py:26 simulate_merton
-  (return_paths True and False);
+  (return_paths True and False); kernel 15 is the Hopper redesign
+  (merton_terminal_kernel), its first design stays under
+  ``merton_terminal_first`` as the yardstick, and no pricer reaches it;
 - 16 ``jump_overlay_paths`` and 17 ``jump_overlay_terminal``: the Bates jump
   overlay multiplied in place into a Heston kernel's S (or S_T), the
   counterparts of options_model_tpu/models/bates.py:37 jump_overlay.
@@ -26,10 +28,13 @@ bit for bit.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
 from options_model_tpu_torch.models.bates import overlay_constants, overlay_from_draws
+from options_model_tpu_torch.models.blocks import round_up
 from options_model_tpu_torch.models.merton import merton_constants, merton_from_draws
 from options_model_tpu_torch.ops import _build
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE, _tiles
@@ -39,12 +44,19 @@ from options_model_tpu_torch.ops.philox import (MAX_POISSON_TABLE, jump_draws,
                                                 poisson_table)
 
 # Kernel launches since the last reset, one integer per kernel.
-launches = {"merton_paths": 0, "merton_terminal": 0, "jump_overlay_paths": 0,
-            "jump_overlay_terminal": 0}
+launches = {"merton_paths": 0, "merton_terminal": 0, "merton_terminal_first": 0,
+            "jump_overlay_paths": 0, "jump_overlay_terminal": 0}
+# Kernel 14's launches since the last reset, by (n_pad, n_steps).
+shape_launches = Counter()
 # Floats of a constants row before its table, and in all (csrc/jumps.cu
 # kHead, kRow = 128).
 HEAD = 8
 ROW = HEAD + MAX_POISSON_TABLE
+# The redesigned terminal kernel's launch constants (csrc/jumps.cu
+# PoissonHead): the CDF entries a thread compares against (F(0), F(1)) and
+# the counts whose square root comes from a table.
+POISSON_HEAD = 2
+SQRT_TABLE = 16
 
 
 def const_row(a, diffusion, mu_j, sigma_j, log_s0, lam_dt: float) -> np.ndarray:
@@ -55,6 +67,22 @@ def const_row(a, diffusion, mu_j, sigma_j, log_s0, lam_dt: float) -> np.ndarray:
     row[:6] = (a, diffusion, mu_j, sigma_j, log_s0, table.size)
     row[HEAD:HEAD + table.size] = table
     return row
+
+
+def sqrt_table() -> np.ndarray:
+    """IEEE float32 square roots of the counts 0..SQRT_TABLE-1, the bits of
+    sqrtf and torch.sqrt."""
+    return np.sqrt(np.arange(SQRT_TABLE, dtype=np.float32))
+
+
+def poisson_head(table) -> np.ndarray:
+    """The redesigned terminal kernel's PoissonHead for a Poisson table
+    (poisson_table): its first POISSON_HEAD entries, padded with 2 (above
+    every uniform) past the table's end, then sqrt_table()."""
+    table = np.asarray(table, np.float32)
+    head = np.full(POISSON_HEAD, 2.0, np.float32)
+    head[:min(table.size, POISSON_HEAD)] = table[:POISSON_HEAD]
+    return np.concatenate([head, sqrt_table()])
 
 
 def device_rows(rows, device) -> torch.Tensor:
@@ -105,26 +133,25 @@ def merton_terminal_reference(seed: int, S0, r, T, params, n_paths: int, n_steps
                              antithetic, first_tile, device, return_counts, False)
 
 
-def _merton(return_paths, seed, S0, r, T, params, n_paths, n_steps, antithetic, first_tile,
-            device, return_counts):
-    device = resolve_device(device)
-    if device.type == "cpu":
-        plain = merton_paths_reference if return_paths else merton_terminal_reference
-        return plain(seed, S0, r, T, params, n_paths, n_steps, antithetic, first_tile, device,
-                     return_counts)
+def _merton_launch(name: str, tile: int, head: bool, seed, S0, r, T, params, n_paths,
+                   n_steps, antithetic, first_tile, device, return_counts):
+    """One launch of C entry omt_``name`` on a CUDA device: S (n_steps+1,
+    n_pad) for PATH_TILE tiles, S_T (n_pad,) for TERMINAL_TILE ones [and the
+    counts (n_steps, n_pad)]; ``head``: the launch also takes the
+    constants row's PoissonHead (poisson_head)."""
     _build.require_cuda(device)
-    tile = PATH_TILE if return_paths else TERMINAL_TILE
     n_tiles = _tiles(n_paths, tile, seed, first_tile, n_steps)
     n_pad = n_tiles * tile
-    out = torch.empty((n_steps + 1, n_pad) if return_paths else (n_pad,), dtype=torch.float32,
-                      device=device)
+    out = torch.empty((n_steps + 1, n_pad) if tile == PATH_TILE else (n_pad,),
+                      dtype=torch.float32, device=device)
     counts = (torch.empty((n_steps, n_pad), dtype=torch.int32, device=device)
               if return_counts else None)
-    consts = device_rows([_merton_row(S0, r, T, params, n_steps)], device)
-    name = "merton_paths" if return_paths else "merton_terminal"
+    row = _merton_row(S0, r, T, params, n_steps)
+    consts = device_rows([row], device)
+    extra = (_build.float_args(poisson_head(row[HEAD:HEAD + int(row[5])])),) if head else ()
     _build.launch(f"omt_{name}", device, out.data_ptr(),
-                  None if counts is None else counts.data_ptr(), consts.data_ptr(), seed,
-                  first_tile, n_tiles, n_steps, int(antithetic))
+                  None if counts is None else counts.data_ptr(), consts.data_ptr(), *extra,
+                  seed, first_tile, n_tiles, n_steps, int(antithetic))
     launches[name] += 1
     return (out, counts) if return_counts else out
 
@@ -134,17 +161,38 @@ def merton_paths(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
                  return_counts: bool = False):
     """Merton path matrix S (n_steps+1, n_pad) from kernel 14 (csrc/jumps.cu),
     or from its plain version for a CPU device."""
-    return _merton(True, seed, S0, r, T, params, n_paths, n_steps, antithetic, first_tile,
-                   device, return_counts)
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return merton_paths_reference(seed, S0, r, T, params, n_paths, n_steps, antithetic,
+                                      first_tile, device, return_counts)
+    out = _merton_launch("merton_paths", PATH_TILE, False, seed, S0, r, T, params, n_paths,
+                         n_steps, antithetic, first_tile, device, return_counts)
+    shape_launches[round_up(n_paths, PATH_TILE), n_steps] += 1
+    return out
 
 
 def merton_terminal(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
                     antithetic: bool = True, first_tile: int = 0, device=None,
                     return_counts: bool = False):
-    """Merton terminal prices S_T (n_pad,) from kernel 15 (csrc/jumps.cu), or
-    from its plain version for a CPU device."""
-    return _merton(False, seed, S0, r, T, params, n_paths, n_steps, antithetic, first_tile,
-                   device, return_counts)
+    """Merton terminal prices S_T (n_pad,) from kernel 15's redesign
+    (csrc/jumps.cu merton_terminal_kernel), or from its plain version for a
+    CPU device."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return merton_terminal_reference(seed, S0, r, T, params, n_paths, n_steps,
+                                         antithetic, first_tile, device, return_counts)
+    return _merton_launch("merton_terminal", TERMINAL_TILE, True, seed, S0, r, T, params,
+                          n_paths, n_steps, antithetic, first_tile, device, return_counts)
+
+
+def merton_terminal_first(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                          antithetic: bool = True, first_tile: int = 0, device=None,
+                          return_counts: bool = False):
+    """merton_terminal through kernel 15's first design (merton_kernel<false,
+    *>), the redesign's yardstick, on a CUDA device only."""
+    return _merton_launch("merton_terminal_first", TERMINAL_TILE, False, seed, S0, r, T,
+                          params, n_paths, n_steps, antithetic, first_tile,
+                          resolve_device(device), return_counts)
 
 
 def _maturity_list(Ts, n_mat: int) -> list:
@@ -264,8 +312,10 @@ def jump_overlay_terminal(S_T: torch.Tensor, seed: int, T, jumps, n_steps: int,
 
 
 def jumps_kernel_attrs() -> dict:
-    """Registers, spills and occupancy of the four jump kernels as built
-    (Merton's antithetic instances), by name."""
+    """Registers, spills and occupancy of the four jump kernels and kernel
+    15's first design as built, by name: Merton's antithetic instances, the
+    redesigned terminal kernel's without its counts output (the pricing
+    instance; the first design takes that output as a run-time pointer)."""
     return {name: _build.kernel_attrs("omt_jumps_attrs", i) for i, name in
             enumerate(("merton_paths", "merton_terminal", "jump_overlay_paths",
-                       "jump_overlay_terminal"))}
+                       "jump_overlay_terminal", "merton_terminal_first"))}

@@ -51,15 +51,16 @@ from options_model_tpu.models.gbm import simulate_gbm as j_simulate_gbm
 from options_model_tpu.models.heston import simulate_heston as j_simulate_heston
 from options_model_tpu.pricers import american as jam
 from options_model_tpu.pricers import greeks as jgreeks
-from options_model_tpu_torch.core.config import (BatesParams, HestonParams, MCConfig,
-                                                 OptionSpec, VGParams)
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig,
+                                                 MCConfig, OptionSpec, VGParams)
 from options_model_tpu_torch.models.gbm import (gbm_euler_from_normals,
-                                                gbm_euler_vjp_from_normals)
-from options_model_tpu_torch.models.heston import (heston_euler_from_normals,
+                                                gbm_euler_vjp_from_normals, simulate_gbm)
+from options_model_tpu_torch.models.heston import (heston_constants, heston_euler_from_normals,
                                                    heston_euler_vjp_from_normals,
                                                    simulate_heston)
 from options_model_tpu_torch.ops import cuda_gbm, cuda_heston
 from options_model_tpu_torch.ops.autodiff import differentiable
+from options_model_tpu_torch.ops.philox import seed_from_generator
 from options_model_tpu_torch.pricers import american as am
 from options_model_tpu_torch.pricers import greeks
 from options_model_tpu_torch.pricers.blackscholes import bs_greeks_closed_form, bs_price
@@ -68,6 +69,21 @@ from options_model_tpu_torch.pricers.european import price_european_gbm_exact
 S0, K, T, R, SIG = 100.0, 100.0, 0.5, 0.05, 0.2
 FIELDS = dict(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
 J_CFG = JMCConfig(n_paths=8192, n_steps=16, path_block=4096)
+
+
+@pytest.fixture
+def _one_torch_thread():
+    """One torch intra-op thread for a test of three LSM prices: several test
+    workers share the machine, and each worker's default pool (a thread a
+    core) oversubscribes the cores. The earlier form of
+    test_american_put_greeks_signs_and_bump took 614 s in each of six
+    concurrent processes at 8 threads, 3.2 s at one (x86-64, 8 cores). Not
+    module-wide: the American Gamma of test_mc_greeks_match_jax_on_its_normals
+    moves with the LSM matmuls' reduction order, which the thread count sets."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_normals(key, cfg, n_draws):
@@ -209,17 +225,29 @@ def test_european_greeks_match_closed_form(european_call):
         < 0.05
 
 
+@pytest.mark.usefixtures("_one_torch_thread")
 def test_american_put_greeks_signs_and_bump():
     """tests/test_mc_greeks.py:39-56: the AD Delta within 0.02 of the
-    common-random-number central difference (h = 0.5), and the signs."""
+    common-random-number central difference (h = 0.5), and the signs. The
+    bumped runs need only their prices: they take mc_greeks's own route
+    (pricers/greeks._gbm_american_price on simulate_gbm at the generator's
+    kernel seed and MC) without the autograd graph, and that route at S0
+    gives mc_greeks's Price bit for bit."""
     spec = OptionSpec(strike=K, rate=R, cp=PUT, sigma=SIG)
+    g = greeks.mc_greeks(torch.Generator().manual_seed(42), S0, T, spec, MC, device="cpu")
+    seed = seed_from_generator(torch.Generator().manual_seed(42))
 
-    def run(s):
-        return greeks.mc_greeks(torch.Generator().manual_seed(42), s, T, spec, MC,
-                                device="cpu")
+    def simulate(S0_, r, sigma, T_, paths):
+        return simulate_gbm(seed, S0_, r, sigma, T_, MC, return_paths=paths, device="cpu")
 
-    g = run(S0)
-    fd = (float(run(S0 + 0.5)["Price"]) - float(run(S0 - 0.5)["Price"])) / 1.0
+    def price(s):
+        x = torch.tensor([s, K, T, R, SIG], dtype=torch.float32)
+        with torch.no_grad():
+            return float(greeks._gbm_american_price(x, simulate, PUT, LSMConfig().poly_degree,
+                                                    torch.tensor(0.0)))
+
+    assert price(S0) == float(g["Price"])
+    fd = (price(S0 + 0.5) - price(S0 - 0.5)) / 1.0
     assert abs(float(g["Delta"]) - fd) < 0.02, (float(g["Delta"]), fd)
     assert -1.0 < float(g["Delta"]) < 0.0
     assert float(g["Vega"]) > 0.0 and float(g["Gamma"]) > 0.0
@@ -423,6 +451,140 @@ def test_euler_plain_vjp_matches_central_differences():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4)
 
 
+def _folded_euler_vjp(z1, z2, gS, gv, S0_, r, T_, params):
+    """The redesigned Euler VJP kernel's recursion (csrc/greeks.cu
+    euler_tangent_step) on the plain version's float32 states: the tangent
+    constants the wrapper folds (cuda_heston._vjp_tangent_consts), dv
+    carried without the [v > 0] mask, a and c once a step, the six carried
+    tangents in float32; each path's (8,) terms summed in float64, as the
+    kernel's row sums are."""
+    n = z1.shape[0]
+    c = {k: float(v) for k, v in heston_constants(S0_, r, T_, params, n).items()}
+    r_n, mh_n, ds_dT, kappa_n, xi_ds_dT, dt, kdt, rho_ratio, theta, h_sdt, h_xi_sdt = \
+        list(cuda_heston._vjp_tangent_consts(r, T_, params, n))
+    sqrt_dt, xi_sdt = c["sqrt_dt"], float(np.float32(c["xi"]) * np.float32(c["sqrt_dt"]))
+    ca, mhdt = float(1.0 - np.float32(c["kappa"]) * np.float32(dt)), -0.5 * dt
+    log_s = torch.zeros(z1.shape[1])
+    v = torch.full_like(log_s, c["v0"])
+    tl, tv = torch.zeros((6, z1.shape[1])), torch.zeros((6, z1.shape[1]))
+    tv[5] = 1.0
+
+    def contract(t):
+        gs = (gS[t] * torch.exp(c["log_s0"] + log_s)).double()
+        return torch.cat([gs[None], (gs * t)[None], gs * tl.double() + gv[t].double() * tv.double()])
+
+    acc = contract(0)
+    tv[5] = float(c["v0"] > 0.0)
+    for t in range(n):
+        z1_t, z2_t = z1[t], z2[t]
+        w2 = c["rho"] * z1_t + c["rho_bar"] * z2_t
+        vp = torch.clamp_min(v, 0.0)
+        sv = torch.sqrt(vp)
+        f = torch.where(vp > 1e-12, torch.rsqrt(vp), torch.zeros_like(vp))
+        sq = sv * sqrt_dt
+        v = torch.clamp_min(vp + c["kappa"] * (c["theta"] - vp) * c["dt"] + c["xi"] * sq * w2,
+                            0.0)
+        log_s = log_s + (c["r"] - 0.5 * vp) * c["dt"] + sq * z1_t
+        th, sw = theta - vp, sv * w2
+        direct = torch.stack([th * kappa_n + xi_ds_dT * sw, th * dt, torch.full_like(vp, kdt),
+                              sqrt_dt * sw, xi_sdt * sv * (z1_t - rho_ratio * z2_t),
+                              torch.zeros_like(vp)])
+        a = h_sdt * z1_t * f + mhdt
+        cc = h_xi_sdt * w2 * f + ca
+        tl = tl + a * tv
+        tl[0] += vp * mh_n + ds_dT * sv * z1_t + r_n
+        tv = torch.where(v > 0.0, cc * tv + direct, torch.zeros_like(tv))
+        acc = acc + contract(t + 1)
+    sums = acc.sum(1)
+    return torch.cat([sums[:1] / float(np.float32(S0_)), sums[1:2] * float(c["dt"]), sums[2:]])
+
+
+@pytest.mark.parametrize("xi", [0.3, 1.0])
+def test_folded_euler_tangents_match_the_plain_vjp(xi):
+    """The redesign's folded tangent rules, emulated in float32, against the
+    plain version (float64 tangents on the same float32 states) on the
+    Philox stream: every component within 1e-4 of its paths' absolute shares
+    (chip_smoke.VJP_RTOL), at xi = 0.3 and at xi = 1.0, where the Feller
+    condition fails and paths sit at v = 0, so a tangent that the clamp
+    zeroed must stay zero without the [v > 0] mask."""
+    seed, n, steps = 13, 4096, 16
+    fields = dict(FIELDS, xi=xi)
+    params = _f32([S0, R, T, *fields.values()])
+    hp = HestonParams(*params[3:])
+    S, v = cuda_heston.heston_paths_reference(seed, *params[:3], hp, n, steps,
+                                              return_variance=True, device="cpu")
+    if xi == 1.0:
+        assert float((v == 0.0).double().mean()) > 0.01
+    gS = torch.from_numpy(_cotangent(14, tuple(S.shape)))
+    gv = torch.from_numpy(_cotangent(15, tuple(v.shape))) * 100.0
+    z1, z2 = cuda_heston._normals(seed, 1, cuda_heston.PATH_TILE, steps, True, 0, "cpu")
+    shares = heston_euler_vjp_from_normals(z1, z2, gS, gv, *params[:3], hp, per_path=True)
+    got = _folded_euler_vjp(z1, z2, gS, gv, *params[:3], hp)
+    scale = shares.abs().sum(1)
+    assert torch.all((got - shares.sum(1)).abs() <= 1e-4 * scale), (got, shares.sum(1))
+
+
+def _vjp_layout(n_tiles, antithetic):
+    """(block, tile, Philox slot, column) of every thread of the redesigned
+    Euler VJP kernel, as euler_vjp_kernel computes them: block b covers tile
+    b // 16; with antithetics lane l of warp w holds slot 128 (b % 16) + 16 w
+    + l % 16, at column slot (+ 2048 for l >= 16, the mirror); without,
+    slot 256 (b % 16) + thread at column slot."""
+    blocks = cuda_heston.euler_vjp_blocks(n_tiles)
+    b = np.arange(blocks)[:, None]
+    th = np.arange(256)[None, :]
+    tile, bi, lane = b // 16 + 0 * th, b % 16, th % 32
+    if antithetic:
+        slot = bi * 128 + (th // 32) * 16 + lane % 16
+        col = slot + (lane >= 16) * 2048
+    else:
+        slot = bi * 256 + th
+        col = slot + 0 * b
+    return blocks, tile, slot, tile * cuda_heston.PATH_TILE + col
+
+
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("n_tiles", [1, 2, 7, 256])
+def test_euler_vjp_grid_covers_each_path_once_within_its_tile(n_tiles, antithetic):
+    """The redesign's launch geometry (cuda_heston.euler_vjp_blocks, the C
+    entry's vjp_grid_matches): 16 blocks a tile, each of one tile, every
+    path of the matrix once, each thread's Philox slot that of its column
+    in the plain version's layout (the mirror of column j at j + 2048), and
+    a path and its mirror in lanes l and l + 16 of one warp."""
+    blocks, tile, slot, col = _vjp_layout(n_tiles, antithetic)
+    assert blocks == 16 * n_tiles
+    assert np.array_equal(np.sort(col.ravel()), np.arange(n_tiles * cuda_heston.PATH_TILE))
+    assert np.all(col // cuda_heston.PATH_TILE == tile)
+    assert np.all(tile == tile[:, :1])
+    width = cuda_heston.PATH_TILE // 2 if antithetic else cuda_heston.PATH_TILE
+    assert np.all(slot == col % cuda_heston.PATH_TILE % width)
+    if antithetic:
+        warps = slot.reshape(blocks, 8, 32)
+        assert np.array_equal(warps[..., :16], warps[..., 16:])
+
+
+@pytest.mark.parametrize("n_tiles", [0, -1, 1 << 27])
+def test_euler_vjp_blocks_refuse_what_the_kernel_refuses(n_tiles):
+    with pytest.raises(ValueError):
+        cuda_heston.euler_vjp_blocks(n_tiles)
+
+
+def test_vjp_tangent_consts_are_the_float32_fold():
+    """The redesign's host constants (EulerT), in the kernel's order."""
+    hp = HestonParams(**FIELDS)
+    n = 50
+    got = np.asarray(list(cuda_heston._vjp_tangent_consts(R, T, hp, n)), np.float32)
+    f = np.float32
+    dt = f(T) / f(n)
+    ds_dT = np.sqrt(dt) / (f(2) * f(T))
+    rho_bar = np.sqrt(f(1) - f(FIELDS["rho"]) * f(FIELDS["rho"]))
+    want = np.array([f(R) / f(n), f(-0.5) / f(n), ds_dT, f(FIELDS["kappa"]) / f(n),
+                     f(FIELDS["xi"]) * ds_dT, dt, f(FIELDS["kappa"]) * dt,
+                     f(FIELDS["rho"]) / rho_bar, f(FIELDS["theta"]), f(0.5) * np.sqrt(dt),
+                     f(FIELDS["xi"]) * (f(0.5) * np.sqrt(dt))], np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_vjp_wrappers_on_the_cpu_are_the_plain_versions():
     seed, n, steps = 9, 4096, 4
     g = torch.from_numpy(_cotangent(10, (steps + 1, n)))
@@ -440,7 +602,9 @@ def test_vjp_wrappers_on_the_cpu_are_the_plain_versions():
     lambda g: cuda_gbm.gbm_paths_vjp(g, 1, S0, R, SIG, T, 4096, 4),
     lambda g: cuda_gbm.gbm_terminal_vjp(g[0], g[0], 1, S0, R, SIG, T, 4096, 4),
     lambda g: cuda_heston.euler_paths_vjp(g, g, 1, S0, R, T, HestonParams(**FIELDS), 4096, 4),
-], ids=["gbm_paths_vjp", "gbm_terminal_vjp", "euler_paths_vjp"])
+    lambda g: cuda_heston.euler_paths_vjp_first(g, g, 1, S0, R, T, HestonParams(**FIELDS),
+                                                4096, 4),
+], ids=["gbm_paths_vjp", "gbm_terminal_vjp", "euler_paths_vjp", "euler_paths_vjp_first"])
 def test_vjp_wrappers_refuse_a_tensor_off_the_cpu(call):
     """A cotangent that is not on the CPU goes to the kernel or raises: it
     never falls back to the plain version."""

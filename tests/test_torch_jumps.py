@@ -221,6 +221,80 @@ def test_counts_compare_uniforms_against_table_entries_inclusively():
     np.testing.assert_array_equal(n[table.size:], k)
 
 
+def _head_count(u: torch.Tensor, table) -> tuple:
+    """(N, sqrt N) of uniforms u as csrc/jumps.cu's poisson_head_count counts
+    them from the head the wrapper builds (cuda_jumps.poisson_head): 0 or 1
+    by u >= F(0); a uniform not below F(1) scans the table from entry
+    POISSON_HEAD; sqrt N from the head's square roots, or torch.sqrt past
+    them."""
+    table = np.asarray(table, np.float32)
+    h = cuda_jumps.poisson_head(table)
+    cdf = h[:cuda_jumps.POISSON_HEAD].tolist()
+    roots = torch.from_numpy(h[cuda_jumps.POISSON_HEAD:])
+    n = (u >= cdf[0]).to(torch.int64)
+    past = u >= cdf[1]
+    m = torch.full_like(n, cuda_jumps.POISSON_HEAD)
+    going = past.clone()
+    for f in table[cuda_jumps.POISSON_HEAD:].tolist():
+        going &= u >= f
+        m += going.to(torch.int64)
+    n = torch.where(past, m, n)
+    sn = torch.where(n < cuda_jumps.SQRT_TABLE, roots[n.clamp_max(cuda_jumps.SQRT_TABLE - 1)],
+                     torch.sqrt(n.to(torch.float32)))
+    return n.to(u.dtype), sn
+
+
+@pytest.mark.parametrize("lam_dt", [0.0, 1e-5, 0.005, 0.5, 1.0, 30.0])
+def test_head_then_scan_count_equals_the_plain_count(lam_dt):
+    """The redesigned terminal kernel's count (_head_count mirrors
+    csrc/jumps.cu's): 0 or 1 against F(0) of the head the wrapper
+    builds (poisson_head), a scan from entry 2 past F(1), sqrt N from the
+    host's table. The plain version's counts bit for bit, and sqrt N
+    torch.sqrt's, for drawn uniforms (on uniform_from_bits' 2^-23 grid),
+    every table entry exactly, its float32 neighbours either side, uniforms
+    past the head and both ends of [0, 1); lam dt 0 and 1e-5 give tables of
+    0 and 1 entries, shorter than the head; 30 counts past the sqrt table."""
+    table = poisson_table(lam_dt)
+    assert (table.size < cuda_jumps.POISSON_HEAD) == (lam_dt < 1e-3)
+    rng = np.random.default_rng(int(lam_dt * 1e6) + 1)
+    drawn = (rng.integers(0, 1 << 23, 1 << 16) / (1 << 23)).astype(np.float32)
+    edges = np.concatenate([table, np.nextafter(table, np.float32(0.0)),
+                            np.nextafter(table, np.float32(1.0))])
+    start = table[1] if table.size > 1 else 0.5
+    past = np.linspace(start, 1.0 - 2.0**-23, 1000).astype(np.float32)
+    u = torch.from_numpy(np.concatenate([drawn, edges, past,
+                                         np.float32([0.0, 1.0 - 2.0**-23])]))
+    n, sn = _head_count(u, table)
+    want = poisson_from_uniform(u, table)
+    assert torch.equal(n, want)
+    assert torch.equal(sn, torch.sqrt(want))
+    if table.size > cuda_jumps.POISSON_HEAD:
+        assert int((want > cuda_jumps.POISSON_HEAD).sum()) > 0
+
+
+def test_sqrt_table_and_head_are_the_host_floats_the_kernel_takes():
+    """sqrt_table() is torch.sqrt of the counts 0..15 bit for bit (IEEE, as
+    sqrtf); poisson_head pads the head past the table's end with 2, above
+    every uniform."""
+    counts = torch.arange(cuda_jumps.SQRT_TABLE, dtype=torch.float32)
+    assert torch.equal(torch.from_numpy(cuda_jumps.sqrt_table()), torch.sqrt(counts))
+    for lam_dt, size in ((0.0, 0), (1e-5, 1), (0.005, 2)):
+        table = poisson_table(lam_dt)
+        head = cuda_jumps.poisson_head(table)
+        assert table.size == size and head.dtype == np.float32
+        assert head.size == cuda_jumps.POISSON_HEAD + cuda_jumps.SQRT_TABLE
+        np.testing.assert_array_equal(head[:size], table[:cuda_jumps.POISSON_HEAD])
+        assert np.all(head[size:cuda_jumps.POISSON_HEAD] == 2.0)
+        np.testing.assert_array_equal(head[cuda_jumps.POISSON_HEAD:], cuda_jumps.sqrt_table())
+
+
+def test_merton_terminal_first_design_takes_a_card_only():
+    """Kernel 15's first design, the redesign's yardstick, has no plain route:
+    a CPU device raises."""
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_jumps.merton_terminal_first(SEED, 100.0, 0.05, 0.5, MP, 4096, 4, device="cpu")
+
+
 # ---- the streams --------------------------------------------------------------------
 
 def test_merton_draws_mirror_the_normals_not_the_uniforms():
