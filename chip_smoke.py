@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit; count the time loops of kernels
-   1, 3-8, 13 and 15 (both designs) in SASS, with their registers and
+   1, 3-8 and 13-16 (both designs) in SASS, with their registers and
    stack, and there the integer instructions of a Philox call;
 2. each of the eight path kernels against its plain PyTorch version on the
    card, at 2 and 64 tiles and at its path's shape: equal Philox bits, S
@@ -43,10 +43,13 @@ Phases, in order; any failure exits non-zero:
    kernel on the same seed; kernel 13's rows bit-equal on two launches and
    in a ``first_tile`` chunk; J0, the four jump kernels of csrc/jumps.cu
    (Merton paths and terminal, the Bates overlay on paths and terminal
-   values; kernel 15 redesigned, its first design beside it) against their
-   plain versions at the jumps path's shapes and at lam dt = 1, with and
-   without antithetics: S within rtol 1e-5, every Poisson count bit for
-   bit, bit-equal ``first_tile`` chunks;
+   values; kernels 14, 15 and 16 redesigned, their first designs beside
+   them) against their plain versions at the jumps path's shapes and at
+   lam dt = 1, with and without antithetics: S within rtol 1e-5, every
+   Poisson count bit for bit, each redesign's S and counts its first
+   design's bit for bit, kernel 14's batched launch over the Merton
+   surface's 64 maturities its 64 single-maturity launches bit for bit,
+   bit-equal ``first_tile`` chunks;
 3. the paths, each driven with every launch count set to 0 just before it
    and read just after:
    a. the main path through ``price_american``: the pooled Heston American
@@ -87,9 +90,9 @@ Phases, in order; any failure exits non-zero:
       J4 the 64 x 64 Bates and Merton surfaces, apps.calibrate --model
       bates --price-surface, merton_greeks against f64 central differences;
 4. the launch counts of each path, none of its kernels at 0, the first
-   design of kernels 1, 3-8, 13 and 15 and of the variants at 0, and one paths
-   launch per 64x64 Heston surface; the experiments reach the variants'
-   first design only in their first-design rows;
+   design of kernels 1, 3-8 and 13-16 and of the variants at 0, and one
+   paths launch per 64x64 Heston, Bates or Merton surface; the experiments
+   reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
    after warm-up) beside its bound; for kernels 1 and 3-8 also the first
    design's time, in turns with the redesign, and registers and
@@ -103,9 +106,10 @@ Phases, in order; any failure exits non-zero:
    kernel's time; the VJP kernels' times beside their bounds, and the
    seconds of a Greeks call (G1-G3) with the share of its kernels; the
    jump kernels' times beside their bounds and the jumps path's seconds;
-   kernels 13 and 15 in turns with their first designs, and kernel 14 at
-   the jumps path's own shapes (2^18 x 50 and 16,384 x 50) with its
-   launches x (time - bound) there.
+   kernels 13-16 in turns with their first designs (the card's clocks and
+   power logged before and after the jump kernels' turns), and kernel 14 at
+   the jumps path's own shapes (1 x 2^18 x 50 and 64 x 16,384 x 50) with
+   its launches x (time - bound) there, beside its first design's.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel and
 one per jump kernel;
@@ -520,18 +524,38 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "euler vjp": "16euler_vjp_kernelILb1ELb1E",
                 "euler vjp, first design": "22euler_paths_vjp_kernelILb1ELb1E",
                 "merton terminal": "22merton_terminal_kernelILb1ELb0E",
-                "merton terminal, first design": "13merton_kernelILb0ELb1E"}
+                "merton terminal, first design": "13merton_kernelILb0ELb1E",
+                "merton paths": "19merton_paths_kernelILb1ELb0E",
+                "merton paths, first design": "13merton_kernelILb1ELb1E",
+                "overlay paths": "20overlay_paths_kernelILb0E",
+                "overlay paths, first design": "26overlay_paths_first_kernel"}
 # Pair-steps a pass of the time loop covers where that is not one. The
 # redesigned Euler VJP's thread holds one path through four steps (two
 # pair-steps' worth of path-steps); its first design a pair through two.
 SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm terminal": 4,
               "localvol paths": 4, "localvol terminal, degree 3": 4,
               "localvol paths, degree 3": 4, "euler vjp": 2, "euler vjp, first design": 2,
-              "merton terminal": 2}
+              "merton terminal": 2, "merton paths": 2}
+# Path-steps a pass of the overlay's time loop covers (one path a thread,
+# no mirror): the redesign two, the first design one.
+SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1}
 # The loops whose instructions phase_sass prints by unit.
 SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
               "localvol terminal, degree 3", "localvol paths, degree 3", "euler vjp",
-              "euler vjp, first design", "merton terminal", "merton terminal, first design")
+              "euler vjp, first design", "merton terminal", "merton terminal, first design",
+              "merton paths", "merton paths, first design", "overlay paths",
+              "overlay paths, first design")
+
+
+def per_step(key: str, n: int) -> str:
+    """A loop's instructions a pair-step and a path-step (SASS_STEPS) or a
+    path-step (SASS_PATH_STEPS), for the log."""
+    if key in SASS_STEPS:
+        return (f" ({n / SASS_STEPS[key]:g} a pair-step, {n / SASS_STEPS[key] / 2:g} a "
+                "path-step)")
+    if key in SASS_PATH_STEPS:
+        return f" ({n / SASS_PATH_STEPS[key]:g} a path-step)"
+    return ""
 
 
 def sass_loops(text: str) -> dict:
@@ -617,16 +641,16 @@ def phase_sass() -> dict:
         "Philox call, the local-vol (terminal and paths) and GBM terminal redesigns four "
         "steps, one Philox call and two Box-Mullers, every other loop one step; the first "
         "designs' Euler, GBM and local vol call Philox every other or every fourth step, "
-        "the local-vol ones hold their Clenshaw loop; a pair-step is both mirror paths' "
-        "step): "
-        + ", ".join(f"{k} {len(v)}" + (f" ({len(v) / SASS_STEPS[k]:g} a pair-step, "
-                                       f"{len(v) / SASS_STEPS[k] / 2:g} a path-step)"
-                                       if k in SASS_STEPS else "")
-                    for k, v in loops.items()))
+        "the local-vol ones hold their Clenshaw loop; the redesigned Merton loops (paths "
+        "and terminal) cover two pair-steps, the redesigned overlay two path-steps of one "
+        "path; a pair-step is both mirror paths' step): "
+        + ", ".join(f"{k} {len(v)}" + per_step(k, len(v)) for k, v in loops.items()))
     for key in SASS_PIPES:
         if key in loops:
-            log(f"[1] SASS {key} loop by unit (a pass of {SASS_STEPS.get(key, 1)} "
-                "pair-steps): " + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items()))
+            unit = (f"{SASS_PATH_STEPS[key]} path-steps" if key in SASS_PATH_STEPS
+                    else f"{SASS_STEPS.get(key, 1)} pair-steps")
+            log(f"[1] SASS {key} loop by unit (a pass of {unit}): "
+                + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items()))
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -2549,7 +2573,7 @@ def phase_calibration() -> dict:
 def first_design_row(name: str, source: str, shape: str, turns: list, bound_ms: float,
                      a: dict) -> dict:
     """The first design's fields of a redesigned kernel's timing row (kernels
-    13 and 15), from times in turns (first, new, new, first) and the first
+    13-16), from times in turns (first, new, new, first) and the first
     design's registers and occupancy ``a``; logged beside the redesign's."""
     ms, first_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
@@ -2689,6 +2713,10 @@ DRAWS_OVERLAY = (1, 3)
 # multiply and ex2, the multiply into S.
 OPS_MERTON = 11 / 2 + 12
 OPS_OVERLAY = 11 + 12
+# The first designs of kernels 14-16, the yardsticks of their redesigns:
+# J0 holds them against the plain versions, phase 5 times them in turns
+# with the redesigns, and no path may launch them (main's drive).
+JUMP_FIRSTS = ("merton_paths_first", "merton_terminal_first", "jump_overlay_paths_first")
 
 
 def jump_specs():
@@ -2703,19 +2731,19 @@ def jump_specs():
     L = cj.launches
     n20, n22 = 1 << 20, 1 << 22
     return [
-        dict(name="merton_paths", source=src, replaces="options_model_tpu/models/merton.py:26",
+        dict(name="merton_paths", source=src, replaces="options_model_tpu/models/merton.py:27",
              paths=("jumps",), counter=(L, "merton_paths"), timed=(n20, 50),
              ops=OPS_MERTON + OPS_EXP, draws=DRAWS_MERTON, bytes=51 * n20 * 4),
         dict(name="merton_terminal", source=src,
-             replaces="options_model_tpu/models/merton.py:26", paths=("jumps",),
+             replaces="options_model_tpu/models/merton.py:27", paths=("jumps",),
              counter=(L, "merton_terminal"), timed=(n22, 100), ops=OPS_MERTON,
              draws=DRAWS_MERTON, bytes=n22 * 4),
         dict(name="jump_overlay_paths", source=src,
-             replaces="options_model_tpu/models/bates.py:37", paths=("jumps",),
+             replaces="options_model_tpu/models/bates.py:40", paths=("jumps",),
              counter=(L, "jump_overlay_paths"), timed=(n20, 50), ops=OPS_OVERLAY,
              draws=DRAWS_OVERLAY, bytes=2 * 50 * n20 * 4),
         dict(name="jump_overlay_terminal", source=src,
-             replaces="options_model_tpu/models/bates.py:37", paths=("jumps",),
+             replaces="options_model_tpu/models/bates.py:40", paths=("jumps",),
              counter=(L, "jump_overlay_terminal"), timed=(n22, 1), ops=OPS_OVERLAY,
              draws=DRAWS_OVERLAY, bytes=2 * n22 * 4),
     ]
@@ -2735,13 +2763,16 @@ def _jump_inputs():
 
 
 def phase_jump_kernels() -> dict:
-    """J0: kernels 14-17 (and kernel 15's first design) against their plain
-    versions on the card at the
-    jumps path's shapes (Merton 2^18 x 50 and 2^20 x 50 paths, 2^22 x 100
+    """J0: kernels 14-17 and the first designs of kernels 14-16 against their
+    plain versions on the card at the jumps path's shapes (Merton 2^18 x 50
+    and 2^20 x 50 paths, the 64 x 16,384 x 50 surface batch, 2^22 x 100
     terminal, with and without antithetics; the overlay on a 2^20 x 50
     Heston matrix, on the 64 x 16,384 x 50 surface batch and on 2^22
     terminal values), and at lam = 100 (lam dt = 1): S within JUMP_S_RTOL,
-    every Poisson count equal bit for bit (the kernels' debug output);
+    every Poisson count equal bit for bit (the kernels' debug output). Each
+    redesign's S, without its counts output and with them, and its counts
+    equal its first design's bit for bit; the batched Merton launch equals
+    its single-maturity launches on their tiles (both designs) bit for bit;
     bit-equal first_tile chunks. Returns per name max |dS| and the max
     relative one."""
     import numpy as np
@@ -2752,7 +2783,8 @@ def phase_jump_kernels() -> dict:
 
     seed, mp, mp_heavy, jb, jb_heavy, hp = _jump_inputs()
     errs = {k["name"]: dict(s_abs=0.0, s_rel=0.0) for k in jump_specs()}
-    errs["merton_terminal_first"] = dict(s_abs=0.0, s_rel=0.0)
+    for name in JUMP_FIRSTS:
+        errs[name] = dict(s_abs=0.0, s_rel=0.0)
 
     def held(name, tag, got, want):
         torch.cuda.synchronize()
@@ -2773,16 +2805,27 @@ def phase_jump_kernels() -> dict:
             f"{float(diff.max()):.3e}, max rel {rel:.3e}); {n.numel()} counts bit for bit "
             f"(max {int(n.max())}, mean {float(n.float().mean()):.4f})")
 
+    def same_as_first(name, tag, got, first, bare):
+        """The redesign's S without its counts output (the pricing instance)
+        and with them, and its counts, against its first design's."""
+        torch.cuda.synchronize()
+        if not (torch.equal(bare, got[0]) and torch.equal(got[0], first[0])
+                and torch.equal(got[1], first[1])):
+            fail(f"{name} {tag}: S without the counts output, S with them or the counts differ "
+                 "from each other or from the first design's")
+        log(f"[J0] {name} {tag}: S without the counts output == with them == the first "
+            "design's, and the counts the first design's, bit for bit")
+
     def chunk(name, full, part, cols):
         if not torch.equal(full[..., cols:], part):
             fail(f"{name}: a run at first_tile 32 differs from the matching slice of the "
                  "full run")
         log(f"[J0] {name}: first_tile=32 chunk equals the full run's slice bit for bit")
 
-    for fn, ref, cases in (
-            (cj.merton_paths, cj.merton_paths_reference,
+    for fn, ref, first_fn, cases in (
+            (cj.merton_paths, cj.merton_paths_reference, cj.merton_paths_first,
              ((mp, 1 << 18, 50), (mp, 1 << 20, 50), (mp_heavy, 8 * ch.PATH_TILE, 50))),
-            (cj.merton_terminal, cj.merton_terminal_reference,
+            (cj.merton_terminal, cj.merton_terminal_reference, cj.merton_terminal_first,
              ((mp, 1 << 22, 100), (mp_heavy, 2 * ch.TERMINAL_TILE, 100)))):
         for (p, n_paths, steps), anti in itertools.product(cases, (True, False)):
             args = (seed, 100.0, 0.05, 0.5, p, n_paths, steps, anti, 0, DEVICE)
@@ -2790,21 +2833,40 @@ def phase_jump_kernels() -> dict:
             tag = f"lam {p.lam} at {n_paths} x {steps}, antithetic {anti}"
             got = fn(*args, return_counts=True)
             held(fn.__name__, tag, got, want)
-            if fn is cj.merton_terminal:
-                first = cj.merton_terminal_first(*args, return_counts=True)
-                held("merton_terminal_first", tag, first, want)
-                # the pricers' instance, without the counts output
-                bare = fn(*args)
-                if not (torch.equal(bare, got[0]) and torch.equal(bare, first[0])):
-                    fail(f"merton_terminal {tag}: S_T without the counts output differs from "
-                         "S_T with them or from the first design's")
-                log(f"[J0] merton_terminal {tag}: S_T without the counts output == with them "
-                    "== the first design's, bit for bit")
+            first = first_fn(*args, return_counts=True)
+            held(first_fn.__name__, tag, first, want)
+            same_as_first(fn.__name__, tag, got, first, fn(*args))
         tile = ch.PATH_TILE if fn is cj.merton_paths else ch.TERMINAL_TILE
         chunk(fn.__name__, fn(seed, 100.0, 0.05, 0.5, mp, 64 * tile, 50, True, 0, DEVICE),
               fn(seed, 100.0, 0.05, 0.5, mp, 32 * tile, 50, True, 32, DEVICE), 32 * tile)
 
+    # Kernel 14 over a batch of maturities: the Merton surface's (J4), and
+    # two maturities at lam dt = 1 and 2.
     Ts = np.linspace(0.1, 1.0, SURFACE_MATS).astype(np.float32).tolist()
+    for p, n_paths, mats, anti in ((mp, SURFACE_PATHS, Ts, True), (mp, SURFACE_PATHS, Ts, False),
+                                   (mp_heavy, 8 * ch.PATH_TILE, [0.5, 1.0], True)):
+        args = (seed, 100.0, 0.05, mats, p, n_paths, 50, anti, 0, DEVICE)
+        tag = f"lam {p.lam}, {len(mats)} maturities x {n_paths} x 50, antithetic {anti}"
+        got = cj.merton_paths_batched(*args, return_counts=True)
+        held("merton_paths", tag, got, cj.merton_paths_batched_reference(*args,
+                                                                         return_counts=True))
+        bare = cj.merton_paths_batched(*args)
+        n_tiles = n_paths // ch.PATH_TILE
+        one = [(seed, 100.0, 0.05, T, p, n_paths, 50, anti, m * n_tiles, DEVICE)
+               for m, T in enumerate(mats)]
+        singles = [cj.merton_paths(*a) for a in one]
+        firsts = [cj.merton_paths_first(*a, return_counts=True) for a in one]
+        torch.cuda.synchronize()
+        if not (torch.equal(bare, got[0])
+                and all(torch.equal(bare[m], S) for m, S in enumerate(singles))
+                and all(torch.equal(bare[m], S) and torch.equal(got[1][m], n)
+                        for m, (S, n) in enumerate(firsts))):
+            fail(f"merton_paths {tag}: the batched launch differs from its {len(mats)} "
+                 "single-maturity launches (redesign or first design) on their tiles")
+        log(f"[J0] merton_paths {tag}: one batched launch == {len(mats)} single-maturity "
+            "launches on their tiles, of the redesign and of the first design (S and counts), "
+            "bit for bit")
+
     for jumps, n_paths, mats, anti in ((jb, 1 << 20, [0.5], True), (jb, 1 << 20, [0.5], False),
                                        (jb, SURFACE_PATHS, Ts, True),
                                        (jb_heavy, 8 * ch.PATH_TILE, [0.5, 1.0], True)):
@@ -2812,10 +2874,15 @@ def phase_jump_kernels() -> dict:
                                        device=DEVICE)
         S = base if len(mats) > 1 else base[0]
         T = mats if len(mats) > 1 else mats[0]
-        held("jump_overlay_paths", f"lam {jumps.lam}, {len(mats)} maturities x {n_paths} x 50, "
-             f"Heston antithetic {anti}",
-             cj.jump_overlay_paths(S.clone(), seed, T, jumps, 0, return_counts=True),
-             cj.jump_overlay_paths_reference(S.clone(), seed, T, jumps, 0, return_counts=True))
+        tag = (f"lam {jumps.lam}, {len(mats)} maturities x {n_paths} x 50, Heston antithetic "
+               f"{anti}")
+        want = cj.jump_overlay_paths_reference(S.clone(), seed, T, jumps, 0, return_counts=True)
+        got = cj.jump_overlay_paths(S.clone(), seed, T, jumps, 0, return_counts=True)
+        held("jump_overlay_paths", tag, got, want)
+        first = cj.jump_overlay_paths_first(S.clone(), seed, T, jumps, 0, return_counts=True)
+        held("jump_overlay_paths_first", tag, first, want)
+        same_as_first("jump_overlay_paths", tag, got, first,
+                      cj.jump_overlay_paths(S.clone(), seed, T, jumps, 0))
     base = ch.heston_paths(seed, 100.0, 0.05, 0.5, hp, 64 * ch.PATH_TILE, 50, device=DEVICE)
     chunk("jump_overlay_paths", cj.jump_overlay_paths(base.clone(), seed, 0.5, jb),
           cj.jump_overlay_paths(base[:, 32 * ch.PATH_TILE:].contiguous(), seed, 0.5, jb, 32),
@@ -2985,7 +3052,7 @@ def phase_jumps() -> tuple:
             f"launches {n}; finite {bool(np.isfinite(P).all())}; min step in K {worst:+.3e} "
             f"(gate -1e-3); middle cell {float(P[len(Ts) // 2, len(Ks) // 2]):.4f}")
         want = ({"heston_paths": 1, "jump_overlay_paths": 1} if label == "bates_surface"
-                else {"merton_paths": SURFACE_MATS})
+                else {"merton_paths": 1})
         if not (np.isfinite(P).all() and worst >= -1e-3 and n == want):
             fail(f"J4: the {label}: not finite, not monotone in K, or launches {n} != {want}")
     csv_path = Path(__file__).resolve().parent / "build" / "calibrated_bates_surface.csv"
@@ -3043,25 +3110,55 @@ def phase_jumps() -> tuple:
     return {k: statistics.median(v) for k, v in secs.items()}, res
 
 
+def log_clocks(when: str) -> None:
+    """The card's SM clock, power draw, power limit and temperature
+    (nvidia-smi), logged beside a timing window."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+                          "temperature.gpu", "--format=csv"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    log(f"[5] nvidia-smi {when}: " + " | ".join(out.stdout.strip().splitlines()))
+
+
 def merton_paths_shapes(seed, mp, spec, n_int: float, shapes: dict) -> dict:
-    """Kernel 14 at each (n_pad, n_steps) at which the jumps path launched it,
-    ``shapes`` its launches there (cuda_jumps.shape_launches read after that
-    path; J1 runs it at 2^18 x 50, J4's Merton surface at 16,384 x 50, 64
-    blocks of 128 threads, under one wave of 132 SMs): its time, bound and
-    launches x (time - bound), the loss the redesign queue ranks it by."""
+    """Kernel 14 at each (n_mat, n_pad, n_steps) at which the jumps path
+    launched it, ``shapes`` its launches there (cuda_jumps.shape_launches
+    read after that path; J1 runs it at 1 x 2^18 x 50, J4's Merton surface
+    at 64 x 16,384 x 50, one launch for the 64 maturities), in turns with
+    its first design (first, new, new, first), which takes one launch a
+    maturity: its time, bound and launches x (time - bound), the loss the
+    redesign queue ranks it by, beside the first design's n_mat launches at
+    one maturity (T = 0.5) and their loss."""
+    import numpy as np
+
     from options_model_tpu_torch.ops import cuda_jumps as cj
     from options_model_tpu_torch.utils.profiling import time_per_call
 
     out = {}
-    for (n, steps), launches in sorted(shapes.items(), reverse=True):
-        ms = time_per_call(lambda: cj.merton_paths(seed, 100.0, 0.05, 0.5, mp, n, steps,
-                                                   device=DEVICE), N_TIMED)
-        b = bound(n, steps, spec["ops"], n_int, (steps + 1) * n * 4)
+    for (n_mat, n, steps), launches in sorted(shapes.items(), reverse=True):
+        Ts = [0.5] if n_mat == 1 else np.linspace(0.1, 1.0, n_mat).astype(np.float32).tolist()
+        new = lambda: cj.merton_paths_batched(seed, 100.0, 0.05, Ts, mp, n, steps,  # noqa: E731
+                                              device=DEVICE)
+        first = lambda: cj.merton_paths_first(seed, 100.0, 0.05, 0.5, mp, n, steps,  # noqa: E731
+                                              device=DEVICE)
+        turns = [time_per_call(f, N_TIMED) for f in (first, new, new, first)]
+        ms, first_one = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        b = bound(n_mat * n, steps, spec["ops"], n_int, n_mat * (steps + 1) * n * 4)
+        b1 = bound(n, steps, spec["ops"], n_int, (steps + 1) * n * 4)
         loss = launches * (ms - b["bound_ms"])
-        out[f"{n}x{steps}"] = dict(ms=ms, launches=launches, loss_ms=loss, **b)
-        log(f"[5] merton_paths at {n} x {steps}: {ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
-            f"{b['bound_term']} ({b['bound_ms'] / ms * 100:.1f}%); {launches} launches on the "
-            f"jumps path: loss {launches} x ({ms:.4f} - {b['bound_ms']:.4f}) = {loss:.3f} ms")
+        first_loss = launches * n_mat * (first_one - b1["bound_ms"])
+        out[f"{n_mat}x{n}x{steps}"] = dict(ms=ms, launches=launches, loss_ms=loss, turns=turns,
+                                           earlier_ms=n_mat * first_one,
+                                           earlier_launches=launches * n_mat,
+                                           earlier_loss_ms=first_loss, **b)
+        log(f"[5] merton_paths at {n_mat} x {n} x {steps}: {ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_term']} ({b['bound_ms'] / ms * 100:.1f}%); "
+            f"{launches} launches on the jumps path: loss {launches} x ({ms:.4f} - "
+            f"{b['bound_ms']:.4f}) = {loss:.3f} ms; first design {first_one:.4f} ms a "
+            f"maturity ({b1['bound_ms'] / first_one * 100:.1f}% of its {b1['bound_ms']:.4f}), "
+            f"{launches * n_mat} launches: loss {first_loss:.3f} ms (turns "
+            + ", ".join(f"{t:.4f}" for t in turns) + ")")
     return out
 
 
@@ -3069,11 +3166,10 @@ def phase_jump_timing(per_call: float, shapes: dict) -> dict:
     """CUDA-event medians of kernels 14-17 and of their plain versions at
     their timed shapes (Merton paths 2^20 x 50, terminal 2^22 x 100; the
     overlay on a 2^20 x 50 Heston matrix and on 2^22 terminal values, in
-    place), each beside its bound; registers and occupancy; kernel 15 in
-    turns with its first design; kernel 14 also at the jumps path's own
-    shapes, ``shapes`` (merton_paths_shapes)."""
-    import torch
-
+    place), each beside its bound; registers and occupancy; kernels 14, 15
+    and 16 in turns with their first designs; kernel 14 also at the jumps
+    path's own shapes, ``shapes`` (merton_paths_shapes). The card's clocks
+    and power are logged before and after."""
     from options_model_tpu_torch.ops import cuda_heston as ch
     from options_model_tpu_torch.ops import cuda_jumps as cj
     from options_model_tpu_torch.utils.profiling import time_per_call
@@ -3093,41 +3189,48 @@ def phase_jump_timing(per_call: float, shapes: dict) -> dict:
                                                 else cj.jump_overlay_terminal)(
             S_T, seed, 0.5, jb, 100),
     }
+    firsts = {
+        "merton_paths": lambda: cj.merton_paths_first(seed, 100.0, 0.05, 0.5, mp, 1 << 20, 50,
+                                                      device=DEVICE),
+        "merton_terminal": lambda: cj.merton_terminal_first(seed, 100.0, 0.05, 0.5, mp, 1 << 22,
+                                                            100, device=DEVICE),
+        "jump_overlay_paths": lambda: cj.jump_overlay_paths_first(S, seed, 0.5, jb),
+    }
     attrs = cj.jumps_kernel_attrs()
     out = {}
+    log_clocks("before the jump kernels' turns")
     for k in jump_specs():
+        name = k["name"]
         n, steps = k["timed"]
         turns = None
-        if k["name"] == "merton_terminal":
+        if name in firsts:
             # in turns with the first design: first, new, new, first
-            first = lambda: cj.merton_terminal_first(seed, 100.0, 0.05, 0.5, mp, n, steps,
-                                                     device=DEVICE)
-            new = lambda: runs["merton_terminal"](False)
-            turns = [time_per_call(f, N_TIMED) for f in (first, new, new, first)]
+            new = lambda: runs[name](False)  # noqa: E731
+            turns = [time_per_call(f, N_TIMED) for f in (firsts[name], new, new, firsts[name])]
             ms = (turns[1] + turns[2]) / 2
         else:
-            ms = time_per_call(lambda: runs[k["name"]](False), N_TIMED)
-        plain_ms = time_per_call(lambda: runs[k["name"]](True), 3)
+            ms = time_per_call(lambda: runs[name](False), N_TIMED)
+        plain_ms = time_per_call(lambda: runs[name](True), 3)
         n_int = int_ops(k["draws"], per_call)
         b = bound(n, steps, k["ops"], n_int, k["bytes"])
-        a = attrs[k["name"]]
-        out[k["name"]] = dict(ms=ms, plain_ms=plain_ms, registers=a["registers"],
-                              spill_bytes=a["spill_bytes"], block=a["block"],
-                              occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
+        a = attrs[name]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, registers=a["registers"],
+                         spill_bytes=a["spill_bytes"], block=a["block"],
+                         occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
         if turns is not None:
-            out[k["name"]].update(first_design_row(
-                "merton_terminal_first", k["source"], f"{n} x {steps}", turns, b["bound_ms"],
-                attrs["merton_terminal_first"]))
-        if k["name"] == "merton_paths":
-            out[k["name"]]["path_shapes"] = merton_paths_shapes(seed, mp, k, n_int, shapes)
-        log(f"[5] {k['name']} {n} paths x {steps} steps: kernel {ms:.4f} ms "
+            out[name].update(first_design_row(f"{name}_first", k["source"], f"{n} x {steps}",
+                                              turns, b["bound_ms"], attrs[f"{name}_first"]))
+        if name == "merton_paths":
+            out[name]["path_shapes"] = merton_paths_shapes(seed, mp, k, n_int, shapes)
+        log(f"[5] {name} {n} paths x {steps} steps: kernel {ms:.4f} ms "
             f"({n * steps / ms * 1e3:.4e} path-steps/s, {k['bytes'] / ms / 1e9:.3f} TB/s "
             f"moved), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
             f"{b['bound_term']} ({k['ops']:.2f} f32 operations and {n_int:.2f} int32 "
             f"instructions per path-step, {k['bytes'] / 1e6:.1f} MB moved); "
             f"{b['bound_ms'] / ms * 100:.1f}% of bound; {a['registers']} registers, "
             f"{a['spill_bytes']} spill bytes, {a['blocks_per_sm']} blocks of {a['block']} "
-            f"per SM ({out[k['name']]['occupancy'] * 100:.1f}% occupancy)")
+            f"per SM ({out[name]['occupancy'] * 100:.1f}% occupancy)")
+    log_clocks("after the jump kernels' turns")
     return out
 
 
@@ -3161,17 +3264,17 @@ def main() -> int:
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
     counted = specs + vjp + jumps
-    # kernels 13 and 15's first designs: the yardsticks no path may reach
+    # kernels 13-16's first designs: the yardsticks no path may reach
     firsts = {"euler_paths_vjp_first": cuda_heston.launches,
-              "merton_terminal_first": cuda_jumps.launches}
+              **{key: cuda_jumps.launches for key in JUMP_FIRSTS}}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
     counters += [(d, key) for key, d in firsts.items()]
 
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
-        was never launched, or if the first design of kernels 1, 3-8, 13 or
-        15, or of the variants, was. Returns (fn's result, that path's
+        was never launched, or if the first design of kernels 1, 3-8 or
+        13-16, or of the variants, was. Returns (fn's result, that path's
         counts)."""
         for d, key in counters:
             d[key] = 0
@@ -3188,8 +3291,8 @@ def main() -> int:
         earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3, 4, 5, 6, 7, 8, 13 "
-                 f"or 15, or of the variants: {earlier}")
+            fail(f"the {path} path reached the first design of kernels 1, 3-8 or 13-16, or of "
+                 f"the variants: {earlier}")
         return out, mine
 
     (secs, euro), launches = drive("main", phase_main_path)
@@ -3201,7 +3304,8 @@ def main() -> int:
     cal_res, launches_c = drive("calibration", phase_calibration)
     (secs_j, jump_res), launches_j = drive("jumps", phase_jumps)
     shapes_j = dict(cuda_jumps.shape_launches)
-    log(f"[4] merton_paths launches during the jumps path by (n_pad, n_steps): {shapes_j}")
+    log(f"[4] merton_paths launches during the jumps path by (n_mat, n_pad, n_steps): "
+        f"{shapes_j}")
     if sum(shapes_j.values()) != launches_j["merton_paths"]:
         fail(f"merton_paths' launches by shape {shapes_j} do not add up to its "
              f"{launches_j['merton_paths']} launches on the jumps path")

@@ -3,31 +3,32 @@
 // kernel's output.
 //
 // The JAX package computes these in XLA code, not in Pallas:
-//   options_model_tpu/models/merton.py:26  simulate_merton (return_paths True: kernel 14,
+//   options_model_tpu/models/merton.py:27  simulate_merton (return_paths True: kernel 14,
 //                                          False: kernel 15)
-//   options_model_tpu/models/bates.py:37   jump_overlay (return_paths True: kernel 16,
+//   options_model_tpu/models/bates.py:40   jump_overlay (return_paths True: kernel 16,
 //                                          False: kernel 17), times the Heston S
 // XLA fuses each into one pass over its draws; eager torch would not, and
 // the port's random stream is Philox keyed by (seed, global tile, draw), so
 // each is a kernel here with a plain PyTorch version on the same counters
 // (ops/cuda_jumps.py; ops/philox.py states the stream contract).
 //
-// - merton_kernel<kPaths>: one thread owns one antithetic pair (or one path)
-//   and carries x = log S - log S0 of both mirror paths in registers. One
+// - merton_kernel<kPaths>: the first design of kernels 14 (paths) and 15
+//   (terminal), kept as the yardstick of their redesigns,
+//   merton_paths_kernel and merton_terminal_kernel (below), which the
+//   pricers reach. One thread owns one antithetic pair (or one path) and
+//   carries x = log S - log S0 of both mirror paths in registers. One
 //   Philox call per pair-step (counter = (slot, step, global tile, 0)):
 //   (w0, w1) -> Box-Muller -> (z, z_j), mirrored; w2, w3 -> the Poisson
 //   uniforms of the path and of its mirror. x += drift + sigma sqrt(dt) z +
 //   N mu_j + sigma_j sqrt(N) z_j. The paths instance stores every row as
-//   2^(log2 S0 + x log2 e) (store_s), the terminal instance S_T only. The
-//   terminal instance is the first design of kernel 15, kept as the
-//   yardstick of its redesign, merton_terminal_kernel (below), which the
-//   pricers reach.
-// - overlay_paths_kernel: one thread per path column of a (n_mat, n_steps+1,
-//   n_pad) Heston S, maturity m on global tiles first_tile + m n_tiles + ..,
-//   as the batched Heston kernel draws them. One Philox call per path-step
-//   (counter word 3 = 1, never mirrored): z_j and the Poisson uniform.
-//   y += N mu_j + sigma_j sqrt(N) z_j - lam kbar dt; S[t+1] *= exp(y), read
-//   and written once each.
+//   2^(log2 S0 + x log2 e) (store_s), the terminal instance S_T only.
+// - overlay_paths_first_kernel: the first design of kernel 16, the
+//   yardstick of its redesign overlay_paths_kernel (below). One thread per
+//   path column of a (n_mat, n_steps+1, n_pad) Heston S, maturity m on
+//   global tiles first_tile + m n_tiles + .., as the batched Heston kernel
+//   draws them. One Philox call per path-step (counter word 3 = 1, never
+//   mirrored): z_j and the Poisson uniform. y += N mu_j + sigma_j sqrt(N)
+//   z_j - lam kbar dt; S[t+1] *= exp(y), read and written once each.
 // - overlay_terminal_kernel: S_T *= exp(N mu_j + sigma_j sqrt(N) z_j -
 //   lam kbar T), N ~ Poisson(lam T), one call per path at draw n_steps.
 //
@@ -36,17 +37,18 @@
 // not below, the same float32 comparisons as the plain version, so the
 // counts are equal bit for bit. The table sits in the constants row the
 // wrapper copies to the card (kRow floats per maturity: a, diffusion, mu_j,
-// sigma_j, log S0, table length, two zeros, the table); the scan stops at
-// the first entry above u (one or two entries at the bench's lam dt).
+// sigma_j, log S0, table length, the head F(0), F(1) (2 past the table's
+// end), the table); the scan stops at the first entry above u (one or two
+// entries at the bench's lam dt).
 //
 // What bounds them on the card: kernel 14 writes 4 bytes per path-step
 // (0.063 ms at 2^20 x 50 and 3.35 TB/s), kernel 16 reads and writes 4 each;
 // kernels 15 and 17 store one float per path and are held by the Philox
-// integer work (chip_smoke.bound). A first design: Philox's round keys once
-// per launch, the SFU Box-Muller, the count's scan through L1, and nothing
-// else tuned. An optional int32 ``counts`` output (null on the pricing
-// path) writes each draw's count, so a check can hold them against the
-// plain version's bit for bit.
+// integer work (chip_smoke.bound). The first designs: Philox's round keys
+// once per launch, the SFU Box-Muller, the count's scan through L1, and
+// nothing else tuned. An optional int32 ``counts`` output (null on the
+// pricing path) writes each draw's count, so a check can hold them against
+// the plain version's bit for bit.
 #include "hopper_fast.cuh"
 #include "kernel_attrs.cuh"
 
@@ -58,8 +60,9 @@ using namespace fast;
 constexpr int kPathTile = 4096;
 constexpr int kTerminalTile = 16384;
 constexpr int kBlock = 128;
-// A constants row: 8 floats, then at most kMaxTable Poisson CDF entries
-// (ops/philox.MAX_POISSON_TABLE, ops/cuda_jumps.ROW).
+// A constants row: 8 floats (slots 6 and 7 the table's head F(0), F(1)),
+// then at most kMaxTable Poisson CDF entries (ops/philox.MAX_POISSON_TABLE,
+// ops/cuda_jumps.ROW).
 constexpr int kRow = 128;
 constexpr int kHead = 8;
 constexpr int kMaxTable = kRow - kHead;
@@ -137,9 +140,10 @@ merton_kernel(float* __restrict__ S, int* __restrict__ counts, const float* __re
 }
 
 __global__ void __launch_bounds__(kBlock)
-overlay_paths_kernel(float* __restrict__ S, int* __restrict__ counts,
-                     const float* __restrict__ consts, const __grid_constant__ PhiloxKeys keys,
-                     int first_tile, int n_tiles, int n_steps, int n_mat) {
+overlay_paths_first_kernel(float* __restrict__ S, int* __restrict__ counts,
+                           const float* __restrict__ consts,
+                           const __grid_constant__ PhiloxKeys keys, int first_tile, int n_tiles,
+                           int n_steps, int n_mat) {
   const long long n_pad = static_cast<long long>(n_tiles) * kPathTile;
   const long long id = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (id >= n_pad * n_mat) return;
@@ -280,6 +284,169 @@ merton_terminal_kernel(float* __restrict__ S, int* __restrict__ counts,
   if (kAnti) S[col + kWidth] = ex2_approx(fmaf(xb, kLog2e, k.log2_s0));
 }
 
+// ---- merton_paths_kernel and overlay_paths_kernel: the redesigns of ----
+// ---- merton_kernel<true, *> (kernel 14) and overlay_paths_first_kernel (16)
+//
+// The first designs carry what the SASS of kernel 15's showed: each count a
+// dependent __ldg scan, each sqrtf(N) IEEE's, whose N = 0 takes its
+// slow-path call, and the counts output's address work on every step. The
+// Merton surface also launched kernel 14 once a maturity: 64 launches of 64
+// blocks at 16,384 x 50, 68 of the 132 SMs idle and each thread walking 50
+// dependent steps. The redesigns keep the streams, the counts, the
+// constants rows and every float operation of the first designs, so S is
+// theirs bit for bit, and:
+// - one launch covers a batch of maturities: blockIdx.y is the maturity m,
+//   which draws global tiles first_tile + m n_tiles + .. (as the batched
+//   Heston kernel) and reads its own constants row and Poisson head;
+// - counts 0 and 1 by one comparison with the row's F(0), read once a
+//   thread; a uniform not below F(1), rare at the path's lam dt, scans the
+//   table from entry 2. sqrt(N) is N itself for N <= 1 (IEEE's roots of 0
+//   and 1) and sqrtf past it, where N >= 2 never takes the special case;
+// - the counts output a template flag, so the pricing instance has none of
+//   its work;
+// - two steps an iteration, two Philox calls in flight.
+// The overlay also:
+// - draws the jump's normal only where a lane of the warp drew N > 0
+//   (__any_sync; the grid is whole warps of whole tiles, so every lane
+//   votes). With N = 0 the jump term fmaf(0, mu_j, sigma_j 0 z_j) is +-0,
+//   and y + (+-0 + a) is y + a bit for bit (y is never -0), whatever z_j:
+//   at lam = 0.3 and dt = 0.01 a warp skips the Box-Muller on ~91% of its
+//   steps;
+// - loads both rows of an iteration (__ldcs) before its two Philox calls,
+//   so the row traffic overlaps the integer work: at 2^20 x 50 the byte
+//   floor (0.125 ms) and the Philox floor (0.122 ms) are about equal.
+
+// (N, sqrt N) of the uniform u against a maturity's head f0 = F(0), f1 =
+// F(1) and its table: u >= F(n) in float32, as the plain version compares.
+__device__ __forceinline__ void head_count(float u, float f0, float f1, const JumpK& k,
+                                           float& n, float& sn) {
+  n = u >= f0 ? 1.0f : 0.0f;
+  sn = n;
+  if (u >= f1) {
+    int m = kHeadCdf;
+    while (m < k.n_table && u >= __ldg(k.table + m)) ++m;
+    n = static_cast<float>(m);
+    sn = sqrtf(n);
+  }
+}
+
+template <bool kAnti, bool kCounts>
+__global__ void __launch_bounds__(kBlock)
+merton_paths_kernel(float* __restrict__ S, int* __restrict__ counts,
+                    const float* __restrict__ consts, const __grid_constant__ PhiloxKeys keys,
+                    int first_tile, int n_tiles, int n_steps) {
+  constexpr int kWidth = kAnti ? kPathTile / 2 : kPathTile;
+  const int m = blockIdx.y;
+  const long long slot = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const int local_tile = static_cast<int>(slot / kWidth);
+  const uint32_t j = static_cast<uint32_t>(slot % kWidth);
+  const uint32_t global_tile = static_cast<uint32_t>(first_tile + m * n_tiles + local_tile);
+  const size_t n_pad = static_cast<size_t>(n_tiles) * kPathTile;
+  const size_t col = static_cast<size_t>(local_tile) * kPathTile + j;
+  const float* row = consts + static_cast<size_t>(m) * kRow;
+  const JumpK k = jump_consts(row);
+  const float f0 = __ldg(row + kHead - kHeadCdf), f1 = __ldg(row + kHead - kHeadCdf + 1);
+  float* p = S + static_cast<size_t>(m) * (n_steps + 1) * n_pad + col;
+  int* c = nullptr;
+  if constexpr (kCounts) c = counts + static_cast<size_t>(m) * n_steps * n_pad + col;
+
+  float xa = 0.0f, xb = 0.0f;
+  store_s(p, 0.0f, k.log2_s0);
+  if constexpr (kAnti) store_s(p + kWidth, 0.0f, k.log2_s0);
+  auto step = [&](const Words& w) {
+    float z, z_j, n, sn;
+    box_muller_fast(w.x, w.y, z, z_j);
+    head_count(uniform_from_bits(w.z), f0, f1, k, n, sn);
+    xa += fmaf(k.diffusion, z, k.a) + fmaf(n, k.mu_j, k.sigma_j * sn * z_j);
+    p += n_pad;
+    store_s(p, xa, k.log2_s0);
+    if constexpr (kCounts) *c = static_cast<int>(n);
+    if constexpr (kAnti) {
+      head_count(uniform_from_bits(w.w), f0, f1, k, n, sn);
+      xb += fmaf(k.diffusion, -z, k.a) + fmaf(n, k.mu_j, k.sigma_j * sn * -z_j);
+      store_s(p + kWidth, xb, k.log2_s0);
+      if constexpr (kCounts) c[kWidth] = static_cast<int>(n);
+    }
+    if constexpr (kCounts) c += n_pad;
+  };
+  auto draw = [&](int t) {
+    return philox_keyed(Words{j, static_cast<uint32_t>(t), global_tile, 0u}, keys);
+  };
+  int t = 0;
+#pragma unroll 1
+  for (; t + 2 <= n_steps; t += 2) {
+    const Words w0 = draw(t), w1 = draw(t + 1);
+    step(w0);
+    step(w1);
+  }
+  if (t < n_steps) step(draw(t));
+}
+
+template <bool kCounts>
+__global__ void __launch_bounds__(kBlock)
+overlay_paths_kernel(float* __restrict__ S, int* __restrict__ counts,
+                     const float* __restrict__ consts, const __grid_constant__ PhiloxKeys keys,
+                     int first_tile, int n_tiles, int n_steps) {
+  static_assert(kPathTile % kBlock == 0 && kBlock % 32 == 0, "whole warps of whole tiles");
+  const int m = blockIdx.y;
+  const long long col = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  const uint32_t j = static_cast<uint32_t>(col % kPathTile);
+  const uint32_t global_tile =
+      static_cast<uint32_t>(first_tile + m * n_tiles + static_cast<int>(col / kPathTile));
+  const size_t n_pad = static_cast<size_t>(n_tiles) * kPathTile;
+  const float* row = consts + static_cast<size_t>(m) * kRow;
+  const JumpK k = jump_consts(row);
+  const float f0 = __ldg(row + kHead - kHeadCdf), f1 = __ldg(row + kHead - kHeadCdf + 1);
+  float* p = S + static_cast<size_t>(m) * (n_steps + 1) * n_pad + col;
+  int* c = nullptr;
+  if constexpr (kCounts) c = counts + static_cast<size_t>(m) * n_steps * n_pad + col;
+
+  float y = 0.0f;
+  // One path-step on the row q, whose entry s is already loaded.
+  auto step = [&](const Words& w, float* q, float s) {
+    float n, sn;
+    head_count(uniform_from_bits(w.z), f0, f1, k, n, sn);
+    float jump = 0.0f;
+    if (__any_sync(0xffffffffu, n > 0.0f)) {
+      float z_j, unused;
+      box_muller_fast(w.x, w.y, z_j, unused);
+      jump = fmaf(n, k.mu_j, k.sigma_j * sn * z_j);
+    }
+    y += jump + k.a;
+    __stcs(q, s * ex2_approx(y * kLog2e));
+    if constexpr (kCounts) {
+      *c = static_cast<int>(n);
+      c += n_pad;
+    }
+  };
+  auto draw = [&](int t) {
+    return philox_keyed(Words{j, static_cast<uint32_t>(t), global_tile, kOverlayStream}, keys);
+  };
+  int t = 0;
+#pragma unroll 1
+  for (; t + 2 <= n_steps; t += 2) {
+    float* q0 = p + n_pad;
+    float* q1 = q0 + n_pad;
+    const float s0 = __ldcs(q0), s1 = __ldcs(q1);
+    const Words w0 = draw(t), w1 = draw(t + 1);
+    step(w0, q0, s0);
+    step(w1, q1, s1);
+    p = q1;
+  }
+  if (t < n_steps) {
+    float* q = p + n_pad;
+    step(draw(t), q, __ldcs(q));
+  }
+}
+
+// Blocks of one maturity's part of a paths grid (whole blocks: a tile's
+// slots are a multiple of kBlock), and whether a batch of n_mat maturities
+// fits the grid's y dimension.
+inline unsigned int tile_blocks(int n_tiles, int slots_per_tile) {
+  return static_cast<unsigned int>(static_cast<long long>(n_tiles) * slots_per_tile / kBlock);
+}
+inline bool batch_fits(int n_mat) { return n_mat >= 1 && n_mat <= 65535; }
+
 template <bool kPaths>
 int launch_merton(void* S, void* counts, const void* consts, uint64_t seed, int first_tile,
                   int n_tiles, int n_steps, int antithetic, void* stream) {
@@ -302,9 +469,31 @@ extern "C" {
 // the overlay's paths, else one); ``counts`` a device int32 array shaped as
 // the draws, or null.
 
-// S: device (n_steps+1, n_tiles*4096) float32; counts (n_steps, n_tiles*4096).
+// The redesign of kernel 14. S: device (n_mat, n_steps+1, n_tiles*4096)
+// float32, maturity m on global tiles first_tile + m n_tiles + ..; counts
+// (n_mat, n_steps, n_tiles*4096) or null; consts n_mat rows.
 int omt_merton_paths(void* S, void* counts, const void* consts, uint64_t seed, int first_tile,
-                     int n_tiles, int n_steps, int antithetic, void* stream) {
+                     int n_tiles, int n_steps, int n_mat, int antithetic, void* stream) {
+  using namespace omt::jumps;
+  if (n_tiles < 1 || n_steps < 1 || !batch_fits(n_mat)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(tile_blocks(n_tiles, antithetic ? kPathTile / 2 : kPathTile), n_mat);
+  auto kernel = antithetic
+                    ? (counts ? merton_paths_kernel<true, true> : merton_paths_kernel<true, false>)
+                    : (counts ? merton_paths_kernel<false, true>
+                              : merton_paths_kernel<false, false>);
+  kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(S), static_cast<int*>(counts), static_cast<const float*>(consts),
+      omt::fast::philox_keys(seed), first_tile, n_tiles, n_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design of kernel 14, the redesign's yardstick: one maturity.
+// S: device (n_steps+1, n_tiles*4096) float32; counts (n_steps, n_tiles*4096).
+int omt_merton_paths_first(void* S, void* counts, const void* consts, uint64_t seed,
+                           int first_tile, int n_tiles, int n_steps, int antithetic,
+                           void* stream) {
   return omt::jumps::launch_merton<true>(S, counts, consts, seed, first_tile, n_tiles,
                                          n_steps, antithetic, stream);
 }
@@ -342,14 +531,30 @@ int omt_merton_terminal_first(void* out, void* counts, const void* consts, uint6
                                           n_steps, antithetic, stream);
 }
 
-// S: device (n_mat, n_steps+1, n_tiles*4096) float32, multiplied in place;
-// counts (n_mat, n_steps, n_tiles*4096).
+// The redesign of kernel 16. S: device (n_mat, n_steps+1, n_tiles*4096)
+// float32, multiplied in place; counts (n_mat, n_steps, n_tiles*4096) or null.
 int omt_jump_overlay_paths(void* S, void* counts, const void* consts, uint64_t seed,
                            int first_tile, int n_tiles, int n_steps, int n_mat, void* stream) {
   using namespace omt::jumps;
+  if (n_tiles < 1 || n_steps < 1 || !batch_fits(n_mat)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(tile_blocks(n_tiles, kPathTile), n_mat);
+  auto kernel = counts ? overlay_paths_kernel<true> : overlay_paths_kernel<false>;
+  kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(S), static_cast<int*>(counts), static_cast<const float*>(consts),
+      omt::fast::philox_keys(seed), first_tile, n_tiles, n_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design of kernel 16, the redesign's yardstick: the same arguments.
+int omt_jump_overlay_paths_first(void* S, void* counts, const void* consts, uint64_t seed,
+                                 int first_tile, int n_tiles, int n_steps, int n_mat,
+                                 void* stream) {
+  using namespace omt::jumps;
   if (n_tiles < 1 || n_steps < 1 || n_mat < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(n_tiles) * kPathTile * n_mat;
-  overlay_paths_kernel<<<blocks_for(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  overlay_paths_first_kernel<<<blocks_for(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(S), static_cast<int*>(counts), static_cast<const float*>(consts),
       omt::fast::philox_keys(seed), first_tile, n_tiles, n_steps, n_mat);
   return static_cast<int>(cudaGetLastError());
@@ -368,17 +573,20 @@ int omt_jump_overlay_terminal(void* S, void* counts, const void* consts, uint64_
 }
 
 // out[4]: registers, spill bytes, blocks per SM, block threads of ``which``:
-// 0 Merton paths, 1 Merton terminal (antithetic instances; the redesign's
-// without counts), 2 overlay paths, 3 overlay terminal, 4 Merton terminal's
-// first design.
+// 0 Merton paths, 1 Merton terminal, 2 overlay paths (the redesigns'
+// pricing instances: antithetic, without counts), 3 overlay terminal, 4
+// Merton terminal's first design, 5 Merton paths' first design, 6 overlay
+// paths' first design.
 int omt_jumps_attrs(int which, int* out) {
   using namespace omt::jumps;
   switch (which) {
-    case 0: return omt::kernel_attrs(merton_kernel<true, true>, kBlock, out);
+    case 0: return omt::kernel_attrs(merton_paths_kernel<true, false>, kBlock, out);
     case 1: return omt::kernel_attrs(merton_terminal_kernel<true, false>, kBlock, out);
-    case 2: return omt::kernel_attrs(overlay_paths_kernel, kBlock, out);
+    case 2: return omt::kernel_attrs(overlay_paths_kernel<false>, kBlock, out);
     case 3: return omt::kernel_attrs(overlay_terminal_kernel, kBlock, out);
     case 4: return omt::kernel_attrs(merton_kernel<false, true>, kBlock, out);
+    case 5: return omt::kernel_attrs(merton_kernel<true, true>, kBlock, out);
+    case 6: return omt::kernel_attrs(overlay_paths_first_kernel, kBlock, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,7 +12,8 @@ normal z, the count, the jump-size normal z_j) and
 version the kernels of csrc/jumps.cu (14 paths, 15 terminal) are held
 against. ``simulate_merton`` draws from their stream (ops/philox.py: one
 Philox call per pair-step, z and z_j mirrored, the two Poisson uniforms
-full width) and dispatches on the device. ``merton_price`` is the jump-count
+full width) and dispatches on the device; ``simulate_merton_maturities``
+draws a batch of maturities in one launch of kernel 14. ``merton_price`` is the jump-count
 series, the control variate's closed form and the Merton oracle.
 """
 
@@ -33,7 +34,8 @@ def merton_constants(S0, r, T, params: MertonParams, n_steps: int) -> dict:
     """float32 constants rounded as the reference's simulate_merton:
     dt = f32(T) / n_steps, kbar = exp(mu_j + sigma_j^2/2) - 1, drift =
     (r - sigma^2/2 - lam kbar) dt, diffusion = sigma sqrt(dt); and lam_dt,
-    the Poisson mean of a step, in float64 (the Poisson table's input)."""
+    the Poisson mean of a step, in float64 (the Poisson table's input).
+    Elementwise over an array of maturities T."""
     f = np.float32
     dt = f(T) / f(n_steps)
     sig, lam = f(params.sigma), f(params.lam)
@@ -41,7 +43,7 @@ def merton_constants(S0, r, T, params: MertonParams, n_steps: int) -> dict:
     kbar = np.exp(mu_j + f(0.5) * sig_j * sig_j) - f(1.0)
     return dict(log_s0=np.log(f(S0)), drift=(f(r) - f(0.5) * sig * sig - lam * kbar) * dt,
                 diffusion=sig * np.sqrt(dt), mu_j=mu_j, sigma_j=sig_j,
-                lam_dt=float(params.lam) * float(T) / n_steps)
+                lam_dt=float(params.lam) * np.asarray(T, np.float64) / n_steps)
 
 
 def jump_sum(n: torch.Tensor, z_j: torch.Tensor, mu_j, sigma_j) -> torch.Tensor:
@@ -83,6 +85,22 @@ def simulate_merton(seed: int, S0, r, T, params: MertonParams, cfg: MCConfig,
     fn = cuda_jumps.merton_paths if return_paths else cuda_jumps.merton_terminal
     return fn(seed, S0, r, T, params, paths_rounded(cfg), cfg.n_steps, cfg.antithetic,
               first_tile, device)
+
+
+def simulate_merton_maturities(seed: int, S0, r, Ts, params: MertonParams, cfg: MCConfig,
+                               first_tile: int = 0, device: Optional[torch.device] = None):
+    """Merton path matrices of every maturity in ``Ts``, S (n_mat, n_steps+1,
+    n_pad), from one launch of kernel 14 (csrc/jumps.cu on a CUDA device, its
+    plain version on the CPU). Maturity m is simulate_merton at first_tile +
+    m n_tiles, n_tiles = n_pad / PATH_TILE."""
+    from options_model_tpu_torch.ops import cuda_jumps
+
+    if requires_grad(S0, r, *Ts if isinstance(Ts, (list, tuple)) else (Ts,), params.sigma,
+                     params.lam, params.mu_j, params.sigma_j):
+        raise not_ported("gradients of the maturity-batched Merton paths",
+                         "models.merton.simulate_merton")
+    return cuda_jumps.merton_paths_batched(seed, S0, r, Ts, params, paths_rounded(cfg),
+                                           cfg.n_steps, cfg.antithetic, first_tile, device)
 
 
 def merton_price(S0, K, T, r, params: MertonParams, cp=1.0, q=0.0, n_terms: int = 40,

@@ -58,10 +58,12 @@ _SIGNATURES = {
     "omt_gbm_terminal_vjp": [_P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     "omt_euler_paths_vjp": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_euler_paths_vjp_first": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
-    "omt_merton_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_merton_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_merton_paths_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_merton_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_merton_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_jump_overlay_paths_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_terminal": [_P, _P, _P, _U64, _I, _I, _I, _P],
 }
 

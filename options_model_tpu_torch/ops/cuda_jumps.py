@@ -1,23 +1,29 @@
 """The jump kernels of csrc/jumps.cu and their plain PyTorch versions:
-- 14 ``merton_paths`` and 15 ``merton_terminal``: the Merton walk, the
-  counterparts of options_model_tpu/models/merton.py:26 simulate_merton
-  (return_paths True and False); kernel 15 is the Hopper redesign
-  (merton_terminal_kernel), its first design stays under
-  ``merton_terminal_first`` as the yardstick, and no pricer reaches it;
+- 14 ``merton_paths`` / ``merton_paths_batched`` and 15 ``merton_terminal``:
+  the Merton walk, the counterparts of options_model_tpu/models/merton.py:27
+  simulate_merton (return_paths True and False). Both are Hopper redesigns
+  (merton_paths_kernel: one launch over a batch of maturities, maturity m on
+  tiles first_tile + m n_tiles + ..; merton_terminal_kernel); their first
+  designs stay under ``merton_paths_first`` and ``merton_terminal_first`` as
+  the yardsticks, and no pricer reaches them;
 - 16 ``jump_overlay_paths`` and 17 ``jump_overlay_terminal``: the Bates jump
   overlay multiplied in place into a Heston kernel's S (or S_T), the
-  counterparts of options_model_tpu/models/bates.py:37 jump_overlay.
+  counterparts of options_model_tpu/models/bates.py:40 jump_overlay; kernel
+  16 is a Hopper redesign (overlay_paths_kernel), its first design stays
+  under ``jump_overlay_paths_first``, reached by no pricer.
 The JAX package computes these in XLA code (no Pallas kernel). The wrappers
 take the plain version for a CPU tensor or device and launch the kernel for
-a CUDA one; there is no fallback between the two.
+a CUDA one; there is no fallback between the two. The first designs run on
+a CUDA device only.
 
 Every launch reads its constants from 128-float rows on the card (``ROW``:
-a, diffusion, mu_j, sigma_j, log S0, the Poisson table's length, two zeros,
-then the table of ops/philox.poisson_table), built on the host and copied
-through pinned memory, so the host does not wait for the work already
-queued on the stream. ``return_counts`` also returns each draw's Poisson
-count (int32), from the kernel's debug output or the plain version, so the
-two can be held against each other bit for bit.
+a, diffusion, mu_j, sigma_j, log S0, the Poisson table's length, the
+table's head F(0), F(1) (poisson_head), then the table of
+ops/philox.poisson_table), built on the host and copied through pinned
+memory, so the host does not wait for the work already queued on the
+stream. ``return_counts`` also returns each draw's Poisson count (int32),
+from the kernel's debug output or the plain version, so the two can be
+held against each other bit for bit.
 
 Streams (ops/philox.py): Merton on counter word 3 = 0, one call per pair
 (or path) and step; the overlay on word 3 = 1 with the Heston kernel's seed
@@ -28,6 +34,7 @@ bit for bit.
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 
 import numpy as np
@@ -37,36 +44,48 @@ from options_model_tpu_torch.models.bates import overlay_constants, overlay_from
 from options_model_tpu_torch.models.blocks import round_up
 from options_model_tpu_torch.models.merton import merton_constants, merton_from_draws
 from options_model_tpu_torch.ops import _build
-from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE, _tiles
+from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE, _maturities, _tiles
 from options_model_tpu_torch.ops.engine import resolve_device
 from options_model_tpu_torch.ops.philox import (MAX_POISSON_TABLE, jump_draws,
                                                 merton_path_draws, poisson_from_uniform,
                                                 poisson_table)
 
 # Kernel launches since the last reset, one integer per kernel.
-launches = {"merton_paths": 0, "merton_terminal": 0, "merton_terminal_first": 0,
-            "jump_overlay_paths": 0, "jump_overlay_terminal": 0}
-# Kernel 14's launches since the last reset, by (n_pad, n_steps).
+launches = {"merton_paths": 0, "merton_paths_first": 0, "merton_terminal": 0,
+            "merton_terminal_first": 0, "jump_overlay_paths": 0, "jump_overlay_paths_first": 0,
+            "jump_overlay_terminal": 0}
+# Kernel 14's launches since the last reset, by (n_mat, n_pad, n_steps).
 shape_launches = Counter()
 # Floats of a constants row before its table, and in all (csrc/jumps.cu
 # kHead, kRow = 128).
 HEAD = 8
 ROW = HEAD + MAX_POISSON_TABLE
-# The redesigned terminal kernel's launch constants (csrc/jumps.cu
-# PoissonHead): the CDF entries a thread compares against (F(0), F(1)) and
-# the counts whose square root comes from a table.
+# The Poisson head of the redesigned kernels (csrc/jumps.cu kHeadCdf: the
+# CDF entries a thread compares against, F(0) and F(1); the terminal kernel
+# takes it by value in its PoissonHead, the paths kernels from slots 6 and 7
+# of each row) and the counts whose square root the terminal kernel takes
+# from a table.
 POISSON_HEAD = 2
 SQRT_TABLE = 16
 
 
+@functools.lru_cache(maxsize=1024)
+def _poisson_slots(lam_dt: float) -> np.ndarray:
+    """Slots 5 on of a constants row for Poisson(lam_dt): the table's length,
+    its head (poisson_head) and the table, zero-padded; read-only and
+    cached, since a batched launch builds one row a maturity."""
+    table = poisson_table(lam_dt)
+    slots = np.concatenate([[table.size], poisson_head(table)[:POISSON_HEAD], table,
+                            np.zeros(MAX_POISSON_TABLE - table.size)]).astype(np.float32)
+    slots.flags.writeable = False
+    return slots
+
+
 def const_row(a, diffusion, mu_j, sigma_j, log_s0, lam_dt: float) -> np.ndarray:
     """One launch's (or maturity's) float32 constants row, its Poisson table
-    that of Poisson(lam_dt)."""
-    table = poisson_table(lam_dt)
-    row = np.zeros(ROW, np.float32)
-    row[:6] = (a, diffusion, mu_j, sigma_j, log_s0, table.size)
-    row[HEAD:HEAD + table.size] = table
-    return row
+    that of Poisson(lam_dt) and its head that table's (poisson_head)."""
+    return np.concatenate([np.float32([a, diffusion, mu_j, sigma_j, log_s0]),
+                           _poisson_slots(float(lam_dt))])
 
 
 def sqrt_table() -> np.ndarray:
@@ -78,7 +97,8 @@ def sqrt_table() -> np.ndarray:
 def poisson_head(table) -> np.ndarray:
     """The redesigned terminal kernel's PoissonHead for a Poisson table
     (poisson_table): its first POISSON_HEAD entries, padded with 2 (above
-    every uniform) past the table's end, then sqrt_table()."""
+    every uniform) past the table's end, then sqrt_table(). Its first
+    POISSON_HEAD floats are also a constants row's head."""
     table = np.asarray(table, np.float32)
     head = np.full(POISSON_HEAD, 2.0, np.float32)
     head[:min(table.size, POISSON_HEAD)] = table[:POISSON_HEAD]
@@ -118,10 +138,27 @@ def _merton_reference(tile, seed, S0, r, T, params, n_paths, n_steps, antithetic
 def merton_paths_reference(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
                            antithetic: bool = True, first_tile: int = 0, device=None,
                            return_counts: bool = False):
-    """Plain version of kernel 14: S (n_steps+1, n_pad) [and the counts
-    (n_steps, n_pad)], n_pad = n_paths rounded up to PATH_TILE."""
+    """Plain version of kernel 14 at one maturity: S (n_steps+1, n_pad) [and
+    the counts (n_steps, n_pad)], n_pad = n_paths rounded up to PATH_TILE."""
     return _merton_reference(PATH_TILE, seed, S0, r, T, params, n_paths, n_steps, antithetic,
                              first_tile, device, return_counts, True)
+
+
+def merton_paths_batched_reference(seed: int, S0, r, Ts, params, n_paths: int, n_steps: int,
+                                   antithetic: bool = True, first_tile: int = 0, device=None,
+                                   return_counts: bool = False):
+    """Plain version of kernel 14's batched launch: maturity m is
+    merton_paths_reference at first_tile + m n_tiles, stacked into (n_mat,
+    n_steps+1, n_pad) [and the counts (n_mat, n_steps, n_pad)]."""
+    Ts = _maturities(Ts)
+    n_tiles = round_up(n_paths, PATH_TILE) // PATH_TILE
+    _build.check_launch(seed, first_tile, len(Ts) * n_tiles, n_steps)
+    outs = [merton_paths_reference(seed, S0, r, T, params, n_paths, n_steps, antithetic,
+                                   first_tile + m * n_tiles, device, return_counts)
+            for m, T in enumerate(Ts)]
+    if return_counts:
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    return torch.stack(outs)
 
 
 def merton_terminal_reference(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
@@ -156,19 +193,69 @@ def _merton_launch(name: str, tile: int, head: bool, seed, S0, r, T, params, n_p
     return (out, counts) if return_counts else out
 
 
+def merton_rows(S0, r, Ts, params, n_steps: int) -> np.ndarray:
+    """Kernel 14's (n_mat, ROW) float32 constants, built for every maturity
+    at once (merton_constants elementwise): row m is maturity m's
+    single-launch row (its own drift, diffusion, Poisson table and head),
+    bit for bit."""
+    c = merton_constants(S0, r, np.asarray(_maturities(Ts), np.float32), params, n_steps)
+    rows = np.empty((c["drift"].size, ROW), np.float32)
+    for i, k in enumerate(("drift", "diffusion", "mu_j", "sigma_j", "log_s0")):
+        rows[:, i] = c[k]
+    for m, lam_dt in enumerate(c["lam_dt"].tolist()):
+        rows[m, 5:] = _poisson_slots(lam_dt)
+    return rows
+
+
+def merton_paths_batched(seed: int, S0, r, Ts, params, n_paths: int, n_steps: int,
+                         antithetic: bool = True, first_tile: int = 0, device=None,
+                         return_counts: bool = False):
+    """Merton path matrices of every maturity in ``Ts``, (n_mat, n_steps+1,
+    n_pad) [and the counts (n_mat, n_steps, n_pad)], from one launch of
+    kernel 14 (csrc/jumps.cu merton_paths_kernel), or from the plain version
+    for a CPU device. Maturity m draws tiles [first_tile + m n_tiles,
+    first_tile + (m+1) n_tiles) of the seed's stream, so it equals a
+    single-maturity run at that first_tile."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return merton_paths_batched_reference(seed, S0, r, Ts, params, n_paths, n_steps,
+                                              antithetic, first_tile, device, return_counts)
+    _build.require_cuda(device)
+    Ts = _maturities(Ts)
+    n_tiles = round_up(n_paths, PATH_TILE) // PATH_TILE
+    _build.check_launch(seed, first_tile, len(Ts) * n_tiles, n_steps)
+    n_pad = n_tiles * PATH_TILE
+    S = torch.empty((len(Ts), n_steps + 1, n_pad), dtype=torch.float32, device=device)
+    counts = (torch.empty((len(Ts), n_steps, n_pad), dtype=torch.int32, device=device)
+              if return_counts else None)
+    consts = device_rows(merton_rows(S0, r, Ts, params, n_steps), device)
+    _build.launch("omt_merton_paths", device, S.data_ptr(),
+                  None if counts is None else counts.data_ptr(), consts.data_ptr(), seed,
+                  first_tile, n_tiles, n_steps, len(Ts), int(antithetic))
+    launches["merton_paths"] += 1
+    shape_launches[len(Ts), n_pad, n_steps] += 1
+    return (S, counts) if return_counts else S
+
+
 def merton_paths(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
                  antithetic: bool = True, first_tile: int = 0, device=None,
                  return_counts: bool = False):
-    """Merton path matrix S (n_steps+1, n_pad) from kernel 14 (csrc/jumps.cu),
-    or from its plain version for a CPU device."""
-    device = resolve_device(device)
-    if device.type == "cpu":
-        return merton_paths_reference(seed, S0, r, T, params, n_paths, n_steps, antithetic,
-                                      first_tile, device, return_counts)
-    out = _merton_launch("merton_paths", PATH_TILE, False, seed, S0, r, T, params, n_paths,
-                         n_steps, antithetic, first_tile, device, return_counts)
-    shape_launches[round_up(n_paths, PATH_TILE), n_steps] += 1
-    return out
+    """Merton path matrix S (n_steps+1, n_pad) [and the counts]: the batched
+    launch of kernel 14 at one maturity, or the plain version for a CPU
+    device."""
+    out = merton_paths_batched(seed, S0, r, [T], params, n_paths, n_steps, antithetic,
+                               first_tile, device, return_counts)
+    return (out[0][0], out[1][0]) if return_counts else out[0]
+
+
+def merton_paths_first(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
+                       antithetic: bool = True, first_tile: int = 0, device=None,
+                       return_counts: bool = False):
+    """merton_paths through kernel 14's first design (merton_kernel<true, *>,
+    one maturity a launch), the redesign's yardstick, on a CUDA device only."""
+    return _merton_launch("merton_paths_first", PATH_TILE, False, seed, S0, r, T, params,
+                          n_paths, n_steps, antithetic, first_tile, resolve_device(device),
+                          return_counts)
 
 
 def merton_terminal(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
@@ -196,7 +283,7 @@ def merton_terminal_first(seed: int, S0, r, T, params, n_paths: int, n_steps: in
 
 
 def _maturity_list(Ts, n_mat: int) -> list:
-    Ts = np.asarray(Ts, np.float32).reshape(-1).tolist()
+    Ts = _maturities(Ts)
     if len(Ts) != n_mat:
         raise ValueError(f"{len(Ts)} maturities for {n_mat} path matrices")
     return Ts
@@ -239,16 +326,9 @@ def jump_overlay_paths_reference(S: torch.Tensor, seed: int, Ts, jumps, first_ti
     return S, (torch.stack(counts) if S.dim() == 3 else counts[0])
 
 
-def jump_overlay_paths(S: torch.Tensor, seed: int, Ts, jumps, first_tile: int = 0,
-                       return_counts: bool = False):
-    """Kernel 16 (csrc/jumps.cu) on a CUDA S, in place: S (n_steps+1, n_pad)
-    of one maturity T = ``Ts``, or (n_mat, n_steps+1, n_pad) of the
-    maturities ``Ts``, in one launch, maturity m on global tiles first_tile
-    + m n_tiles + ..., as the batched Heston kernel drew them. The plain
-    version for a CPU S. ``jumps`` carries lam, mu_j and sigma_j. Returns
-    S [and the counts]."""
-    if S.device.type == "cpu":
-        return jump_overlay_paths_reference(S, seed, Ts, jumps, first_tile, return_counts)
+def _overlay_paths_launch(name: str, S: torch.Tensor, seed: int, Ts, jumps, first_tile: int,
+                          return_counts: bool):
+    """One launch of C entry omt_``name`` on a CUDA S, in place."""
     _build.require_cuda(S.device)
     S3 = _as_batch(S, PATH_TILE)
     n_mat, n_steps, n_pad = S3.shape[0], S3.shape[1] - 1, S3.shape[2]
@@ -258,13 +338,35 @@ def jump_overlay_paths(S: torch.Tensor, seed: int, Ts, jumps, first_tile: int = 
                          S.device)
     counts = (torch.empty((n_mat, n_steps, n_pad), dtype=torch.int32, device=S.device)
               if return_counts else None)
-    _build.launch("omt_jump_overlay_paths", S.device, S3.data_ptr(),
+    _build.launch(f"omt_{name}", S.device, S3.data_ptr(),
                   None if counts is None else counts.data_ptr(), consts.data_ptr(), seed,
                   first_tile, n_tiles, n_steps, n_mat)
-    launches["jump_overlay_paths"] += 1
+    launches[name] += 1
     if not return_counts:
         return S
     return S, (counts if S.dim() == 3 else counts[0])
+
+
+def jump_overlay_paths(S: torch.Tensor, seed: int, Ts, jumps, first_tile: int = 0,
+                       return_counts: bool = False):
+    """Kernel 16 (csrc/jumps.cu overlay_paths_kernel) on a CUDA S, in place:
+    S (n_steps+1, n_pad) of one maturity T = ``Ts``, or (n_mat, n_steps+1,
+    n_pad) of the maturities ``Ts``, in one launch, maturity m on global
+    tiles first_tile + m n_tiles + ..., as the batched Heston kernel drew
+    them. The plain version for a CPU S. ``jumps`` carries lam, mu_j and
+    sigma_j. Returns S [and the counts]."""
+    if S.device.type == "cpu":
+        return jump_overlay_paths_reference(S, seed, Ts, jumps, first_tile, return_counts)
+    return _overlay_paths_launch("jump_overlay_paths", S, seed, Ts, jumps, first_tile,
+                                 return_counts)
+
+
+def jump_overlay_paths_first(S: torch.Tensor, seed: int, Ts, jumps, first_tile: int = 0,
+                             return_counts: bool = False):
+    """jump_overlay_paths through kernel 16's first design
+    (overlay_paths_first_kernel), the redesign's yardstick, on a CUDA S only."""
+    return _overlay_paths_launch("jump_overlay_paths_first", S, seed, Ts, jumps, first_tile,
+                                 return_counts)
 
 
 def _check_terminal(S_T: torch.Tensor) -> None:
@@ -312,10 +414,11 @@ def jump_overlay_terminal(S_T: torch.Tensor, seed: int, T, jumps, n_steps: int,
 
 
 def jumps_kernel_attrs() -> dict:
-    """Registers, spills and occupancy of the four jump kernels and kernel
-    15's first design as built, by name: Merton's antithetic instances, the
-    redesigned terminal kernel's without its counts output (the pricing
-    instance; the first design takes that output as a run-time pointer)."""
+    """Registers, spills and occupancy of the four jump kernels and the first
+    designs of kernels 14-16 as built, by name: the redesigns' pricing
+    instances (antithetic, without the counts output; the first designs take
+    that output as a run-time pointer)."""
     return {name: _build.kernel_attrs("omt_jumps_attrs", i) for i, name in
             enumerate(("merton_paths", "merton_terminal", "jump_overlay_paths",
-                       "jump_overlay_terminal", "merton_terminal_first"))}
+                       "jump_overlay_terminal", "merton_terminal_first", "merton_paths_first",
+                       "jump_overlay_paths_first"))}

@@ -10,18 +10,19 @@ options_model_tpu/pricers/surface_american.py (single device).
    mask. Each date's all-strike regression is therefore two matmuls,
    masks and mask-weighted cash (n_K, P) against the products of B, and a
    batched (n_K, d, d) Cholesky solve.
-3. Under Heston and Bates, maturities are simulated in groups of
+3. Under Heston, Bates and Merton, maturities are simulated in groups of
    g = max(1, 2^20 * 51 // (n_pad * (n_steps + 1))), one launch of the
    batched paths kernel per group (models/heston.simulate_heston_maturities;
    Bates adds one launch of the jump overlay over the same group,
-   models/bates.simulate_bates_maturities), and the backward runs on each
+   models/bates.simulate_bates_maturities; Merton's is
+   models/merton.simulate_merton_maturities), and the backward runs on each
    maturity's slice. A group holds at most the
    path-steps of 2^20 paths x 50 steps (428 MB with v) unless one maturity
    needs more: a 64-maturity surface at 16,384 paths x 50 steps is one
    launch; from 2^20 paths x 50 steps per maturity on, g = 1 and peak memory
    is one path matrix. (The reference runs maturities
    one after another: batching them lost its tuned Pallas tile on the TPU.)
-   GBM and Merton maturities run one after another, one paths launch each.
+   GBM maturities run one after another, one paths launch each.
 
 Maturity i draws tiles [i * n_tiles, (i + 1) * n_tiles) of one seed's
 stream, so row i of a surface does not depend on how many maturities follow
@@ -45,6 +46,7 @@ from options_model_tpu_torch.core.config import BatesParams, HestonParams, MCCon
 from options_model_tpu_torch.models.bates import simulate_bates_maturities
 from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.models.heston import simulate_heston_maturities
+from options_model_tpu_torch.models.merton import simulate_merton_maturities
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
@@ -153,8 +155,8 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
                            return_stderr: bool = False, device=None):
     """American option surface (n_maturities, n_strikes), GBM, Heston (Euler
     or QE-M), Merton or Bates, one path matrix per maturity shared by every
-    strike; Heston and Bates maturities simulated maturity_group(n_pad,
-    n_steps) at a time.
+    strike; Heston, Bates and Merton maturities simulated
+    maturity_group(n_pad, n_steps) at a time.
 
     ``return_stderr`` also returns the per-cell stderr over antithetic pair
     means, (prices, stderrs). ``mesh``: a ``torch.distributed`` DeviceMesh;
@@ -188,18 +190,25 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
             stderrs.append(_pair_stderr(cash, stat_pb))
 
     Ts = np.asarray(maturities, np.float32).reshape(-1).tolist()
-    if model in ("heston", "bates"):
-        if heston is None:
+    if model in ("heston", "bates", "merton"):
+        if model == "merton" and merton is None:
+            raise ValueError("merton params required for model='merton'")
+        if model != "merton" and heston is None:
             raise ValueError("heston params required for model='heston'")
         g = maturity_group(n_tiles * PATH_TILE, mc.n_steps)
         for i0 in range(0, len(Ts), g):
             group = Ts[i0:i0 + g]
-            kw = dict(return_variance=want_v, first_tile=i0 * n_tiles, scheme=heston_scheme,
-                      device=device)
-            out = (simulate_bates_maturities(seed, S0, rate - div_yield, group, bates, mc, **kw)
-                   if model == "bates" else
-                   simulate_heston_maturities(seed, S0, rate - div_yield, group, heston, mc,
-                                              **kw))
+            kw = dict(first_tile=i0 * n_tiles, device=device)
+            if model == "merton":
+                out = simulate_merton_maturities(seed, S0, rate - div_yield, group, merton, mc,
+                                                 **kw)
+            else:
+                kw.update(return_variance=want_v, scheme=heston_scheme)
+                out = (simulate_bates_maturities(seed, S0, rate - div_yield, group, bates, mc,
+                                                 **kw)
+                       if model == "bates" else
+                       simulate_heston_maturities(seed, S0, rate - div_yield, group, heston, mc,
+                                                  **kw))
             S_all, v_all = out if want_v else (out, None)
             for m, T in enumerate(group):
                 price_maturity(S_all[m], None if v_all is None else v_all[m], T)
