@@ -8,10 +8,14 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit; count the time loops of kernels
-   1, 3-8 and 13-16 (both designs) in SASS, with their registers and
-   stack, and there the integer instructions of a Philox call;
+   1, 3-8 and 12-16 (both designs) and of kernel 17's redesign in SASS,
+   with their registers and stack, and there the integer instructions of a
+   Philox call; fail if kernel 12's redesigned loop holds a local load or
+   store;
 2. each of the eight path kernels against its plain PyTorch version on the
-   card, at 2 and 64 tiles and at its path's shape: equal Philox bits, S
+   card, at 2 and 64 tiles and at its path's shape: equal Philox bits (and
+   the sine and cosine of kernel 12's redesign equal to sinf and cosf at
+   every angle of the stream), S
    (and v) within the stated tolerances, and bit-equal chunks at a
    ``first_tile`` offset; the same for the first design of kernels 4 and 6
    (csrc/heston.cu, csrc/heston_qe.cu), which no pricer reaches any more;
@@ -36,15 +40,17 @@ Phases, in order; any failure exits non-zero:
    (rtol 1e-5) and kernel 4's first design (the same equalities), with
    bit-equal ``first_tile`` chunks; the three VJP kernels of
    csrc/greeks.cu (the backward of kernels 1, 2 and 4 on the Greeks path;
-   the Euler one redesigned, kernel 13, its first design beside it)
-   against their plain versions at 2^14 x 50, with and without
-   antithetics, within 1e-4 of the paths' absolute shares, and each
-   gradient component against the central difference of its own forward
-   kernel on the same seed; kernel 13's rows bit-equal on two launches and
-   in a ``first_tile`` chunk; J0, the four jump kernels of csrc/jumps.cu
-   (Merton paths and terminal, the Bates overlay on paths and terminal
-   values; kernels 14, 15 and 16 redesigned, their first designs beside
-   them) against their plain versions at the jumps path's shapes and at
+   the GBM paths and Euler ones redesigned, kernels 12 and 13, their first
+   designs beside them) against their plain versions at 2^14 x 50 and at
+   the Greeks path's shapes, with and without antithetics, within 1e-4 of
+   the paths' absolute shares, and each gradient component against the
+   central difference of its own forward kernel on the same seed; kernel
+   12's totals within 1e-6 of its first design's; kernels 12 and 13's rows
+   bit-equal on two launches and in a ``first_tile`` chunk; J0, the four
+   jump kernels of csrc/jumps.cu (Merton paths and terminal, the Bates
+   overlay on paths and terminal values; all four redesigned, kernels
+   14-17, their first designs beside them) against their plain versions
+   at the jumps path's shapes and at
    lam dt = 1, with and without antithetics: S within rtol 1e-5, every
    Poisson count bit for bit, each redesign's S and counts its first
    design's bit for bit, kernel 14's batched launch over the Merton
@@ -90,7 +96,7 @@ Phases, in order; any failure exits non-zero:
       J4 the 64 x 64 Bates and Merton surfaces, apps.calibrate --model
       bates --price-surface, merton_greeks against f64 central differences;
 4. the launch counts of each path, none of its kernels at 0, the first
-   design of kernels 1, 3-8 and 13-16 and of the variants at 0, and one
+   design of kernels 1, 3-8 and 12-17 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -106,8 +112,9 @@ Phases, in order; any failure exits non-zero:
    kernel's time; the VJP kernels' times beside their bounds, and the
    seconds of a Greeks call (G1-G3) with the share of its kernels; the
    jump kernels' times beside their bounds and the jumps path's seconds;
-   kernels 13-16 in turns with their first designs (the card's clocks and
-   power logged before and after the jump kernels' turns), and kernel 14 at
+   kernels 12-17 in turns with their first designs (kernel 12 also at G2's
+   2^21 x 50; the card's clocks and power logged before and after the jump
+   kernels' turns), and kernel 14 at
    the jumps path's own shapes (1 x 2^18 x 50 and 64 x 16,384 x 50) with
    its launches x (time - bound) there, beside its first design's.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
@@ -528,23 +535,33 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "merton paths": "19merton_paths_kernelILb1ELb0E",
                 "merton paths, first design": "13merton_kernelILb1ELb1E",
                 "overlay paths": "20overlay_paths_kernelILb0E",
-                "overlay paths, first design": "26overlay_paths_first_kernel"}
+                "overlay paths, first design": "26overlay_paths_first_kernel",
+                "gbm vjp": "14gbm_vjp_kernelILb1E",
+                "gbm vjp, first design": "20gbm_paths_vjp_kernelILb1E",
+                "overlay terminal": "23overlay_terminal_kernelILb0E"}
 # Pair-steps a pass of the time loop covers where that is not one. The
 # redesigned Euler VJP's thread holds one path through four steps (two
-# pair-steps' worth of path-steps); its first design a pair through two.
+# pair-steps' worth of path-steps); its first design a pair through two. The
+# redesigned GBM paths VJP's thread holds one path through sixteen steps
+# (two passes of eight); its first design a pair through one.
 SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm terminal": 4,
               "localvol paths": 4, "localvol terminal, degree 3": 4,
               "localvol paths, degree 3": 4, "euler vjp": 2, "euler vjp, first design": 2,
-              "merton terminal": 2, "merton paths": 2}
+              "merton terminal": 2, "merton paths": 2, "gbm vjp": 8}
 # Path-steps a pass of the overlay's time loop covers (one path a thread,
-# no mirror): the redesign two, the first design one.
-SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1}
+# no mirror): the redesign two, the first design one; the redesigned
+# terminal overlay's grid-stride loop four values.
+SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1, "overlay terminal": 4}
+# Loops that must hold no local load or store (LDL, STL): kernel 12's
+# redesign, whose sine and cosine leave out the Payne-Hanek path.
+SASS_NO_LOCAL = ("gbm vjp",)
 # The loops whose instructions phase_sass prints by unit.
 SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
               "localvol terminal, degree 3", "localvol paths, degree 3", "euler vjp",
               "euler vjp, first design", "merton terminal", "merton terminal, first design",
               "merton paths", "merton paths, first design", "overlay paths",
-              "overlay paths, first design")
+              "overlay paths, first design", "gbm vjp", "gbm vjp, first design",
+              "overlay terminal")
 
 
 def per_step(key: str, n: int) -> str:
@@ -649,8 +666,12 @@ def phase_sass() -> dict:
         if key in loops:
             unit = (f"{SASS_PATH_STEPS[key]} path-steps" if key in SASS_PATH_STEPS
                     else f"{SASS_STEPS.get(key, 1)} pair-steps")
+            local = sum(opcode(ins).startswith(("LDL", "STL")) for ins in loops[key])
             log(f"[1] SASS {key} loop by unit (a pass of {unit}): "
-                + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items()))
+                + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items())
+                + f"; local loads and stores {local}")
+            if key in SASS_NO_LOCAL and local:
+                fail(f"the {key} loop holds {local} local loads or stores")
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -688,7 +709,8 @@ def phase_sass() -> dict:
 def phase_philox() -> None:
     import torch
 
-    from options_model_tpu_torch.ops.philox import stream_words, stream_words_cuda
+    from options_model_tpu_torch.ops.philox import (sincos_check_cuda, stream_words,
+                                                    stream_words_cuda)
 
     for n_tiles, first_tile in ((2, 0), (64, 0), (2, 7)):
         args = (0x0123456789ABCDEF, first_tile, n_tiles, 2048, 25)
@@ -697,6 +719,15 @@ def phase_philox() -> None:
         if not torch.equal(got, want):
             fail(f"Philox words differ at {n_tiles} tiles, first_tile {first_tile}")
     log("[2] Philox words: kernel == plain, bit for bit (2 and 64 tiles, offset 7)")
+    out = sincos_check_cuda(DEVICE)
+    torch.cuda.synchronize()
+    bits = out.view(torch.int32)
+    bad = [int((bits[i] != bits[i + 2]).sum()) for i in (0, 1)]
+    if any(bad):
+        fail(f"sincos_stream_angle differs from sinf at {bad[0]} and from cosf at {bad[1]} of "
+             f"the stream's {bits.shape[1]} angles")
+    log(f"[2] sincos_stream_angle (csrc/philox.cuh, the Box-Muller of kernel 12's redesign) == "
+        f"sinf and cosf bit for bit at all {bits.shape[1]} angles float(2 pi) u2")
 
 
 def earlier_specs(specs) -> list:
@@ -1824,6 +1855,15 @@ VJP_GREEKS_SHAPE = {"gbm_terminal_vjp": (1 << 22, 100), "gbm_paths_vjp": (1 << 2
 # Step counts at which the redesigned Euler VJP kernel runs each tail of its
 # four-step loop (50 ends in a tail of 2).
 VJP_TAILS = (49, 51, 52)
+# Step counts at which the redesigned GBM paths VJP kernel runs its passes of
+# eight steps: fewer than one pass, one pass and no tail, 49 (a tail of 1),
+# 55 (7), 56 (none; 50 ends in a tail of 2).
+GBM_VJP_TAILS = (3, 8, 49, 55, 56)
+# The redesigned GBM paths VJP's totals (A, B, C summed over its rows)
+# against its first design's: the same normals and recursion; the weight
+# s0 2^(a log2 e) (ex2.approx, ~2 ulps) against s0 expf(a), and float32
+# sums in another order, ~1e-7 a path and unbiased but for ex2's own.
+VJP_FIRST_RTOL = 1e-6
 # Directional check: each component against (<g, F(theta + h)> - <g,
 # F(theta - h)>) / 2h of the forward kernel on the same seed, inner
 # products in float64, h = 1e-3 |theta| (the step the float32 parameter
@@ -1957,9 +1997,13 @@ def vjp_case(name: str, n_paths: int, n_steps: int, anti: bool, with_v: bool = T
     if paths:
         kernel = cuda_gbm.gbm_paths_vjp(g, seed, *params, n_paths, n_steps, anti)
         plain = cuda_gbm.gbm_paths_vjp_reference(g, seed, *params, n_paths, n_steps, anti)
-    else:
-        kernel = cuda_gbm.gbm_terminal_vjp(g, out, seed, *params, n_paths, n_steps, anti)
-        plain = cuda_gbm.gbm_terminal_vjp_reference(g, seed, *params, n_paths, n_steps, anti)
+        first = cuda_gbm.gbm_paths_vjp_first(g, seed, *params, n_paths, n_steps, anti)
+        totals = [rows(g, seed, *params, n_paths, n_steps, anti).sum(0)
+                  for rows in (cuda_gbm.gbm_paths_vjp_rows, cuda_gbm.gbm_paths_vjp_rows_first)]
+        return dict(params=params, F=F, g=(g,), kernel=kernel, plain=plain, shares=shares,
+                    first=first, totals=totals)
+    kernel = cuda_gbm.gbm_terminal_vjp(g, out, seed, *params, n_paths, n_steps, anti)
+    plain = cuda_gbm.gbm_terminal_vjp_reference(g, seed, *params, n_paths, n_steps, anti)
     return dict(params=params, F=F, g=(g,), kernel=kernel, plain=plain, shares=shares)
 
 
@@ -1990,16 +2034,17 @@ def directional(case: dict, idx: int, rtol: float) -> tuple:
     return fd, rtol * abs(fd) + noise + kink, kink
 
 
-def euler_vjp_rows_checks() -> None:
-    """The redesigned Euler VJP kernel's rows at 64 tiles x 50 steps, with
-    and without antithetics and a cotangent on v: a second launch equals the
-    first bit for bit (no float atomics), and a launch over tiles 32..63 at
-    first_tile 32 equals rows 32 x 16.. of the 64-tile launch bit for bit (no
-    block straddles a tile)."""
+def vjp_rows_checks() -> None:
+    """The redesigned Euler and GBM paths VJP kernels' rows at 64 tiles x 50
+    steps, with and without antithetics (Euler also with and without a
+    cotangent on v): a second launch equals the first bit for bit (no float
+    atomics), and a launch over tiles 32..63 at first_tile 32 equals rows 32
+    x 16.. of the 64-tile launch bit for bit (no block straddles a tile)."""
     import numpy as np
     import torch
 
     from options_model_tpu_torch.core.config import HestonParams
+    from options_model_tpu_torch.ops import cuda_gbm
     from options_model_tpu_torch.ops import cuda_heston as ch
 
     hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
@@ -2008,27 +2053,35 @@ def euler_vjp_rows_checks() -> None:
     g = [torch.from_numpy(rng.uniform(0.5, 1.5, (steps + 1, n)).astype(np.float32)).to(DEVICE)
          / n for _ in range(2)]
     half = 32 * ch.PATH_TILE
-    for anti, with_v in itertools.product((True, False), (True, False)):
+    cases = [("euler_paths_vjp", anti, with_v, ch.euler_vjp_blocks)
+             for anti, with_v in itertools.product((True, False), (True, False))]
+    cases += [("gbm_paths_vjp", anti, False, cuda_gbm.gbm_vjp_blocks) for anti in (True, False)]
+    for name, anti, with_v, blocks in cases:
         gv = g[1] if with_v else None
 
         def rows(first_tile=0):
             cols = slice(half, None) if first_tile else slice(None)
-            return ch.euler_paths_vjp_rows(g[0][:, cols].contiguous(),
-                                           None if gv is None else gv[:, cols].contiguous(),
+            gs = g[0][:, cols].contiguous()
+            if name == "gbm_paths_vjp":
+                return cuda_gbm.gbm_paths_vjp_rows(gs, seed, 100.0, 0.05, 0.2, 0.5,
+                                                   n - first_tile * ch.PATH_TILE, steps, anti,
+                                                   first_tile)
+            return ch.euler_paths_vjp_rows(gs, None if gv is None else gv[:, cols].contiguous(),
                                            seed, 100.0, 0.05, 0.5, hp, n - first_tile *
                                            ch.PATH_TILE, steps, anti, first_tile)
 
         full, again, part = rows(), rows(), rows(32)
         torch.cuda.synchronize()
-        if full.shape[0] != ch.euler_vjp_blocks(64) or not torch.equal(full, again):
-            fail(f"euler_paths_vjp (antithetic {anti}, v {with_v}): {full.shape[0]} rows, or "
-                 "a second launch differs from the first")
-        if not torch.equal(full[32 * ch.euler_vjp_blocks(1):], part):
-            fail(f"euler_paths_vjp (antithetic {anti}, v {with_v}): a launch at first_tile 32 "
-                 "differs from the matching rows of the full launch")
-    log("[2v] euler_paths_vjp (the redesign) at 64 tiles x 50 steps, with and without "
-        "antithetics and a cotangent on v: two launches bit for bit the same; a first_tile=32 "
-        "launch equals the full launch's rows 512.. bit for bit")
+        if full.shape[0] != blocks(64) or not torch.equal(full, again):
+            fail(f"{name} (antithetic {anti}, v {with_v}): {full.shape[0]} rows, or a second "
+                 "launch differs from the first")
+        if not torch.equal(full[32 * blocks(1):], part):
+            fail(f"{name} (antithetic {anti}, v {with_v}): a launch at first_tile 32 differs "
+                 "from the matching rows of the full launch")
+    log("[2v] euler_paths_vjp and gbm_paths_vjp (the redesigns) at 64 tiles x 50 steps, with "
+        "and without antithetics (Euler with and without a cotangent on v): two launches bit "
+        "for bit the same; a first_tile=32 launch equals the full launch's rows 512.. bit for "
+        "bit")
 
 
 def phase_vjp() -> dict:
@@ -2036,23 +2089,28 @@ def phase_vjp() -> dict:
     and at VJP_GREEKS_SHAPE, with and without antithetics (the Euler kernel
     also without a cotangent on v at VJP_SHAPE: its kV = false instance, and
     at VJP_TAILS steps), within VJP_RTOL of the paths' absolute shares, the
-    Euler kernel's first design too; then, at VJP_SHAPE, each
-    component against the directional difference of its own forward kernel
-    on the same seed (antithetic); and euler_vjp_rows_checks. Returns per
+    first designs of the Euler and GBM paths kernels too (and GBM_VJP_TAILS
+    steps; its totals within VJP_FIRST_RTOL of its first design's); then, at
+    VJP_SHAPE, each component against the directional difference of its own
+    forward kernel on the same seed (antithetic); and vjp_rows_checks. Returns per
     kernel the max |kernel - plain|, that over the scale, and the worst
     |vjp - fd| over its tolerance."""
     import torch
 
-    euler_vjp_rows_checks()
+    vjp_rows_checks()
     out = {}
     for name, params in VJP_PARAMS.items():
         row = dict(max_abs_err=0.0, max_scaled_err=0.0, fd_worst=0.0)
         variants = [(VJP_SHAPE, True, True), (VJP_SHAPE, False, True)]
+        tails = {"euler_paths_vjp": VJP_TAILS, "gbm_paths_vjp": GBM_VJP_TAILS}.get(name, ())
+        variants += [((VJP_SHAPE[0], steps), anti, True)
+                     for steps, anti in itertools.product(tails, (True, False))]
         if name == "euler_paths_vjp":
             variants.append((VJP_SHAPE, True, False))
-            variants += [((VJP_SHAPE[0], steps), anti, True)
-                         for steps, anti in itertools.product(VJP_TAILS, (True, False))]
+        if name in ("euler_paths_vjp", "gbm_paths_vjp"):
             row["first_max_scaled_err"] = 0.0
+        if name == "gbm_paths_vjp":
+            row["first_total_rel"] = 0.0
         variants += [(VJP_GREEKS_SHAPE[name], anti, True) for anti in (True, False)]
         for (n, steps), anti, with_v in variants:
             c = vjp_case(name, n, steps, anti, with_v)
@@ -2067,6 +2125,14 @@ def phase_vjp() -> dict:
                 if not first_err <= VJP_RTOL:
                     fail(f"{name}'s first design differs from the plain version by {first_err} "
                          "of the paths' absolute shares")
+            if "totals" in c:
+                new_t, first_t = (t.cpu() for t in c["totals"])
+                total_rel = float(((new_t - first_t).abs() / first_t.abs()).max())
+                row["first_total_rel"] = max(row["first_total_rel"], total_rel)
+                if not total_rel <= VJP_FIRST_RTOL:
+                    fail(f"{name}'s totals (A, B, C) {new_t.tolist()} differ from its first "
+                         f"design's {first_t.tolist()} by {total_rel:.3e} relative "
+                         f"(rtol {VJP_FIRST_RTOL})")
             err = (k - p).abs()
             row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
             row["max_scaled_err"] = max(row["max_scaled_err"], float((err / scale).max()))
@@ -2078,7 +2144,9 @@ def phase_vjp() -> dict:
                 + ", ".join(f"{q} {x:.6e}" for q, x in zip(params, k.tolist()))
                 + f"; max |kernel - plain| / sum of |path shares| "
                 f"{float((err / scale).max()):.2e} (rtol {VJP_RTOL})"
-                + (f"; first design {first_err:.2e}" if "first" in c else ""))
+                + (f"; first design {first_err:.2e}" if "first" in c else "")
+                + (f"; totals (A, B, C) vs the first design's {total_rel:.2e} relative (rtol "
+                   f"{VJP_FIRST_RTOL})" if "totals" in c else ""))
             if not bool((err <= VJP_RTOL * scale).all()):
                 fail(f"{name} differs from its plain version beyond {VJP_RTOL} of the "
                      f"paths' absolute shares: kernel {k.tolist()}, plain {p.tolist()}")
@@ -2573,7 +2641,7 @@ def phase_calibration() -> dict:
 def first_design_row(name: str, source: str, shape: str, turns: list, bound_ms: float,
                      a: dict) -> dict:
     """The first design's fields of a redesigned kernel's timing row (kernels
-    13-16), from times in turns (first, new, new, first) and the first
+    12-17), from times in turns (first, new, new, first) and the first
     design's registers and occupancy ``a``; logged beside the redesign's."""
     ms, first_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
@@ -2587,8 +2655,43 @@ def first_design_row(name: str, source: str, shape: str, turns: list, bound_ms: 
                 earlier_occupancy=occ)
 
 
-# G2 runs kernel 2 and its VJP at 2^21 paths, twice the timed 2^20.
-GREEKS_SHAPE = {"G2": {"gbm_paths": 2.0, "gbm_paths_vjp": 2.0}}
+# G2 runs kernel 2 at 2^21 paths, twice the timed 2^20 (its VJP is timed
+# at 2^21 itself, gbm_vjp_greeks_shape).
+GREEKS_SHAPE = {"G2": {"gbm_paths": 2.0}}
+
+
+def greeks_kernel_ms(row: dict, label: str, name: str) -> float:
+    """A kernel's ms at Greeks call ``label``'s shape: the time taken there
+    (G2's ``greeks_shape``) where phase 5 has one, else the timed shape's
+    scaled by GREEKS_SHAPE."""
+    if label == "G2" and "greeks_shape" in row:
+        return row["greeks_shape"]["ms"]
+    return row["ms"] * GREEKS_SHAPE.get(label, {}).get(name, 1.0)
+
+
+def gbm_vjp_greeks_shape(spec: dict, per_call: float, seed: int, attrs: dict) -> dict:
+    """Kernel 12 at G2's shape (VJP_GREEKS_SHAPE, 2^21 x 50) in turns with
+    its first design (first, new, new, first), beside its bound there."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_gbm
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    n, steps = VJP_GREEKS_SHAPE["gbm_paths_vjp"]
+    g = torch.full((steps + 1, n), 1.0 / n, device=DEVICE)
+    run = lambda: cuda_gbm.gbm_paths_vjp_rows(g, seed, 100.0, 0.05, 0.2, 0.5, n, steps)  # noqa: E731
+    first = lambda: cuda_gbm.gbm_paths_vjp_rows_first(g, seed, 100.0, 0.05, 0.2, 0.5, n,  # noqa: E731
+                                                      steps)
+    turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
+    ms = (turns[1] + turns[2]) / 2
+    b = bound(n, steps, spec["ops"], int_ops(spec["draws"], per_call),
+              spec["bytes"] * n * (steps + 1))
+    row = dict(n_paths=n, n_steps=steps, ms=ms, **b)
+    row.update(first_design_row("gbm_paths_vjp_first", spec["source"], f"{n} x {steps}", turns,
+                                b["bound_ms"], attrs["gbm_paths_vjp_first"]))
+    log(f"[5] gbm_paths_vjp {n} paths x {steps} steps (G2's shape): kernel {ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_term']}, {b['bound_ms'] / ms * 100:.1f}% of bound")
+    return row
 
 
 def phase_vjp_timing(specs, per_call: float) -> dict:
@@ -2623,6 +2726,8 @@ def phase_vjp_timing(specs, per_call: float) -> dict:
         elif k["name"] == "gbm_paths_vjp":
             run = lambda: cuda_gbm.gbm_paths_vjp_rows(g, seed, 100.0, 0.05, 0.2, 0.5, n,
                                                       steps)
+            first = lambda: cuda_gbm.gbm_paths_vjp_rows_first(g, seed, 100.0, 0.05, 0.2, 0.5,
+                                                              n, steps)
             whole = lambda: cuda_gbm.gbm_paths_vjp(g, seed, 100.0, 0.05, 0.2, 0.5, n, steps)
             plain = lambda: cuda_gbm.gbm_paths_vjp_reference(g, seed, 100.0, 0.05, 0.2, 0.5,
                                                              n, steps)
@@ -2644,7 +2749,7 @@ def phase_vjp_timing(specs, per_call: float) -> dict:
             b = bound(n, steps, k["ops"], int_ops(k["draws"], per_call),
                       k["bytes"] * n * (steps + 1))
         turns = None
-        if k["name"] == "euler_paths_vjp":
+        if k["name"] in ("euler_paths_vjp", "gbm_paths_vjp"):
             # in turns with the first design: first, new, new, first
             turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
             ms = (turns[1] + turns[2]) / 2
@@ -2661,8 +2766,11 @@ def phase_vjp_timing(specs, per_call: float) -> dict:
                               **b)
         if turns is not None:
             out[k["name"]].update(first_design_row(
-                "euler_paths_vjp_first", k["source"], f"{n} x {steps} with v", turns,
-                b["bound_ms"], attrs["euler_paths_vjp_first"]))
+                f"{k['name']}_first", k["source"],
+                f"{n} x {steps}" + (" with v" if k["name"] == "euler_paths_vjp" else ""), turns,
+                b["bound_ms"], attrs[f"{k['name']}_first"]))
+        if k["name"] == "gbm_paths_vjp":
+            out[k["name"]]["greeks_shape"] = gbm_vjp_greeks_shape(k, per_call, seed, attrs)
         log(f"[5] {k['name']} {n} paths" + ("" if k["name"] == "gbm_terminal_vjp" else
                                             f" x {steps} steps")
             + f": kernel {ms:.4f} ms (the wrapper with its row sums and chain rule "
@@ -2713,10 +2821,11 @@ DRAWS_OVERLAY = (1, 3)
 # multiply and ex2, the multiply into S.
 OPS_MERTON = 11 / 2 + 12
 OPS_OVERLAY = 11 + 12
-# The first designs of kernels 14-16, the yardsticks of their redesigns:
+# The first designs of kernels 14-17, the yardsticks of their redesigns:
 # J0 holds them against the plain versions, phase 5 times them in turns
 # with the redesigns, and no path may launch them (main's drive).
-JUMP_FIRSTS = ("merton_paths_first", "merton_terminal_first", "jump_overlay_paths_first")
+JUMP_FIRSTS = ("merton_paths_first", "merton_terminal_first", "jump_overlay_paths_first",
+               "jump_overlay_terminal_first")
 
 
 def jump_specs():
@@ -2763,7 +2872,7 @@ def _jump_inputs():
 
 
 def phase_jump_kernels() -> dict:
-    """J0: kernels 14-17 and the first designs of kernels 14-16 against their
+    """J0: kernels 14-17 and their first designs against their
     plain versions on the card at the jumps path's shapes (Merton 2^18 x 50
     and 2^20 x 50 paths, the 64 x 16,384 x 50 surface batch, 2^22 x 100
     terminal, with and without antithetics; the overlay on a 2^20 x 50
@@ -2890,10 +2999,14 @@ def phase_jump_kernels() -> dict:
     for jumps, n_paths, anti in ((jb, 1 << 22, True), (jb, 1 << 22, False),
                                  (jb_heavy, 2 * ch.TERMINAL_TILE, True)):
         base = ch.heston_terminal(seed, 100.0, 0.05, 0.5, hp, n_paths, 100, anti, device=DEVICE)
-        held("jump_overlay_terminal", f"lam {jumps.lam} on {n_paths} Heston terminal values, "
-             f"antithetic {anti}",
-             cj.jump_overlay_terminal(base.clone(), seed, 0.5, jumps, 100, 0, True),
-             cj.jump_overlay_terminal_reference(base.clone(), seed, 0.5, jumps, 100, 0, True))
+        tag = f"lam {jumps.lam} on {n_paths} Heston terminal values, antithetic {anti}"
+        want = cj.jump_overlay_terminal_reference(base.clone(), seed, 0.5, jumps, 100, 0, True)
+        got = cj.jump_overlay_terminal(base.clone(), seed, 0.5, jumps, 100, 0, True)
+        held("jump_overlay_terminal", tag, got, want)
+        first = cj.jump_overlay_terminal_first(base.clone(), seed, 0.5, jumps, 100, 0, True)
+        held("jump_overlay_terminal_first", tag, first, want)
+        same_as_first("jump_overlay_terminal", tag, got, first,
+                      cj.jump_overlay_terminal(base.clone(), seed, 0.5, jumps, 100))
     base = ch.heston_terminal(seed, 100.0, 0.05, 0.5, hp, 64 * ch.TERMINAL_TILE, 100,
                               device=DEVICE)
     chunk("jump_overlay_terminal", cj.jump_overlay_terminal(base.clone(), seed, 0.5, jb, 100),
@@ -3166,8 +3279,8 @@ def phase_jump_timing(per_call: float, shapes: dict) -> dict:
     """CUDA-event medians of kernels 14-17 and of their plain versions at
     their timed shapes (Merton paths 2^20 x 50, terminal 2^22 x 100; the
     overlay on a 2^20 x 50 Heston matrix and on 2^22 terminal values, in
-    place), each beside its bound; registers and occupancy; kernels 14, 15
-    and 16 in turns with their first designs; kernel 14 also at the jumps
+    place), each beside its bound; registers and occupancy; each in turns
+    with its first design; kernel 14 also at the jumps
     path's own shapes, ``shapes`` (merton_paths_shapes). The card's clocks
     and power are logged before and after."""
     from options_model_tpu_torch.ops import cuda_heston as ch
@@ -3195,6 +3308,7 @@ def phase_jump_timing(per_call: float, shapes: dict) -> dict:
         "merton_terminal": lambda: cj.merton_terminal_first(seed, 100.0, 0.05, 0.5, mp, 1 << 22,
                                                             100, device=DEVICE),
         "jump_overlay_paths": lambda: cj.jump_overlay_paths_first(S, seed, 0.5, jb),
+        "jump_overlay_terminal": lambda: cj.jump_overlay_terminal_first(S_T, seed, 0.5, jb, 100),
     }
     attrs = cj.jumps_kernel_attrs()
     out = {}
@@ -3264,8 +3378,11 @@ def main() -> int:
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
     counted = specs + vjp + jumps
-    # kernels 13-16's first designs: the yardsticks no path may reach
+    # kernels 12-17's first designs: the yardsticks no path may reach
+    from options_model_tpu_torch.ops import cuda_gbm
+
     firsts = {"euler_paths_vjp_first": cuda_heston.launches,
+              "gbm_paths_vjp_first": cuda_gbm.launches,
               **{key: cuda_jumps.launches for key in JUMP_FIRSTS}}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
@@ -3274,7 +3391,7 @@ def main() -> int:
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
         was never launched, or if the first design of kernels 1, 3-8 or
-        13-16, or of the variants, was. Returns (fn's result, that path's
+        12-17, or of the variants, was. Returns (fn's result, that path's
         counts)."""
         for d, key in counters:
             d[key] = 0
@@ -3291,7 +3408,7 @@ def main() -> int:
         earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3-8 or 13-16, or of "
+            fail(f"the {path} path reached the first design of kernels 1, 3-8 or 12-17, or of "
                  f"the variants: {earlier}")
         return out, mine
 
@@ -3338,7 +3455,7 @@ def main() -> int:
                        if "earlier_ms" in times[name] else "")
                     for leg, d, name in legs))
     for label, calls in per_call_g.items():
-        kernel_ms = sum(n * times[name]["ms"] * GREEKS_SHAPE.get(label, {}).get(name, 1.0)
+        kernel_ms = sum(n * greeks_kernel_ms(times[name], label, name)
                         for name, n in calls.items())
         log(f"[5] Greeks call {label}: {secs_g[label]:.4f} s (median, host clock to "
             f"synchronize); kernel launches {calls}; forward and VJP kernels "
@@ -3383,6 +3500,8 @@ def main() -> int:
                      backward_of=k["forward"],
                      **({"earlier_max_scaled_err": vjp_errs[k["name"]]["first_max_scaled_err"]}
                         if "first_max_scaled_err" in vjp_errs[k["name"]] else {}),
+                     **({"earlier_total_rel": vjp_errs[k["name"]]["first_total_rel"]}
+                        if "first_total_rel" in vjp_errs[k["name"]] else {}),
                      library_ms=None, **times[k["name"]])
                 for k in vjp]
     entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],

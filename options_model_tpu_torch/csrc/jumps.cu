@@ -29,8 +29,10 @@
 //   draws them. One Philox call per path-step (counter word 3 = 1, never
 //   mirrored): z_j and the Poisson uniform. y += N mu_j + sigma_j sqrt(N)
 //   z_j - lam kbar dt; S[t+1] *= exp(y), read and written once each.
-// - overlay_terminal_kernel: S_T *= exp(N mu_j + sigma_j sqrt(N) z_j -
-//   lam kbar T), N ~ Poisson(lam T), one call per path at draw n_steps.
+// - overlay_terminal_first_kernel: S_T *= exp(N mu_j + sigma_j sqrt(N) z_j
+//   - lam kbar T), N ~ Poisson(lam T), one call per path at draw n_steps:
+//   the first design of kernel 17, the yardstick of its redesign
+//   overlay_terminal_kernel (below).
 //
 // Poisson counts are drawn by inversion: the count is the number of entries
 // of the host's float32 CDF table (ops/philox.poisson_table) the uniform is
@@ -173,10 +175,10 @@ overlay_paths_first_kernel(float* __restrict__ S, int* __restrict__ counts,
 }
 
 __global__ void __launch_bounds__(kBlock)
-overlay_terminal_kernel(float* __restrict__ S, int* __restrict__ counts,
-                        const float* __restrict__ consts,
-                        const __grid_constant__ PhiloxKeys keys, int first_tile, int n_tiles,
-                        int n_steps) {
+overlay_terminal_first_kernel(float* __restrict__ S, int* __restrict__ counts,
+                              const float* __restrict__ consts,
+                              const __grid_constant__ PhiloxKeys keys, int first_tile,
+                              int n_tiles, int n_steps) {
   const long long id = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (id >= static_cast<long long>(n_tiles) * kTerminalTile) return;
   const uint32_t j = static_cast<uint32_t>(id % kTerminalTile);
@@ -439,6 +441,101 @@ overlay_paths_kernel(float* __restrict__ S, int* __restrict__ counts,
   }
 }
 
+// ---- overlay_terminal_kernel: the redesign of overlay_terminal_first_kernel
+//
+// The first design runs a thread a value: 32,768 blocks of 128 at 2^22
+// values, ~15.5 waves of threads that each load one float, make one Philox
+// call and store, living about one memory latency; its count the dependent
+// __ldg scan, IEEE's sqrtf(N) (N = 0, ~86% of values at lam T = 0.15, takes
+// its slow-path call), the counts output a run-time pointer. The redesign
+// keeps the stream, the counts and every float operation in its order (S_T
+// and the counts the first design's bit for bit), and:
+// - four consecutive values a thread, one tile's (16,384 is a multiple of
+//   4): one 16-byte streaming load and store, four independent Philox calls
+//   interleaved;
+// - a grid-stride loop over a grid of whole waves (the SMs times the blocks
+//   resident on one, ops/cuda_jumps.overlay_terminal_blocks);
+// - the constants row, its table and its Poisson head as launch constants
+//   (OverlayT), so the wrapper copies nothing to the card before the launch;
+// - the count and sqrt N as kernel 15's redesign takes them (F(0), F(1)
+//   and the square roots of 0..15 from the head, a scan from entry 2 only
+//   past F(1));
+// - the counts output a template flag.
+constexpr int kOverlayVec = 4;
+
+// Kernel 17's launch constants: its constants row's a, mu_j, sigma_j, the
+// table's length and the table, and the table's PoissonHead.
+struct OverlayT {
+  float a, mu_j, sigma_j;
+  int n_table;
+  PoissonHead head;
+  float table[kMaxTable];
+};
+
+// poisson_head_count against the launch's own table.
+__device__ __forceinline__ void overlay_count(float u, const OverlayT& c, float& n, float& sn) {
+  const bool one = u >= c.head.cdf[0];
+  n = one ? 1.0f : 0.0f;
+  sn = one ? c.head.sqrt_n[1] : c.head.sqrt_n[0];
+  if (u >= c.head.cdf[1]) {
+    int m = kHeadCdf;
+    while (m < c.n_table && u >= c.table[m]) ++m;
+    n = static_cast<float>(m);
+    sn = m < kSqrtTable ? c.head.sqrt_n[m] : sqrtf(n);
+  }
+}
+
+template <bool kCounts>
+__global__ void __launch_bounds__(kBlock)
+overlay_terminal_kernel(float* __restrict__ S, int* __restrict__ counts,
+                        const __grid_constant__ OverlayT c, const __grid_constant__ PhiloxKeys keys,
+                        int first_tile, int n_steps, long long n_vec) {
+  static_assert(kOverlayVec == 4 && kTerminalTile % kOverlayVec == 0, "a float4 of one tile");
+  float4* s4 = reinterpret_cast<float4*>(S);
+  const long long stride = static_cast<long long>(gridDim.x) * kBlock;
+#pragma unroll 1
+  for (long long v = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x; v < n_vec;
+       v += stride) {
+    const long long id = kOverlayVec * v;
+    const uint32_t j = static_cast<uint32_t>(id % kTerminalTile);
+    const uint32_t global_tile = static_cast<uint32_t>(first_tile + id / kTerminalTile);
+    float4 s = __ldcs(s4 + v);
+    Words w[kOverlayVec];
+#pragma unroll
+    for (int i = 0; i < kOverlayVec; ++i) {
+      w[i] = philox_keyed(
+          Words{j + i, static_cast<uint32_t>(n_steps), global_tile, kOverlayStream}, keys);
+    }
+    float f[kOverlayVec];
+    int n_out[kOverlayVec];
+#pragma unroll
+    for (int i = 0; i < kOverlayVec; ++i) {
+      float z_j, unused, n, sn;
+      box_muller_fast(w[i].x, w[i].y, z_j, unused);
+      overlay_count(uniform_from_bits(w[i].z), c, n, sn);
+      f[i] = ex2_approx((fmaf(n, c.mu_j, c.sigma_j * sn * z_j) + c.a) * kLog2e);
+      n_out[i] = static_cast<int>(n);
+    }
+    s.x = s.x * f[0];
+    s.y = s.y * f[1];
+    s.z = s.z * f[2];
+    s.w = s.w * f[3];
+    __stcs(s4 + v, s);
+    if constexpr (kCounts) {
+      reinterpret_cast<int4*>(counts)[v] = make_int4(n_out[0], n_out[1], n_out[2], n_out[3]);
+    }
+  }
+}
+
+// A PoissonHead from the host floats of ops/cuda_jumps.poisson_head.
+inline PoissonHead head_from(const void* head) {
+  PoissonHead h;
+  const float* src = static_cast<const float*>(head);
+  for (int i = 0; i < kHeadCdf; ++i) h.cdf[i] = src[i];
+  for (int i = 0; i < kSqrtTable; ++i) h.sqrt_n[i] = src[kHeadCdf + i];
+  return h;
+}
+
 // Blocks of one maturity's part of a paths grid (whole blocks: a tile's
 // slots are a multiple of kBlock), and whether a batch of n_mat maturities
 // fits the grid's y dimension.
@@ -506,10 +603,7 @@ int omt_merton_terminal(void* out, void* counts, const void* consts, const void*
                         void* stream) {
   using namespace omt::jumps;
   if (n_tiles < 1 || n_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  PoissonHead h;
-  const float* src = static_cast<const float*>(head);
-  for (int i = 0; i < kHeadCdf; ++i) h.cdf[i] = src[i];
-  for (int i = 0; i < kSqrtTable; ++i) h.sqrt_n[i] = src[kHeadCdf + i];
+  const PoissonHead h = head_from(head);
   const long long n_slots =
       static_cast<long long>(n_tiles) * (antithetic ? kTerminalTile / 2 : kTerminalTile);
   auto kernel = antithetic
@@ -560,33 +654,62 @@ int omt_jump_overlay_paths_first(void* S, void* counts, const void* consts, uint
   return static_cast<int>(cudaGetLastError());
 }
 
-// S: device (n_tiles*16384,) float32, multiplied in place; counts the same shape.
-int omt_jump_overlay_terminal(void* S, void* counts, const void* consts, uint64_t seed,
-                              int first_tile, int n_tiles, int n_steps, void* stream) {
+// The redesign of kernel 17. S: device (n_tiles*16384,) float32, 16-byte
+// aligned, multiplied in place; counts the same shape or null; row: host
+// pointer to the launch's kRow-float constants row; head: host pointer to
+// the kHeadCdf + kSqrtTable floats of PoissonHead; n_blocks: at least 1 and
+// at most the blocks that give every thread a vector.
+int omt_jump_overlay_terminal(void* S, void* counts, const void* row, const void* head,
+                              uint64_t seed, int first_tile, int n_tiles, int n_steps,
+                              int n_blocks, void* stream) {
+  using namespace omt::jumps;
+  const long long n_vec = static_cast<long long>(n_tiles) * kTerminalTile / kOverlayVec;
+  const float* r = static_cast<const float*>(row);
+  const int n_table = static_cast<int>(r[5]);
+  if (n_tiles < 1 || n_steps < 1 || n_blocks < 1 ||
+      static_cast<long long>(n_blocks) > blocks_for(n_vec) || n_table < 0 ||
+      n_table > kMaxTable) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  OverlayT c{r[0], r[2], r[3], n_table, head_from(head), {}};
+  for (int i = 0; i < n_table; ++i) c.table[i] = r[kHead + i];
+  auto kernel = counts ? overlay_terminal_kernel<true> : overlay_terminal_kernel<false>;
+  kernel<<<n_blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(S), static_cast<int*>(counts), c, omt::fast::philox_keys(seed),
+      first_tile, n_steps, n_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first design, the redesign's yardstick. S: device (n_tiles*16384,)
+// float32, multiplied in place; counts the same shape or null.
+int omt_jump_overlay_terminal_first(void* S, void* counts, const void* consts, uint64_t seed,
+                                    int first_tile, int n_tiles, int n_steps, void* stream) {
   using namespace omt::jumps;
   if (n_tiles < 1 || n_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(n_tiles) * kTerminalTile;
-  overlay_terminal_kernel<<<blocks_for(n), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  overlay_terminal_first_kernel<<<blocks_for(n), kBlock, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(S), static_cast<int*>(counts), static_cast<const float*>(consts),
       omt::fast::philox_keys(seed), first_tile, n_tiles, n_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out[4]: registers, spill bytes, blocks per SM, block threads of ``which``:
-// 0 Merton paths, 1 Merton terminal, 2 overlay paths (the redesigns'
-// pricing instances: antithetic, without counts), 3 overlay terminal, 4
-// Merton terminal's first design, 5 Merton paths' first design, 6 overlay
-// paths' first design.
+// 0 Merton paths, 1 Merton terminal, 2 overlay paths, 3 overlay terminal
+// (the redesigns' pricing instances: antithetic, without counts), 4 Merton
+// terminal's first design, 5 Merton paths' first design, 6 overlay paths'
+// first design, 7 overlay terminal's first design.
 int omt_jumps_attrs(int which, int* out) {
   using namespace omt::jumps;
   switch (which) {
     case 0: return omt::kernel_attrs(merton_paths_kernel<true, false>, kBlock, out);
     case 1: return omt::kernel_attrs(merton_terminal_kernel<true, false>, kBlock, out);
     case 2: return omt::kernel_attrs(overlay_paths_kernel<false>, kBlock, out);
-    case 3: return omt::kernel_attrs(overlay_terminal_kernel, kBlock, out);
+    case 3: return omt::kernel_attrs(overlay_terminal_kernel<false>, kBlock, out);
     case 4: return omt::kernel_attrs(merton_kernel<false, true>, kBlock, out);
     case 5: return omt::kernel_attrs(merton_kernel<true, true>, kBlock, out);
     case 6: return omt::kernel_attrs(overlay_paths_first_kernel, kBlock, out);
+    case 7: return omt::kernel_attrs(overlay_terminal_first_kernel, kBlock, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,7 @@
 // Raw Philox words of the kernels' stream, for holding csrc/philox.cuh
-// against ops/philox.stream_words bit for bit; the error-string lookup the
-// Python wrappers use to report a failed launch.
+// against ops/philox.stream_words bit for bit; sinf and cosf beside
+// sincos_stream_angle at every angle of the stream; the error-string lookup
+// the Python wrappers use to report a failed launch.
 #include "philox.cuh"
 
 namespace omt {
@@ -23,9 +24,33 @@ philox_words_kernel(uint32_t* __restrict__ out, uint64_t seed, int first_tile, i
   }
 }
 
+// Every angle float(2 pi) u2 of the stream's uniforms u2 = i 2^-23.
+constexpr int kAngles = 1 << 23;
+
+// out: (4, kAngles) rows sinf, cosf and sincos_stream_angle's sine and cosine.
+__global__ void __launch_bounds__(kBlockThreads) sincos_check_kernel(float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= kAngles) return;
+  const float x = static_cast<float>(6.283185307179586) *
+                  uniform_from_bits(static_cast<uint32_t>(i) << 9);
+  float s, c;
+  sincos_stream_angle(x, s, c);
+  out[i] = sinf(x);
+  out[kAngles + i] = cosf(x);
+  out[2 * kAngles + i] = s;
+  out[3 * kAngles + i] = c;
+}
+
 }  // namespace omt
 
 extern "C" {
+
+// out: device (4, 2^23) float32 (sincos_check_kernel).
+int omt_sincos_check(void* out, void* stream) {
+  omt::sincos_check_kernel<<<omt::grid_for(omt::kAngles), omt::kBlockThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // out: device (n_draws, 4, n_tiles*width) 32-bit words.
 int omt_philox_words(void* out, uint64_t seed, int first_tile, int n_tiles, int width,

@@ -54,7 +54,9 @@ _SIGNATURES = {
     "omt_gbm_paths": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _P],
+    "omt_sincos_check": [_P, _P],
     "omt_gbm_paths_vjp": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_gbm_paths_vjp_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_terminal_vjp": [_P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     "omt_euler_paths_vjp": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_euler_paths_vjp_first": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
@@ -64,7 +66,8 @@ _SIGNATURES = {
     "omt_merton_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_paths_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
-    "omt_jump_overlay_terminal": [_P, _P, _P, _U64, _I, _I, _I, _P],
+    "omt_jump_overlay_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_jump_overlay_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).

@@ -19,6 +19,10 @@ version on the Philox stream for a CPU tensor. Each reduces the
 cotangent to A = sum g S, B = sum g S t and C = sum g S W
 (models/gbm.gbm_chain), one row of float64 partial sums a block, summed
 here in a fixed order: the same seed gives the same gradient bit for bit.
+The paths VJP is a Hopper redesign (gbm_vjp_kernel: a thread a path, 16
+blocks a tile, ``gbm_vjp_blocks``); its first design stays under
+``gbm_paths_vjp_first`` as the yardstick, on a CUDA device only, and no
+pricer reaches it.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from options_model_tpu_torch.ops.philox import path_normals
 
 # Kernel launches since the last reset, one integer per kernel.
 launches = {"gbm_terminal": 0, "gbm_paths": 0, "gbm_terminal_accurate": 0,
-            "gbm_terminal_vjp": 0, "gbm_paths_vjp": 0}
+            "gbm_terminal_vjp": 0, "gbm_paths_vjp": 0, "gbm_paths_vjp_first": 0}
 # The most blocks of the terminal VJP's grid-stride loop (csrc/greeks.cu
 # kTerminalBlocks).
 TERMINAL_VJP_BLOCKS = 1024
@@ -141,22 +145,54 @@ def gbm_terminal_vjp_reference(g: torch.Tensor, seed: int, S0, r, sigma, T, n_pa
     return gbm_euler_vjp_from_normals(z, g, S0, r, sigma, T, return_paths=False)
 
 
-def gbm_paths_vjp_rows(g: torch.Tensor, seed: int, S0, r, sigma, T, n_paths: int,
-                       n_steps: int, antithetic: bool = True,
-                       first_tile: int = 0) -> torch.Tensor:
-    """One launch of csrc/greeks.cu's gbm_paths_vjp_kernel on a CUDA
-    cotangent g (n_steps+1, n_pad): its (n_blocks, 3) float64 rows of
-    block sums (A, B, C). It redraws the forward's normals and reads g only."""
+def gbm_vjp_blocks(n_tiles: int) -> int:
+    """Blocks (rows of sums) of the redesigned paths VJP kernel: VJP_BLOCK
+    paths a block, so PATH_TILE / VJP_BLOCK = 16 a tile with or without
+    antithetics, none straddling a tile. Raises for what the kernel refuses
+    (no tile, or a grid beyond 2^31 - 1 blocks)."""
+    n_blocks = n_tiles * (PATH_TILE // VJP_BLOCK)
+    if n_tiles < 1 or n_blocks >= 1 << 31:
+        raise ValueError(f"the GBM paths VJP kernel takes 1 to 2^27 - 1 tiles, got {n_tiles}")
+    return n_blocks
+
+
+def _paths_vjp_launch(name: str, blocks, g: torch.Tensor, seed: int, S0, r, sigma, T,
+                      n_paths: int, n_steps: int, antithetic: bool,
+                      first_tile: int) -> torch.Tensor:
+    """One launch of C entry omt_``name`` on a CUDA cotangent g (n_steps+1,
+    n_pad) over blocks(n_tiles) blocks: its (n_blocks, 3) float64 rows of
+    block sums (A, B, C)."""
     _build.require_cuda(g.device)
     n_tiles = _tiles(n_paths, PATH_TILE, seed, first_tile, n_steps)
     g = cotangent(g, (n_steps + 1, n_tiles * PATH_TILE))
-    n_slots = n_tiles * (PATH_TILE // 2 if antithetic else PATH_TILE)
-    rows = torch.empty((-(-n_slots // VJP_BLOCK), 3), dtype=torch.float64, device=g.device)
-    _build.launch("omt_gbm_paths_vjp", g.device, rows.data_ptr(), g.data_ptr(),
+    rows = torch.empty((blocks(n_tiles), 3), dtype=torch.float64, device=g.device)
+    _build.launch(f"omt_{name}", g.device, rows.data_ptr(), g.data_ptr(),
                   _consts(S0, r, sigma, T, n_steps), seed, first_tile, n_tiles, n_steps,
                   int(antithetic), rows.shape[0])
-    launches["gbm_paths_vjp"] += 1
+    launches[name] += 1
     return rows
+
+
+def gbm_paths_vjp_rows(g: torch.Tensor, seed: int, S0, r, sigma, T, n_paths: int,
+                       n_steps: int, antithetic: bool = True,
+                       first_tile: int = 0) -> torch.Tensor:
+    """One launch of csrc/greeks.cu's gbm_vjp_kernel on a CUDA cotangent g
+    (n_steps+1, n_pad): its (gbm_vjp_blocks, 3) float64 rows of block sums
+    (A, B, C). It redraws the forward's normals bit for bit and reads g
+    only."""
+    return _paths_vjp_launch("gbm_paths_vjp", gbm_vjp_blocks, g, seed, S0, r, sigma, T,
+                             n_paths, n_steps, antithetic, first_tile)
+
+
+def gbm_paths_vjp_rows_first(g: torch.Tensor, seed: int, S0, r, sigma, T, n_paths: int,
+                             n_steps: int, antithetic: bool = True,
+                             first_tile: int = 0) -> torch.Tensor:
+    """gbm_paths_vjp_rows through the first design (gbm_paths_vjp_kernel, a
+    thread a pair or a path, ceil(slots / VJP_BLOCK) rows), the redesign's
+    yardstick, on a CUDA cotangent only."""
+    width = PATH_TILE // 2 if antithetic else PATH_TILE
+    return _paths_vjp_launch("gbm_paths_vjp_first", lambda n: -(-n * width // VJP_BLOCK), g,
+                             seed, S0, r, sigma, T, n_paths, n_steps, antithetic, first_tile)
 
 
 def gbm_paths_vjp(g: torch.Tensor, seed: int, S0, r, sigma, T, n_paths: int, n_steps: int,
@@ -169,6 +205,15 @@ def gbm_paths_vjp(g: torch.Tensor, seed: int, S0, r, sigma, T, n_paths: int, n_s
                                        antithetic, first_tile)
     rows = gbm_paths_vjp_rows(g, seed, S0, r, sigma, T, n_paths, n_steps, antithetic,
                               first_tile)
+    return gbm_chain(rows.sum(0), S0, r, sigma, T, n_steps)
+
+
+def gbm_paths_vjp_first(g: torch.Tensor, seed: int, S0, r, sigma, T, n_paths: int,
+                        n_steps: int, antithetic: bool = True,
+                        first_tile: int = 0) -> torch.Tensor:
+    """gbm_paths_vjp through the first design, on a CUDA cotangent only."""
+    rows = gbm_paths_vjp_rows_first(g, seed, S0, r, sigma, T, n_paths, n_steps, antithetic,
+                                    first_tile)
     return gbm_chain(rows.sum(0), S0, r, sigma, T, n_steps)
 
 

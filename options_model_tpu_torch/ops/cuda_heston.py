@@ -525,8 +525,8 @@ def euler_paths_ad(seed: int, S0, r, T, params, n_paths: int, n_steps: int,
 
 def vjp_kernel_attrs() -> dict:
     """Registers, spills and occupancy of the VJP kernels of csrc/greeks.cu
-    as built (the antithetic instances; Euler with v, and its first design),
-    by name."""
+    as built (the antithetic instances; Euler with v; the first designs of
+    the Euler and GBM paths VJPs), by name."""
     return {name: _build.kernel_attrs("omt_greeks_attrs", i) for i, name in
             enumerate(("gbm_terminal_vjp", "gbm_paths_vjp", "euler_paths_vjp",
-                       "euler_paths_vjp_first"))}
+                       "euler_paths_vjp_first", "gbm_paths_vjp_first"))}

@@ -8,9 +8,11 @@
   the yardsticks, and no pricer reaches them;
 - 16 ``jump_overlay_paths`` and 17 ``jump_overlay_terminal``: the Bates jump
   overlay multiplied in place into a Heston kernel's S (or S_T), the
-  counterparts of options_model_tpu/models/bates.py:40 jump_overlay; kernel
-  16 is a Hopper redesign (overlay_paths_kernel), its first design stays
-  under ``jump_overlay_paths_first``, reached by no pricer.
+  counterparts of options_model_tpu/models/bates.py:40 jump_overlay; both
+  are Hopper redesigns (overlay_paths_kernel; overlay_terminal_kernel, four
+  values a thread over a grid of whole waves, ``overlay_terminal_blocks``),
+  their first designs stay under ``jump_overlay_paths_first`` and
+  ``jump_overlay_terminal_first``, reached by no pricer.
 The JAX package computes these in XLA code (no Pallas kernel). The wrappers
 take the plain version for a CPU tensor or device and launch the kernel for
 a CUDA one; there is no fallback between the two. The first designs run on
@@ -53,7 +55,7 @@ from options_model_tpu_torch.ops.philox import (MAX_POISSON_TABLE, jump_draws,
 # Kernel launches since the last reset, one integer per kernel.
 launches = {"merton_paths": 0, "merton_paths_first": 0, "merton_terminal": 0,
             "merton_terminal_first": 0, "jump_overlay_paths": 0, "jump_overlay_paths_first": 0,
-            "jump_overlay_terminal": 0}
+            "jump_overlay_terminal": 0, "jump_overlay_terminal_first": 0}
 # Kernel 14's launches since the last reset, by (n_mat, n_pad, n_steps).
 shape_launches = Counter()
 # Floats of a constants row before its table, and in all (csrc/jumps.cu
@@ -67,6 +69,10 @@ ROW = HEAD + MAX_POISSON_TABLE
 # from a table.
 POISSON_HEAD = 2
 SQRT_TABLE = 16
+# Kernel 17's redesign: values a thread (one 16-byte vector) and threads a
+# block (csrc/jumps.cu kOverlayVec, kBlock).
+OVERLAY_VEC = 4
+OVERLAY_BLOCK = 128
 
 
 @functools.lru_cache(maxsize=1024)
@@ -392,33 +398,85 @@ def jump_overlay_terminal_reference(S_T: torch.Tensor, seed: int, T, jumps, n_st
     return (S_T, n.to(torch.int32)) if return_counts else S_T
 
 
-def jump_overlay_terminal(S_T: torch.Tensor, seed: int, T, jumps, n_steps: int,
-                          first_tile: int = 0, return_counts: bool = False):
-    """Kernel 17 (csrc/jumps.cu) on a CUDA S_T (n_pad,), in place: S_T *=
-    exp(N mu_j + sigma_j sqrt(N) z_j - lam kbar T). The plain version for a
-    CPU S_T. Returns S_T [and the counts]."""
-    if S_T.device.type == "cpu":
-        return jump_overlay_terminal_reference(S_T, seed, T, jumps, n_steps, first_tile,
-                                               return_counts)
+def overlay_terminal_blocks(n_values: int, n_sm: int, blocks_per_sm: int) -> int:
+    """Blocks of kernel 17's grid-stride launch over n_values (whole
+    TERMINAL_TILE tiles): n_sm x blocks_per_sm, whole waves, or fewer where
+    the values' OVERLAY_VEC-vectors, one a thread, do not fill them. Raises
+    for what the kernel refuses."""
+    if n_values < TERMINAL_TILE or n_values % TERMINAL_TILE or n_sm < 1 or blocks_per_sm < 1:
+        raise ValueError(f"kernel 17 takes whole {TERMINAL_TILE}-value tiles on a card with "
+                         f"SMs, got {n_values} values, {n_sm} x {blocks_per_sm} blocks")
+    vectors = n_values // OVERLAY_VEC
+    return min(-(-vectors // OVERLAY_BLOCK), n_sm * blocks_per_sm)
+
+
+@functools.lru_cache(maxsize=16)
+def _card_waves(index: int) -> tuple:
+    """(SMs, resident blocks of kernel 17's pricing instance an SM) of CUDA
+    device ``index``."""
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    with torch.cuda.device(index):
+        per_sm = _build.kernel_attrs("omt_jumps_attrs", 3)["blocks_per_sm"]
+    return n_sm, per_sm
+
+
+def _terminal_inputs(S_T: torch.Tensor, seed: int, T, jumps, n_steps: int, first_tile: int,
+                     return_counts: bool) -> tuple:
+    """A kernel-17 launch's tiles, host constants row (_overlay_row) and
+    counts output, S_T checked (a CUDA, contiguous float32 vector of whole
+    tiles)."""
     _build.require_cuda(S_T.device)
     _check_terminal(S_T)
     n_tiles = S_T.shape[0] // TERMINAL_TILE
     _build.check_launch(seed, first_tile, n_tiles, n_steps)
-    consts = device_rows([_overlay_row(T, jumps, n_steps, terminal=True)], S_T.device)
     counts = torch.empty_like(S_T, dtype=torch.int32) if return_counts else None
+    return n_tiles, _overlay_row(T, jumps, n_steps, terminal=True), counts
+
+
+def jump_overlay_terminal(S_T: torch.Tensor, seed: int, T, jumps, n_steps: int,
+                          first_tile: int = 0, return_counts: bool = False):
+    """Kernel 17 (csrc/jumps.cu overlay_terminal_kernel) on a CUDA S_T
+    (n_pad,), in place: S_T *= exp(N mu_j + sigma_j sqrt(N) z_j - lam kbar
+    T). The plain version for a CPU S_T. Returns S_T [and the counts]."""
+    if S_T.device.type == "cpu":
+        return jump_overlay_terminal_reference(S_T, seed, T, jumps, n_steps, first_tile,
+                                               return_counts)
+    n_tiles, row, counts = _terminal_inputs(S_T, seed, T, jumps, n_steps, first_tile,
+                                            return_counts)
+    if S_T.data_ptr() % 16:
+        raise ValueError("kernel 17 loads S_T 16 bytes at a time and needs it 16-byte aligned")
+    index = S_T.device.index if S_T.device.index is not None else torch.cuda.current_device()
+    # the row and its Poisson head as launch constants: nothing to copy
     _build.launch("omt_jump_overlay_terminal", S_T.device, S_T.data_ptr(),
-                  None if counts is None else counts.data_ptr(), consts.data_ptr(), seed,
-                  first_tile, n_tiles, n_steps)
+                  None if counts is None else counts.data_ptr(), _build.float_args(row),
+                  _build.float_args(poisson_head(row[HEAD:HEAD + int(row[5])])), seed,
+                  first_tile, n_tiles, n_steps,
+                  overlay_terminal_blocks(S_T.shape[0], *_card_waves(index)))
     launches["jump_overlay_terminal"] += 1
     return (S_T, counts) if return_counts else S_T
 
 
+def jump_overlay_terminal_first(S_T: torch.Tensor, seed: int, T, jumps, n_steps: int,
+                                first_tile: int = 0, return_counts: bool = False):
+    """jump_overlay_terminal through kernel 17's first design
+    (overlay_terminal_first_kernel, its row copied to the card), the
+    redesign's yardstick, on a CUDA S_T only."""
+    n_tiles, row, counts = _terminal_inputs(S_T, seed, T, jumps, n_steps, first_tile,
+                                            return_counts)
+    consts = device_rows([row], S_T.device)
+    _build.launch("omt_jump_overlay_terminal_first", S_T.device, S_T.data_ptr(),
+                  None if counts is None else counts.data_ptr(), consts.data_ptr(), seed,
+                  first_tile, n_tiles, n_steps)
+    launches["jump_overlay_terminal_first"] += 1
+    return (S_T, counts) if return_counts else S_T
+
+
 def jumps_kernel_attrs() -> dict:
-    """Registers, spills and occupancy of the four jump kernels and the first
-    designs of kernels 14-16 as built, by name: the redesigns' pricing
-    instances (antithetic, without the counts output; the first designs take
-    that output as a run-time pointer)."""
+    """Registers, spills and occupancy of the four jump kernels and their
+    first designs as built, by name: the redesigns' pricing instances
+    (antithetic, without the counts output; the first designs take that
+    output as a run-time pointer)."""
     return {name: _build.kernel_attrs("omt_jumps_attrs", i) for i, name in
             enumerate(("merton_paths", "merton_terminal", "jump_overlay_paths",
                        "jump_overlay_terminal", "merton_terminal_first", "merton_paths_first",
-                       "jump_overlay_paths_first"))}
+                       "jump_overlay_paths_first", "jump_overlay_terminal_first"))}

@@ -136,6 +136,20 @@ def stream_words_cuda(seed: int, first_tile: int, n_tiles: int, width: int,
     return out.to(torch.int64) & _MASK32
 
 
+def sincos_check_cuda(device) -> torch.Tensor:
+    """(4, 2^23) float32 on the card: sinf, cosf and csrc/philox.cuh's
+    sincos_stream_angle (sine, cosine) at every angle float(2 pi) u2 of the
+    stream's uniforms u2 = i 2^-23 (csrc/philox.cu), for holding the
+    replica against sinf and cosf bit for bit."""
+    from options_model_tpu_torch.ops import _build
+
+    device = torch.device(device)
+    _build.require_cuda(device)
+    out = torch.empty((4, 1 << 23), dtype=torch.float32, device=device)
+    _build.launch("omt_sincos_check", device, out.data_ptr())
+    return out
+
+
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """uint32 words (in int64) -> float32 uniforms in [0, 1)."""
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0

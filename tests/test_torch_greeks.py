@@ -53,14 +53,16 @@ from options_model_tpu.pricers import american as jam
 from options_model_tpu.pricers import greeks as jgreeks
 from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig,
                                                  MCConfig, OptionSpec, VGParams)
-from options_model_tpu_torch.models.gbm import (gbm_euler_from_normals,
+from options_model_tpu_torch.models.gbm import (gbm_chain, gbm_constants,
+                                                gbm_euler_from_normals,
                                                 gbm_euler_vjp_from_normals, simulate_gbm)
 from options_model_tpu_torch.models.heston import (heston_constants, heston_euler_from_normals,
                                                    heston_euler_vjp_from_normals,
                                                    simulate_heston)
 from options_model_tpu_torch.ops import cuda_gbm, cuda_heston
 from options_model_tpu_torch.ops.autodiff import differentiable
-from options_model_tpu_torch.ops.philox import seed_from_generator
+from options_model_tpu_torch.ops.philox import (box_muller, path_normals, seed_from_generator,
+                                                stream_words, uniform_from_bits)
 from options_model_tpu_torch.pricers import american as am
 from options_model_tpu_torch.pricers import greeks
 from options_model_tpu_torch.pricers.blackscholes import bs_greeks_closed_form, bs_price
@@ -567,6 +569,135 @@ def test_euler_vjp_grid_covers_each_path_once_within_its_tile(n_tiles, antitheti
 def test_euler_vjp_blocks_refuse_what_the_kernel_refuses(n_tiles):
     with pytest.raises(ValueError):
         cuda_heston.euler_vjp_blocks(n_tiles)
+
+
+def _gbm_vjp_layout(n_tiles, antithetic):
+    """(block, tile, Philox slot, column) of every thread of the redesigned
+    GBM paths VJP kernel (csrc/greeks.cu gbm_vjp_kernel): euler_vjp_kernel's
+    layout on cuda_gbm.gbm_vjp_blocks' grid."""
+    blocks = cuda_gbm.gbm_vjp_blocks(n_tiles)
+    assert blocks == cuda_heston.euler_vjp_blocks(n_tiles)
+    return _vjp_layout(n_tiles, antithetic)
+
+
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("n_tiles", [1, 3, 512])
+def test_gbm_vjp_grid_covers_each_path_once_within_its_tile(n_tiles, antithetic):
+    """The redesigned GBM paths VJP's launch geometry (gbm_vjp_blocks, the C
+    entry's vjp_grid_matches): 16 blocks a tile, as many rows, each block of
+    one tile, every path of the matrix once, each thread's Philox slot that
+    of its column in kernel 2's layout (the mirror of column j at j + 2048),
+    and a path and its mirror in lanes l and l + 16 of one warp."""
+    blocks, tile, slot, col = _gbm_vjp_layout(n_tiles, antithetic)
+    assert blocks == 16 * n_tiles
+    assert np.array_equal(np.sort(col.ravel()), np.arange(n_tiles * cuda_heston.PATH_TILE))
+    assert np.all(col // cuda_heston.PATH_TILE == tile)
+    assert np.all(tile == tile[:, :1])
+    width = cuda_heston.PATH_TILE // 2 if antithetic else cuda_heston.PATH_TILE
+    assert np.all(slot == col % cuda_heston.PATH_TILE % width)
+    if antithetic:
+        warps = slot.reshape(blocks, 8, 32)
+        assert np.array_equal(warps[..., :16], warps[..., 16:])
+        cols = col.reshape(blocks, 8, 32)
+        assert np.array_equal(cols[..., 16:] - cols[..., :16],
+                              np.full_like(cols[..., :16], cuda_heston.PATH_TILE // 2))
+
+
+@pytest.mark.parametrize("n_tiles", [0, -1, 1 << 27])
+def test_gbm_vjp_blocks_refuse_what_the_kernel_refuses(n_tiles):
+    with pytest.raises(ValueError):
+        cuda_gbm.gbm_vjp_blocks(n_tiles)
+
+
+def _gbm_vjp_pass_normals(seed, n_tiles, n_steps):
+    """The normals the redesigned GBM paths VJP's lanes step on, (n_steps,
+    n_pad) in column order: pass D of lane l makes Philox block 2D + l // 16
+    of its pair's slot and two Box-Mullers of it, nz = (cos, sin) of (x, y)
+    and of (z, w); step 8D + k takes nz[k % 4] of lane (l % 16) + 16 (k >=
+    4), negated on the mirror lanes (l >= 16)."""
+    width = cuda_heston.PATH_TILE // 2
+    n_passes = -(-n_steps // 8)
+    words = stream_words(seed, 0, n_tiles, width, 2 * n_passes)
+    u = uniform_from_bits(words)
+    nz = torch.stack([*box_muller(u[:, 0], u[:, 1]), *box_muller(u[:, 2], u[:, 3])], 1)
+    z = torch.empty((n_steps, n_tiles * cuda_heston.PATH_TILE))
+    _, tile, slot, col = _vjp_layout(n_tiles, True)
+    lane = np.arange(256)[None, :] % 32 + 0 * col
+    tile, slot, col, lane = (torch.from_numpy(x.ravel()) for x in (tile, slot, col, lane))
+    src = tile * width + slot
+    sign = torch.where(lane >= 16, -1.0, 1.0)
+    for t in range(n_steps):
+        D, k = divmod(t, 8)
+        z[t, col] = sign * nz[2 * D + (k >= 4), k % 4, src]
+    return z
+
+
+@pytest.mark.parametrize("n_steps", [3, 8, 50])
+def test_gbm_vjp_pass_schedule_draws_kernel_2s_normals(n_steps):
+    """Mirror of the redesign's draw schedule (one Philox block and two
+    Box-Mullers a lane a pass, the pair's lanes swapping normals by
+    shuffles): every step's normal is the one kernel 2 draws for that path
+    (path_normals), bit for bit, at step counts below, at and past a pass."""
+    seed, n_tiles = 21, 2
+    got = _gbm_vjp_pass_normals(seed, n_tiles, n_steps)
+    want = path_normals(seed, 0, n_tiles, cuda_heston.PATH_TILE, n_steps, True, "cpu")
+    assert torch.equal(got, want)
+
+
+def _gbm_vjp_pass_sums(z, g, params, n_steps):
+    """The redesign's float32 sums on normals z (n_steps, n_pad): a and W a
+    path (the mirror's with its own negated normals), S / s0 = 2^(a log2 e),
+    a pass's sums of g S / s0 and g S k / s0 (k = 0..7) with B += s0_pass
+    t0 + s1_pass, t0 = 8D + 1, and the three sums times s0 at the end;
+    summed over paths in float64 and taken through gbm_chain."""
+    c = {k: float(v) for k, v in gbm_constants(*params, n_steps).items()}
+    a = torch.zeros(z.shape[1])
+    W = torch.zeros_like(a)
+    A, B, C = g[0].clone(), torch.zeros_like(a), torch.zeros_like(a)
+    for D in range(-(-n_steps // 8)):
+        s0, s1 = torch.zeros_like(a), torch.zeros_like(a)
+        for k in range(min(8, n_steps - 8 * D)):
+            t = 8 * D + k
+            a = (a + c["drift"]) + c["diffusion"] * z[t]
+            W = W + z[t]
+            gs = g[t + 1] * torch.exp2(a * float(np.float32(1.4426950408889634)))
+            s0 = s0 + gs
+            s1 = s1 + gs * float(k)
+            C = C + gs * W
+        A = A + s0
+        B = B + (s0 * float(8 * D + 1) + s1)
+    sums = torch.stack([A, B, C]).double() * c["s0"]
+    return gbm_chain(sums.sum(1), *params, n_steps)
+
+
+@pytest.mark.parametrize("n_steps", [5, 50])
+def test_gbm_vjp_pass_sums_match_the_plain_vjp(n_steps):
+    """The redesign's accumulation (the pass sums and B's t0 split, the
+    weight 2^(a log2 e) s0, W of the mirror on its negated normals), emulated
+    in float32 on the plain version's normals: within 1e-4 of the paths'
+    absolute shares of the plain VJP (chip_smoke.VJP_RTOL)."""
+    seed, n = 23, 4096
+    params = _f32([S0, R, SIG, T])
+    z = path_normals(seed, 0, 1, cuda_heston.PATH_TILE, n_steps, True, "cpu")
+    g = torch.from_numpy(_cotangent(24, (n_steps + 1, n)))
+    g = g + 4.0 * (gbm_euler_from_normals(z, *params) / S0 - 1.0) / n
+    got = _gbm_vjp_pass_sums(z, g, params, n_steps)
+    shares = gbm_euler_vjp_from_normals(z, g, *params, per_path=True)
+    scale = shares.abs().sum(1)
+    assert torch.all((got - shares.sum(1)).abs() <= 1e-4 * scale), (got, shares.sum(1))
+    assert torch.equal(cuda_gbm.gbm_paths_vjp(g, seed, *params, n, n_steps),
+                       gbm_euler_vjp_from_normals(z, g, *params))
+
+
+def test_gbm_vjp_first_design_takes_a_card_only():
+    """Kernel 12's first design, the redesign's yardstick, has no plain
+    route: a CPU cotangent raises, and nothing is launched."""
+    g = torch.ones((5, 4096))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_gbm.gbm_paths_vjp_first(g, 1, S0, R, SIG, T, 4096, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_gbm.gbm_paths_vjp_rows_first(g, 1, S0, R, SIG, T, 4096, 4)
+    assert cuda_gbm.launches["gbm_paths_vjp_first"] == 0
 
 
 def test_vjp_tangent_consts_are_the_float32_fold():

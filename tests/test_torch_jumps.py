@@ -288,6 +288,110 @@ def test_sqrt_table_and_head_are_the_host_floats_the_kernel_takes():
         np.testing.assert_array_equal(head[cuda_jumps.POISSON_HEAD:], cuda_jumps.sqrt_table())
 
 
+def _overlay_vectors(n_values: int, n_blocks: int) -> list:
+    """The value indices of each thread of the redesigned terminal overlay
+    (csrc/jumps.cu overlay_terminal_kernel): thread t of the grid's
+    n_blocks x OVERLAY_BLOCK takes the OVERLAY_VEC-vectors v = t, t +
+    threads, .. below n_values / OVERLAY_VEC, values OVERLAY_VEC v .. +
+    OVERLAY_VEC - 1."""
+    vec, threads = cuda_jumps.OVERLAY_VEC, n_blocks * cuda_jumps.OVERLAY_BLOCK
+    return [[vec * v + i for v in range(t, n_values // vec, threads) for i in range(vec)]
+            for t in range(threads)]
+
+
+@pytest.mark.parametrize("n_tiles, n_sm, per_sm", [(1, 132, 16), (3, 132, 16), (256, 132, 16),
+                                                   (5, 2, 3), (7, 1, 1)])
+def test_overlay_terminal_grid_covers_each_value_once_within_its_tile(n_tiles, n_sm, per_sm):
+    """Kernel 17's redesigned launch geometry (overlay_terminal_blocks and
+    the grid-stride loop): the grid is whole waves (n_sm x blocks per SM) or
+    fewer blocks where the vectors do not fill them; every value of S_T once;
+    each thread's vector four consecutive values of one 16,384-value tile,
+    so its counters are (j .. j + 3, n_steps, tile, 1) as the plain version
+    draws them."""
+    n = n_tiles * cuda_heston.TERMINAL_TILE
+    blocks = cuda_jumps.overlay_terminal_blocks(n, n_sm, per_sm)
+    vectors = n // cuda_jumps.OVERLAY_VEC
+    assert blocks == min(n_sm * per_sm, -(-vectors // cuda_jumps.OVERLAY_BLOCK))
+    per_thread = _overlay_vectors(n, blocks) if n_tiles < 256 else None
+    if per_thread is None:  # 2^22 values: the same arithmetic in numpy
+        t = np.arange(blocks * cuda_jumps.OVERLAY_BLOCK)
+        v = (t[None, :] + np.arange(-(-vectors // t.size))[:, None] * t.size).ravel()
+        v = v[v < vectors]
+        values = (cuda_jumps.OVERLAY_VEC * v[:, None] + np.arange(4)[None, :])
+    else:
+        values = np.array([x for xs in per_thread for x in xs]).reshape(-1, 4)
+    assert np.array_equal(np.sort(values.ravel()), np.arange(n))
+    tile = values // cuda_heston.TERMINAL_TILE
+    assert np.all(tile == tile[:, :1])
+    assert np.all(np.diff(values % cuda_heston.TERMINAL_TILE, axis=1) == 1)
+
+
+@pytest.mark.parametrize("n_values, n_sm, per_sm", [(0, 132, 16), (4096, 132, 16),
+                                                    (16384 + 4, 132, 16), (16384, 0, 16),
+                                                    (16384, 132, 0)])
+def test_overlay_terminal_blocks_refuse_what_the_kernel_refuses(n_values, n_sm, per_sm):
+    with pytest.raises(ValueError):
+        cuda_jumps.overlay_terminal_blocks(n_values, n_sm, per_sm)
+
+
+def _overlay_launch_constants(row: np.ndarray) -> dict:
+    """Kernel 17's launch constants (csrc/jumps.cu OverlayT) as the C entry
+    builds them from the wrapper's constants row and Poisson head: a, mu_j,
+    sigma_j, the table's length and the table, and poisson_head of it."""
+    n_table = int(row[5])
+    table = row[cuda_jumps.HEAD:cuda_jumps.HEAD + n_table]
+    return dict(a=row[0], mu_j=row[2], sigma_j=row[3], n_table=n_table, table=table,
+                head=cuda_jumps.poisson_head(table))
+
+
+@pytest.mark.parametrize("lam", [0.3, 0.6, 100.0])
+def test_overlay_terminal_launch_constants_count_as_the_plain_version(lam):
+    """Kernel 17's launch constants at T = 0.5 (lam T = 0.15, J2's; 0.3; 50,
+    J0's heavy case): the row's head slots are F(0), F(1) of its table, the
+    constants' head the same two and the square roots; the head-then-scan
+    count on them (_head_count, the same rule as overlay_count) equals
+    poisson_from_uniform bit for bit on drawn uniforms, every table entry
+    and its float32 neighbours, F(0), F(1) and theirs in particular."""
+    jumps = SimpleNamespace(lam=lam, mu_j=-0.1, sigma_j=0.15)
+    row = cuda_jumps._overlay_row(0.5, jumps, 100, terminal=True)
+    c = _overlay_launch_constants(row)
+    table = poisson_table(lam * 0.5)
+    assert np.array_equal(c["table"], table) and c["n_table"] == table.size
+    np.testing.assert_array_equal(row[cuda_jumps.HEAD - 2:cuda_jumps.HEAD],
+                                  c["head"][:cuda_jumps.POISSON_HEAD])
+    np.testing.assert_array_equal(c["head"][:cuda_jumps.POISSON_HEAD], table[:2])
+    rng = np.random.default_rng(int(lam * 10))
+    drawn = (rng.integers(0, 1 << 23, 1 << 15) / (1 << 23)).astype(np.float32)
+    edges = np.concatenate([table, np.nextafter(table, np.float32(0.0)),
+                            np.nextafter(table, np.float32(1.0))])
+    u = torch.from_numpy(np.concatenate([drawn, edges]).astype(np.float32))
+    n, sn = _head_count(u, c["table"])
+    want = poisson_from_uniform(u, table)
+    assert torch.equal(n, want) and torch.equal(sn, torch.sqrt(want))
+    for f in c["head"][:2]:
+        for x in (f, np.nextafter(f, np.float32(0.0))):
+            one = torch.tensor([x], dtype=torch.float32)
+            assert torch.equal(_head_count(one, c["table"])[0], poisson_from_uniform(one, table))
+
+
+def test_overlay_terminal_launch_constants_refuse_lam_t_100():
+    """At lam T = 100 the float32 CDF table would need more than its 120
+    entries (a mean up to 70): the constants row, and so any launch of
+    kernel 17 or its plain version, is refused rather than cut."""
+    with pytest.raises(ValueError, match="table"):
+        cuda_jumps._overlay_row(0.5, SimpleNamespace(lam=200.0, mu_j=-0.1, sigma_j=0.15), 100,
+                                terminal=True)
+
+
+def test_overlay_terminal_first_design_takes_a_card_only():
+    """Kernel 17's first design, the redesign's yardstick, has no plain
+    route: a CPU S_T raises, and nothing is launched."""
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_jumps.jump_overlay_terminal_first(torch.ones(cuda_heston.TERMINAL_TILE), SEED, 0.5,
+                                               SimpleNamespace(**JUMPS), 4)
+    assert cuda_jumps.launches["jump_overlay_terminal_first"] == 0
+
+
 def test_merton_terminal_first_design_takes_a_card_only():
     """Kernel 15's first design, the redesign's yardstick, has no plain route:
     a CPU device raises."""

@@ -70,6 +70,20 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
+@pytest.fixture
+def _one_torch_thread():
+    """One torch intra-op thread for a test of several NN-LSM prices on
+    small tensors: several test workers share the machine, and each
+    worker's default pool (a thread a core) oversubscribes the cores.
+    test_price_american_routes_nn took 296 s (gbm) and 258 s (heston) in
+    each of six concurrent processes at 8 threads, 4.7-5.6 s at one
+    (x86-64, 8 cores), with the same prices bit for bit at 8 and 1."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def xla_paths():
     """Identical paths for both packages: the JAX XLA simulators' GBM,
@@ -340,6 +354,7 @@ def test_richardson_nn_stat_matches_reference_on_identical_paths(xla_paths, mode
         assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
 
 
+@pytest.mark.usefixtures("_one_torch_thread")
 @pytest.mark.parametrize("model", ["gbm", "heston"])
 def test_price_american_routes_nn(model):
     """The dispatcher prices regressor='nn' under CV, Richardson and plain
