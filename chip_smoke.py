@@ -95,6 +95,17 @@ Phases, in order; any failure exits non-zero:
       lam = 0, its paths and plain LSM price against Heston's bit for bit,
       J4 the 64 x 64 Bates and Merton surfaces, apps.calibrate --model
       bates --price-surface, merton_greeks against f64 central differences;
+   h. the dual path (pricers/dual.py, kernels 18-19 of csrc/dual.cu, after
+      D0 held them against their plain versions: the dual stream's Philox
+      words and the Poisson counts bit for bit, ce and the inner states
+      within their tolerances, bit-equal first_tile chunks, each family at
+      2 tiles and at its bracket's shape): D1 bench.py's GBM bracket (2^18
+      x 50) against CRR, D2 its Heston bracket (2^17 x 50) against ADI, D3
+      J1's Merton put against the COS-Bermudan value, D4 J3's Bates put
+      against the port's CV price and, at lam = 0, the Bates dual against
+      the Heston dual, D5 the NN-policy GBM bracket (2^16 x 50 x 64) against
+      CRR, at the JAX tests' bars, width and upper printed beside
+      BENCH_r05's;
 4. the launch counts of each path, none of its kernels at 0, the first
    design of kernels 1, 3-8 and 12-17 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
@@ -116,10 +127,13 @@ Phases, in order; any failure exits non-zero:
    2^21 x 50; the card's clocks and power logged before and after the jump
    kernels' turns), and kernel 14 at
    the jumps path's own shapes (1 x 2^18 x 50 and 64 x 16,384 x 50) with
-   its launches x (time - bound) there, beside its first design's.
+   its launches x (time - bound) there, beside its first design's; kernel
+   18 at each bracket's shape and kernel 19 at D5's chunk beside their
+   bounds and plain versions, and the seconds per bracket with the
+   kernels' share.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
-variants of kernels 9 and 10 listed under theirs), one per VJP kernel and
-one per jump kernel;
+variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
+per jump kernel and one per dual kernel;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -417,7 +431,7 @@ def kernel_specs():
         dict(name="heston_paths", source=src + "heston_paths.cu", scheme="euler",
              run=paths_run(cuda_heston.heston_paths, cuda_heston.heston_paths_reference),
              replaces="options_model_tpu/ops/pallas_heston.py:319",
-             paths=("main", "nn", "greeks", "calibration", "jumps"),
+             paths=("main", "nn", "greeks", "calibration", "jumps", "dual"),
              tile=cuda_heston.PATH_TILE, main=(256, 50), timed=(256, 50), variance=(False, True),
              ops=OPS_HESTON + OPS_EXP, draws=DRAWS_HESTON, tol=euler_tol,
              counter=(L, "heston_paths"),
@@ -434,7 +448,8 @@ def kernel_specs():
                           run=heston_terminal(cuda_heston.heston_terminal_accurate),
                           counter=(L, "heston_terminal_accurate"))),
         dict(name="gbm_paths", run=gbm_paths, source=src + "gbm.cu",
-             replaces="options_model_tpu/ops/pallas_gbm.py:126", paths=("main", "nn", "greeks"),
+             replaces="options_model_tpu/ops/pallas_gbm.py:126",
+             paths=("main", "nn", "greeks", "dual"),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
              ops=OPS_GBM_PATHS, draws=DRAWS_GBM, counter=(G, "gbm_paths")),
         dict(name="gbm_terminal", run=gbm_terminal(cuda_gbm.gbm_terminal),
@@ -2841,14 +2856,14 @@ def jump_specs():
     n20, n22 = 1 << 20, 1 << 22
     return [
         dict(name="merton_paths", source=src, replaces="options_model_tpu/models/merton.py:27",
-             paths=("jumps",), counter=(L, "merton_paths"), timed=(n20, 50),
+             paths=("jumps", "dual"), counter=(L, "merton_paths"), timed=(n20, 50),
              ops=OPS_MERTON + OPS_EXP, draws=DRAWS_MERTON, bytes=51 * n20 * 4),
         dict(name="merton_terminal", source=src,
              replaces="options_model_tpu/models/merton.py:27", paths=("jumps",),
              counter=(L, "merton_terminal"), timed=(n22, 100), ops=OPS_MERTON,
              draws=DRAWS_MERTON, bytes=n22 * 4),
         dict(name="jump_overlay_paths", source=src,
-             replaces="options_model_tpu/models/bates.py:40", paths=("jumps",),
+             replaces="options_model_tpu/models/bates.py:40", paths=("jumps", "dual"),
              counter=(L, "jump_overlay_paths"), timed=(n20, 50), ops=OPS_OVERLAY,
              draws=DRAWS_OVERLAY, bytes=2 * 50 * n20 * 4),
         dict(name="jump_overlay_terminal", source=src,
@@ -3348,6 +3363,343 @@ def phase_jump_timing(per_call: float, shapes: dict) -> dict:
     return out
 
 
+# The martingale dual (pricers/dual.py; ROADMAP item 1): kernels 18-19 of
+# csrc/dual.cu and the brackets D1-D5.
+# Kernel 18's ce against its plain version on the same Philox bits: the
+# inner states come out bit for bit (the same IEEE operations in the same
+# order, libdevice's expf being torch's), so the in-the-money gate decides
+# alike, and only the floor's logf, erfcf and divisions round apart: ~3 ulps
+# of a value ~5 (1.5e-5 measured at 2^14 x 50 x 64). Held at 1e-6 of K.
+DUAL_CE_ATOL = 1e-4
+DUAL_STATE_RTOL = 1e-6          # kernel 19's x' and v' (measured bit for bit)
+DUAL_LAM0_RTOL = 2e-5           # Bates at lam = 0 against Heston (tests/test_dual.py:459)
+DUAL_SLACK = 0.0015             # the 50-date bracket against a continuous-exercise oracle
+DUAL_HIGH_BAR = 0.01            # GBM, Heston: high <= 1.01 oracle (1.015 for the NN policy)
+DUAL_NN_HIGH_BAR = 0.015
+# Width bars (fractions of the oracle): GBM 1.5%, Heston 2%, Merton 5%,
+# Bates 6%, the NN policy 3% (tests/test_dual.py).
+DUAL_WIDTH = {"D1": 0.015, "D2": 0.02, "D3": 0.05, "D4": 0.06, "D5": 0.03}
+# BENCH_r05's brackets (the JAX package on the TPU: estimator bars, not speeds).
+BENCH_R05_GBM_WIDTH_PCT, BENCH_R05_GBM_UPPER = 0.4302, 0.001467
+BENCH_R05_HESTON_WIDTH_PCT, BENCH_R05_HESTON_UPPER = 0.2452, 0.003107
+DUAL_INNER = 64
+# f32 operations per surrogate evaluation (an inner pair's member), counted
+# from csrc/dual.cu (each add, multiply, compare and min/max one, a
+# transcendental one): the surrogate ~50 (u 4, the cubic 8, the (x-1)^+
+# term 4, the gate and clip 5, h 2, the Black-Scholes floor 25, the maxima
+# 2), the GBM step 4, the sum 1, Box-Muller's 11 per two normals; Heston
+# the Euler step ~9.5, the floor's effective vol 8 and the variance terms
+# 12 more; the jumps' count, sums and Box-Muller ~6.
+OPS_DUAL = {"gbm": 50 + 4 + 1 + 11 / 4, "heston": 50 + 12 + 9.5 + 8 + 1 + 11 / 2}
+OPS_DUAL.update(merton=OPS_DUAL["gbm"] + 6.4, bates=OPS_DUAL["heston"] + 6.4)
+# Kernel 19 per state: the step, Box-Muller and the store's address.
+OPS_DUAL_STATES = {"gbm": 4 + 11 / 4 + 1, "heston": 9.5 + 11 / 2 + 2}
+# Philox draws per evaluation (calls, words made uniform): a diffusion call
+# serves 8 (GBM) or 4 (Heston) members, a jump call 4.
+DRAWS_DUAL = {"gbm": (1 / 8, 1 / 2), "heston": (1 / 4, 1), "merton": (3 / 8, 3 / 2),
+              "bates": (1 / 2, 2)}
+
+
+def dual_specs():
+    """Kernels 18-19 (csrc/dual.cu): name, source, the XLA function they
+    replace, the paths that run them, their launch counter."""
+    from options_model_tpu_torch.ops import cuda_dual as cd
+
+    src = "options_model_tpu_torch/csrc/dual.cu"
+    return [
+        dict(name="dual_ce", source=src,
+             replaces="options_model_tpu/pricers/dual.py:292 (date_ce, :579-620, :706-735)",
+             paths=("dual",), counter=(cd.launches, "dual_ce")),
+        dict(name="dual_inner_states", source=src,
+             replaces="options_model_tpu/pricers/dual.py:847 (date_ce, :910-962)",
+             paths=("dual",), counter=(cd.launches, "dual_inner_states")),
+    ]
+
+
+def _dual_params():
+    from options_model_tpu_torch.core.config import BatesParams, HestonParams, MertonParams
+
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
+    return dict(heston=hp, merton=MertonParams(**MERTON_BENCH),
+                bates=BatesParams(heston=hp, **BATES_JUMPS))
+
+
+# The brackets' shapes (paths), D1-D4: bench.py's GBM (2^18) and Heston
+# (2^17) legs, J1's Merton and J3's Bates puts at 2^18, all x 50 dates.
+DUAL_SHAPES = {"gbm": 1 << 18, "heston": 1 << 17, "merton": 1 << 18, "bates": 1 << 18}
+
+
+def dual_inputs(model: str, n_paths: int, seed: int = 5):
+    """(x = S / K, v or None, policy rows, law) of a model's bracket: the
+    port's paths (kernels 2, 4, 14, 16) at n_paths x 50 and the policy
+    fitted on them."""
+    import torch
+
+    from options_model_tpu_torch.core.config import MCConfig, OptionSpec
+    from options_model_tpu_torch.ops import cuda_dual
+    from options_model_tpu_torch.pricers import american as pa
+    from options_model_tpu_torch.pricers import dual as pd
+
+    sv = model in ("heston", "bates")
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=-1.0, sigma=None if sv else 0.2)
+    kw = _dual_params()
+    mc = MCConfig(n_paths=n_paths, n_steps=50, path_block=4096)
+    out = pa.simulate_paths(torch.Generator(DEVICE).manual_seed(seed), 100.0, 0.5, mc, model,
+                            sigma=spec.sigma, rate=0.05, return_variance=sv, device=DEVICE,
+                            **kw)
+    S, v = out if sv else (out, None)
+    policy, _ = pd.fit_lsm_policy(S, spec, 0.5, v_paths=v)
+    taus = torch.from_numpy(pd.date_taus(0.5, 50)).to(DEVICE)
+    return (S / torch.tensor(100.0, device=DEVICE), v, cuda_dual.policy_rows(policy, taus),
+            pd.inner_law(model, spec, 0.5, 50, **kw))
+
+
+def phase_dual_kernels() -> dict:
+    """D0: kernels 18 and 19 against their plain versions on the card, for
+    each family at 2 tiles and at its bracket's shape (DUAL_SHAPES x 50,
+    n_inner 64): the dual stream's Philox words bit for bit, kernel 19's
+    Poisson counts bit for bit and its states within DUAL_STATE_RTOL,
+    kernel 18's ce within DUAL_CE_ATOL, and bit-equal first_tile chunks of
+    both. Returns the largest errors by kernel."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_dual as cd
+    from options_model_tpu_torch.ops.philox import DUAL_STREAM, stream_words, stream_words_cuda
+
+    seed, tile = 0x5DEECE66D, 4096
+    errs = {"dual_ce": dict(max_abs_err=0.0, mean_abs_err=0.0),
+            "dual_inner_states": dict(max_abs_err=0.0, max_rel_err=0.0)}
+    w = stream_words_cuda(seed, 3, 2, tile, 24, DEVICE, stream=DUAL_STREAM)
+    if not torch.equal(w.cpu(), stream_words(seed, 3, 2, tile, 24, stream=DUAL_STREAM)):
+        fail("the dual stream's Philox words differ from the plain version's")
+    log("[D0] the dual stream's Philox words (counter word 3 = 2), 2 tiles x 24 draws: kernel "
+        "== plain bit for bit")
+    for model, n_paths in DUAL_SHAPES.items():
+        for n in (2 * tile, n_paths):
+            x, v, rows, law = dual_inputs(model, n)
+            args = (seed, 0, tile, DUAL_INNER)
+            ce = cd.dual_ce(x, v, rows, law, *args)
+            ref = cd.dual_ce_reference(x, v, rows, law, *args)
+            xs, vs, cn = cd.dual_inner_states(x, v, law, *args, 0, 4, return_counts=True)
+            xr, vr, cr = cd.dual_inner_states_reference(x, v, law, *args, 0, 4,
+                                                         return_counts=True)
+            torch.cuda.synchronize()
+            d = (ce - ref).abs()
+            if not bool(torch.isfinite(ce).all()) or float(d.max()) > DUAL_CE_ATOL:
+                fail(f"dual_ce {model} at {n} x 50: ce differs from the plain version (max "
+                     f"{float(d.max()):.3e}, atol {DUAL_CE_ATOL})")
+            ds = (xs - xr).abs()
+            rel = float((ds / xr).max())
+            dv = 0.0 if vs is None else float(((vs - vr).abs() / (vr.abs() + 1e-8)).max())
+            if rel > DUAL_STATE_RTOL or dv > DUAL_STATE_RTOL or not torch.equal(cn, cr):
+                fail(f"dual_inner_states {model} at {n} x 50: states (rel {rel:.3e}, v "
+                     f"{dv:.3e}) or counts differ from the plain version's")
+            e = errs["dual_ce"]
+            e["max_abs_err"] = max(e["max_abs_err"], float(d.max()))
+            e["mean_abs_err"] = max(e["mean_abs_err"], float(d.mean()))
+            e = errs["dual_inner_states"]
+            e["max_abs_err"] = max(e["max_abs_err"], float(ds.max()))
+            e["max_rel_err"] = max(e["max_rel_err"], rel, dv)
+            log(f"[D0] {model} at {n} x 50, n_inner {DUAL_INNER}: dual_ce == plain within "
+                f"{DUAL_CE_ATOL} (max |d| {float(d.max()):.3e}, mean {float(d.mean()):.3e}); "
+                f"dual_inner_states (dates 0-3) within rtol {DUAL_STATE_RTOL} (x' {rel:.3e}, "
+                f"v' {dv:.3e}), {cn.numel()} counts bit for bit (max {int(cn.max())})")
+        half = x.shape[1] // 2 // tile * tile
+        part = cd.dual_ce(x[:, half:].contiguous(), None if v is None else v[:, half:]
+                          .contiguous(), rows, law, seed, half // tile, tile, DUAL_INNER)
+        ps = cd.dual_inner_states(x[:, half:].contiguous(), None if v is None else v[:, half:]
+                                  .contiguous(), law, seed, half // tile, tile, DUAL_INNER, 0, 4)
+        torch.cuda.synchronize()
+        if not (torch.equal(ce[:, half:], part) and torch.equal(xs[..., half:], ps[0])):
+            fail(f"dual {model}: a first_tile chunk differs from the full run's slice")
+        log(f"[D0] {model}: first_tile={half // tile} chunks of ce and of the states equal the "
+            "full run's slices bit for bit")
+    return errs
+
+
+def phase_dual() -> tuple:
+    """The dual path (ROADMAP item 1) through price_american_bracket: D1
+    bench.py's GBM leg (2^18 x 50, degree 3, n_inner 64) against CRR(4096),
+    D2 its Heston leg (2^17 x 50) against ADI, D3 J1's Merton put (2^18 x
+    50) against the 50-date COS-Bermudan value, D4 J3's Bates put (2^18 x
+    50) against the port's control-variate price and, at lam = 0, the Bates
+    dual against the Heston dual, D5 the NN bracket (GBM, 2^16 x 50 x 64,
+    the default net at NN_EPOCHS) against CRR. Gates: the JAX tests' bars.
+    Returns (seconds per bracket, results)."""
+    import torch
+
+    from options_model_tpu_torch.core.config import (PUT, BatesParams, LSMConfig, MCConfig,
+                                                      OptionSpec)
+    from options_model_tpu_torch.pricers import american as pa
+    from options_model_tpu_torch.pricers import dual as pd
+    from options_model_tpu_torch.pricers.binomial import crr_american
+    from options_model_tpu_torch.pricers.cos_bermudan import cos_bermudan_price
+
+    t_phase = time.perf_counter()
+    kw = _dual_params()
+    put = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=0.2)
+    sv_put = OptionSpec(strike=100.0, rate=0.05, cp=PUT, sigma=None)
+    crr = crr_american(100.0, 100.0, 0.5, 0.05, 0.2, cp=-1.0, n_steps=4096)
+    berm = cos_bermudan_price(100.0, 100.0, 0.5, 0.05, "merton", merton=kw["merton"], cp=-1.0,
+                              n_dates=50)
+    secs, res = {}, {}
+
+    def bracket(label, gen_seed, spec, n_paths, **opts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        br = pd.price_american_bracket(torch.Generator(DEVICE).manual_seed(gen_seed), 100.0,
+                                       0.5, spec, MCConfig(n_paths=n_paths, n_steps=50,
+                                                           path_block=4096),
+                                       n_inner=DUAL_INNER, device=DEVICE, **opts)
+        out = [float(b) for b in br]
+        secs[label] = time.perf_counter() - t0
+        if not all(math.isfinite(b) for b in out) or out[1] <= 0 or out[3] <= 0:
+            fail(f"{label}: non-finite bracket {out}")
+        return out
+
+    def gated(label, name, out, oracle, oracle_name, slack, high_bar, bench=None):
+        """The JAX tests' bars: contains ``oracle`` within 4 stderr (``slack``
+        below it on the upper side), the width under DUAL_WIDTH, the upper
+        under 1 + ``high_bar`` times the oracle (None: the reference's jump
+        tests set no such bar)."""
+        low, low_se, high, high_se = out
+        width, upper = (high - low) / oracle, high / oracle - 1.0
+        res[label] = dict(low=low, low_stderr=low_se, high=high, high_stderr=high_se,
+                          oracle=oracle, width_pct=width * 100, upper_rel=upper,
+                          seconds=secs[label])
+        log(f"[{label}] {name}: [{low:.6f} +- {low_se:.6f}, {high:.6f} +- {high_se:.6f}]; "
+            f"{oracle_name} {oracle:.6f}; width {width * 100:.4f}% (bar "
+            f"{DUAL_WIDTH[label] * 100}%), upper {upper * 100:+.4f}%"
+            + (f" (bar {high_bar * 100}%)" if high_bar is not None else " (no bar)")
+            + (f"; BENCH_r05 width {bench[0]}%, upper {bench[1] * 100:+.4f}%" if bench else "")
+            + f"; {secs[label]:.3f} s")
+        if not (low - 4 * low_se <= oracle and high + 4 * high_se >= oracle * (1.0 - slack)):
+            fail(f"{label}: the bracket does not contain {oracle_name} within 4 stderr")
+        if width >= DUAL_WIDTH[label] or (high_bar is not None
+                                          and high > oracle * (1.0 + high_bar)):
+            fail(f"{label}: the bracket is looser than its bars")
+
+    gated("D1", "GBM put bracket (bench.py's leg, 2^18 x 50, degree 3)",
+          bracket("D1", 11, put, 1 << 18), crr, "CRR(4096)", DUAL_SLACK, DUAL_HIGH_BAR,
+          (BENCH_R05_GBM_WIDTH_PCT, BENCH_R05_GBM_UPPER))
+    gated("D2", "Heston put bracket (bench.py's leg, 2^17 x 50)",
+          bracket("D2", 12, sv_put, 1 << 17, model="heston", heston=kw["heston"]),
+          HESTON_ADI_ORACLE, "ADI", DUAL_SLACK, DUAL_HIGH_BAR,
+          (BENCH_R05_HESTON_WIDTH_PCT, BENCH_R05_HESTON_UPPER))
+    gated("D3", "Merton put bracket (J1's, 2^18 x 50, degree 3)",
+          bracket("D3", 13, put, 1 << 18, model="merton", merton=kw["merton"]), berm,
+          "COS-Bermudan (50 dates)", 0.0, None)
+
+    # D4: the Bates bracket against the port's CV price (J3's put), 3 stderr.
+    out = bracket("D4", 14, sv_put, 1 << 18, model="bates", bates=kw["bates"])
+    p, se = (float(a) for a in pa.price_american(
+        torch.Generator(DEVICE).manual_seed(15), 100.0, 0.5, sv_put,
+        MCConfig(n_paths=1 << 18, n_steps=50, path_block=4096), LSMConfig(), "bates",
+        bates=kw["bates"], device=DEVICE))
+    low, low_se, high, high_se = out
+    width = (high - low) / p
+    res["D4"] = dict(low=low, low_stderr=low_se, high=high, high_stderr=high_se, cv_price=p,
+                     cv_stderr=se, width_pct=width * 100, seconds=secs["D4"])
+    log(f"[D4] Bates put bracket (J3's, 2^18 x 50): [{low:.6f} +- {low_se:.6f}, {high:.6f} +- "
+        f"{high_se:.6f}]; the port's CV price {p:.6f} +- {se:.6f}; width {width * 100:.4f}% "
+        f"(bar {DUAL_WIDTH['D4'] * 100}%); {secs['D4']:.3f} s")
+    if not (low - 3 * low_se <= p <= high + 3 * high_se and width < DUAL_WIDTH["D4"]):
+        fail("D4: the Bates bracket does not contain the CV price within 3 stderr, or is wide")
+    # At lam = 0 the Bates dual (kernel 18's Bates instance) is the Heston dual.
+    x, v, rows, _ = dual_inputs("heston", 1 << 17)
+    S = x * 100.0
+    policy, _ = pd.fit_lsm_policy(S, sv_put, 0.5, v_paths=v)
+    b0 = BatesParams(heston=kw["heston"], lam=0.0, mu_j=0.0, sigma_j=0.1)
+    common = dict(v_paths=v, n_inner=DUAL_INNER, inner_block=4096)
+    up_h, _ = pd.dual_upper_from_policy(21, S, sv_put, 0.5, policy, model="heston",
+                                        heston=kw["heston"], **common)
+    up_b, _ = pd.dual_upper_from_policy(21, S, sv_put, 0.5, policy, model="bates", bates=b0,
+                                        **common)
+    rel0 = abs(float(up_b) / float(up_h) - 1.0)
+    res["D4"]["lam0_rel"] = rel0
+    log(f"[D4] Bates dual at lam = 0 {float(up_b):.6f} against the Heston dual "
+        f"{float(up_h):.6f} on the same paths and seed: rel {rel0:.3e} (rtol {DUAL_LAM0_RTOL})")
+    if rel0 > DUAL_LAM0_RTOL:
+        fail("D4: the Bates dual at lam = 0 differs from the Heston dual")
+
+    gated("D5", f"NN-policy GBM put bracket (2^16 x 50 x {DUAL_INNER}, 128 x 3 net, "
+          f"{NN_EPOCHS} epochs)",
+          bracket("D5", 16, put, 1 << 16, lsm=LSMConfig(regressor="nn", nn_epochs=NN_EPOCHS)),
+          crr, "CRR(4096)", DUAL_SLACK, DUAL_NN_HIGH_BAR)
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[D] the dual phase: {res['phase_seconds']:.1f} s")
+    return secs, res
+
+
+def phase_dual_timing(per_call: float, secs: dict, launches: dict) -> dict:
+    """CUDA-event medians of kernel 18 at each bracket's shape (49 dates x
+    DUAL_SHAPES x 64 inner draws) and of kernel 19 at D5's chunk (4 dates x
+    2^16 x 64), with their plain versions' (kernel 18's: one run; 19's: 3)
+    and their bounds;
+    registers and occupancy; seconds per bracket with the kernels' share.
+    The JSON row of kernel 18 is its GBM instance at D1's shape."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_dual as cd
+    from options_model_tpu_torch.pricers import dual as pd
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    attrs = cd.dual_kernel_attrs()
+    seed, tile, n_dates = 0x5DEECE66D, 4096, 49
+    out = {"dual_ce": {}, "dual_inner_states": {}}
+    for model, n in DUAL_SHAPES.items():
+        x, v, rows, law = dual_inputs(model, n)
+        args = (seed, 0, tile, DUAL_INNER)
+        ms = time_per_call(lambda: cd.dual_ce(x, v, rows, law, *args), N_TIMED)
+        # the plain version takes seconds a call: one run, after D0's
+        plain_ms = time_per_call(lambda: cd.dual_ce_reference(x, v, rows, law, *args), 1, 0)
+        b = bound(n_dates * n, DUAL_INNER, OPS_DUAL[model], int_ops(DRAWS_DUAL[model], per_call),
+                  n_dates * n * 4 * (3 if v is not None else 2))
+        a = attrs[f"dual_ce {model}"]
+        row = dict(ms=ms, plain_ms=plain_ms, registers=a["registers"],
+                   spill_bytes=a["spill_bytes"], block=a["block"],
+                   occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
+        out["dual_ce"][model] = row
+        evals = n_dates * n * DUAL_INNER
+        log(f"[5] dual_ce {model} at {n_dates} x {n} x {DUAL_INNER}: kernel {ms:.4f} ms "
+            f"({evals / ms * 1e3:.4e} evaluations/s), plain {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_term']} ({OPS_DUAL[model]:.2f} f32 operations "
+            f"an evaluation); {b['bound_ms'] / ms * 100:.1f}% of bound; {a['registers']} "
+            f"registers, {a['spill_bytes']} spill bytes, {row['occupancy'] * 100:.1f}% occupancy")
+        if model in ("gbm", "heston"):
+            m = n if model == "heston" else 1 << 16
+            x, v, _, law = dual_inputs(model, m)
+            chunk = max(1, pd.NN_CHUNK_ROWS // (DUAL_INNER * m))
+            ms = time_per_call(lambda: cd.dual_inner_states(x, v, law, *args, 0, chunk), N_TIMED)
+            plain_ms = time_per_call(lambda: cd.dual_inner_states_reference(
+                x, v, law, *args, 0, chunk), 3)
+            states = chunk * m * DUAL_INNER
+            b = bound(chunk * m, DUAL_INNER, OPS_DUAL_STATES[model],
+                      int_ops(DRAWS_DUAL[model], per_call),
+                      states * 4 * (2 if v is not None else 1) + chunk * m * 4)
+            a = attrs[f"dual_inner_states {model}"]
+            out["dual_inner_states"][model] = dict(
+                ms=ms, plain_ms=plain_ms, registers=a["registers"],
+                spill_bytes=a["spill_bytes"], block=a["block"],
+                occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, chunk=chunk, **b)
+            log(f"[5] dual_inner_states {model} at {chunk} x {m} x {DUAL_INNER}: kernel "
+                f"{ms:.4f} ms ({states * 4 / ms / 1e9:.3f} TB/s of x' written), plain "
+                f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_term']}; "
+                f"{b['bound_ms'] / ms * 100:.1f}% of bound; {a['registers']} registers, "
+                f"{out['dual_inner_states'][model]['occupancy'] * 100:.1f}% occupancy")
+    share = {"D1": ("gbm", "dual_ce", 1), "D2": ("heston", "dual_ce", 1),
+             "D3": ("merton", "dual_ce", 1), "D4": ("bates", "dual_ce", 1),
+             "D5": ("gbm", "dual_inner_states", -(-n_dates // out["dual_inner_states"]["gbm"]
+                                                   ["chunk"]))}
+    for label, (model, name, n_launch) in share.items():
+        k_ms = n_launch * out[name][model]["ms"]
+        log(f"[5] dual bracket {label}: {secs[label]:.3f} s (host clock to synchronize), "
+            f"{name} {n_launch} x {out[name][model]['ms']:.4f} ms = "
+            f"{k_ms / 1e3 / secs[label] * 100:.3f}% of it")
+    log(f"[5] dual path launches: {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3372,12 +3724,14 @@ def main() -> int:
     vjp_errs = phase_vjp()
     jumps = jump_specs()
     jump_errs = phase_jump_kernels()
+    duals = dual_specs()
+    dual_errs = phase_dual_kernels()
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
-    counted = specs + vjp + jumps
+    counted = specs + vjp + jumps + duals
     # kernels 12-17's first designs: the yardsticks no path may reach
     from options_model_tpu_torch.ops import cuda_gbm
 
@@ -3426,6 +3780,7 @@ def main() -> int:
     if sum(shapes_j.values()) != launches_j["merton_paths"]:
         fail(f"merton_paths' launches by shape {shapes_j} do not add up to its "
              f"{launches_j['merton_paths']} launches on the jumps path")
+    (secs_d, dual_res), launches_d = drive("dual", phase_dual)
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
@@ -3435,6 +3790,7 @@ def main() -> int:
     times = phase_timing(specs, sass["per_call"])
     times.update(phase_vjp_timing(vjp, sass["per_call"]))
     times.update(phase_jump_timing(sass["per_call"], shapes_j))
+    dual_times = phase_dual_timing(sass["per_call"], secs_d, launches_d)
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -3470,6 +3826,9 @@ def main() -> int:
     log("[5] jumps path, seconds per price or surface: "
         + ", ".join(f"{k} {v:.4f}" for k, v in secs_j.items())
         + f"; the phase {jump_res['phase_seconds']:.1f} s; kernel launches {launches_j}")
+    log("[5] dual path, seconds per bracket: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs_d.items())
+        + f"; the phase {dual_res['phase_seconds']:.1f} s; kernel launches {launches_d}")
     log(f"[5] card: {card_line()}")
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
@@ -3511,6 +3870,13 @@ def main() -> int:
                         if k["name"] + "_first" in jump_errs else {}),
                      **times[k["name"]])
                 for k in jumps]
+    entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+                     launches=launches_d[k["name"]], library_ms=None, **dual_errs[k["name"]],
+                     **dual_times[k["name"]]["gbm"],
+                     families={m: {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by", "registers")}
+                               for m, r in dual_times[k["name"]].items()})
+                for k in duals]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,14 +8,15 @@ namespace omt {
 
 __global__ void __launch_bounds__(kBlockThreads)
 philox_words_kernel(uint32_t* __restrict__ out, uint64_t seed, int first_tile, int n_tiles,
-                    int width, int n_draws) {
+                    int width, int n_draws, uint32_t word3) {
   const long long n_slots = static_cast<long long>(n_tiles) * width;
   const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (slot >= n_slots) return;
   const uint32_t j = static_cast<uint32_t>(slot % width);
   const uint32_t global_tile = static_cast<uint32_t>(first_tile + slot / width);
   for (int k = 0; k < n_draws; ++k) {
-    const Words w = slot_draw(j, static_cast<uint32_t>(k), global_tile, seed);
+    const Words w = philox4x32_10(Words{j, static_cast<uint32_t>(k), global_tile, word3},
+                                  static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
     uint32_t* row = out + static_cast<size_t>(4 * k) * n_slots + slot;
     row[0] = w.x;
     row[n_slots] = w.y;
@@ -52,13 +53,15 @@ int omt_sincos_check(void* out, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// out: device (n_draws, 4, n_tiles*width) 32-bit words.
+// out: device (n_draws, 4, n_tiles*width) 32-bit words; counter word 3 = word3
+// (0 for the path streams, 1 the jump overlay's, 2 the dual's).
 int omt_philox_words(void* out, uint64_t seed, int first_tile, int n_tiles, int width,
-                     int n_draws, void* stream) {
+                     int n_draws, int word3, void* stream) {
   const long long n_slots = static_cast<long long>(n_tiles) * width;
   omt::philox_words_kernel<<<omt::grid_for(n_slots), omt::kBlockThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(out), seed, first_tile, n_tiles, width, n_draws);
+      static_cast<uint32_t*>(out), seed, first_tile, n_tiles, width, n_draws,
+      static_cast<uint32_t>(word3));
   return static_cast<int>(cudaGetLastError());
 }
 

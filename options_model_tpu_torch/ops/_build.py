@@ -53,7 +53,7 @@ _SIGNATURES = {
     "omt_terminal_gbm": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_paths": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_gbm_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
-    "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _P],
+    "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_sincos_check": [_P, _P],
     "omt_gbm_paths_vjp": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_paths_vjp_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
@@ -68,6 +68,8 @@ _SIGNATURES = {
     "omt_jump_overlay_paths_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _P],
+    "omt_dual_ce": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "omt_dual_inner_states": [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).
@@ -79,6 +81,7 @@ _ATTRS = {
     "omt_paths_localvol_attrs": [_I, _P],
     "omt_greeks_attrs": [_I, _P],
     "omt_jumps_attrs": [_I, _P],
+    "omt_dual_attrs": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

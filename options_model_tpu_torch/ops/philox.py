@@ -41,7 +41,30 @@ call per slot and step, as QE-M does:
   different stream from the path version's, as in the reference.
 The overlay takes the Heston kernel's seed and tiles, and only the fourth
 counter word changes: counter = (slot, draw, global tile, 1), where every
-other stream uses 0. It draws nothing more from the caller's generator.
+other stream but the dual's uses 0. It draws nothing more from the caller's
+generator.
+
+The martingale dual's inner stream (``dual_inner_draws``, pricers/dual.py)
+has a seed of its own, drawn from the caller's generator apart from the
+simulation's (reusing the paths' randomness would break the martingale
+property), and the fourth counter word DUAL_STREAM = 2: counter = (slot in
+tile, draw, global tile, 2), one slot per *path* (the inner draws of a
+path and of its mirror are independent), the tile the bracket's pair block.
+A (date, path) takes n_inner / 2 antithetic inner pairs; draw = date x
+calls a date + call. The diffusion calls come first, then the jump calls;
+a date's calls count the jump calls of every family, and GBM and Heston
+leave theirs undrawn:
+- GBM: one call serves four pairs: (w0, w1) -> Box-Muller -> the z of
+  pairs 4c, 4c + 1, (w2, w3) -> those of 4c + 2, 4c + 3;
+- Heston: one call serves two pairs: (w0, w1) -> (z1, z2) of pair 2c,
+  (w2, w3) -> (z1, z2) of pair 2c + 1;
+- Merton: GBM's calls, then one jump call per two pairs: (w0, w1) ->
+  Box-Muller -> the jump normals z_j of pairs 2c, 2c + 1; w2, w3 -> their
+  Poisson uniforms;
+- Bates: Heston's calls, then Merton's jump calls.
+The pair's members take (z, z_j) and (-z, -z_j) and share the count, as in
+the reference (dual.py:593-613, 714-724). With no jump (lam = 0) Merton's
+and Bates's diffusion draws are GBM's and Heston's bit for bit.
 
 Poisson counts are drawn by inversion against a table the host builds once
 per launch (``poisson_table``): the float64 CDF of Poisson(lam dt), each
@@ -72,8 +95,14 @@ PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _TWO_PI = 6.283185307179586
-# Fourth counter word of the jump overlay's stream (every other stream: 0).
+# Fourth counter word of the jump overlay's stream and of the martingale
+# dual's inner stream (every other stream: 0).
 OVERLAY_STREAM = 1
+DUAL_STREAM = 2
+# Inner pairs one Philox call of the dual's stream serves: the diffusion
+# calls per family, the jump calls of Merton and Bates.
+DUAL_PAIRS_A_CALL = {"gbm": 4, "merton": 4, "heston": 2, "bates": 2}
+DUAL_JUMP_PAIRS_A_CALL = 2
 # The most entries of a Poisson table (csrc/jumps.cu kMaxTable): a mean up
 # to 70.
 MAX_POISSON_TABLE = 120
@@ -114,16 +143,17 @@ def _slot_counters(first_tile: int, n_tiles: int, width: int, device):
 
 
 def stream_words(seed: int, first_tile: int, n_tiles: int, width: int,
-                 n_draws: int, device=None) -> torch.Tensor:
-    """Raw Philox words (n_draws, 4, n_tiles * width) as int64 in [0, 2^32)."""
+                 n_draws: int, device=None, stream: int = 0) -> torch.Tensor:
+    """Raw Philox words (n_draws, 4, n_tiles * width) as int64 in [0, 2^32),
+    counter word 3 = ``stream``."""
     j, g = _slot_counters(first_tile, n_tiles, width, device)
     k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
-    return torch.stack([torch.stack(philox4x32(j, k, g, 0, k0, k1))
+    return torch.stack([torch.stack(philox4x32(j, k, g, stream, k0, k1))
                         for k in range(n_draws)])
 
 
 def stream_words_cuda(seed: int, first_tile: int, n_tiles: int, width: int,
-                      n_draws: int, device) -> torch.Tensor:
+                      n_draws: int, device, stream: int = 0) -> torch.Tensor:
     """The same words as ``stream_words``, drawn on the card by the kernels'
     own Philox (csrc/philox.cu): the bit-for-bit check of csrc/philox.cuh."""
     from options_model_tpu_torch.ops import _build
@@ -132,7 +162,7 @@ def stream_words_cuda(seed: int, first_tile: int, n_tiles: int, width: int,
     _build.require_cuda(device)
     out = torch.empty((n_draws, 4, n_tiles * width), dtype=torch.int32, device=device)
     _build.launch("omt_philox_words", device, out.data_ptr(), seed, first_tile,
-                  n_tiles, width, n_draws)
+                  n_tiles, width, n_draws, stream)
     return out.to(torch.int64) & _MASK32
 
 
@@ -286,3 +316,52 @@ def jump_draws(seed: int, first_tile: int, n_tiles: int, tile: int, n_steps: int
     if terminal:
         return u[0], z_j[0]
     return torch.stack(u), torch.stack(z_j)
+
+
+def dual_calls(model: str, half: int) -> tuple:
+    """(diffusion calls, jump calls, calls a date) of a (date, path) of the
+    dual's inner stream for ``half`` antithetic inner pairs under
+    ``model``: a date's calls count the jump calls whether or not the
+    family draws them."""
+    if model not in DUAL_PAIRS_A_CALL:
+        raise ValueError(f"the dual's inner stream draws for gbm, heston, merton or bates, "
+                         f"got {model!r}")
+    if half < 1:
+        raise ValueError(f"need at least one inner pair, got {half}")
+    diff = -(-half // DUAL_PAIRS_A_CALL[model])
+    jump = -(-half // DUAL_JUMP_PAIRS_A_CALL)
+    return diff, jump if model in ("merton", "bates") else 0, diff + jump
+
+
+def dual_inner_draws(seed: int, first_tile: int, n_tiles: int, tile: int, half: int,
+                     model: str, date: int, lam_dt: float = 0.0, device=None) -> dict:
+    """The dual's inner draws of one date (the module docstring's layout),
+    each (half, n_tiles * tile) in path order: "z" (GBM, Merton) or "z1",
+    "z2" (Heston, Bates), and under the jumps "u" (the Poisson uniforms),
+    "n" (their counts against poisson_table(lam_dt), float32) and "zj"."""
+    diff, jump, calls = dual_calls(model, half)
+    j, g = _slot_counters(first_tile, n_tiles, tile, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+
+    def call(c):
+        w = philox4x32(j, date * calls + c, g, DUAL_STREAM, k0, k1)
+        return [uniform_from_bits(x) for x in w]
+
+    normals = []
+    for c in range(diff):
+        w = call(c)
+        normals += [*box_muller(w[0], w[1]), *box_muller(w[2], w[3])]
+    if DUAL_PAIRS_A_CALL[model] == 4:
+        out = {"z": torch.stack(normals[:half])}
+    else:
+        out = {"z1": torch.stack(normals[0::2][:half]), "z2": torch.stack(normals[1::2][:half])}
+    if jump:
+        zj, u = [], []
+        for c in range(jump):
+            w = call(diff + c)
+            zj += box_muller(w[0], w[1])
+            u += [w[2], w[3]]
+        out["u"] = torch.stack(u[:half])
+        out["n"] = poisson_from_uniform(out["u"], poisson_table(lam_dt))
+        out["zj"] = torch.stack(zj[:half])
+    return out
