@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero:
 1. build the CUDA kernels from csrc/ (one nvcc per source, all at once) and
    print the card's name and power limit; count the time loops of kernels
    1, 3-8 and 12-16 (both designs) and of kernel 17's redesign in SASS,
-   with their registers and stack, and there the integer instructions of a
-   Philox call; fail if kernel 12's redesigned loop holds a local load or
-   store;
+   and kernel 18's calls loop (both designs, GBM and Heston) with its
+   instructions an evaluation, with their registers and stack, and there
+   the integer instructions of a Philox call; fail if kernel 12's or
+   kernel 18's redesigned loop holds a local load or store;
 2. each of the eight path kernels against its plain PyTorch version on the
    card, at 2 and 64 tiles and at its path's shape: equal Philox bits (and
    the sine and cosine of kernel 12's redesign equal to sinf and cosf at
@@ -97,9 +98,12 @@ Phases, in order; any failure exits non-zero:
       bates --price-surface, merton_greeks against f64 central differences;
    h. the dual path (pricers/dual.py, kernels 18-19 of csrc/dual.cu, after
       D0 held them against their plain versions: the dual stream's Philox
-      words and the Poisson counts bit for bit, ce and the inner states
-      within their tolerances, bit-equal first_tile chunks, each family at
-      2 tiles and at its bracket's shape): D1 bench.py's GBM bracket (2^18
+      words and the Poisson counts bit for bit, ce (kernel 18's redesign
+      and its first design) and the inner states within their tolerances,
+      bit-equal first_tile chunks of both designs and of kernel 19, each
+      family at 2 tiles and at its bracket's shape, and there the upper
+      bound assembled from either design's ce within DUAL_UPPER_SE of its
+      stderr): D1 bench.py's GBM bracket (2^18
       x 50) against CRR, D2 its Heston bracket (2^17 x 50) against ADI, D3
       J1's Merton put against the COS-Bermudan value, D4 J3's Bates put
       against the port's CV price and, at lam = 0, the Bates dual against
@@ -107,7 +111,7 @@ Phases, in order; any failure exits non-zero:
       CRR, at the JAX tests' bars, width and upper printed beside
       BENCH_r05's;
 4. the launch counts of each path, none of its kernels at 0, the first
-   design of kernels 1, 3-8 and 12-17 and of the variants at 0, and one
+   design of kernels 1, 3-8 and 12-18 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -128,9 +132,10 @@ Phases, in order; any failure exits non-zero:
    kernels' turns), and kernel 14 at
    the jumps path's own shapes (1 x 2^18 x 50 and 64 x 16,384 x 50) with
    its launches x (time - bound) there, beside its first design's; kernel
-   18 at each bracket's shape and kernel 19 at D5's chunk beside their
-   bounds and plain versions, and the seconds per bracket with the
-   kernels' share.
+   18 at each bracket's shape in turns with its first design, with its
+   issue and SFU floors from the SASS count, and kernel 19 at D5's chunk,
+   beside their bounds and plain versions, and the seconds per bracket
+   with the kernels' share.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
 per jump kernel and one per dual kernel;
@@ -253,6 +258,11 @@ PEAK_F32_OPS = 67e12
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PEAK_BYTES = 3.35e12
 THREADS_PER_SM = 2048
+# Issue and SFU rates at that clock: four warp instructions a clock an SM
+# (thread instructions a second), and 16 MUFU results a clock an SM; kernel
+# 18's floors from its SASS count (phase_dual_timing), not its bound.
+PEAK_ISSUE = 4 * 32 * 132 * 1.98e9
+PEAK_MUFU = 16 * 132 * 1.98e9
 # 32-bit integer instructions, counted as issued. A Philox4x32-10 call is 10
 # rounds of two 32x32 -> 64-bit multiplies (one IMAD.WIDE.U32 each) and two
 # 3-input XORs (one LOP3 each, the round key an operand of it: the key
@@ -553,7 +563,13 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "overlay paths, first design": "26overlay_paths_first_kernel",
                 "gbm vjp": "14gbm_vjp_kernelILb1E",
                 "gbm vjp, first design": "20gbm_paths_vjp_kernelILb1E",
-                "overlay terminal": "23overlay_terminal_kernelILb0E"}
+                "overlay terminal": "23overlay_terminal_kernelILb0E",
+                "dual_ce gbm": "14dual_ce_kernelILi0ELb0EE",
+                "dual_ce gbm, first design": "20dual_ce_first_kernelILi0EE",
+                "dual_ce heston": "14dual_ce_kernelILi1ELb0EE",
+                "dual_ce heston, first design": "20dual_ce_first_kernelILi1EE",
+                "dual_ce merton": "14dual_ce_kernelILi2ELb0EE",
+                "dual_ce bates": "14dual_ce_kernelILi3ELb0EE"}
 # Pair-steps a pass of the time loop covers where that is not one. The
 # redesigned Euler VJP's thread holds one path through four steps (two
 # pair-steps' worth of path-steps); its first design a pair through two. The
@@ -567,21 +583,35 @@ SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm term
 # no mirror): the redesign two, the first design one; the redesigned
 # terminal overlay's grid-stride loop four values.
 SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1, "overlay terminal": 4}
+# Surrogate evaluations a pass of kernel 18's calls loop covers (both
+# designs' put instances): a GBM or Merton call's four normals serve four
+# pairs, a Heston or Bates call's two pairs. The count is static: each
+# evaluation's Horner loop (the redesign's is not unrolled; one pass of it
+# at degree 1, two more at degree 3) and the jump families' Poisson
+# inversion are counted once.
+SASS_EVALS = {"dual_ce gbm": 8, "dual_ce gbm, first design": 8, "dual_ce heston": 4,
+              "dual_ce heston, first design": 4, "dual_ce merton": 8, "dual_ce bates": 4}
 # Loops that must hold no local load or store (LDL, STL): kernel 12's
-# redesign, whose sine and cosine leave out the Payne-Hanek path.
-SASS_NO_LOCAL = ("gbm vjp",)
+# redesign, whose sine and cosine leave out the Payne-Hanek path, and
+# kernel 18's (phase_dual_kernels also fails if any of its instances has
+# local memory at all).
+SASS_NO_LOCAL = ("gbm vjp", "dual_ce gbm", "dual_ce heston", "dual_ce merton", "dual_ce bates")
 # The loops whose instructions phase_sass prints by unit.
 SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
               "localvol terminal, degree 3", "localvol paths, degree 3", "euler vjp",
               "euler vjp, first design", "merton terminal", "merton terminal, first design",
               "merton paths", "merton paths, first design", "overlay paths",
               "overlay paths, first design", "gbm vjp", "gbm vjp, first design",
-              "overlay terminal")
+              "overlay terminal", "dual_ce gbm", "dual_ce gbm, first design", "dual_ce heston",
+              "dual_ce heston, first design", "dual_ce merton", "dual_ce bates")
 
 
 def per_step(key: str, n: int) -> str:
-    """A loop's instructions a pair-step and a path-step (SASS_STEPS) or a
-    path-step (SASS_PATH_STEPS), for the log."""
+    """A loop's instructions a pair-step and a path-step (SASS_STEPS), a
+    path-step (SASS_PATH_STEPS) or a surrogate evaluation (SASS_EVALS), for
+    the log."""
+    if key in SASS_EVALS:
+        return f" ({n / SASS_EVALS[key]:g} an evaluation)"
     if key in SASS_STEPS:
         return (f" ({n / SASS_STEPS[key]:g} a pair-step, {n / SASS_STEPS[key] / 2:g} a "
                 "path-step)")
@@ -675,15 +705,22 @@ def phase_sass() -> dict:
         "designs' Euler, GBM and local vol call Philox every other or every fourth step, "
         "the local-vol ones hold their Clenshaw loop; the redesigned Merton loops (paths "
         "and terminal) cover two pair-steps, the redesigned overlay two path-steps of one "
-        "path; a pair-step is both mirror paths' step): "
+        "path; a pair-step is both mirror paths' step; kernel 18's loop is one Philox call "
+        "of the inner draws, eight surrogate evaluations under GBM and Merton, four under Heston "
+        "and Bates): "
         + ", ".join(f"{k} {len(v)}" + per_step(k, len(v)) for k, v in loops.items()))
     for key in SASS_PIPES:
         if key in loops:
             unit = (f"{SASS_PATH_STEPS[key]} path-steps" if key in SASS_PATH_STEPS
+                    else f"{SASS_EVALS[key]} evaluations" if key in SASS_EVALS
                     else f"{SASS_STEPS.get(key, 1)} pair-steps")
             local = sum(opcode(ins).startswith(("LDL", "STL")) for ins in loops[key])
+            mix = pipe_mix(loops[key])
             log(f"[1] SASS {key} loop by unit (a pass of {unit}): "
-                + ", ".join(f"{k} {n}" for k, n in pipe_mix(loops[key]).items())
+                + ", ".join(f"{k} {n}" for k, n in mix.items())
+                + (f"; an evaluation: {len(loops[key]) / SASS_EVALS[key]:g}, "
+                   + ", ".join(f"{k} {n / SASS_EVALS[key]:g}" for k, n in mix.items())
+                   if key in SASS_EVALS else "")
                 + f"; local loads and stores {local}")
             if key in SASS_NO_LOCAL and local:
                 fail(f"the {key} loop holds {local} local loads or stores")
@@ -718,7 +755,8 @@ def phase_sass() -> dict:
         f"uniform; counted {per_call:g} integer instructions a call (Philox's 20 multiplies "
         f"and 20 XORs less the loop-invariant ones)")
     return dict(per_call=per_call, source="sass", multiplies=kinds, xors=len(xors),
-                loops={k: len(v) for k, v in loops.items()})
+                loops={k: len(v) for k, v in loops.items()},
+                mufu={k: pipe_mix(v)["MUFU"] for k, v in loops.items()})
 
 
 def phase_philox() -> None:
@@ -3369,8 +3407,14 @@ def phase_jump_timing(per_call: float, shapes: dict) -> dict:
 # inner states come out bit for bit (the same IEEE operations in the same
 # order, libdevice's expf being torch's), so the in-the-money gate decides
 # alike, and only the floor's logf, erfcf and divisions round apart: ~3 ulps
-# of a value ~5 (1.5e-5 measured at 2^14 x 50 x 64). Held at 1e-6 of K.
+# of a value ~5 (1.5e-5 measured at 2^14 x 50 x 64). Held at 1e-6 of K,
+# both designs (the redesign's floor and polynomial contract into FMAs and
+# take log x' as log xp + e).
 DUAL_CE_ATOL = 1e-4
+# The upper bound assembled from the redesign's ce against the first
+# design's on the same paths, policy and stream: within this many of its
+# stderr.
+DUAL_UPPER_SE = 0.1
 DUAL_STATE_RTOL = 1e-6          # kernel 19's x' and v' (measured bit for bit)
 DUAL_LAM0_RTOL = 2e-5           # Bates at lam = 0 against Heston (tests/test_dual.py:459)
 DUAL_SLACK = 0.0015             # the 50-date bracket against a continuous-exercise oracle
@@ -3429,10 +3473,12 @@ def _dual_params():
 DUAL_SHAPES = {"gbm": 1 << 18, "heston": 1 << 17, "merton": 1 << 18, "bates": 1 << 18}
 
 
-def dual_inputs(model: str, n_paths: int, seed: int = 5):
-    """(x = S / K, v or None, policy rows, law) of a model's bracket: the
-    port's paths (kernels 2, 4, 14, 16) at n_paths x 50 and the policy
-    fitted on them."""
+def dual_case(model: str, n_paths: int, seed: int = 5, cp: float = -1.0,
+              degree: int = 3) -> dict:
+    """A model's bracket inputs: the port's paths (kernels 2, 4, 14, 16) at
+    n_paths x 50 as S (and v), the policy fitted on them at ``degree``, x =
+    S / K, its policy rows, the law and the dates' taus. A put (cp = -1) as
+    the brackets price, or a call (cp = 1) on a dividend payer (q 0.03)."""
     import torch
 
     from options_model_tpu_torch.core.config import MCConfig, OptionSpec
@@ -3441,80 +3487,156 @@ def dual_inputs(model: str, n_paths: int, seed: int = 5):
     from options_model_tpu_torch.pricers import dual as pd
 
     sv = model in ("heston", "bates")
-    spec = OptionSpec(strike=100.0, rate=0.05, cp=-1.0, sigma=None if sv else 0.2)
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=cp, sigma=None if sv else 0.2,
+                      div_yield=0.03 if cp > 0 else 0.0)
     kw = _dual_params()
     mc = MCConfig(n_paths=n_paths, n_steps=50, path_block=4096)
     out = pa.simulate_paths(torch.Generator(DEVICE).manual_seed(seed), 100.0, 0.5, mc, model,
-                            sigma=spec.sigma, rate=0.05, return_variance=sv, device=DEVICE,
-                            **kw)
+                            sigma=spec.sigma, rate=0.05, div_yield=spec.div_yield,
+                            return_variance=sv, device=DEVICE, **kw)
     S, v = out if sv else (out, None)
-    policy, _ = pd.fit_lsm_policy(S, spec, 0.5, v_paths=v)
+    policy, _ = pd.fit_lsm_policy(S, spec, 0.5, v_paths=v, poly_degree=degree)
     taus = torch.from_numpy(pd.date_taus(0.5, 50)).to(DEVICE)
-    return (S / torch.tensor(100.0, device=DEVICE), v, cuda_dual.policy_rows(policy, taus),
-            pd.inner_law(model, spec, 0.5, 50, **kw))
+    law = pd.inner_law(model, spec, 0.5, 50, **kw)
+    return dict(S=S, v=v, spec=spec, policy=policy, law=law, taus=taus,
+                x=S / torch.tensor(law.K, device=DEVICE),
+                rows=cuda_dual.policy_rows(policy, taus))
 
 
-def phase_dual_kernels() -> dict:
-    """D0: kernels 18 and 19 against their plain versions on the card, for
-    each family at 2 tiles and at its bracket's shape (DUAL_SHAPES x 50,
-    n_inner 64): the dual stream's Philox words bit for bit, kernel 19's
-    Poisson counts bit for bit and its states within DUAL_STATE_RTOL,
-    kernel 18's ce within DUAL_CE_ATOL, and bit-equal first_tile chunks of
-    both. Returns the largest errors by kernel."""
+def dual_upper_both(model: str, case: dict, seed: int, tile: int) -> dict:
+    """The dual upper bound of a bracket's ``case`` (dual_case) assembled
+    (pricers/dual._dual_assemble, out of sample, pair-block stderr) from
+    kernel 18's redesign and from its first design on the same paths,
+    policy and stream; fails unless the two are within DUAL_UPPER_SE of the
+    redesign's stderr."""
+    from options_model_tpu_torch.ops import cuda_dual as cd
+    from options_model_tpu_torch.pricers import american as pa
+    from options_model_tpu_torch.pricers import dual as pd
+
+    S, x, v, law = case["S"], case["x"], case["v"], case["law"]
+    w_vals, e_h = pd._observed_terms(x, v, law, case["policy"], case["taus"])
+    _, eval_mask = pa.oos_masks(S.shape[1], tile, S.dtype, DEVICE)
+    out = {}
+    for name, fn in (("redesign", cd.dual_ce), ("first", cd.dual_ce_first)):
+        ce = fn(x, v, case["rows"], law, seed, 0, tile, DUAL_INNER)
+        up, se = pd._dual_assemble(S, case["spec"], 0.5, w_vals, ce, e_h, eval_mask, tile)
+        out[name] = (float(up), float(se))
+    (up, se), (up1, se1) = out["redesign"], out["first"]
+    log(f"[D0] {model} at {S.shape[1]} x 50: the upper from the redesign's ce {up:.6f} +- "
+        f"{se:.6f}, from the first design's {up1:.6f} +- {se1:.6f}: |d| {abs(up - up1):.3e} = "
+        f"{abs(up - up1) / se:.4f} stderr (gate {DUAL_UPPER_SE})")
+    if not (math.isfinite(up) and abs(up - up1) <= DUAL_UPPER_SE * se):
+        fail(f"dual {model}: the upper from the redesign's ce differs from the first design's")
+    return dict(upper=up, upper_first=up1, stderr=se, d_stderr=abs(up - up1) / se)
+
+
+# D0's cases of kernel 18 at 2 tiles beside the brackets' (put, degree 3):
+# each family's call instance, and the run-time degree at 5 and 2.
+DUAL_D0_CASES = ((1.0, 3), (-1.0, 5), (1.0, 2))
+
+
+def phase_dual_kernels() -> tuple:
+    """D0: kernels 18 (its redesign and its first design) and 19 against
+    their plain versions on the card, for each family at 2 tiles and at its
+    bracket's shape (DUAL_SHAPES x 50, n_inner 64, a put at degree 3), and
+    kernel 18 also at 2 tiles for DUAL_D0_CASES (calls, degrees 5 and 2),
+    so every instance of the redesign (family x side) runs: the dual
+    stream's Philox words bit for bit, kernel 19's Poisson counts bit for
+    bit and its states within DUAL_STATE_RTOL, both designs' ce within
+    DUAL_CE_ATOL (and the redesign's largest difference from the first
+    design printed), bit-equal first_tile chunks of both designs in every
+    case and of kernel 19's states, and at the bracket's shape the upper
+    bound from either design's ce within DUAL_UPPER_SE stderr. Fails if an
+    instance of the redesign has local memory or was not run. Returns the
+    largest errors by kernel and the brackets' cases by model."""
     import torch
 
     from options_model_tpu_torch.ops import cuda_dual as cd
     from options_model_tpu_torch.ops.philox import DUAL_STREAM, stream_words, stream_words_cuda
 
     seed, tile = 0x5DEECE66D, 4096
-    errs = {"dual_ce": dict(max_abs_err=0.0, mean_abs_err=0.0),
+    attrs = cd.dual_kernel_attrs()
+    local = {k: a["spill_bytes"] for k, a in attrs.items() if k.startswith("dual_ce ")
+             or k.startswith("dual_ce_call ")}
+    log("[D0] kernel 18's redesign, registers / local bytes a thread: "
+        + ", ".join(f"{k} {attrs[k]['registers']} / {n}" for k, n in local.items()))
+    if any(local.values()):
+        fail(f"an instance of kernel 18's redesign has local memory: {local}")
+    errs = {"dual_ce": dict(max_abs_err=0.0, mean_abs_err=0.0, earlier_max_abs_err=0.0,
+                            max_abs_diff_first=0.0, upper_d_stderr=0.0),
             "dual_inner_states": dict(max_abs_err=0.0, max_rel_err=0.0)}
     w = stream_words_cuda(seed, 3, 2, tile, 24, DEVICE, stream=DUAL_STREAM)
     if not torch.equal(w.cpu(), stream_words(seed, 3, 2, tile, 24, stream=DUAL_STREAM)):
         fail("the dual stream's Philox words differ from the plain version's")
     log("[D0] the dual stream's Philox words (counter word 3 = 2), 2 tiles x 24 draws: kernel "
         "== plain bit for bit")
+    args = (seed, 0, tile, DUAL_INNER)
+    cases, ran = {}, set()
     for model, n_paths in DUAL_SHAPES.items():
-        for n in (2 * tile, n_paths):
-            x, v, rows, law = dual_inputs(model, n)
-            args = (seed, 0, tile, DUAL_INNER)
+        runs = ([(2 * tile, -1.0, 3)] + [(2 * tile, cp, deg) for cp, deg in DUAL_D0_CASES]
+                + [(n_paths, -1.0, 3)])
+        for n, cp, degree in runs:
+            c = dual_case(model, n, cp=cp, degree=degree)
+            x, v, rows, law = c["x"], c["v"], c["rows"], c["law"]
+            what = f"{model} {'call' if law.cp > 0 else 'put'} at degree {degree}, {n} x 50"
             ce = cd.dual_ce(x, v, rows, law, *args)
+            ce1 = cd.dual_ce_first(x, v, rows, law, *args)
             ref = cd.dual_ce_reference(x, v, rows, law, *args)
+            torch.cuda.synchronize()
+            d, d1, dd = (ce - ref).abs(), (ce1 - ref).abs(), (ce - ce1).abs()
+            for name, got, dev in (("dual_ce", ce, d), ("dual_ce_first", ce1, d1)):
+                if not bool(torch.isfinite(got).all()) or float(dev.max()) > DUAL_CE_ATOL:
+                    fail(f"{name} {what}: ce differs from the plain version (max "
+                         f"{float(dev.max()):.3e}, atol {DUAL_CE_ATOL})")
+            e = errs["dual_ce"]
+            e["max_abs_err"] = max(e["max_abs_err"], float(d.max()))
+            e["mean_abs_err"] = max(e["mean_abs_err"], float(d.mean()))
+            e["earlier_max_abs_err"] = max(e["earlier_max_abs_err"], float(d1.max()))
+            e["max_abs_diff_first"] = max(e["max_abs_diff_first"], float(dd.max()))
+            ran.add((model, law.cp > 0))
+            half = n // 2 // tile * tile
+            xh = x[:, half:].contiguous()
+            vh = None if v is None else v[:, half:].contiguous()
+            part = cd.dual_ce(xh, vh, rows, law, seed, half // tile, tile, DUAL_INNER)
+            part1 = cd.dual_ce_first(xh, vh, rows, law, seed, half // tile, tile, DUAL_INNER)
+            torch.cuda.synchronize()
+            if not (torch.equal(ce[:, half:], part) and torch.equal(ce1[:, half:], part1)):
+                fail(f"dual_ce {what}: a first_tile chunk differs from the full run's slice")
+            log(f"[D0] {what}, n_inner {DUAL_INNER}: dual_ce == plain within {DUAL_CE_ATOL} "
+                f"(max |d| {float(d.max()):.3e}, mean {float(d.mean()):.3e}; first design "
+                f"{float(d1.max()):.3e}, mean {float(d1.mean()):.3e}; redesign - first design "
+                f"max {float(dd.max()):.3e}, mean {float(dd.mean()):.3e}); first_tile="
+                f"{half // tile} chunks of both designs bit for bit")
+            if (cp, degree) != (-1.0, 3):
+                continue
             xs, vs, cn = cd.dual_inner_states(x, v, law, *args, 0, 4, return_counts=True)
             xr, vr, cr = cd.dual_inner_states_reference(x, v, law, *args, 0, 4,
                                                          return_counts=True)
+            ps = cd.dual_inner_states(xh, vh, law, seed, half // tile, tile, DUAL_INNER, 0, 4)
             torch.cuda.synchronize()
-            d = (ce - ref).abs()
-            if not bool(torch.isfinite(ce).all()) or float(d.max()) > DUAL_CE_ATOL:
-                fail(f"dual_ce {model} at {n} x 50: ce differs from the plain version (max "
-                     f"{float(d.max()):.3e}, atol {DUAL_CE_ATOL})")
             ds = (xs - xr).abs()
             rel = float((ds / xr).max())
             dv = 0.0 if vs is None else float(((vs - vr).abs() / (vr.abs() + 1e-8)).max())
             if rel > DUAL_STATE_RTOL or dv > DUAL_STATE_RTOL or not torch.equal(cn, cr):
-                fail(f"dual_inner_states {model} at {n} x 50: states (rel {rel:.3e}, v "
-                     f"{dv:.3e}) or counts differ from the plain version's")
-            e = errs["dual_ce"]
-            e["max_abs_err"] = max(e["max_abs_err"], float(d.max()))
-            e["mean_abs_err"] = max(e["mean_abs_err"], float(d.mean()))
+                fail(f"dual_inner_states {what}: states (rel {rel:.3e}, v {dv:.3e}) or counts "
+                     "differ from the plain version's")
+            if not torch.equal(xs[..., half:], ps[0]):
+                fail(f"dual_inner_states {what}: a first_tile chunk differs from the full "
+                     "run's slice")
             e = errs["dual_inner_states"]
             e["max_abs_err"] = max(e["max_abs_err"], float(ds.max()))
             e["max_rel_err"] = max(e["max_rel_err"], rel, dv)
-            log(f"[D0] {model} at {n} x 50, n_inner {DUAL_INNER}: dual_ce == plain within "
-                f"{DUAL_CE_ATOL} (max |d| {float(d.max()):.3e}, mean {float(d.mean()):.3e}); "
-                f"dual_inner_states (dates 0-3) within rtol {DUAL_STATE_RTOL} (x' {rel:.3e}, "
-                f"v' {dv:.3e}), {cn.numel()} counts bit for bit (max {int(cn.max())})")
-        half = x.shape[1] // 2 // tile * tile
-        part = cd.dual_ce(x[:, half:].contiguous(), None if v is None else v[:, half:]
-                          .contiguous(), rows, law, seed, half // tile, tile, DUAL_INNER)
-        ps = cd.dual_inner_states(x[:, half:].contiguous(), None if v is None else v[:, half:]
-                                  .contiguous(), law, seed, half // tile, tile, DUAL_INNER, 0, 4)
-        torch.cuda.synchronize()
-        if not (torch.equal(ce[:, half:], part) and torch.equal(xs[..., half:], ps[0])):
-            fail(f"dual {model}: a first_tile chunk differs from the full run's slice")
-        log(f"[D0] {model}: first_tile={half // tile} chunks of ce and of the states equal the "
-            "full run's slices bit for bit")
-    return errs
+            log(f"[D0] {what}: dual_inner_states (dates 0-3) within rtol {DUAL_STATE_RTOL} (x' "
+                f"{rel:.3e}, v' {dv:.3e}), {cn.numel()} counts bit for bit (max "
+                f"{int(cn.max())}), its first_tile={half // tile} chunk bit for bit")
+        cases[model] = c
+        up = dual_upper_both(model, c, seed, tile)
+        errs["dual_ce"]["upper_d_stderr"] = max(errs["dual_ce"]["upper_d_stderr"],
+                                                up["d_stderr"])
+    missed = {(m, call) for m in DUAL_SHAPES for call in (False, True)} - ran
+    if missed:
+        fail(f"D0 ran no case of kernel 18's instances {sorted(missed)}")
+    return errs, cases
 
 
 def phase_dual() -> tuple:
@@ -3606,9 +3728,8 @@ def phase_dual() -> tuple:
     if not (low - 3 * low_se <= p <= high + 3 * high_se and width < DUAL_WIDTH["D4"]):
         fail("D4: the Bates bracket does not contain the CV price within 3 stderr, or is wide")
     # At lam = 0 the Bates dual (kernel 18's Bates instance) is the Heston dual.
-    x, v, rows, _ = dual_inputs("heston", 1 << 17)
-    S = x * 100.0
-    policy, _ = pd.fit_lsm_policy(S, sv_put, 0.5, v_paths=v)
+    c = dual_case("heston", 1 << 17)
+    S, v, policy = c["S"], c["v"], c["policy"]
     b0 = BatesParams(heston=kw["heston"], lam=0.0, mu_j=0.0, sigma_j=0.1)
     common = dict(v_paths=v, n_inner=DUAL_INNER, inner_block=4096)
     up_h, _ = pd.dual_upper_from_policy(21, S, sv_put, 0.5, policy, model="heston",
@@ -3631,26 +3752,47 @@ def phase_dual() -> tuple:
     return secs, res
 
 
-def phase_dual_timing(per_call: float, secs: dict, launches: dict) -> dict:
+def sass_floors(sass: dict, key: str, evals: int) -> dict:
+    """Kernel 18's issue and SFU floors at ``evals`` surrogate evaluations
+    from the instructions and MUFU of SASS loop ``key`` a pass (SASS_EVALS
+    evaluations): empty where phase_sass counted no loop."""
+    n, mufu = sass.get("loops", {}).get(key), sass.get("mufu", {}).get(key)
+    if not n:
+        return {}
+    ipe, mpe = n / SASS_EVALS[key], mufu / SASS_EVALS[key]
+    return dict(instructions_per_eval=ipe, mufu_per_eval=mpe,
+                issue_floor_ms=evals * ipe / PEAK_ISSUE * 1e3,
+                mufu_floor_ms=evals * mpe / PEAK_MUFU * 1e3)
+
+
+def phase_dual_timing(sass: dict, secs: dict, launches: dict, cases: dict) -> dict:
     """CUDA-event medians of kernel 18 at each bracket's shape (49 dates x
-    DUAL_SHAPES x 64 inner draws) and of kernel 19 at D5's chunk (4 dates x
-    2^16 x 64), with their plain versions' (kernel 18's: one run; 19's: 3)
-    and their bounds;
-    registers and occupancy; seconds per bracket with the kernels' share.
-    The JSON row of kernel 18 is its GBM instance at D1's shape."""
+    DUAL_SHAPES x 64 inner draws, on D0's ``cases``), its redesign in turns
+    with its first design (first, new, new, first), with the issue and SFU
+    floors from their SASS (both designs under GBM and Heston, the redesign
+    under Merton and Bates), and of kernel 19 at D5's chunk (4
+    dates x 2^16 x 64), with their plain versions' (kernel 18's: one run;
+    19's: 3) and their bounds; registers and occupancy; seconds per bracket
+    with the kernels' share. The JSON row of kernel 18 is its GBM instance
+    at D1's shape."""
     import torch
 
     from options_model_tpu_torch.ops import cuda_dual as cd
     from options_model_tpu_torch.pricers import dual as pd
     from options_model_tpu_torch.utils.profiling import time_per_call
 
+    per_call = sass["per_call"]
     attrs = cd.dual_kernel_attrs()
     seed, tile, n_dates = 0x5DEECE66D, 4096, 49
     out = {"dual_ce": {}, "dual_inner_states": {}}
     for model, n in DUAL_SHAPES.items():
-        x, v, rows, law = dual_inputs(model, n)
+        c = cases[model]
+        x, v, rows, law = c["x"], c["v"], c["rows"], c["law"]
         args = (seed, 0, tile, DUAL_INNER)
-        ms = time_per_call(lambda: cd.dual_ce(x, v, rows, law, *args), N_TIMED)
+        run = lambda: cd.dual_ce(x, v, rows, law, *args)  # noqa: E731
+        first = lambda: cd.dual_ce_first(x, v, rows, law, *args)  # noqa: E731
+        turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
+        ms = (turns[1] + turns[2]) / 2
         # the plain version takes seconds a call: one run, after D0's
         plain_ms = time_per_call(lambda: cd.dual_ce_reference(x, v, rows, law, *args), 1, 0)
         b = bound(n_dates * n, DUAL_INNER, OPS_DUAL[model], int_ops(DRAWS_DUAL[model], per_call),
@@ -3666,9 +3808,25 @@ def phase_dual_timing(per_call: float, secs: dict, launches: dict) -> dict:
             f"{b['bound_ms']:.4f} ms by {b['bound_term']} ({OPS_DUAL[model]:.2f} f32 operations "
             f"an evaluation); {b['bound_ms'] / ms * 100:.1f}% of bound; {a['registers']} "
             f"registers, {a['spill_bytes']} spill bytes, {row['occupancy'] * 100:.1f}% occupancy")
+        row.update(first_design_row("dual_ce_first", "options_model_tpu_torch/csrc/dual.cu",
+                                    f"{n_dates} x {n} x {DUAL_INNER}", turns, b["bound_ms"],
+                                    attrs[f"dual_ce_first {model}"]))
+        for key, label, t in ((f"dual_ce {model}", "redesign", ms),
+                              (f"dual_ce {model}, first design", "first design",
+                               row["earlier_ms"])):
+            fl = sass_floors(sass, key, evals)
+            if not fl:
+                continue
+            row.update(fl if label == "redesign" else {f"earlier_{k}": x for k, x in fl.items()})
+            log(f"[5] dual_ce {model} {label}: {fl['instructions_per_eval']:g} SASS instructions "
+                f"an evaluation ({fl['mufu_per_eval']:g} MUFU): issue floor "
+                f"{fl['issue_floor_ms']:.4f} ms ({fl['issue_floor_ms'] / t * 100:.1f}% of its "
+                f"{t:.4f} ms), SFU floor {fl['mufu_floor_ms']:.4f} ms; bound {b['bound_ms']:.4f}")
         if model in ("gbm", "heston"):
             m = n if model == "heston" else 1 << 16
-            x, v, _, law = dual_inputs(model, m)
+            if m != n:
+                c = dual_case(model, m)
+                x, v = c["x"], c["v"]
             chunk = max(1, pd.NN_CHUNK_ROWS // (DUAL_INNER * m))
             ms = time_per_call(lambda: cd.dual_inner_states(x, v, law, *args, 0, chunk), N_TIMED)
             plain_ms = time_per_call(lambda: cd.dual_inner_states_reference(
@@ -3725,19 +3883,20 @@ def main() -> int:
     jumps = jump_specs()
     jump_errs = phase_jump_kernels()
     duals = dual_specs()
-    dual_errs = phase_dual_kernels()
+    dual_errs, dual_cases = phase_dual_kernels()
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
     counted = specs + vjp + jumps + duals
-    # kernels 12-17's first designs: the yardsticks no path may reach
-    from options_model_tpu_torch.ops import cuda_gbm
+    # kernels 12-18's first designs: the yardsticks no path may reach
+    from options_model_tpu_torch.ops import cuda_dual, cuda_gbm
 
     firsts = {"euler_paths_vjp_first": cuda_heston.launches,
               "gbm_paths_vjp_first": cuda_gbm.launches,
-              **{key: cuda_jumps.launches for key in JUMP_FIRSTS}}
+              **{key: cuda_jumps.launches for key in JUMP_FIRSTS},
+              "dual_ce_first": cuda_dual.launches}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
     counters += [(d, key) for key, d in firsts.items()]
@@ -3745,7 +3904,7 @@ def main() -> int:
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
         was never launched, or if the first design of kernels 1, 3-8 or
-        12-17, or of the variants, was. Returns (fn's result, that path's
+        12-18, or of the variants, was. Returns (fn's result, that path's
         counts)."""
         for d, key in counters:
             d[key] = 0
@@ -3762,7 +3921,7 @@ def main() -> int:
         earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3-8 or 12-17, or of "
+            fail(f"the {path} path reached the first design of kernels 1, 3-8 or 12-18, or of "
                  f"the variants: {earlier}")
         return out, mine
 
@@ -3790,7 +3949,7 @@ def main() -> int:
     times = phase_timing(specs, sass["per_call"])
     times.update(phase_vjp_timing(vjp, sass["per_call"]))
     times.update(phase_jump_timing(sass["per_call"], shapes_j))
-    dual_times = phase_dual_timing(sass["per_call"], secs_d, launches_d)
+    dual_times = phase_dual_timing(sass, secs_d, launches_d, dual_cases)
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -3874,7 +4033,10 @@ def main() -> int:
                      launches=launches_d[k["name"]], library_ms=None, **dual_errs[k["name"]],
                      **dual_times[k["name"]]["gbm"],
                      families={m: {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                           "bound_by", "registers")}
+                                                           "bound_by", "registers", "earlier_ms",
+                                                           "instructions_per_eval",
+                                                           "earlier_instructions_per_eval")
+                                   if key in r}
                                for m, r in dual_times[k["name"]].items()})
                 for k in duals]
     print(json.dumps({"kernels": entries}))

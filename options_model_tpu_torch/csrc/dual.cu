@@ -13,35 +13,59 @@
 // stream: counter = (slot in tile, draw, global tile, 2), one slot a path,
 // draw = date x calls a date + call, the jump calls counted in every family).
 //
-// - dual_ce_kernel<F> (kernel 18): one thread a (date, path), grid (paths,
-//   dates). A block loads its date's policy row (tau, x_mean, x_rstd,
-//   v_mean, v_rstd, betas) into shared memory once; the thread reads x_t
-//   (and v_t) once, walks the inner pairs (Philox in the kernel, the plain
+// - dual_ce_kernel<F, kCall> (kernel 18): one thread a (date, path),
+//   grid (paths, dates). A block loads its date's policy row (tau, x_mean,
+//   x_rstd, v_mean, v_rstd, betas) into shared memory and its first thread
+//   folds the date's floor constants (FloorT) there once; the thread reads
+//   x_t (and v_t) once, walks the inner pairs (Philox in the kernel, the plain
 //   version's Box-Muller with 1 - u in the log, the pair mirrored: z and -z,
 //   the jump normal too, the Poisson count shared), evaluates the surrogate
 //   at both members (_vhat: the intrinsic value, the Black-Scholes floor at
 //   the date's remaining maturity, the clamped polynomial gated to the
 //   in-the-money side and clipped to [0, cap]), and writes the mean once.
-//   The polynomial degree is a run-time argument; the family (GBM, Heston,
-//   Merton, Bates) is a compile-time instance.
+//   The family (GBM, Heston, Merton, Bates) and the side (put or call) are
+//   compile-time, eight instances; the polynomial's degree is a run-time
+//   argument, its betas read from the row in shared memory.
+// - dual_ce_first_kernel<F>: kernel 18's first design, kept as the
+//   redesign's yardstick (ops/cuda_dual.dual_ce_first); no pricer reaches it.
 // - dual_inner_states_kernel<F, kCounts> (kernel 19): the same walk and
 //   transitions for a chunk of dates, writing each inner state x' (and v'
 //   under Heston) as (chunk, 2, n_inner/2, P), the pair's up member first,
 //   for the NN policy's network; with kCounts also each pair's Poisson count
 //   (int32), so a check can hold the counts against the plain version's.
 //
-// Every float operation is IEEE (no --use_fast_math, the _rn intrinsics
-// where nvcc could contract into an FMA) in the plain version's order, so
-// the kernels differ from it only where libdevice's expf, logf, erfcf and
-// sqrtf differ from torch's; a member landing within those ulps of x' = 1
-// can flip the in-the-money gate (chip_smoke.py states the tolerance).
+// No --use_fast_math anywhere. The walk (Philox, Box-Muller, the Poisson
+// inversion and the one-step transition) does every float operation with
+// the _rn intrinsics, which nvcc never contracts into an FMA, in the plain
+// version's order: the inner states x', v' and the counts equal the plain
+// version's bit for bit in all three kernels, so the surrogate's
+// in-the-money gate (a jump at x' = 1) decides alike. Everything after the
+// states is continuous in them: the first design keeps the _rn order there
+// too and differs from the plain version by libdevice's logf, erfcf and
+// divisions; the redesign lets nvcc contract it (fmaf) and differs by a few
+// float32 ulps more (chip_smoke.py holds both at DUAL_CE_ATOL).
 //
 // What bounds them on the card: kernel 18 reads 4 (8 with v) bytes and
-// writes 4 a (date, path) over n_inner surrogate evaluations, each a log,
-// two erfc, an exp and ~40 more float operations, so it is held by its
-// float work (chip_smoke.bound counts it); kernel 19 writes 4 (8) bytes a
-// state after ~20 operations and is held by its stores. Nothing is tuned
-// beyond the row in shared memory.
+// writes 4 a (date, path) over n_inner surrogate evaluations, so it is held
+// by its instruction issue. The first design paid, per evaluation, a logf
+// of S / K, two IEEE divisions (S / K and d1's by sigma sqrt tau), under
+// Heston two sqrtf of the floor's vol, two accurate erfcf, and only _rn
+// operations, so no multiply-add fused: 243.75 SASS instructions an
+// evaluation under GBM, 327 under Heston. The redesign keeps the two
+// accurate erfcf (~45 instructions each) and the states' expf, and drops
+// the rest: log x' = log xp + e, with e the exponent the step just took
+// (log xp once a thread), so no logf and no division remain per
+// evaluation; under GBM and Merton sigma sqrt tau is a date's constant, so
+// d1 = A + B e with the side's sign and 1 / sqrt 2 folded into A and B;
+// under Heston and Bates sigma^2 tau = max(theta + (v' - theta) frac,
+// 1e-8) tau + jvar tau is taken directly and one rsqrtf gives both d1 and
+// d2; the polynomial is Horner's over the betas in shared memory, the
+// gate, clip and maxima a few min/max, the side (cp) a template argument.
+// It stays held by its issue rate, the two erfcf about 90 of its 160
+// (GBM) to 262 (Bates) SASS instructions an evaluation (PERF.md row 18
+// has the counts). Kernel 19
+// writes 4 (8) bytes a state after ~20 operations and is held by its
+// stores.
 #include "kernel_attrs.cuh"
 #include "philox.cuh"
 
@@ -158,9 +182,10 @@ __device__ __forceinline__ PathK path_consts(float xp, float vp, const DualT& k)
                mul(mul(k.kappa, sub(k.theta, vp)), k.dt)};
 }
 
-// The inner pair's states: (x', v') of the up and the down member.
+// The inner pair's states: (x', v') of the up and the down member, and the
+// exponents of x' = xp e^eu and xp e^ed (the redesign's log x' - log xp).
 struct Pair {
-  float xu, xd, vu, vd;
+  float xu, xd, vu, vd, eu, ed;
 };
 
 // pricers/dual.inner_states_from_draws for one pair: normals z1 (z), z2,
@@ -183,6 +208,8 @@ __device__ __forceinline__ Pair step_pair(const PathK& s, float z1, float z2, fl
     out.xu = mul(s.xp, expf(up));
     out.xd = mul(s.xp, expf(dn));
     out.vu = out.vd = 0.0f;
+    out.eu = up;
+    out.ed = dn;
     return out;
   }
   const float w2 = add(mul(k.rho, z1), mul(k.rho_bar, z2));
@@ -193,6 +220,8 @@ __device__ __forceinline__ Pair step_pair(const PathK& s, float z1, float z2, fl
   }
   out.xu = mul(s.xp, expf(up));
   out.xd = mul(s.xp, expf(dn));
+  out.eu = up;
+  out.ed = dn;
   const float base = add(s.vp, s.dv), xs = mul(k.xi, s.sv);
   out.vu = fmaxf(add(base, mul(xs, w2)), 0.0f);
   out.vd = fmaxf(add(base, mul(xs, -w2)), 0.0f);
@@ -273,11 +302,145 @@ __device__ __forceinline__ void walk_pairs(const PathK& s, int date, int half, u
   }
 }
 
+// Kernel 18's redesign. N(cp d) = erfc(s d) / 2 with s = -cp / sqrt 2: the
+// side's sign and 1 / sqrt 2 are folded into the floor's arguments.
+template <bool kCall>
+constexpr float kSide = kCall ? -0.70710678118654752f : 0.70710678118654752f;
+
+// A date's constants of the redesign, folded once a block by its first
+// thread. The floor is E = c1 x' erfc(g1) - c2 erfc(g2) with c1 = cp K
+// e^{-q tau} / 2 and c2 = cp K e^{-r tau} / 2. GBM and Merton: g1 = s d1 =
+// b (log xp + e) + a0 and g2 = g1 + g. Heston and Bates: w = sigma^2 tau =
+// max(v' frac + tf, 1e-8) tau + jtau, q = s (log xp + e + p0), g1 = (q + s
+// w / 2) / sqrt w, g2 = (q - s w / 2) / sqrt w. u = x' x_rstd + nmr, w_v =
+// v' v_rstd + nvr.
+struct FloorT {
+  float c1, c2, b, a0, g, p0, tf, frac, tau, jtau, nmr, nvr;
+};
+
+template <int F, bool kCall>
+__device__ FloorT floor_consts(const float* row, const DualT& k) {
+  constexpr float sd = kSide<kCall>;
+  const float tau = row[0];
+  const float half_cp = kCall ? 0.5f : -0.5f;
+  FloorT f{};
+  f.c1 = half_cp * k.K * expf(-k.q * tau);
+  f.c2 = half_cp * k.K * expf(-k.rate * tau);
+  f.tau = tau;
+  f.nmr = -row[1] * row[2];
+  f.nvr = -row[3] * row[4];
+  if (kUseV<F>) {
+    const float kt = fmaxf(k.kappa * tau, 1e-6f);
+    f.frac = -expm1f(-kt) / kt;
+    f.tf = k.theta * (1.0f - f.frac);
+    f.p0 = k.drift * tau;
+    f.jtau = k.jvar * tau;
+  } else {
+    const float sq = k.sig_f * sqrtf(tau);
+    f.b = sd / sq;
+    f.a0 = f.b * fmaf(0.5f * k.sig_f, k.sig_f, k.drift) * tau;
+    f.g = -sd * sq;
+  }
+  return f;
+}
+
+// Horner's rule over the betas beta[0..degree] in shared memory, one
+// multiply-add a pass (not unrolled: at the brackets' degree 3 an unrolled
+// loop would run only its remainder, and the SASS holds one pass to count).
+__device__ __forceinline__ float poly(const float* beta, int degree, float u) {
+  float c = beta[degree];
+#pragma unroll 1
+  for (int i = degree - 1; i >= 0; --i) c = fmaf(c, u, beta[i]);
+  return c;
+}
+
+// _vhat at one member x' = xp e^e (and v'): max(E, the clipped continuation
+// on the in-the-money side). a is the thread's b log xp + a0 (GBM, Merton)
+// or s (log xp + p0) (Heston, Bates). beta is the row's betas in shared
+// memory; t = beta + degree + 1 their tail: the (x' - 1)^+ term, then the
+// variance terms w, w^2 and u w. max(h, clip(C, 0, cap)) is clip(C, h,
+// cap), as 0 <= h <= cap; off the in-the-money side h = 0, and a cap of 0
+// there makes the clip 0 without a branch.
+template <int F, bool kCall>
+__device__ __forceinline__ float vhat_fast(float xq, float e, float vq, float a,
+                                           const FloorT& f, const float* beta, int degree,
+                                           float rho, float vr, const DualT& k) {
+  constexpr float sd = kSide<kCall>;
+  float g1, g2;
+  if (kUseV<F>) {
+    const float var = fmaxf(fmaf(vq, f.frac, f.tf), 1e-8f);
+    const float w = kJumps<F> ? fmaf(var, f.tau, f.jtau) : var * f.tau;
+    const float r = rsqrtf(w);
+    const float q = fmaf(sd, e, a);
+    g1 = r * fmaf(0.5f * sd, w, q);
+    g2 = r * fmaf(-0.5f * sd, w, q);
+  } else {
+    g1 = fmaf(f.b, e, a);
+    g2 = g1 + f.g;
+  }
+  const float floor = fmaf(f.c1 * xq, erfcf(g1), -(f.c2 * erfcf(g2)));
+  const float u = clampf(fmaf(xq, rho, f.nmr), -kUClamp, kUClamp);
+  const float xm1 = xq - 1.0f;
+  const float* t = beta + degree + 1;
+  float c = fmaf(t[0], fmaxf(xm1, 0.0f), poly(beta, degree, u));
+  if (kUseV<F>) {
+    const float w = clampf(fmaf(vq, vr, f.nvr), -kUClamp, kUClamp);
+    c = fmaf(w, fmaf(t[2], w, fmaf(t[3], u, t[1])), c);
+  }
+  const float h = k.K * fmaxf(kCall ? xm1 : -xm1, 0.0f);
+  const bool itm = kCall ? xm1 >= 0.0f : xm1 <= 0.0f;
+  const float cap = itm ? (kCall ? k.K * xq : k.K) : 0.0f;
+  return fmaxf(floor, fminf(fmaxf(c, h), cap));
+}
+
+// Resident blocks an SM the redesign asks of nvcc: GBM 16 (at most 32
+// registers, 100% occupancy), Heston 10 (48, 62.5%), Merton 12 (40, 75%),
+// Bates 9 (56, 56.2%), none below the first design's. Left to itself nvcc
+// interleaves the clip's arithmetic over both members and takes up to 76
+// registers. chip_smoke.py fails if any instance spills under its bound.
 template <int F>
-__global__ void __launch_bounds__(kBlock)
+constexpr int kMinBlocks = F == kGbm ? 16 : F == kHeston ? 10 : F == kMerton ? 12 : 9;
+
+template <int F, bool kCall>
+__global__ void __launch_bounds__(kBlock, kMinBlocks<F>)
 dual_ce_kernel(float* __restrict__ ce, const float* __restrict__ x, const float* __restrict__ v,
                const float* __restrict__ rows, const __grid_constant__ DualT k, uint64_t seed,
                int first_tile, int tile, int n_paths, int width, int degree, int half) {
+  __shared__ float row[kMaxRow];
+  __shared__ FloorT fs;
+  const int date = blockIdx.y;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    row[i] = rows[static_cast<size_t>(date) * width + i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) fs = floor_consts<F, kCall>(row, k);
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_paths) return;
+  const size_t at = static_cast<size_t>(date) * n_paths + p;
+  const PathK s = path_consts<F>(x[at], kUseV<F> ? v[at] : 0.0f, k);
+  const FloorT f = fs;
+  const float* beta = row + kRowHead;
+  const float rho = row[2], vr = row[4];
+  const float lxp = logf(s.xp);
+  const float a = kUseV<F> ? kSide<kCall> * (lxp + f.p0) : fmaf(f.b, lxp, f.a0);
+  float acc = 0.0f;
+  walk_pairs<F>(s, date, half, static_cast<uint32_t>(p % tile),
+                static_cast<uint32_t>(first_tile + p / tile), seed, k,
+                [&](int, const Pair& st, float) {
+                  acc += vhat_fast<F, kCall>(st.xu, st.eu, st.vu, a, f, beta, degree, rho, vr, k) +
+                         vhat_fast<F, kCall>(st.xd, st.ed, st.vd, a, f, beta, degree, rho, vr, k);
+                });
+  ce[at] = acc / static_cast<float>(half) * 0.5f;
+}
+
+// Kernel 18's first design: the surrogate in the plain version's _rn order.
+template <int F>
+__global__ void __launch_bounds__(kBlock)
+dual_ce_first_kernel(float* __restrict__ ce, const float* __restrict__ x,
+                     const float* __restrict__ v, const float* __restrict__ rows,
+                     const __grid_constant__ DualT k, uint64_t seed, int first_tile, int tile,
+                     int n_paths, int width, int degree, int half) {
   __shared__ float row[kMaxRow];
   const int date = blockIdx.y;
   for (int i = threadIdx.x; i < width; i += blockDim.x) {
@@ -345,15 +508,48 @@ inline bool args_fit(int n_paths, int tile, int n_dates, int half, int first_til
          half >= 1 && half <= kMaxPairs && first_tile >= 0;
 }
 
+// Kernel 18: the redesign's instance for the law's side, or the first
+// design.
 template <int F>
-int launch_ce(void* ce, const void* x, const void* v, const void* rows, const DualT& k,
-              uint64_t seed, int first_tile, int tile, int n_paths, int n_dates, int width,
-              int degree, int half, cudaStream_t stream) {
+int launch_ce(bool first, void* ce, const void* x, const void* v, const void* rows,
+              const DualT& k, uint64_t seed, int first_tile, int tile, int n_paths, int n_dates,
+              int width, int degree, int half, cudaStream_t stream) {
+  const bool call = k.cp > 0.0f;
+  auto kernel = first  ? dual_ce_first_kernel<F>
+                : call ? dual_ce_kernel<F, true>
+                       : dual_ce_kernel<F, false>;
   const dim3 grid((n_paths + kBlock - 1) / kBlock, n_dates);
-  dual_ce_kernel<F><<<grid, kBlock, 0, stream>>>(
+  kernel<<<grid, kBlock, 0, stream>>>(
       static_cast<float*>(ce), static_cast<const float*>(x), static_cast<const float*>(v),
       static_cast<const float*>(rows), k, seed, first_tile, tile, n_paths, width, degree, half);
   return static_cast<int>(cudaGetLastError());
+}
+
+inline int ce_entry(bool first, void* ce, const void* x, const void* v, const void* rows,
+                    const void* law, uint64_t seed, int first_tile, int tile, int n_paths,
+                    int n_dates, int width, int degree, int half, int family, void* stream) {
+  if (!args_fit(n_paths, tile, n_dates, half, first_tile) || width > kMaxRow || degree < 1 ||
+      width < kRowHead + degree + 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DualT k = law_from(law);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case kGbm:
+      return launch_ce<kGbm>(first, ce, x, v, rows, k, seed, first_tile, tile, n_paths, n_dates,
+                             width, degree, half, s);
+    case kHeston:
+      return launch_ce<kHeston>(first, ce, x, v, rows, k, seed, first_tile, tile, n_paths,
+                                n_dates, width, degree, half, s);
+    case kMerton:
+      return launch_ce<kMerton>(first, ce, x, v, rows, k, seed, first_tile, tile, n_paths,
+                                n_dates, width, degree, half, s);
+    case kBates:
+      return launch_ce<kBates>(first, ce, x, v, rows, k, seed, first_tile, tile, n_paths,
+                               n_dates, width, degree, half, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int F>
@@ -381,29 +577,16 @@ extern "C" {
 int omt_dual_ce(void* ce, const void* x, const void* v, const void* rows, const void* law,
                 uint64_t seed, int first_tile, int tile, int n_paths, int n_dates, int width,
                 int degree, int half, int family, void* stream) {
-  using namespace omt::dual;
-  if (!args_fit(n_paths, tile, n_dates, half, first_tile) || width > kMaxRow ||
-      degree < 1 || width < kRowHead + degree + 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const DualT k = law_from(law);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (family) {
-    case kGbm:
-      return launch_ce<kGbm>(ce, x, v, rows, k, seed, first_tile, tile, n_paths, n_dates, width,
-                             degree, half, s);
-    case kHeston:
-      return launch_ce<kHeston>(ce, x, v, rows, k, seed, first_tile, tile, n_paths, n_dates,
-                                width, degree, half, s);
-    case kMerton:
-      return launch_ce<kMerton>(ce, x, v, rows, k, seed, first_tile, tile, n_paths, n_dates,
-                                width, degree, half, s);
-    case kBates:
-      return launch_ce<kBates>(ce, x, v, rows, k, seed, first_tile, tile, n_paths, n_dates,
-                               width, degree, half, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return omt::dual::ce_entry(false, ce, x, v, rows, law, seed, first_tile, tile, n_paths,
+                             n_dates, width, degree, half, family, stream);
+}
+
+// Kernel 18's first design, the same arguments.
+int omt_dual_ce_first(void* ce, const void* x, const void* v, const void* rows, const void* law,
+                      uint64_t seed, int first_tile, int tile, int n_paths, int n_dates,
+                      int width, int degree, int half, int family, void* stream) {
+  return omt::dual::ce_entry(true, ce, x, v, rows, law, seed, first_tile, tile, n_paths,
+                             n_dates, width, degree, half, family, stream);
 }
 
 // Kernel 19. xs (and vs under Heston and Bates): device (n_chunk, 2, half,
@@ -437,19 +620,28 @@ int omt_dual_inner_states(void* xs, void* vs, void* counts, const void* x, const
 }
 
 // Registers, spills and occupancy (omt::kernel_attrs): which = 4 kernel +
-// family, kernel 0 dual_ce_kernel, 1 dual_inner_states_kernel without counts.
+// family, kernel 0 dual_ce_kernel's put instance, 1 dual_inner_states_kernel
+// without counts, 2 dual_ce_first_kernel, 3 dual_ce_kernel's call instance.
 int omt_dual_attrs(int which, int* out) {
   using namespace omt::dual;
   using omt::kernel_attrs;
   switch (which) {
-    case 0: return kernel_attrs(dual_ce_kernel<kGbm>, kBlock, out);
-    case 1: return kernel_attrs(dual_ce_kernel<kHeston>, kBlock, out);
-    case 2: return kernel_attrs(dual_ce_kernel<kMerton>, kBlock, out);
-    case 3: return kernel_attrs(dual_ce_kernel<kBates>, kBlock, out);
+    case 0: return kernel_attrs(dual_ce_kernel<kGbm, false>, kBlock, out);
+    case 1: return kernel_attrs(dual_ce_kernel<kHeston, false>, kBlock, out);
+    case 2: return kernel_attrs(dual_ce_kernel<kMerton, false>, kBlock, out);
+    case 3: return kernel_attrs(dual_ce_kernel<kBates, false>, kBlock, out);
     case 4: return kernel_attrs(dual_inner_states_kernel<kGbm, false>, kBlock, out);
     case 5: return kernel_attrs(dual_inner_states_kernel<kHeston, false>, kBlock, out);
     case 6: return kernel_attrs(dual_inner_states_kernel<kMerton, false>, kBlock, out);
     case 7: return kernel_attrs(dual_inner_states_kernel<kBates, false>, kBlock, out);
+    case 8: return kernel_attrs(dual_ce_first_kernel<kGbm>, kBlock, out);
+    case 9: return kernel_attrs(dual_ce_first_kernel<kHeston>, kBlock, out);
+    case 10: return kernel_attrs(dual_ce_first_kernel<kMerton>, kBlock, out);
+    case 11: return kernel_attrs(dual_ce_first_kernel<kBates>, kBlock, out);
+    case 12: return kernel_attrs(dual_ce_kernel<kGbm, true>, kBlock, out);
+    case 13: return kernel_attrs(dual_ce_kernel<kHeston, true>, kBlock, out);
+    case 14: return kernel_attrs(dual_ce_kernel<kMerton, true>, kBlock, out);
+    case 15: return kernel_attrs(dual_ce_kernel<kBates, true>, kBlock, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

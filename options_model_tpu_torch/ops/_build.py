@@ -69,6 +69,7 @@ _SIGNATURES = {
     "omt_jump_overlay_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _P],
     "omt_dual_ce": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "omt_dual_ce_first": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_dual_inner_states": [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -2,7 +2,9 @@
 versions:
 - 18 ``dual_ce``: the inner expectation ce[t, p] = E[W_{t+1}(x', v') |
   x_t, v_t] of the polynomial policy's surrogate, t = 0..n_steps-2, one
-  thread a (date, path) (dual_ce_kernel);
+  thread a (date, path) (dual_ce_kernel, the redesign; its first design
+  dual_ce_first_kernel stays built as its yardstick, ``dual_ce_first``,
+  and no pricer reaches it);
 - 19 ``dual_inner_states``: the inner one-step states (x', and v' under
   Heston) of a chunk of dates, on which the NN policy's network is then
   evaluated (dual_inner_states_kernel).
@@ -21,9 +23,14 @@ and launch the kernel for a CUDA one; there is no fallback between the two.
 
 Kernel 18 reads x = S / K and v row by row and its policy rows
 (``policy_rows``, one a date: tau, x_mean, x_rstd, v_mean, v_rstd, betas);
-the law and its Poisson table go by value (``law_args``). Kernel 19 can
-also return each inner pair's Poisson count (int32), so a check can hold
-the kernels' counts against the plain version's bit for bit.
+the law and its Poisson table go by value (``law_args``). Its redesign
+has a compile-time instance for each family and side (put or call, from
+the law's cp); the polynomial's degree is a run-time argument. Both
+designs give the inner states bit for bit; their ce differ from the plain
+version's in float32 rounding of the floor and the polynomial only.
+Kernel 19 can also return each inner pair's Poisson count (int32), so a
+check can hold the kernels' counts against the plain version's bit for
+bit.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from options_model_tpu_torch.pricers.dual import (ROW_HEAD, InnerLaw, dual_ce_fr
                                                   inner_states_from_draws)
 
 # Kernel launches since the last reset, one integer per kernel.
-launches = {"dual_ce": 0, "dual_inner_states": 0}
+launches = {"dual_ce": 0, "dual_inner_states": 0, "dual_ce_first": 0}
 # The kernels' family instances (csrc/dual.cu Family).
 FAMILIES = {"gbm": 0, "heston": 1, "merton": 2, "bates": 3}
 # The law's floats before its Poisson table (csrc/dual.cu DualT), in order.
@@ -111,14 +118,11 @@ def dual_ce_reference(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Te
         seed, first_tile, n_tiles, tile, n_inner // 2, law.model, t, law.lam_dt, x.device))
 
 
-def dual_ce(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor, law: InnerLaw,
-            seed: int, first_tile: int, tile: int, n_inner: int) -> torch.Tensor:
-    """ce (n_dates, P) of kernel 18 (csrc/dual.cu dual_ce_kernel) on CUDA x
-    (n_steps+1, P) = S / K [and v], or of its plain version for CPU ones.
-    ``rows`` (policy_rows) fixes n_dates, ``tile`` and ``first_tile`` the
-    stream's tiles."""
-    if x.device.type == "cpu":
-        return dual_ce_reference(x, v, rows, law, seed, first_tile, tile, n_inner)
+def _launch_ce(entry: str, x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor,
+               law: InnerLaw, seed: int, first_tile: int, tile: int,
+               n_inner: int) -> torch.Tensor:
+    """Check the arguments and launch C entry ``entry`` of kernel 18 on x's
+    device; returns ce (n_dates, P)."""
     _build.require_cuda(x.device)
     n_dates, width = rows.shape
     _check(x, v, law, tile, n_inner, first_tile, seed, n_dates)
@@ -128,11 +132,36 @@ def dual_ce(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor, law:
                          f"{ROW_HEAD + 3}-{MAX_ROW} wide, got {tuple(rows.shape)}")
     degree = width - ROW_HEAD - (5 if law.use_v else 2)
     ce = torch.empty((n_dates, x.shape[1]), dtype=torch.float32, device=x.device)
-    _build.launch("omt_dual_ce", x.device, ce.data_ptr(), x.data_ptr(),
+    _build.launch(entry, x.device, ce.data_ptr(), x.data_ptr(),
                   None if v is None else v.data_ptr(), rows.data_ptr(), law_args(law), seed,
                   first_tile, tile, x.shape[1], n_dates, width, degree, n_inner // 2,
                   FAMILIES[law.model])
+    return ce
+
+
+def dual_ce(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor, law: InnerLaw,
+            seed: int, first_tile: int, tile: int, n_inner: int) -> torch.Tensor:
+    """ce (n_dates, P) of kernel 18 (csrc/dual.cu dual_ce_kernel, the
+    redesign) on CUDA x (n_steps+1, P) = S / K [and v], or of its plain
+    version for CPU ones. ``rows`` (policy_rows) fixes n_dates, ``tile`` and
+    ``first_tile`` the stream's tiles."""
+    if x.device.type == "cpu":
+        return dual_ce_reference(x, v, rows, law, seed, first_tile, tile, n_inner)
+    ce = _launch_ce("omt_dual_ce", x, v, rows, law, seed, first_tile, tile, n_inner)
     launches["dual_ce"] += 1
+    return ce
+
+
+def dual_ce_first(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor,
+                  law: InnerLaw, seed: int, first_tile: int, tile: int,
+                  n_inner: int) -> torch.Tensor:
+    """Kernel 18's first design (csrc/dual.cu dual_ce_first_kernel) on CUDA
+    tensors, the plain version on CPU ones; the redesign's yardstick, which
+    no pricer calls. The arguments are dual_ce's."""
+    if x.device.type == "cpu":
+        return dual_ce_reference(x, v, rows, law, seed, first_tile, tile, n_inner)
+    ce = _launch_ce("omt_dual_ce_first", x, v, rows, law, seed, first_tile, tile, n_inner)
+    launches["dual_ce_first"] += 1
     return ce
 
 
@@ -187,8 +216,10 @@ def dual_inner_states(x: torch.Tensor, v: Optional[torch.Tensor], law: InnerLaw,
 
 def dual_kernel_attrs() -> dict:
     """Registers, spills and occupancy of kernels 18 and 19 as built, by
-    name and family (the pricing instances: kernel 19 without its counts
-    output)."""
+    name and family: kernel 18's redesign for a put (``dual_ce``) and for a
+    call (``dual_ce_call``), kernel 19 without its counts output, kernel
+    18's first design."""
     return {f"{name} {model}": _build.kernel_attrs("omt_dual_attrs", 4 * k + fam)
-            for k, name in enumerate(("dual_ce", "dual_inner_states"))
+            for k, name in enumerate(("dual_ce", "dual_inner_states", "dual_ce_first",
+                                      "dual_ce_call"))
             for model, fam in FAMILIES.items()}

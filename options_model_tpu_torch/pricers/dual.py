@@ -360,6 +360,44 @@ def dual_ce_from_draws(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.T
                         for t in range(rows.shape[0])])
 
 
+def _observed_terms(x: torch.Tensor, v_paths: Optional[torch.Tensor], law: InnerLaw,
+                    policy: LSMPolicy, taus: torch.Tensor):
+    """(w_vals, e_h) of dual_upper_from_policy on x = S / K (n_steps+1, P)
+    [and v]: the surrogate at the observed states of dates 1..n-1 and the
+    exact expectation of the terminal payoff from date n-1."""
+    n_steps = x.shape[0] - 1
+    use_v = law.use_v
+    degree = policy.betas.shape[1] - (5 if use_v else 2)
+    K = law.K
+    vs = v_paths[1:n_steps] if use_v else None
+    w_vals = _vhat(x[1:n_steps], K, law.cp, taus[:, None], law.rate, law.q,
+                   _floor_vol(law, vs, taus[:, None]), policy.betas, policy.x_mean[:, None],
+                   policy.x_rstd[:, None], degree, v=vs,
+                   vm=None if vs is None else policy.v_mean[:, None],
+                   vr=None if vs is None else policy.v_rstd[:, None])
+
+    # the terminal step: the one-step conditional law is lognormal given the
+    # state (the Poisson mixture of lognormals with the jumps), so W_n = h
+    # has a closed-form expectation
+    x_last = x[n_steps - 1]
+    if use_v:
+        v_nm1 = torch.clamp_min(v_paths[n_steps - 1], 0.0)
+        mu_T = (law.drift - 0.5 * v_nm1) * law.dt - law.comp_dt
+        a2_T = torch.clamp_min(v_nm1 * law.dt, 1e-12)
+        if law.jumps:
+            e_h = K * _one_step_jump_black(x_last, mu_T, a2_T, law.cp, law.lam_dt, law.mu_j,
+                                           law.sig_j)
+        else:
+            e_h = K * _one_step_black(x_last, mu_T, torch.sqrt(a2_T), law.cp)
+    elif law.jumps:
+        a2 = float(np.float32(law.a) * np.float32(law.a))
+        e_h = K * _one_step_jump_black(x_last, _tensor(law.mu, x), _tensor(a2, x),
+                                       law.cp, law.lam_dt, law.mu_j, law.sig_j)
+    else:
+        e_h = K * _one_step_black(x_last, _tensor(law.mu, x), _tensor(law.a, x), law.cp)
+    return w_vals, e_h
+
+
 def _dual_assemble(S_paths: torch.Tensor, spec: OptionSpec, T, w_vals, ce, e_h, eval_mask,
                    stat_pair_block):
     """Martingale increments -> pathwise max -> (upper, stderr): increments
@@ -456,47 +494,19 @@ def dual_upper_from_policy(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T
     device = S_paths.device
     _check_draws_device(inner_draws, device)
     law = inner_law(model, spec, T, n_steps, heston=heston, merton=merton, bates=bates)
-    degree = policy.betas.shape[1] - (5 if use_v else 2)
-    K = law.K
-    x = S_paths / torch.tensor(K, dtype=S_paths.dtype, device=device)
+    x = S_paths / torch.tensor(law.K, dtype=S_paths.dtype, device=device)
     taus = torch.from_numpy(date_taus(T, n_steps)).to(device=device, dtype=S_paths.dtype)
-
-    vs = v_paths[1:n_steps] if use_v else None
-    w_vals = _vhat(x[1:n_steps], K, law.cp, taus[:, None], law.rate, law.q,
-                   _floor_vol(law, vs, taus[:, None]), policy.betas, policy.x_mean[:, None],
-                   policy.x_rstd[:, None], degree, v=vs,
-                   vm=None if vs is None else policy.v_mean[:, None],
-                   vr=None if vs is None else policy.v_rstd[:, None])
+    v_in = v_paths if use_v else None
+    w_vals, e_h = _observed_terms(x, v_in, law, policy, taus)
 
     from options_model_tpu_torch.ops import cuda_dual
 
     tile, _ = _inner_tiles(x.shape[1], inner_block)
     rows = cuda_dual.policy_rows(policy, taus)
-    v_in = v_paths if use_v else None
     if inner_draws is not None:
         ce = dual_ce_from_draws(x, v_in, rows, law, inner_draws)
     else:
         ce = cuda_dual.dual_ce(x, v_in, rows, law, seed, first_block, tile, n_inner)
-
-    # the terminal step: the one-step conditional law is lognormal given the
-    # state (the Poisson mixture of lognormals with the jumps), so W_n = h
-    # has a closed-form expectation
-    x_last = x[n_steps - 1]
-    if use_v:
-        v_nm1 = torch.clamp_min(v_paths[n_steps - 1], 0.0)
-        mu_T = (law.drift - 0.5 * v_nm1) * law.dt - law.comp_dt
-        a2_T = torch.clamp_min(v_nm1 * law.dt, 1e-12)
-        if law.jumps:
-            e_h = K * _one_step_jump_black(x_last, mu_T, a2_T, law.cp, law.lam_dt, law.mu_j,
-                                           law.sig_j)
-        else:
-            e_h = K * _one_step_black(x_last, mu_T, torch.sqrt(a2_T), law.cp)
-    elif law.jumps:
-        a2 = float(np.float32(law.a) * np.float32(law.a))
-        e_h = K * _one_step_jump_black(x_last, _tensor(law.mu, x), _tensor(a2, x),
-                                       law.cp, law.lam_dt, law.mu_j, law.sig_j)
-    else:
-        e_h = K * _one_step_black(x_last, _tensor(law.mu, x), _tensor(law.a, x), law.cp)
     return _dual_assemble(S_paths, spec, T, w_vals, ce, e_h, eval_mask, stat_pair_block)
 
 
