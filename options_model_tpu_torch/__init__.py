@@ -23,7 +23,13 @@ the path kernels, whose backward is a hand-written VJP kernel
 (csrc/greeks.cu, ops/autodiff.py); and calibration (``calibration``):
 the Heston, Bates and Variance Gamma COS pricers, the float64 calibrator
 with its scipy cascade, the synthetic oracle surfaces, and the
-calibrate -> price app (``apps.calibrate``). Features outside these raise
+calibrate -> price app (``apps.calibrate``); and the IV surface
+(``surface``, ``data``): the IV-surface network with its trainer, MC-dropout
+and torch checkpoints, the SVI surface and its Dupire local vol, the
+synthetic oracles and the gated market feed, the training app
+(``apps.train_surface``), and local vol under a bare ``sigma_fn``
+(``models.localvol``), whose normals come from the port's own normals
+kernel (csrc/philox.cu) on the card. Features outside these raise
 NotImplementedError naming their JAX counterpart.
 
 This package imports torch and numpy only, never jax.

@@ -1,9 +1,10 @@
 """Frozen-dataclass configs with the field names and defaults of
 options_model_tpu/core/config.py (OptionSpec, HestonParams, MertonParams,
-BatesParams, VGParams, MCConfig, LSMConfig, CalibrationConfig), their eager
-``validate()`` checks (the same conditions, exception types and messages),
-the parameter vectors of the calibrator (``to_array`` / ``from_array``, as
-float64 numpy), and ``cp_from_str`` / ``cp_to_str``.
+BatesParams, VGParams, MCConfig, LSMConfig, CalibrationConfig,
+SurfaceTrainConfig), their eager ``validate()`` checks (the same
+conditions, exception types and messages), the parameter vectors of the
+calibrator (``to_array`` / ``from_array``, as float64 numpy), and
+``cp_from_str`` / ``cp_to_str``.
 ``dataclasses.replace`` takes the place of the flax ``.replace``.
 
 ``from_reference(fields)`` builds a port config from the reference object's
@@ -312,4 +313,37 @@ class CalibrationConfig(_FromReference):
     def validate(self) -> "CalibrationConfig":
         if self.cos_n < 16:
             raise ValueError("cos_n must be >= 16")
+        return self
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfaceTrainConfig(_FromReference):
+    """IV-surface network training knobs, as the reference's
+    SurfaceTrainConfig (options_model_tpu/core/config.py:465-493)."""
+
+    epochs: int = 50
+    batch_size: int = 128
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    lambda_butterfly: float = 1e-3
+    lambda_calendar: float = 1e-4
+    hidden_dim: int = 64
+    num_hidden_layers: int = 4
+    dropout: float = 0.1
+    epsilon: float = 1e-4       # IV floor applied at the network output
+    val_split: float = 0.15
+    patience: int = 8
+    use_cosine_schedule: bool = True
+    use_augmentation: bool = True
+    seed: int = 42
+    mc_dropout: bool = True
+    mc_samples: int = 20
+    use_vega_weighting: bool = True
+    grad_clip: float = 1.0
+
+    def validate(self) -> "SurfaceTrainConfig":
+        if not (0 < self.val_split < 1):
+            raise ValueError("val_split must be in (0, 1)")
+        if self.epochs <= 0 or self.batch_size <= 0:
+            raise ValueError("epochs and batch_size must be positive")
         return self

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "omt_gbm_terminal": [_P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_philox_words": [_P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_sincos_check": [_P, _P],
+    "omt_path_normals": [_P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_paths_vjp": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_paths_vjp_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_gbm_terminal_vjp": [_P, _P, _P, _P, ctypes.c_longlong, _I, _P],

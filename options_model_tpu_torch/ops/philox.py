@@ -19,7 +19,12 @@ One Philox call yields four words, which Box-Muller turns into four normals
 draw q // 4. A slot is one antithetic pair when the caller mirrors, so a
 tile of ``tile`` paths has ``tile // 2`` slots, path j + tile/2 being the
 mirror of path j. The GBM, Euler-Heston and local-vol streams use this
-layout (``path_normals``).
+layout (``path_normals``). ``draw_path_normals`` makes the same normals on
+the card with the port's own kernel (csrc/philox.cu path_normals_kernel,
+row 20 of the kernel table), for the local-vol route whose time loop runs
+a network (models/localvol.py): its Box-Muller is kernels 7 and 8's
+(hopper_fast.cuh box_muller_fast), so it gives their draws bit for bit and
+path_normals's within that Box-Muller's ~3e-6.
 
 The QE-M Heston stream (``qe_path_draws``) takes one Philox call per step:
 draw t gives (w0, w1) -> Box-Muller -> (z_v, z_s), w2 -> the raw uniform u,
@@ -218,6 +223,34 @@ def path_normals(seed: int, first_tile: int, n_tiles: int, tile: int,
     width = tile // 2 if antithetic else tile
     z = stream_normals(seed, first_tile, n_tiles, width, n_normals, device)
     return mirror_tiles(z, n_tiles) if antithetic else z
+
+
+# Launches of the normals kernel since the last reset.
+launches = {"path_normals": 0}
+
+
+def draw_path_normals(seed: int, first_tile: int, n_tiles: int, tile: int, n_normals: int,
+                      antithetic: bool, device=None) -> torch.Tensor:
+    """``path_normals`` on ``device`` (the card by default): the plain
+    version for a CPU device, csrc/philox.cu's path_normals_kernel for a
+    CUDA device (raising without CUDA; no fallback)."""
+    from options_model_tpu_torch.ops import _build
+    from options_model_tpu_torch.ops.engine import resolve_device
+
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return path_normals(seed, first_tile, n_tiles, tile, n_normals, antithetic, device)
+    _build.require_cuda(device)
+    _build.check_launch(seed, first_tile, n_tiles, n_normals)
+    if antithetic and tile % 2:
+        raise ValueError(f"an antithetic tile must be even, got {tile}")
+    if (n_normals + 3) // 4 > 65535:
+        raise ValueError(f"{n_normals} normals a path exceed the kernel's grid (4 x 65535)")
+    out = torch.empty((n_normals, n_tiles * tile), dtype=torch.float32, device=device)
+    _build.launch("omt_path_normals", device, out.data_ptr(), seed, first_tile, n_tiles, tile,
+                  n_normals, int(antithetic))
+    launches["path_normals"] += 1
+    return out
 
 
 def qe_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int,

@@ -2,7 +2,9 @@
 options_model_tpu/pricers/american.py: the polynomial regressor and the
 shared continuation network (NN-LSM) under GBM, Heston (Euler or QE-M),
 Merton and Bates (Heston, Euler or QE-M, times the jump overlay); and under
-local vol over a compiled table, which has no control-variate leg.
+local vol, over a compiled table or a bare ``sigma_fn`` (the IV-surface
+network's adapter, SVI's Dupire local vol), which has no control-variate
+leg.
 
 Paths come from the Philox path kernels (csrc/, or their plain versions on
 the CPU) in the flat (n_steps+1, n_paths) layout. The backward induction is
@@ -65,9 +67,8 @@ MODELS = ("gbm", "heston", "localvol", "merton", "bates")
 def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) -> None:
     """Raise for what this port does not carry yet: the models outside
     MODELS (VG, SABR, rBergomi) and the path-sharded LSM. Local vol runs
-    only over a compiled table (models/localvol.simulate_local_vol raises
-    without one), so the per-option pricers, which take no table, refuse it
-    as in the reference's sigma_fn route."""
+    under a compiled table or a bare ``sigma_fn``, as in the reference;
+    models/localvol.simulate_local_vol raises ValueError with neither."""
     if model not in MODELS:
         raise not_ported(f"model={model!r}", "pricers.american.simulate_paths")
     if lsm is not None and lsm.regressor not in ("poly", "nn"):
@@ -91,7 +92,7 @@ def _discount(rate, tau):
 def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str, *,
                     sigma=None, drift=0.0, heston: Optional[HestonParams] = None,
                     merton: Optional[MertonParams] = None,
-                    bates: Optional[BatesParams] = None,
+                    bates: Optional[BatesParams] = None, sigma_fn=None,
                     heston_scheme: str = "euler", localvol_table=None,
                     return_variance: bool = False, device=None):
     """The path kernels' dispatch on an explicit (seed, first_tile): tiles
@@ -109,7 +110,7 @@ def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str
                             device=device)
     if model == "localvol":
         return simulate_local_vol(seed, S0, drift, T, cfg, table=localvol_table,
-                                  first_tile=first_tile, device=device)
+                                  sigma_fn=sigma_fn, first_tile=first_tile, device=device)
     if model == "merton":
         if merton is None:
             raise ValueError("merton params required for model='merton'")
@@ -131,15 +132,16 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
                    model: str = "gbm", *, sigma=None, rate=0.0,
                    heston: Optional[HestonParams] = None,
                    merton: Optional[MertonParams] = None,
-                   bates: Optional[BatesParams] = None, engine: str = "auto",
-                   heston_scheme: str = "euler", localvol_table=None, div_yield=0.0,
-                   return_variance: bool = False, layout: str = "flat",
-                   device=None):
+                   bates: Optional[BatesParams] = None, sigma_fn=None,
+                   engine: str = "auto", heston_scheme: str = "euler",
+                   localvol_table=None, div_yield=0.0, return_variance: bool = False,
+                   layout: str = "flat", device=None):
     """Full path matrix (n_steps+1, n_pad) [and, for Heston or Bates with
     ``return_variance``, the variance matrix] from the path kernels: GBM,
     Heston (``heston_scheme`` "euler" or "qe"), Merton, Bates (Heston times
     the jump overlay) or local vol over a compiled Chebyshev
-    ``localvol_table`` (surface/cheb.compile_localvol_table).
+    ``localvol_table`` (surface/cheb.compile_localvol_table; it takes
+    precedence) or under a bare ``sigma_fn(S, tau)``.
 
     One 64-bit kernel seed is drawn from ``generator``. ``div_yield``: the
     simulated drift is rate - q; discounting stays the pricer's job."""
@@ -149,7 +151,7 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
     resolve_engine(engine, device)
     return simulate_seeded(seed_from_generator(generator), 0, S0, T, cfg, model,
                            sigma=sigma, drift=rate - div_yield, heston=heston,
-                           merton=merton, bates=bates,
+                           merton=merton, bates=bates, sigma_fn=sigma_fn,
                            heston_scheme=heston_scheme, localvol_table=localvol_table,
                            return_variance=return_variance, device=device)
 
@@ -548,7 +550,7 @@ def _vol_params(heston, bates=None):
 
 
 def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
-                  heston_scheme, device, merton=None, bates=None):
+                  heston_scheme, device, merton=None, bates=None, sigma_fn=None):
     """(S_paths, v_paths or None, fit seed or None) for the LSM pricers, at
     the width of simulated_config. The simulation draws its seed from
     ``generator`` first (Bates's overlay takes the same seed); the NN-LSM's
@@ -558,7 +560,7 @@ def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
         out = simulate_paths(generator, S0, T, simulated_config(mc, model), model,
                              sigma=spec.sigma,
                              rate=spec.rate, heston=heston, merton=merton, bates=bates,
-                             engine=engine,
+                             sigma_fn=sigma_fn, engine=engine,
                              heston_scheme=heston_scheme, div_yield=spec.div_yield,
                              return_variance=want_v, device=device)
     S_paths, v_paths = out if want_v else (out, None)
@@ -595,15 +597,15 @@ def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
                        mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
                        heston: Optional[HestonParams] = None,
                        merton: Optional[MertonParams] = None,
-                       bates: Optional[BatesParams] = None, axis_name=None,
-                       engine: str = "auto", heston_scheme: str = "euler",
+                       bates: Optional[BatesParams] = None, sigma_fn=None,
+                       axis_name=None, engine: str = "auto", heston_scheme: str = "euler",
                        device=None):
     """Simulate + LSM backward induction (either regressor). Returns (price,
     stderr)."""
     _check_slice(model, lsm, axis_name)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates)
+                                               merton, bates, sigma_fn)
     pb = _pair_block(mc, model)
     return _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
                          stat_pair_block=pb if mc.antithetic else None, heston=heston,
@@ -614,7 +616,7 @@ def price_american_with_control_variate(
         generator: torch.Generator, S0, T, spec: OptionSpec, mc: MCConfig,
         lsm: LSMConfig, model: str = "gbm", *,
         heston: Optional[HestonParams] = None, merton: Optional[MertonParams] = None,
-        bates: Optional[BatesParams] = None, axis_name=None,
+        bates: Optional[BatesParams] = None, sigma_fn=None, axis_name=None,
         engine: str = "auto", heston_scheme: str = "euler", device=None):
     """American price with the same-path European control variate:
     AM_cv = AM_lsm + beta (EU_closed_form - EU_mc_same_paths), the stderr
@@ -625,11 +627,11 @@ def price_american_with_control_variate(
     _check_slice(model, lsm, axis_name)
     if not _has_cv_leg(spec, model, heston, merton, bates):
         return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
-                                  heston=heston, merton=merton, bates=bates, engine=engine,
-                                  heston_scheme=heston_scheme, device=device)
+                                  heston=heston, merton=merton, bates=bates, sigma_fn=sigma_fn,
+                                  engine=engine, heston_scheme=heston_scheme, device=device)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates)
+                                               merton, bates, sigma_fn)
     pb = _pair_block(mc, model)
     _, _, (cash, eval_mask) = _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
                                             return_cash=True, heston=heston, bates=bates)
@@ -644,7 +646,7 @@ def price_american_with_stats(generator: torch.Generator, S0, T, spec: OptionSpe
                               mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
                               heston: Optional[HestonParams] = None,
                               merton: Optional[MertonParams] = None,
-                              bates: Optional[BatesParams] = None,
+                              bates: Optional[BatesParams] = None, sigma_fn=None,
                               engine: str = "auto", device=None):
     """(price, stderr, cashflow statistics): the reference's verbose pricing
     report (mean, std, min, max and P(worthless) of the per-path discounted
@@ -653,7 +655,7 @@ def price_american_with_stats(generator: torch.Generator, S0, T, spec: OptionSpe
     _check_slice(model, lsm)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, "euler", device, merton,
-                                               bates)
+                                               bates, sigma_fn)
     pb = _pair_block(mc, model)
     price, stderr, (cash, eval_mask) = _lsm_backward(
         fit_seed, S_paths, v_paths, spec, T, lsm, pb,
@@ -692,7 +694,7 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
                               mc: MCConfig, lsm: LSMConfig, model: str = "gbm",
                               *, heston: Optional[HestonParams] = None,
                               merton: Optional[MertonParams] = None,
-                              bates: Optional[BatesParams] = None,
+                              bates: Optional[BatesParams] = None, sigma_fn=None,
                               engine: str = "auto", heston_scheme: str = "euler",
                               device=None):
     """Richardson-extrapolated continuous-exercise American price: an n-date
@@ -704,7 +706,7 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
     _check_slice(model, lsm)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates)
+                                               merton, bates, sigma_fn)
     pb = _pair_block(mc, model)
     kw = dict(heston=heston, bates=bates, model=model, pair_block=pb)
     if lsm.regressor == "nn":
@@ -719,14 +721,14 @@ def price_american(generator: torch.Generator, S0, T, spec: OptionSpec,
                    mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
                    heston: Optional[HestonParams] = None,
                    merton: Optional[MertonParams] = None,
-                   bates: Optional[BatesParams] = None, axis_name=None,
+                   bates: Optional[BatesParams] = None, sigma_fn=None, axis_name=None,
                    engine: str = "auto", device=None):
     """The public dispatcher: the European terminal sampler when
     ``lsm.european_approximation``, Richardson when ``lsm.richardson``, the
     control variate when it is on and a closed-form leg exists, plain LSM
     otherwise. Returns (price, stderr) as 0-dim tensors on ``device``."""
     _check_slice(model, lsm, axis_name)
-    models = dict(heston=heston, merton=merton, bates=bates)
+    models = dict(heston=heston, merton=merton, bates=bates, sigma_fn=sigma_fn)
     if lsm.european_approximation:
         from options_model_tpu_torch.pricers.european import (
             make_terminal_sampler, price_european_mc)

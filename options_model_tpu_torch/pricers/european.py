@@ -1,7 +1,7 @@
 """European Monte-Carlo pricing with streaming Welford statistics, as
 options_model_tpu/pricers/european.py (GBM, Heston Euler and QE-M, Merton,
-Bates and table local-vol terminal samplers), and the one-draw exact GBM
-price.
+Bates and local-vol terminal samplers: over a compiled table, or a bare
+``sigma_fn``), and the one-draw exact GBM price.
 
 The terminal kernels (csrc/, or their plain versions on the CPU) never
 materialize a path matrix. Chunks are keyed by global tile: chunk c runs
@@ -26,6 +26,7 @@ from options_model_tpu_torch.core.stats import (pair_mean_reduce, welford_empty,
                                                 welford_from_batch, welford_merge)
 from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.models.gbm import gbm_terminal_exact
+from options_model_tpu_torch.models.localvol import simulate_local_vol
 from options_model_tpu_torch.ops.cuda_gbm import gbm_terminal
 from options_model_tpu_torch.ops.cuda_heston import (TERMINAL_TILE, heston_terminal,
                                                      heston_terminal_qe)
@@ -44,15 +45,18 @@ TerminalSampler = Callable[[int, int, MCConfig], torch.Tensor]
 def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                           heston: Optional[HestonParams] = None,
                           merton: Optional[MertonParams] = None,
-                          bates: Optional[BatesParams] = None,
+                          bates: Optional[BatesParams] = None, sigma_fn=None,
                           engine: str = "auto", heston_scheme: str = "euler",
                           localvol_table: Optional[LocalVolTable] = None,
                           div_yield=0.0, device=None) -> TerminalSampler:
     """Terminal-price sampler for GBM (log-Euler), Heston (full-truncation
     Euler, or QE-M with ``heston_scheme="qe"``), Merton, Bates (the Heston
     terminal kernel of ``heston_scheme``, then the terminal jump overlay
-    multiplied into its output in place) or local vol over a compiled
-    Chebyshev ``localvol_table``, on the terminal kernels. ``div_yield``:
+    multiplied into its output in place) or local vol, on the terminal
+    kernels: over a compiled Chebyshev ``localvol_table`` (which takes
+    precedence), else under a bare ``sigma_fn(S, tau)``
+    (models/localvol.simulate_local_vol's bare route, the same tiles and
+    normals). ``div_yield``:
     the sampler's drift is r - q; the pricer still discounts at r. The
     sampler's ``pair_block`` is TERMINAL_TILE, the kernels' antithetic
     mirror granularity and the unit of ``first_tile``. A call draws tiles
@@ -94,15 +98,17 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
         def fn(seed, first_tile, c):
             return merton_terminal(seed, S0, drift, T, merton, c.n_paths, c.n_steps,
                                    c.antithetic, first_tile, device)
-    elif model == "localvol":
-        if localvol_table is None:
-            raise not_ported("model='localvol' without a compiled localvol_table "
-                             "(the surface-network route)",
-                             "models.localvol.simulate_local_vol")
-
+    elif model == "localvol" and localvol_table is not None:
         def fn(seed, first_tile, c):
             return localvol_terminal(seed, S0, drift, T, localvol_table, c.n_paths,
                                      c.n_steps, c.antithetic, first_tile, device)
+    elif model == "localvol":
+        if sigma_fn is None:
+            raise ValueError("sigma_fn required for model='localvol'")
+
+        def fn(seed, first_tile, c):
+            return simulate_local_vol(seed, S0, drift, T, c, sigma_fn=sigma_fn,
+                                      return_paths=False, first_tile=first_tile, device=device)
     else:
         raise not_ported(f"model={model!r}", "pricers.european.make_terminal_sampler")
     fn.pair_block = TERMINAL_TILE

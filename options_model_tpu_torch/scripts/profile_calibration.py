@@ -30,10 +30,8 @@ largest difference between the card's and the host's residuals there.
 from __future__ import annotations
 
 import argparse
-import json
 import statistics
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,6 +43,7 @@ from options_model_tpu_torch.calibration.synthetic import (create_synthetic_bate
                                                            create_synthetic_vg_surface)
 from options_model_tpu_torch.core.config import (BatesParams, CalibrationConfig, HestonParams,
                                                  VGParams)
+from options_model_tpu_torch.data.market import read_chain_fixture
 from options_model_tpu_torch.utils.profiling import card_line
 
 N_TIMED = 20
@@ -52,26 +51,6 @@ HESTON = HestonParams(kappa=3.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.045)
 BATES = BatesParams(heston=HestonParams(kappa=2.5, theta=0.05, xi=0.45, rho=-0.6, v0=0.045),
                     lam=0.4, mu_j=-0.12, sigma_j=0.18)
 VG = VGParams(sigma=0.18, theta=-0.14, nu=0.35)
-
-
-def read_chain_fixture():
-    """(K, T, iv, S0, meta) from the recorded option chain
-    (tests/data/chain_fixture.json), parsed with numpy as the reference's
-    fetch_option_chain parses the feed it records, at its defaults: the
-    first 8 expiries, iv in (0.01, 2) and volume > 0 (NaN fails both),
-    T = max(days / 365, 1 / 365), duplicates dropped, sorted by (T, K, iv);
-    S0 the last close."""
-    path = Path(__file__).resolve().parents[2] / "tests" / "data" / "chain_fixture.json"
-    fx = json.loads(path.read_text())
-    rows = set()
-    for days in sorted(fx["expiries"], key=int)[:8]:
-        T = max(int(days) / 365.0, 1.0 / 365.0)
-        for side in ("calls", "puts"):
-            a = np.asarray(fx["expiries"][days][side], np.float64).reshape(-1, 3)
-            ok = (a[:, 1] > 0.01) & (a[:, 1] < 2.0) & (a[:, 2] > 0.0)
-            rows.update((float(k), T, float(v)) for k, v, _ in a[ok])
-    arr = np.array(sorted(rows, key=lambda r: (r[1], r[0], r[2])), np.float64)
-    return arr[:, 0], arr[:, 1], arr[:, 2], float(fx["closes"][-1]), fx["meta"]
 
 
 def surfaces(device) -> dict:

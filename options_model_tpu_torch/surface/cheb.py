@@ -9,7 +9,8 @@ log-moneyness:
 which the kernels (csrc/localvol.cu, csrc/terminal.cu) evaluate by
 Clenshaw from their carried log S. The fit is numpy ``chebfit`` on the
 reference's nodes, cast to float32; ``sigma_fn`` is called on float32 torch
-tensors.
+tensors. ``table_sigma_fn`` turns a table back into a ``sigma_fn(S, tau)``
+for the bare local-vol route (models/localvol.py).
 """
 
 from __future__ import annotations
@@ -89,3 +90,18 @@ def eval_table(table: LocalVolTable, S: torch.Tensor, t: int) -> torch.Tensor:
     for k in range(table.degree, 0, -1):
         b1, b2 = c[k] + 2.0 * u * b1 - b2, b1
     return torch.clamp_min(c[0] + u * b1 - b2, 1e-6)
+
+
+def table_sigma_fn(table: LocalVolTable, T: float):
+    """sigma(S, tau) over a compiled table, as the reference's
+    table_sigma_fn: tau maps back to the step the table was compiled on,
+    t = clip(round((T - tau) n_steps / T), 0, n_steps - 1) in float32
+    (round half to even), then eval_table."""
+    n_steps = table.coeffs.shape[0]
+
+    def fn(S, tau):
+        tau = torch.as_tensor(tau, dtype=torch.float32)
+        t = torch.round((T - tau) * n_steps / T)
+        return eval_table(table, S, int(torch.clamp(t, 0, n_steps - 1)))
+
+    return fn

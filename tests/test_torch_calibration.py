@@ -38,6 +38,7 @@ from options_model_tpu_torch.calibration import charfn as tcf
 from options_model_tpu_torch.calibration import synthetic as tsyn
 from options_model_tpu_torch.core import config as tcfg
 from options_model_tpu_torch.models import merton as tmerton
+from _torch_threads import one_torch_thread_module  # noqa: F401
 
 HESTON = dict(kappa=3.0, theta=0.05, xi=0.4, rho=-0.6, v0=0.045)
 BATES_HESTON = dict(kappa=2.5, theta=0.05, xi=0.45, rho=-0.6, v0=0.045)
@@ -48,15 +49,10 @@ N_TERMS = {"heston": 256, "bates": 256, "vg": 2048}
 RATE = {"heston": 0.05, "bates": 0.04, "vg": 0.05}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The objective is ~5,000 small ops on 15-90 elements: torch's
-    intra-op threads only add overhead (one evaluation takes 3x as long at
-    8 threads as at 1)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# The objective is ~5,000 small ops on 15-90 elements: torch's intra-op threads
+# only add overhead (one evaluation takes 3x as long at 8 threads as at 1).
+# (tests/_torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 
 def _params(model):

@@ -39,6 +39,7 @@ from options_model_tpu_torch.ops.philox import (DUAL_STREAM, box_muller, dual_ca
                                                 poisson_table, stream_words, uniform_from_bits)
 from options_model_tpu_torch.pricers import american as pa
 from options_model_tpu_torch.pricers import dual as pd
+from _torch_threads import one_torch_thread  # noqa: F401
 
 S0, K, T, R = 100.0, 100.0, 0.5, 0.05
 J_HESTON = JHestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
@@ -74,15 +75,10 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.fixture
-def _one_torch_thread():
-    """One torch intra-op thread while LSM fits run: several test workers
-    share the machine, and each worker's default pool (a thread a core)
-    oversubscribes the cores (ROADMAP item B)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One torch intra-op thread while LSM fits run: several test workers share the
+# machine, and each worker's default pool (a thread a core) oversubscribes the
+# cores (ROADMAP item B).
+# The tests that need it take tests/_torch_threads.py's one_torch_thread.
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +121,7 @@ def _params(model):
             dict(heston=HESTON, merton=MERTON, bates=BATES))
 
 
-@pytest.mark.usefixtures("_one_torch_thread")
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("model", ["gbm", "heston"])
 def test_fit_lsm_policy_matches_jax_float64(xla_paths, model):
     """betas, x_mean, x_rstd (v_mean, v_rstd) of both packages in float64,
@@ -204,7 +200,7 @@ J_NN = JLSMConfig(regressor="nn", nn_hidden=8, nn_layers=1, nn_epochs=1, nn_batc
 NN_DUAL_RTOL = 1e-5
 
 
-@pytest.mark.usefixtures("_one_torch_thread")
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("model", ["gbm", "heston"])
 def test_nn_dual_upper_matches_jax_on_shared_draws(xla_paths, model):
     """dual_upper_from_nn_policy on the JAX package's paths, its trained

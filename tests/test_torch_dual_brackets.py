@@ -24,6 +24,7 @@ from options_model_tpu_torch.models.merton import merton_price
 from options_model_tpu_torch.pricers import american as pa
 from options_model_tpu_torch.pricers import dual as pd
 from options_model_tpu_torch.pricers.binomial import crr_american
+from _torch_threads import one_torch_thread  # noqa: F401
 
 S0, K, T, R, SIG = 100.0, 100.0, 0.5, 0.05, 0.2
 PUT_SPEC = OptionSpec(strike=K, rate=R, cp=-1.0, sigma=SIG)
@@ -43,15 +44,11 @@ def _f(br):
     return [float(b) for b in br]
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch intra-op thread: several test workers share the machine,
-    and each worker's default pool (a thread a core) oversubscribes the
-    cores (ROADMAP item B)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One torch intra-op thread: several test workers share the machine, and each
+# worker's default pool (a thread a core) oversubscribes the cores (ROADMAP
+# item B).
+# (tests/_torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,7 @@ from options_model_tpu_torch.core.config import HestonParams, LSMConfig, MCConfi
 from options_model_tpu_torch.pricers import dual as pd
 from options_model_tpu_torch.pricers.binomial import crr_american
 from options_model_tpu_torch.pricers.fd_heston import heston_fd_price
+from _torch_threads import one_torch_thread  # noqa: F401
 
 S0, K, T, R, SIG = 100.0, 100.0, 0.5, 0.05, 0.2
 HP = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
@@ -22,15 +23,11 @@ NN = LSMConfig(regressor="nn", nn_epochs=8, nn_hidden=32, nn_layers=2)
 MC_NN = MCConfig(n_paths=1 << 14, n_steps=50, path_block=1024)
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch intra-op thread: several test workers share the machine,
-    and each worker's default pool (a thread a core) oversubscribes the
-    cores (ROADMAP item B)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One torch intra-op thread: several test workers share the machine, and each
+# worker's default pool (a thread a core) oversubscribes the cores (ROADMAP
+# item B).
+# (tests/_torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _f(br):

@@ -36,6 +36,7 @@ from options_model_tpu_torch.ops.philox import dual_inner_draws
 from options_model_tpu_torch.pricers import american as pa
 from options_model_tpu_torch.pricers import dual as pd
 from options_model_tpu_torch.pricers.blackscholes import bs_price
+from _torch_threads import one_torch_thread  # noqa: F401
 
 S0, K, T, R = 100.0, 100.0, 0.5, 0.05
 HESTON = HestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
@@ -51,15 +52,11 @@ TINY = np.finfo(np.float64).tiny
 U_CLAMP = 4.0
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One torch intra-op thread for each test: several test workers share
-    the machine, and each worker's default pool (a thread a core)
-    oversubscribes the cores (as tests/test_torch_dual.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One torch intra-op thread for each test: several test workers share the
+# machine, and each worker's default pool (a thread a core) oversubscribes the
+# cores (as tests/test_torch_dual.py).
+# (tests/_torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _spec(model: str, cp: float) -> OptionSpec:

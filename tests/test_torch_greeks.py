@@ -67,25 +67,22 @@ from options_model_tpu_torch.pricers import american as am
 from options_model_tpu_torch.pricers import greeks
 from options_model_tpu_torch.pricers.blackscholes import bs_greeks_closed_form, bs_price
 from options_model_tpu_torch.pricers.european import price_european_gbm_exact
+from _torch_threads import one_torch_thread  # noqa: F401
 
 S0, K, T, R, SIG = 100.0, 100.0, 0.5, 0.05, 0.2
 FIELDS = dict(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
 J_CFG = JMCConfig(n_paths=8192, n_steps=16, path_block=4096)
 
 
-@pytest.fixture
-def _one_torch_thread():
-    """One torch intra-op thread for a test of three LSM prices: several test
-    workers share the machine, and each worker's default pool (a thread a
-    core) oversubscribes the cores. The earlier form of
-    test_american_put_greeks_signs_and_bump took 614 s in each of six
-    concurrent processes at 8 threads, 3.2 s at one (x86-64, 8 cores). Not
-    module-wide: the American Gamma of test_mc_greeks_match_jax_on_its_normals
-    moves with the LSM matmuls' reduction order, which the thread count sets."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One torch intra-op thread for a test of three LSM prices: several test
+# workers share the machine, and each worker's default pool (a thread a core)
+# oversubscribes the cores. The earlier form of
+# test_american_put_greeks_signs_and_bump took 614 s in each of six concurrent
+# processes at 8 threads, 3.2 s at one (x86-64, 8 cores). Not module-wide: the
+# American Gamma of test_mc_greeks_match_jax_on_its_normals moves with the LSM
+# matmuls' reduction order, which the thread count sets. The two Heston mc_greeks
+# tests take it: their Greeks are bit for bit the same at 1 and 8 threads.
+# The tests that need it take tests/_torch_threads.py's one_torch_thread.
 
 
 def _jax_normals(key, cfg, n_draws):
@@ -191,6 +188,7 @@ def test_mc_greeks_match_jax_on_its_normals(style):
         assert float(got[name]) == pytest.approx(float(w), rel=rtol), name
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_mc_greeks_heston_match_jax_on_its_normals():
     """Tolerances as the American GBM case (measured: price 3e-7, the
     first-order Greeks at most 6e-7, Gamma 1.2e-2)."""
@@ -227,7 +225,7 @@ def test_european_greeks_match_closed_form(european_call):
         < 0.05
 
 
-@pytest.mark.usefixtures("_one_torch_thread")
+@pytest.mark.usefixtures("one_torch_thread")
 def test_american_put_greeks_signs_and_bump():
     """tests/test_mc_greeks.py:39-56: the AD Delta within 0.02 of the
     common-random-number central difference (h = 0.5), and the signs. The
@@ -266,6 +264,7 @@ def test_mc_greeks_requires_sigma_and_a_style():
                          device="cpu")
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_mc_greeks_heston_signs():
     """tests/test_mc_greeks.py:101-114 (its xi = 0.5, 2^15 x 32 there; 2^14
     x 16 here)."""

@@ -48,6 +48,7 @@ from options_model_tpu_torch.ops.philox import (MAX_POISSON_TABLE, jump_draws,
 from options_model_tpu_torch.pricers import greeks
 from options_model_tpu_torch.pricers.american import price_american_lsm, simulate_paths
 from options_model_tpu_torch.pricers.european import make_terminal_sampler, price_european_mc
+from _torch_threads import one_torch_thread_module  # noqa: F401
 
 MERTON = dict(sigma=0.2, lam=1.0, mu_j=-0.10, sigma_j=0.15)
 HESTON = dict(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
@@ -57,15 +58,11 @@ BP = BatesParams(heston=HestonParams(**HESTON), **JUMPS)
 SEED = 0x9E3779B97F4A7C15
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Small tensors and the calibrator's ~5,000 small ops an evaluation (the
-    app test): torch's intra-op threads only add overhead, and several test
-    workers share the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# Small tensors and the calibrator's ~5,000 small ops an evaluation (the app
+# test): torch's intra-op threads only add overhead, and several test workers
+# share the machine.
+# (tests/_torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 
 def _gen(seed):

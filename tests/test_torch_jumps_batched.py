@@ -47,6 +47,7 @@ from options_model_tpu_torch.pricers.american import _pair_block, simulate_seede
 from options_model_tpu_torch.pricers.surface_american import (_pair_stderr,
                                                               lsm_surface_backward,
                                                               price_american_surface)
+from _torch_threads import one_torch_thread_module  # noqa: F401
 
 MERTON = dict(sigma=0.2, lam=1.0, mu_j=-0.10, sigma_j=0.15)
 MP = MertonParams(**MERTON)
@@ -56,14 +57,10 @@ STRIKES = np.linspace(85.0, 115.0, 5).astype(np.float32)
 SEED = 0x9E3779B97F4A7C15
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Small tensors: torch's intra-op threads only add overhead, and several
-    test workers share the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# Small tensors: torch's intra-op threads only add overhead, and several test
+# workers share the machine.
+# (tests/_torch_threads.py)
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 
 # ---- the batched plain version ------------------------------------------------------

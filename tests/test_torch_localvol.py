@@ -155,10 +155,21 @@ def test_table_too_short_raises(tables):
 
 
 def test_bare_sigma_fn_is_not_ported():
-    with pytest.raises(NotImplementedError, match="options_model_tpu\\.models\\.localvol"):
-        simulate_local_vol(1, S0, R, T, MCConfig(n_paths=4096, n_steps=4),
-                           sigma_fn=_smile_torch, device="cpu")
-    with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
+    """The bare sigma_fn route is ported now (the IV-surface slice): a bare
+    smile simulates on the table route's stream (a smile quadratic in m,
+    which a degree-7 table holds to f32 rounding: the two routes within
+    2e-5, the last ulps of log(K / S) against log K - log S), and with
+    neither a table nor sigma_fn local vol raises ValueError, as the
+    reference does (options_model_tpu/pricers/european.py:190-191)."""
+    cfg = MCConfig(n_paths=4096, n_steps=4)
+    smooth = lambda S, tau: 0.2 + 0.05 * torch.log(S / 100.0) ** 2  # noqa: E731
+    S = simulate_local_vol(1, S0, R, T, cfg, sigma_fn=smooth, device="cpu")
+    table = compile_localvol_table(smooth, 100.0, T, 4, S0)
+    np.testing.assert_allclose(S.numpy(), simulate_local_vol(1, S0, R, T, cfg, table=table,
+                                                             device="cpu").numpy(), rtol=2e-5)
+    with pytest.raises(ValueError, match="sigma_fn"):
+        simulate_local_vol(1, S0, R, T, cfg, device="cpu")
+    with pytest.raises(ValueError, match="sigma_fn"):
         make_terminal_sampler("localvol", S0, R, T, device="cpu")
 
 
@@ -204,7 +215,11 @@ def test_localvol_american_put_matches_crr():
     p, se, _ = masked_mean_stderr(stat, mask, pb)
     crr = crr_american(S0, 100.0, T, R, 0.2, cp=-1.0, n_steps=1024)
     assert abs(float(p) - crr) <= 4.0 * float(se), (float(p), float(se), crr)
-    # the per-option pricers take no table, as in the reference
-    with pytest.raises(NotImplementedError, match="localvol"):
+    # the per-option pricers take no table, as in the reference: a bare
+    # sigma_fn prices on the same paths; with neither they raise ValueError
+    p2, se2 = price_american(torch.Generator().manual_seed(4), S0, T, spec, mc, lsm,
+                             "localvol", sigma_fn=_const, device="cpu")
+    assert abs(float(p2) - crr) <= 4.0 * float(se2), (float(p2), float(se2), crr)
+    with pytest.raises(ValueError, match="sigma_fn"):
         price_american(torch.Generator().manual_seed(4), S0, T, spec, mc, lsm,
                        "localvol", device="cpu")

@@ -39,6 +39,7 @@ from options_model_tpu_torch.ops.lsm_basis import poly_features, regression_feat
 from options_model_tpu_torch.ops.philox import seed_from_generator
 from options_model_tpu_torch.pricers import american as pa
 from options_model_tpu_torch.pricers import regressors as pr
+from _torch_threads import one_torch_thread  # noqa: F401
 
 J_HESTON = JHestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
 HESTON = HestonParams.from_reference(vars(J_HESTON))
@@ -70,18 +71,17 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
-@pytest.fixture
-def _one_torch_thread():
-    """One torch intra-op thread for a test of several NN-LSM prices on
-    small tensors: several test workers share the machine, and each
-    worker's default pool (a thread a core) oversubscribes the cores.
-    test_price_american_routes_nn took 296 s (gbm) and 258 s (heston) in
-    each of six concurrent processes at 8 threads, 4.7-5.6 s at one
-    (x86-64, 8 cores), with the same prices bit for bit at 8 and 1."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# One torch intra-op thread for a test of several NN-LSM prices on small
+# tensors: several test workers share the machine, and each worker's default
+# pool (a thread a core) oversubscribes the cores.
+# test_price_american_routes_nn took 296 s (gbm) and 258 s (heston) in each of
+# six concurrent processes at 8 threads, 4.7-5.6 s at one (x86-64, 8 cores),
+# with the same prices bit for bit at 8 and 1. The NN backward, Richardson and
+# price_american_with_stats tests take it too: their prices are bit for bit
+# the same at 1 and 8 threads, and alone they ran 12.7 s against 41.8 s
+# (lsm_nn_backward[gbm]) and 2.2-3.1 s against 16.8-17.9 s (Richardson merton,
+# heston) at 1 and 8 threads (x86-64, 8 cores).
+# The tests that need it take tests/_torch_threads.py's one_torch_thread.
 
 
 @pytest.fixture(scope="module")
@@ -306,6 +306,7 @@ def _agree(p, se, p_j, se_j):
         float(p), float(se), float(p_j), float(se_j))
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("model", ["gbm", "heston"])
 def test_lsm_nn_backward_matches_reference_on_identical_paths(xla_paths, model):
     S, v = xla_paths[model]
@@ -328,6 +329,7 @@ def test_lsm_nn_backward_matches_reference_on_identical_paths(xla_paths, model):
         pa.lsm_nn_backward(5, _t(S), spec, T, lsm, out_of_sample=True)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("model", ["gbm", "merton", "heston"])
 def test_richardson_nn_stat_matches_reference_on_identical_paths(xla_paths, model):
     """The NN Richardson statistic's price on the same paths. Merton takes
@@ -354,7 +356,7 @@ def test_richardson_nn_stat_matches_reference_on_identical_paths(xla_paths, mode
         assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
 
 
-@pytest.mark.usefixtures("_one_torch_thread")
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("model", ["gbm", "heston"])
 def test_price_american_routes_nn(model):
     """The dispatcher prices regressor='nn' under CV, Richardson and plain
@@ -399,6 +401,7 @@ def test_cashflow_statistics_matches_reference():
             np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("regressor", ["poly", "nn"])
 def test_price_american_with_stats(regressor):
     _, spec = _spec(0.2)

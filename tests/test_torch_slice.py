@@ -233,15 +233,27 @@ def test_no_silent_fallback_to_the_cpu():
 @pytest.mark.parametrize("case", ["vg", "sabr", "localvol", "axis_name", "blocked"])
 def test_unported_features_name_their_reference(case):
     _, _, spec, lsm = _port(None)
+    if case == "localvol":
+        # Local vol is ported under a compiled table or a bare sigma_fn (the
+        # surface-network route). With neither it raises ValueError, as the
+        # reference does (options_model_tpu/pricers/european.py:190-191); a
+        # bare sigma_fn prices (a constant 0.2: the GBM put's neighbourhood).
+        with pytest.raises(ValueError, match="sigma_fn"):
+            simulate_paths(_gen(8), 100.0, 0.5, MC, "localvol", rate=0.05, device="cpu")
+        flat = lambda S, tau: torch.full_like(S, 0.2)  # noqa: E731
+        S = simulate_paths(_gen(8), 100.0, 0.5, MC, "localvol", rate=0.05, sigma_fn=flat,
+                           device="cpu")
+        assert S.shape[0] == MC.n_steps + 1 and bool(torch.isfinite(S).all())
+        p, se = price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "localvol", sigma_fn=flat,
+                               device="cpu")
+        assert 4.0 < float(p) < 5.3 and float(se) > 0
+        return
     with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
         if case == "vg":
             price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "vg", device="cpu")
         elif case == "sabr":
             price_american(_gen(8), 100.0, 0.5, spec, MC, LSMConfig(regressor="nn"),
                            "sabr", heston=HESTON, device="cpu")
-        elif case == "localvol":
-            # local vol without a compiled table: the surface-network route
-            simulate_paths(_gen(8), 100.0, 0.5, MC, "localvol", rate=0.05, device="cpu")
         elif case == "axis_name":
             price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "heston", heston=HESTON,
                            axis_name="paths", device="cpu")
