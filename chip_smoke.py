@@ -56,7 +56,18 @@ Phases, in order; any failure exits non-zero:
    Poisson count bit for bit, each redesign's S and counts its first
    design's bit for bit, kernel 14's batched launch over the Merton
    surface's 64 maturities its 64 single-maturity launches bit for bit,
-   bit-equal ``first_tile`` chunks;
+   bit-equal ``first_tile`` chunks; F0, the Variance Gamma and SABR kernels
+   21-24 (csrc/vg.cu: VG paths of a batch of maturities and the exact
+   terminal step, with Marsaglia-Tsang gamma draws on counter word 3 = 3;
+   csrc/sabr.cu: SABR forward and vol paths and terminal forwards with the
+   control variate's forward, beta = 1 and beta < 1 instances) against
+   their plain versions: the VG stream's words bit for bit, no gamma draw
+   accepted at another attempt at 2 tiles (at most ATTEMPT_FLIPS of the
+   draws at the legs' shapes), the gamma draws within GAMMA_RTOL at shapes
+   0.01, 0.05, 1 and 2.5 and the law of 2^22 draws at each against
+   scipy.stats.gamma, S, F and G_T within S_RTOL and alpha within V_RTOL,
+   the absorbed SABR paths the same set, the 64-maturity VG batch its 64
+   single launches bit for bit, ``first_tile`` chunks bit for bit;
 3. the paths, each driven with every launch count set to 0 just before it
    and read just after:
    a. the main path through ``price_american``: the pooled Heston American
@@ -127,7 +138,22 @@ Phases, in order; any failure exits non-zero:
       2^21 x 50; V3 save -> restore, the table bit for bit; V4 SVI on
       Heston-COS smiles, its Dupire local vol through a table at 2^22 x 100
       and bare at 2^20 x 48 against the JAX package's prices;
-4. the launch counts of each path, none of its kernels at 0, the first
+   j. the families path (the [F] lines; models/vg.py, models/sabr.py, the
+      JAX tests' configurations and bars): F1 the VG European put at 2^22
+      (kernel 22) against float64 COS, the martingale, kernel 21's S_T at
+      2^20 x 50 against COS; F2 the VG American put at 2^20 x 50, CV and
+      Richardson pooled over F_SEEDS seeds against the COS-Bermudan and
+      COS-American values; F3 the 64 x 64 VG surface (one kernel-21 launch)
+      with three ATM cells against cos_bermudan_price(n_dates=50); F4 the
+      SABR Europeans at 2^22 x 64 (kernel 24: CV against Hagan, nu = 0
+      against Black, the CV's stderr, put-call parity, the European
+      sampler, the absorbing beta = 0.5 regime through kernel 23); F5 the
+      SABR American put at 2^20 x 50, Richardson on the (S, alpha) basis
+      (kernel 23) pooled against the ADI value, the S-only basis below it,
+      nu = 1e-4 against CRR(4096); F6 calibrate_sabr's round trips in
+      float64 on the card beside the JAX package's fits;
+4. the launch counts of each path (the families path: kernels 21-24),
+   none of its kernels at 0, the first
    design of kernels 1, 3-8 and 12-18 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
@@ -154,10 +180,14 @@ Phases, in order; any failure exits non-zero:
    beside their bounds and plain versions, and the seconds per bracket
    with the kernels' share; kernel 20 at the bare route's European and
    American chunks beside its bound and plain version, and the IV-surface
-   path's seconds.
+   path's seconds; kernels 21-24 at their legs' shapes (21 also at F3's
+   64 x 16,384 x 50 batch) beside their bounds (the integer term at the
+   run's mean gamma attempts) and plain versions, with registers and
+   occupancy, and the families path's seconds by leg.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
-per jump kernel, one per dual kernel and one for the normals kernel (20);
+per jump kernel, one per dual kernel, one for the normals kernel (20) and
+one per family kernel (21-24);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -4269,6 +4299,633 @@ def phase_normals_timing(per_call: float, launches: dict) -> dict:
     return rows
 
 
+# The Variance Gamma and SABR families (phase F, the [F...] lines): kernels
+# 21-24 of csrc/vg.cu and csrc/sabr.cu, models/vg.py, models/sabr.py and
+# their branches of the pricers. Configurations are the JAX tests':
+VG_F1 = dict(sigma=0.18, theta=-0.14, nu=0.35)            # tests/test_vg.py:22
+VG_F2 = dict(sigma=0.2, theta=-0.14, nu=0.2)              # tests/test_cos_bermudan.py:21-24
+SABR_F4 = dict(alpha=0.2, beta=1.0, rho=-0.4, nu=0.6)     # tests/test_sabr.py:16-17
+SABR_ABSORB = dict(alpha=8.0, beta=0.5, rho=0.0, nu=0.2)  # tests/test_sabr.py:78-90
+# Host oracles, too slow for this script (the JAX package in float64 on an
+# x86-64 CPU: cos_american_price 42.6 s, sabr_fd_price at (450, 180, 450)
+# 12.5-12.8 s), taken as constants: F2's put (S0 = K = 100, T = 0.5, r =
+# 0.05) by cos_bermudan_price(n_dates=50) and cos_american_price, F5's (r =
+# 0.03) by sabr_fd_price(n_f=450, n_a=180, n_t=450), and with
+# exercise_dates=50 (printed).
+VG_COS_BERMUDAN = 4.665786
+VG_COS_AMERICAN = 4.670817
+SABR_ADI = 5.077948
+SABR_ADI_BERMUDAN = 5.075018
+# The JAX package's own estimators at 2^16 x 50 on the CPU against those
+# oracles (its VG CV price, seeds 7 and 8; its SABR Richardson price, seed
+# 7), printed beside F2's and F5's pooled gaps.
+JAX_VG_CV_GAP = (-0.0033, -0.0032)
+JAX_SABR_RICH_GAP = -0.0075
+# The JAX package's calibrate_sabr fits of F6's two smiles (its float32
+# outputs, x86-64 CPU), printed beside the port's.
+JAX_F6_FITS = {1.0: (0.2199999988079071, -0.5000001192092896, 0.7999998331069946),
+               0.7: (0.30000004172325134, -0.29999998211860657, 0.4999997913837433)}
+F_SEEDS = 4
+F_GATE = 0.01              # American puts: max(1%, 4 pooled stderr) (tests/test_cos_bermudan.py)
+SABR_HAGAN_BIAS = 0.003    # Europeans vs Hagan's O(T) form: 4 stderr + 0.3% (tests/test_sabr.py)
+SABR_ADI_GATE = 0.015      # the (S, alpha) Richardson put vs ADI (tests/test_sabr.py:246-257)
+SABR_BASIS_GAP = 0.02      # the S-only basis prices lower by more than this
+# Kernels 21-24 against their plain versions: the gamma sampler's accept
+# test and the SABR states take the same IEEE operations in the same order
+# on both sides (csrc/vg.cu, csrc/sabr.cu), so the accepting attempts and
+# the absorbed paths are equal; an attempt that did differ would move a
+# whole draw. At 2 tiles no attempt may differ, at the legs' shapes at most
+# ATTEMPT_FLIPS of the draws (their paths are left out of the S check and
+# counted). Gamma draws within GAMMA_RTOL, or FLT_MIN absolute for the
+# subnormals (a ~ 0.01).
+GAMMA_SHAPES = (0.01, 0.05, 1.0, 2.5)
+GAMMA_RTOL = 1e-5
+ATTEMPT_FLIPS = 1e-6
+FLT_MIN = 1.1754943508222875e-38
+GAMMA_QUANTILES = (0.5, 0.75, 0.95)
+# f32 operations a path-step, counted from csrc/vg.cu: a gamma attempt the
+# Box-Muller's 11 and the accept test's 14 (1 + c x, its cube, x^2/2 + d -
+# d v + d log v, log u, the compare), the boost 5 (two logs, a multiply, an
+# add, exp), the pair's normal 11/2, the increment 8, the store's add and
+# exp 2; SABR the Box-Muller's 11/2, w2 3, the vol step 5, log-Euler 7, the
+# store's exp 1 (the terminal kernel's control variate 3 more, no store).
+OPS_VG_ATTEMPT = 11 + 14
+OPS_VG_STEP = 11 / 2 + 8 + 2
+OPS_VG_BOOST = 5
+OPS_SABR = 11 / 2 + 3 + 5 + 7 + 1
+OPS_SABR_CV = OPS_SABR + 3 - 1
+DRAWS_SABR = (1 / 2, 1)
+
+
+def vg_draws(attempts: float, boost: bool) -> tuple:
+    """Philox (calls, words made uniform) a VG path-step at ``attempts``
+    gamma attempts a draw (the run's mean): half a call for the pair's
+    normal (two words), and per attempt one call of three words (four with
+    the boost)."""
+    return (0.5 + attempts, 1 + attempts * (4 if boost else 3))
+
+
+def family_specs():
+    """Kernels 21-24: name, source, the XLA function each replaces, the
+    paths that run it and its launch counter."""
+    from options_model_tpu_torch.ops import cuda_sabr, cuda_vg
+
+    vg_src, sabr_src = "options_model_tpu_torch/csrc/vg.cu", "options_model_tpu_torch/csrc/sabr.cu"
+    return [
+        dict(name="vg_paths", source=vg_src, replaces="options_model_tpu/models/vg.py:55",
+             paths=("families",), counter=(cuda_vg.launches, "vg_paths")),
+        dict(name="vg_terminal", source=vg_src, replaces="options_model_tpu/models/vg.py:92",
+             paths=("families",), counter=(cuda_vg.launches, "vg_terminal")),
+        dict(name="sabr_paths", source=sabr_src, replaces="options_model_tpu/models/sabr.py:90",
+             paths=("families",), counter=(cuda_sabr.launches, "sabr_paths")),
+        dict(name="sabr_terminal", source=sabr_src,
+             replaces="options_model_tpu/models/sabr.py:90 (terminal) and :211-236",
+             paths=("families",), counter=(cuda_sabr.launches, "sabr_terminal")),
+    ]
+
+
+def _family_params():
+    from options_model_tpu_torch.core.config import SABRParams, VGParams
+
+    return (VGParams(**VG_F1), VGParams(**VG_F2), SABRParams(**SABR_F4),
+            SABRParams(**SABR_ABSORB))
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / |want| (0 for empty tensors)."""
+    d = (got.double() - want.double()).abs()
+    return float((d / want.double().abs().clamp_min(1e-300)).max()) if d.numel() else 0.0
+
+
+def phase_family_kernels() -> dict:
+    """F0: kernels 21-24 against their plain versions on the card. The VG
+    stream's Philox words bit for bit; kernel 22's gamma draws at each
+    shape of GAMMA_SHAPES (2 tiles): no accepting attempt different, the
+    draws within GAMMA_RTOL, S_T within S_RTOL; the law of 2^22 kernel draws
+    at each shape against scipy.stats.gamma (mean, variance, CDF at
+    GAMMA_QUANTILES, the zeros against the mass below 2^-150) within 4
+    stderr; kernels 21 and 22 at the legs' shapes (2^20 x 50 of F2, 2^22
+    of F1: attempts that differ at most ATTEMPT_FLIPS of the draws, the
+    other paths within S_RTOL), the F3 batch (64 x 16,384 x 50) equal to
+    its 64 single launches bit for bit and its first and last maturity
+    against the plain version; kernels 23 and 24 at 2 tiles and the legs'
+    shapes (F5's 2^20 x 50 with alpha, F4's 2^22 x 64 with G_T and alpha;
+    beta = 0.5 at 4 tiles x 50): F and G_T within S_RTOL, alpha within
+    V_RTOL, the absorbed paths equal; first_tile chunks of all four bit for
+    bit. Returns per kernel max |d| and max relative d, and the mean gamma
+    attempts at the timed shapes."""
+    import numpy as np
+    import torch
+    from scipy import stats
+
+    from options_model_tpu_torch.models.sabr import sabr_from_draws
+    from options_model_tpu_torch.ops import cuda_sabr, cuda_vg
+    from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE
+    from options_model_tpu_torch.ops.philox import (VG_STREAM, sabr_path_draws, stream_words,
+                                                    stream_words_cuda)
+
+    t0 = time.perf_counter()
+    seed = 0x452821E638D01377
+    vg1, vg2, sp, sp_abs = _family_params()
+    errs = {k["name"]: dict(s_abs=0.0, s_rel=0.0) for k in family_specs()}
+    attempts = {}
+
+    def note(name, got, want):
+        errs[name]["s_abs"] = max(errs[name]["s_abs"],
+                                  float((got.double() - want.double()).abs().max()))
+        errs[name]["s_rel"] = max(errs[name]["s_rel"], _rel(got, want))
+
+    words = (seed, 5, 2, TERMINAL_TILE // 2, 34)
+    if not torch.equal(stream_words_cuda(*words, device=DEVICE, stream=VG_STREAM),
+                       stream_words(*words, device=DEVICE, stream=VG_STREAM)):
+        fail("F0: the VG stream's Philox words differ between the card and the plain version")
+
+    def vg_check(label, name, got, want, limit):
+        """S, gammas and attempts of a kernel against the plain version;
+        paths with a differing attempt are counted (at most ``limit``) and
+        left out of the S check."""
+        (S, g, a), (S0, g0, a0) = got, want
+        flips = a != a0
+        n_flip = int(flips.sum())
+        if n_flip > limit:
+            fail(f"F0: {label}: {n_flip} gamma draws accepted at another attempt (limit "
+                 f"{limit})")
+        ok = ~flips
+        rel_g = float(((g - g0).abs()[ok] / g0.abs()[ok].clamp_min(FLT_MIN)).max())
+        if not rel_g <= GAMMA_RTOL:
+            fail(f"F0: {label}: gamma draws max rel {rel_g:.3e} (gate {GAMMA_RTOL})")
+        path_ok = ~flips.reshape(-1, flips.shape[-1]).any(dim=0)
+        if S.dim() == 1:
+            Sg, Sw = S[path_ok], S0[path_ok]
+        else:
+            Sg, Sw = S[..., path_ok], S0[..., path_ok]
+        rel = _rel(Sg, Sw)
+        if not (S.shape == S0.shape and rel <= S_RTOL and bool(torch.isfinite(S).all())):
+            fail(f"F0: {label}: S max rel {rel:.3e} (gate {S_RTOL})")
+        note(name, Sg, Sw)
+        log(f"[F0] {label}: attempts differing {n_flip} of {a.numel()} draws, gamma max rel "
+            f"{rel_g:.3e}, S max rel {rel:.3e} (gates {limit}, {GAMMA_RTOL}, {S_RTOL}); mean "
+            f"attempts {float(a.double().mean()) + 1:.5f} a draw")
+        return float(a.double().mean()) + 1
+
+    # kernel 22 at each gamma shape: 2 tiles against plain, 2^22 draws in law
+    for a in GAMMA_SHAPES:
+        T = float(np.float32(a) * np.float32(0.2))
+        vp = vg2                                    # nu = 0.2: a = T / 0.2
+        got = cuda_vg.vg_terminal(seed, 100.0, 0.05, T, vp, 2 * TERMINAL_TILE, device=DEVICE,
+                                  return_draws=True)
+        want = cuda_vg.vg_terminal_reference(seed, 100.0, 0.05, T, vp, 2 * TERMINAL_TILE,
+                                             device=DEVICE, return_draws=True)
+        vg_check(f"vg_terminal gamma shape {a} (T = {T:.6g}, nu 0.2), 2 tiles", "vg_terminal",
+                 got, want, 0)
+        g = cuda_vg.vg_terminal(seed + 1, 100.0, 0.05, T, vp, 1 << 22, device=DEVICE,
+                                return_draws=True)[1].double().cpu().numpy()
+        shape = float(np.float32(T) / np.float32(0.2))
+        law, n = stats.gamma(shape), g.size
+        zs = [(g.mean() - shape) / np.sqrt(shape / n),
+              (g.var() - shape) / np.sqrt((2 * shape * shape + 6 * shape) / n)]
+        zs += [((g <= law.ppf(p)).mean() - p) / np.sqrt(p * (1 - p) / n) for p in GAMMA_QUANTILES]
+        p0 = law.cdf(2.0 ** -150)
+        zero_gap = (g == 0.0).mean() - p0
+        bad = (not np.all(np.isfinite(g)) or max(abs(z) for z in zs) > 4.0
+               or abs(zero_gap) > 4 * np.sqrt(p0 * (1 - p0) / n) + 1e-12)
+        log(f"[F0] gamma law at a = {shape:.6g}, 2^22 kernel draws: z of mean, variance, CDF "
+            f"at {GAMMA_QUANTILES}: " + ", ".join(f"{z:+.2f}" for z in zs)
+            + f" (gate 4); zeros {(g == 0.0).mean():.6f} vs P(G < 2^-150) {p0:.6f}; "
+              f"finite {bool(np.all(np.isfinite(g)))}")
+        if bad:
+            fail(f"F0: kernel 22's gamma draws at a = {shape} leave the gamma law")
+
+    # kernels 21 and 22 at the legs' shapes
+    attempts["vg_paths"] = vg_check(
+        "vg_paths F2 2^20 x 50 (a = 0.05)", "vg_paths",
+        [x[0] for x in cuda_vg.vg_paths(seed, 100.0, 0.05, [0.5], vg2, 1 << 20, 50,
+                                        device=DEVICE, return_draws=True)],
+        [x[0] for x in cuda_vg.vg_paths_reference(seed, 100.0, 0.05, [0.5], vg2, 1 << 20, 50,
+                                                  device=DEVICE, return_draws=True)],
+        int(ATTEMPT_FLIPS * (1 << 20) * 50))
+    vg_check("vg_paths F2 2 tiles x 50", "vg_paths",
+             [x[0] for x in cuda_vg.vg_paths(seed, 100.0, 0.05, [0.5], vg2, 2 * PATH_TILE, 50,
+                                             device=DEVICE, return_draws=True)],
+             [x[0] for x in cuda_vg.vg_paths_reference(seed, 100.0, 0.05, [0.5], vg2,
+                                                       2 * PATH_TILE, 50, device=DEVICE,
+                                                       return_draws=True)], 0)
+    attempts["vg_terminal"] = vg_check(
+        "vg_terminal F1 2^22 (a = 2.857)", "vg_terminal",
+        cuda_vg.vg_terminal(seed, 100.0, 0.04, 1.0, vg1, 1 << 22, device=DEVICE,
+                            return_draws=True),
+        cuda_vg.vg_terminal_reference(seed, 100.0, 0.04, 1.0, vg1, 1 << 22, device=DEVICE,
+                                      return_draws=True), int(ATTEMPT_FLIPS * (1 << 22)))
+    # the F3 batch: 64 maturities in one launch == 64 single launches
+    Ts = np.linspace(0.1, 1.0, 64).astype(np.float32).tolist()
+    batch = cuda_vg.vg_paths(seed, 100.0, 0.05, Ts, vg2, 16384, 50, device=DEVICE)
+    for m, T in enumerate(Ts):
+        one = cuda_vg.vg_paths(seed, 100.0, 0.05, [T], vg2, 16384, 50, first_tile=4 * m,
+                               device=DEVICE)[0]
+        if not torch.equal(one, batch[m]):
+            fail(f"F0: vg_paths' 64-maturity batch differs from its single launch at "
+                 f"maturity {m}")
+    for m in (0, 63):
+        got = [x[0] for x in cuda_vg.vg_paths(seed, 100.0, 0.05, [Ts[m]], vg2, 16384, 50,
+                                              first_tile=4 * m, device=DEVICE,
+                                              return_draws=True)]
+        want = [x[0] for x in cuda_vg.vg_paths_reference(seed, 100.0, 0.05, [Ts[m]], vg2, 16384,
+                                                         50, first_tile=4 * m, device=DEVICE,
+                                                         return_draws=True)]
+        vg_check(f"vg_paths F3 maturity {m} (T = {Ts[m]:.4f}) 16,384 x 50", "vg_paths", got,
+                 want, int(ATTEMPT_FLIPS * 16384 * 50))
+    log("[F0] vg_paths' 64 x 16,384 x 50 batch == its 64 single-maturity launches bit for bit")
+
+    # kernels 23 and 24
+    def sabr_check(label, name, got, want, params, F_0, T_):
+        got, want = list(got), list(want)
+        F, F_p = got[0], want[0]
+        if not torch.equal(F == 0.0, F_p == 0.0):
+            fail(f"F0: {label}: the absorbed paths differ")
+        if params.beta == 1.0:
+            rel = _rel(F, F_p)
+            well = 1.0
+        else:
+            # near 0 the absorbing step cancels and F^(beta - 1) amplifies the
+            # rounding of the next: S_RTOL where both float32 runs are within
+            # 1e-6 of the float64 recursion on the same draws, and the
+            # kernel's largest error against it at most twice the plain one's
+            z1, z2 = sabr_path_draws(seed, 0, F.shape[-1] // PATH_TILE, PATH_TILE, 50, True,
+                                     DEVICE)
+            F64 = sabr_from_draws(z1.double(), z2.double(), F_0, T_, params, return_paths=True)
+            e, e_p = (F.double() - F64).abs(), (F_p.double() - F64).abs()
+            ok = (e <= 1e-6 * F64.abs()) & (e_p <= 1e-6 * F64.abs())
+            well = float(ok.double().mean())
+            rel = _rel(F[ok], F_p[ok])
+            if not float(e.max()) <= 2.0 * float(e_p.max()) + 1e-30:
+                fail(f"F0: {label}: kernel off float64 by {float(e.max()):.3e}, plain "
+                     f"{float(e_p.max()):.3e}")
+        if not (rel <= S_RTOL and bool(torch.isfinite(F).all())):
+            fail(f"F0: {label}: F max rel {rel:.3e} (gate {S_RTOL})")
+        note(name, F, F_p)
+        for x, y, what, gate in zip(got[1:], want[1:], ("alpha", "G_T")[:len(got) - 1],
+                                    (V_RTOL, S_RTOL)):
+            r = _rel(x, y)
+            if not r <= gate:
+                fail(f"F0: {label}: {what} max rel {r:.3e} (gate {gate})")
+        log(f"[F0] {label}: F max rel {rel:.3e} (gate {S_RTOL}; well-conditioned share "
+            f"{well:.4f}), bit-equal share {float((F == F_p).double().mean()):.6f}, absorbed "
+            f"{int((F == 0).sum())} entries the same set"
+            + "".join(f", {what} max rel {_rel(x, y):.3e}"
+                      for x, y, what in zip(got[1:], want[1:], ("alpha", "G_T"))))
+
+    F0_4 = float(np.float32(100.0))
+    for n, label in ((2 * PATH_TILE, "2 tiles"), (1 << 20, "F5 2^20")):
+        sabr_check(f"sabr_paths beta 1 {label} x 50 with alpha", "sabr_paths",
+                   cuda_sabr.sabr_paths(seed, F0_4, 0.5, sp, n, 50, device=DEVICE,
+                                        return_alpha=True),
+                   cuda_sabr.sabr_paths_reference(seed, F0_4, 0.5, sp, n, 50, device=DEVICE,
+                                                  return_alpha=True), sp, F0_4, 0.5)
+    for n in (2 * PATH_TILE, 4 * PATH_TILE):
+        sabr_check(f"sabr_paths beta 0.5 (absorbing) {n // PATH_TILE} tiles x 50", "sabr_paths",
+                   cuda_sabr.sabr_paths(seed, 5.0, 2.0, sp_abs, n, 50, device=DEVICE,
+                                        return_alpha=True),
+                   cuda_sabr.sabr_paths_reference(seed, 5.0, 2.0, sp_abs, n, 50, device=DEVICE,
+                                                  return_alpha=True), sp_abs, 5.0, 2.0)
+    for n, steps, label in ((2 * TERMINAL_TILE, 64, "2 tiles"), (1 << 22, 64, "F4 2^22")):
+        sabr_check(f"sabr_terminal beta 1 {label} x {steps} with alpha and G_T",
+                   "sabr_terminal",
+                   cuda_sabr.sabr_terminal(seed, F0_4, 0.5, sp, n, steps, device=DEVICE,
+                                           return_alpha=True, return_cv=True),
+                   cuda_sabr.sabr_terminal_reference(seed, F0_4, 0.5, sp, n, steps,
+                                                     device=DEVICE, return_alpha=True,
+                                                     return_cv=True), sp, F0_4, 0.5)
+    got = cuda_sabr.sabr_terminal(seed, 5.0, 2.0, sp_abs, 2 * TERMINAL_TILE, 50, device=DEVICE)
+    want = cuda_sabr.sabr_terminal_reference(seed, 5.0, 2.0, sp_abs, 2 * TERMINAL_TILE, 50,
+                                             device=DEVICE)
+    if not torch.equal(got == 0.0, want == 0.0):
+        fail("F0: sabr_terminal beta 0.5: the absorbed paths differ")
+    log(f"[F0] sabr_terminal beta 0.5 2 tiles x 50: absorbed {int((got == 0).sum())} the same "
+        f"set, bit-equal share {float((got == want).double().mean()):.6f}")
+
+    # first_tile chunks, bit for bit
+    chunks = [
+        ("vg_paths", lambda ft, n: cuda_vg.vg_paths(seed, 100.0, 0.05, [0.5], vg2, n * PATH_TILE,
+                                                    20, first_tile=ft, device=DEVICE)[0],
+         PATH_TILE),
+        ("vg_terminal", lambda ft, n: cuda_vg.vg_terminal(seed, 100.0, 0.04, 1.0, vg1,
+                                                          n * TERMINAL_TILE, first_tile=ft,
+                                                          device=DEVICE), TERMINAL_TILE),
+        ("sabr_paths", lambda ft, n: cuda_sabr.sabr_paths(seed, 5.0, 2.0, sp_abs, n * PATH_TILE,
+                                                          20, first_tile=ft, device=DEVICE),
+         PATH_TILE),
+        ("sabr_terminal", lambda ft, n: torch.stack(cuda_sabr.sabr_terminal(
+            seed, F0_4, 0.5, sp, n * TERMINAL_TILE, 16, first_tile=ft, device=DEVICE,
+            return_alpha=True, return_cv=True)), TERMINAL_TILE)]
+    for name, fn, tile in chunks:
+        whole, part = fn(3, 3), fn(4, 2)
+        if not torch.equal(part, whole[..., tile:]):
+            fail(f"F0: a first_tile chunk of {name} is not the whole's tiles")
+    log("[F0] first_tile chunks of kernels 21-24 bit for bit; the VG stream's words (counter "
+        f"word 3 = {VG_STREAM}) bit for bit; F0 {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "attempts": attempts}
+
+
+def phase_families() -> tuple:
+    """F1-F6, the VG and SABR families through the entry points a user
+    calls: F1 the VG Europeans of tests/test_vg.py (the put at 2^22 by
+    kernel 22 against float64 COS, the martingale, kernel 21's S_T at 2^20
+    x 50 against COS); F2 the VG American put at 2^20 x 50, CV and
+    Richardson pooled over F_SEEDS seeds against VG_COS_BERMUDAN and
+    VG_COS_AMERICAN; F3 the VG 64 x 64 surface (one kernel-21 launch) with
+    three ATM cells against cos_bermudan_price(n_dates=50); F4 the SABR
+    Europeans of tests/test_sabr.py at 2^22 x 64 (CV against Hagan, nu = 0
+    against Black, the CV's stderr, put-call parity, the European sampler,
+    the absorbing beta = 0.5 regime); F5 the SABR American put at 2^20 x
+    50, Richardson on the (S, alpha) basis pooled against SABR_ADI, the
+    S-only basis below it, the lognormal limit against CRR(4096); F6
+    calibrate_sabr's round trips in float64 on the card. Returns (seconds
+    per leg, results)."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.calibration.charfn import vg_cos_price
+    from options_model_tpu_torch.core.config import (CALL, PUT, LSMConfig, MCConfig, OptionSpec,
+                                                      SABRParams)
+    from options_model_tpu_torch.core.stats import pair_mean_reduce
+    from options_model_tpu_torch.models.sabr import (calibrate_sabr, hagan_lognormal_iv,
+                                                     sabr_bs_price, sabr_european_mc,
+                                                     simulate_sabr)
+    from options_model_tpu_torch.models.vg import simulate_vg, vg_terminal_exact
+    from options_model_tpu_torch.ops import cuda_vg
+    from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE
+    from options_model_tpu_torch.pricers.american import (price_american,
+                                                          price_american_with_control_variate)
+    from options_model_tpu_torch.pricers.binomial import crr_american
+    from options_model_tpu_torch.pricers.cos_bermudan import cos_bermudan_price
+    from options_model_tpu_torch.pricers.european import make_terminal_sampler, price_european_mc
+    from options_model_tpu_torch.pricers.surface_american import price_american_surface
+
+    t_phase = time.perf_counter()
+    vg1, vg2, sp, sp_abs = _family_params()
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    secs, res = {}, {}
+
+    def timed(label, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs[label] = secs.get(label, 0.0) + time.perf_counter() - t0
+        return out
+
+    def check(tag, ok, msg):
+        log(f"[{tag}] {msg}")
+        if not ok:
+            fail(f"{tag}: {msg}")
+
+    def pooled(label, fn, seeds, *args, **kwargs):
+        ps, ses = zip(*((float(p), float(se)) for p, se in
+                        (timed(label, fn, gen(s), *args, device=DEVICE, **kwargs)
+                         for s in seeds)))
+        if not all(math.isfinite(p) and se > 0 for p, se in zip(ps, ses)):
+            fail(f"{label}: non-finite prices {ps} +- {ses}")
+        return statistics.fmean(ps), math.sqrt(sum(se * se for se in ses)) / len(ses), ps
+
+    # F1: VG Europeans (tests/test_vg.py:22's config)
+    spec1 = OptionSpec(strike=100.0, rate=0.05, cp=PUT, div_yield=0.01)
+    cos1 = float(vg_cos_price(100.0, 100.0, 1.0, 0.05, vg1, cp=-1.0, q=0.01,
+                              dtype=torch.float64, device=DEVICE))
+    sampler = make_terminal_sampler("vg", 100.0, 0.05, 1.0, vg=vg1, div_yield=0.01,
+                                    device=DEVICE)
+    p, se, _ = timed("F1", price_european_mc, gen(41), sampler, spec1, 1.0,
+                     MCConfig(1 << 22, 100))
+    p, se = float(p), float(se)
+    check("F1", abs(p - cos1) < 4 * se, f"VG European put at 2^22 (kernel 22, one exact step): "
+          f"{p:.6f} +- {se:.6f} vs float64 COS {cos1:.6f} ({(p - cos1) / se:+.2f} stderr, "
+          f"gate 4)")
+    S_T = timed("F1", vg_terminal_exact, 17, 100.0, 0.04, 1.0, vg1, MCConfig(1 << 22, 1),
+                device=DEVICE)
+    pm = pair_mean_reduce(S_T.double() * math.exp(-0.04), TERMINAL_TILE)
+    m, sm = float(pm.mean()), float(pm.std()) / math.sqrt(pm.numel())
+    check("F1", abs(m - 100.0) < 4 * sm, f"martingale E[S_T] e^(-(r-q)T) {m:.6f} +- {sm:.6f} vs "
+          f"S0 100 ({(m - 100.0) / sm:+.2f} stderr)")
+    S = timed("F1", simulate_vg, 19, 100.0, 0.04, 1.0, vg1, MCConfig(1 << 20, 50),
+              return_paths=False, device=DEVICE)
+    pm = pair_mean_reduce(torch.clamp_min(100.0 - S.double(), 0.0) * math.exp(-0.05), PATH_TILE)
+    m, sm = float(pm.mean()), float(pm.std()) / math.sqrt(pm.numel())
+    check("F1", abs(m - cos1) < 4 * sm, f"kernel 21's S_T at 2^20 x 50: put {m:.6f} +- {sm:.6f} "
+          f"vs COS {cos1:.6f} ({(m - cos1) / sm:+.2f} stderr)")
+    res["F1"] = dict(price=p, stderr=se, cos=cos1)
+
+    # F2: the VG American put (tests/test_cos_bermudan.py:21-24, 125-131, 167-172)
+    spec2 = OptionSpec(strike=100.0, rate=0.05, cp=PUT)
+    mc2 = MCConfig(1 << 20, 50)
+    seeds = range(61, 61 + F_SEEDS)
+    for label, fn, lsm, oracle, jax_gap in (
+            ("F2 cv", price_american_with_control_variate, LSMConfig(), VG_COS_BERMUDAN,
+             "-0.33% (seed 7), -0.32% (seed 8)"),
+            ("F2 richardson", price_american, LSMConfig(richardson=True), VG_COS_AMERICAN,
+             "not run")):
+        pm_, pse, ps = pooled(label, fn, seeds, 100.0, 0.5, spec2, mc2, lsm, "vg", vg=vg2)
+        gap = (pm_ - oracle) / oracle
+        check("F2", abs(pm_ - oracle) <= max(F_GATE * oracle, 4 * pse),
+              f"VG American put, {label[3:]}, 2^20 x 50, {F_SEEDS} seeds pooled: {pm_:.6f} +- "
+              f"{pse:.6f} vs {oracle:.6f}: {gap * 100:+.3f}% (gate max(1%, 4 stderr)); seeds "
+              + ", ".join(f"{x:.6f}" for x in ps) + f"; the JAX package at 2^16 x 50 on the "
+              f"CPU: {jax_gap}")
+        res[label] = dict(price=pm_, stderr=pse, gap=gap)
+    f32 = float(vg_cos_price(100.0, 100.0, 0.5, 0.05, vg2, cp=-1.0, device=DEVICE))
+    f64 = float(vg_cos_price(100.0, 100.0, 0.5, 0.05, vg2, cp=-1.0, dtype=torch.float64,
+                             device=DEVICE))
+    log(f"[F2] the CV's closed form, vg_cos_price as the reference calls it (float32): {f32:.6f};"
+        f" float64 {f64:.6f}; gap {f32 - f64:+.3e}")
+
+    # F3: the VG 64 x 64 surface (BASELINE configs[4]'s grid)
+    Ks = np.linspace(70.0, 130.0, 64).astype(np.float32)
+    Ts = np.linspace(0.1, 1.0, 64).astype(np.float32)
+    cuda_vg.shape_launches.clear()
+    P, SE = timed("F3", price_american_surface, gen(71), 100.0, Ks, Ts, 0.05,
+                  MCConfig(16384, 50), model="vg", vg=vg2, return_stderr=True, device=DEVICE)
+    shapes = dict(cuda_vg.shape_launches)
+    check("F3", shapes == {(64, 16384, 50): 1}, f"64 x 64 VG surface {secs['F3']:.3f} s; "
+          f"kernel 21 launches by (n_mat, n_pad, n_steps): {shapes}")
+    k = int(np.argmin(np.abs(Ks - 100.0)))
+    for t in (0, 31, 63):
+        oracle = cos_bermudan_price(100.0, float(Ks[k]), float(Ts[t]), 0.05, "vg", vg=vg2,
+                                    cp=PUT, n_dates=50)
+        c, e = float(P[t, k]), float(SE[t, k])
+        check("F3", abs(c - oracle) <= 4 * e + SURFACE_BIAS * oracle,
+              f"cell T = {Ts[t]:.4f}, K = {Ks[k]:.4f}: {c:.6f} +- {e:.6f} vs COS-Bermudan "
+              f"{oracle:.6f} ({(c - oracle) / oracle * 100:+.3f}%, gate 4 stderr + "
+              f"{SURFACE_BIAS * 100:.1f}%)")
+
+    # F4: SABR Europeans (tests/test_sabr.py:94-130, 278-290)
+    F0, T, R = 100.0, 0.5, 0.03
+    S0f = F0 * math.exp(-R * T)
+    mc4 = MCConfig(1 << 22, 64)
+    cv = {}
+    for K, cp in ((90.0, CALL), (100.0, CALL), (110.0, PUT), (100.0, PUT)):
+        p, se = (float(x) for x in timed("F4", sabr_european_mc, gen(81), S0f, K, R, T, sp, mc4,
+                                         cp=cp, device=DEVICE))
+        truth = float(sabr_bs_price(F0, K, T, R, sp, cp, device=DEVICE))
+        cv[K, cp] = (p, se)
+        if (K, cp) != (100.0, PUT):
+            check("F4", abs(p - truth) < 4 * se + SABR_HAGAN_BIAS * truth,
+                  f"sabr_european_mc with the CV, K {K} {'call' if cp > 0 else 'put'}, 2^22 x "
+                  f"64: {p:.6f} +- {se:.6f} vs Hagan {truth:.6f} ({(p - truth) / truth * 100:+.3f}"
+                  f"%, gate 4 stderr + 0.3%)")
+    p0, se0 = (float(x) for x in timed("F4", sabr_european_mc, gen(81), S0f, 100.0, R, T, sp,
+                                       mc4, cp=CALL, control_variate=False, device=DEVICE))
+    check("F4", cv[100.0, CALL][1] <= se0, f"the CV's stderr {cv[100.0, CALL][1]:.6f} <= the "
+          f"plain one {se0:.6f} (K 100 call; plain {p0:.6f})")
+    (c, se_c), (put, se_p) = cv[100.0, CALL], cv[100.0, PUT]
+    rhs = math.exp(-R * T) * (F0 - 100.0)
+    check("F4", abs(c - put - rhs) < 5 * math.hypot(se_c, se_p),
+          f"put-call parity: C - P {c - put:.6f} vs e^(-rT)(F0 - K) {rhs:.6f} (gate 5 combined "
+          f"stderr {5 * math.hypot(se_c, se_p):.6f})")
+    lognormal = SABRParams(alpha=0.2, beta=1.0, rho=0.0, nu=0.0)
+    p, se = (float(x) for x in timed("F4", sabr_european_mc, gen(82), S0f, 100.0, R, T, lognormal,
+                                     mc4, cp=CALL, control_variate=False, device=DEVICE))
+    truth = float(sabr_bs_price(F0, 100.0, T, R, lognormal, CALL, device=DEVICE))
+    check("F4", abs(p - truth) < 4 * se, f"nu = 0: {p:.6f} +- {se:.6f} vs Black {truth:.6f} "
+          f"({(p - truth) / se:+.2f} stderr)")
+    spec4 = OptionSpec(strike=100.0, rate=R, cp=PUT)
+    sampler = make_terminal_sampler("sabr", 100.0, R, T, sabr=sp, device=DEVICE)
+    ps, ses, _ = timed("F4", price_european_mc, gen(83), sampler, spec4, T, mc4)
+    pr, ser = timed("F4", sabr_european_mc, gen(84), 100.0, 100.0, R, T, sp, mc4, cp=PUT,
+                    control_variate=False, device=DEVICE)
+    ps, ses, pr, ser = (float(x) for x in (ps, ses, pr, ser))
+    check("F4", abs(ps - pr) < 4 * (ses + ser), f"the European sampler (kernel 24) {ps:.6f} +- "
+          f"{ses:.6f} vs sabr_european_mc without the CV {pr:.6f} +- {ser:.6f}")
+    F = timed("F4", simulate_sabr, 23, 5.0, 2.0, sp_abs, MCConfig(16384, 50), return_paths=True,
+              device=DEVICE)
+    zero = F == 0.0
+    first = zero.int().argmax(dim=0)
+    after = torch.arange(F.shape[0], device=F.device)[:, None] >= first[None, :]
+    stays = bool((zero | ~after | ~zero.any(dim=0)[None, :]).all())
+    check("F4", bool(zero.any()) and stays and float(F.min()) >= 0.0,
+          f"beta = 0.5 SABR(8, 0.5, 0, 0.2) at 16,384 x 50: {int(zero.any(dim=0).sum())} paths "
+          f"absorbed, each at 0 from its first 0 on, min {float(F.min())}")
+
+    # F5: the SABR American put (tests/test_sabr.py:237-266)
+    spec5 = OptionSpec(strike=100.0, rate=R, cp=PUT)
+    mc5 = MCConfig(1 << 20, 50)
+    seeds = range(91, 91 + F_SEEDS)
+    p_sv, se_sv, ps = pooled("F5 (S, alpha)", price_american, seeds, 100.0, T, spec5, mc5,
+                             LSMConfig(richardson=True), "sabr", sabr=sp)
+    gap = (p_sv - SABR_ADI) / SABR_ADI
+    check("F5", abs(gap) < SABR_ADI_GATE,
+          f"SABR American put, Richardson, (S, alpha) basis, 2^20 x 50, {F_SEEDS} seeds "
+          f"pooled: {p_sv:.6f} +- {se_sv:.6f} vs ADI {SABR_ADI} ({gap * 100:+.3f}%, gate 1.5%; "
+          f"the 50-date ADI {SABR_ADI_BERMUDAN}); seeds " + ", ".join(f"{x:.6f}" for x in ps)
+          + f"; the JAX package at 2^16 x 50 on the CPU {JAX_SABR_RICH_GAP * 100:+.2f}%")
+    p_s, se_s, _ = pooled("F5 S only", price_american, seeds, 100.0, T, spec5, mc5,
+                          LSMConfig(richardson=True, variance_basis=False), "sabr", sabr=sp)
+    check("F5", p_sv > p_s + SABR_BASIS_GAP, f"the S-only basis {p_s:.6f} +- {se_s:.6f} below "
+          f"the (S, alpha) one by {p_sv - p_s:.6f} (gate > {SABR_BASIS_GAP})")
+    crr = crr_american(100.0, 100.0, T, R, 0.2, cp=-1.0, n_steps=4096)
+    p, se = (float(x) for x in timed("F5 lognormal", price_american, gen(95), 100.0, T, spec5,
+                                     mc5, LSMConfig(richardson=True), "sabr",
+                                     sabr=SABRParams(alpha=0.2, beta=1.0, rho=-0.4, nu=1e-4),
+                                     device=DEVICE))
+    check("F5", abs(p - crr) / crr < max(F_GATE, 4 * se / crr),
+          f"nu = 1e-4: {p:.6f} +- {se:.6f} vs CRR(4096) {crr:.6f} "
+          f"({(p - crr) / crr * 100:+.3f}%, gate max(1%, 4 stderr))")
+    res["F5"] = dict(price=p_sv, stderr=se_sv, gap=gap, s_only=p_s)
+
+    # F6: calibrate_sabr in float64 on the card (tests/test_sabr.py:134-151)
+    for beta, truth, Ks6, rmse_bar in (
+            (1.0, SABRParams(alpha=0.22, beta=1.0, rho=-0.5, nu=0.8),
+             np.linspace(70.0, 130.0, 13), 1e-4),
+            (0.7, SABRParams(alpha=0.3, beta=0.7, rho=-0.3, nu=0.5),
+             np.linspace(80.0, 120.0, 9), 5e-4)):
+        ivs = hagan_lognormal_iv(F0, torch.tensor(Ks6, dtype=torch.float32, device=DEVICE), T,
+                                 truth).cpu().numpy()
+        fit, info = timed(f"F6 beta {beta}", calibrate_sabr, F0, T, Ks6, ivs, beta=beta,
+                          device=DEVICE)
+        ok = fit.beta == beta and info["rmse"] < rmse_bar
+        if beta == 1.0:
+            ok = ok and (abs(fit.alpha / truth.alpha - 1) < 2e-3
+                         and abs(fit.rho / truth.rho - 1) < 2e-2
+                         and abs(fit.nu / truth.nu - 1) < 2e-2)
+        jax_fit = JAX_F6_FITS[beta]
+        check("F6", ok, f"calibrate_sabr beta {beta}: alpha {fit.alpha:.9f}, rho {fit.rho:.9f}, "
+              f"nu {fit.nu:.9f} (the JAX package {jax_fit[0]:.9f}, {jax_fit[1]:.9f}, "
+              f"{jax_fit[2]:.9f}; truth {truth.alpha}, {truth.rho}, {truth.nu}); rmse "
+              f"{info['rmse']:.3e} (gate {rmse_bar}), {info['iters']} iterations, "
+              f"{secs[f'F6 beta {beta}']:.2f} s")
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log("[F] seconds by leg: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; the families phase {res['phase_seconds']:.1f} s (target 90 s)")
+    return secs, res
+
+
+def phase_family_timing(per_call: float, attempts: dict, launches: dict) -> dict:
+    """Phase 5 for rows 21-24: CUDA-event medians of kernels 21-24 and of
+    their plain versions at their legs' shapes (21 at F2's 2^20 x 50 and
+    at F3's 64 x 16,384 x 50 batch, 22 at F1's 2^22, 23 with alpha at F5's
+    2^20 x 50, 24 with G_T at F4's 2^22 x 64) beside their bounds (the
+    integer term at the run's mean gamma attempts, ``attempts``, from F0),
+    registers and occupancy."""
+    from options_model_tpu_torch.ops import cuda_sabr, cuda_vg
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    import numpy as np
+
+    seed = 0x13198A2E03707344
+    vg1, vg2, sp, _ = _family_params()
+    n20, n22 = 1 << 20, 1 << 22
+    Ts = np.linspace(0.1, 1.0, 64).astype(np.float32).tolist()
+    a2 = vg_draws(attempts["vg_paths"], True)
+    a1 = vg_draws(attempts["vg_terminal"], False)
+    ops2 = attempts["vg_paths"] * OPS_VG_ATTEMPT + OPS_VG_BOOST + OPS_VG_STEP
+    ops1 = attempts["vg_terminal"] * OPS_VG_ATTEMPT + OPS_VG_STEP
+    cases = [
+        ("vg_paths", f"{n20} x 50",
+         lambda plain: (cuda_vg.vg_paths_reference if plain else cuda_vg.vg_paths)(
+             seed, 100.0, 0.05, [0.5], vg2, n20, 50, device=DEVICE),
+         bound(n20, 50, ops2, int_ops(a2, per_call), 51 * n20 * 4)),
+        ("vg_terminal", f"{n22}",
+         lambda plain: (cuda_vg.vg_terminal_reference if plain else cuda_vg.vg_terminal)(
+             seed, 100.0, 0.04, 1.0, vg1, n22, device=DEVICE),
+         bound(n22, 1, ops1, int_ops(a1, per_call), n22 * 4)),
+        ("sabr_paths", f"{n20} x 50 with alpha",
+         lambda plain: (cuda_sabr.sabr_paths_reference if plain else cuda_sabr.sabr_paths)(
+             seed, 100.0, 0.5, sp, n20, 50, device=DEVICE, return_alpha=True),
+         bound(n20, 50, OPS_SABR, int_ops(DRAWS_SABR, per_call), 2 * 51 * n20 * 4)),
+        ("sabr_terminal", f"{n22} x 64 with G_T",
+         lambda plain: (cuda_sabr.sabr_terminal_reference if plain
+                        else cuda_sabr.sabr_terminal)(
+             seed, 100.0, 0.5, sp, n22, 64, device=DEVICE, return_cv=True),
+         bound(n22, 64, OPS_SABR_CV, int_ops(DRAWS_SABR, per_call), 2 * n22 * 4)),
+    ]
+    attrs = {**cuda_vg.vg_kernel_attrs(), **cuda_sabr.sabr_kernel_attrs()}
+    out = {}
+    log_clocks("before the family kernels")
+    for name, shape, run, b in cases:
+        ms = time_per_call(lambda: run(False), N_TIMED)
+        plain_ms = time_per_call(lambda: run(True), 3)
+        a = attrs[name]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, shape=shape, registers=a["registers"],
+                         spill_bytes=a["spill_bytes"], block=a["block"],
+                         occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
+        log(f"[5] {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_term']} (without the integer term "
+            f"{b['bound_ms_f32_bytes']:.4f}); {b['bound_ms'] / ms * 100:.1f}% of bound; "
+            f"{a['registers']} registers, {a['spill_bytes']} spill bytes, {a['blocks_per_sm']} "
+            f"blocks of {a['block']} per SM ({out[name]['occupancy'] * 100:.1f}% occupancy)")
+    batch = lambda: cuda_vg.vg_paths(seed, 100.0, 0.05, Ts, vg2, 16384, 50,  # noqa: E731
+                                     device=DEVICE)
+    ms = time_per_call(batch, N_TIMED)
+    b = bound(64 * 16384, 50, ops2, int_ops(a2, per_call), 64 * 51 * 16384 * 4)
+    out["vg_paths"]["surface_batch"] = dict(ms=ms, shape="64 x 16384 x 50", **b)
+    log(f"[5] vg_paths at the F3 batch 64 x 16,384 x 50 (one launch): {ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_term']} ({b['bound_ms'] / ms * 100:.1f}%)")
+    for k in ("sabr_paths beta<1", "sabr_terminal beta<1"):
+        a = attrs[k]
+        log(f"[5] {k}: {a['registers']} registers, {a['spill_bytes']} spill bytes, "
+            f"{a['blocks_per_sm']} blocks of {a['block']} per SM")
+    log_clocks("after the family kernels")
+    log(f"[5] families path launches: {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4297,12 +4954,14 @@ def main() -> int:
     dual_errs, dual_cases = phase_dual_kernels()
     normals = normals_specs()
     normals_errs = phase_normals()
+    families = family_specs()
+    family_f0 = phase_family_kernels()
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
-    counted = specs + vjp + jumps + duals + normals
+    counted = specs + vjp + jumps + duals + normals + families
     # kernels 12-18's first designs: the yardsticks no path may reach
     from options_model_tpu_torch.ops import cuda_dual, cuda_gbm
 
@@ -4354,6 +5013,7 @@ def main() -> int:
              f"{launches_j['merton_paths']} launches on the jumps path")
     (secs_d, dual_res), launches_d = drive("dual", phase_dual)
     (secs_v, ivnn_res), launches_v = drive("ivnn", phase_ivnn)
+    (secs_f, family_res), launches_f = drive("families", phase_families)
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
@@ -4365,6 +5025,7 @@ def main() -> int:
     times.update(phase_jump_timing(sass["per_call"], shapes_j))
     dual_times = phase_dual_timing(sass, secs_d, launches_d, dual_cases)
     normals_times = phase_normals_timing(sass["per_call"], launches_v)
+    family_times = phase_family_timing(sass["per_call"], family_f0["attempts"], launches_f)
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -4405,6 +5066,8 @@ def main() -> int:
         + f"; the phase {dual_res['phase_seconds']:.1f} s; kernel launches {launches_d}")
     log("[5] IV-surface path seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs_v.items())
         + f"; kernel launches {launches_v}")
+    log("[5] families path seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs_f.items())
+        + f"; the phase {family_res['phase_seconds']:.1f} s; kernel launches {launches_f}")
     log(f"[5] card: {card_line()}")
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
@@ -4465,6 +5128,12 @@ def main() -> int:
                                      for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "shape")})
                 for k in normals]
+    entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+                     launches=launches_f[k["name"]],
+                     max_abs_err=family_f0["errs"][k["name"]]["s_abs"],
+                     max_rel_err=family_f0["errs"][k["name"]]["s_rel"], library_ms=None,
+                     **family_times[k["name"]])
+                for k in families]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

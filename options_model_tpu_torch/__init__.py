@@ -29,8 +29,12 @@ and torch checkpoints, the SVI surface and its Dupire local vol, the
 synthetic oracles and the gated market feed, the training app
 (``apps.train_surface``), and local vol under a bare ``sigma_fn``
 (``models.localvol``), whose normals come from the port's own normals
-kernel (csrc/philox.cu) on the card. Features outside these raise
-NotImplementedError naming their JAX counterpart.
+kernel (csrc/philox.cu) on the card; and the Variance Gamma and SABR
+families (``models.vg``, ``models.sabr``: their paths on kernels of their
+own, csrc/vg.cu and csrc/sabr.cu, every American route, the European
+samplers, the VG surface, SABR's closed forms, calibration and ADI oracle,
+``pricers.fd_sabr``). Features outside these raise NotImplementedError
+naming their JAX counterpart.
 
 This package imports torch and numpy only, never jax.
 """

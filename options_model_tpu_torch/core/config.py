@@ -1,6 +1,6 @@
 """Frozen-dataclass configs with the field names and defaults of
 options_model_tpu/core/config.py (OptionSpec, HestonParams, MertonParams,
-BatesParams, VGParams, MCConfig, LSMConfig, CalibrationConfig,
+BatesParams, VGParams, SABRParams, MCConfig, LSMConfig, CalibrationConfig,
 SurfaceTrainConfig), their eager ``validate()`` checks (the same
 conditions, exception types and messages), the parameter vectors of the
 calibrator (``to_array`` / ``from_array``, as float64 numpy), and
@@ -232,6 +232,44 @@ class VGParams(_FromReference):
     def __str__(self) -> str:
         return (f"VGParams(sigma={self.sigma:.4f}, theta={self.theta:.4f}, "
                 f"nu={self.nu:.4f})")
+
+
+@dataclasses.dataclass(frozen=True)
+class SABRParams(_FromReference):
+    """SABR stochastic volatility (Hagan et al. 2002, "Managing Smile Risk"):
+
+        dF = alpha_t F^beta dW1,   d alpha = nu alpha dW2,
+        corr(dW1, dW2) = rho,  alpha_0 = alpha.
+
+    ``models/sabr.py`` carries the closed-form lognormal implied vol, the
+    exact-lognormal-alpha simulator and the smile calibrator."""
+
+    alpha: float  # initial instantaneous vol level
+    beta: float   # CEV backbone exponent in [0, 1]
+    rho: float    # forward/vol correlation
+    nu: float     # vol of vol
+
+    def validate(self) -> "SABRParams":
+        if self.alpha <= 0:
+            raise ValueError(f"alpha={self.alpha} must be positive")
+        if not 0.0 <= self.beta <= 1.0:
+            raise ValueError(f"beta={self.beta} must be in [0, 1]")
+        if not -1.0 < self.rho < 1.0:
+            raise ValueError(f"rho={self.rho} must be in (-1, 1)")
+        if self.nu < 0:
+            raise ValueError(f"nu={self.nu} must be non-negative")
+        return self
+
+    def to_array(self) -> np.ndarray:
+        return np.array([self.alpha, self.beta, self.rho, self.nu], np.float64)
+
+    @classmethod
+    def from_array(cls, x) -> "SABRParams":
+        return cls(alpha=float(x[0]), beta=float(x[1]), rho=float(x[2]), nu=float(x[3]))
+
+    def __str__(self) -> str:
+        return (f"SABRParams(alpha={self.alpha:.4f}, beta={self.beta:.2f}, "
+                f"rho={self.rho:.4f}, nu={self.nu:.4f})")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -72,6 +72,10 @@ _SIGNATURES = {
     "omt_dual_ce": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_dual_ce_first": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_dual_inner_states": [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P],
+    "omt_vg_paths": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_vg_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _P],
+    "omt_sabr_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_sabr_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).
@@ -84,6 +88,8 @@ _ATTRS = {
     "omt_greeks_attrs": [_I, _P],
     "omt_jumps_attrs": [_I, _P],
     "omt_dual_attrs": [_I, _P],
+    "omt_vg_attrs": [_I, _P],
+    "omt_sabr_attrs": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -71,6 +71,33 @@ The pair's members take (z, z_j) and (-z, -z_j) and share the count, as in
 the reference (dual.py:593-613, 714-724). With no jump (lam = 0) Merton's
 and Bates's diffusion draws are GBM's and Heston's bit for bit.
 
+The Variance Gamma stream (``vg_path_draws``, models/vg.py) has the fourth
+counter word VG_STREAM = 3 and VG_DRAWS_A_STEP draws a step: draw t
+VG_DRAWS_A_STEP is the step's normal, keyed by the antithetic *pair* slot
+(w0, w1) -> Box-Muller -> its first normal z, mirrored within the tile as
+[z, -z]; draws t VG_DRAWS_A_STEP + 1 + k are attempt k of the step's gamma
+clock, keyed by the *path* slot (a gamma variate has no mirror), attempt
+k's (w0, w1) -> Box-Muller -> the Marsaglia-Tsang normal x, w2 -> its
+acceptance uniform, w3 -> the boost uniform. So the counter is a function
+of (seed, tile, slot, step, attempt) only. The gamma sampler
+(``gamma_from_stream``) is Marsaglia and Tsang (2000) at shape s = a for a
+>= 1 and s = a + 1 for a < 1, with d = s - 1/3 and c = 1 / sqrt(9 d): it
+accepts the first attempt with 1 + c x > 0 and log(u) < x^2/2 + d - d v +
+d log(v), v = (1 + c x)^3, and gives d v; below a = 1 the boost gives
+exp(log(d v) + log(U) / a), the division a multiplication by the host's
+float32 1 / a. At a ~ 0.01 about 4 draws in 10 lie below float32's
+smallest normal number: they come out subnormal or 0, never NaN or inf.
+Each operation is one IEEE float32 operation in this order, and the kernels
+(csrc/vg.cu) repeat it with never-contracted intrinsics, so both make the
+same accept decision. After VG_MAX_ATTEMPTS rejections (probability below
+1e-19 at every shape) the draw is d.
+
+The SABR stream (``sabr_path_draws``, models/sabr.py) takes the main
+stream's counters (word 3 = 0) and one Philox call per pair slot and step:
+(w0, w1) -> Box-Muller -> (z1, z2), mirrored within the tile; w2 and w3
+are unused. The forward and vol Brownian increments are z1 and rho z1 +
+sqrt(1 - rho^2) z2.
+
 Poisson counts are drawn by inversion against a table the host builds once
 per launch (``poisson_table``): the float64 CDF of Poisson(lam dt), each
 entry rounded to float32, up to the first entry that rounds to 1. The count
@@ -104,6 +131,11 @@ _TWO_PI = 6.283185307179586
 # dual's inner stream (every other stream: 0).
 OVERLAY_STREAM = 1
 DUAL_STREAM = 2
+# The Variance Gamma stream's fourth counter word, its gamma attempts a step
+# and its draws a step (the normal, then the attempts).
+VG_STREAM = 3
+VG_MAX_ATTEMPTS = 15
+VG_DRAWS_A_STEP = 1 + VG_MAX_ATTEMPTS
 # Inner pairs one Philox call of the dual's stream serves: the diffusion
 # calls per family, the jump calls of Merton and Bates.
 DUAL_PAIRS_A_CALL = {"gbm": 4, "merton": 4, "heston": 2, "bates": 2}
@@ -398,3 +430,95 @@ def dual_inner_draws(seed: int, first_tile: int, n_tiles: int, tile: int, half: 
         out["n"] = poisson_from_uniform(out["u"], poisson_table(lam_dt))
         out["zj"] = torch.stack(zj[:half])
     return out
+
+
+def gamma_constants(a: float) -> dict:
+    """float32 constants of the Marsaglia-Tsang sampler at gamma shape a > 0
+    (csrc/vg.cu reads the same floats): d = s - 1/3 and c = 1 / sqrt(9 d) at
+    s = a (a >= 1) or a + 1 (a < 1, ``boost``), and inv_a = 1 / a."""
+    f = np.float32
+    a = f(a)
+    if not a > 0 or not np.isfinite(a):
+        raise ValueError(f"the gamma shape must be positive and finite, got {a}")
+    boost = bool(a < f(1.0))
+    s = a + f(1.0) if boost else a
+    d = s - f(1.0 / 3.0)
+    return dict(d=d, c=f(1.0) / np.sqrt(f(9.0) * d), inv_a=f(1.0) / a, boost=boost)
+
+
+def _vg_words(seed: int, first_tile: int, n_tiles: int, width: int, draw: int, device):
+    j, g = _slot_counters(first_tile, n_tiles, width, device)
+    return philox4x32(j, draw, g, VG_STREAM, seed & _MASK32, (seed >> 32) & _MASK32)
+
+
+def gamma_from_stream(seed: int, first_tile: int, n_tiles: int, tile: int, step: int, a: float,
+                      device=None, return_attempts: bool = False):
+    """Standard Gamma(a) variates (n_tiles * tile,) of one step of the VG
+    stream, one a path (the module docstring's sampler), in path order [and
+    the attempt each accepted, int32, VG_MAX_ATTEMPTS where none did]. Every
+    attempt is drawn full width; a lane keeps its first acceptance."""
+    k = gamma_constants(a)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    d, c, inv_a = t(k["d"]), t(k["c"]), t(k["inv_a"])
+    n = n_tiles * tile
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    attempts = torch.full((n,), VG_MAX_ATTEMPTS, dtype=torch.int32, device=device)
+    done = torch.zeros(n, dtype=torch.bool, device=device)
+    for att in range(VG_MAX_ATTEMPTS):
+        w0, w1, w2, w3 = _vg_words(seed, first_tile, n_tiles, tile,
+                                   step * VG_DRAWS_A_STEP + 1 + att, device)
+        x = box_muller(uniform_from_bits(w0), uniform_from_bits(w1))[0]
+        v1 = 1.0 + c * x
+        v = v1 * v1 * v1
+        rhs = 0.5 * x * x + d - d * v + d * torch.log(v)
+        acc = (v1 > 0) & (torch.log(uniform_from_bits(w2)) < rhs) & ~done
+        g = d * v
+        if k["boost"]:
+            g = torch.exp(torch.log(g) + torch.log(uniform_from_bits(w3)) * inv_a)
+        out = torch.where(acc, g, out)
+        attempts = torch.where(acc, torch.tensor(att, dtype=torch.int32, device=device),
+                               attempts)
+        done = done | acc
+        if bool(done.all()):
+            break
+    out = torch.where(done, out, d)
+    return (out, attempts) if return_attempts else out
+
+
+def vg_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int, n_steps: int, a: float,
+                  antithetic: bool, device=None, return_attempts: bool = False):
+    """(z, gamma[, attempts]), each (n_steps, n_tiles * tile) in path order:
+    the VG stream's normals (mirrored within the tile when ``antithetic``)
+    and its standard Gamma(a) clock increments, drawn for every path."""
+    width = tile // 2 if antithetic else tile
+    z, gam, att = [], [], []
+    for t in range(n_steps):
+        w0, w1, _, _ = _vg_words(seed, first_tile, n_tiles, width, t * VG_DRAWS_A_STEP, device)
+        z.append(box_muller(uniform_from_bits(w0), uniform_from_bits(w1))[0])
+        g, k = gamma_from_stream(seed, first_tile, n_tiles, tile, t, a, device, True)
+        gam.append(g)
+        att.append(k)
+    z = torch.stack(z)
+    if antithetic:
+        z = mirror_tiles(z, n_tiles)
+    out = (z, torch.stack(gam))
+    return out + (torch.stack(att),) if return_attempts else out
+
+
+def sabr_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int, n_steps: int,
+                    antithetic: bool, device=None):
+    """(z1, z2), each (n_steps, n_tiles * tile) in path order: the SABR
+    layout of the module docstring, one Philox call per slot and step."""
+    width = tile // 2 if antithetic else tile
+    j, g = _slot_counters(first_tile, n_tiles, width, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    z1, z2 = [], []
+    for t in range(n_steps):
+        w0, w1, _, _ = philox4x32(j, t, g, 0, k0, k1)
+        a, b = box_muller(uniform_from_bits(w0), uniform_from_bits(w1))
+        z1.append(a)
+        z2.append(b)
+    z1, z2 = torch.stack(z1), torch.stack(z2)
+    if antithetic:
+        return mirror_tiles(z1, n_tiles), mirror_tiles(z2, n_tiles)
+    return z1, z2

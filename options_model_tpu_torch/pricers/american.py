@@ -1,10 +1,13 @@
 """American option pricing by Longstaff-Schwartz Monte Carlo, as
 options_model_tpu/pricers/american.py: the polynomial regressor and the
 shared continuation network (NN-LSM) under GBM, Heston (Euler or QE-M),
-Merton and Bates (Heston, Euler or QE-M, times the jump overlay); and under
-local vol, over a compiled table or a bare ``sigma_fn`` (the IV-surface
-network's adapter, SVI's Dupire local vol), which has no control-variate
-leg.
+Merton, Bates (Heston, Euler or QE-M, times the jump overlay), Variance
+Gamma and SABR (the forward simulated, converted to the spot on the
+exercise grid, with the (S, alpha) basis); and under local vol, over a
+compiled table or a bare ``sigma_fn`` (the IV-surface network's adapter,
+SVI's Dupire local vol). Local vol and SABR have no control-variate leg
+(SABR's Hagan form is only O(T)-accurate, so the reference prices it
+without one).
 
 Paths come from the Philox path kernels (csrc/, or their plain versions on
 the CPU) in the flat (n_steps+1, n_paths) layout. The backward induction is
@@ -16,7 +19,8 @@ high-degree fit (build_centered_basis). The NN-LSM trains one continuation
 MLP over all (date, path) states (pricers/regressors.fit_continuation_mlp)
 and reads the stopping policy off its predictions. The dispatcher
 ``price_american`` adds the same-path European control variate (COS leg
-under Heston and Bates, the jump-count series under Merton, BS under GBM),
+under Heston, Bates and VG, the jump-count series under Merton, BS under
+GBM),
 common-path Richardson extrapolation, or the European terminal sampler, as
 in the reference.
 
@@ -37,7 +41,8 @@ import torch
 
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig,
-                                                  MCConfig, MertonParams, OptionSpec)
+                                                  MCConfig, MertonParams, OptionSpec,
+                                                  SABRParams, VGParams)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (cashflow_statistics, masked_mean_stderr,
                                                  optimal_cv_beta)
@@ -47,6 +52,8 @@ from options_model_tpu_torch.models.gbm import simulate_gbm
 from options_model_tpu_torch.models.heston import effective_bs_sigma, simulate_heston
 from options_model_tpu_torch.models.localvol import simulate_local_vol
 from options_model_tpu_torch.models.merton import merton_price, simulate_merton
+from options_model_tpu_torch.models.sabr import simulate_sabr
+from options_model_tpu_torch.models.vg import simulate_vg
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.lsm_basis import regression_features
@@ -61,14 +68,15 @@ from options_model_tpu_torch.utils.profiling import span
 _BASIS_CLAMP = 6.0
 
 
-MODELS = ("gbm", "heston", "localvol", "merton", "bates")
+MODELS = ("gbm", "heston", "localvol", "merton", "bates", "vg", "sabr")
 
 
 def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) -> None:
     """Raise for what this port does not carry yet: the models outside
-    MODELS (VG, SABR, rBergomi) and the path-sharded LSM. Local vol runs
-    under a compiled table or a bare ``sigma_fn``, as in the reference;
-    models/localvol.simulate_local_vol raises ValueError with neither."""
+    MODELS (rBergomi) and the path-sharded LSM; the VG and SABR brackets
+    raise in pricers/dual.py. Local vol runs under a compiled table or a
+    bare ``sigma_fn``, as in the reference; models/localvol.simulate_local_vol
+    raises ValueError with neither."""
     if model not in MODELS:
         raise not_ported(f"model={model!r}", "pricers.american.simulate_paths")
     if lsm is not None and lsm.regressor not in ("poly", "nn"):
@@ -89,20 +97,35 @@ def _discount(rate, tau):
     return float(np.exp(-np.float32(rate) * np.float32(tau)))
 
 
+def sabr_spot_paths(F_paths: torch.Tensor, drift, T) -> torch.Tensor:
+    """The spot on the exercise grid from SABR's T-forward paths (n_steps+1,
+    n_paths): S_t = F_t e^{drift (t - T)} on linspace(0, T, n_steps+1), in
+    F's dtype, as the reference converts them
+    (options_model_tpu/pricers/american.py:250-258)."""
+    dtype, device = F_paths.dtype, F_paths.device
+    Tf = float(np.float32(T))
+    mu = torch.tensor(float(np.float32(drift)), dtype=dtype, device=device)
+    t_grid = torch.linspace(0.0, Tf, F_paths.shape[0], dtype=dtype, device=device)
+    return F_paths * torch.exp(mu * (t_grid - Tf))[:, None]
+
+
 def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str, *,
                     sigma=None, drift=0.0, heston: Optional[HestonParams] = None,
                     merton: Optional[MertonParams] = None,
-                    bates: Optional[BatesParams] = None, sigma_fn=None,
+                    bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                    sabr: Optional[SABRParams] = None, sigma_fn=None,
                     heston_scheme: str = "euler", localvol_table=None,
                     return_variance: bool = False, device=None):
     """The path kernels' dispatch on an explicit (seed, first_tile): tiles
     [first_tile, first_tile + n_tiles) of that seed's stream. ``drift`` is
     the simulated growth rate (rate - q). Bates is the Heston kernel
     (``heston_scheme``) with the jump overlay multiplied in on the same
-    seed and tiles."""
+    seed and tiles. SABR simulates the T-forward from F0 = S0 e^{drift T}
+    and returns the spot (sabr_spot_paths); its ``return_variance`` is the
+    alpha paths, the (S, alpha) basis's feed."""
     _check_slice(model)
-    if return_variance and model not in ("heston", "bates"):
-        raise ValueError("return_variance is a Heston/Bates feature")
+    if return_variance and model not in ("heston", "bates", "sabr"):
+        raise ValueError("return_variance is a Heston/Bates/SABR feature")
     if model == "gbm":
         if sigma is None:
             raise ValueError("sigma is required for model='gbm'")
@@ -121,6 +144,20 @@ def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str
             raise ValueError("bates params required for model='bates'")
         return simulate_bates(seed, S0, drift, T, bates, cfg, return_variance=return_variance,
                               first_tile=first_tile, scheme=heston_scheme, device=device)
+    if model == "vg":
+        if vg is None:
+            raise ValueError("vg params required for model='vg'")
+        return simulate_vg(seed, S0, drift, T, vg, cfg, first_tile=first_tile, device=device)
+    if model == "sabr":
+        if sabr is None:
+            raise ValueError("sabr params required for model='sabr'")
+        f = np.float32
+        F0 = float(f(S0) * np.exp(f(drift) * f(T)))
+        out = simulate_sabr(seed, F0, T, sabr, cfg, return_paths=True,
+                            return_alpha=return_variance, first_tile=first_tile, device=device)
+        F_paths, a_paths = out if return_variance else (out, None)
+        S_paths = sabr_spot_paths(F_paths, drift, T)
+        return (S_paths, a_paths) if return_variance else S_paths
     if heston is None:
         raise ValueError("heston params required for model='heston'")
     return simulate_heston(seed, S0, drift, T, heston, cfg, return_paths=True,
@@ -132,14 +169,16 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
                    model: str = "gbm", *, sigma=None, rate=0.0,
                    heston: Optional[HestonParams] = None,
                    merton: Optional[MertonParams] = None,
-                   bates: Optional[BatesParams] = None, sigma_fn=None,
+                   bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                   sabr: Optional[SABRParams] = None, sigma_fn=None,
                    engine: str = "auto", heston_scheme: str = "euler",
                    localvol_table=None, div_yield=0.0, return_variance: bool = False,
                    layout: str = "flat", device=None):
     """Full path matrix (n_steps+1, n_pad) [and, for Heston or Bates with
-    ``return_variance``, the variance matrix] from the path kernels: GBM,
-    Heston (``heston_scheme`` "euler" or "qe"), Merton, Bates (Heston times
-    the jump overlay) or local vol over a compiled Chebyshev
+    ``return_variance``, the variance matrix, for SABR the alpha matrix]
+    from the path kernels: GBM, Heston (``heston_scheme`` "euler" or "qe"),
+    Merton, Bates (Heston times the jump overlay), VG, SABR (the spot from
+    its forward, simulate_seeded) or local vol over a compiled Chebyshev
     ``localvol_table`` (surface/cheb.compile_localvol_table; it takes
     precedence) or under a bare ``sigma_fn(S, tau)``.
 
@@ -151,7 +190,7 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
     resolve_engine(engine, device)
     return simulate_seeded(seed_from_generator(generator), 0, S0, T, cfg, model,
                            sigma=sigma, drift=rate - div_yield, heston=heston,
-                           merton=merton, bates=bates, sigma_fn=sigma_fn,
+                           merton=merton, bates=bates, vg=vg, sabr=sabr, sigma_fn=sigma_fn,
                            heston_scheme=heston_scheme, localvol_table=localvol_table,
                            return_variance=return_variance, device=device)
 
@@ -159,12 +198,15 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
 def _cv_adjustment(S_paths: torch.Tensor, spec: OptionSpec, T,
                    heston: Optional[HestonParams] = None,
                    model: str = "gbm", merton: Optional[MertonParams] = None,
-                   bates: Optional[BatesParams] = None) -> torch.Tensor:
+                   bates: Optional[BatesParams] = None,
+                   vg: Optional[VGParams] = None) -> torch.Tensor:
     """Per-path beta=1 control-variate adjustment: the European closed form
     minus the discounted terminal payoff of the same path.
 
-    The closed-form leg must match the simulated dynamics: COS under Heston
-    and Bates, the jump-count series under Merton, BS under GBM. A BS leg on
+    The closed-form leg must match the simulated dynamics: COS under Heston,
+    Bates and VG (float32 at its default terms, as the reference calls it:
+    a ~2e-3 price floor enters the estimate), the jump-count series under
+    Merton, BS under GBM. A BS leg on
     Heston paths has E[BS - EU_heston] != 0 and biases the price by that gap
     (~130% in the reference's measurement)."""
     S_init = S_paths[0, 0]
@@ -189,6 +231,11 @@ def _cv_adjustment(S_paths: torch.Tensor, spec: OptionSpec, T,
         from options_model_tpu_torch.calibration.charfn import bates_cos_price
         eu = bates_cos_price(S_init, spec.strike, T, spec.rate, bates, cp=spec.cp,
                              q=spec.div_yield)
+    elif model == "vg":
+        if vg is None:
+            raise ValueError("model='vg' control variate needs vg params for the COS leg")
+        from options_model_tpu_torch.calibration.charfn import vg_cos_price
+        eu = vg_cos_price(S_init, spec.strike, T, spec.rate, vg, cp=spec.cp, q=spec.div_yield)
     elif model == "gbm":
         eu = bs_price(S_init, spec.strike, T, spec.rate, spec.sigma, spec.cp,
                       q=spec.div_yield)
@@ -515,8 +562,8 @@ def lsm_nn_backward(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T,
 def richardson_nn_stat(seed: int, S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
                        spec: OptionSpec, T, lsm: LSMConfig, *,
                        heston: Optional[HestonParams] = None,
-                       bates: Optional[BatesParams] = None, model: str = "gbm",
-                       pair_block: Optional[int] = None):
+                       bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                       model: str = "gbm", pair_block: Optional[int] = None):
     """(per-path Richardson statistic, eval mask) of the NN-LSM: one net is
     trained; the fine and coarse levels are two stopping policies read off
     the same continuation grid (every date, every 2nd date), stat = 2
@@ -532,9 +579,9 @@ def richardson_nn_stat(seed: int, S_paths: torch.Tensor, v_paths: Optional[torch
     cash_c = _nn_stopped_cash(immediate, cont, terminal, ts, spec, T, n_steps,
                               exercise_stride=2)
     stat = 2.0 * cash_f - cash_c
-    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, bates=bates):
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, bates=bates, vg=vg):
         stat = _apply_cv(stat, _cv_adjustment(S_paths, spec, T, heston=heston, model=model,
-                                              bates=bates),
+                                              bates=bates, vg=vg),
                          lsm.cv_beta, eval_mask, pair_block)
     return stat, eval_mask
 
@@ -550,17 +597,19 @@ def _vol_params(heston, bates=None):
 
 
 def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
-                  heston_scheme, device, merton=None, bates=None, sigma_fn=None):
+                  heston_scheme, device, merton=None, bates=None, sigma_fn=None, vg=None,
+                  sabr=None):
     """(S_paths, v_paths or None, fit seed or None) for the LSM pricers, at
     the width of simulated_config. The simulation draws its seed from
     ``generator`` first (Bates's overlay takes the same seed); the NN-LSM's
-    fit draws the next one."""
-    want_v = model in ("heston", "bates") and lsm.variance_basis
+    fit draws the next one. v_paths is the variance (Heston, Bates) or
+    alpha (SABR) matrix when ``lsm.variance_basis``."""
+    want_v = model in ("heston", "bates", "sabr") and lsm.variance_basis
     with span("simulate", resolve_device(device)):
         out = simulate_paths(generator, S0, T, simulated_config(mc, model), model,
                              sigma=spec.sigma,
                              rate=spec.rate, heston=heston, merton=merton, bates=bates,
-                             sigma_fn=sigma_fn, engine=engine,
+                             vg=vg, sabr=sabr, sigma_fn=sigma_fn, engine=engine,
                              heston_scheme=heston_scheme, div_yield=spec.div_yield,
                              return_variance=want_v, device=device)
     S_paths, v_paths = out if want_v else (out, None)
@@ -586,18 +635,21 @@ def _lsm_backward(fit_seed, S_paths, v_paths, spec: OptionSpec, T, lsm: LSMConfi
                              v_paths=v_paths)
 
 
-def _has_cv_leg(spec: OptionSpec, model: str, heston, merton=None, bates=None) -> bool:
+def _has_cv_leg(spec: OptionSpec, model: str, heston, merton=None, bates=None,
+                vg=None) -> bool:
     return ((model == "gbm" and spec.sigma is not None)
             or (model == "heston" and heston is not None)
             or (model == "merton" and merton is not None)
-            or (model == "bates" and bates is not None))
+            or (model == "bates" and bates is not None)
+            or (model == "vg" and vg is not None))
 
 
 def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
                        mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
                        heston: Optional[HestonParams] = None,
                        merton: Optional[MertonParams] = None,
-                       bates: Optional[BatesParams] = None, sigma_fn=None,
+                       bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                       sabr: Optional[SABRParams] = None, sigma_fn=None,
                        axis_name=None, engine: str = "auto", heston_scheme: str = "euler",
                        device=None):
     """Simulate + LSM backward induction (either regressor). Returns (price,
@@ -605,7 +657,7 @@ def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
     _check_slice(model, lsm, axis_name)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates, sigma_fn)
+                                               merton, bates, sigma_fn, vg, sabr)
     pb = _pair_block(mc, model)
     return _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
                          stat_pair_block=pb if mc.antithetic else None, heston=heston,
@@ -616,28 +668,32 @@ def price_american_with_control_variate(
         generator: torch.Generator, S0, T, spec: OptionSpec, mc: MCConfig,
         lsm: LSMConfig, model: str = "gbm", *,
         heston: Optional[HestonParams] = None, merton: Optional[MertonParams] = None,
-        bates: Optional[BatesParams] = None, sigma_fn=None, axis_name=None,
+        bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+        sabr: Optional[SABRParams] = None, sigma_fn=None, axis_name=None,
         engine: str = "auto", heston_scheme: str = "euler", device=None):
     """American price with the same-path European control variate:
     AM_cv = AM_lsm + beta (EU_closed_form - EU_mc_same_paths), the stderr
     taken over the per-path CV statistic. Both regressors compose: the
     variate acts on the stopped per-path cashflows (around the shared
     network it is the reference's flagship estimator). Without a
-    closed-form leg this is price_american_lsm."""
+    closed-form leg this is price_american_lsm: SABR lands there by design,
+    as in the reference (a variate anchored on Hagan's O(T)-accurate mean
+    would carry that error into the price)."""
     _check_slice(model, lsm, axis_name)
-    if not _has_cv_leg(spec, model, heston, merton, bates):
+    if not _has_cv_leg(spec, model, heston, merton, bates, vg):
         return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
-                                  heston=heston, merton=merton, bates=bates, sigma_fn=sigma_fn,
-                                  engine=engine, heston_scheme=heston_scheme, device=device)
+                                  heston=heston, merton=merton, bates=bates, vg=vg, sabr=sabr,
+                                  sigma_fn=sigma_fn, engine=engine, heston_scheme=heston_scheme,
+                                  device=device)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates, sigma_fn)
+                                               merton, bates, sigma_fn, vg)
     pb = _pair_block(mc, model)
     _, _, (cash, eval_mask) = _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
                                             return_cash=True, heston=heston, bates=bates)
     stat_pb = pb if mc.antithetic else None
     cv = _apply_cv(cash, _cv_adjustment(S_paths, spec, T, heston=heston, model=model,
-                                        merton=merton, bates=bates),
+                                        merton=merton, bates=bates, vg=vg),
                    lsm.cv_beta, eval_mask, stat_pb)
     return masked_mean_stderr(cv, eval_mask, stat_pb)[:2]
 
@@ -646,16 +702,17 @@ def price_american_with_stats(generator: torch.Generator, S0, T, spec: OptionSpe
                               mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
                               heston: Optional[HestonParams] = None,
                               merton: Optional[MertonParams] = None,
-                              bates: Optional[BatesParams] = None, sigma_fn=None,
+                              bates: Optional[BatesParams] = None,
+                              vg: Optional[VGParams] = None, sigma_fn=None,
                               engine: str = "auto", device=None):
     """(price, stderr, cashflow statistics): the reference's verbose pricing
     report (mean, std, min, max and P(worthless) of the per-path discounted
     cashflows, core/stats.cashflow_statistics, as Python floats). Both
-    regressors."""
+    regressors; no SABR, as in the reference."""
     _check_slice(model, lsm)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, "euler", device, merton,
-                                               bates, sigma_fn)
+                                               bates, sigma_fn, vg)
     pb = _pair_block(mc, model)
     price, stderr, (cash, eval_mask) = _lsm_backward(
         fit_seed, S_paths, v_paths, spec, T, lsm, pb,
@@ -669,8 +726,8 @@ def richardson_cv_stat(S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
                        spec: OptionSpec, T, lsm: LSMConfig, *,
                        heston: Optional[HestonParams] = None,
                        merton: Optional[MertonParams] = None,
-                       bates: Optional[BatesParams] = None, model: str = "gbm",
-                       pair_block: Optional[int] = None, axis_name=None):
+                       bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                       model: str = "gbm", pair_block: Optional[int] = None, axis_name=None):
     """(per-path Richardson statistic, eval mask) on given paths: the fine
     level exercises at every date, the coarse level on every 2nd date of
     the same paths, stat = 2 cash_fine - cash_coarse, plus the control
@@ -683,9 +740,9 @@ def richardson_cv_stat(S_paths: torch.Tensor, v_paths: Optional[torch.Tensor],
     _, _, (cash_c, _) = lsm_poly_backward(S_paths, spec, T, exercise_stride=2,
                                           **kwargs)
     stat = 2.0 * cash_f - cash_c
-    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, merton, bates):
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, merton, bates, vg):
         stat = _apply_cv(stat, _cv_adjustment(S_paths, spec, T, heston=heston,
-                                              model=model, merton=merton, bates=bates),
+                                              model=model, merton=merton, bates=bates, vg=vg),
                          lsm.cv_beta, mask, pair_block)
     return stat, mask
 
@@ -694,8 +751,9 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
                               mc: MCConfig, lsm: LSMConfig, model: str = "gbm",
                               *, heston: Optional[HestonParams] = None,
                               merton: Optional[MertonParams] = None,
-                              bates: Optional[BatesParams] = None, sigma_fn=None,
-                              engine: str = "auto", heston_scheme: str = "euler",
+                              bates: Optional[BatesParams] = None,
+                              vg: Optional[VGParams] = None, sabr: Optional[SABRParams] = None,
+                              sigma_fn=None, engine: str = "auto", heston_scheme: str = "euler",
                               device=None):
     """Richardson-extrapolated continuous-exercise American price: an n-date
     LSM prices a Bermudan option whose gap to the American is O(1/n); the
@@ -706,9 +764,9 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
     _check_slice(model, lsm)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates, sigma_fn)
+                                               merton, bates, sigma_fn, vg, sabr)
     pb = _pair_block(mc, model)
-    kw = dict(heston=heston, bates=bates, model=model, pair_block=pb)
+    kw = dict(heston=heston, bates=bates, vg=vg, model=model, pair_block=pb)
     if lsm.regressor == "nn":
         stat, mask = richardson_nn_stat(fit_seed, S_paths, v_paths, spec, T, lsm, **kw)
     else:
@@ -721,14 +779,15 @@ def price_american(generator: torch.Generator, S0, T, spec: OptionSpec,
                    mc: MCConfig, lsm: LSMConfig, model: str = "gbm", *,
                    heston: Optional[HestonParams] = None,
                    merton: Optional[MertonParams] = None,
-                   bates: Optional[BatesParams] = None, sigma_fn=None, axis_name=None,
+                   bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                   sabr: Optional[SABRParams] = None, sigma_fn=None, axis_name=None,
                    engine: str = "auto", device=None):
     """The public dispatcher: the European terminal sampler when
     ``lsm.european_approximation``, Richardson when ``lsm.richardson``, the
     control variate when it is on and a closed-form leg exists, plain LSM
     otherwise. Returns (price, stderr) as 0-dim tensors on ``device``."""
     _check_slice(model, lsm, axis_name)
-    models = dict(heston=heston, merton=merton, bates=bates, sigma_fn=sigma_fn)
+    models = dict(heston=heston, merton=merton, bates=bates, vg=vg, sabr=sabr, sigma_fn=sigma_fn)
     if lsm.european_approximation:
         from options_model_tpu_torch.pricers.european import (
             make_terminal_sampler, price_european_mc)
@@ -740,7 +799,7 @@ def price_american(generator: torch.Generator, S0, T, spec: OptionSpec,
     if lsm.richardson:
         return price_american_richardson(generator, S0, T, spec, mc, lsm, model,
                                          engine=engine, device=device, **models)
-    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, merton, bates):
+    if lsm.use_control_variate and _has_cv_leg(spec, model, heston, merton, bates, vg):
         return price_american_with_control_variate(
             generator, S0, T, spec, mc, lsm, model, engine=engine, device=device, **models)
     return price_american_lsm(generator, S0, T, spec, mc, lsm, model, engine=engine,

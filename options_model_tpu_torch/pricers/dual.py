@@ -35,8 +35,10 @@ keep M a martingale, so inner noise only loosens the bound. The stream's
 tile is the bracket's pair block (``inner_block``), keyed by the global
 tile, so a run at ``first_block`` reproduces those tiles bit for bit.
 
-The VG, SABR and rBergomi branches, and the path-sharded bracket, are not
-ported (``not_ported``).
+The VG and SABR brackets (their inner expectations are new instances of
+kernel 18, VG's with a gamma sampler inside), the rBergomi branch and the
+path-sharded bracket are not ported (``not_ported``); VG and SABR paths and
+their LSM prices are (pricers/american.py).
 """
 
 from __future__ import annotations

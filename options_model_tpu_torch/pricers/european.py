@@ -1,7 +1,7 @@
 """European Monte-Carlo pricing with streaming Welford statistics, as
 options_model_tpu/pricers/european.py (GBM, Heston Euler and QE-M, Merton,
-Bates and local-vol terminal samplers: over a compiled table, or a bare
-``sigma_fn``), and the one-draw exact GBM price.
+Bates, Variance Gamma, SABR and local-vol terminal samplers: over a
+compiled table, or a bare ``sigma_fn``), and the one-draw exact GBM price.
 
 The terminal kernels (csrc/, or their plain versions on the CPU) never
 materialize a path matrix. Chunks are keyed by global tile: chunk c runs
@@ -20,13 +20,16 @@ import torch
 
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import (BatesParams, HestonParams, MCConfig,
-                                                 MertonParams, OptionSpec)
+                                                 MertonParams, OptionSpec, SABRParams,
+                                                 VGParams)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (pair_mean_reduce, welford_empty,
                                                 welford_from_batch, welford_merge)
 from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.models.gbm import gbm_terminal_exact
 from options_model_tpu_torch.models.localvol import simulate_local_vol
+from options_model_tpu_torch.models.sabr import simulate_sabr
+from options_model_tpu_torch.models.vg import vg_terminal_exact
 from options_model_tpu_torch.ops.cuda_gbm import gbm_terminal
 from options_model_tpu_torch.ops.cuda_heston import (TERMINAL_TILE, heston_terminal,
                                                      heston_terminal_qe)
@@ -45,14 +48,17 @@ TerminalSampler = Callable[[int, int, MCConfig], torch.Tensor]
 def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                           heston: Optional[HestonParams] = None,
                           merton: Optional[MertonParams] = None,
-                          bates: Optional[BatesParams] = None, sigma_fn=None,
-                          engine: str = "auto", heston_scheme: str = "euler",
+                          bates: Optional[BatesParams] = None,
+                          vg: Optional[VGParams] = None, sabr: Optional[SABRParams] = None,
+                          sigma_fn=None, engine: str = "auto", heston_scheme: str = "euler",
                           localvol_table: Optional[LocalVolTable] = None,
                           div_yield=0.0, device=None) -> TerminalSampler:
     """Terminal-price sampler for GBM (log-Euler), Heston (full-truncation
     Euler, or QE-M with ``heston_scheme="qe"``), Merton, Bates (the Heston
     terminal kernel of ``heston_scheme``, then the terminal jump overlay
-    multiplied into its output in place) or local vol, on the terminal
+    multiplied into its output in place), VG (kernel 22's one exact step,
+    whatever ``n_steps``), SABR (kernel 24: the forward from F0 = S0 e^{(r -
+    q) T}, which is S_T at expiry) or local vol, on the terminal
     kernels: over a compiled Chebyshev ``localvol_table`` (which takes
     precedence), else under a bare ``sigma_fn(S, tau)``
     (models/localvol.simulate_local_vol's bare route, the same tiles and
@@ -98,6 +104,20 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
         def fn(seed, first_tile, c):
             return merton_terminal(seed, S0, drift, T, merton, c.n_paths, c.n_steps,
                                    c.antithetic, first_tile, device)
+    elif model == "vg":
+        if vg is None:
+            raise ValueError("vg params required for model='vg'")
+
+        def fn(seed, first_tile, c):
+            return vg_terminal_exact(seed, S0, drift, T, vg, c, first_tile, device)
+    elif model == "sabr":
+        if sabr is None:
+            raise ValueError("sabr params required for model='sabr'")
+        f = np.float32
+        F0 = float(f(S0) * np.exp(f(drift) * f(T)))
+
+        def fn(seed, first_tile, c):
+            return simulate_sabr(seed, F0, T, sabr, c, first_tile=first_tile, device=device)
     elif model == "localvol" and localvol_table is not None:
         def fn(seed, first_tile, c):
             return localvol_terminal(seed, S0, drift, T, localvol_table, c.n_paths,

@@ -10,12 +10,13 @@ options_model_tpu/pricers/surface_american.py (single device).
    mask. Each date's all-strike regression is therefore two matmuls,
    masks and mask-weighted cash (n_K, P) against the products of B, and a
    batched (n_K, d, d) Cholesky solve.
-3. Under Heston, Bates and Merton, maturities are simulated in groups of
+3. Under Heston, Bates, Merton and VG, maturities are simulated in groups of
    g = max(1, 2^20 * 51 // (n_pad * (n_steps + 1))), one launch of the
    batched paths kernel per group (models/heston.simulate_heston_maturities;
    Bates adds one launch of the jump overlay over the same group,
    models/bates.simulate_bates_maturities; Merton's is
-   models/merton.simulate_merton_maturities), and the backward runs on each
+   models/merton.simulate_merton_maturities; VG's
+   models/vg.simulate_vg_maturities), and the backward runs on each
    maturity's slice. A group holds at most the
    path-steps of 2^20 paths x 50 steps (428 MB with v) unless one maturity
    needs more: a 64-maturity surface at 16,384 paths x 50 steps is one
@@ -42,11 +43,13 @@ import numpy as np
 import torch
 
 from options_model_tpu_torch._unported import not_ported
-from options_model_tpu_torch.core.config import BatesParams, HestonParams, MCConfig, MertonParams
+from options_model_tpu_torch.core.config import (BatesParams, HestonParams, MCConfig,
+                                                 MertonParams, VGParams)
 from options_model_tpu_torch.models.bates import simulate_bates_maturities
 from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.models.heston import simulate_heston_maturities
 from options_model_tpu_torch.models.merton import simulate_merton_maturities
+from options_model_tpu_torch.models.vg import simulate_vg_maturities
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE, TERMINAL_TILE
 from options_model_tpu_torch.ops.engine import resolve_device, resolve_engine
 from options_model_tpu_torch.ops.philox import seed_from_generator
@@ -150,13 +153,15 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
                            sigma=None, heston: Optional[HestonParams] = None,
                            merton: Optional[MertonParams] = None,
                            bates: Optional[BatesParams] = None,
+                           vg: Optional[VGParams] = None,
                            engine: str = "auto", heston_scheme: str = "euler",
                            div_yield=0.0, variance_basis: bool = True, mesh=None,
                            return_stderr: bool = False, device=None):
     """American option surface (n_maturities, n_strikes), GBM, Heston (Euler
-    or QE-M), Merton or Bates, one path matrix per maturity shared by every
-    strike; Heston, Bates and Merton maturities simulated
-    maturity_group(n_pad, n_steps) at a time.
+    or QE-M), Merton, Bates or VG, one path matrix per maturity shared by
+    every strike; Heston, Bates, Merton and VG maturities simulated
+    maturity_group(n_pad, n_steps) at a time (VG: one launch of kernel 21 a
+    group). No SABR surface, as in the reference.
 
     ``return_stderr`` also returns the per-cell stderr over antithetic pair
     means, (prices, stderrs). ``mesh``: a ``torch.distributed`` DeviceMesh;
@@ -164,7 +169,7 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
     if mesh is not None and mesh.size() > 1:
         raise not_ported("a multi-device mesh (maturity-sharded surface)",
                          "pricers.surface_american._surface_impl")
-    if model not in ("gbm", "heston", "merton", "bates"):
+    if model not in ("gbm", "heston", "merton", "bates", "vg"):
         raise not_ported(f"model={model!r}",
                          "pricers.surface_american.price_american_surface")
     device = resolve_device(device)
@@ -190,10 +195,12 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
             stderrs.append(_pair_stderr(cash, stat_pb))
 
     Ts = np.asarray(maturities, np.float32).reshape(-1).tolist()
-    if model in ("heston", "bates", "merton"):
+    if model in ("heston", "bates", "merton", "vg"):
         if model == "merton" and merton is None:
             raise ValueError("merton params required for model='merton'")
-        if model != "merton" and heston is None:
+        if model == "vg" and vg is None:
+            raise ValueError("vg params required for model='vg'")
+        if model in ("heston", "bates") and heston is None:
             raise ValueError("heston params required for model='heston'")
         g = maturity_group(n_tiles * PATH_TILE, mc.n_steps)
         for i0 in range(0, len(Ts), g):
@@ -202,6 +209,8 @@ def price_american_surface(generator: torch.Generator, S0, strikes, maturities, 
             if model == "merton":
                 out = simulate_merton_maturities(seed, S0, rate - div_yield, group, merton, mc,
                                                  **kw)
+            elif model == "vg":
+                out = simulate_vg_maturities(seed, S0, rate - div_yield, group, vg, mc, **kw)
             else:
                 kw.update(return_variance=want_v, scheme=heston_scheme)
                 out = (simulate_bates_maturities(seed, S0, rate - div_yield, group, bates, mc,

@@ -25,6 +25,7 @@ from options_model_tpu.core.config import LSMConfig as JLSMConfig
 from options_model_tpu.core.config import MCConfig as JMCConfig
 from options_model_tpu.core.config import MertonParams as JMertonParams
 from options_model_tpu.core.config import OptionSpec as JOptionSpec
+from options_model_tpu.core.config import VGParams as JVGParams
 from options_model_tpu.core.stats import cashflow_statistics as j_cashflow_statistics
 from options_model_tpu.models.heston import effective_bs_sigma as j_effective_bs_sigma
 from options_model_tpu.ops.lsm_basis import poly_features as j_poly_features
@@ -32,7 +33,7 @@ from options_model_tpu.ops.lsm_basis import regression_features as j_regression_
 from options_model_tpu.pricers import american as ja
 from options_model_tpu.pricers import regressors as jr
 from options_model_tpu_torch.core.config import (HestonParams, LSMConfig, MCConfig,
-                                                  MertonParams, OptionSpec)
+                                                  MertonParams, OptionSpec, VGParams)
 from options_model_tpu_torch.core.stats import cashflow_statistics, masked_mean_stderr
 from options_model_tpu_torch.models.heston import effective_bs_sigma
 from options_model_tpu_torch.ops.lsm_basis import poly_features, regression_features
@@ -45,6 +46,8 @@ J_HESTON = JHestonParams(kappa=2.0, theta=0.04, xi=0.3, rho=-0.7, v0=0.04)
 HESTON = HestonParams.from_reference(vars(J_HESTON))
 J_MERTON = JMertonParams(sigma=0.2, lam=1.0, mu_j=-0.10, sigma_j=0.15)
 MERTON = MertonParams.from_reference(vars(J_MERTON))
+J_VG = JVGParams(sigma=0.2, theta=-0.14, nu=0.2)
+VG = VGParams.from_reference(vars(J_VG))
 S0, T = 100.0, 0.5
 J_MC = JMCConfig(n_paths=4096, n_steps=8, path_block=2048)
 MC = MCConfig.from_reference(vars(J_MC))
@@ -87,14 +90,16 @@ def _gen(seed):
 @pytest.fixture(scope="module")
 def xla_paths():
     """Identical paths for both packages: the JAX XLA simulators' GBM,
-    Merton and Heston (S, v) paths at 4096 x 8."""
+    Merton, VG and Heston (S, v) paths at 4096 x 8."""
     key = jax.random.key(11)
     S_g = ja.simulate_paths(key, S0, T, J_MC, "gbm", sigma=0.2, rate=0.05, engine="xla")
     S_m = ja.simulate_paths(key, S0, T, J_MC, "merton", rate=0.05, engine="xla",
                             merton=J_MERTON)
     S_h, v_h = ja.simulate_paths(key, S0, T, J_MC, "heston", rate=0.05, heston=J_HESTON,
                                  engine="xla", return_variance=True)
+    S_v = ja.simulate_paths(key, S0, T, J_MC, "vg", rate=0.05, engine="xla", vg=J_VG)
     return {"gbm": (np.asarray(S_g), None), "merton": (np.asarray(S_m), None),
+            "vg": (np.asarray(S_v), None),
             "heston": (np.asarray(S_h), np.asarray(v_h))}
 
 
@@ -330,20 +335,21 @@ def test_lsm_nn_backward_matches_reference_on_identical_paths(xla_paths, model):
 
 
 @pytest.mark.usefixtures("one_torch_thread")
-@pytest.mark.parametrize("model", ["gbm", "merton", "heston"])
+@pytest.mark.parametrize("model", ["gbm", "merton", "heston", "vg"])
 def test_richardson_nn_stat_matches_reference_on_identical_paths(xla_paths, model):
-    """The NN Richardson statistic's price on the same paths. Merton takes
-    no control variate here, as in the reference: through the dispatcher,
-    its price and stderr with the CV on are those with it off, bit for
-    bit."""
+    """The NN Richardson statistic's price on the same paths (VG with its
+    COS control-variate leg). Merton takes no control variate here, as in
+    the reference: through the dispatcher, its price and stderr with the CV
+    on are those with it off, bit for bit."""
     S, v = xla_paths[model]
-    js, spec = _spec(None if model == "heston" else 0.2)
+    js, spec = _spec(None if model in ("heston", "vg") else 0.2)
     jl, lsm = _lsm()
     hj, hp = (J_HESTON, HESTON) if model == "heston" else (None, None)
+    vj, vp = (J_VG, VG) if model == "vg" else (None, None)
     stat, mask = pa.richardson_nn_stat(6, _t(S), None if v is None else _t(v), spec, T, lsm,
-                                       heston=hp, model=model, pair_block=2048)
+                                       heston=hp, vg=vp, model=model, pair_block=2048)
     stat_j, mask_j = ja.richardson_nn_stat(jax.random.key(6), S, v, js, T, jl, heston=hj,
-                                           model=model, pair_block=2048)
+                                           vg=vj, model=model, pair_block=2048)
     assert stat.shape == (S.shape[1],) and bool((mask == 1).all())
     p, se, _ = masked_mean_stderr(stat, mask, 2048)
     p_j, se_j = float(jnp.mean(stat_j)), float(jnp.std(stat_j)) / np.sqrt(S.shape[1] / 2)

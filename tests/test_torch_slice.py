@@ -249,11 +249,18 @@ def test_unported_features_name_their_reference(case):
         assert 4.0 < float(p) < 5.3 and float(se) > 0
         return
     with pytest.raises(NotImplementedError, match="options_model_tpu\\."):
+        # VG and SABR price through every American route; what stays unported
+        # of them is the dual bracket (VG) and the surface (SABR, which the
+        # reference's surface takes no parameters for either)
         if case == "vg":
-            price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "vg", device="cpu")
+            from options_model_tpu_torch.core.config import VGParams
+            from options_model_tpu_torch.pricers.dual import price_american_bracket
+            price_american_bracket(_gen(8), 100.0, 0.5, spec, MC, model="vg",
+                                   vg=VGParams(0.2, -0.14, 0.2), device="cpu")
         elif case == "sabr":
-            price_american(_gen(8), 100.0, 0.5, spec, MC, LSMConfig(regressor="nn"),
-                           "sabr", heston=HESTON, device="cpu")
+            from options_model_tpu_torch.pricers.surface_american import price_american_surface
+            price_american_surface(_gen(8), 100.0, [100.0], [0.5], 0.05, MC, model="sabr",
+                                   device="cpu")
         elif case == "axis_name":
             price_american(_gen(8), 100.0, 0.5, spec, MC, lsm, "heston", heston=HESTON,
                            axis_name="paths", device="cpu")
