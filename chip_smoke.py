@@ -620,7 +620,11 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "dual_ce heston": "14dual_ce_kernelILi1ELb0EE",
                 "dual_ce heston, first design": "20dual_ce_first_kernelILi1EE",
                 "dual_ce merton": "14dual_ce_kernelILi2ELb0EE",
-                "dual_ce bates": "14dual_ce_kernelILi3ELb0EE"}
+                "dual_ce bates": "14dual_ce_kernelILi3ELb0EE",
+                "vg paths": "15vg_paths_kernelILb1ELb0EE",
+                "vg paths, first design": "21vg_paths_first_kernelILb1ELb0EE",
+                "sabr terminal": "20sabr_terminal_kernelILb1EE",
+                "sabr terminal, first design": "26sabr_terminal_first_kernelILb1ELb1EE"}
 # Pair-steps a pass of the time loop covers where that is not one. The
 # redesigned Euler VJP's thread holds one path through four steps (two
 # pair-steps' worth of path-steps); its first design a pair through two. The
@@ -642,11 +646,21 @@ SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1, "overla
 # inversion are counted once.
 SASS_EVALS = {"dual_ce gbm": 8, "dual_ce gbm, first design": 8, "dual_ce heston": 4,
               "dual_ce heston, first design": 4, "dual_ce merton": 8, "dual_ce bates": 4}
+# Kernel 21's loops nest (sass_loops reads the largest and the loops
+# directly inside it): the redesign's chunk loop holds its first attempts
+# (a pass: one step's draw of both paths of a pair), its retries (a pass:
+# one attempt of one draw a lane) and its walk (a pass: a pair-step); the
+# first design's step loop (a pass: a pair-step) holds each path's attempt
+# loop (a pass: one attempt). Kernel 24's loops cover a pair-step, both
+# designs.
+SASS_NESTED = ("vg paths", "vg paths, first design")
 # Loops that must hold no local load or store (LDL, STL): kernel 12's
 # redesign, whose sine and cosine leave out the Payne-Hanek path, and
 # kernel 18's (phase_dual_kernels also fails if any of its instances has
-# local memory at all).
-SASS_NO_LOCAL = ("gbm vjp", "dual_ce gbm", "dual_ce heston", "dual_ce merton", "dual_ce bates")
+# local memory at all), and the redesigns of kernels 21 (its chunk loop,
+# all three inner loops with it) and 24.
+SASS_NO_LOCAL = ("gbm vjp", "dual_ce gbm", "dual_ce heston", "dual_ce merton", "dual_ce bates",
+                 "vg paths", "sabr terminal")
 # The loops whose instructions phase_sass prints by unit.
 SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
               "localvol terminal, degree 3", "localvol paths, degree 3", "euler vjp",
@@ -654,7 +668,8 @@ SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol p
               "merton paths", "merton paths, first design", "overlay paths",
               "overlay paths, first design", "gbm vjp", "gbm vjp, first design",
               "overlay terminal", "dual_ce gbm", "dual_ce gbm, first design", "dual_ce heston",
-              "dual_ce heston, first design", "dual_ce merton", "dual_ce bates")
+              "dual_ce heston, first design", "dual_ce merton", "dual_ce bates", "vg paths",
+              "vg paths, first design", "sabr terminal", "sabr terminal, first design")
 
 
 def per_step(key: str, n: int) -> str:
@@ -671,10 +686,11 @@ def per_step(key: str, n: int) -> str:
     return ""
 
 
-def sass_loops(text: str) -> dict:
+def sass_loops(text: str) -> tuple:
     """The instructions of the largest loop (the span of a backward branch)
-    of each SASS_KERNELS kernel in ``cuobjdump -sass`` output."""
-    out = {}
+    of each SASS_KERNELS kernel in ``cuobjdump -sass`` output, and for the
+    SASS_NESTED kernels the loops directly inside it, in address order."""
+    out, inner = {}, {}
     for chunk in text.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
         key = next((k for k, piece in SASS_KERNELS.items() if piece in name), None)
@@ -702,7 +718,43 @@ def sass_loops(text: str) -> dict:
                  if isinstance(labels.get(t, t), int) and labels.get(t, t) <= addr]
         lo, hi = max(spans, key=lambda s: s[1] - s[0]) if spans else (0, -1)
         out[key] = [ins for addr, ins in code if lo <= addr <= hi]
-    return out
+        if key in SASS_NESTED:
+            kids = {sp for sp in spans if lo <= sp[0] and sp[1] <= hi and sp != (lo, hi)}
+            kids = sorted(sp for sp in kids if not any(
+                o != sp and o[0] <= sp[0] and sp[1] <= o[1] for o in kids))
+            inner[key] = [[ins for addr, ins in code if a <= addr <= b] for a, b in kids]
+    return out, inner
+
+
+def _vg_roles(key: str, kids: list) -> dict:
+    """Kernel 21's inner loops by role (SASS_NESTED), {} unless they read as
+    expected: the redesign's walk holds the global stores (STG), its
+    retries the block barrier (BAR), its first attempts the ballot (VOTE);
+    the first design's two attempt loops hold no store."""
+    ops = [[opcode(ins) for ins in k] for k in kids]
+    has = lambda i, pre: any(o.startswith(pre) for o in ops[i])  # noqa: E731
+    if key == "vg paths":
+        roles = {}
+        for i in range(len(kids)):
+            role = ("walk" if has(i, "STG") else "retries" if has(i, "BAR")
+                    else "first attempts" if has(i, "VOTE") else None)
+            if role is None or role in roles:
+                return {}
+            roles[role] = i
+        return roles if len(roles) == 3 else {}
+    if len(kids) == 2 and not has(0, "STG") and not has(1, "STG"):
+        return {"attempts": 0, "attempts, mirror": 1}
+    return {}
+
+
+def vg_loop_parts(key: str, kids: list) -> dict:
+    """Instructions of kernel 21's inner loops by role (_vg_roles)."""
+    return {role: len(kids[i]) for role, i in _vg_roles(key, kids).items()}
+
+
+def vg_loop_mufu(key: str, kids: list) -> dict:
+    """MUFU of kernel 21's inner loops by role (_vg_roles)."""
+    return {role: pipe_mix(kids[i])["MUFU"] for role, i in _vg_roles(key, kids).items()}
 
 
 def opcode(ins: str) -> str:
@@ -748,7 +800,7 @@ def phase_sass() -> dict:
         return assumed
     text = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    loops = sass_loops(text)
+    loops, inner = sass_loops(text)
     log("[1] SASS time loops (static instructions of the largest backward-branch span; "
         "the redesigned Euler loops (paths and terminal) cover two steps of a pair and one "
         "Philox call, the local-vol (terminal and paths) and GBM terminal redesigns four "
@@ -758,7 +810,9 @@ def phase_sass() -> dict:
         "and terminal) cover two pair-steps, the redesigned overlay two path-steps of one "
         "path; a pair-step is both mirror paths' step; kernel 18's loop is one Philox call "
         "of the inner draws, eight surrogate evaluations under GBM and Merton, four under Heston "
-        "and Bates): "
+        "and Bates; kernel 21's redesign's largest loop is its chunk loop of 8 steps, its "
+        "first design's a pair-step, each with its loops inside (below); kernel 24's loops a "
+        "pair-step): "
         + ", ".join(f"{k} {len(v)}" + per_step(k, len(v)) for k, v in loops.items()))
     for key in SASS_PIPES:
         if key in loops:
@@ -775,6 +829,17 @@ def phase_sass() -> dict:
                 + f"; local loads and stores {local}")
             if key in SASS_NO_LOCAL and local:
                 fail(f"the {key} loop holds {local} local loads or stores")
+    nested = {}
+    for key, kids in inner.items():
+        parts = vg_loop_parts(key, kids)
+        log(f"[1] SASS {key}: loops inside its {'chunk' if key == 'vg paths' else 'step'} loop "
+            f"({len(loops[key])} instructions): "
+            + ", ".join(f"{len(k)} ({pipe_mix(k)['MUFU']} MUFU)" for k in kids)
+            + (f"; read as {', '.join(f'{p} {n}' for p, n in parts.items())}" if parts
+               else "; not read as the expected loops: no floors"))
+        if parts:
+            nested[key] = dict(parts=parts, mufu=vg_loop_mufu(key, kids), outer=len(loops[key]),
+                               outer_mufu=pipe_mix(loops[key])["MUFU"])
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -807,7 +872,7 @@ def phase_sass() -> dict:
         f"and 20 XORs less the loop-invariant ones)")
     return dict(per_call=per_call, source="sass", multiplies=kinds, xors=len(xors),
                 loops={k: len(v) for k, v in loops.items()},
-                mufu={k: pipe_mix(v)["MUFU"] for k, v in loops.items()})
+                mufu={k: pipe_mix(v)["MUFU"] for k, v in loops.items()}, nested=nested)
 
 
 def phase_philox() -> None:
@@ -4340,6 +4405,14 @@ SABR_BASIS_GAP = 0.02      # the S-only basis prices lower by more than this
 # subnormals (a ~ 0.01).
 GAMMA_SHAPES = (0.01, 0.05, 1.0, 2.5)
 GAMMA_RTOL = 1e-5
+# The redesigns of kernels 21 and 24 (csrc/vg.cu vg_paths_kernel,
+# csrc/sabr.cu sabr_terminal_kernel) walk on the fast pipes (the SFU
+# Box-Muller, ex2, FMAs), as the redesigns of kernels 1 and 3-8 do, and
+# are held to those redesigns' design tolerance: S, F_T, G_T and alpha_T
+# within REDESIGN_RTOL of the plain version (the first designs keep
+# S_RTOL and V_RTOL). Kernel 21's clock stays exact: its gammas and
+# accepting attempts equal the first design's bit for bit.
+REDESIGN_RTOL = 1e-4
 ATTEMPT_FLIPS = 1e-6
 FLT_MIN = 1.1754943508222875e-38
 GAMMA_QUANTILES = (0.5, 0.75, 0.95)
@@ -4363,6 +4436,12 @@ def vg_draws(attempts: float, boost: bool) -> tuple:
     normal (two words), and per attempt one call of three words (four with
     the boost)."""
     return (0.5 + attempts, 1 + attempts * (4 if boost else 3))
+
+
+# The first designs of kernels 21 and 24, by the redesign's name: their
+# launch counters' keys (ops/cuda_vg.py, ops/cuda_sabr.py).
+FAMILY_FIRSTS = {"vg_paths": "vg_paths, first design",
+                 "sabr_terminal": "sabr_terminal, first design"}
 
 
 def family_specs():
@@ -4404,14 +4483,22 @@ def phase_family_kernels() -> dict:
     draws within GAMMA_RTOL, S_T within S_RTOL; the law of 2^22 kernel draws
     at each shape against scipy.stats.gamma (mean, variance, CDF at
     GAMMA_QUANTILES, the zeros against the mass below 2^-150) within 4
-    stderr; kernels 21 and 22 at the legs' shapes (2^20 x 50 of F2, 2^22
-    of F1: attempts that differ at most ATTEMPT_FLIPS of the draws, the
-    other paths within S_RTOL), the F3 batch (64 x 16,384 x 50) equal to
-    its 64 single launches bit for bit and its first and last maturity
-    against the plain version; kernels 23 and 24 at 2 tiles and the legs'
-    shapes (F5's 2^20 x 50 with alpha, F4's 2^22 x 64 with G_T and alpha;
-    beta = 0.5 at 4 tiles x 50): F and G_T within S_RTOL, alpha within
-    V_RTOL, the absorbed paths equal; first_tile chunks of all four bit for
+    stderr; kernel 22 at F1's 2^22 (attempts that differ at most
+    ATTEMPT_FLIPS of the draws, the other paths within S_RTOL). Kernel 21,
+    both designs on one plain output a shape, at F2's 2^20 x 50, 2 tiles x
+    50, the F3 batch's first and last maturity (16,384 x 50) and 2 tiles x
+    50 at each shape of GAMMA_SHAPES: the redesign's gammas and attempts
+    equal the first design's bit for bit, its S within REDESIGN_RTOL of
+    plain and finite; the first design against plain as kernel 22 (S
+    within S_RTOL); the F3 batch (64 x 16,384 x 50) equal to its 64 single
+    launches bit for bit, both designs. Kernel 23 at 2 tiles and F5's 2^20
+    x 50 with alpha (beta = 0.5 at 2 and 4 tiles x 50); kernel 24 at 2
+    tiles and F4's 2^22 x 64 with G_T and alpha, the redesign within
+    REDESIGN_RTOL (F_T, alpha_T, G_T) and the first design within S_RTOL
+    and V_RTOL of one plain output; at beta = 0.5 both the same launch of
+    the first design's instance, the absorbed set plain's. F and G_T of
+    kernel 23 within S_RTOL, alpha within V_RTOL, the absorbed paths
+    equal; first_tile chunks of all four and both first designs bit for
     bit. Returns per kernel max |d| and max relative d, and the mean gamma
     attempts at the timed shapes."""
     import numpy as np
@@ -4427,7 +4514,8 @@ def phase_family_kernels() -> dict:
     t0 = time.perf_counter()
     seed = 0x452821E638D01377
     vg1, vg2, sp, sp_abs = _family_params()
-    errs = {k["name"]: dict(s_abs=0.0, s_rel=0.0) for k in family_specs()}
+    errs = {name: dict(s_abs=0.0, s_rel=0.0)
+            for name in [k["name"] for k in family_specs()] + list(FAMILY_FIRSTS.values())}
     attempts = {}
 
     def note(name, got, want):
@@ -4440,10 +4528,10 @@ def phase_family_kernels() -> dict:
                        stream_words(*words, device=DEVICE, stream=VG_STREAM)):
         fail("F0: the VG stream's Philox words differ between the card and the plain version")
 
-    def vg_check(label, name, got, want, limit):
+    def vg_check(label, name, got, want, limit, s_rtol=S_RTOL):
         """S, gammas and attempts of a kernel against the plain version;
         paths with a differing attempt are counted (at most ``limit``) and
-        left out of the S check."""
+        left out of the S check (within ``s_rtol``)."""
         (S, g, a), (S0, g0, a0) = got, want
         flips = a != a0
         n_flip = int(flips.sum())
@@ -4460,13 +4548,31 @@ def phase_family_kernels() -> dict:
         else:
             Sg, Sw = S[..., path_ok], S0[..., path_ok]
         rel = _rel(Sg, Sw)
-        if not (S.shape == S0.shape and rel <= S_RTOL and bool(torch.isfinite(S).all())):
-            fail(f"F0: {label}: S max rel {rel:.3e} (gate {S_RTOL})")
+        if not (S.shape == S0.shape and rel <= s_rtol and bool(torch.isfinite(S).all())):
+            fail(f"F0: {label}: S max rel {rel:.3e} (gate {s_rtol})")
         note(name, Sg, Sw)
         log(f"[F0] {label}: attempts differing {n_flip} of {a.numel()} draws, gamma max rel "
-            f"{rel_g:.3e}, S max rel {rel:.3e} (gates {limit}, {GAMMA_RTOL}, {S_RTOL}); mean "
+            f"{rel_g:.3e}, S max rel {rel:.3e} (gates {limit}, {GAMMA_RTOL}, {s_rtol}); mean "
             f"attempts {float(a.double().mean()) + 1:.5f} a draw")
         return float(a.double().mean()) + 1
+
+    def vg_both(label, args, limit, first_tile=0):
+        """Kernel 21's two designs on one plain output: the first design
+        against plain at today's gates, the redesign's draws against the
+        first design's bit for bit and its S within REDESIGN_RTOL of plain.
+        Returns the mean attempts a draw."""
+        kw = dict(first_tile=first_tile, device=DEVICE, return_draws=True)
+        want = [x[0] for x in cuda_vg.vg_paths_reference(*args, **kw)]
+        first = [x[0] for x in cuda_vg.vg_paths_first(*args, **kw)]
+        got = [x[0] for x in cuda_vg.vg_paths(*args, **kw)]
+        vg_check(f"{label}, first design", FAMILY_FIRSTS["vg_paths"], first, want, limit)
+        differ = int((got[2] != first[2]).sum())
+        if differ or not torch.equal(got[1].view(torch.int32), first[1].view(torch.int32)):
+            fail(f"F0: {label}: the redesign's gamma draws are not the first design's "
+                 f"({differ} attempts differ)")
+        log(f"[F0] {label}: the redesign's gammas and attempts == the first design's bit for "
+            f"bit (0 of {got[2].numel()} attempts differ)")
+        return vg_check(f"{label}, redesign", "vg_paths", got, want, limit, REDESIGN_RTOL)
 
     # kernel 22 at each gamma shape: 2 tiles against plain, 2^22 draws in law
     for a in GAMMA_SHAPES:
@@ -4496,20 +4602,15 @@ def phase_family_kernels() -> dict:
         if bad:
             fail(f"F0: kernel 22's gamma draws at a = {shape} leave the gamma law")
 
-    # kernels 21 and 22 at the legs' shapes
-    attempts["vg_paths"] = vg_check(
-        "vg_paths F2 2^20 x 50 (a = 0.05)", "vg_paths",
-        [x[0] for x in cuda_vg.vg_paths(seed, 100.0, 0.05, [0.5], vg2, 1 << 20, 50,
-                                        device=DEVICE, return_draws=True)],
-        [x[0] for x in cuda_vg.vg_paths_reference(seed, 100.0, 0.05, [0.5], vg2, 1 << 20, 50,
-                                                  device=DEVICE, return_draws=True)],
-        int(ATTEMPT_FLIPS * (1 << 20) * 50))
-    vg_check("vg_paths F2 2 tiles x 50", "vg_paths",
-             [x[0] for x in cuda_vg.vg_paths(seed, 100.0, 0.05, [0.5], vg2, 2 * PATH_TILE, 50,
-                                             device=DEVICE, return_draws=True)],
-             [x[0] for x in cuda_vg.vg_paths_reference(seed, 100.0, 0.05, [0.5], vg2,
-                                                       2 * PATH_TILE, 50, device=DEVICE,
-                                                       return_draws=True)], 0)
+    # kernel 21 at the legs' shapes and at each gamma shape, kernel 22 at F1's
+    attempts["vg_paths"] = vg_both("vg_paths F2 2^20 x 50 (a = 0.05)",
+                                   (seed, 100.0, 0.05, [0.5], vg2, 1 << 20, 50),
+                                   int(ATTEMPT_FLIPS * (1 << 20) * 50))
+    vg_both("vg_paths F2 2 tiles x 50", (seed, 100.0, 0.05, [0.5], vg2, 2 * PATH_TILE, 50), 0)
+    for a in GAMMA_SHAPES:
+        T = float(np.float32(a) * np.float32(10.0))     # 50 steps, nu = 0.2: a = T / 10
+        vg_both(f"vg_paths gamma shape {a} (T = {T:.6g}, nu 0.2) 2 tiles x 50",
+                (seed, 100.0, 0.05, [T], vg2, 2 * PATH_TILE, 50), 0)
     attempts["vg_terminal"] = vg_check(
         "vg_terminal F1 2^22 (a = 2.857)", "vg_terminal",
         cuda_vg.vg_terminal(seed, 100.0, 0.04, 1.0, vg1, 1 << 22, device=DEVICE,
@@ -4518,26 +4619,22 @@ def phase_family_kernels() -> dict:
                                       return_draws=True), int(ATTEMPT_FLIPS * (1 << 22)))
     # the F3 batch: 64 maturities in one launch == 64 single launches
     Ts = np.linspace(0.1, 1.0, 64).astype(np.float32).tolist()
-    batch = cuda_vg.vg_paths(seed, 100.0, 0.05, Ts, vg2, 16384, 50, device=DEVICE)
-    for m, T in enumerate(Ts):
-        one = cuda_vg.vg_paths(seed, 100.0, 0.05, [T], vg2, 16384, 50, first_tile=4 * m,
-                               device=DEVICE)[0]
-        if not torch.equal(one, batch[m]):
-            fail(f"F0: vg_paths' 64-maturity batch differs from its single launch at "
-                 f"maturity {m}")
+    for design, fn in (("redesign", cuda_vg.vg_paths), ("first design", cuda_vg.vg_paths_first)):
+        batch = fn(seed, 100.0, 0.05, Ts, vg2, 16384, 50, device=DEVICE)
+        for m, T in enumerate(Ts):
+            one = fn(seed, 100.0, 0.05, [T], vg2, 16384, 50, first_tile=4 * m, device=DEVICE)[0]
+            if not torch.equal(one, batch[m]):
+                fail(f"F0: vg_paths' 64-maturity batch ({design}) differs from its single "
+                     f"launch at maturity {m}")
     for m in (0, 63):
-        got = [x[0] for x in cuda_vg.vg_paths(seed, 100.0, 0.05, [Ts[m]], vg2, 16384, 50,
-                                              first_tile=4 * m, device=DEVICE,
-                                              return_draws=True)]
-        want = [x[0] for x in cuda_vg.vg_paths_reference(seed, 100.0, 0.05, [Ts[m]], vg2, 16384,
-                                                         50, first_tile=4 * m, device=DEVICE,
-                                                         return_draws=True)]
-        vg_check(f"vg_paths F3 maturity {m} (T = {Ts[m]:.4f}) 16,384 x 50", "vg_paths", got,
-                 want, int(ATTEMPT_FLIPS * 16384 * 50))
-    log("[F0] vg_paths' 64 x 16,384 x 50 batch == its 64 single-maturity launches bit for bit")
+        vg_both(f"vg_paths F3 maturity {m} (T = {Ts[m]:.4f}) 16,384 x 50",
+                (seed, 100.0, 0.05, [Ts[m]], vg2, 16384, 50), int(ATTEMPT_FLIPS * 16384 * 50),
+                first_tile=4 * m)
+    log("[F0] vg_paths' 64 x 16,384 x 50 batch == its 64 single-maturity launches bit for "
+        "bit, both designs")
 
     # kernels 23 and 24
-    def sabr_check(label, name, got, want, params, F_0, T_):
+    def sabr_check(label, name, got, want, params, F_0, T_, gates=(S_RTOL, V_RTOL, S_RTOL)):
         got, want = list(got), list(want)
         F, F_p = got[0], want[0]
         if not torch.equal(F == 0.0, F_p == 0.0):
@@ -4560,15 +4657,15 @@ def phase_family_kernels() -> dict:
             if not float(e.max()) <= 2.0 * float(e_p.max()) + 1e-30:
                 fail(f"F0: {label}: kernel off float64 by {float(e.max()):.3e}, plain "
                      f"{float(e_p.max()):.3e}")
-        if not (rel <= S_RTOL and bool(torch.isfinite(F).all())):
-            fail(f"F0: {label}: F max rel {rel:.3e} (gate {S_RTOL})")
+        if not (rel <= gates[0] and bool(torch.isfinite(F).all())):
+            fail(f"F0: {label}: F max rel {rel:.3e} (gate {gates[0]})")
         note(name, F, F_p)
         for x, y, what, gate in zip(got[1:], want[1:], ("alpha", "G_T")[:len(got) - 1],
-                                    (V_RTOL, S_RTOL)):
+                                    gates[1:]):
             r = _rel(x, y)
-            if not r <= gate:
+            if not (r <= gate and bool(torch.isfinite(x).all())):
                 fail(f"F0: {label}: {what} max rel {r:.3e} (gate {gate})")
-        log(f"[F0] {label}: F max rel {rel:.3e} (gate {S_RTOL}; well-conditioned share "
+        log(f"[F0] {label}: F max rel {rel:.3e} (gate {gates[0]}; well-conditioned share "
             f"{well:.4f}), bit-equal share {float((F == F_p).double().mean()):.6f}, absorbed "
             f"{int((F == 0).sum())} entries the same set"
             + "".join(f", {what} max rel {_rel(x, y):.3e}"
@@ -4588,20 +4685,25 @@ def phase_family_kernels() -> dict:
                    cuda_sabr.sabr_paths_reference(seed, 5.0, 2.0, sp_abs, n, 50, device=DEVICE,
                                                   return_alpha=True), sp_abs, 5.0, 2.0)
     for n, steps, label in ((2 * TERMINAL_TILE, 64, "2 tiles"), (1 << 22, 64, "F4 2^22")):
-        sabr_check(f"sabr_terminal beta 1 {label} x {steps} with alpha and G_T",
-                   "sabr_terminal",
-                   cuda_sabr.sabr_terminal(seed, F0_4, 0.5, sp, n, steps, device=DEVICE,
-                                           return_alpha=True, return_cv=True),
-                   cuda_sabr.sabr_terminal_reference(seed, F0_4, 0.5, sp, n, steps,
-                                                     device=DEVICE, return_alpha=True,
-                                                     return_cv=True), sp, F0_4, 0.5)
-    got = cuda_sabr.sabr_terminal(seed, 5.0, 2.0, sp_abs, 2 * TERMINAL_TILE, 50, device=DEVICE)
-    want = cuda_sabr.sabr_terminal_reference(seed, 5.0, 2.0, sp_abs, 2 * TERMINAL_TILE, 50,
-                                             device=DEVICE)
-    if not torch.equal(got == 0.0, want == 0.0):
-        fail("F0: sabr_terminal beta 0.5: the absorbed paths differ")
-    log(f"[F0] sabr_terminal beta 0.5 2 tiles x 50: absorbed {int((got == 0).sum())} the same "
-        f"set, bit-equal share {float((got == want).double().mean()):.6f}")
+        kw = dict(device=DEVICE, return_alpha=True, return_cv=True)
+        want = cuda_sabr.sabr_terminal_reference(seed, F0_4, 0.5, sp, n, steps, **kw)
+        sabr_check(f"sabr_terminal beta 1 {label} x {steps} with alpha and G_T, redesign",
+                   "sabr_terminal", cuda_sabr.sabr_terminal(seed, F0_4, 0.5, sp, n, steps, **kw),
+                   want, sp, F0_4, 0.5, (REDESIGN_RTOL,) * 3)
+        sabr_check(f"sabr_terminal beta 1 {label} x {steps} with alpha and G_T, first design",
+                   FAMILY_FIRSTS["sabr_terminal"],
+                   cuda_sabr.sabr_terminal_first(seed, F0_4, 0.5, sp, n, steps, **kw), want, sp,
+                   F0_4, 0.5)
+    args = (seed, 5.0, 2.0, sp_abs, 2 * TERMINAL_TILE, 50)
+    got = cuda_sabr.sabr_terminal(*args, device=DEVICE)
+    first = cuda_sabr.sabr_terminal_first(*args, device=DEVICE)
+    want = cuda_sabr.sabr_terminal_reference(*args, device=DEVICE)
+    if not (torch.equal(got == 0.0, want == 0.0) and torch.equal(got, first)):
+        fail("F0: sabr_terminal beta 0.5: the absorbed paths differ, or the two entries' "
+             "launches of the first design's instance do")
+    log(f"[F0] sabr_terminal beta 0.5 2 tiles x 50 (both entries: the first design's "
+        f"instance, bit for bit): absorbed {int((got == 0).sum())} the same set as plain, "
+        f"bit-equal share {float((got == want).double().mean()):.6f}")
 
     # first_tile chunks, bit for bit
     chunks = [
@@ -4616,12 +4718,19 @@ def phase_family_kernels() -> dict:
          PATH_TILE),
         ("sabr_terminal", lambda ft, n: torch.stack(cuda_sabr.sabr_terminal(
             seed, F0_4, 0.5, sp, n * TERMINAL_TILE, 16, first_tile=ft, device=DEVICE,
+            return_alpha=True, return_cv=True)), TERMINAL_TILE),
+        (FAMILY_FIRSTS["vg_paths"], lambda ft, n: cuda_vg.vg_paths_first(
+            seed, 100.0, 0.05, [0.5], vg2, n * PATH_TILE, 20, first_tile=ft, device=DEVICE)[0],
+         PATH_TILE),
+        (FAMILY_FIRSTS["sabr_terminal"], lambda ft, n: torch.stack(cuda_sabr.sabr_terminal_first(
+            seed, F0_4, 0.5, sp, n * TERMINAL_TILE, 16, first_tile=ft, device=DEVICE,
             return_alpha=True, return_cv=True)), TERMINAL_TILE)]
     for name, fn, tile in chunks:
         whole, part = fn(3, 3), fn(4, 2)
         if not torch.equal(part, whole[..., tile:]):
             fail(f"F0: a first_tile chunk of {name} is not the whole's tiles")
-    log("[F0] first_tile chunks of kernels 21-24 bit for bit; the VG stream's words (counter "
+    log("[F0] first_tile chunks of kernels 21-24 and of 21's and 24's first designs bit for "
+        "bit; the VG stream's words (counter "
         f"word 3 = {VG_STREAM}) bit for bit; F0 {time.perf_counter() - t0:.1f} s")
     return {"errs": errs, "attempts": attempts}
 
@@ -4856,18 +4965,62 @@ def phase_families() -> tuple:
     return secs, res
 
 
-def phase_family_timing(per_call: float, attempts: dict, launches: dict) -> dict:
+# Steps a chunk of kernel 21's redesign (csrc/vg.cu kChunk).
+VG_CHUNK = 8
+
+
+def family_floors(sass: dict, key: str, n_paths: int, n_steps: int, attempts: float) -> dict:
+    """Issue and SFU floors of kernel 21's or 24's design ``key`` (a
+    SASS_KERNELS key) at n_paths x n_steps, antithetic: each loop's
+    instructions and MUFU (phase_sass) times its passes, kernel 21's
+    attempts at ``attempts`` a draw, its retries as if dense (a pass a
+    retry). The instructions outside the loops are not counted. {} where
+    phase_sass read no loops."""
+    pairs, path_steps = n_paths / 2, n_paths * n_steps
+    if key.startswith("sabr"):
+        n, mufu = sass.get("loops", {}).get(key), sass.get("mufu", {}).get(key)
+        if not n:
+            return {}
+        ins, mu = n * pairs * n_steps, mufu * pairs * n_steps
+    else:
+        p = sass.get("nested", {}).get(key)
+        if not p:
+            return {}
+        parts, m = p["parts"], p["mufu"]
+        rest, rest_m = p["outer"] - sum(parts.values()), p["outer_mufu"] - sum(m.values())
+        if key == "vg paths":
+            passes = {"first attempts": pairs * n_steps, "walk": pairs * n_steps,
+                      "retries": (attempts - 1) * path_steps}
+            rest_passes = pairs * -(-n_steps // VG_CHUNK)
+        else:
+            passes = {"attempts": attempts * path_steps / 2,
+                      "attempts, mirror": attempts * path_steps / 2}
+            rest_passes = pairs * n_steps
+        ins = rest * rest_passes + sum(parts[k] * n for k, n in passes.items())
+        mu = rest_m * rest_passes + sum(m[k] * n for k, n in passes.items())
+    return dict(instructions_per_path_step=ins / path_steps, mufu_per_path_step=mu / path_steps,
+                issue_floor_ms=ins / PEAK_ISSUE * 1e3, mufu_floor_ms=mu / PEAK_MUFU * 1e3)
+
+
+def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
     """Phase 5 for rows 21-24: CUDA-event medians of kernels 21-24 and of
     their plain versions at their legs' shapes (21 at F2's 2^20 x 50 and
     at F3's 64 x 16,384 x 50 batch, 22 at F1's 2^22, 23 with alpha at F5's
     2^20 x 50, 24 with G_T at F4's 2^22 x 64) beside their bounds (the
     integer term at the run's mean gamma attempts, ``attempts``, from F0),
-    registers and occupancy."""
+    registers and occupancy. The redesigns of 21 and 24 in turns with their
+    first designs (first, new, new, first), each design beside its issue
+    and SFU floors (family_floors) and launches x (ms - bound) at the
+    families path's launches; the F3 batch through the wrapper (the host
+    builds 64 constants rows) and as a bare launch."""
+    import numpy as np
+    import torch
+
     from options_model_tpu_torch.ops import cuda_sabr, cuda_vg
+    from options_model_tpu_torch.ops.cuda_jumps import device_rows
     from options_model_tpu_torch.utils.profiling import time_per_call
 
-    import numpy as np
-
+    per_call = sass["per_call"]
     seed = 0x13198A2E03707344
     vg1, vg2, sp, _ = _family_params()
     n20, n22 = 1 << 20, 1 << 22
@@ -4876,47 +5029,116 @@ def phase_family_timing(per_call: float, attempts: dict, launches: dict) -> dict
     a1 = vg_draws(attempts["vg_terminal"], False)
     ops2 = attempts["vg_paths"] * OPS_VG_ATTEMPT + OPS_VG_BOOST + OPS_VG_STEP
     ops1 = attempts["vg_terminal"] * OPS_VG_ATTEMPT + OPS_VG_STEP
-    cases = [
-        ("vg_paths", f"{n20} x 50",
-         lambda plain: (cuda_vg.vg_paths_reference if plain else cuda_vg.vg_paths)(
-             seed, 100.0, 0.05, [0.5], vg2, n20, 50, device=DEVICE),
-         bound(n20, 50, ops2, int_ops(a2, per_call), 51 * n20 * 4)),
-        ("vg_terminal", f"{n22}",
-         lambda plain: (cuda_vg.vg_terminal_reference if plain else cuda_vg.vg_terminal)(
-             seed, 100.0, 0.04, 1.0, vg1, n22, device=DEVICE),
-         bound(n22, 1, ops1, int_ops(a1, per_call), n22 * 4)),
-        ("sabr_paths", f"{n20} x 50 with alpha",
-         lambda plain: (cuda_sabr.sabr_paths_reference if plain else cuda_sabr.sabr_paths)(
-             seed, 100.0, 0.5, sp, n20, 50, device=DEVICE, return_alpha=True),
-         bound(n20, 50, OPS_SABR, int_ops(DRAWS_SABR, per_call), 2 * 51 * n20 * 4)),
-        ("sabr_terminal", f"{n22} x 64 with G_T",
-         lambda plain: (cuda_sabr.sabr_terminal_reference if plain
-                        else cuda_sabr.sabr_terminal)(
-             seed, 100.0, 0.5, sp, n22, 64, device=DEVICE, return_cv=True),
-         bound(n22, 64, OPS_SABR_CV, int_ops(DRAWS_SABR, per_call), 2 * n22 * 4)),
-    ]
+    vg_src, sabr_src = "options_model_tpu_torch/csrc/vg.cu", "options_model_tpu_torch/csrc/sabr.cu"
+    vg_f2 = (seed, 100.0, 0.05, [0.5], vg2, n20, 50)
+    sabr_f4 = (seed, 100.0, 0.5, sp, n22, 64)
+    # name -> shape, (plain, kernel[, first design]), bound, (SASS key, paths, steps)
+    cases = {
+        "vg_paths": (f"{n20} x 50",
+                     (lambda: cuda_vg.vg_paths_reference(*vg_f2, device=DEVICE),
+                      lambda: cuda_vg.vg_paths(*vg_f2, device=DEVICE),
+                      lambda: cuda_vg.vg_paths_first(*vg_f2, device=DEVICE)),
+                     bound(n20, 50, ops2, int_ops(a2, per_call), 51 * n20 * 4),
+                     ("vg paths", n20, 50, vg_src)),
+        "vg_terminal": (f"{n22}",
+                        (lambda: cuda_vg.vg_terminal_reference(seed, 100.0, 0.04, 1.0, vg1, n22,
+                                                               device=DEVICE),
+                         lambda: cuda_vg.vg_terminal(seed, 100.0, 0.04, 1.0, vg1, n22,
+                                                     device=DEVICE)),
+                        bound(n22, 1, ops1, int_ops(a1, per_call), n22 * 4), None),
+        "sabr_paths": (f"{n20} x 50 with alpha",
+                       (lambda: cuda_sabr.sabr_paths_reference(seed, 100.0, 0.5, sp, n20, 50,
+                                                               device=DEVICE, return_alpha=True),
+                        lambda: cuda_sabr.sabr_paths(seed, 100.0, 0.5, sp, n20, 50,
+                                                     device=DEVICE, return_alpha=True)),
+                       bound(n20, 50, OPS_SABR, int_ops(DRAWS_SABR, per_call), 2 * 51 * n20 * 4),
+                       None),
+        "sabr_terminal": (f"{n22} x 64 with G_T",
+                          (lambda: cuda_sabr.sabr_terminal_reference(*sabr_f4, device=DEVICE,
+                                                                     return_cv=True),
+                           lambda: cuda_sabr.sabr_terminal(*sabr_f4, device=DEVICE,
+                                                           return_cv=True),
+                           lambda: cuda_sabr.sabr_terminal_first(*sabr_f4, device=DEVICE,
+                                                                 return_cv=True)),
+                          bound(n22, 64, OPS_SABR_CV, int_ops(DRAWS_SABR, per_call),
+                                2 * n22 * 4),
+                          ("sabr terminal", n22, 64, sabr_src)),
+    }
     attrs = {**cuda_vg.vg_kernel_attrs(), **cuda_sabr.sabr_kernel_attrs()}
     out = {}
     log_clocks("before the family kernels")
-    for name, shape, run, b in cases:
-        ms = time_per_call(lambda: run(False), N_TIMED)
-        plain_ms = time_per_call(lambda: run(True), 3)
+
+    def floors(row, key, label, t, n, steps):
+        fl = family_floors(sass, key, n, steps, attempts["vg_paths"])
+        if not fl:
+            log(f"[5] {key}: no SASS loops read, no floors")
+            return
+        row.update(fl if label == "redesign" else {f"earlier_{k}": x for k, x in fl.items()})
+        log(f"[5] {key} ({label}) at {n} x {steps}: {fl['instructions_per_path_step']:.1f} SASS "
+            f"instructions a path-step ({fl['mufu_per_path_step']:.2f} MUFU): issue floor "
+            f"{fl['issue_floor_ms']:.4f} ms ({fl['issue_floor_ms'] / t * 100:.1f}% of its "
+            f"{t:.4f} ms), SFU floor {fl['mufu_floor_ms']:.4f} ms")
+
+    for name, (shape, runs, b, sass_case) in cases.items():
+        if len(runs) == 3:
+            first, run = runs[2], runs[1]
+            turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
+            ms = (turns[1] + turns[2]) / 2
+        else:
+            ms = time_per_call(runs[1], N_TIMED)
+        plain_ms = time_per_call(runs[0], 3)
         a = attrs[name]
-        out[name] = dict(ms=ms, plain_ms=plain_ms, shape=shape, registers=a["registers"],
-                         spill_bytes=a["spill_bytes"], block=a["block"],
-                         occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
+        out[name] = row = dict(ms=ms, plain_ms=plain_ms, shape=shape, registers=a["registers"],
+                               spill_bytes=a["spill_bytes"], block=a["block"],
+                               occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b)
         log(f"[5] {name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms by {b['bound_term']} (without the integer term "
             f"{b['bound_ms_f32_bytes']:.4f}); {b['bound_ms'] / ms * 100:.1f}% of bound; "
             f"{a['registers']} registers, {a['spill_bytes']} spill bytes, {a['blocks_per_sm']} "
-            f"blocks of {a['block']} per SM ({out[name]['occupancy'] * 100:.1f}% occupancy)")
-    batch = lambda: cuda_vg.vg_paths(seed, 100.0, 0.05, Ts, vg2, 16384, 50,  # noqa: E731
-                                     device=DEVICE)
-    ms = time_per_call(batch, N_TIMED)
+            f"blocks of {a['block']} per SM ({row['occupancy'] * 100:.1f}% occupancy)")
+        if sass_case is None:
+            continue
+        key, n, steps, src = sass_case
+        row.update(first_design_row(FAMILY_FIRSTS[name], src, shape, turns, b["bound_ms"],
+                                    attrs[FAMILY_FIRSTS[name]]))
+        floors(row, key, "redesign", ms, n, steps)
+        floors(row, f"{key}, first design", "first design", row["earlier_ms"], n, steps)
+        k = launches.get(name, 0)
+        log(f"[5] {name}: launches x (ms - bound) on the families path, {k} launches: redesign "
+            f"{k * (ms - b['bound_ms']):.4f} ms, first design "
+            f"{k * (row['earlier_ms'] - b['bound_ms']):.4f} ms")
+
+    # the F3 batch: through the wrapper (64 constants rows built on the host
+    # and copied in) and as a bare launch, both designs in turns
+    wrapped = {d: (lambda fn=fn: fn(seed, 100.0, 0.05, Ts, vg2, 16384, 50, device=DEVICE))
+               for d, fn in (("new", cuda_vg.vg_paths), ("first", cuda_vg.vg_paths_first))}
+    rows = device_rows(cuda_vg.vg_rows(100.0, 0.05, Ts, vg2, 50), DEVICE)
+    S = torch.empty((64, 51, 16384), dtype=torch.float32, device=DEVICE)
+    bare = {d: (lambda f=f: cuda_vg.launch_vg_paths(S, None, None, rows, seed, 0, True, f))
+            for d, f in (("new", False), ("first", True))}
+    t = {}
+    for label, fns in (("wrapped", wrapped), ("bare", bare)):
+        t[label] = [time_per_call(fns[d], N_TIMED) for d in ("first", "new", "new", "first")]
+    host = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        device_rows(cuda_vg.vg_rows(100.0, 0.05, Ts, vg2, 50), DEVICE)
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(host)
     b = bound(64 * 16384, 50, ops2, int_ops(a2, per_call), 64 * 51 * 16384 * 4)
-    out["vg_paths"]["surface_batch"] = dict(ms=ms, shape="64 x 16384 x 50", **b)
-    log(f"[5] vg_paths at the F3 batch 64 x 16,384 x 50 (one launch): {ms:.4f} ms, bound "
-        f"{b['bound_ms']:.4f} ms by {b['bound_term']} ({b['bound_ms'] / ms * 100:.1f}%)")
+    mean = lambda x, i, j: (x[i] + x[j]) / 2  # noqa: E731
+    out["vg_paths"]["surface_batch"] = dict(
+        ms=mean(t["wrapped"], 1, 2), bare_ms=mean(t["bare"], 1, 2),
+        earlier_ms=mean(t["wrapped"], 0, 3), earlier_bare_ms=mean(t["bare"], 0, 3),
+        host_rows_ms=host_ms, turns=t, shape="64 x 16384 x 50", **b)
+    sb = out["vg_paths"]["surface_batch"]
+    log(f"[5] vg_paths at the F3 batch 64 x 16,384 x 50 (one launch), in turns (first, new, "
+        f"new, first): through the wrapper {sb['ms']:.4f} ms (first design "
+        f"{sb['earlier_ms']:.4f}), a bare launch {sb['bare_ms']:.4f} ms (first design "
+        f"{sb['earlier_bare_ms']:.4f}); the host's 64 constants rows {host_ms:.4f} ms (median; "
+        f"beyond the timer's ~0.26 ms lead they count in a wrapped time); bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_term']} ({b['bound_ms'] / sb['bare_ms'] * 100:.1f}"
+        f"% of the bare launch); turns {t}")
     for k in ("sabr_paths beta<1", "sabr_terminal beta<1"):
         a = attrs[k]
         log(f"[5] {k}: {a['registers']} registers, {a['spill_bytes']} spill bytes, "
@@ -4962,22 +5184,24 @@ def main() -> int:
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
     counted = specs + vjp + jumps + duals + normals + families
-    # kernels 12-18's first designs: the yardsticks no path may reach
-    from options_model_tpu_torch.ops import cuda_dual, cuda_gbm
+    # kernels 12-18's, 21's and 24's first designs: the yardsticks no path may reach
+    from options_model_tpu_torch.ops import cuda_dual, cuda_gbm, cuda_sabr, cuda_vg
 
     firsts = {"euler_paths_vjp_first": cuda_heston.launches,
               "gbm_paths_vjp_first": cuda_gbm.launches,
               **{key: cuda_jumps.launches for key in JUMP_FIRSTS},
-              "dual_ce_first": cuda_dual.launches}
+              "dual_ce_first": cuda_dual.launches,
+              FAMILY_FIRSTS["vg_paths"]: cuda_vg.launches,
+              FAMILY_FIRSTS["sabr_terminal"]: cuda_sabr.launches}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
     counters += [(d, key) for key, d in firsts.items()]
 
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
-        was never launched, or if the first design of kernels 1, 3-8 or
-        12-18, or of the variants, was. Returns (fn's result, that path's
-        counts)."""
+        was never launched, or if the first design of kernels 1, 3-8,
+        12-18, 21 or 24, or of the variants, was. Returns (fn's result, that
+        path's counts)."""
         for d, key in counters:
             d[key] = 0
         cuda_jumps.shape_launches.clear()
@@ -4993,8 +5217,8 @@ def main() -> int:
         earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3-8 or 12-18, or of "
-                 f"the variants: {earlier}")
+            fail(f"the {path} path reached the first design of kernels 1, 3-8, 12-18, 21 or "
+                 f"24, or of the variants: {earlier}")
         return out, mine
 
     (secs, euro), launches = drive("main", phase_main_path)
@@ -5025,7 +5249,7 @@ def main() -> int:
     times.update(phase_jump_timing(sass["per_call"], shapes_j))
     dual_times = phase_dual_timing(sass, secs_d, launches_d, dual_cases)
     normals_times = phase_normals_timing(sass["per_call"], launches_v)
-    family_times = phase_family_timing(sass["per_call"], family_f0["attempts"], launches_f)
+    family_times = phase_family_timing(sass, family_f0["attempts"], launches_f)
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -5132,6 +5356,9 @@ def main() -> int:
                      launches=launches_f[k["name"]],
                      max_abs_err=family_f0["errs"][k["name"]]["s_abs"],
                      max_rel_err=family_f0["errs"][k["name"]]["s_rel"], library_ms=None,
+                     **({"earlier_max_abs_err":
+                         family_f0["errs"][FAMILY_FIRSTS[k["name"]]]["s_abs"]}
+                        if k["name"] in FAMILY_FIRSTS else {}),
                      **family_times[k["name"]])
                 for k in families]
     print(json.dumps({"kernels": entries}))

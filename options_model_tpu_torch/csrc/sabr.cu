@@ -1,6 +1,6 @@
 // SABR kernels for Hopper (sm_90a): forward (and vol) paths (kernel 23) and
-// terminal forwards (kernel 24), with the frozen-vol control variate's
-// forward on request.
+// terminal forwards (kernel 24, a beta = 1 redesign beside its first
+// design), with the frozen-vol control variate's forward on request.
 //
 // The JAX package simulates SABR in XLA code, not in Pallas:
 //   options_model_tpu/models/sabr.py:90       simulate_sabr (return_paths True:
@@ -20,17 +20,26 @@
 // beta < 1 are compile-time instances, as the reference branches on
 // float(beta).
 //
-// Whether a path is absorbed must not depend on the device, so the kernels
-// take philox.cuh's accurate Box-Muller (sine and cosine bit-equal to
+// Whether a path is absorbed must not depend on the device, so kernel 23
+// and kernel 24's first design (sabr_terminal_first_kernel) take
+// philox.cuh's accurate Box-Muller (sine and cosine bit-equal to
 // sinf/cosf), libdevice's logf and expf, and __f*_rn intrinsics in the
-// plain version's order (nvcc never contracts them): on the card the states
-// follow the plain version's operations one for one.
+// plain version's order (nvcc never contracts them): on the card the
+// states follow the plain version's operations one for one. The beta < 1
+// instance of kernel 24 stays that code.
 //
 // What bounds them: kernel 23 writes 4 bytes a path-step (8 with alpha:
 // 0.1277 ms at 2^20 x 50 and 3.35 TB/s); kernel 24 writes 4 bytes a path
-// (8 with G_T) and is held by its per-step work, half a Philox call (~20
-// integer instructions), a sincos, two logf and two expf a path-step. This
-// first design is simple: a thread a pair, accurate transcendentals.
+// (8 with G_T) and is held by its per-step work: half a Philox call (~20
+// integer instructions) a path-step and, in the first design, a sincos,
+// two logf and two expf, ~105 issue slots a path-step. Its beta = 1
+// instance decides nothing (log-Euler absorbs no path), so the redesign
+// (sabr_terminal_kernel) takes the fast pipes there: the SFU Box-Muller,
+// ex2 for the vol step and the final exps, FMAs in the log-Euler walk,
+// kept in log2 units, and the control variate's log-Euler walk as
+// log F0 - n alpha0^2 dt / 2 + alpha0 sqrt(dt) sum z1, the sum of the same
+// z1 that drive F. Its round keys are computed once and its stream's pair
+// layout is the first design's.
 #include "hopper_fast.cuh"
 #include "kernel_attrs.cuh"
 
@@ -113,12 +122,12 @@ sabr_paths_kernel(float* __restrict__ F, float* __restrict__ alpha, const SabrK 
   }
 }
 
-// Kernel 24. F_T, alpha_T, G_T: (n_pad,); alpha_T and G_T may be null. G_T
-// is exp(g_T), g the nu = 0 lognormal forward's log-Euler walk from log F0
-// on the same w1.
+// Kernel 24's first design. F_T, alpha_T, G_T: (n_pad,); alpha_T and G_T
+// may be null. G_T is exp(g_T), g the nu = 0 lognormal forward's log-Euler
+// walk from log F0 on the same w1.
 template <bool kLog, bool kAnti>
 __global__ void __launch_bounds__(kBlock)
-sabr_terminal_kernel(float* __restrict__ F_T, float* __restrict__ alpha_T,
+sabr_terminal_first_kernel(float* __restrict__ F_T, float* __restrict__ alpha_T,
                      float* __restrict__ G_T, const SabrK k,
                      const __grid_constant__ PhiloxKeys keys, int first_tile, int n_tiles,
                      int n_steps) {
@@ -156,8 +165,84 @@ sabr_terminal_kernel(float* __restrict__ F_T, float* __restrict__ alpha_T,
   }
 }
 
+// Kernel 24's beta = 1 redesign: SabrK folded on the host into log2 units
+// (y = log2 F) for ex2: y0 = log2 F0, the step y += alpha^2 kb + alpha ka
+// z1, the vol factor 2^(kc w2 + kd), and the control variate's
+// log2 G_T = g0 + cv z1-sum.
+struct SabrLogK {
+  float y0, kb, ka, kc, kd, rho, rho_bar, alpha0, g0, cv;
+};
+
+// Kernel 24's beta = 1 redesign, the first design's grid, outputs and
+// stream (header).
+template <bool kAnti>
+__global__ void __launch_bounds__(kBlock)
+sabr_terminal_kernel(float* __restrict__ F_T, float* __restrict__ alpha_T,
+                     float* __restrict__ G_T, const SabrLogK k,
+                     const __grid_constant__ PhiloxKeys keys, int first_tile, int n_tiles,
+                     int n_steps) {
+  constexpr int kWidth = kAnti ? kTerminalTile / 2 : kTerminalTile;
+  const long long slot = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (slot >= static_cast<long long>(n_tiles) * kWidth) return;
+  const int local_tile = static_cast<int>(slot / kWidth);
+  const uint32_t j = static_cast<uint32_t>(slot % kWidth);
+  const uint32_t tile = static_cast<uint32_t>(first_tile + local_tile);
+  const size_t col = static_cast<size_t>(local_tile) * kTerminalTile + j;
+
+  float ya = k.y0, yb = k.y0, aa = k.alpha0, ab = k.alpha0, zsum = 0.0f;
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    const Words w = philox_keyed(Words{j, static_cast<uint32_t>(t), tile, 0u}, keys);
+    float z1, z2;
+    fast::box_muller_fast(w.x, w.y, z1, z2);
+    const float e = k.kc * fmaf(k.rho, z1, k.rho_bar * z2);
+    ya = fmaf(aa * k.ka, z1, fmaf(aa * aa, k.kb, ya));
+    aa *= fast::ex2_approx(e + k.kd);
+    if (kAnti) {
+      yb = fmaf(ab * k.ka, -z1, fmaf(ab * ab, k.kb, yb));
+      ab *= fast::ex2_approx(k.kd - e);
+    }
+    zsum += z1;
+  }
+  F_T[col] = fast::ex2_approx(ya);
+  if (alpha_T != nullptr) alpha_T[col] = aa;
+  if (G_T != nullptr) G_T[col] = fast::ex2_approx(fmaf(k.cv, zsum, k.g0));
+  if (kAnti) {
+    F_T[col + kWidth] = fast::ex2_approx(yb);
+    if (alpha_T != nullptr) alpha_T[col + kWidth] = ab;
+    if (G_T != nullptr) G_T[col + kWidth] = fast::ex2_approx(fmaf(-k.cv, zsum, k.g0));
+  }
+}
+
+inline SabrLogK log_fold(const SabrK& k, int n_steps) {
+  const double l2e = 1.4426950408889634;
+  return SabrLogK{static_cast<float>(k.s0 * l2e),
+                  static_cast<float>(-0.5 * k.dt * l2e),
+                  static_cast<float>(k.sqrt_dt * l2e),
+                  static_cast<float>(k.nu_sqrt_dt * l2e),
+                  static_cast<float>(-k.half_nu2_dt * l2e),
+                  k.rho,
+                  k.rho_bar,
+                  k.alpha0,
+                  static_cast<float>((k.log_f0 - static_cast<double>(n_steps) * k.cv_drift) * l2e),
+                  static_cast<float>(k.cv_diffusion * l2e)};
+}
+
 inline unsigned int blocks_for(long long n_threads) {
   return static_cast<unsigned int>((n_threads + kBlock - 1) / kBlock);
+}
+
+// One launch of a kernel-24 design on its constants ``k``.
+template <typename Kernel, typename Consts>
+int launch_terminal(Kernel kernel, const Consts& k, void* F_T, void* alpha_T, void* G_T,
+                    uint64_t seed, int first_tile, int n_tiles, int n_steps, int antithetic,
+                    void* stream) {
+  const long long n_slots =
+      static_cast<long long>(n_tiles) * (antithetic ? kTerminalTile / 2 : kTerminalTile);
+  kernel<<<blocks_for(n_slots), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(F_T), static_cast<float*>(alpha_T), static_cast<float*>(G_T), k,
+      omt::fast::philox_keys(seed), first_tile, n_tiles, n_steps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 inline bool consts_from(const void* host, SabrK& k) {
@@ -192,7 +277,8 @@ int omt_sabr_paths(void* F, void* alpha, const void* consts, uint64_t seed, int 
 }
 
 // F_T, alpha_T, G_T: device (n_tiles*16384,) float32, the last two may be
-// null; consts: host pointer to the 12 floats of SabrK.
+// null; consts: host pointer to the 12 floats of SabrK. Kernel 24's
+// redesign at beta = 1; at beta < 1 its first design's exact instance.
 int omt_sabr_terminal(void* F_T, void* alpha_T, void* G_T, const void* consts, uint64_t seed,
                       int first_tile, int n_tiles, int n_steps, int antithetic, void* stream) {
   using namespace omt::sabr;
@@ -200,28 +286,47 @@ int omt_sabr_terminal(void* F_T, void* alpha_T, void* G_T, const void* consts, u
   if (n_tiles < 1 || n_steps < 1 || !consts_from(consts, k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (k.beta != 1.0f) {
+    return launch_terminal(antithetic ? sabr_terminal_first_kernel<false, true>
+                                      : sabr_terminal_first_kernel<false, false>,
+                           k, F_T, alpha_T, G_T, seed, first_tile, n_tiles, n_steps, antithetic,
+                           stream);
+  }
+  return launch_terminal(antithetic ? sabr_terminal_kernel<true> : sabr_terminal_kernel<false>,
+                         log_fold(k, n_steps), F_T, alpha_T, G_T, seed, first_tile, n_tiles,
+                         n_steps, antithetic, stream);
+}
+
+// omt_sabr_terminal through kernel 24's first design at every beta.
+int omt_sabr_terminal_first(void* F_T, void* alpha_T, void* G_T, const void* consts,
+                            uint64_t seed, int first_tile, int n_tiles, int n_steps,
+                            int antithetic, void* stream) {
+  using namespace omt::sabr;
+  SabrK k;
+  if (n_tiles < 1 || n_steps < 1 || !consts_from(consts, k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool lg = k.beta == 1.0f;
-  auto kernel = antithetic
-                    ? (lg ? sabr_terminal_kernel<true, true> : sabr_terminal_kernel<false, true>)
-                    : (lg ? sabr_terminal_kernel<true, false> : sabr_terminal_kernel<false, false>);
-  const long long n_slots =
-      static_cast<long long>(n_tiles) * (antithetic ? kTerminalTile / 2 : kTerminalTile);
-  kernel<<<blocks_for(n_slots), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(F_T), static_cast<float*>(alpha_T), static_cast<float*>(G_T), k,
-      omt::fast::philox_keys(seed), first_tile, n_tiles, n_steps);
-  return static_cast<int>(cudaGetLastError());
+  auto kernel = antithetic ? (lg ? sabr_terminal_first_kernel<true, true>
+                                 : sabr_terminal_first_kernel<false, true>)
+                           : (lg ? sabr_terminal_first_kernel<true, false>
+                                 : sabr_terminal_first_kernel<false, false>);
+  return launch_terminal(kernel, k, F_T, alpha_T, G_T, seed, first_tile, n_tiles, n_steps,
+                         antithetic, stream);
 }
 
 // out[4]: registers, spill bytes, blocks per SM, block threads of ``which``:
-// 0 kernel 23 beta = 1, 1 kernel 23 beta < 1, 2 kernel 24 beta = 1, 3 kernel
-// 24 beta < 1 (antithetic instances).
+// 0 kernel 23 beta = 1, 1 kernel 23 beta < 1, 2 kernel 24's redesign (beta =
+// 1), 3 kernel 24 beta < 1 (the first design's instance, both entries'), 4
+// kernel 24's first design at beta = 1 (antithetic instances).
 int omt_sabr_attrs(int which, int* out) {
   using namespace omt::sabr;
   switch (which) {
     case 0: return omt::kernel_attrs(sabr_paths_kernel<true, true>, kBlock, out);
     case 1: return omt::kernel_attrs(sabr_paths_kernel<false, true>, kBlock, out);
-    case 2: return omt::kernel_attrs(sabr_terminal_kernel<true, true>, kBlock, out);
-    case 3: return omt::kernel_attrs(sabr_terminal_kernel<false, true>, kBlock, out);
+    case 2: return omt::kernel_attrs(sabr_terminal_kernel<true>, kBlock, out);
+    case 3: return omt::kernel_attrs(sabr_terminal_first_kernel<false, true>, kBlock, out);
+    case 4: return omt::kernel_attrs(sabr_terminal_first_kernel<true, true>, kBlock, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -73,9 +73,11 @@ _SIGNATURES = {
     "omt_dual_ce_first": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_dual_inner_states": [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P],
     "omt_vg_paths": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_vg_paths_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _P],
     "omt_sabr_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_sabr_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_sabr_terminal_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).

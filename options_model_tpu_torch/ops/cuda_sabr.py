@@ -5,7 +5,11 @@
 - 24 ``sabr_terminal``: F_T (and alpha_T), and for sabr_european_mc's
   control variate the frozen-vol lognormal forward G_T on the same W1, the
   counterpart of simulate_sabr's terminal output and of
-  options_model_tpu/models/sabr.py:211-236.
+  options_model_tpu/models/sabr.py:211-236. Its beta = 1 redesign
+  (sabr_terminal_kernel: the SFU Box-Muller, ex2, FMAs) runs on every
+  pricing path, with the first design's exact instance at beta < 1; the
+  first design (sabr_terminal_first_kernel) stays as the yardstick under
+  ``sabr_terminal_first``, reached by no pricer.
 The JAX package simulates SABR in XLA code (no Pallas kernel). beta = 1
 (log-Euler on log F) and beta < 1 (absorbing Euler on F) are compile-time
 instances of each kernel, as the reference branches on float(beta). The
@@ -31,7 +35,7 @@ from options_model_tpu_torch.ops.engine import resolve_device
 from options_model_tpu_torch.ops.philox import sabr_path_draws
 
 # Kernel launches since the last reset, one integer per kernel.
-launches = {"sabr_paths": 0, "sabr_terminal": 0}
+launches = {"sabr_paths": 0, "sabr_terminal": 0, "sabr_terminal, first design": 0}
 # The constants a launch passes (csrc/sabr.cu SabrK), in this order.
 SABR_FIELDS = ("s0", "alpha0", "rho", "rho_bar", "dt", "sqrt_dt", "nu_sqrt_dt", "half_nu2_dt",
                "beta", "log_f0", "cv_drift", "cv_diffusion")
@@ -92,9 +96,11 @@ def launch_sabr_paths(F: torch.Tensor, alpha, row: np.ndarray, seed: int, first_
 
 
 def launch_sabr_terminal(F_T: torch.Tensor, alpha_T, G_T, row: np.ndarray, seed: int,
-                         first_tile: int, n_steps: int, antithetic: bool) -> None:
-    """One launch of kernel 24 into F_T (n_pad,), alpha_T and G_T (the same
-    shape, or None); ``row`` the sabr_row of the launch."""
+                         first_tile: int, n_steps: int, antithetic: bool,
+                         first_design: bool = False) -> None:
+    """One launch of kernel 24 (its redesign, or with ``first_design`` its
+    first design) into F_T (n_pad,), alpha_T and G_T (the same shape, or
+    None); ``row`` the sabr_row of the launch."""
     if F_T.dim() != 1:
         raise ValueError(f"kernel 24 writes (n_pad,) values, got {tuple(F_T.shape)}")
     for t, what in ((F_T, "F_T"), (alpha_T, "alpha_T"), (G_T, "G_T")):
@@ -105,11 +111,11 @@ def launch_sabr_terminal(F_T: torch.Tensor, alpha_T, G_T, row: np.ndarray, seed:
                          f"{len(SABR_FIELDS)} constants with beta in [0, 1]")
     n_tiles = F_T.shape[0] // TERMINAL_TILE
     _build.check_launch(seed, first_tile, n_tiles, n_steps)
-    _build.launch("omt_sabr_terminal", F_T.device, F_T.data_ptr(),
-                  None if alpha_T is None else alpha_T.data_ptr(),
+    _build.launch("omt_sabr_terminal_first" if first_design else "omt_sabr_terminal",
+                  F_T.device, F_T.data_ptr(), None if alpha_T is None else alpha_T.data_ptr(),
                   None if G_T is None else G_T.data_ptr(), _build.float_args(row), seed,
                   first_tile, n_tiles, n_steps, int(antithetic))
-    launches["sabr_terminal"] += 1
+    launches["sabr_terminal, first design" if first_design else "sabr_terminal"] += 1
 
 
 def sabr_paths(seed: int, F0, T, params, n_paths: int, n_steps: int, antithetic: bool = True,
@@ -129,31 +135,49 @@ def sabr_paths(seed: int, F0, T, params, n_paths: int, n_steps: int, antithetic:
     return (F, alpha) if return_alpha else F
 
 
-def sabr_terminal(seed: int, F0, T, params, n_paths: int, n_steps: int, antithetic: bool = True,
-                  first_tile: int = 0, device=None, return_alpha: bool = False,
-                  return_cv: bool = False):
-    """SABR terminal forwards F_T (n_pad,) [, alpha_T] [, G_T] from kernel 24
-    (csrc/sabr.cu sabr_terminal_kernel), or from its plain version for a CPU
-    device."""
-    device = resolve_device(device)
-    if device.type == "cpu":
-        return sabr_terminal_reference(seed, F0, T, params, n_paths, n_steps, antithetic,
-                                       first_tile, device, return_alpha, return_cv)
+def _terminal_launch(first_design, seed, F0, T, params, n_paths, n_steps, antithetic,
+                     first_tile, device, return_alpha, return_cv):
+    """sabr_terminal's outputs from one launch of a kernel-24 design on a
+    CUDA device."""
     _build.require_cuda(device)
     n_pad = _n_tiles(seed, first_tile, n_paths, TERMINAL_TILE, n_steps) * TERMINAL_TILE
     F_T = torch.empty(n_pad, dtype=torch.float32, device=device)
     alpha_T = torch.empty_like(F_T) if return_alpha else None
     G_T = torch.empty_like(F_T) if return_cv else None
     launch_sabr_terminal(F_T, alpha_T, G_T, sabr_row(F0, T, params, n_steps), seed, first_tile,
-                         n_steps, antithetic)
+                         n_steps, antithetic, first_design)
     out = (F_T,) + ((alpha_T,) if return_alpha else ()) + ((G_T,) if return_cv else ())
     return out if len(out) > 1 else out[0]
+
+
+def sabr_terminal(seed: int, F0, T, params, n_paths: int, n_steps: int, antithetic: bool = True,
+                  first_tile: int = 0, device=None, return_alpha: bool = False,
+                  return_cv: bool = False):
+    """SABR terminal forwards F_T (n_pad,) [, alpha_T] [, G_T] from kernel
+    24's redesign (csrc/sabr.cu sabr_terminal_kernel; at beta < 1 the first
+    design's instance), or from its plain version for a CPU device."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return sabr_terminal_reference(seed, F0, T, params, n_paths, n_steps, antithetic,
+                                       first_tile, device, return_alpha, return_cv)
+    return _terminal_launch(False, seed, F0, T, params, n_paths, n_steps, antithetic,
+                            first_tile, device, return_alpha, return_cv)
+
+
+def sabr_terminal_first(seed: int, F0, T, params, n_paths: int, n_steps: int,
+                        antithetic: bool = True, first_tile: int = 0, device=None,
+                        return_alpha: bool = False, return_cv: bool = False):
+    """sabr_terminal through kernel 24's first design
+    (sabr_terminal_first_kernel), the redesign's yardstick, on a CUDA device
+    only."""
+    return _terminal_launch(True, seed, F0, T, params, n_paths, n_steps, antithetic,
+                            first_tile, resolve_device(device), return_alpha, return_cv)
 
 
 def sabr_kernel_attrs() -> dict:
     """Registers, spills and occupancy of kernels 23 and 24 as built (the
     antithetic instances: beta = 1 under the kernel's name, beta < 1 beside
-    it)."""
+    it, and kernel 24's first design at beta = 1)."""
     return {name: _build.kernel_attrs("omt_sabr_attrs", i)
             for i, name in enumerate(("sabr_paths", "sabr_paths beta<1", "sabr_terminal",
-                                      "sabr_terminal beta<1"))}
+                                      "sabr_terminal beta<1", "sabr_terminal, first design"))}

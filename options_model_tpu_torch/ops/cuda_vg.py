@@ -1,7 +1,11 @@
 """The Variance Gamma kernels of csrc/vg.cu and their plain PyTorch versions:
 - 21 ``vg_paths``: VG paths of a batch of maturities in one launch (maturity
   m on tiles first_tile + m n_tiles + ..), the counterpart of
-  options_model_tpu/models/vg.py:55 simulate_vg (return_paths=True);
+  options_model_tpu/models/vg.py:55 simulate_vg (return_paths=True); its
+  redesign (vg_paths_kernel: the gamma clock drawn a chunk of steps at a
+  time, its retries dense) on every pricing path, its first design
+  (vg_paths_first_kernel) kept as the yardstick under ``vg_paths_first``,
+  reached by no pricer;
 - 22 ``vg_terminal``: the exact one-step terminal sampler, the counterpart
   of options_model_tpu/models/vg.py:92 vg_terminal_exact.
 The JAX package simulates VG in XLA code (no Pallas kernel). The dispatching
@@ -16,7 +20,8 @@ maturity (``vg_rows``: log S0, drift, theta, sigma, nu and the gamma
 sampler's d, c, 1/a and boost flag), built on the host and copied through
 pinned memory. ``return_draws`` also returns each draw's standard gamma
 variate and the attempt that accepted it, from the kernel's debug outputs
-or the plain version, so the two can be held against each other.
+or the plain version, so the two can be held against each other: both
+designs draw the same gammas and attempts bit for bit.
 """
 
 from __future__ import annotations
@@ -34,9 +39,11 @@ from options_model_tpu_torch.ops.cuda_jumps import device_rows
 from options_model_tpu_torch.ops.engine import resolve_device
 from options_model_tpu_torch.ops.philox import gamma_constants, vg_path_draws
 
-# Kernel launches since the last reset, one integer per kernel.
-launches = {"vg_paths": 0, "vg_terminal": 0}
-# Kernel 21's launches since the last reset, by (n_mat, n_pad, n_steps).
+# Kernel launches since the last reset, one integer per kernel (kernel 21's
+# first design apart from its redesign).
+launches = {"vg_paths": 0, "vg_paths, first design": 0, "vg_terminal": 0}
+# Kernel 21's redesign's launches since the last reset, by (n_mat, n_pad,
+# n_steps).
 shape_launches = Counter()
 # Floats of a constants row (csrc/vg.cu kRow).
 VG_ROW = 16
@@ -110,10 +117,11 @@ def _check_out(t, shape, dtype, what: str) -> None:
 
 
 def launch_vg_paths(S: torch.Tensor, gammas, attempts, rows: torch.Tensor, seed: int,
-                    first_tile: int, antithetic: bool) -> None:
-    """One launch of kernel 21 into S (n_mat, n_steps+1, n_pad), the debug
-    outputs gammas (float32) and attempts (int32), each (n_mat, n_steps,
-    n_pad), or None; rows the (n_mat, VG_ROW) constants on S's card."""
+                    first_tile: int, antithetic: bool, first_design: bool = False) -> None:
+    """One launch of kernel 21 (its redesign, or with ``first_design`` its
+    first design) into S (n_mat, n_steps+1, n_pad), the debug outputs gammas
+    (float32) and attempts (int32), each (n_mat, n_steps, n_pad), or None;
+    rows the (n_mat, VG_ROW) constants on S's card."""
     if S.dim() != 3:
         raise ValueError(f"kernel 21 writes (n_mat, n_steps+1, n_pad) paths, got {tuple(S.shape)}")
     n_mat, n_steps, n_pad = S.shape[0], S.shape[1] - 1, S.shape[2]
@@ -126,12 +134,15 @@ def launch_vg_paths(S: torch.Tensor, gammas, attempts, rows: torch.Tensor, seed:
                          "debug outputs or neither")
     n_tiles = n_pad // PATH_TILE
     _build.check_launch(seed, first_tile, n_mat * n_tiles, n_steps)
-    _build.launch("omt_vg_paths", S.device, S.data_ptr(),
-                  None if gammas is None else gammas.data_ptr(),
+    _build.launch("omt_vg_paths_first" if first_design else "omt_vg_paths", S.device,
+                  S.data_ptr(), None if gammas is None else gammas.data_ptr(),
                   None if attempts is None else attempts.data_ptr(), rows.data_ptr(), seed,
                   first_tile, n_tiles, n_steps, n_mat, int(antithetic))
-    launches["vg_paths"] += 1
-    shape_launches[n_mat, n_pad, n_steps] += 1
+    if first_design:
+        launches["vg_paths, first design"] += 1
+    else:
+        launches["vg_paths"] += 1
+        shape_launches[n_mat, n_pad, n_steps] += 1
 
 
 def launch_vg_terminal(S_T: torch.Tensor, gammas, attempts, rows: torch.Tensor, seed: int,
@@ -156,18 +167,10 @@ def launch_vg_terminal(S_T: torch.Tensor, gammas, attempts, rows: torch.Tensor, 
     launches["vg_terminal"] += 1
 
 
-def vg_paths(seed: int, S0, r, Ts, params, n_paths: int, n_steps: int, antithetic: bool = True,
-             first_tile: int = 0, device=None, return_draws: bool = False):
-    """VG path matrices of every maturity in ``Ts``, (n_mat, n_steps+1,
-    n_pad) [and the gamma draws and attempts], from one launch of kernel 21
-    (csrc/vg.cu vg_paths_kernel), or from the plain version for a CPU
-    device. Maturity m draws tiles [first_tile + m n_tiles, first_tile +
-    (m+1) n_tiles) of the seed's stream, so it equals a single-maturity run
-    at that first_tile."""
-    device = resolve_device(device)
-    if device.type == "cpu":
-        return vg_paths_reference(seed, S0, r, Ts, params, n_paths, n_steps, antithetic,
-                                  first_tile, device, return_draws)
+def _paths_out(seed, S0, r, Ts, params, n_paths, n_steps, first_tile, device, return_draws):
+    """(S, gammas, attempts, rows) of a kernel-21 launch on a CUDA device:
+    empty outputs (the debug ones None without ``return_draws``) and the
+    constants on the card."""
     _build.require_cuda(device)
     Ts = _maturities(Ts)
     n_tiles = _n_tiles(seed, first_tile, n_paths, PATH_TILE, len(Ts), n_steps)
@@ -176,9 +179,36 @@ def vg_paths(seed: int, S0, r, Ts, params, n_paths: int, n_steps: int, antitheti
     draws = ((torch.empty((len(Ts), n_steps, n_pad), dtype=torch.float32, device=device),
               torch.empty((len(Ts), n_steps, n_pad), dtype=torch.int32, device=device))
              if return_draws else (None, None))
-    launch_vg_paths(S, *draws, device_rows(vg_rows(S0, r, Ts, params, n_steps), device), seed,
-                    first_tile, antithetic)
-    return (S, *draws) if return_draws else S
+    return S, *draws, device_rows(vg_rows(S0, r, Ts, params, n_steps), device)
+
+
+def vg_paths(seed: int, S0, r, Ts, params, n_paths: int, n_steps: int, antithetic: bool = True,
+             first_tile: int = 0, device=None, return_draws: bool = False):
+    """VG path matrices of every maturity in ``Ts``, (n_mat, n_steps+1,
+    n_pad) [and the gamma draws and attempts], from one launch of kernel
+    21's redesign (csrc/vg.cu vg_paths_kernel), or from the plain version
+    for a CPU device. Maturity m draws tiles [first_tile + m n_tiles,
+    first_tile + (m+1) n_tiles) of the seed's stream, so it equals a
+    single-maturity run at that first_tile."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return vg_paths_reference(seed, S0, r, Ts, params, n_paths, n_steps, antithetic,
+                                  first_tile, device, return_draws)
+    S, g, a, rows = _paths_out(seed, S0, r, Ts, params, n_paths, n_steps, first_tile, device,
+                               return_draws)
+    launch_vg_paths(S, g, a, rows, seed, first_tile, antithetic)
+    return (S, g, a) if return_draws else S
+
+
+def vg_paths_first(seed: int, S0, r, Ts, params, n_paths: int, n_steps: int,
+                   antithetic: bool = True, first_tile: int = 0, device=None,
+                   return_draws: bool = False):
+    """vg_paths through kernel 21's first design (vg_paths_first_kernel), the
+    redesign's yardstick, on a CUDA device only."""
+    S, g, a, rows = _paths_out(seed, S0, r, Ts, params, n_paths, n_steps, first_tile,
+                               resolve_device(device), return_draws)
+    launch_vg_paths(S, g, a, rows, seed, first_tile, antithetic, first_design=True)
+    return (S, g, a) if return_draws else S
 
 
 def vg_terminal(seed: int, S0, r, T, params, n_paths: int, antithetic: bool = True,
@@ -202,7 +232,8 @@ def vg_terminal(seed: int, S0, r, T, params, n_paths: int, antithetic: bool = Tr
 
 
 def vg_kernel_attrs() -> dict:
-    """Registers, spills and occupancy of kernels 21 and 22 as built (their
-    pricing instances: antithetic, without the debug outputs)."""
+    """Registers, spills and occupancy of kernels 21 (both designs) and 22 as
+    built (their pricing instances: antithetic, without the debug
+    outputs)."""
     return {name: _build.kernel_attrs("omt_vg_attrs", i)
-            for i, name in enumerate(("vg_paths", "vg_terminal"))}
+            for i, name in enumerate(("vg_paths", "vg_terminal", "vg_paths, first design"))}

@@ -325,6 +325,12 @@ def test_kernel_launches_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_sabr.launch_sabr_terminal(torch.empty(TERMINAL_TILE), None, None, row, SEED, 0, 4,
                                        True)
+    # kernel 24's first design takes a card only
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sabr.launch_sabr_terminal(torch.empty(TERMINAL_TILE), None, None, row, SEED, 0, 4,
+                                       True, first_design=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_sabr.sabr_terminal_first(SEED, F0, T, P, TERMINAL_TILE, 4, device="cpu")
     assert cuda_sabr.launches == before
 
 

@@ -302,6 +302,12 @@ def test_kernel_launches_refuse_cpu_tensors():
         cuda_vg.launch_vg_paths(torch.empty(1, 5, PATH_TILE), None, None, rows, SEED, 0, True)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_vg.launch_vg_terminal(torch.empty(TERMINAL_TILE), None, None, rows, SEED, 0, True)
+    # kernel 21's first design takes a card only
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_vg.launch_vg_paths(torch.empty(1, 5, PATH_TILE), None, None, rows, SEED, 0, True,
+                                first_design=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_vg.vg_paths_first(SEED, 100.0, 0.05, [0.5], VG, PATH_TILE, 4, device="cpu")
     assert cuda_vg.launches == before
 
 
