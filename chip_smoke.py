@@ -67,9 +67,18 @@ Phases, in order; any failure exits non-zero:
    0.01, 0.05, 1 and 2.5 and the law of 2^22 draws at each against
    scipy.stats.gamma, S, F and G_T within S_RTOL and alpha within V_RTOL,
    the absorbed SABR paths the same set, the 64-maturity VG batch its 64
-   single launches bit for bit, ``first_tile`` chunks bit for bit;
+   single launches bit for bit, ``first_tile`` chunks bit for bit; kernel
+   22's redesign (the squeeze) and its first design with gammas and
+   attempts plain's bit for bit at 2 tiles of each shape and at F1's 2^22,
+   and the redesign's decision (omt_vg_decide) against torch's exact test
+   on the card over an adversarial grid of 2^24 pairs and more;
 3. the paths, each driven with every launch count set to 0 just before it
-   and read just after:
+   and read just after (the NN-LSM and calibration paths, c and f, run in
+   processes of their own, ``chip_smoke.py --path nn`` and ``--path
+   calibration``, started after b and joined after the families path, so
+   their host-bound seconds overlap d and g-j; each zeroes every count
+   before its path and hands its counts back, which the parent checks as
+   for any path; their log lines print at the join):
    a. the main path through ``price_american``: the pooled Heston American
       put against the extrapolated ADI oracle, the GBM put against CRR, and
       the European branch (Heston against COS, GBM against Black-Scholes);
@@ -154,7 +163,7 @@ Phases, in order; any failure exits non-zero:
       float64 on the card beside the JAX package's fits;
 4. the launch counts of each path (the families path: kernels 21-24),
    none of its kernels at 0, the first
-   design of kernels 1, 3-8 and 12-18 and of the variants at 0, and one
+   design of kernels 1, 3-8, 12-18, 21, 22 and 24 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -183,7 +192,8 @@ Phases, in order; any failure exits non-zero:
    path's seconds; kernels 21-24 at their legs' shapes (21 also at F3's
    64 x 16,384 x 50 batch) beside their bounds (the integer term at the
    run's mean gamma attempts) and plain versions, with registers and
-   occupancy, and the families path's seconds by leg.
+   occupancy, 21, 22 and 24 in turns with their first designs beside each
+   design's issue and SFU floors, and the families path's seconds by leg.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
 per jump kernel, one per dual kernel, one for the normals kernel (20) and
@@ -369,6 +379,111 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
     sys.exit(1)
+
+
+# The ops modules whose wrappers count their launches, each in a dict
+# ``launches``: what a path run in a process of its own hands back.
+COUNTED_MODULES = ("cuda_dual", "cuda_gbm", "cuda_heston", "cuda_heston_variants", "cuda_jumps",
+                   "cuda_localvol", "cuda_sabr", "cuda_vg", "philox")
+PATH_DIR = Path(__file__).resolve().parent / "build" / "paths"
+PATH_TIMEOUT = 900
+
+
+def launch_counts() -> dict:
+    """Each counted module's ``launches`` dict, by module name."""
+    import importlib
+
+    return {m: importlib.import_module(f"options_model_tpu_torch.ops.{m}").launches
+            for m in COUNTED_MODULES}
+
+
+def _jsonable(o):
+    return o.tolist() if hasattr(o, "tolist") else float(o)
+
+
+def path_process(name: str) -> int:
+    """``chip_smoke.py --path name``: one path (SEPARATE_PATHS) in this
+    process, every launch count at 0 before it; writes its result and its
+    counts to PATH_DIR/name.json. Exits at once if the process that
+    started it ends first."""
+    import os
+    import threading
+
+    import torch
+
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(3)
+
+    threading.Thread(target=watch, daemon=True).start()
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from options_model_tpu_torch.ops import _build
+
+    _build.load_library()
+    counts = launch_counts()
+    for d in counts.values():
+        for key in d:
+            d[key] = 0
+    out = SEPARATE_PATHS[name]()
+    (PATH_DIR / f"{name}.json").write_text(json.dumps(
+        {"result": out, "launches": {m: dict(d) for m, d in counts.items()}},
+        default=_jsonable))
+    return 0
+
+
+def start_path(name: str):
+    """Start ``chip_smoke.py --path name``, its output to PATH_DIR/name.log;
+    the process is killed at exit if it is still running."""
+    import atexit
+    import subprocess
+
+    PATH_DIR.mkdir(parents=True, exist_ok=True)
+    for suffix in (".json", ".log"):
+        (PATH_DIR / f"{name}{suffix}").unlink(missing_ok=True)
+    with open(PATH_DIR / f"{name}.log", "w") as f:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--path", name],
+                                stdout=f, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    log(f"[3] started the {name} path in process {proc.pid}")
+    return name, proc, time.perf_counter()
+
+
+def join_path(started):
+    """Wait for a path started by start_path, print its output, fail if it
+    failed; load its launch counts into this process's counters (drive
+    has set them to 0) and return its result."""
+    name, proc, t0 = started
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=PATH_TIMEOUT)
+    except Exception:
+        proc.kill()
+        proc.wait()
+        rc = None
+    now = time.perf_counter()
+    print((PATH_DIR / f"{name}.log").read_text(), end="", flush=True)
+    log(f"[3] the {name} path's process: exit {rc}, {now - t0:.1f} s from its start, "
+        f"{now - t_wait:.1f} s of them waited for here")
+    if rc != 0:
+        fail(f"the {name} path failed in its process (exit {rc})")
+    data = json.loads((PATH_DIR / f"{name}.json").read_text())
+    counts = launch_counts()
+    for m, d in data["launches"].items():
+        counts[m].update(d)
+    return data["result"]
 
 
 def int_ops(draws, per_call: float) -> float:
@@ -623,6 +738,8 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "dual_ce bates": "14dual_ce_kernelILi3ELb0EE",
                 "vg paths": "15vg_paths_kernelILb1ELb0EE",
                 "vg paths, first design": "21vg_paths_first_kernelILb1ELb0EE",
+                "vg terminal": "18vg_terminal_kernelILb1ELb0EE",
+                "vg terminal, first design": "24vg_terminal_first_kernelILb1ELb0EE",
                 "sabr terminal": "20sabr_terminal_kernelILb1EE",
                 "sabr terminal, first design": "26sabr_terminal_first_kernelILb1ELb1EE"}
 # Pair-steps a pass of the time loop covers where that is not one. The
@@ -654,6 +771,13 @@ SASS_EVALS = {"dual_ce gbm": 8, "dual_ce gbm, first design": 8, "dual_ce heston"
 # loop (a pass: one attempt). Kernel 24's loops cover a pair-step, both
 # designs.
 SASS_NESTED = ("vg paths", "vg paths, first design")
+# Kernel 22's designs have no time loop: sass_whole counts each whole
+# function (its called slow paths, its padding and its trap left out) and
+# the loops not inside another, in address order: the redesign's first
+# attempts (a pass: one slot's draws, both mirror paths), exact tests and
+# retries (a pass: one entry a lane, a warp's) and walk (a pass: a slot);
+# the first design's two attempt loops (a pass: one attempt of one draw).
+SASS_WHOLE = ("vg terminal", "vg terminal, first design")
 # Loops that must hold no local load or store (LDL, STL): kernel 12's
 # redesign, whose sine and cosine leave out the Payne-Hanek path, and
 # kernel 18's (phase_dual_kernels also fails if any of its instances has
@@ -686,6 +810,32 @@ def per_step(key: str, n: int) -> str:
     return ""
 
 
+def _sass_code(chunk: str, jumps: str = "BRA") -> tuple:
+    """One function of ``cuobjdump -sass`` output: its instructions as
+    (address, text), and the targets of its ``jumps`` instructions as
+    (address, target address) where the target is read."""
+    labels, branches, pending, code = {}, [], [], []
+    for line in chunk.splitlines():
+        lab = re.match(r"\s*([.$][\w.$]+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        code.append((addr, m.group(2)))
+        for lab_name in pending:
+            labels[lab_name] = addr
+        pending = []
+        if re.search(rf"\b(?:{jumps})\b", m.group(2)):
+            tgt = re.search(r"`\(([.$][\w.$]+)\)|\b0x([0-9a-f]+)\b", m.group(2))
+            if tgt:
+                branches.append((addr, tgt.group(1) or int(tgt.group(2), 16)))
+    targets = [(addr, labels.get(t, t)) for addr, t in branches]
+    return code, [(addr, t) for addr, t in targets if isinstance(t, int)]
+
+
 def sass_loops(text: str) -> tuple:
     """The instructions of the largest loop (the span of a backward branch)
     of each SASS_KERNELS kernel in ``cuobjdump -sass`` output, and for the
@@ -696,26 +846,8 @@ def sass_loops(text: str) -> tuple:
         key = next((k for k, piece in SASS_KERNELS.items() if piece in name), None)
         if key is None:
             continue
-        labels, branches, pending, code = {}, [], [], []
-        for line in chunk.splitlines():
-            lab = re.match(r"\s*(\.L_x_\d+):", line)
-            if lab:
-                pending.append(lab.group(1))
-                continue
-            m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-            if not m:
-                continue
-            addr = int(m.group(1), 16)
-            code.append((addr, m.group(2)))
-            for lab_name in pending:
-                labels[lab_name] = addr
-            pending = []
-            if "BRA" in m.group(2):
-                tgt = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", m.group(2))
-                if tgt:
-                    branches.append((addr, tgt.group(1) or int(tgt.group(2), 16)))
-        spans = [(labels.get(t, t), addr) for addr, t in branches
-                 if isinstance(labels.get(t, t), int) and labels.get(t, t) <= addr]
+        code, branches = _sass_code(chunk)
+        spans = [(t, addr) for addr, t in branches if t <= addr]
         lo, hi = max(spans, key=lambda s: s[1] - s[0]) if spans else (0, -1)
         out[key] = [ins for addr, ins in code if lo <= addr <= hi]
         if key in SASS_NESTED:
@@ -724,6 +856,54 @@ def sass_loops(text: str) -> tuple:
                 o != sp and o[0] <= sp[0] and sp[1] <= o[1] for o in kids))
             inner[key] = [[ins for addr, ins in code if a <= addr <= b] for a, b in kids]
     return out, inner
+
+
+def sass_whole(text: str) -> dict:
+    """Each SASS_WHOLE kernel of ``cuobjdump -sass`` output: its
+    instructions (the code its CALLs reach, up to their RET, the NOPs and
+    the closing self-branch left out), their MUFU and local loads and
+    stores, and the loops not inside another (spans of backward branches
+    outside the called code), in address order."""
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        key = next((k for k in SASS_WHOLE if SASS_KERNELS[k] in name), None)
+        if key is None:
+            continue
+        code, branches = _sass_code(chunk)
+        _, calls = _sass_code(chunk, "CALL")
+        rets = [addr for addr, ins in code if opcode(ins).startswith("RET")]
+        called = [(t, min((r for r in rets if r >= t), default=t)) for _, t in calls]
+        inside = lambda a: any(lo <= a <= hi for lo, hi in called)  # noqa: E731
+        body = [(a, ins) for a, ins in code if not inside(a) and opcode(ins) != "NOP"
+                and not any(a == b == t for b, t in branches)]
+        spans = {(t, a) for a, t in branches if t < a and not inside(a)}
+        tops = sorted(sp for sp in spans
+                      if not any(o != sp and o[0] <= sp[0] and sp[1] <= o[1] for o in spans))
+        ins = [i for _, i in body]
+        out[key] = dict(total=len(body), mufu=pipe_mix(ins)["MUFU"],
+                        local=sum(opcode(i).startswith(("LDL", "STL")) for i in ins),
+                        loops=[[i for a, i in body if lo <= a <= hi] for lo, hi in tops])
+    return out
+
+
+def _vg_terminal_roles(key: str, loops: list) -> dict:
+    """Kernel 22's loops by role (SASS_WHOLE), {} unless they read as
+    expected: the redesign's four in source order, the first attempts,
+    exact tests and retries each with a ballot (VOTE) and no global store,
+    the walk with the stores (STG); the first design's two attempt loops
+    hold no store."""
+    ops = [[opcode(ins) for ins in loop] for loop in loops]
+    has = lambda i, pre: any(o.startswith(pre) for o in ops[i])  # noqa: E731
+    if key == "vg terminal":
+        roles = ("first attempts", "exact tests", "retries", "walk")
+        if (len(loops) == 4 and has(3, "STG")
+                and all(has(i, "VOTE") and not has(i, "STG") for i in range(3))):
+            return {role: i for i, role in enumerate(roles)}
+        return {}
+    if len(loops) == 2 and not has(0, "STG") and not has(1, "STG"):
+        return {"attempts": 0, "attempts, mirror": 1}
+    return {}
 
 
 def _vg_roles(key: str, kids: list) -> dict:
@@ -840,6 +1020,22 @@ def phase_sass() -> dict:
         if parts:
             nested[key] = dict(parts=parts, mufu=vg_loop_mufu(key, kids), outer=len(loops[key]),
                                outer_mufu=pipe_mix(loops[key])["MUFU"])
+    whole = {}
+    for key, w in sass_whole(text).items():
+        roles = _vg_terminal_roles(key, w["loops"])
+        parts = {r: len(w["loops"][i]) for r, i in roles.items()}
+        log(f"[1] SASS {key} (no time loop): {w['total']} instructions ({w['mufu']} MUFU, "
+            f"{w['local']} local loads and stores), loops not inside another "
+            + ", ".join(f"{len(k)} ({pipe_mix(k)['MUFU']} MUFU)" for k in w["loops"])
+            + (f"; read as {', '.join(f'{r} {n}' for r, n in parts.items())}, the rest "
+               f"{w['total'] - sum(parts.values())}" if parts
+               else "; not read as the expected loops: no floors"))
+        if key == "vg terminal" and w["local"]:
+            fail(f"kernel 22's redesign holds {w['local']} local loads or stores")
+        if parts:
+            whole[key] = dict(parts=parts, mufu={r: pipe_mix(w["loops"][i])["MUFU"]
+                                                 for r, i in roles.items()},
+                              outer=w["total"], outer_mufu=w["mufu"])
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -872,7 +1068,8 @@ def phase_sass() -> dict:
         f"and 20 XORs less the loop-invariant ones)")
     return dict(per_call=per_call, source="sass", multiplies=kinds, xors=len(xors),
                 loops={k: len(v) for k, v in loops.items()},
-                mufu={k: pipe_mix(v)["MUFU"] for k, v in loops.items()}, nested=nested)
+                mufu={k: pipe_mix(v)["MUFU"] for k, v in loops.items()}, nested=nested,
+                whole=whole)
 
 
 def phase_philox() -> None:
@@ -4438,10 +4635,19 @@ def vg_draws(attempts: float, boost: bool) -> tuple:
     return (0.5 + attempts, 1 + attempts * (4 if boost else 3))
 
 
-# The first designs of kernels 21 and 24, by the redesign's name: their
+# The first designs of kernels 21, 22 and 24, by the redesign's name: their
 # launch counters' keys (ops/cuda_vg.py, ops/cuda_sabr.py).
 FAMILY_FIRSTS = {"vg_paths": "vg_paths, first design",
+                 "vg_terminal": "vg_terminal, first design",
                  "sabr_terminal": "sabr_terminal, first design"}
+# Kernel 22 at these gamma shapes too (2 tiles, both designs): the squeeze's
+# margin m(d) grows with d.
+TERMINAL_SHAPES = GAMMA_SHAPES + (20.0,)
+# The adversarial grid of kernel 22's decision (vg_decide) at each of these
+# shapes, F0: the band |x| <= 0.06 against u = 1 - j 2^-24 (j = 1..16) and
+# the squeeze's edge (the floats within 4 ulps of its bound, with and
+# without the margin) across |x| <= 2.3445; at least 2^24 pairs in all.
+DECIDE_SHAPES = (0.01, 0.2, 1.0, 2.857, 5.0, 20.0)
 
 
 def family_specs():
@@ -4476,15 +4682,104 @@ def _rel(got, want) -> float:
     return float((d / want.double().abs().clamp_min(1e-300)).max()) if d.numel() else 0.0
 
 
+def _decide_grid(d: float, c: float, device):
+    """DECIDE_SHAPES's grid at the sampler's float32 (d, c): (x, u)."""
+    import torch
+
+    from options_model_tpu_torch.ops.cuda_vg import SQUEEZE_KAPPA, SQUEEZE_MARGIN
+
+    f = dict(dtype=torch.float32, device=device)
+    xb = torch.cat([torch.linspace(-0.06, 0.06, 1 << 17, dtype=torch.float64, device=device),
+                    2.0 ** -torch.arange(10, 130, dtype=torch.float64, device=device)]).to(**f)
+    ub = 1.0 - torch.arange(1, 17, dtype=torch.float64, device=device).to(**f) * 2.0 ** -24
+    xs, us = [xb.repeat(len(ub))], [ub.repeat_interleave(len(xb))]
+    xe = torch.linspace(-2.3445, 2.3445, 1 << 16, dtype=torch.float64, device=device).to(**f)
+    x2 = xe * xe
+    for margin in (0.0, SQUEEZE_MARGIN):
+        bound = ((1.0 - margin * (1.0 + torch.tensor(d, **f)))
+                 - torch.tensor(float(SQUEEZE_KAPPA), **f) * (x2 * x2))
+        for k in range(-4, 5):
+            u = bound
+            for _ in range(abs(k)):
+                u = torch.nextafter(u, torch.full_like(u, 2.0 if k > 0 else -1.0))
+            keep = (u >= 0) & (u < 1)
+            xs.append(xe[keep])
+            us.append(u[keep])
+    return torch.cat(xs), torch.cat(us)
+
+
+def phase_vg_decide(seed: int, vg1) -> float:
+    """F0, kernel 22's decision: omt_vg_decide (vg_decide_kernel, the
+    redesign's squeeze and exact test) against vg_decide_reference (torch's
+    float32 operations in its order, torch's log on the card) on the
+    adversarial grid of every DECIDE_SHAPES shape (at least 2^24 pairs in
+    all; no pair may differ), and the squeeze without a margin against the
+    exact test on it (the pairs where it would accept what the test rejects,
+    printed: the grid bites); then on attempt 0 of F1's 2^22 draws (the
+    stream's own x and u): the decisions equal, and the share the squeeze
+    accepts, returned."""
+    import torch
+
+    from options_model_tpu_torch.models.vg import vg_constants
+    from options_model_tpu_torch.ops import cuda_vg
+    from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
+    from options_model_tpu_torch.ops.cuda_vg import (DECIDE_SQUEEZE, SQUEEZE_KAPPA,
+                                                     vg_decide_reference)
+    from options_model_tpu_torch.ops.philox import (_vg_words, box_muller, gamma_constants,
+                                                    uniform_from_bits)
+
+    def both(x, u, d, c):
+        dd, cc = torch.full_like(x, d), torch.full_like(x, c)
+        got = cuda_vg.vg_decide(x, u, dd, cc)
+        want = vg_decide_reference(x, u, d, c)
+        return got, want, int((got != want).sum())
+
+    total, bites = 0, {}
+    for a in DECIDE_SHAPES:
+        k = gamma_constants(a)
+        d, c = float(k["d"]), float(k["c"])
+        x, u = _decide_grid(d, c, DEVICE)
+        got, want, differ = both(x, u, d, c)
+        if differ:
+            fail(f"F0: omt_vg_decide differs from torch's decision at a = {a} on {differ} of "
+                 f"{x.numel()} grid pairs")
+        v1 = 1.0 + c * x
+        x2 = x * x
+        kappa = torch.tensor(float(SQUEEZE_KAPPA), device=DEVICE)
+        bare = (v1 > 0) & (u < 1.0 - kappa * (x2 * x2))
+        bites[a] = int((bare & (want == 0)).sum())
+        total += x.numel()
+        log(f"[F0] vg_decide at a = {a} (d {d:.6g}): {x.numel()} adversarial pairs, the kernel's "
+            f"decision == torch's on all; the squeeze accepts {int((got == DECIDE_SQUEEZE).sum())}"
+            f", all of them accepted by the exact test; without a margin it would accept "
+            f"{bites[a]} that the exact test rejects")
+    if total < 1 << 24 or not any(bites.values()):
+        fail(f"F0: the decision grid holds {total} pairs (< 2^24) or never catches the squeeze "
+             "without a margin")
+    a1 = float(vg_constants(100.0, 0.04, 1.0, vg1, 1)["shape"])
+    k = gamma_constants(a1)
+    w0, w1, w2, _ = _vg_words(seed, 0, (1 << 22) // TERMINAL_TILE, TERMINAL_TILE, 1, DEVICE)
+    x = box_muller(uniform_from_bits(w0), uniform_from_bits(w1))[0]
+    got, _, differ = both(x, uniform_from_bits(w2), float(k["d"]), float(k["c"]))
+    if differ:
+        fail(f"F0: omt_vg_decide differs from torch's on {differ} of F1's attempt-0 draws")
+    share = float((got == DECIDE_SQUEEZE).double().mean())
+    log(f"[F0] the squeeze's share of F1's 2^22 attempt-0 draws (a = {a1:.6g}): {share:.6f} "
+        f"(predicted 0.917); exact-test share {float((got == 2).double().mean()):.6f}; "
+        f"{total} grid pairs in all")
+    return share
+
+
 def phase_family_kernels() -> dict:
     """F0: kernels 21-24 against their plain versions on the card. The VG
-    stream's Philox words bit for bit; kernel 22's gamma draws at each
-    shape of GAMMA_SHAPES (2 tiles): no accepting attempt different, the
-    draws within GAMMA_RTOL, S_T within S_RTOL; the law of 2^22 kernel draws
-    at each shape against scipy.stats.gamma (mean, variance, CDF at
-    GAMMA_QUANTILES, the zeros against the mass below 2^-150) within 4
-    stderr; kernel 22 at F1's 2^22 (attempts that differ at most
-    ATTEMPT_FLIPS of the draws, the other paths within S_RTOL). Kernel 21,
+    stream's Philox words bit for bit; kernel 22, both designs on one plain
+    output, at 2 tiles of each shape of TERMINAL_SHAPES and at F1's 2^22:
+    the gammas and attempts of both plain's bit for bit, S_T within
+    REDESIGN_RTOL (the redesign) and S_RTOL (the first design); the law of
+    2^22 draws of the redesign at each shape of GAMMA_SHAPES against
+    scipy.stats.gamma (mean, variance, CDF at GAMMA_QUANTILES, the zeros
+    against the mass below 2^-150) within 4 stderr; the redesign's decision
+    on the card against torch's (phase_vg_decide). Kernel 21,
     both designs on one plain output a shape, at F2's 2^20 x 50, 2 tiles x
     50, the F3 batch's first and last maturity (16,384 x 50) and 2 tiles x
     50 at each shape of GAMMA_SHAPES: the redesign's gammas and attempts
@@ -4498,9 +4793,9 @@ def phase_family_kernels() -> dict:
     and V_RTOL of one plain output; at beta = 0.5 both the same launch of
     the first design's instance, the absorbed set plain's. F and G_T of
     kernel 23 within S_RTOL, alpha within V_RTOL, the absorbed paths
-    equal; first_tile chunks of all four and both first designs bit for
-    bit. Returns per kernel max |d| and max relative d, and the mean gamma
-    attempts at the timed shapes."""
+    equal; first_tile chunks of all four and the three first designs bit
+    for bit. Returns per kernel max |d| and max relative d, and the mean
+    gamma attempts at the timed shapes and the squeeze's share at F1."""
     import numpy as np
     import torch
     from scipy import stats
@@ -4574,16 +4869,33 @@ def phase_family_kernels() -> dict:
             f"bit (0 of {got[2].numel()} attempts differ)")
         return vg_check(f"{label}, redesign", "vg_paths", got, want, limit, REDESIGN_RTOL)
 
+    def terminal_both(label, args):
+        """Kernel 22's two designs on one plain output: the first design's S
+        within S_RTOL of plain, the redesign's within REDESIGN_RTOL; the
+        gammas and attempts of both plain's bit for bit (no attempt differs,
+        so the two designs' too). Returns the mean attempts a draw."""
+        kw = dict(device=DEVICE, return_draws=True)
+        want = cuda_vg.vg_terminal_reference(*args, **kw)
+        first = cuda_vg.vg_terminal_first(*args, **kw)
+        got = cuda_vg.vg_terminal(*args, **kw)
+        vg_check(f"{label}, first design", FAMILY_FIRSTS["vg_terminal"], first, want, 0)
+        for design, out in (("redesign", got), ("first design", first)):
+            if not (torch.equal(out[2], want[2])
+                    and torch.equal(out[1].view(torch.int32), want[1].view(torch.int32))):
+                fail(f"F0: {label}: the {design}'s gamma draws or attempts are not plain's "
+                     f"bit for bit ({int((out[2] != want[2]).sum())} attempts differ)")
+        log(f"[F0] {label}: both designs' gammas and attempts == plain's bit for bit (0 of "
+            f"{want[2].numel()} attempts differ)")
+        return vg_check(f"{label}, redesign", "vg_terminal", got, want, 0, REDESIGN_RTOL)
+
     # kernel 22 at each gamma shape: 2 tiles against plain, 2^22 draws in law
-    for a in GAMMA_SHAPES:
+    for a in TERMINAL_SHAPES:
         T = float(np.float32(a) * np.float32(0.2))
         vp = vg2                                    # nu = 0.2: a = T / 0.2
-        got = cuda_vg.vg_terminal(seed, 100.0, 0.05, T, vp, 2 * TERMINAL_TILE, device=DEVICE,
-                                  return_draws=True)
-        want = cuda_vg.vg_terminal_reference(seed, 100.0, 0.05, T, vp, 2 * TERMINAL_TILE,
-                                             device=DEVICE, return_draws=True)
-        vg_check(f"vg_terminal gamma shape {a} (T = {T:.6g}, nu 0.2), 2 tiles", "vg_terminal",
-                 got, want, 0)
+        terminal_both(f"vg_terminal gamma shape {a} (T = {T:.6g}, nu 0.2), 2 tiles",
+                      (seed, 100.0, 0.05, T, vp, 2 * TERMINAL_TILE))
+        if a not in GAMMA_SHAPES:
+            continue
         g = cuda_vg.vg_terminal(seed + 1, 100.0, 0.05, T, vp, 1 << 22, device=DEVICE,
                                 return_draws=True)[1].double().cpu().numpy()
         shape = float(np.float32(T) / np.float32(0.2))
@@ -4611,12 +4923,9 @@ def phase_family_kernels() -> dict:
         T = float(np.float32(a) * np.float32(10.0))     # 50 steps, nu = 0.2: a = T / 10
         vg_both(f"vg_paths gamma shape {a} (T = {T:.6g}, nu 0.2) 2 tiles x 50",
                 (seed, 100.0, 0.05, [T], vg2, 2 * PATH_TILE, 50), 0)
-    attempts["vg_terminal"] = vg_check(
-        "vg_terminal F1 2^22 (a = 2.857)", "vg_terminal",
-        cuda_vg.vg_terminal(seed, 100.0, 0.04, 1.0, vg1, 1 << 22, device=DEVICE,
-                            return_draws=True),
-        cuda_vg.vg_terminal_reference(seed, 100.0, 0.04, 1.0, vg1, 1 << 22, device=DEVICE,
-                                      return_draws=True), int(ATTEMPT_FLIPS * (1 << 22)))
+    attempts["vg_terminal"] = terminal_both("vg_terminal F1 2^22 (a = 2.857)",
+                                            (seed, 100.0, 0.04, 1.0, vg1, 1 << 22))
+    attempts["squeeze_share"] = phase_vg_decide(seed, vg1)
     # the F3 batch: 64 maturities in one launch == 64 single launches
     Ts = np.linspace(0.1, 1.0, 64).astype(np.float32).tolist()
     for design, fn in (("redesign", cuda_vg.vg_paths), ("first design", cuda_vg.vg_paths_first)):
@@ -4722,6 +5031,9 @@ def phase_family_kernels() -> dict:
         (FAMILY_FIRSTS["vg_paths"], lambda ft, n: cuda_vg.vg_paths_first(
             seed, 100.0, 0.05, [0.5], vg2, n * PATH_TILE, 20, first_tile=ft, device=DEVICE)[0],
          PATH_TILE),
+        (FAMILY_FIRSTS["vg_terminal"], lambda ft, n: cuda_vg.vg_terminal_first(
+            seed, 100.0, 0.04, 1.0, vg1, n * TERMINAL_TILE, first_tile=ft, device=DEVICE),
+         TERMINAL_TILE),
         (FAMILY_FIRSTS["sabr_terminal"], lambda ft, n: torch.stack(cuda_sabr.sabr_terminal_first(
             seed, F0_4, 0.5, sp, n * TERMINAL_TILE, 16, first_tile=ft, device=DEVICE,
             return_alpha=True, return_cv=True)), TERMINAL_TILE)]
@@ -4729,8 +5041,8 @@ def phase_family_kernels() -> dict:
         whole, part = fn(3, 3), fn(4, 2)
         if not torch.equal(part, whole[..., tile:]):
             fail(f"F0: a first_tile chunk of {name} is not the whole's tiles")
-    log("[F0] first_tile chunks of kernels 21-24 and of 21's and 24's first designs bit for "
-        "bit; the VG stream's words (counter "
+    log("[F0] first_tile chunks of kernels 21-24 and of 21's, 22's and 24's first designs "
+        "bit for bit; the VG stream's words (counter "
         f"word 3 = {VG_STREAM}) bit for bit; F0 {time.perf_counter() - t0:.1f} s")
     return {"errs": errs, "attempts": attempts}
 
@@ -4965,19 +5277,40 @@ def phase_families() -> tuple:
     return secs, res
 
 
-# Steps a chunk of kernel 21's redesign (csrc/vg.cu kChunk).
+# Steps a chunk of kernel 21's redesign (csrc/vg.cu kChunk); slots a thread
+# of kernel 22's (kTermSlots).
 VG_CHUNK = 8
+VG_TERM_SLOTS = 4
 
 
-def family_floors(sass: dict, key: str, n_paths: int, n_steps: int, attempts: float) -> dict:
-    """Issue and SFU floors of kernel 21's or 24's design ``key`` (a
+def family_floors(sass: dict, key: str, n_paths: int, n_steps: int, attempts: float,
+                  share: float = 0.0) -> dict:
+    """Issue and SFU floors of kernel 21's, 22's or 24's design ``key`` (a
     SASS_KERNELS key) at n_paths x n_steps, antithetic: each loop's
-    instructions and MUFU (phase_sass) times its passes, kernel 21's
-    attempts at ``attempts`` a draw, its retries as if dense (a pass a
-    retry). The instructions outside the loops are not counted. {} where
+    instructions and MUFU (phase_sass) times its passes, kernels 21 and 22
+    at ``attempts`` a draw, their retries as if dense (a pass a retry),
+    kernel 22's exact tests on the draws its squeeze leaves (1 - ``share``;
+    a pass an entry). Kernel 21's and 24's instructions outside the loops
+    are not counted; kernel 22's (no time loop) once a thread (the
+    redesign's, kTermSlots slots) or a pair (the first design's). {} where
     phase_sass read no loops."""
     pairs, path_steps = n_paths / 2, n_paths * n_steps
-    if key.startswith("sabr"):
+    if key.startswith("vg terminal"):
+        p = sass.get("whole", {}).get(key)
+        if not p:
+            return {}
+        parts, m = p["parts"], p["mufu"]
+        rest, rest_m = p["outer"] - sum(parts.values()), p["outer_mufu"] - sum(m.values())
+        if key == "vg terminal":
+            passes = {"first attempts": pairs, "exact tests": (1 - share) * n_paths,
+                      "retries": (attempts - 1) * n_paths, "walk": pairs}
+            rest_passes = pairs / VG_TERM_SLOTS
+        else:
+            passes = {"attempts": attempts * pairs, "attempts, mirror": attempts * pairs}
+            rest_passes = pairs
+        ins = rest * rest_passes + sum(parts[k] * n for k, n in passes.items())
+        mu = rest_m * rest_passes + sum(m[k] * n for k, n in passes.items())
+    elif key.startswith("sabr"):
         n, mufu = sass.get("loops", {}).get(key), sass.get("mufu", {}).get(key)
         if not n:
             return {}
@@ -5008,7 +5341,7 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
     at F3's 64 x 16,384 x 50 batch, 22 at F1's 2^22, 23 with alpha at F5's
     2^20 x 50, 24 with G_T at F4's 2^22 x 64) beside their bounds (the
     integer term at the run's mean gamma attempts, ``attempts``, from F0),
-    registers and occupancy. The redesigns of 21 and 24 in turns with their
+    registers and occupancy. The redesigns of 21, 22 and 24 in turns with their
     first designs (first, new, new, first), each design beside its issue
     and SFU floors (family_floors) and launches x (ms - bound) at the
     families path's launches; the F3 batch through the wrapper (the host
@@ -5030,6 +5363,7 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
     ops2 = attempts["vg_paths"] * OPS_VG_ATTEMPT + OPS_VG_BOOST + OPS_VG_STEP
     ops1 = attempts["vg_terminal"] * OPS_VG_ATTEMPT + OPS_VG_STEP
     vg_src, sabr_src = "options_model_tpu_torch/csrc/vg.cu", "options_model_tpu_torch/csrc/sabr.cu"
+    vg_f1 = (seed, 100.0, 0.04, 1.0, vg1, n22)
     vg_f2 = (seed, 100.0, 0.05, [0.5], vg2, n20, 50)
     sabr_f4 = (seed, 100.0, 0.5, sp, n22, 64)
     # name -> shape, (plain, kernel[, first design]), bound, (SASS key, paths, steps)
@@ -5041,11 +5375,11 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
                      bound(n20, 50, ops2, int_ops(a2, per_call), 51 * n20 * 4),
                      ("vg paths", n20, 50, vg_src)),
         "vg_terminal": (f"{n22}",
-                        (lambda: cuda_vg.vg_terminal_reference(seed, 100.0, 0.04, 1.0, vg1, n22,
-                                                               device=DEVICE),
-                         lambda: cuda_vg.vg_terminal(seed, 100.0, 0.04, 1.0, vg1, n22,
-                                                     device=DEVICE)),
-                        bound(n22, 1, ops1, int_ops(a1, per_call), n22 * 4), None),
+                        (lambda: cuda_vg.vg_terminal_reference(*vg_f1, device=DEVICE),
+                         lambda: cuda_vg.vg_terminal(*vg_f1, device=DEVICE),
+                         lambda: cuda_vg.vg_terminal_first(*vg_f1, device=DEVICE)),
+                        bound(n22, 1, ops1, int_ops(a1, per_call), n22 * 4),
+                        ("vg terminal", n22, 1, vg_src)),
         "sabr_paths": (f"{n20} x 50 with alpha",
                        (lambda: cuda_sabr.sabr_paths_reference(seed, 100.0, 0.5, sp, n20, 50,
                                                                device=DEVICE, return_alpha=True),
@@ -5069,7 +5403,8 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
     log_clocks("before the family kernels")
 
     def floors(row, key, label, t, n, steps):
-        fl = family_floors(sass, key, n, steps, attempts["vg_paths"])
+        draws = "vg_terminal" if key.startswith("vg terminal") else "vg_paths"
+        fl = family_floors(sass, key, n, steps, attempts[draws], attempts["squeeze_share"])
         if not fl:
             log(f"[5] {key}: no SASS loops read, no floors")
             return
@@ -5148,6 +5483,10 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
     return out
 
 
+# The paths run in processes of their own (``chip_smoke.py --path name``).
+SEPARATE_PATHS = {"nn": phase_nn, "calibration": phase_calibration}
+
+
 def main() -> int:
     import torch
 
@@ -5159,6 +5498,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from options_model_tpu_torch.utils.profiling import card_line
 
+    t_script = time.perf_counter()
     phase_build()
     sass = phase_sass()
     specs = kernel_specs()
@@ -5184,14 +5524,14 @@ def main() -> int:
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
     counted = specs + vjp + jumps + duals + normals + families
-    # kernels 12-18's, 21's and 24's first designs: the yardsticks no path may reach
+    # kernels 12-18's, 21's, 22's and 24's first designs: the yardsticks no path may reach
     from options_model_tpu_torch.ops import cuda_dual, cuda_gbm, cuda_sabr, cuda_vg
 
     firsts = {"euler_paths_vjp_first": cuda_heston.launches,
               "gbm_paths_vjp_first": cuda_gbm.launches,
               **{key: cuda_jumps.launches for key in JUMP_FIRSTS},
               "dual_ce_first": cuda_dual.launches,
-              FAMILY_FIRSTS["vg_paths"]: cuda_vg.launches,
+              **{FAMILY_FIRSTS[k]: cuda_vg.launches for k in ("vg_paths", "vg_terminal")},
               FAMILY_FIRSTS["sabr_terminal"]: cuda_sabr.launches}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
@@ -5200,14 +5540,16 @@ def main() -> int:
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
         was never launched, or if the first design of kernels 1, 3-8,
-        12-18, 21 or 24, or of the variants, was. Returns (fn's result, that
+        12-18, 21, 22 or 24, or of the variants, was. Returns (fn's result, that
         path's counts)."""
         for d, key in counters:
             d[key] = 0
         cuda_jumps.shape_launches.clear()
+        t0 = time.perf_counter()
         out = fn()
         counts = {k["name"]: k["counter"][0][k["counter"][1]] for k in counted}
-        log(f"[4] kernel launches during the {path} path: {counts}")
+        log(f"[4] kernel launches during the {path} path ({time.perf_counter() - t0:.1f} s "
+            f"here, {time.perf_counter() - t_script:.1f} s into the script): {counts}")
         mine = {k["name"]: counts[k["name"]] for k in counted if path in k["paths"]}
         if not all(mine.values()):
             fail(f"a kernel of the {path} path was never launched: {mine}")
@@ -5217,7 +5559,7 @@ def main() -> int:
         earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3-8, 12-18, 21 or "
+            fail(f"the {path} path reached the first design of kernels 1, 3-8, 12-18, 21, 22 or "
                  f"24, or of the variants: {earlier}")
         return out, mine
 
@@ -5225,9 +5567,8 @@ def main() -> int:
     (secs2, surface_cells, euro2, lv_put), launches2 = drive("second", phase_second_path)
     euro.update(euro2)
     launches.update(launches2)
-    secs_nn, launches_nn = drive("nn", phase_nn)
+    started = {name: start_path(name) for name in SEPARATE_PATHS}
     (secs_g, per_call_g, greeks_res), launches_g = drive("greeks", phase_greeks)
-    cal_res, launches_c = drive("calibration", phase_calibration)
     (secs_j, jump_res), launches_j = drive("jumps", phase_jumps)
     shapes_j = dict(cuda_jumps.shape_launches)
     log(f"[4] merton_paths launches during the jumps path by (n_mat, n_pad, n_steps): "
@@ -5238,18 +5579,22 @@ def main() -> int:
     (secs_d, dual_res), launches_d = drive("dual", phase_dual)
     (secs_v, ivnn_res), launches_v = drive("ivnn", phase_ivnn)
     (secs_f, family_res), launches_f = drive("families", phase_families)
+    secs_nn, launches_nn = drive("nn", lambda: join_path(started["nn"]))
+    cal_res, launches_c = drive("calibration", lambda: join_path(started["calibration"]))
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
     j2 = jump_res["J2_merton_european"]
     phase_earlier_europeans(dict(euro, merton_european=(j2["price"], j2["stderr"])))
     phase_earlier_localvol_american(lv_put)
+    t_timing = time.perf_counter()
     times = phase_timing(specs, sass["per_call"])
     times.update(phase_vjp_timing(vjp, sass["per_call"]))
     times.update(phase_jump_timing(sass["per_call"], shapes_j))
     dual_times = phase_dual_timing(sass, secs_d, launches_d, dual_cases)
     normals_times = phase_normals_timing(sass["per_call"], launches_v)
     family_times = phase_family_timing(sass, family_f0["attempts"], launches_f)
+    log(f"[5] the kernel timings (phase 5) took {time.perf_counter() - t_timing:.1f} s")
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     log("[5] QE-M and local-vol path seconds per price or surface: "
@@ -5293,6 +5638,7 @@ def main() -> int:
     log("[5] families path seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs_f.items())
         + f"; the phase {family_res['phase_seconds']:.1f} s; kernel launches {launches_f}")
     log(f"[5] card: {card_line()}")
+    log(f"[5] the whole script took {time.perf_counter() - t_script:.1f} s")
 
     entries = [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
                     launches=launches[k["name"]], max_abs_err=errs[k["name"]]["s_abs"],
@@ -5369,4 +5715,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--path"]:
+        sys.exit(path_process(sys.argv[2]))
     sys.exit(main())

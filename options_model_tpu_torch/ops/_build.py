@@ -75,6 +75,8 @@ _SIGNATURES = {
     "omt_vg_paths": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_paths_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _P],
+    "omt_vg_terminal_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _P],
+    "omt_vg_decide": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P],
     "omt_sabr_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_sabr_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_sabr_terminal_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],

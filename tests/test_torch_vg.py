@@ -308,6 +308,12 @@ def test_kernel_launches_refuse_cpu_tensors():
                                 first_design=True)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_vg.vg_paths_first(SEED, 100.0, 0.05, [0.5], VG, PATH_TILE, 4, device="cpu")
+    # and kernel 22's
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_vg.launch_vg_terminal(torch.empty(TERMINAL_TILE), None, None, rows[:1], SEED, 0,
+                                   True, first_design=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_vg.vg_terminal_first(SEED, 100.0, 0.05, 0.5, VG, TERMINAL_TILE, device="cpu")
     assert cuda_vg.launches == before
 
 
@@ -319,6 +325,8 @@ def test_entry_points_without_a_device_raise_without_cuda():
         vg.simulate_vg(SEED, 100.0, 0.05, 0.5, VG, mc)
     with pytest.raises(RuntimeError, match="CUDA"):
         vg.vg_terminal_exact(SEED, 100.0, 0.05, 0.5, VG, mc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cuda_vg.vg_terminal_first(SEED, 100.0, 0.05, 0.5, VG, TERMINAL_TILE)
     with pytest.raises(RuntimeError, match="CUDA"):
         am.price_american(_gen(1), 100.0, 0.5, OptionSpec(100.0, 0.05, PUT), mc, LSMConfig(),
                           "vg", vg=VG)
