@@ -73,12 +73,12 @@ Phases, in order; any failure exits non-zero:
    and the redesign's decision (omt_vg_decide) against torch's exact test
    on the card over an adversarial grid of 2^24 pairs and more;
 3. the paths, each driven with every launch count set to 0 just before it
-   and read just after (the NN-LSM and calibration paths, c and f, run in
-   processes of their own, ``chip_smoke.py --path nn`` and ``--path
-   calibration``, started after b and joined after the families path, so
-   their host-bound seconds overlap d and g-j; each zeroes every count
-   before its path and hands its counts back, which the parent checks as
-   for any path; their log lines print at the join):
+   and read just after (the NN-LSM, calibration and rough paths, c, f and
+   k, run in processes of their own, ``chip_smoke.py --path nn``, ``--path
+   calibration`` and ``--path rough``, started after b and joined after
+   the families path, so their seconds overlap d and g-j; each zeroes
+   every count before its path and hands its counts back, which the parent
+   checks as for any path; their log lines print at the join):
    a. the main path through ``price_american``: the pooled Heston American
       put against the extrapolated ADI oracle, the GBM put against CRR, and
       the European branch (Heston against COS, GBM against Black-Scholes);
@@ -161,7 +161,21 @@ Phases, in order; any failure exits non-zero:
       (kernel 23) pooled against the ADI value, the S-only basis below it,
       nu = 1e-4 against CRR(4096); F6 calibrate_sabr's round trips in
       float64 on the card beside the JAX package's fits;
-4. the launch counts of each path (the families path: kernels 21-24),
+   k. the rough path (the [R] and [D6]-[D9] lines; models/rbergomi.py,
+      calibration/rbergomi.py and the dual's VG, SABR and rough Bergomi
+      families, after R0 held kernels 25 and 26 (csrc/rbergomi.cu) and
+      kernel 18's new families against their plain versions: the stream's
+      words, dW, the dual state, the inner states and VG's clock draws and
+      attempts bit for bit, S and v within RB_RTOL, ce and VG's terminal
+      step within DUAL_CE_ATOL, first_tile chunks bit for bit; the counts
+      are zeroed after R0): R1 the hybrid scheme against the exact
+      Cholesky oracle, R2 H = 1/2 against the drift-extended ADI, R3 the
+      ATM-skew power law, R4 bench.py's rBergomi calibration leg, R5 the
+      American put at 2^20 x 50 on the (S, v) basis, D6-D9 the VG, SABR,
+      H = 1/2 and rough brackets, and the full-width brackets at D1's
+      scale, at the JAX tests' bars;
+4. the launch counts of each path (the families path: kernels 21-24; the
+   rough path: kernels 25, 26 and kernel 18's new families),
    none of its kernels at 0, the first
    design of kernels 1, 3-8, 12-18, 21, 22 and 24 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
@@ -193,11 +207,17 @@ Phases, in order; any failure exits non-zero:
    64 x 16,384 x 50 batch) beside their bounds (the integer term at the
    run's mean gamma attempts) and plain versions, with registers and
    occupancy, 21, 22 and 24 in turns with their first designs beside each
-   design's issue and SFU floors, and the families path's seconds by leg.
+   design's issue and SFU floors, and the families path's seconds by leg;
+   kernels 25 and 26 at R5's 2^20 x 50 (26 also in its control-variate
+   mode at R4's longest expiry) beside the Volterra product's time, and
+   kernel 18's new families and VG's terminal step at 49 x 2^17 x 64,
+   beside their bounds and plain versions, with the full-width brackets'
+   seconds and kernel 18's share.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
-per jump kernel, one per dual kernel, one for the normals kernel (20) and
-one per family kernel (21-24);
+per jump kernel, one per dual kernel, one for the normals kernel (20), one
+per family kernel (21-24) and one per rough-path kernel (25, 26, kernel
+18's VG, SABR and rough Bergomi families, VG's terminal step);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -384,7 +404,7 @@ def fail(msg: str) -> None:
 # The ops modules whose wrappers count their launches, each in a dict
 # ``launches``: what a path run in a process of its own hands back.
 COUNTED_MODULES = ("cuda_dual", "cuda_gbm", "cuda_heston", "cuda_heston_variants", "cuda_jumps",
-                   "cuda_localvol", "cuda_sabr", "cuda_vg", "philox")
+                   "cuda_localvol", "cuda_rbergomi", "cuda_sabr", "cuda_vg", "philox")
 PATH_DIR = Path(__file__).resolve().parent / "build" / "paths"
 PATH_TIMEOUT = 900
 
@@ -432,6 +452,7 @@ def path_process(name: str) -> int:
         for key in d:
             d[key] = 0
     out = SEPARATE_PATHS[name]()
+    PATH_DIR.mkdir(parents=True, exist_ok=True)
     (PATH_DIR / f"{name}.json").write_text(json.dumps(
         {"result": out, "launches": {m: dict(d) for m, d in counts.items()}},
         default=_jsonable))
@@ -5483,8 +5504,578 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
     return out
 
 
+# The rough path (phase R, the [R] lines; ``chip_smoke.py --path rough``, a
+# process of its own): rough Bergomi on kernels 25-26 (csrc/rbergomi.cu)
+# and the dual's VG, SABR and rough Bergomi families of kernel 18
+# (csrc/dual.cu). R0 holds the kernels against their plain versions; R1-R5
+# and D6-D9 drive the entry points at the JAX tests' configurations and
+# bars (tests/test_rbergomi.py, tests/test_rbergomi_calibration.py,
+# tests/test_apps.py:637-650, tests/test_vg.py:293-312,
+# tests/test_dual.py:484-548); the full-width brackets run each family at
+# D1's scale. Kernels 25, 26 and the new families are timed in phase 5 of
+# the main process, after the join.
+RB_ROUGH = dict(H=0.1, eta=1.5, rho=-0.7, xi0=0.04)
+# Kernel 26 against its plain version on the card: S and v rtol (the two do
+# the same _rn operations with the same libdevice expf and sqrtf, so they
+# are expected bit for bit; the tolerance allows for neither).
+RB_RTOL = 1e-5
+RB_SHAPE = (1 << 20, 50)                # R5's paths, kernels 25-26 at the path's shape
+RB_CV_SHAPE = (1 << 16, 96, 1.0)        # R4's engine at its longest expiry (paths, steps, T)
+ROUGH_DUAL = {"vg": dict(vg=dict(sigma=0.18, theta=-0.14, nu=0.35)),
+              "sabr": dict(sabr=dict(alpha=0.2, beta=1.0, rho=-0.4, nu=0.6)),
+              "rbergomi": dict(rbergomi=RB_ROUGH)}
+ROUGH_DUAL_SHAPE = (1 << 17, 50)        # D1's scale, n_inner 64
+ROUGH_DUAL_T = 0.5
+R1_Z = 4.0
+R2_SE, R2_MISS = 4.5, 10.0
+R3_SLOPE = 0.15
+# R4: tests/test_rbergomi_calibration.py:113-116's bars; BENCH_r05's JAX
+# readings of the same leg (relative errors, IV RMSE), printed beside.
+R4_XI0_REL, R4_H_ABS, R4_ETA_REL, R4_RMSE = 0.25, 0.15, 0.5, 0.02
+JAX_R05_RB = dict(H=0.0443, eta=0.0104, xi0=0.0034, iv_rmse=0.001654)
+# f32 operations and Philox draws (calls, words made uniform) per
+# path-step, counted from csrc/rbergomi.cu: kernel 25 a Box-Muller (11)
+# per pair-step and a multiply; kernel 26 a Box-Muller per path-step, dB
+# 3, the price step 7, Y 5, v 4, a stored S 2.
+OPS_RB_DW = 11 / 2 + 1
+OPS_RB_PATHS = 11 + 3 + 7 + 5 + 4 + 2
+DRAWS_RB_DW = (1 / 2, 1)
+DRAWS_RB_PATHS = (1, 2)
+
+
+def rough_specs():
+    """Kernels 25 and 26 (csrc/rbergomi.cu), kernel 18's VG, SABR and rough
+    Bergomi families and VG's terminal kernel (csrc/dual.cu): name, source,
+    the XLA function each replaces, the paths that run it, its counter."""
+    from options_model_tpu_torch.ops import cuda_dual, cuda_rbergomi
+
+    rb_src, dual_src = ("options_model_tpu_torch/csrc/rbergomi.cu",
+                        "options_model_tpu_torch/csrc/dual.cu")
+    specs = [
+        dict(name="rbergomi_dw", source=rb_src,
+             replaces="options_model_tpu/models/rbergomi.py:114 (dW = sqrt(dt) z1, :188)",
+             paths=("rough",), counter=(cuda_rbergomi.launches, "rbergomi_dw")),
+        dict(name="rbergomi_paths", source=rb_src,
+             replaces="options_model_tpu/models/rbergomi.py:114 (:192-217) and :222",
+             paths=("rough",), counter=(cuda_rbergomi.launches, "rbergomi_paths")),
+    ]
+    for model, lines in (("vg", ":634-675"), ("sabr", ":442-489"), ("rbergomi", ":490-561")):
+        specs.append(dict(name=f"dual_ce {model}", source=dual_src,
+                          replaces=f"options_model_tpu/pricers/dual.py:292 (date_ce, {lines})",
+                          paths=("rough",), counter=(cuda_dual.launches, f"dual_ce {model}")))
+    specs.append(dict(name="dual_vg_terminal", source=dual_src,
+                      replaces="options_model_tpu/pricers/dual.py:676-686",
+                      paths=("rough",), counter=(cuda_dual.launches, "dual_vg_terminal")))
+    return specs
+
+
+def _rough_params(model: str):
+    from options_model_tpu_torch.core.config import RBergomiParams, SABRParams, VGParams
+
+    cls = {"vg": VGParams, "sabr": SABRParams, "rbergomi": RBergomiParams}[model]
+    return {model: cls(**ROUGH_DUAL[model][model])}
+
+
+def rough_dual_case(model: str, n_paths: int, n_steps: int = 50, T: float = ROUGH_DUAL_T,
+                    seed: int = 5, cp: float = -1.0, degree: int = 3) -> dict:
+    """A VG, SABR or rough Bergomi bracket's inputs at n_paths x n_steps:
+    the port's paths (kernels 21, 23, or 25-26 with the dual state), the
+    policy fitted on them, x = S / K, its rows, the law, rough Bergomi's
+    hist and comp. A put, or a call on a dividend payer (q 0.03)."""
+    import torch
+
+    from options_model_tpu_torch.core.config import MCConfig, OptionSpec
+    from options_model_tpu_torch.models.rbergomi import simulate_rbergomi
+    from options_model_tpu_torch.ops import cuda_dual
+    from options_model_tpu_torch.ops.philox import seed_from_generator
+    from options_model_tpu_torch.pricers import american as pa
+    from options_model_tpu_torch.pricers import dual as pd
+
+    q = 0.03 if cp > 0 else 0.0
+    spec = OptionSpec(strike=100.0, rate=0.05, cp=cp, sigma=None, div_yield=q)
+    kw = _rough_params(model)
+    mc = MCConfig(n_paths=n_paths, n_steps=n_steps, path_block=4096)
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    hist = comp = None
+    if model == "rbergomi":
+        S, v, hist = simulate_rbergomi(seed_from_generator(gen), 100.0, T, kw["rbergomi"], mc,
+                                       0.05 - q, return_paths=True, return_variance=True,
+                                       return_dual_state=True, device=DEVICE)
+        comp = torch.from_numpy(pd.rbergomi_comp(kw["rbergomi"], T, n_steps)).to(DEVICE)
+    else:
+        out = pa.simulate_paths(gen, 100.0, T, mc, model, rate=0.05, div_yield=q,
+                                return_variance=model == "sabr", device=DEVICE, **kw)
+        S, v = out if model == "sabr" else (out, None)
+    policy, _ = pd.fit_lsm_policy(S, spec, T, v_paths=v, poly_degree=degree)
+    taus = torch.from_numpy(pd.date_taus(T, n_steps)).to(DEVICE)
+    law = pd.inner_law(model, spec, T, n_steps, **kw)
+    return dict(S=S, v=v, hist=hist, comp=comp, spec=spec, policy=policy, law=law, taus=taus,
+                x=S / torch.tensor(law.K, device=DEVICE), rows=cuda_dual.policy_rows(policy, taus),
+                T=T, n_steps=n_steps)
+
+
+def phase_rough_kernels() -> dict:
+    """R0: kernels 25 and 26 and kernel 18's VG, SABR and rough Bergomi
+    families against their plain versions on the card. The rough Bergomi
+    stream's words and kernel 25's dW bit for bit (2 tiles x 50 and R5's
+    2^20 x 50), kernel 26 in each mode (S, v, the dual state hist; S_T,
+    v_T; S_T, G_T) within RB_RTOL on S and v and hist bit for bit, at H =
+    0.1 and 1/2, first_tile chunks of both kernels bit for bit. Kernel 18's
+    families at 2 tiles (a put and a call each, so every instance runs) and
+    at their brackets' shapes: ce within DUAL_CE_ATOL, the inner states (kernel
+    19's instances), VG's clock draws and their attempts bit for bit, a
+    first_tile chunk of ce bit for bit, VG's terminal step within
+    DUAL_CE_ATOL. Fails if an instance of the new families has local
+    memory. Returns the largest errors by kernel."""
+    import torch
+
+    from options_model_tpu_torch.core.config import RBergomiParams
+    from options_model_tpu_torch.models.rbergomi import rbergomi_constants, volterra
+    from options_model_tpu_torch.ops import cuda_dual as cd
+    from options_model_tpu_torch.ops import cuda_rbergomi as cr
+    from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
+    from options_model_tpu_torch.ops.philox import (RBERGOMI_STREAM, stream_words,
+                                                    stream_words_cuda)
+
+    seed, tile = 0x5DEECE66D, 4096
+    errs = {k["name"]: dict(max_abs_err=0.0, max_rel_err=0.0) for k in rough_specs()}
+    attrs = cr.rbergomi_kernel_attrs()
+    attrs.update({k: a for k, a in cd.dual_kernel_attrs().items()
+                  if k.split()[-1] in ROUGH_DUAL or k == "dual_vg_terminal"})
+    log("[R0] registers / local bytes a thread: "
+        + ", ".join(f"{k} {a['registers']} / {a['spill_bytes']}" for k, a in attrs.items()))
+    local = {k: a["spill_bytes"] for k, a in attrs.items() if a["spill_bytes"]}
+    if local:
+        fail(f"R0: a new kernel has local memory: {local}")
+    w = stream_words_cuda(seed, 3, 2, 2048, 8, DEVICE, stream=RBERGOMI_STREAM)
+    if not torch.equal(w.cpu(), stream_words(seed, 3, 2, 2048, 8, stream=RBERGOMI_STREAM)):
+        fail("R0: the rough Bergomi stream's Philox words differ from the plain version's")
+    log("[R0] the rough Bergomi stream's Philox words (counter word 3 = 4), 2 tiles x 8 draws: "
+        "kernel == plain bit for bit")
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    for H, (n_paths, n_steps) in ((0.1, (2 * PATH_TILE, 50)), (0.5, (2 * PATH_TILE, 50)),
+                                  (0.1, RB_SHAPE)):
+        p = RBergomiParams(**dict(RB_ROUGH, H=H))
+        n_tiles = n_paths // PATH_TILE
+        c = rbergomi_constants(100.0, 1.0, p, n_steps, 0.05)
+        dW = cr.rbergomi_dw(seed, 0, n_tiles, n_steps, c["sqrt_dt"], True, DEVICE)
+        ref = cr.rbergomi_dw_reference(seed, 0, n_tiles, n_steps, c["sqrt_dt"], True, DEVICE)
+        torch.cuda.synchronize()
+        if not torch.equal(dW, ref):
+            fail(f"R0: kernel 25's dW at H {H}, {n_paths} x {n_steps} differs from plain")
+        part = cr.rbergomi_dw(seed, 1, n_tiles - 1, n_steps, c["sqrt_dt"], True, DEVICE)
+        if not torch.equal(part, dW[:, PATH_TILE:]):
+            fail("R0: kernel 25's first_tile chunk differs from the full run's slice")
+        G = volterra(torch.from_numpy(c["W_mat"]), dW)
+        what = f"H {H}, {n_paths} x {n_steps}"
+        for mode, kw in (("paths", dict(return_dual_state=True)),
+                         ("terminal", dict(return_variance=True)), ("cv", {})):
+            got = cr.rbergomi_paths(dW, G, c, seed, 0, True, mode, **kw)
+            want = cr.rbergomi_paths_reference(dW, G, c, seed, 0, True, mode, **kw)
+            torch.cuda.synchronize()
+            names = {"paths": ("S", "v", "hist"), "terminal": ("S_T", "v_T"),
+                     "cv": ("S_T", "G_T")}[mode]
+            diffs = {}
+            for name, a, b in zip(names, got, want):
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"R0: kernel 26 {mode} {what}: non-finite {name}")
+                diffs[name] = (float((a - b).abs().max()), rel(a, b))
+                if name == "hist" and not torch.equal(a, b):
+                    fail(f"R0: kernel 26's dual state at {what} differs from plain")
+                if diffs[name][1] > RB_RTOL:
+                    fail(f"R0: kernel 26 {mode} {what}: {name} rel {diffs[name][1]:.3e} > "
+                         f"{RB_RTOL}")
+                e = errs["rbergomi_paths"]
+                e["max_abs_err"] = max(e["max_abs_err"], diffs[name][0])
+                e["max_rel_err"] = max(e["max_rel_err"], diffs[name][1])
+            bits = all(torch.equal(a, b) for a, b in zip(got, want))
+            log(f"[R0] kernel 26 {mode} at {what}: "
+                + ", ".join(f"{n} max |d| {d[0]:.3e} rel {d[1]:.3e}" for n, d in diffs.items())
+                + (" (bit for bit)" if bits else ""))
+            tail = cr.rbergomi_paths(dW[:, PATH_TILE:].contiguous(), G[:, PATH_TILE:].contiguous(),
+                                     c, seed, 1, True, mode, **kw)
+            if not all(torch.equal(a[..., PATH_TILE:], b) for a, b in zip(got, tail)):
+                fail(f"R0: kernel 26 {mode} {what}: a first_tile chunk differs from the slice")
+        log(f"[R0] kernel 25 at {what}: dW == plain bit for bit; first_tile=1 chunks of both "
+            "kernels bit for bit")
+
+    n_inner = 64
+    for model in ROUGH_DUAL:
+        n_d = {"vg": 1 << 14, "sabr": 1 << 15, "rbergomi": 1 << 15}[model]
+        for n, cp, steps, T in ((2 * tile, -1.0, 20, 0.5), (2 * tile, 1.0, 20, 0.5),
+                                (n_d, -1.0, 40 if model != "vg" else 20, 0.5)):
+            case = rough_dual_case(model, n, steps, T, cp=cp)
+            x, v, rows, law = case["x"], case["v"], case["rows"], case["law"]
+            hist, comp = case["hist"], case["comp"]
+            what = f"{model} {'call' if cp > 0 else 'put'}, {n} x {steps}"
+            args = (seed, 0, tile, n_inner)
+            ce = cd.dual_ce(x, v, rows, law, *args, hist, comp)
+            ref = cd.dual_ce_reference(x, v, rows, law, *args, hist, comp)
+            torch.cuda.synchronize()
+            d = (ce - ref).abs()
+            if not bool(torch.isfinite(ce).all()) or float(d.max()) > DUAL_CE_ATOL:
+                fail(f"R0: dual_ce {what}: ce differs from plain (max {float(d.max()):.3e})")
+            e = errs[f"dual_ce {model}"]
+            e["max_abs_err"] = max(e["max_abs_err"], float(d.max()))
+            h = n // 2 // tile * tile
+            part = cd.dual_ce(x[:, h:].contiguous(), None if v is None else v[:, h:].contiguous(),
+                              rows, law, seed, h // tile, tile, n_inner,
+                              None if hist is None else hist[:, h:].contiguous(), comp)
+            if not torch.equal(part, ce[:, h:]):
+                fail(f"R0: dual_ce {what}: a first_tile chunk differs from the full run's slice")
+            xs, vs, cn = cd.dual_inner_states(x, v, law, *args, 0, 3, True, hist, comp)
+            xr, vr, cr_ = cd.dual_inner_states_reference(x, v, law, *args, 0, 3, True, hist,
+                                                          comp)
+            torch.cuda.synchronize()
+            if not (torch.equal(xs, xr) and torch.equal(vs, vr) and torch.equal(cn, cr_)):
+                fail(f"R0: {what}: the inner states (rel x' {rel(xs, xr):.3e}, second state "
+                     f"{rel(vs, vr):.3e}) or {'attempts' if model == 'vg' else 'counts'} "
+                     "differ from plain")
+            extra = ""
+            if model == "vg":
+                xl = x[case["n_steps"] - 1].contiguous()
+                eh = cd.dual_vg_terminal(xl, law, seed, 0, tile, n_inner, steps - 1)
+                ehr = cd.dual_vg_terminal_reference(xl, law, seed, 0, tile, n_inner, steps - 1)
+                torch.cuda.synchronize()
+                de = float((eh - ehr).abs().max())
+                if de > DUAL_CE_ATOL or not bool(torch.isfinite(eh).all()):
+                    fail(f"R0: dual_vg_terminal {what}: e_h differs from plain ({de:.3e})")
+                ev = errs["dual_vg_terminal"]
+                ev["max_abs_err"] = max(ev["max_abs_err"], de)
+                extra = (f"; clock draws and attempts (dates 0-2, {cn.numel()}, mean attempt "
+                         f"{float(cn.float().mean()):.4f}, max {int(cn.max())}) bit for bit; "
+                         f"dual_vg_terminal within {DUAL_CE_ATOL} (max |d| {de:.3e})")
+            log(f"[R0] {what}, n_inner {n_inner}: dual_ce == plain within {DUAL_CE_ATOL} (max "
+                f"|d| {float(d.max()):.3e}, mean {float(d.mean()):.3e}); first_tile="
+                f"{h // tile} chunk bit for bit; inner states (dates 0-2) bit for bit{extra}")
+    return errs
+
+
+def phase_rough() -> dict:
+    """The rough path (``--path rough``): R0 (phase_rough_kernels), then,
+    every launch count at 0, the entry points a user calls. R1 the hybrid
+    scheme's ATM put (H 0.1, 2^16 x 50, rbergomi_european_mc) against the
+    exact-covariance Cholesky oracle, |z| < R1_Z; R2 the H = 1/2 European
+    put (eta 1.2, rho -0.6, 2^17 x 100) within R2_SE stderr of the
+    drift-extended ADI (pricers/fd_sabr, alpha_drift = -eta^2/8), the
+    driftless ADI more than R2_MISS away; R3 the ATM-skew power law (T in
+    0.05-1, 2^16 x 64, common random numbers), slope within R3_SLOPE of H -
+    1/2; R4 bench.py's calibration leg at its defaults, at the JAX round
+    trip's bars; R5 the American put at 2^20 x 50 on the (S, v) basis, >=
+    the European - 4 combined stderr; D6-D9 the VG, SABR, H = 1/2 and rough
+    brackets at the JAX tests' configurations and bars; the full-width
+    brackets (ROUGH_DUAL_SHAPE, n_inner 64). Fails if a rough kernel was
+    never launched after R0. Returns the errors, seconds and results."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.calibration.rbergomi import (calibrate_rbergomi_to_data,
+                                                              create_synthetic_rbergomi_surface)
+    from options_model_tpu_torch.core.config import (LSMConfig, MCConfig, OptionSpec,
+                                                      RBergomiParams, SABRParams)
+    from options_model_tpu_torch.models.rbergomi import (rbergomi_european_mc,
+                                                         rbergomi_exact_chol)
+    from options_model_tpu_torch.pricers.american import price_american, price_american_lsm
+    from options_model_tpu_torch.pricers.blackscholes import implied_vol
+    from options_model_tpu_torch.pricers.dual import price_american_bracket
+    from options_model_tpu_torch.pricers.fd_sabr import sabr_fd_price
+
+    t_phase = time.perf_counter()
+    errs = phase_rough_kernels()
+    counts = launch_counts()
+    for d in counts.values():
+        for key in d:
+            d[key] = 0
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    secs, res = {}, {}
+    P = RBergomiParams(**RB_ROUGH)
+    put = OptionSpec(strike=100.0, rate=0.05, cp=-1.0, sigma=None)
+
+    def timed(label, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    def check(tag, ok, msg):
+        log(f"[{tag}] {msg}")
+        if not ok:
+            fail(f"{tag}: {msg}")
+
+    # R1: hybrid scheme against exact joint sampling, the same 50-step grid
+    p, se = (float(t) for t in timed("R1", rbergomi_european_mc, gen(71), 100.0, 100.0, 0.05,
+                                     1.0, P, MCConfig(1 << 16, 50), cp=-1.0, device=DEVICE))
+    pc, sec, _ = rbergomi_exact_chol(7, 100.0, 100.0, 0.05, 1.0, P, n_steps=50, n_paths=1 << 16,
+                                     cp=-1.0)
+    z = (p - pc) / math.hypot(se, sec)
+    res["R1"] = dict(price=p, stderr=se, chol=pc, chol_stderr=sec, z=z)
+    check("R1", abs(z) < R1_Z, f"ATM put, H 0.1, 2^16 x 50: hybrid {p:.6f} +- {se:.6f} "
+          f"({secs['R1']:.3f} s), Cholesky {pc:.6f} +- {sec:.6f}: z {z:+.3f} (bar {R1_Z})")
+
+    # R2: H = 1/2 against the drift-extended ADI
+    eta, rho = 1.2, -0.6
+    p2 = RBergomiParams(H=0.5, eta=eta, rho=rho, xi0=0.04)
+    pr, se2 = (float(t) for t in timed("R2", rbergomi_european_mc, gen(72), 100.0, 100.0, 0.05,
+                                       1.0, p2, MCConfig(1 << 17, 100), cp=-1.0, device=DEVICE))
+    sp = SABRParams(alpha=0.2, beta=1.0, rho=rho, nu=eta / 2)
+    grid = dict(cp=-1.0, american=False, n_f=400, n_a=160, n_t=400)
+    fd = sabr_fd_price(100.0, 100.0, 1.0, 0.05, sp, alpha_drift=-eta**2 / 8, **grid)
+    fd0 = sabr_fd_price(100.0, 100.0, 1.0, 0.05, sp, **grid)
+    res["R2"] = dict(price=pr, stderr=se2, adi=fd, adi_driftless=fd0)
+    check("R2", abs(pr - fd) < R2_SE * se2 and abs(pr - fd0) > R2_MISS * se2,
+          f"H 1/2 European put, 2^17 x 100: {pr:.6f} +- {se2:.6f} ({secs['R2']:.3f} s); "
+          f"drift ADI {fd:.6f} ({(pr - fd) / se2:+.2f} stderr, bar {R2_SE}); driftless ADI "
+          f"{fd0:.6f} ({(pr - fd0) / se2:+.2f} stderr, must pass {R2_MISS})")
+
+    # R3: the ATM-skew power law, common random numbers across strikes and T
+    Ts, dk, skews = [0.05, 0.1, 0.25, 0.5, 1.0], 0.02, []
+    t0 = time.perf_counter()
+    for T in Ts:
+        ivs = []
+        for K in (100 * np.exp(-dk), 100 * np.exp(dk)):
+            pr3, _ = rbergomi_european_mc(gen(73), 100.0, K, 0.0, T, P, MCConfig(1 << 16, 64),
+                                          cp=1.0, device=DEVICE)
+            ivs.append(float(implied_vol(pr3, 100.0, K, T, 0.0, cp=1.0, device=DEVICE)))
+        skews.append((ivs[1] - ivs[0]) / (2 * dk))
+    secs["R3"] = time.perf_counter() - t0
+    slope = float(np.polyfit(np.log(Ts), np.log(np.abs(skews)), 1)[0])
+    res["R3"] = dict(skews=skews, slope=slope)
+    check("R3", all(s < 0 for s in skews) and abs(slope - (P.H - 0.5)) < R3_SLOPE,
+          f"ATM skews {[round(s, 4) for s in skews]} at T {Ts}: log-log slope {slope:+.4f} "
+          f"against H - 1/2 = {P.H - 0.5:+.2f} (bar {R3_SLOPE}); {secs['R3']:.2f} s")
+
+    # R4: bench.py's calibration leg, not cut
+    K4, T4, iv4 = timed("R4 surface", create_synthetic_rbergomi_surface, P, device=DEVICE)
+    fit, summ = timed("R4", calibrate_rbergomi_to_data, K4, T4, iv4, 100.0, 0.05, rho=-0.7,
+                      device=DEVICE)
+    rel4 = dict(H=abs(fit.H / P.H - 1), eta=abs(fit.eta / P.eta - 1),
+                xi0=abs(fit.xi0 / P.xi0 - 1), iv_rmse=float(summ["error"]))
+    res["R4"] = dict(seconds=secs["R4"], surface_seconds=secs["R4 surface"],
+                     evaluations=summ["surface_evals"], polish_evals=summ.get("polish_evals"),
+                     fitted=dict(H=fit.H, eta=fit.eta, xi0=fit.xi0), **rel4)
+    check("R4", rel4["xi0"] < R4_XI0_REL and abs(fit.H - P.H) < R4_H_ABS
+          and rel4["eta"] < R4_ETA_REL and rel4["iv_rmse"] < R4_RMSE,
+          f"calibrate_rbergomi_to_data at its defaults: {secs['R4']:.2f} s, "
+          f"{summ['surface_evals']} surface evaluations ({summ.get('polish_evals')} in the "
+          f"polish), {secs['R4'] / summ['surface_evals'] * 1e3:.1f} ms each; fitted H "
+          f"{fit.H:.4f} eta {fit.eta:.4f} xi0 {fit.xi0:.5f}: relative errors H "
+          f"{rel4['H'] * 100:.2f}% eta {rel4['eta'] * 100:.2f}% xi0 {rel4['xi0'] * 100:.2f}%, "
+          f"IV RMSE {rel4['iv_rmse']:.6f} (BENCH_r05, the JAX package: H 4.43%, eta 1.04%, "
+          f"xi0 0.34%, IV RMSE 0.001654); the synthetic surface {secs['R4 surface']:.2f} s")
+
+    # R5: the American put on the (S, v) basis against the European
+    mc5 = MCConfig(*RB_SHAPE)
+    pa5, sa5 = (float(t) for t in timed("R5", price_american, gen(75), 100.0, 0.5, put, mc5,
+                                        LSMConfig(), "rbergomi", rbergomi=P, device=DEVICE))
+    pe5, se5 = (float(t) for t in rbergomi_european_mc(gen(76), 100.0, 100.0, 0.05, 0.5, P, mc5,
+                                                       cp=-1.0, device=DEVICE))
+    res["R5"] = dict(price=pa5, stderr=sa5, european=pe5, european_stderr=se5)
+    check("R5", math.isfinite(pa5) and pa5 >= pe5 - 4 * (sa5 + se5),
+          f"American put, H 0.1, 2^20 x 50, (S, v) basis: {pa5:.6f} +- {sa5:.6f} "
+          f"({secs['R5']:.3f} s a price); European {pe5:.6f} +- {se5:.6f}")
+
+    def bracket(label, model, mc, T=0.5, n_inner=64, seed=81):
+        br = timed(label, price_american_bracket, gen(seed), 100.0, T, put, mc, model=model,
+                   n_inner=n_inner, device=DEVICE, **_rough_params(model))
+        return [float(t) for t in br]
+
+    # D6: VG (tests/test_vg.py:293-312)
+    vg_kw = _rough_params("vg")
+    mc6 = MCConfig(n_paths=16384, n_steps=20, path_block=2048)
+    lo6, lse6, hi6, hse6 = bracket("D6", "vg", mc6, n_inner=32)
+    p6, sp6 = (float(t) for t in price_american_lsm(gen(82), 100.0, 0.5, put, mc6, LSMConfig(),
+                                                    "vg", device=DEVICE, **vg_kw))
+    lo, hi = lo6 - 2 * lse6, hi6 + 2 * hse6
+    res["D6"] = dict(low=lo6, low_stderr=lse6, high=hi6, high_stderr=hse6, lsm=p6)
+    check("D6", lo < hi and hi6 - lo6 < 0.06 * lo6 and lo - 2 * sp6 < p6 < hi + 2 * sp6,
+          f"VG bracket, 16384 x 20, n_inner 32: [{lo6:.6f} +- {lse6:.6f}, {hi6:.6f} +- "
+          f"{hse6:.6f}] ({secs['D6']:.3f} s), gap {(hi6 - lo6) / lo6 * 100:.3f}% (bar 6%); "
+          f"in-sample LSM {p6:.6f} +- {sp6:.6f} inside")
+
+    def adi_bracket(tag, lo_, lse, hi_, hse, fd, what):
+        lo, hi = lo_ - 3 * lse, hi_ + 3 * hse
+        res[tag] = dict(low=lo_, low_stderr=lse, high=hi_, high_stderr=hse, adi=fd)
+        check(tag, lo <= fd <= hi and (hi - lo) / fd < 0.05,
+              f"{what}: [{lo_:.6f} +- {lse:.6f}, {hi_:.6f} +- {hse:.6f}] ({secs[tag]:.3f} s) "
+              f"against ADI {fd:.6f}; 3-stderr width {(hi - lo) / fd * 100:.3f}% (bar 5%)")
+
+    # D7: SABR, beta 1 (tests/test_dual.py:484-495)
+    mc78 = MCConfig(n_paths=1 << 15, n_steps=40, path_block=2048)
+    sabr = _rough_params("sabr")["sabr"]
+    br7 = bracket("D7", "sabr", mc78)
+    adi_bracket("D7", *br7, sabr_fd_price(100.0, 100.0, 0.5, 0.05, sabr, cp=-1.0),
+                "SABR bracket (0.2, 1, -0.4, 0.6), 2^15 x 40")
+    # D8: rough Bergomi at H = 1/2 against the drift ADI (:512-530)
+    rb8 = RBergomiParams(H=0.5, eta=1.0, rho=-0.5, xi0=0.04)
+    br8 = [float(t) for t in timed("D8", price_american_bracket, gen(83), 100.0, 0.5, put, mc78,
+                                   model="rbergomi", rbergomi=rb8, device=DEVICE)]
+    adi_bracket("D8", *br8, sabr_fd_price(100.0, 100.0, 0.5, 0.05,
+                                          SABRParams(alpha=0.2, beta=1.0, rho=-0.5, nu=0.5),
+                                          cp=-1.0, alpha_drift=-1.0 / 8),
+                "rBergomi bracket at H 1/2 (eta 1, rho -0.5), 2^15 x 40")
+    # D9: rough, H = 0.1 (:532-548)
+    mc9 = MCConfig(n_paths=1 << 14, n_steps=30, path_block=2048)
+    lo9, lse9, hi9, hse9 = (float(t) for t in timed(
+        "D9", price_american_bracket, gen(84), 100.0, 0.5, put, mc9, model="rbergomi",
+        rbergomi=P, device=DEVICE))
+    eu9, _ = rbergomi_european_mc(gen(85), 100.0, 100.0, 0.05, 0.5, P, mc9, cp=-1.0,
+                                  device=DEVICE)
+    eu9 = float(eu9)
+    res["D9"] = dict(low=lo9, low_stderr=lse9, high=hi9, high_stderr=hse9, european=eu9)
+    check("D9", all(map(math.isfinite, (lo9, hi9))) and lo9 < hi9
+          and hi9 + 3 * hse9 > eu9 and (hi9 - lo9) / lo9 < 0.5,
+          f"rough bracket (H 0.1), 2^14 x 30: [{lo9:.6f} +- {lse9:.6f}, {hi9:.6f} +- "
+          f"{hse9:.6f}] ({secs['D9']:.3f} s), European {eu9:.6f}, width "
+          f"{(hi9 - lo9) / lo9 * 100:.2f}% of low (bar 50%)")
+
+    # the full-width brackets at D1's scale
+    n_fw, steps_fw = ROUGH_DUAL_SHAPE
+    for model in ROUGH_DUAL:
+        label = f"FW {model}"
+        kw = _rough_params(model)
+        lo_, lse, hi_, hse = (float(t) for t in timed(
+            label, price_american_bracket, gen(86), 100.0, ROUGH_DUAL_T, put,
+            MCConfig(n_fw, steps_fw), model=model, n_inner=64, device=DEVICE, **kw))
+        res[label] = dict(low=lo_, low_stderr=lse, high=hi_, high_stderr=hse,
+                          width_pct=(hi_ - lo_) / lo_ * 100)
+        check(label, all(map(math.isfinite, (lo_, hi_))) and lo_ < hi_ + 3 * hse,
+              f"{model} bracket at {n_fw} x {steps_fw}, n_inner 64: [{lo_:.6f} +- {lse:.6f}, "
+              f"{hi_:.6f} +- {hse:.6f}], width {(hi_ - lo_) / lo_ * 100:.4f}%, "
+              f"{secs[label]:.3f} s a bracket")
+
+    mine = {k["name"]: k["counter"][0][k["counter"][1]] for k in rough_specs()}
+    log(f"[R] kernel launches of the rough path after R0: {mine}")
+    if not all(mine.values()):
+        fail(f"a kernel of the rough path was never launched: {mine}")
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[R] the rough path took {res['phase_seconds']:.1f} s in its process")
+    return dict(errs=errs, secs=secs, res=res)
+
+
+def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
+    """CUDA-event medians (N_TIMED) of kernels 25 and 26 at R5's 2^20 x 50
+    (kernel 26 with v, R5's mode; its control-variate mode also at R4's
+    longest expiry), the Volterra product beside them, kernel 18's VG, SABR
+    and rough Bergomi families and VG's terminal step at ROUGH_DUAL_SHAPE x
+    64 inner draws, each beside its plain version (one run) and its bound
+    (bound(), from this run's inputs; VG's gamma attempts counted from its
+    clock draws); registers and occupancy; the full-width brackets' seconds
+    with kernel 18's share. Returns the rows by kernel name."""
+    import torch
+
+    from options_model_tpu_torch.core.config import RBergomiParams
+    from options_model_tpu_torch.models.rbergomi import rbergomi_constants, volterra
+    from options_model_tpu_torch.ops import cuda_dual as cd
+    from options_model_tpu_torch.ops import cuda_rbergomi as cr
+    from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    seed, tile = 0x5DEECE66D, 4096
+    attrs = cr.rbergomi_kernel_attrs()
+    attrs.update(cd.dual_kernel_attrs())
+    out = {}
+
+    def row(name, ms, plain_ms, b, key, **extra):
+        a = attrs[key]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, registers=a["registers"],
+                         occupancy=a["blocks_per_sm"] * a["block"] / THREADS_PER_SM, **b,
+                         **extra)
+        log(f"[5] {name} ({key}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_term']}, {b['bound_ms'] / ms * 100:.1f}% of "
+            f"bound; {a['registers']} registers, {out[name]['occupancy'] * 100:.1f}% occupancy"
+            + "".join(f"; {k} {v}" for k, v in extra.items()))
+
+    P = RBergomiParams(**RB_ROUGH)
+    for shape, mode in ((RB_SHAPE + (0.5,), "paths"), (RB_CV_SHAPE, "cv")):
+        n, steps, T = shape
+        n_tiles = n // PATH_TILE
+        c = rbergomi_constants(100.0, T, P, steps, 0.05)
+        W = torch.from_numpy(c["W_mat"]).to(DEVICE)
+        dW = cr.rbergomi_dw(seed, 0, n_tiles, steps, c["sqrt_dt"], True, DEVICE)
+        G = volterra(W, dW)
+        kw = dict(return_variance=True) if mode == "paths" else {}
+        k26 = time_per_call(lambda: cr.rbergomi_paths(dW, G, c, seed, 0, True, mode, **kw),
+                            N_TIMED)
+        p26 = time_per_call(lambda: cr.rbergomi_paths_reference(dW, G, c, seed, 0, True, mode,
+                                                                **kw), 1, 0)
+        mm = time_per_call(lambda: volterra(W, dW), N_TIMED)
+        out_bytes = n * steps * 8 + (n * (steps + 1) * 8 if mode == "paths" else n * 8)
+        b26 = bound(n, steps, OPS_RB_PATHS, int_ops(DRAWS_RB_PATHS, per_call), out_bytes)
+        label = "rbergomi_paths" if mode == "paths" else "rbergomi_paths cv"
+        row(label, k26, p26, b26, "rbergomi_paths" if mode == "paths" else "rbergomi_paths cv",
+            shape=f"{n} x {steps}", volterra_matmul_ms=mm,
+            volterra_matmul_bound_ms=max(2 * steps * steps * n / 2 / PEAK_F32_OPS,
+                                         2 * n * steps * 4 / PEAK_BYTES) * 1e3)
+        if mode == "paths":
+            k25 = time_per_call(lambda: cr.rbergomi_dw(seed, 0, n_tiles, steps, c["sqrt_dt"],
+                                                       True, DEVICE), N_TIMED)
+            p25 = time_per_call(lambda: cr.rbergomi_dw_reference(seed, 0, n_tiles, steps,
+                                                                 c["sqrt_dt"], True, DEVICE),
+                                1, 0)
+            row("rbergomi_dw", k25, p25,
+                bound(n, steps, OPS_RB_DW, int_ops(DRAWS_RB_DW, per_call), n * steps * 4),
+                "rbergomi_dw", shape=f"{n} x {steps}")
+        del dW, G
+
+    n, steps = ROUGH_DUAL_SHAPE
+    n_dates, n_inner = steps - 1, 64
+    for model in ROUGH_DUAL:
+        case = rough_dual_case(model, n, steps)
+        x, v, rows, law = case["x"], case["v"], case["rows"], case["law"]
+        hist, comp = case["hist"], case["comp"]
+        args = (seed, 0, tile, n_inner, hist, comp)
+        ms = time_per_call(lambda: cd.dual_ce(x, v, rows, law, *args), N_TIMED)
+        plain = time_per_call(lambda: cd.dual_ce_reference(x, v, rows, law, *args), 1, 0)
+        per_eval = {"vg": OPS_DUAL["gbm"], "sabr": OPS_DUAL["heston"] - 8 + 6,
+                    "rbergomi": OPS_DUAL["heston"] - 8 + 12}[model]
+        draws = {"sabr": DRAWS_DUAL["heston"], "rbergomi": (1 / 2, 2)}.get(model)
+        extra = {}
+        if model == "vg":
+            _, _, att = cd.dual_inner_states(x, None, law, seed, 0, tile, n_inner, 0, 4, True)
+            tries = float(att.float().mean()) + 1.0
+            extra["gamma_attempts_per_draw"] = tries
+            # a member's share of its pair's clock: tries attempts of
+            # OPS_VG_ATTEMPT, the boost, one call and three words each
+            per_eval += (tries * OPS_VG_ATTEMPT + OPS_VG_BOOST) / 2
+            draws = (DRAWS_DUAL["gbm"][0] + tries / 2, DRAWS_DUAL["gbm"][1] + 1.5 * tries + 0.5)
+        b = bound(n_dates * n, n_inner, per_eval, int_ops(draws, per_call),
+                  n_dates * n * 4 * (3 if v is not None else 2)
+                  + (n_dates * n * 4 if hist is not None else 0))
+        row(f"dual_ce {model}", ms, plain, b, f"dual_ce {model}",
+            shape=f"{n_dates} x {n} x {n_inner}", **extra)
+        if model == "vg":
+            xl = x[steps - 1].contiguous()
+            ms_t = time_per_call(lambda: cd.dual_vg_terminal(xl, law, seed, 0, tile, n_inner,
+                                                             n_dates), N_TIMED)
+            plain_t = time_per_call(lambda: cd.dual_vg_terminal_reference(
+                xl, law, seed, 0, tile, n_inner, n_dates), 1, 0)
+            tries = extra["gamma_attempts_per_draw"]
+            b_t = bound(n, n_inner // 2, tries * OPS_VG_ATTEMPT + OPS_VG_BOOST + 40,
+                        int_ops((tries, 3 * tries + 1), per_call), n * 8)
+            row("dual_vg_terminal", ms_t, plain_t, b_t, "dual_vg_terminal",
+                shape=f"{n} x {n_inner // 2}")
+        del case
+    for model in ROUGH_DUAL:
+        label = f"FW {model}"
+        s = rough["secs"][label]
+        k_ms = out[f"dual_ce {model}"]["ms"] + (out["dual_vg_terminal"]["ms"]
+                                                if model == "vg" else 0.0)
+        r = rough["res"][label]
+        log(f"[5] the full-width {model} bracket ({n} x {steps}, n_inner 64): {s:.3f} s a "
+            f"bracket, width {r['width_pct']:.4f}%, upper {r['high']:.6f}; kernel 18 "
+            f"{k_ms:.4f} ms = {k_ms / 1e3 / s * 100:.3f}% of it")
+    log(f"[5] rough path launches: {launches}; its seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rough["secs"].items()))
+    return out
+
+
 # The paths run in processes of their own (``chip_smoke.py --path name``).
-SEPARATE_PATHS = {"nn": phase_nn, "calibration": phase_calibration}
+SEPARATE_PATHS = {"nn": phase_nn, "calibration": phase_calibration, "rough": phase_rough}
 
 
 def main() -> int:
@@ -5518,12 +6109,13 @@ def main() -> int:
     normals_errs = phase_normals()
     families = family_specs()
     family_f0 = phase_family_kernels()
+    rough = rough_specs()
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
-    counted = specs + vjp + jumps + duals + normals + families
+    counted = specs + vjp + jumps + duals + normals + families + rough
     # kernels 12-18's, 21's, 22's and 24's first designs: the yardsticks no path may reach
     from options_model_tpu_torch.ops import cuda_dual, cuda_gbm, cuda_sabr, cuda_vg
 
@@ -5581,6 +6173,7 @@ def main() -> int:
     (secs_f, family_res), launches_f = drive("families", phase_families)
     secs_nn, launches_nn = drive("nn", lambda: join_path(started["nn"]))
     cal_res, launches_c = drive("calibration", lambda: join_path(started["calibration"]))
+    rough_res, launches_r = drive("rough", lambda: join_path(started["rough"]))
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
@@ -5594,6 +6187,7 @@ def main() -> int:
     dual_times = phase_dual_timing(sass, secs_d, launches_d, dual_cases)
     normals_times = phase_normals_timing(sass["per_call"], launches_v)
     family_times = phase_family_timing(sass, family_f0["attempts"], launches_f)
+    rough_times = phase_rough_timing(sass["per_call"], rough_res, launches_r)
     log(f"[5] the kernel timings (phase 5) took {time.perf_counter() - t_timing:.1f} s")
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
@@ -5707,6 +6301,12 @@ def main() -> int:
                         if k["name"] in FAMILY_FIRSTS else {}),
                      **family_times[k["name"]])
                 for k in families]
+    entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+                     launches=launches_r[k["name"]], library_ms=None,
+                     **rough_res["errs"][k["name"]], **rough_times[k["name"]],
+                     **({"cv_mode": rough_times["rbergomi_paths cv"]}
+                        if k["name"] == "rbergomi_paths" else {}))
+                for k in rough]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

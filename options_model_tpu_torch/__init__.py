@@ -33,8 +33,13 @@ kernel (csrc/philox.cu) on the card; and the Variance Gamma and SABR
 families (``models.vg``, ``models.sabr``: their paths on kernels of their
 own, csrc/vg.cu and csrc/sabr.cu, every American route, the European
 samplers, the VG surface, SABR's closed forms, calibration and ADI oracle,
-``pricers.fd_sabr``). Features outside these raise NotImplementedError
-naming their JAX counterpart.
+``pricers.fd_sabr``); and rough Bergomi (``models.rbergomi``: the hybrid
+scheme on kernels of its own, csrc/rbergomi.cu, around one float32 Volterra
+matrix product; its European control variate, American route, calibrator
+``calibration.rbergomi`` and ``apps.calibrate --model rbergomi``), with the
+dual bracket ``pricers.dual.price_american_bracket`` for every family the
+reference's takes. Features outside these raise NotImplementedError naming
+their JAX counterpart.
 
 This package imports torch and numpy only, never jax.
 """

@@ -1,18 +1,21 @@
-"""Heston / Bates / VG calibration CLI, as options_model_tpu/apps/calibrate.py.
+"""Heston / Bates / VG / rough Bergomi calibration CLI, as
+options_model_tpu/apps/calibrate.py.
 
     python -m options_model_tpu_torch.apps.calibrate --test
     python -m options_model_tpu_torch.apps.calibrate --test --price-surface surface.csv
 
     python -m options_model_tpu_torch.apps.calibrate --model bates --test --price-surface b.csv
+    python -m options_model_tpu_torch.apps.calibrate --model rbergomi --test
 
 ``--test`` calibrates against the synthetic oracle surface with known true
 parameters and reports the recovery error; ``--price-surface`` then prices
 the ``--surface-size`` American put surface under the fitted Heston or Bates
 parameters (one batched Heston paths launch; Bates adds one jump-overlay
 launch over it; then the LSM backwards) and writes it as CSV
-(``K,T,price``). Everything runs on the card; ``run(args, device="cpu")``
-runs on the CPU. Not ported yet: a live ``--ticker`` chain, ``--model
-rbergomi`` and ``--diagnostics-dir``.
+(``K,T,price``). ``--model rbergomi`` fits (H, eta, xi0) at a fixed
+``--rho`` on the hybrid scheme's Monte Carlo (calibration/rbergomi.py).
+Everything runs on the card; ``run(args, device="cpu")`` runs on the CPU.
+Not ported yet: a live ``--ticker`` chain and ``--diagnostics-dir``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import (BatesParams, CalibrationConfig, HestonParams,
-                                                 MCConfig, VGParams)
+                                                 MCConfig, RBergomiParams, VGParams)
 from options_model_tpu_torch.ops.engine import checked_device
 
 log = logging.getLogger(__name__)
@@ -41,8 +44,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--model", type=str, default="heston",
                    choices=["heston", "bates", "vg", "rbergomi"],
                    help="bates adds the lognormal jump triple (lam, mu_j, sigma_j); "
-                        "vg fits the Variance Gamma (sigma, theta, nu); rbergomi is "
-                        "not ported")
+                        "vg fits the Variance Gamma (sigma, theta, nu); rbergomi fits "
+                        "(H, eta, xi0) at a fixed --rho by the hybrid scheme's MC")
     p.add_argument("--rho", type=float, default=-0.7,
                    help="rbergomi only: spot-vol correlation, held fixed")
     p.add_argument("--polish-evals", type=int, default=160,
@@ -71,17 +74,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _check_ported(args) -> None:
-    """Raise for what the app does not carry yet (rbergomi, a live chain,
-    diagnostics plots), and exit as the reference does for a VG surface."""
-    if args.model == "rbergomi":
-        raise not_ported("--model rbergomi (models/rbergomi.py)", "apps.calibrate._run_rbergomi")
+    """Raise for what the app does not carry yet (a live chain, diagnostics
+    plots), and exit as the reference does for a VG or rBergomi surface."""
     if not args.test:
         raise not_ported("a live --ticker chain (data/market.py)",
                          "data.market.fetch_option_chain")
     if args.diagnostics_dir is not None:
         raise not_ported("--diagnostics-dir (utils/plotting.py)",
                          "utils.plotting.plot_calibration_results")
-    if args.price_surface and args.model == "vg":
+    if args.price_surface and args.model in ("vg", "rbergomi"):
         raise SystemExit("--price-surface supports heston/bates (the shared-path surface "
                          "backward rides the (S, v) variance state)")
 
@@ -108,6 +109,30 @@ def _price_surface(args, params, S0: float, device) -> None:
     log.info(f"Calibrated American {nt}x{nk} surface written to {args.price_surface}")
 
 
+def _run_rbergomi(args, device) -> dict:
+    """The rBergomi branch (the reference's _run_rbergomi): the synthetic
+    surface at truth (0.1, 1.5, --rho, 0.04), then
+    calibrate_rbergomi_to_data at --seed and --polish-evals, with the
+    recovery errors."""
+    from options_model_tpu_torch.calibration.rbergomi import (calibrate_rbergomi_to_data,
+                                                              create_synthetic_rbergomi_surface)
+
+    true = RBergomiParams(H=0.1, eta=1.5, rho=args.rho, xi0=0.04)
+    K, T, iv = create_synthetic_rbergomi_surface(true, S0=100.0, rate=args.rate,
+                                                 noise_std=args.noise, seed=args.seed,
+                                                 device=device)
+    log.info(f"Synthetic rBergomi calibration test: true {true}")
+    params, summary = calibrate_rbergomi_to_data(K, T, iv, 100.0, args.rate, rho=args.rho,
+                                                 seed=args.seed,
+                                                 max_polish_evals=args.polish_evals,
+                                                 device=device)
+    summary["params"] = params
+    summary["true_params"] = true
+    summary["param_errors"] = {"H": abs(params.H - true.H), "eta": abs(params.eta - true.eta),
+                               "xi0": abs(params.xi0 - true.xi0)}
+    return summary
+
+
 def run(args, device=None) -> dict:
     """Calibrate as ``args`` asks, on ``device`` (the card by default):
     the summary dict, with the params, the truth and the recovery errors."""
@@ -120,6 +145,8 @@ def run(args, device=None) -> dict:
 
     _check_ported(args)
     device = checked_device(device)
+    if args.model == "rbergomi":
+        return _run_rbergomi(args, device)
     cfg = CalibrationConfig(use_vega_weighting=not args.no_vega_weighting,
                             max_iterations=args.max_iterations,
                             optimization_methods=tuple(args.methods),

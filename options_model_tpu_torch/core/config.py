@@ -273,6 +273,48 @@ class SABRParams(_FromReference):
 
 
 @dataclasses.dataclass(frozen=True)
+class RBergomiParams(_FromReference):
+    """Rough Bergomi (Bayer, Friz, Gatheral 2016) with a flat forward
+    variance curve xi0:
+
+        v_t = xi0 exp(eta Y_t - eta^2/2 Var Y_t),
+        Y_t = sqrt(2H) int_0^t (t-s)^{H-1/2} dW_s,
+        dS/S = r dt + sqrt(v_t) (rho dW + sqrt(1-rho^2) dW_perp).
+
+    H = 1/2 is the Markovian lognormal-variance limit dv = eta v dW.
+    ``models/rbergomi.py`` carries the hybrid-scheme simulator and the
+    exact-covariance Cholesky oracle."""
+
+    H: float     # Hurst exponent of the Volterra kernel, in (0, 0.5]
+    eta: float   # vol-of-vol of the log-variance
+    rho: float   # spot/vol correlation
+    xi0: float   # flat forward variance level (= E[v_t] for all t)
+
+    def validate(self) -> "RBergomiParams":
+        if not 0.0 < self.H <= 0.5:
+            raise ValueError(f"H={self.H} must be in (0, 0.5] (H=0.5 is the "
+                             "Markovian lognormal-variance limit)")
+        if self.eta < 0:
+            raise ValueError(f"eta={self.eta} must be non-negative")
+        if not -1.0 < self.rho < 1.0:
+            raise ValueError(f"rho={self.rho} must be in (-1, 1)")
+        if not 0.0 < self.xi0 < 2.0:
+            raise ValueError(f"xi0={self.xi0} must be in (0, 2)")
+        return self
+
+    def to_array(self) -> np.ndarray:
+        return np.array([self.H, self.eta, self.rho, self.xi0], np.float64)
+
+    @classmethod
+    def from_array(cls, x) -> "RBergomiParams":
+        return cls(H=float(x[0]), eta=float(x[1]), rho=float(x[2]), xi0=float(x[3]))
+
+    def __str__(self) -> str:
+        return (f"RBergomiParams(H={self.H:.3f}, eta={self.eta:.4f}, "
+                f"rho={self.rho:.4f}, xi0={self.xi0:.4f})")
+
+
+@dataclasses.dataclass(frozen=True)
 class MCConfig(_FromReference):
     """Monte-Carlo workload shape; n_paths rounds up to whole path blocks."""
 

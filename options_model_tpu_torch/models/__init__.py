@@ -1,5 +1,5 @@
 """Path simulators: GBM, Heston (full-truncation Euler, QE-M), local vol,
-Merton, Bates, Variance Gamma and SABR, with the names the reference
+Merton, Bates, Variance Gamma, SABR and rough Bergomi, with the names the reference
 exports (options_model_tpu/models/__init__.py) that are ported. Each name
 is imported from its module at first access, so importing the package
 imports no simulator (the simulators and the kernel wrappers of ops/
@@ -16,6 +16,8 @@ _EXPORTS = {
     "simulate_local_vol": "localvol",
     "simulate_sabr": "sabr", "sabr_european_mc": "sabr", "sabr_bs_price": "sabr",
     "hagan_lognormal_iv": "sabr", "calibrate_sabr": "sabr",
+    "simulate_rbergomi": "rbergomi", "rbergomi_european_mc": "rbergomi",
+    "rbergomi_exact_chol": "rbergomi",
     "num_blocks": "blocks", "paths_rounded": "blocks",
 }
 __all__ = list(_EXPORTS)

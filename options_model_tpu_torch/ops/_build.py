@@ -69,9 +69,10 @@ _SIGNATURES = {
     "omt_jump_overlay_paths_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_jump_overlay_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _P],
-    "omt_dual_ce": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "omt_dual_ce_first": [_P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "omt_dual_inner_states": [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P],
+    "omt_dual_ce": [_P] * 7 + [_U64] + [_I] * 8 + [_P],
+    "omt_dual_ce_first": [_P] * 7 + [_U64] + [_I] * 8 + [_P],
+    "omt_dual_inner_states": [_P] * 8 + [_U64] + [_I] * 7 + [_P],
+    "omt_dual_vg_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_paths": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_paths_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _P],
@@ -80,6 +81,8 @@ _SIGNATURES = {
     "omt_sabr_paths": [_P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_sabr_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_sabr_terminal_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
+    "omt_rbergomi_dw": [_P, ctypes.c_float, _U64, _I, _I, _I, _I, _P],
+    "omt_rbergomi_paths": [_P, _P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).
@@ -94,6 +97,7 @@ _ATTRS = {
     "omt_dual_attrs": [_I, _P],
     "omt_vg_attrs": [_I, _P],
     "omt_sabr_attrs": [_I, _P],
+    "omt_rbergomi_attrs": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -92,6 +92,30 @@ Each operation is one IEEE float32 operation in this order, and the kernels
 same accept decision. After VG_MAX_ATTEMPTS rejections (probability below
 1e-19 at every shape) the draw is d.
 
+The dual's inner stream also serves the Variance Gamma, SABR and rough
+Bergomi brackets:
+- VG: GBM's calls for the pair's normal z, then one standard Gamma(a)
+  clock draw a pair, shared by the pair's two members (a = dt / nu). Its
+  Marsaglia-Tsang attempts have counters of their own, on the fourth
+  counter word DUAL_GAMMA_STREAM = 5: attempt k of pair i at date t is the
+  call (slot in tile, (t half + i) VG_MAX_ATTEMPTS + k, global tile, 5),
+  decided as ``gamma_from_stream`` decides (the same float32 test in the
+  same order), so a draw's value and its attempt count are a function of
+  (seed, tile, date, pair, attempt);
+- SABR: Heston's calls, (z1, z2) a pair;
+- rough Bergomi: one call a pair, (w0, w1) -> (z1, z2) and (w2, w3) ->
+  (zp, unused): the Volterra Brownian's, the singular term's and the
+  price's normals.
+
+The rough Bergomi stream (``rbergomi_path_draws``, models/rbergomi.py) has
+the fourth counter word RBERGOMI_STREAM = 4 and two Philox calls per pair
+slot and step: draw 2t, (w0, w1) -> Box-Muller -> its first normal z1 (the
+Brownian increment dW = sqrt(dt) z1); draw 2t + 1, (w0, w1) -> (z2, zp)
+(the singular interval's orthogonal part and the price's orthogonal
+Brownian). All three
+are mirrored within the tile. Kernel 25 draws z1 alone and kernel 26 z2 and
+zp alone, each on its own counters.
+
 The SABR stream (``sabr_path_draws``, models/sabr.py) takes the main
 stream's counters (word 3 = 0) and one Philox call per pair slot and step:
 (w0, w1) -> Box-Muller -> (z1, z2), mirrored within the tile; w2 and w3
@@ -136,9 +160,13 @@ DUAL_STREAM = 2
 VG_STREAM = 3
 VG_MAX_ATTEMPTS = 15
 VG_DRAWS_A_STEP = 1 + VG_MAX_ATTEMPTS
+# The rough Bergomi stream's and the dual's gamma attempts' counter words.
+RBERGOMI_STREAM = 4
+DUAL_GAMMA_STREAM = 5
 # Inner pairs one Philox call of the dual's stream serves: the diffusion
 # calls per family, the jump calls of Merton and Bates.
-DUAL_PAIRS_A_CALL = {"gbm": 4, "merton": 4, "heston": 2, "bates": 2}
+DUAL_PAIRS_A_CALL = {"gbm": 4, "merton": 4, "heston": 2, "bates": 2, "vg": 4, "sabr": 2,
+                     "rbergomi": 1}
 DUAL_JUMP_PAIRS_A_CALL = 2
 # The most entries of a Poisson table (csrc/jumps.cu kMaxTable): a mean up
 # to 70.
@@ -389,7 +417,7 @@ def dual_calls(model: str, half: int) -> tuple:
     ``model``: a date's calls count the jump calls whether or not the
     family draws them."""
     if model not in DUAL_PAIRS_A_CALL:
-        raise ValueError(f"the dual's inner stream draws for gbm, heston, merton or bates, "
+        raise ValueError(f"the dual's inner stream draws for {', '.join(DUAL_PAIRS_A_CALL)}, "
                          f"got {model!r}")
     if half < 1:
         raise ValueError(f"need at least one inner pair, got {half}")
@@ -399,11 +427,14 @@ def dual_calls(model: str, half: int) -> tuple:
 
 
 def dual_inner_draws(seed: int, first_tile: int, n_tiles: int, tile: int, half: int,
-                     model: str, date: int, lam_dt: float = 0.0, device=None) -> dict:
+                     model: str, date: int, lam_dt: float = 0.0, device=None,
+                     gamma_shape: float = 1.0) -> dict:
     """The dual's inner draws of one date (the module docstring's layout),
-    each (half, n_tiles * tile) in path order: "z" (GBM, Merton) or "z1",
-    "z2" (Heston, Bates), and under the jumps "u" (the Poisson uniforms),
-    "n" (their counts against poisson_table(lam_dt), float32) and "zj"."""
+    each (half, n_tiles * tile) in path order: "z" (GBM, Merton, VG), "z1",
+    "z2" (Heston, Bates, SABR) or "z1", "z2", "zp" (rough Bergomi); under
+    the jumps "u" (the Poisson uniforms), "n" (their counts against
+    poisson_table(lam_dt), float32) and "zj"; under VG "gamma" (standard
+    Gamma(gamma_shape) clock draws, dual_gamma_draws) and "attempts"."""
     diff, jump, calls = dual_calls(model, half)
     j, g = _slot_counters(first_tile, n_tiles, tile, device)
     k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
@@ -416,10 +447,17 @@ def dual_inner_draws(seed: int, first_tile: int, n_tiles: int, tile: int, half: 
     for c in range(diff):
         w = call(c)
         normals += [*box_muller(w[0], w[1]), *box_muller(w[2], w[3])]
-    if DUAL_PAIRS_A_CALL[model] == 4:
+    per = DUAL_PAIRS_A_CALL[model]
+    if per == 4:
         out = {"z": torch.stack(normals[:half])}
-    else:
+    elif per == 2:
         out = {"z1": torch.stack(normals[0::2][:half]), "z2": torch.stack(normals[1::2][:half])}
+    else:
+        out = {"z1": torch.stack(normals[0::4]), "z2": torch.stack(normals[1::4]),
+               "zp": torch.stack(normals[2::4])}
+    if model == "vg":
+        out["gamma"], out["attempts"] = dual_gamma_draws(seed, first_tile, n_tiles, tile, half,
+                                                         date, gamma_shape, device)
     if jump:
         zj, u = [], []
         for c in range(jump):
@@ -451,22 +489,20 @@ def _vg_words(seed: int, first_tile: int, n_tiles: int, width: int, draw: int, d
     return philox4x32(j, draw, g, VG_STREAM, seed & _MASK32, (seed >> 32) & _MASK32)
 
 
-def gamma_from_stream(seed: int, first_tile: int, n_tiles: int, tile: int, step: int, a: float,
-                      device=None, return_attempts: bool = False):
-    """Standard Gamma(a) variates (n_tiles * tile,) of one step of the VG
-    stream, one a path (the module docstring's sampler), in path order [and
-    the attempt each accepted, int32, VG_MAX_ATTEMPTS where none did]. Every
-    attempt is drawn full width; a lane keeps its first acceptance."""
+def _gamma_attempts(words_at, shape, a: float, device):
+    """Marsaglia-Tsang draws of standard Gamma(a), one per element of
+    ``shape``, attempt ``att`` on the Philox words ``words_at(att)`` (the
+    module docstring's sampler): (values, accepting attempts int32,
+    VG_MAX_ATTEMPTS where none did). Every attempt is drawn full width; a
+    lane keeps its first acceptance."""
     k = gamma_constants(a)
     t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     d, c, inv_a = t(k["d"]), t(k["c"]), t(k["inv_a"])
-    n = n_tiles * tile
-    out = torch.empty(n, dtype=torch.float32, device=device)
-    attempts = torch.full((n,), VG_MAX_ATTEMPTS, dtype=torch.int32, device=device)
-    done = torch.zeros(n, dtype=torch.bool, device=device)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    attempts = torch.full(shape, VG_MAX_ATTEMPTS, dtype=torch.int32, device=device)
+    done = torch.zeros(shape, dtype=torch.bool, device=device)
     for att in range(VG_MAX_ATTEMPTS):
-        w0, w1, w2, w3 = _vg_words(seed, first_tile, n_tiles, tile,
-                                   step * VG_DRAWS_A_STEP + 1 + att, device)
+        w0, w1, w2, w3 = words_at(att)
         x = box_muller(uniform_from_bits(w0), uniform_from_bits(w1))[0]
         v1 = 1.0 + c * x
         v = v1 * v1 * v1
@@ -481,8 +517,64 @@ def gamma_from_stream(seed: int, first_tile: int, n_tiles: int, tile: int, step:
         done = done | acc
         if bool(done.all()):
             break
-    out = torch.where(done, out, d)
+    return torch.where(done, out, d), attempts
+
+
+def gamma_from_stream(seed: int, first_tile: int, n_tiles: int, tile: int, step: int, a: float,
+                      device=None, return_attempts: bool = False):
+    """Standard Gamma(a) variates (n_tiles * tile,) of one step of the VG
+    stream, one a path (the module docstring's sampler), in path order [and
+    the attempt each accepted, int32, VG_MAX_ATTEMPTS where none did]."""
+    out, attempts = _gamma_attempts(
+        lambda att: _vg_words(seed, first_tile, n_tiles, tile,
+                              step * VG_DRAWS_A_STEP + 1 + att, device),
+        (n_tiles * tile,), a, device)
     return (out, attempts) if return_attempts else out
+
+
+def dual_gamma_draws(seed: int, first_tile: int, n_tiles: int, tile: int, half: int, date: int,
+                     a: float, device=None):
+    """The VG dual's standard Gamma(a) clock draws of one date, one per
+    inner pair and path: (gamma, attempts), each (half, n_tiles * tile) in
+    path order; attempt k of pair i is the call (slot in tile, (date half +
+    i) VG_MAX_ATTEMPTS + k, global tile, DUAL_GAMMA_STREAM)."""
+    j, g = _slot_counters(first_tile, n_tiles, tile, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    pairs = torch.arange(half, device=device, dtype=torch.int64)[:, None]
+    base = (date * half + pairs) * VG_MAX_ATTEMPTS
+    shape = (half, n_tiles * tile)
+    return _gamma_attempts(
+        lambda att: [w.expand(shape) for w in philox4x32(j, base + att, g, DUAL_GAMMA_STREAM,
+                                                          k0, k1)],
+        shape, a, device)
+
+
+def rbergomi_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int, n_steps: int,
+                        antithetic: bool = True, device=None, which: str = "z1 z2 zp"):
+    """(z1, z2, zp), each (n_steps, n_tiles * tile) in path order: the rough
+    Bergomi stream of the module docstring (counter word 3 =
+    RBERGOMI_STREAM), mirrored within the tile when ``antithetic``.
+    ``which`` names the normals to return, in that order."""
+    width = tile // 2 if antithetic else tile
+    j, g = _slot_counters(first_tile, n_tiles, width, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    names = which.split()
+    rows = {n: [] for n in names}
+    for t in range(n_steps):
+        if "z1" in rows:
+            w0, w1, _, _ = philox4x32(j, 2 * t, g, RBERGOMI_STREAM, k0, k1)
+            rows["z1"].append(box_muller(uniform_from_bits(w0), uniform_from_bits(w1))[0])
+        if "z2" in rows or "zp" in rows:
+            w0, w1, _, _ = philox4x32(j, 2 * t + 1, g, RBERGOMI_STREAM, k0, k1)
+            z2, zp = box_muller(uniform_from_bits(w0), uniform_from_bits(w1))
+            for n, z in (("z2", z2), ("zp", zp)):
+                if n in rows:
+                    rows[n].append(z)
+    out = []
+    for n in names:
+        z = torch.stack(rows[n])
+        out.append(mirror_tiles(z, n_tiles) if antithetic else z)
+    return tuple(out)
 
 
 def vg_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int, n_steps: int, a: float,

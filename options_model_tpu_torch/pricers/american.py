@@ -2,12 +2,14 @@
 options_model_tpu/pricers/american.py: the polynomial regressor and the
 shared continuation network (NN-LSM) under GBM, Heston (Euler or QE-M),
 Merton, Bates (Heston, Euler or QE-M, times the jump overlay), Variance
-Gamma and SABR (the forward simulated, converted to the spot on the
-exercise grid, with the (S, alpha) basis); and under local vol, over a
-compiled table or a bare ``sigma_fn`` (the IV-surface network's adapter,
-SVI's Dupire local vol). Local vol and SABR have no control-variate leg
-(SABR's Hagan form is only O(T)-accurate, so the reference prices it
-without one).
+Gamma, SABR (the forward simulated, converted to the spot on the
+exercise grid, with the (S, alpha) basis) and rough Bergomi (the hybrid
+scheme, with the (S, v) basis: a Markovian projection under rough vol, so
+a feasible lower bound that the dual brackets); and under local vol, over
+a compiled table or a bare ``sigma_fn`` (the IV-surface network's adapter,
+SVI's Dupire local vol). Local vol, SABR and rough Bergomi have no
+control-variate leg (SABR's Hagan form is only O(T)-accurate, so the
+reference prices it without one; rBergomi has no closed form).
 
 Paths come from the Philox path kernels (csrc/, or their plain versions on
 the CPU) in the flat (n_steps+1, n_paths) layout. The backward induction is
@@ -42,7 +44,7 @@ import torch
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig,
                                                   MCConfig, MertonParams, OptionSpec,
-                                                  SABRParams, VGParams)
+                                                  RBergomiParams, SABRParams, VGParams)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (cashflow_statistics, masked_mean_stderr,
                                                  optimal_cv_beta)
@@ -52,6 +54,7 @@ from options_model_tpu_torch.models.gbm import simulate_gbm
 from options_model_tpu_torch.models.heston import effective_bs_sigma, simulate_heston
 from options_model_tpu_torch.models.localvol import simulate_local_vol
 from options_model_tpu_torch.models.merton import merton_price, simulate_merton
+from options_model_tpu_torch.models.rbergomi import simulate_rbergomi
 from options_model_tpu_torch.models.sabr import simulate_sabr
 from options_model_tpu_torch.models.vg import simulate_vg
 from options_model_tpu_torch.ops.cuda_heston import PATH_TILE
@@ -68,14 +71,15 @@ from options_model_tpu_torch.utils.profiling import span
 _BASIS_CLAMP = 6.0
 
 
-MODELS = ("gbm", "heston", "localvol", "merton", "bates", "vg", "sabr")
+MODELS = ("gbm", "heston", "localvol", "merton", "bates", "vg", "sabr", "rbergomi")
+# Models whose simulation returns a second state matrix for the (S, v) basis.
+STATE_MODELS = ("heston", "bates", "sabr", "rbergomi")
 
 
 def _check_slice(model: str, lsm: Optional[LSMConfig] = None, axis_name=None) -> None:
-    """Raise for what this port does not carry yet: the models outside
-    MODELS (rBergomi) and the path-sharded LSM; the VG and SABR brackets
-    raise in pricers/dual.py. Local vol runs under a compiled table or a
-    bare ``sigma_fn``, as in the reference; models/localvol.simulate_local_vol
+    """Raise for what this port does not carry: a model outside MODELS and
+    the path-sharded LSM. Local vol runs under a compiled table or a bare
+    ``sigma_fn``, as in the reference; models/localvol.simulate_local_vol
     raises ValueError with neither."""
     if model not in MODELS:
         raise not_ported(f"model={model!r}", "pricers.american.simulate_paths")
@@ -113,7 +117,8 @@ def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str
                     sigma=None, drift=0.0, heston: Optional[HestonParams] = None,
                     merton: Optional[MertonParams] = None,
                     bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
-                    sabr: Optional[SABRParams] = None, sigma_fn=None,
+                    sabr: Optional[SABRParams] = None,
+                    rbergomi: Optional[RBergomiParams] = None, sigma_fn=None,
                     heston_scheme: str = "euler", localvol_table=None,
                     return_variance: bool = False, device=None):
     """The path kernels' dispatch on an explicit (seed, first_tile): tiles
@@ -122,10 +127,11 @@ def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str
     (``heston_scheme``) with the jump overlay multiplied in on the same
     seed and tiles. SABR simulates the T-forward from F0 = S0 e^{drift T}
     and returns the spot (sabr_spot_paths); its ``return_variance`` is the
-    alpha paths, the (S, alpha) basis's feed."""
+    alpha paths, the (S, alpha) basis's feed. Rough Bergomi simulates the
+    spot at ``drift`` with the hybrid scheme; its ``return_variance`` is v."""
     _check_slice(model)
-    if return_variance and model not in ("heston", "bates", "sabr"):
-        raise ValueError("return_variance is a Heston/Bates/SABR feature")
+    if return_variance and model not in STATE_MODELS:
+        raise ValueError("return_variance is a Heston/Bates/SABR/rBergomi feature")
     if model == "gbm":
         if sigma is None:
             raise ValueError("sigma is required for model='gbm'")
@@ -158,6 +164,12 @@ def simulate_seeded(seed: int, first_tile: int, S0, T, cfg: MCConfig, model: str
         F_paths, a_paths = out if return_variance else (out, None)
         S_paths = sabr_spot_paths(F_paths, drift, T)
         return (S_paths, a_paths) if return_variance else S_paths
+    if model == "rbergomi":
+        if rbergomi is None:
+            raise ValueError("rbergomi params required for model='rbergomi'")
+        return simulate_rbergomi(seed, S0, T, rbergomi, cfg, drift, return_paths=True,
+                                 return_variance=return_variance, first_tile=first_tile,
+                                 device=device)
     if heston is None:
         raise ValueError("heston params required for model='heston'")
     return simulate_heston(seed, S0, drift, T, heston, cfg, return_paths=True,
@@ -170,7 +182,8 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
                    heston: Optional[HestonParams] = None,
                    merton: Optional[MertonParams] = None,
                    bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
-                   sabr: Optional[SABRParams] = None, sigma_fn=None,
+                   sabr: Optional[SABRParams] = None,
+                   rbergomi: Optional[RBergomiParams] = None, sigma_fn=None,
                    engine: str = "auto", heston_scheme: str = "euler",
                    localvol_table=None, div_yield=0.0, return_variance: bool = False,
                    layout: str = "flat", device=None):
@@ -178,7 +191,8 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
     ``return_variance``, the variance matrix, for SABR the alpha matrix]
     from the path kernels: GBM, Heston (``heston_scheme`` "euler" or "qe"),
     Merton, Bates (Heston times the jump overlay), VG, SABR (the spot from
-    its forward, simulate_seeded) or local vol over a compiled Chebyshev
+    its forward, simulate_seeded), rough Bergomi (with return_variance its
+    v matrix, for rBergomi too) or local vol over a compiled Chebyshev
     ``localvol_table`` (surface/cheb.compile_localvol_table; it takes
     precedence) or under a bare ``sigma_fn(S, tau)``.
 
@@ -190,8 +204,9 @@ def simulate_paths(generator: torch.Generator, S0, T, cfg: MCConfig,
     resolve_engine(engine, device)
     return simulate_seeded(seed_from_generator(generator), 0, S0, T, cfg, model,
                            sigma=sigma, drift=rate - div_yield, heston=heston,
-                           merton=merton, bates=bates, vg=vg, sabr=sabr, sigma_fn=sigma_fn,
-                           heston_scheme=heston_scheme, localvol_table=localvol_table,
+                           merton=merton, bates=bates, vg=vg, sabr=sabr, rbergomi=rbergomi,
+                           sigma_fn=sigma_fn, heston_scheme=heston_scheme,
+                           localvol_table=localvol_table,
                            return_variance=return_variance, device=device)
 
 
@@ -236,12 +251,11 @@ def _cv_adjustment(S_paths: torch.Tensor, spec: OptionSpec, T,
             raise ValueError("model='vg' control variate needs vg params for the COS leg")
         from options_model_tpu_torch.calibration.charfn import vg_cos_price
         eu = vg_cos_price(S_init, spec.strike, T, spec.rate, vg, cp=spec.cp, q=spec.div_yield)
-    elif model == "gbm":
+    else:
+        # GBM, and as in the reference any other model: the BS leg at
+        # spec.sigma (the dispatchers take a leg only where _has_cv_leg)
         eu = bs_price(S_init, spec.strike, T, spec.rate, spec.sigma, spec.cp,
                       q=spec.div_yield)
-    else:
-        raise not_ported(f"control variate for model={model!r}",
-                         "pricers.american._cv_adjustment")
     return eu - pay_T
 
 
@@ -598,19 +612,20 @@ def _vol_params(heston, bates=None):
 
 def _simulate_for(generator, S0, T, spec, mc, lsm, model, heston, engine,
                   heston_scheme, device, merton=None, bates=None, sigma_fn=None, vg=None,
-                  sabr=None):
+                  sabr=None, rbergomi=None):
     """(S_paths, v_paths or None, fit seed or None) for the LSM pricers, at
     the width of simulated_config. The simulation draws its seed from
     ``generator`` first (Bates's overlay takes the same seed); the NN-LSM's
-    fit draws the next one. v_paths is the variance (Heston, Bates) or
-    alpha (SABR) matrix when ``lsm.variance_basis``."""
-    want_v = model in ("heston", "bates", "sabr") and lsm.variance_basis
+    fit draws the next one. v_paths is the variance (Heston, Bates,
+    rBergomi) or alpha (SABR) matrix when ``lsm.variance_basis``."""
+    want_v = model in STATE_MODELS and lsm.variance_basis
     with span("simulate", resolve_device(device)):
         out = simulate_paths(generator, S0, T, simulated_config(mc, model), model,
                              sigma=spec.sigma,
                              rate=spec.rate, heston=heston, merton=merton, bates=bates,
-                             vg=vg, sabr=sabr, sigma_fn=sigma_fn, engine=engine,
-                             heston_scheme=heston_scheme, div_yield=spec.div_yield,
+                             vg=vg, sabr=sabr, rbergomi=rbergomi, sigma_fn=sigma_fn,
+                             engine=engine, heston_scheme=heston_scheme,
+                             div_yield=spec.div_yield,
                              return_variance=want_v, device=device)
     S_paths, v_paths = out if want_v else (out, None)
     fit_seed = seed_from_generator(generator) if lsm.regressor == "nn" else None
@@ -649,7 +664,8 @@ def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
                        heston: Optional[HestonParams] = None,
                        merton: Optional[MertonParams] = None,
                        bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
-                       sabr: Optional[SABRParams] = None, sigma_fn=None,
+                       sabr: Optional[SABRParams] = None,
+                       rbergomi: Optional[RBergomiParams] = None, sigma_fn=None,
                        axis_name=None, engine: str = "auto", heston_scheme: str = "euler",
                        device=None):
     """Simulate + LSM backward induction (either regressor). Returns (price,
@@ -657,7 +673,7 @@ def price_american_lsm(generator: torch.Generator, S0, T, spec: OptionSpec,
     _check_slice(model, lsm, axis_name)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates, sigma_fn, vg, sabr)
+                                               merton, bates, sigma_fn, vg, sabr, rbergomi)
     pb = _pair_block(mc, model)
     return _lsm_backward(fit_seed, S_paths, v_paths, spec, T, lsm, pb,
                          stat_pair_block=pb if mc.antithetic else None, heston=heston,
@@ -669,22 +685,23 @@ def price_american_with_control_variate(
         lsm: LSMConfig, model: str = "gbm", *,
         heston: Optional[HestonParams] = None, merton: Optional[MertonParams] = None,
         bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
-        sabr: Optional[SABRParams] = None, sigma_fn=None, axis_name=None,
-        engine: str = "auto", heston_scheme: str = "euler", device=None):
+        sabr: Optional[SABRParams] = None, rbergomi: Optional[RBergomiParams] = None,
+        sigma_fn=None, axis_name=None, engine: str = "auto", heston_scheme: str = "euler",
+        device=None):
     """American price with the same-path European control variate:
     AM_cv = AM_lsm + beta (EU_closed_form - EU_mc_same_paths), the stderr
     taken over the per-path CV statistic. Both regressors compose: the
     variate acts on the stopped per-path cashflows (around the shared
     network it is the reference's flagship estimator). Without a
-    closed-form leg this is price_american_lsm: SABR lands there by design,
-    as in the reference (a variate anchored on Hagan's O(T)-accurate mean
-    would carry that error into the price)."""
+    closed-form leg this is price_american_lsm: SABR and rBergomi land
+    there by design, as in the reference (a variate anchored on Hagan's
+    O(T)-accurate mean would carry that error into the price)."""
     _check_slice(model, lsm, axis_name)
     if not _has_cv_leg(spec, model, heston, merton, bates, vg):
         return price_american_lsm(generator, S0, T, spec, mc, lsm, model,
                                   heston=heston, merton=merton, bates=bates, vg=vg, sabr=sabr,
-                                  sigma_fn=sigma_fn, engine=engine, heston_scheme=heston_scheme,
-                                  device=device)
+                                  rbergomi=rbergomi, sigma_fn=sigma_fn, engine=engine,
+                                  heston_scheme=heston_scheme, device=device)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
                                                merton, bates, sigma_fn, vg)
@@ -753,8 +770,8 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
                               merton: Optional[MertonParams] = None,
                               bates: Optional[BatesParams] = None,
                               vg: Optional[VGParams] = None, sabr: Optional[SABRParams] = None,
-                              sigma_fn=None, engine: str = "auto", heston_scheme: str = "euler",
-                              device=None):
+                              rbergomi: Optional[RBergomiParams] = None, sigma_fn=None,
+                              engine: str = "auto", heston_scheme: str = "euler", device=None):
     """Richardson-extrapolated continuous-exercise American price: an n-date
     LSM prices a Bermudan option whose gap to the American is O(1/n); the
     two levels share paths, so 2 P_n - P_{n/2} is nearly noise-free.
@@ -764,7 +781,7 @@ def price_american_richardson(generator: torch.Generator, S0, T, spec: OptionSpe
     _check_slice(model, lsm)
     S_paths, v_paths, fit_seed = _simulate_for(generator, S0, T, spec, mc, lsm, model,
                                                heston, engine, heston_scheme, device,
-                                               merton, bates, sigma_fn, vg, sabr)
+                                               merton, bates, sigma_fn, vg, sabr, rbergomi)
     pb = _pair_block(mc, model)
     kw = dict(heston=heston, bates=bates, vg=vg, model=model, pair_block=pb)
     if lsm.regressor == "nn":
@@ -780,14 +797,16 @@ def price_american(generator: torch.Generator, S0, T, spec: OptionSpec,
                    heston: Optional[HestonParams] = None,
                    merton: Optional[MertonParams] = None,
                    bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
-                   sabr: Optional[SABRParams] = None, sigma_fn=None, axis_name=None,
+                   sabr: Optional[SABRParams] = None,
+                   rbergomi: Optional[RBergomiParams] = None, sigma_fn=None, axis_name=None,
                    engine: str = "auto", device=None):
     """The public dispatcher: the European terminal sampler when
     ``lsm.european_approximation``, Richardson when ``lsm.richardson``, the
     control variate when it is on and a closed-form leg exists, plain LSM
     otherwise. Returns (price, stderr) as 0-dim tensors on ``device``."""
     _check_slice(model, lsm, axis_name)
-    models = dict(heston=heston, merton=merton, bates=bates, vg=vg, sabr=sabr, sigma_fn=sigma_fn)
+    models = dict(heston=heston, merton=merton, bates=bates, vg=vg, sabr=sabr,
+                  rbergomi=rbergomi, sigma_fn=sigma_fn)
     if lsm.european_approximation:
         from options_model_tpu_torch.pricers.european import (
             make_terminal_sampler, price_european_mc)

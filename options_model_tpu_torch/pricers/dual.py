@@ -17,10 +17,16 @@ from:
 - interior dates: one-step nested sampling, n_inner antithetic draws of the
   simulator's own one-step transition per (date, path) (GBM, Heston's
   full-truncation Euler step, and with Merton's or Bates's compound-jump
-  increment), on fresh draws every date: kernel 18 (csrc/dual.cu
-  dual_ce_kernel) on the card, ``dual_ce_from_draws`` on the CPU;
+  increment; VG's exact gamma-clock step, the pair sharing its clock; SABR's
+  beta = 1 step with the exact lognormal alpha; rough Bergomi's hybrid step
+  from the path's frozen Volterra history, which makes the one-step law
+  exact although (S, v) is not a Markov state), on fresh draws every date:
+  kernel 18 (csrc/dual.cu dual_ce_kernel) on the card, ``dual_ce_from_draws``
+  on the CPU;
 - the terminal step: the one-step Black closed form (the Poisson mixture of
-  Black terms under the jumps), exact, with no inner noise.
+  Black terms under the jumps), exact, with no inner noise; under VG the
+  Black expectation given the clock, averaged over n_inner/2 clock draws
+  (csrc/dual.cu dual_vg_terminal_kernel on the card).
 The NN policy evaluates the shared continuation network at the inner
 states, which kernel 19 (dual_inner_states_kernel) writes a chunk of dates
 at a time; the network itself is a plain matrix product
@@ -35,10 +41,7 @@ keep M a martingale, so inner noise only loosens the bound. The stream's
 tile is the bracket's pair block (``inner_block``), keyed by the global
 tile, so a run at ``first_block`` reproduces those tiles bit for bit.
 
-The VG and SABR brackets (their inner expectations are new instances of
-kernel 18, VG's with a gamma sampler inside), the rBergomi branch and the
-path-sharded bracket are not ported (``not_ported``); VG and SABR paths and
-their LSM prices are (pricers/american.py).
+The path-sharded bracket (``axis_name``) is not ported (``not_ported``).
 """
 
 from __future__ import annotations
@@ -52,17 +55,19 @@ import torch
 
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import (BatesParams, HestonParams, LSMConfig,
-                                                  MCConfig, MertonParams, OptionSpec)
+                                                  MCConfig, MertonParams, OptionSpec,
+                                                  RBergomiParams, SABRParams, VGParams)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import masked_mean_stderr
 from options_model_tpu_torch.models.heston import effective_bs_sigma
 from options_model_tpu_torch.ops.engine import checked_device
 from options_model_tpu_torch.ops.lsm_basis import regression_features
-from options_model_tpu_torch.ops.philox import seed_from_generator
-from options_model_tpu_torch.pricers.american import (_discount, _nn_continuation,
-                                                      _nn_stopped_cash, _pair_block,
-                                                      build_centered_basis, oos_masks,
-                                                      simulate_paths, simulated_config)
+from options_model_tpu_torch.ops.philox import gamma_constants, seed_from_generator
+from options_model_tpu_torch.pricers.american import (STATE_MODELS, _discount,
+                                                      _nn_continuation, _nn_stopped_cash,
+                                                      _pair_block, build_centered_basis,
+                                                      oos_masks, simulate_paths,
+                                                      simulated_config)
 from options_model_tpu_torch.pricers.blackscholes import bs_price, ndtr
 from options_model_tpu_torch.pricers.regressors import (ContinuationMLP,
                                                         masked_wls_theta_centered,
@@ -72,7 +77,7 @@ _U_CLAMP = 4.0  # the regression's fitted ITM range in standardized u units
 # Terms of the Poisson mixture in the jump families' terminal step: P(N >= 10)
 # ~ (lam dt)^10 / 10!, far below the dual's Monte-Carlo noise.
 JUMP_TERMS = 10
-MODELS = ("gbm", "heston", "merton", "bates")
+MODELS = ("gbm", "heston", "merton", "bates", "vg", "sabr", "rbergomi")
 # Rows (inner states) of the NN dual's states per chunk of dates: its
 # features are 8 floats a row, 512 MB at this size.
 NN_CHUNK_ROWS = 1 << 24
@@ -94,7 +99,7 @@ class LSMPolicy(NamedTuple):
     betas: torch.Tensor   # (n_dates, degree + 2 [+ 3 with variance])
     x_mean: torch.Tensor  # (n_dates,)
     x_rstd: torch.Tensor  # (n_dates,)
-    v_mean: Optional[torch.Tensor] = None  # (n_dates,) Heston and Bates only
+    v_mean: Optional[torch.Tensor] = None  # (n_dates,) with a second state only
     v_rstd: Optional[torch.Tensor] = None
 
 
@@ -228,7 +233,14 @@ class InnerLaw:
     + jvar). Heston and Bates: the full-truncation Euler step from (x, v)
     with w2 = rho z1 + rho_bar z2, the floor vol sqrt(sigma_eff(v', tau)^2 +
     jvar) (models.heston.effective_bs_sigma). ``lam_dt`` the Poisson mean a
-    step, 0 without jumps."""
+    step, 0 without jumps. VG: log x' = log x + (mu + theta G) +- sigma
+    sqrt(G) z, G = nu Gamma(gamma_shape) (the sampler's gamma_d, gamma_c,
+    gamma_inv_a, gamma_boost), mu = (r - q + omega) dt, floor vol sig_f =
+    sqrt(sigma^2 + nu theta^2). SABR (beta = 1): x' = x e^{(r - q - a^2/2) dt
+    + a sqrt(dt) z1}, a' = a e^{nu sqrt(dt) w2 - nu^2 dt / 2}, floor vol a'.
+    Rough Bergomi: dW = sqrt(dt) z1, x' = x e^{(r - q - v/2) dt + sqrt(v)
+    (rho dW + rbsd zp)}, Y' = h + sqrt2H (c1 dW + c2 z2), v' = xi0 e^{eta Y'
+    - comp}, floor vol sqrt((v' + xi0) / 2)."""
 
     model: str
     K: float
@@ -249,11 +261,28 @@ class InnerLaw:
     jvar: float = 0.0
     mu_j: float = 0.0
     sig_j: float = 0.0
+    nu: float = 0.0
+    vg_theta: float = 0.0
+    vg_sigma: float = 0.0
+    gamma_d: float = 0.0
+    gamma_c: float = 0.0
+    gamma_inv_a: float = 0.0
+    gamma_boost: float = 0.0
+    sqrt_dt: float = 0.0
+    nu_sqrt_dt: float = 0.0
+    half_nu2_dt: float = 0.0
+    rbsd: float = 0.0
+    sqrt2H: float = 0.0
+    c1: float = 0.0
+    c2: float = 0.0
+    eta: float = 0.0
+    xi0: float = 0.0
     lam_dt: float = 0.0
+    gamma_shape: float = 1.0
 
     @property
     def use_v(self) -> bool:
-        return self.model in ("heston", "bates")
+        return self.model in STATE_MODELS
 
     @property
     def jumps(self) -> bool:
@@ -262,17 +291,47 @@ class InnerLaw:
 
 def inner_law(model: str, spec: OptionSpec, T, n_steps: int, *,
               heston: Optional[HestonParams] = None, merton: Optional[MertonParams] = None,
-              bates: Optional[BatesParams] = None) -> InnerLaw:
-    """The InnerLaw of ``model`` (gbm, heston, merton, bates), its float32
-    arithmetic the reference's (dual.py:405-441, 563-567, 687-694). Merton's
-    diffusion vol is merton.sigma, not spec.sigma."""
+              bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+              sabr: Optional[SABRParams] = None,
+              rbergomi: Optional[RBergomiParams] = None) -> InnerLaw:
+    """The InnerLaw of ``model``, its float32 arithmetic the reference's
+    (dual.py:405-441, 450-457, 497-510, 563-567, 645-650, 687-694): float64
+    host values (rough Bergomi's sqrt(2H), c1, c2) cast once, the rest
+    float32. Merton's diffusion vol is merton.sigma, not spec.sigma."""
     f = np.float32
     dt = f(T) / f(n_steps)
     rate, q = f(spec.rate), f(spec.div_yield)
     drift = rate - q
+    sqrt_dt = np.sqrt(dt)
+    base = dict(model=model, K=float(f(spec.strike)), cp=float(spec.cp), rate=float(rate),
+                q=float(q), dt=float(dt), drift=float(drift), sqrt_dt=float(sqrt_dt))
+    if model == "vg":
+        sig, th, nu = f(vg.sigma), f(vg.theta), f(vg.nu)
+        om = np.log1p(-th * nu - f(0.5) * (sig * sig) * nu) / nu
+        shape = dt / nu
+        g = gamma_constants(shape)
+        return InnerLaw(**base, mu=float((drift + om) * dt),
+                        sig_f=float(np.sqrt(sig * sig + nu * (th * th))), nu=float(nu),
+                        vg_theta=float(th), vg_sigma=float(sig), gamma_d=float(g["d"]),
+                        gamma_c=float(g["c"]), gamma_inv_a=float(g["inv_a"]),
+                        gamma_boost=float(g["boost"]), gamma_shape=float(shape))
+    if model == "sabr":
+        nu, rho = f(sabr.nu), f(sabr.rho)
+        return InnerLaw(**base, rho=float(rho), rho_bar=float(np.sqrt(f(1.0) - rho * rho)),
+                        nu_sqrt_dt=float(nu * sqrt_dt),
+                        half_nu2_dt=float((f(0.5) * (nu * nu)) * dt))
+    if model == "rbergomi":
+        from options_model_tpu_torch.models.rbergomi import _hybrid_weights
+
+        _, c1, c2, _ = _hybrid_weights(n_steps, float(rbergomi.H), float(T) / n_steps)
+        rho = f(rbergomi.rho)
+        rho_bar = np.sqrt(f(1.0) - rho * rho)
+        return InnerLaw(**base, rho=float(rho), rho_bar=float(rho_bar),
+                        rbsd=float(rho_bar * sqrt_dt),
+                        sqrt2H=float(f(np.sqrt(2.0 * float(rbergomi.H)))), c1=float(f(c1)),
+                        c2=float(f(c2)), eta=float(f(rbergomi.eta)), xi0=float(f(rbergomi.xi0)))
     jp = merton if model == "merton" else (bates if model == "bates" else None)
-    fields = dict(model=model, K=float(f(spec.strike)), cp=float(spec.cp), rate=float(rate),
-                  q=float(q), dt=float(dt), drift=float(drift))
+    fields = base
     comp_dt = jvar = f(0.0)
     if jp is not None:
         lam, mu_j, sig_j = f(jp.lam), f(jp.mu_j), f(jp.sigma_j)
@@ -293,6 +352,18 @@ def inner_law(model: str, spec: OptionSpec, T, n_steps: int, *,
     return InnerLaw(**fields)
 
 
+def rbergomi_comp(rbergomi: RBergomiParams, T, n_steps: int) -> np.ndarray:
+    """Rough Bergomi's compensator (eta^2 / 2) Var(Y_{t_{t+1}}) of the
+    dates' inner states v' (t = 0..n_steps-2), float32 as the reference's
+    comp_next (dual.py:509-510)."""
+    from options_model_tpu_torch.models.rbergomi import _hybrid_weights
+
+    f = np.float32
+    eta = f(rbergomi.eta)
+    _, _, _, var = _hybrid_weights(n_steps, float(rbergomi.H), float(T) / n_steps)
+    return (f(0.5) * (eta * eta)) * var[1:n_steps].astype(np.float32)
+
+
 def date_taus(T, n_steps: int) -> np.ndarray:
     """tau_t = T - t dt of the exercise dates t = 1..n_steps-1, float32."""
     f = np.float32
@@ -300,21 +371,52 @@ def date_taus(T, n_steps: int) -> np.ndarray:
 
 
 def _floor_vol(law: InnerLaw, v, tau):
-    """The surrogate's European floor vol at variance state ``v`` (Heston,
-    Bates) or the constant sig_f."""
+    """The surrogate's European floor vol at the second state ``v``: Heston's
+    and Bates's effective vol, SABR's alpha, rough Bergomi's sqrt((v +
+    xi0) / 2); the constant sig_f without one."""
     if not law.use_v:
         return law.sig_f
+    if law.model == "sabr":
+        return v
+    if law.model == "rbergomi":
+        return torch.sqrt(0.5 * (v + law.xi0))
     hp = HestonParams(kappa=law.kappa, theta=law.theta, xi=law.xi, rho=law.rho, v0=law.theta)
     return torch.sqrt(effective_bs_sigma(v, tau, hp) ** 2 + law.jvar)
 
 
 def inner_states_from_draws(law: InnerLaw, xp: torch.Tensor, vp: Optional[torch.Tensor],
-                            draws: dict):
+                            draws: dict, h: Optional[torch.Tensor] = None, comp=None):
     """The inner one-step states of one date from its draws (each (half, P);
-    "z" or "z1", "z2", and "n", "zj" under the jumps): (x', v') each (2,
-    half, P), the pair's up member first (v' None without a variance
-    state). The reference's transitions (dual.py:585-610, 706-724): the
-    pair mirrors the normals and shares the count."""
+    "z" or "z1", "z2" [, "zp"], and "n", "zj" under the jumps, "gamma" under
+    VG): (x', v') each (2, half, P), the pair's up member first (v' None
+    without a second state). Rough Bergomi also takes the date's frozen
+    histories ``h`` (P,) and compensator ``comp``. The reference's
+    transitions (dual.py:462-486, 519-544, 585-610, 651-669, 706-724): the
+    pair mirrors the normals and shares the count and the clock."""
+    if law.model == "vg":
+        G = law.nu * draws["gamma"]
+        jb, jn = law.vg_theta * G, law.vg_sigma * torch.sqrt(G) * draws["z"]
+        return xp * torch.exp(torch.stack([(law.mu + jb) + jn, (law.mu + jb) - jn])), None
+    if law.model == "sabr":
+        z1 = draws["z1"]
+        w2 = law.rho * z1 + law.rho_bar * draws["z2"]
+        sv = vp * law.sqrt_dt
+        mu = (law.drift - 0.5 * (vp * vp)) * law.dt
+        x = xp * torch.exp(torch.stack([mu + sv * z1, mu + sv * -z1]))
+        a = vp * torch.exp(torch.stack([law.nu_sqrt_dt * w2 - law.half_nu2_dt,
+                                        law.nu_sqrt_dt * -w2 - law.half_nu2_dt]))
+        return x, a
+    if law.model == "rbergomi":
+        sv = torch.sqrt(torch.clamp_min(vp, 0.0))
+        mu = (law.drift - 0.5 * vp) * law.dt
+        xs, vs = [], []
+        for sign in (1.0, -1.0):
+            z1, z2, zp = (draws[k] if sign > 0 else -draws[k] for k in ("z1", "z2", "zp"))
+            dW = law.sqrt_dt * z1
+            xs.append(mu + sv * (law.rho * dW + law.rbsd * zp))
+            Y = h + law.sqrt2H * (law.c1 * dW + law.c2 * z2)
+            vs.append(law.xi0 * torch.exp(law.eta * Y - comp))
+        return xp * torch.exp(torch.stack(xs)), torch.stack(vs)
     if law.jumps:
         n = draws["n"]
         jbase, jnoise = n * law.mu_j, law.sig_j * torch.sqrt(n) * draws["zj"]
@@ -339,12 +441,12 @@ def inner_states_from_draws(law: InnerLaw, xp: torch.Tensor, vp: Optional[torch.
 
 
 def date_ce(law: InnerLaw, xp: torch.Tensor, vp: Optional[torch.Tensor], row: torch.Tensor,
-            draws: dict) -> torch.Tensor:
+            draws: dict, h: Optional[torch.Tensor] = None, comp=None) -> torch.Tensor:
     """E[W_{t+1}(x', v') | x_t, v_t] of one date t (P,), from its draws and
     its policy row (ops/cuda_dual.policy_rows: tau_{t+1}, x_mean, x_rstd,
     v_mean, v_rstd, betas of date t+1): the mean of the n_inner antithetic
-    surrogate values."""
-    x, v = inner_states_from_draws(law, xp, vp, draws)
+    surrogate values (rough Bergomi: ``h``, ``comp`` of date t)."""
+    x, v = inner_states_from_draws(law, xp, vp, draws, h, comp)
     tau, b = row[0], row[ROW_HEAD:]
     degree = b.shape[0] - (5 if law.use_v else 2)
     vals = _vhat(x, law.K, law.cp, tau, law.rate, law.q, _floor_vol(law, v, tau), b, row[1],
@@ -353,20 +455,38 @@ def date_ce(law: InnerLaw, xp: torch.Tensor, vp: Optional[torch.Tensor], row: to
 
 
 def dual_ce_from_draws(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor,
-                       law: InnerLaw, draws_at: Callable[[int], dict]) -> torch.Tensor:
+                       law: InnerLaw, draws_at: Callable[[int], dict],
+                       hist: Optional[torch.Tensor] = None,
+                       comp: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain inner expectation: ce (n_dates, P), ce[t] = E[W_{t+1} |
     x_t, v_t] for t = 0..n_steps-2 from rows x[t] (x = S / K) [and v[t]],
     the policy rows and the draws ``draws_at(t)`` of each date (the dual's
-    Philox stream in kernel 18's plain version; any draws in the tests)."""
-    return torch.stack([date_ce(law, x[t], None if v is None else v[t], rows[t], draws_at(t))
+    Philox stream in kernel 18's plain version; any draws in the tests);
+    rough Bergomi also reads hist[t] and comp[t]."""
+    return torch.stack([date_ce(law, x[t], None if v is None else v[t], rows[t], draws_at(t),
+                                None if hist is None else hist[t],
+                                None if comp is None else comp[t])
                         for t in range(rows.shape[0])])
+
+
+def vg_terminal_from_gamma(law: InnerLaw, x_last: torch.Tensor,
+                           gamma: torch.Tensor) -> torch.Tensor:
+    """VG's terminal expectation E[h(x_n) | x_{n-1}] (P,): the Black
+    expectation given the clock G = nu gamma, averaged over the (half, P)
+    standard gamma draws (the reference's Rao-Blackwellisation,
+    dual.py:676-686)."""
+    G = law.nu * gamma
+    return law.K * torch.mean(_one_step_black(x_last[None], law.mu + law.vg_theta * G,
+                                              law.vg_sigma * torch.sqrt(torch.clamp_min(G, 1e-20)),
+                                              law.cp), dim=0)
 
 
 def _observed_terms(x: torch.Tensor, v_paths: Optional[torch.Tensor], law: InnerLaw,
                     policy: LSMPolicy, taus: torch.Tensor):
     """(w_vals, e_h) of dual_upper_from_policy on x = S / K (n_steps+1, P)
     [and v]: the surrogate at the observed states of dates 1..n-1 and the
-    exact expectation of the terminal payoff from date n-1."""
+    exact expectation of the terminal payoff from date n-1 (None under VG,
+    whose terminal step draws its clock: vg_terminal_from_gamma)."""
     n_steps = x.shape[0] - 1
     use_v = law.use_v
     degree = policy.betas.shape[1] - (5 if use_v else 2)
@@ -382,7 +502,18 @@ def _observed_terms(x: torch.Tensor, v_paths: Optional[torch.Tensor], law: Inner
     # state (the Poisson mixture of lognormals with the jumps), so W_n = h
     # has a closed-form expectation
     x_last = x[n_steps - 1]
-    if use_v:
+    if law.model == "vg":
+        e_h = None
+    elif law.model == "sabr":
+        a = v_paths[n_steps - 1]
+        mu_T = (law.drift - 0.5 * (a * a)) * law.dt
+        e_h = K * _one_step_black(x_last, mu_T, torch.clamp_min(a * law.sqrt_dt, 1e-6), law.cp)
+    elif law.model == "rbergomi":
+        v_nm1 = torch.clamp_min(v_paths[n_steps - 1], 0.0)
+        mu_T = (law.drift - 0.5 * v_nm1) * law.dt
+        e_h = K * _one_step_black(x_last, mu_T, torch.clamp_min(torch.sqrt(v_nm1 * law.dt), 1e-6),
+                                  law.cp)
+    elif use_v:
         v_nm1 = torch.clamp_min(v_paths[n_steps - 1], 0.0)
         mu_T = (law.drift - 0.5 * v_nm1) * law.dt - law.comp_dt
         a2_T = torch.clamp_min(v_nm1 * law.dt, 1e-12)
@@ -440,8 +571,11 @@ def dual_upper_from_policy(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T
                            policy: LSMPolicy, *, n_inner: int = 64, model: str = "gbm",
                            heston: Optional[HestonParams] = None,
                            merton: Optional[MertonParams] = None,
-                           bates: Optional[BatesParams] = None, vg=None, sabr=None,
-                           rbergomi=None, rb_hist=None, v_paths: Optional[torch.Tensor] = None,
+                           bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                           sabr: Optional[SABRParams] = None,
+                           rbergomi: Optional[RBergomiParams] = None,
+                           rb_hist: Optional[torch.Tensor] = None,
+                           v_paths: Optional[torch.Tensor] = None,
                            eval_mask: Optional[torch.Tensor] = None,
                            stat_pair_block: Optional[int] = None,
                            inner_block: Optional[int] = None, first_block: int = 0,
@@ -458,9 +592,14 @@ def dual_upper_from_policy(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T
     (one tile of all paths without ``inner_block``). ``model='heston'`` or
     ``'bates'`` needs ``v_paths`` and a policy fitted with them; the inner
     step is the simulator's full-truncation Euler transition, so the dual
-    bounds the discretized price. On a CUDA device the inner expectation is
-    kernel 18 (ops/cuda_dual.dual_ce); on the CPU its plain version, or
-    ``inner_draws(t)`` (the draws of date t, CPU only) fed to
+    bounds the discretized price. ``model='sabr'`` (beta = 1) takes the
+    alpha paths as ``v_paths``; ``model='rbergomi'`` the variance paths and
+    ``rb_hist`` from simulate_rbergomi(..., return_dual_state=True), the
+    frozen Volterra histories that make the one-step inner law exact under
+    rough vol. On a CUDA device the inner expectation is kernel 18
+    (ops/cuda_dual.dual_ce, and VG's terminal step dual_vg_terminal); on the
+    CPU their plain versions, or ``inner_draws(t)`` (the draws of date t,
+    t = n_steps - 1 VG's terminal clock; CPU only) fed to
     ``dual_ce_from_draws``."""
     n_steps = S_paths.shape[0] - 1
     n_dates = n_steps - 1
@@ -470,22 +609,37 @@ def dual_upper_from_policy(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T
     if n_inner < 2 or n_inner % 2:
         raise ValueError("n_inner must be an even count >= 2 (antithetic "
                          "inner pairs)")
-    if model not in ("gbm", "heston", "merton", "bates", "vg", "sabr", "rbergomi"):
+    if model not in MODELS:
         raise ValueError(f"model must be 'gbm', 'heston', 'merton', 'bates', "
                          f"'vg', 'sabr' or 'rbergomi', got {model!r}")
-    if model not in MODELS:
-        raise not_ported(f"model={model!r}", "pricers.dual.dual_upper_from_policy")
     if axis_name is not None:
         raise not_ported("axis_name (path-sharded dual)", "pricers.dual.dual_upper_from_policy")
-    use_v = model in ("heston", "bates")
+    use_v = model in STATE_MODELS
     if model == "bates":
         if bates is None:
             raise ValueError("model='bates' needs bates params")
         heston = bates.heston
     if model == "merton" and merton is None:
         raise ValueError("model='merton' needs merton params")
+    if model == "vg" and vg is None:
+        raise ValueError("model='vg' needs vg params")
+    if model == "sabr":
+        if sabr is None:
+            raise ValueError("model='sabr' needs sabr params")
+        if float(sabr.beta) != 1.0:
+            raise ValueError("the SABR dual replicates the beta=1 lognormal "
+                             "transition; beta<1 uses the absorbing Euler "
+                             f"step the one-step law can't match (beta={float(sabr.beta)})")
+    if model == "rbergomi":
+        if rbergomi is None:
+            raise ValueError("model='rbergomi' needs rbergomi params")
+        if rb_hist is None:
+            raise ValueError("model='rbergomi' needs rb_hist (simulate_rbergomi(..., "
+                             "return_dual_state=True)): the frozen Volterra history is what "
+                             "makes the one-step inner law exact under rough vol")
     if use_v:
-        if v_paths is None or policy.v_mean is None or heston is None:
+        if v_paths is None or policy.v_mean is None or (
+                model in ("heston", "bates") and heston is None):
             raise ValueError(f"model={model!r} needs the variance params, "
                              "v_paths, and a policy fitted with v_paths")
         if spec.sigma is not None:
@@ -495,20 +649,31 @@ def dual_upper_from_policy(seed: int, S_paths: torch.Tensor, spec: OptionSpec, T
         raise ValueError("the one-step dual increments need spec.sigma (GBM dynamics)")
     device = S_paths.device
     _check_draws_device(inner_draws, device)
-    law = inner_law(model, spec, T, n_steps, heston=heston, merton=merton, bates=bates)
+    law = inner_law(model, spec, T, n_steps, heston=heston, merton=merton, bates=bates, vg=vg,
+                    sabr=sabr, rbergomi=rbergomi)
     x = S_paths / torch.tensor(law.K, dtype=S_paths.dtype, device=device)
     taus = torch.from_numpy(date_taus(T, n_steps)).to(device=device, dtype=S_paths.dtype)
     v_in = v_paths if use_v else None
     w_vals, e_h = _observed_terms(x, v_in, law, policy, taus)
+    hist = comp = None
+    if model == "rbergomi":
+        hist = rb_hist
+        comp = torch.from_numpy(rbergomi_comp(rbergomi, T, n_steps)).to(device=device,
+                                                                         dtype=S_paths.dtype)
 
     from options_model_tpu_torch.ops import cuda_dual
 
     tile, _ = _inner_tiles(x.shape[1], inner_block)
     rows = cuda_dual.policy_rows(policy, taus)
     if inner_draws is not None:
-        ce = dual_ce_from_draws(x, v_in, rows, law, inner_draws)
+        ce = dual_ce_from_draws(x, v_in, rows, law, inner_draws, hist, comp)
+        if model == "vg":
+            e_h = vg_terminal_from_gamma(law, x[n_steps - 1], inner_draws(n_dates)["gamma"])
     else:
-        ce = cuda_dual.dual_ce(x, v_in, rows, law, seed, first_block, tile, n_inner)
+        ce = cuda_dual.dual_ce(x, v_in, rows, law, seed, first_block, tile, n_inner, hist, comp)
+        if model == "vg":
+            e_h = cuda_dual.dual_vg_terminal(x[n_steps - 1].contiguous(), law, seed, first_block,
+                                             tile, n_inner, n_dates)
     return _dual_assemble(S_paths, spec, T, w_vals, ce, e_h, eval_mask, stat_pair_block)
 
 
@@ -684,8 +849,10 @@ def price_american_bracket(generator: torch.Generator, S0, T, spec: OptionSpec,
                            n_inner: int = 64, model: str = "gbm",
                            heston: Optional[HestonParams] = None,
                            merton: Optional[MertonParams] = None,
-                           bates: Optional[BatesParams] = None, vg=None, sabr=None,
-                           rbergomi=None, lsm: Optional[LSMConfig] = None,
+                           bates: Optional[BatesParams] = None, vg: Optional[VGParams] = None,
+                           sabr: Optional[SABRParams] = None,
+                           rbergomi: Optional[RBergomiParams] = None,
+                           lsm: Optional[LSMConfig] = None,
                            out_of_sample: bool = True, device=None) -> BracketResult:
     """Primal-dual bracket [low, high] for an American option on one
     simulation: the policy is fitted on alternating pair blocks
@@ -696,12 +863,14 @@ def price_american_bracket(generator: torch.Generator, S0, T, spec: OptionSpec,
     Paths are simulated at simulated_config(mc, model)'s width (whole pair
     blocks). ``generator`` fixes the bracket: the simulation draws the first
     64-bit seed, the dual's inner stream the second, the NN policy's fit
-    (``lsm.regressor == 'nn'``, GBM and Heston) the third. ``lsm`` 'poly'
-    (or None) takes the per-date polynomial policy at ``lsm.poly_degree``
-    (else ``poly_degree``). ``out_of_sample=False`` fits and evaluates on
-    every path: the dual is then only an approximate bound. Runs on the card
+    (``lsm.regressor == 'nn'``, GBM and Heston) the third. Rough Bergomi
+    simulates the spot at spec.rate - spec.div_yield with its dual state
+    (the frozen Volterra histories). ``lsm`` 'poly' (or None) takes the
+    per-date polynomial policy at ``lsm.poly_degree`` (else
+    ``poly_degree``). ``out_of_sample=False`` fits and evaluates on every
+    path: the dual is then only an approximate bound. Runs on the card
     unless ``device`` asks for the CPU."""
-    use_v = model in ("heston", "bates")
+    use_v = model in STATE_MODELS
     use_nn = lsm is not None and getattr(lsm, "regressor", "poly") == "nn"
     if use_nn and model in ("merton", "bates", "vg", "sabr", "rbergomi"):
         raise ValueError("the nn-policy dual supports gbm/heston; use the "
@@ -723,14 +892,21 @@ def price_american_bracket(generator: torch.Generator, S0, T, spec: OptionSpec,
     if model == "gbm" and spec.sigma is None:
         raise ValueError("the one-step dual increments need spec.sigma "
                          "(GBM dynamics)")
-    if model not in MODELS:
-        raise not_ported(f"model={model!r}", "pricers.dual.price_american_bracket")
     device = checked_device(device)
-    out = simulate_paths(generator, S0, T, simulated_config(mc, model), model,
-                         sigma=spec.sigma, rate=spec.rate, heston=heston, merton=merton,
-                         bates=bates, engine=engine, div_yield=spec.div_yield,
-                         return_variance=use_v, device=device)
-    S_paths, v_paths = out if use_v else (out, None)
+    rb_hist = None
+    if model == "rbergomi":
+        from options_model_tpu_torch.models.rbergomi import simulate_rbergomi
+
+        S_paths, v_paths, rb_hist = simulate_rbergomi(
+            seed_from_generator(generator), S0, T, rbergomi, simulated_config(mc, model),
+            rate=spec.rate - spec.div_yield, return_paths=True, return_variance=True,
+            return_dual_state=True, device=device)
+    else:
+        out = simulate_paths(generator, S0, T, simulated_config(mc, model), model,
+                             sigma=spec.sigma, rate=spec.rate, heston=heston, merton=merton,
+                             bates=bates, vg=vg, sabr=sabr, engine=engine,
+                             div_yield=spec.div_yield, return_variance=use_v, device=device)
+        S_paths, v_paths = out if use_v else (out, None)
     inner_seed = seed_from_generator(generator)
     pb = _pair_block(mc, model)
     stat_pb = pb if mc.antithetic else None
@@ -757,6 +933,6 @@ def price_american_bracket(generator: torch.Generator, S0, T, spec: OptionSpec,
         low, low_se, _ = masked_mean_stderr(cash, eval_mask, stat_pb)
         high, high_se = dual_upper_from_policy(
             inner_seed, S_paths, spec, T, policy, n_inner=n_inner, model=model, heston=heston,
-            merton=merton, bates=bates, v_paths=v_paths, eval_mask=eval_mask,
-            stat_pair_block=stat_pb, inner_block=pb)
+            merton=merton, bates=bates, vg=vg, sabr=sabr, rbergomi=rbergomi, rb_hist=rb_hist,
+            v_paths=v_paths, eval_mask=eval_mask, stat_pair_block=stat_pb, inner_block=pb)
     return BracketResult(low=low, low_stderr=low_se, high=high, high_stderr=high_se)

@@ -1,6 +1,7 @@
 """European Monte-Carlo pricing with streaming Welford statistics, as
 options_model_tpu/pricers/european.py (GBM, Heston Euler and QE-M, Merton,
-Bates, Variance Gamma, SABR and local-vol terminal samplers: over a
+Bates, Variance Gamma, SABR, rough Bergomi and local-vol terminal
+samplers: over a
 compiled table, or a bare ``sigma_fn``), and the one-draw exact GBM price.
 
 The terminal kernels (csrc/, or their plain versions on the CPU) never
@@ -20,18 +21,19 @@ import torch
 
 from options_model_tpu_torch._unported import not_ported
 from options_model_tpu_torch.core.config import (BatesParams, HestonParams, MCConfig,
-                                                 MertonParams, OptionSpec, SABRParams,
-                                                 VGParams)
+                                                 MertonParams, OptionSpec, RBergomiParams,
+                                                 SABRParams, VGParams)
 from options_model_tpu_torch.core.payoff import vanilla_payoff
 from options_model_tpu_torch.core.stats import (pair_mean_reduce, welford_empty,
                                                 welford_from_batch, welford_merge)
 from options_model_tpu_torch.models.blocks import paths_rounded
 from options_model_tpu_torch.models.gbm import gbm_terminal_exact
 from options_model_tpu_torch.models.localvol import simulate_local_vol
+from options_model_tpu_torch.models.rbergomi import simulate_rbergomi
 from options_model_tpu_torch.models.sabr import simulate_sabr
 from options_model_tpu_torch.models.vg import vg_terminal_exact
 from options_model_tpu_torch.ops.cuda_gbm import gbm_terminal
-from options_model_tpu_torch.ops.cuda_heston import (TERMINAL_TILE, heston_terminal,
+from options_model_tpu_torch.ops.cuda_heston import (PATH_TILE, TERMINAL_TILE, heston_terminal,
                                                      heston_terminal_qe)
 from options_model_tpu_torch.ops.cuda_jumps import jump_overlay_terminal, merton_terminal
 from options_model_tpu_torch.ops.cuda_localvol import localvol_terminal
@@ -50,7 +52,7 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                           merton: Optional[MertonParams] = None,
                           bates: Optional[BatesParams] = None,
                           vg: Optional[VGParams] = None, sabr: Optional[SABRParams] = None,
-                          sigma_fn=None, engine: str = "auto", heston_scheme: str = "euler",
+                          rbergomi: Optional[RBergomiParams] = None, sigma_fn=None, engine: str = "auto", heston_scheme: str = "euler",
                           localvol_table: Optional[LocalVolTable] = None,
                           div_yield=0.0, device=None) -> TerminalSampler:
     """Terminal-price sampler for GBM (log-Euler), Heston (full-truncation
@@ -58,7 +60,8 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
     terminal kernel of ``heston_scheme``, then the terminal jump overlay
     multiplied into its output in place), VG (kernel 22's one exact step,
     whatever ``n_steps``), SABR (kernel 24: the forward from F0 = S0 e^{(r -
-    q) T}, which is S_T at expiry) or local vol, on the terminal
+    q) T}, which is S_T at expiry), rough Bergomi (kernels 25 and 26 and the
+    Volterra product, on PATH_TILE tiles) or local vol, on the terminal
     kernels: over a compiled Chebyshev ``localvol_table`` (which takes
     precedence), else under a bare ``sigma_fn(S, tau)``
     (models/localvol.simulate_local_vol's bare route, the same tiles and
@@ -118,6 +121,13 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
 
         def fn(seed, first_tile, c):
             return simulate_sabr(seed, F0, T, sabr, c, first_tile=first_tile, device=device)
+    elif model == "rbergomi":
+        if rbergomi is None:
+            raise ValueError("rbergomi params required for model='rbergomi'")
+
+        def fn(seed, first_tile, c):
+            return simulate_rbergomi(seed, S0, T, rbergomi, c, drift, first_tile=first_tile,
+                                     device=device)
     elif model == "localvol" and localvol_table is not None:
         def fn(seed, first_tile, c):
             return localvol_terminal(seed, S0, drift, T, localvol_table, c.n_paths,
@@ -131,7 +141,7 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
                                       return_paths=False, first_tile=first_tile, device=device)
     else:
         raise not_ported(f"model={model!r}", "pricers.european.make_terminal_sampler")
-    fn.pair_block = TERMINAL_TILE
+    fn.pair_block = PATH_TILE if model == "rbergomi" else TERMINAL_TILE
     fn.device = device
     return fn
 

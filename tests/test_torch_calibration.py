@@ -580,19 +580,17 @@ def _bates_surface_on_two_devices():
 
 @pytest.mark.parametrize("call", [
     lambda: tcal.calibrate_heston_to_ticker("AAPL"),
-    lambda: tcal_pkg.calibrate_rbergomi_to_data(),
-    lambda: tcal_pkg.create_synthetic_rbergomi_surface(),
     lambda: tcal.HestonCalibrator(device="cpu").plot_diagnostics(None, "x.png"),
     lambda: tcal.HestonCalibrator(device="cpu").calibrate(
         tcal.MarketSurface(np.ones(3) * 100, np.ones(3), np.full(3, 0.2), 100.0), "diag"),
-    lambda: app.run(app.parse_args(["--test", "--model", "rbergomi"]), device="cpu"),
+    lambda: app.run(app.parse_args(["--model", "rbergomi"]), device="cpu"),
     lambda: app.run(app.parse_args(["--ticker", "AAPL"]), device="cpu"),
     lambda: app.run(app.parse_args(["--test", "--diagnostics-dir", "d"]), device="cpu"),
     lambda: _bates_surface_on_two_devices(),
     lambda: tmerton.simulate_merton(1, torch.tensor(100.0, requires_grad=True), 0.05, 0.5,
                                     tcfg.MertonParams(0.2, 1.0, -0.1, 0.15),
                                     tcfg.MCConfig(n_paths=4096, n_steps=4), device="cpu"),
-], ids=["ticker", "rbergomi_fit", "rbergomi_surface", "plot_diagnostics", "diagnostics_dir",
+], ids=["ticker", "plot_diagnostics", "diagnostics_dir",
         "app_rbergomi", "app_ticker", "app_diagnostics", "bates_surface_mesh",
         "merton_paths_gradient"])
 def test_not_ported_names_its_reference(call):

@@ -351,8 +351,8 @@ def test_law_and_rows_layout():
     rows = cuda_dual.policy_rows(pol, torch.tensor([0.4, 0.2]))
     assert torch.equal(rows, torch.tensor([[0.4, 1.0, 3.0, 0.0, 0.0, 0, 1, 2, 3, 4],
                                            [0.2, 2.0, 4.0, 0.0, 0.0, 5, 6, 7, 8, 9]]))
-    with pytest.raises(ValueError, match="gbm, heston, merton or bates"):
-        dual_calls("vg", 4)
+    with pytest.raises(ValueError, match="inner stream draws for gbm, merton, heston, bates, vg, sabr, rbergomi"):
+        dual_calls("localvol", 4)
 
 
 def _gbm_inputs():
@@ -408,15 +408,20 @@ def test_validation_errors():
 
 @pytest.mark.parametrize("model", ["vg", "sabr", "rbergomi"])
 def test_unported_families_raise(model):
-    """VG, SABR and rBergomi are ROADMAP item 3: not_ported, naming the JAX
-    function; so is the path-sharded dual (axis_name)."""
+    """VG, SABR and rBergomi are ported (tests/test_torch_dual_families.py):
+    without their params they raise the reference's ValueErrors, and their
+    NN-policy bracket the reference's refusal; the path-sharded dual
+    (axis_name) stays not_ported, naming the JAX function."""
     S, spec, policy = _gbm_inputs()
-    with pytest.raises(NotImplementedError, match="pricers.dual.dual_upper_from_policy"):
+    with pytest.raises(ValueError, match=f"model='{model}' needs {model} params"):
         pd.dual_upper_from_policy(0, S, spec, T, policy, model=model)
-    params = {model: object()}
-    with pytest.raises(NotImplementedError, match="pricers.dual.price_american_bracket"):
+    with pytest.raises(ValueError, match=f"model='{model}' needs {model} params"):
         pd.price_american_bracket(torch.Generator(), S0, T, spec, MCConfig(4096, 10, 1024),
-                                  model=model, device="cpu", **params)
+                                  model=model, device="cpu")
+    with pytest.raises(ValueError, match="nn-policy dual supports gbm/heston"):
+        pd.price_american_bracket(torch.Generator(), S0, T, spec, MCConfig(4096, 10, 1024),
+                                  model=model, lsm=LSMConfig(regressor="nn"), device="cpu",
+                                  **{model: object()})
     with pytest.raises(NotImplementedError, match="axis_name"):
         pd.dual_upper_from_policy(0, S, spec, T, policy, axis_name="paths")
     with pytest.raises(NotImplementedError, match="axis_name"):

@@ -267,8 +267,8 @@ def test_first_design_entry_registered():
     seed a c_uint64."""
     sig = _build._SIGNATURES["omt_dual_ce_first"]
     assert sig == _build._SIGNATURES["omt_dual_ce"]
-    assert sig[:5] == [_build.ctypes.c_void_p] * 5 and sig[-1] is _build.ctypes.c_void_p
-    assert sig[5] is _build.ctypes.c_uint64 and len(sig) == 15
+    assert sig[:7] == [_build.ctypes.c_void_p] * 7 and sig[-1] is _build.ctypes.c_void_p
+    assert sig[7] is _build.ctypes.c_uint64 and len(sig) == 17
 
 
 def test_upper_terms_split_is_the_dual():

@@ -347,7 +347,11 @@ def test_entry_points_without_a_device_raise_without_cuda():
 
 
 def test_sabr_bracket_is_not_ported():
-    with pytest.raises(NotImplementedError, match="pricers.dual.price_american_bracket"):
+    """The SABR bracket is ported at beta = 1 (tests/test_torch_dual_families.py);
+    below it neither package's dual replicates the absorbing step: the
+    reference's ValueError."""
+    low_beta = SABRParams(alpha=0.2, beta=0.7, rho=-0.4, nu=0.6)
+    with pytest.raises(ValueError, match="beta=1"):
         price_american_bracket(_gen(1), 100.0, T, OptionSpec(100.0, R, PUT),
-                               MCConfig(4096, 10, path_block=1024), model="sabr", sabr=P,
+                               MCConfig(8192, 10, path_block=1024), model="sabr", sabr=low_beta,
                                device="cpu")

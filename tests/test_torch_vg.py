@@ -333,7 +333,10 @@ def test_entry_points_without_a_device_raise_without_cuda():
 
 
 def test_vg_bracket_is_not_ported():
-    with pytest.raises(NotImplementedError, match="pricers.dual.price_american_bracket"):
+    """The VG bracket is ported on the polynomial policy
+    (tests/test_torch_dual_families.py); its NN-policy bracket is not, in
+    either package: the reference's ValueError."""
+    with pytest.raises(ValueError, match="nn-policy dual supports gbm/heston"):
         price_american_bracket(_gen(1), 100.0, 0.5, OptionSpec(100.0, 0.05, PUT),
                                MCConfig(4096, 10, path_block=1024), model="vg", vg=VG,
-                               device="cpu")
+                               lsm=LSMConfig(regressor="nn"), device="cpu")
