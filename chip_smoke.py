@@ -163,21 +163,23 @@ Phases, in order; any failure exits non-zero:
       float64 on the card beside the JAX package's fits;
    k. the rough path (the [R] and [D6]-[D9] lines; models/rbergomi.py,
       calibration/rbergomi.py and the dual's VG, SABR and rough Bergomi
-      families, after R0 held kernels 25 and 26 (csrc/rbergomi.cu) and
-      kernel 18's new families against their plain versions: the stream's
-      words, dW, the dual state, the inner states and VG's clock draws and
-      attempts bit for bit, S and v within RB_RTOL, ce and VG's terminal
-      step within DUAL_CE_ATOL, first_tile chunks bit for bit; the counts
-      are zeroed after R0): R1 the hybrid scheme against the exact
-      Cholesky oracle, R2 H = 1/2 against the drift-extended ADI, R3 the
-      ATM-skew power law, R4 bench.py's rBergomi calibration leg, R5 the
-      American put at 2^20 x 50 on the (S, v) basis, D6-D9 the VG, SABR,
-      H = 1/2 and rough brackets, and the full-width brackets at D1's
-      scale, at the JAX tests' bars;
+      families, after R0 held the fused rough Bergomi kernel, the first
+      design's kernels 25 and 26 (csrc/rbergomi.cu) and kernel 18's new
+      families against their plain versions: the stream's words, dW, the
+      dual state, the inner states and VG's clock draws and attempts bit
+      for bit, S and v within RB_RTOL (the fused kernel also within RB_RTOL
+      of the first design), ce and VG's terminal step within DUAL_CE_ATOL,
+      first_tile chunks bit for bit; the counts are zeroed after R0): R1
+      the hybrid scheme against the exact Cholesky oracle, R2 H = 1/2
+      against the drift-extended ADI, R3 the ATM-skew power law, R4
+      bench.py's rBergomi calibration leg, R5 the American put at 2^20 x
+      50 on the (S, v) basis, D6-D9 the VG, SABR, H = 1/2 and rough
+      brackets, and the full-width brackets at D1's scale, at the JAX
+      tests' bars;
 4. the launch counts of each path (the families path: kernels 21-24; the
-   rough path: kernels 25, 26 and kernel 18's new families),
-   none of its kernels at 0, the first
-   design of kernels 1, 3-8, 12-18, 21, 22 and 24 and of the variants at 0, and one
+   rough path: the fused rough Bergomi kernel and kernel 18's new
+   families), none of its kernels at 0, the first design of kernels 1,
+   3-8, 12-18, 21, 22, 24 and 25-26 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -208,16 +210,18 @@ Phases, in order; any failure exits non-zero:
    run's mean gamma attempts) and plain versions, with registers and
    occupancy, 21, 22 and 24 in turns with their first designs beside each
    design's issue and SFU floors, and the families path's seconds by leg;
-   kernels 25 and 26 at R5's 2^20 x 50 (26 also in its control-variate
-   mode at R4's longest expiry) beside the Volterra product's time, and
-   kernel 18's new families and VG's terminal step at 49 x 2^17 x 64,
-   beside their bounds and plain versions, with the full-width brackets'
-   seconds and kernel 18's share.
+   the fused rough Bergomi kernel in turns with its first design (kernel
+   25, the Volterra product and kernel 26, each timed alone) at R5's 2^20
+   x 50 and at R4's CV shapes (2^16 x 32, 48 and 96), each beside its
+   bound and kernel 25 beside its own, and kernel 18's new families and
+   VG's terminal step at 49 x 2^17 x 64, beside their bounds and plain
+   versions, with the full-width brackets' seconds and kernel 18's share.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
 per jump kernel, one per dual kernel, one for the normals kernel (20), one
-per family kernel (21-24) and one per rough-path kernel (25, 26, kernel
-18's VG, SABR and rough Bergomi families, VG's terminal step);
+per family kernel (21-24) and one per rough-path kernel (the fused rough
+Bergomi kernel, rows 25-26, its first design under earlier_*; kernel 18's
+VG, SABR and rough Bergomi families, VG's terminal step);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -5505,22 +5509,28 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
 
 
 # The rough path (phase R, the [R] lines; ``chip_smoke.py --path rough``, a
-# process of its own): rough Bergomi on kernels 25-26 (csrc/rbergomi.cu)
-# and the dual's VG, SABR and rough Bergomi families of kernel 18
-# (csrc/dual.cu). R0 holds the kernels against their plain versions; R1-R5
-# and D6-D9 drive the entry points at the JAX tests' configurations and
-# bars (tests/test_rbergomi.py, tests/test_rbergomi_calibration.py,
-# tests/test_apps.py:637-650, tests/test_vg.py:293-312,
-# tests/test_dual.py:484-548); the full-width brackets run each family at
-# D1's scale. Kernels 25, 26 and the new families are timed in phase 5 of
-# the main process, after the join.
+# process of its own): rough Bergomi on the fused kernel (csrc/rbergomi.cu
+# rbergomi_fused_kernel; its first design, kernels 25-26 around the
+# Volterra matmul, only in R0 and phase 5) and the dual's VG, SABR and
+# rough Bergomi families of kernel 18 (csrc/dual.cu). R0 holds the kernels
+# against their plain versions; R1-R5 and D6-D9 drive the entry points at
+# the JAX tests' configurations and bars (tests/test_rbergomi.py,
+# tests/test_rbergomi_calibration.py, tests/test_apps.py:637-650,
+# tests/test_vg.py:293-312, tests/test_dual.py:484-548); the full-width
+# brackets run each family at D1's scale. The rough kernels are timed in
+# phase 5 of the main process, after the join.
 RB_ROUGH = dict(H=0.1, eta=1.5, rho=-0.7, xi0=0.04)
-# Kernel 26 against its plain version on the card: S and v rtol (the two do
-# the same _rn operations with the same libdevice expf and sqrtf, so they
-# are expected bit for bit; the tolerance allows for neither).
+# The fused kernel and kernel 26 against their plain versions on the card:
+# S and v rtol (each does the same _rn operations as its plain version with
+# the same libdevice expf and sqrtf, so they are expected bit for bit; the
+# tolerance allows for neither). The fused kernel against the first design:
+# the same rtol (G summed in ascending order against cuBLAS's order).
 RB_RTOL = 1e-5
-RB_SHAPE = (1 << 20, 50)                # R5's paths, kernels 25-26 at the path's shape
-RB_CV_SHAPE = (1 << 16, 96, 1.0)        # R4's engine at its longest expiry (paths, steps, T)
+RB_SHAPE = (1 << 20, 50)                # R5's paths, the rough kernels at the path's shape
+# R4's engine at its expiries' step counts (paths, steps, T): 96 steps a
+# year, at least 32 (calibration/rbergomi._surface_ivs)
+RB_CV_SHAPES = ((1 << 16, 32, 0.1), (1 << 16, 48, 0.5), (1 << 16, 96, 1.0))
+RB_FIRST = ("rbergomi_dw, first design", "rbergomi_paths, first design")
 ROUGH_DUAL = {"vg": dict(vg=dict(sigma=0.18, theta=-0.14, nu=0.35)),
               "sabr": dict(sabr=dict(alpha=0.2, beta=1.0, rho=-0.4, nu=0.6)),
               "rbergomi": dict(rbergomi=RB_ROUGH)}
@@ -5534,30 +5544,40 @@ R3_SLOPE = 0.15
 R4_XI0_REL, R4_H_ABS, R4_ETA_REL, R4_RMSE = 0.25, 0.15, 0.5, 0.02
 JAX_R05_RB = dict(H=0.0443, eta=0.0104, xi0=0.0034, iv_rmse=0.001654)
 # f32 operations and Philox draws (calls, words made uniform) per
-# path-step, counted from csrc/rbergomi.cu: kernel 25 a Box-Muller (11)
-# per pair-step and a multiply; kernel 26 a Box-Muller per path-step, dB
-# 3, the price step 7, Y 5, v 4, a stored S 2.
+# path-step, counted from csrc/rbergomi.cu: kernel 25 (the first design) a
+# Box-Muller (11) per pair-step and a multiply. The fused kernel, per
+# pair-step: two Box-Mullers, dW 1, Y 5, dB 3 (OPS_RB_FUSED_PAIR) and the
+# Volterra rows' n_steps - 1 products and sums on average; per path-step
+# the walk's price step 7 and v 4 (OPS_RB_WALK), a stored S 2 or the CV's
+# log step 3 (ops_rb_fused); two Philox calls and four words a pair-step.
 OPS_RB_DW = 11 / 2 + 1
-OPS_RB_PATHS = 11 + 3 + 7 + 5 + 4 + 2
+OPS_RB_FUSED_PAIR = 2 * 11 + 1 + 5 + 3
+OPS_RB_WALK = 7 + 4
 DRAWS_RB_DW = (1 / 2, 1)
-DRAWS_RB_PATHS = (1, 2)
+DRAWS_RB_FUSED = (1, 2)
+
+
+def ops_rb_fused(n_steps: int, mode: str) -> float:
+    """The fused kernel's f32 operations a path-step (antithetic) at
+    n_steps in ``mode`` ("paths" with S stored, "terminal", "cv")."""
+    extra = {"paths": 2, "terminal": 0, "cv": 3}[mode]
+    return (OPS_RB_FUSED_PAIR + n_steps - 1) / 2 + OPS_RB_WALK + extra
 
 
 def rough_specs():
-    """Kernels 25 and 26 (csrc/rbergomi.cu), kernel 18's VG, SABR and rough
-    Bergomi families and VG's terminal kernel (csrc/dual.cu): name, source,
-    the XLA function each replaces, the paths that run it, its counter."""
+    """The fused rough Bergomi kernel (csrc/rbergomi.cu), kernel 18's VG,
+    SABR and rough Bergomi families and VG's terminal kernel
+    (csrc/dual.cu): name, source, the XLA function each replaces, the paths
+    that run it, its counter."""
     from options_model_tpu_torch.ops import cuda_dual, cuda_rbergomi
 
     rb_src, dual_src = ("options_model_tpu_torch/csrc/rbergomi.cu",
                         "options_model_tpu_torch/csrc/dual.cu")
     specs = [
-        dict(name="rbergomi_dw", source=rb_src,
-             replaces="options_model_tpu/models/rbergomi.py:114 (dW = sqrt(dt) z1, :188)",
-             paths=("rough",), counter=(cuda_rbergomi.launches, "rbergomi_dw")),
-        dict(name="rbergomi_paths", source=rb_src,
-             replaces="options_model_tpu/models/rbergomi.py:114 (:192-217) and :222",
-             paths=("rough",), counter=(cuda_rbergomi.launches, "rbergomi_paths")),
+        dict(name="rbergomi_fused", source=rb_src,
+             replaces="options_model_tpu/models/rbergomi.py:128 simulate_rbergomi (dW :187, "
+                      "the matmul :192, the walk :193-217) and :234 terminal_cv_core (:265)",
+             paths=("rough",), counter=(cuda_rbergomi.launches, "rbergomi_fused")),
     ]
     for model, lines in (("vg", ":634-675"), ("sabr", ":442-489"), ("rbergomi", ":490-561")):
         specs.append(dict(name=f"dual_ce {model}", source=dual_src,
@@ -5615,18 +5635,24 @@ def rough_dual_case(model: str, n_paths: int, n_steps: int = 50, T: float = ROUG
 
 
 def phase_rough_kernels() -> dict:
-    """R0: kernels 25 and 26 and kernel 18's VG, SABR and rough Bergomi
-    families against their plain versions on the card. The rough Bergomi
-    stream's words and kernel 25's dW bit for bit (2 tiles x 50 and R5's
-    2^20 x 50), kernel 26 in each mode (S, v, the dual state hist; S_T,
-    v_T; S_T, G_T) within RB_RTOL on S and v and hist bit for bit, at H =
-    0.1 and 1/2, first_tile chunks of both kernels bit for bit. Kernel 18's
-    families at 2 tiles (a put and a call each, so every instance runs) and
-    at their brackets' shapes: ce within DUAL_CE_ATOL, the inner states (kernel
-    19's instances), VG's clock draws and their attempts bit for bit, a
-    first_tile chunk of ce bit for bit, VG's terminal step within
-    DUAL_CE_ATOL. Fails if an instance of the new families has local
-    memory. Returns the largest errors by kernel."""
+    """R0: the fused rough Bergomi kernel, the first design's kernels 25 and
+    26 and kernel 18's VG, SABR and rough Bergomi families against their
+    plain versions on the card. The rough Bergomi stream's words bit for
+    bit. The fused kernel in each mode (S, v, the dual state hist; S_T,
+    v_T; S_T, G_T), antithetic and not, at H = 0.1 and 1/2 (2 tiles x 50),
+    R5's 2^20 x 50 and 2 tiles x MAX_STEPS (the dynamic shared memory): S
+    and v within RB_RTOL of plain (the largest differences printed, bit for
+    bit expected), hist bit for bit, a first_tile = 1 chunk bit for bit,
+    and S and v within RB_RTOL of the first design's. The first design
+    (2 tiles x 50 at both H and R5's shape): kernel 25's dW bit for bit,
+    kernel 26 within RB_RTOL on S and v and hist bit for bit, first_tile
+    chunks of both bit for bit. Kernel 18's families at 2 tiles (a put and
+    a call each, so every instance runs) and at their brackets' shapes: ce
+    within DUAL_CE_ATOL, the inner states (kernel 19's instances), VG's
+    clock draws and their attempts bit for bit, a first_tile chunk of ce
+    bit for bit, VG's terminal step within DUAL_CE_ATOL. Fails if an
+    instance of the rough kernels has local memory. Returns the largest
+    errors by kernel (the first design's under earlier_*)."""
     import torch
 
     from options_model_tpu_torch.core.config import RBergomiParams
@@ -5639,14 +5665,21 @@ def phase_rough_kernels() -> dict:
 
     seed, tile = 0x5DEECE66D, 4096
     errs = {k["name"]: dict(max_abs_err=0.0, max_rel_err=0.0) for k in rough_specs()}
-    attrs = cr.rbergomi_kernel_attrs()
+    fused = errs["rbergomi_fused"]
+    fused.update(earlier_max_abs_err=0.0, earlier_max_rel_err=0.0, vs_first_max_rel_err=0.0)
+    attrs = cr.rbergomi_kernel_attrs(50)
+    attrs.update({f"{k} at {cr.MAX_STEPS} steps": a
+                  for k, a in cr.rbergomi_kernel_attrs(cr.MAX_STEPS).items()
+                  if k.startswith("rbergomi_fused")})
     attrs.update({k: a for k, a in cd.dual_kernel_attrs().items()
                   if k.split()[-1] in ROUGH_DUAL or k == "dual_vg_terminal"})
-    log("[R0] registers / local bytes a thread: "
-        + ", ".join(f"{k} {a['registers']} / {a['spill_bytes']}" for k, a in attrs.items()))
+    log("[R0] registers / local bytes a thread / resident blocks of threads an SM (occupancy): "
+        + ", ".join(f"{k} {a['registers']} / {a['spill_bytes']} / {a['blocks_per_sm']} of "
+                    f"{a['block']} ({a['blocks_per_sm'] * a['block'] / THREADS_PER_SM:.1%})"
+                    for k, a in attrs.items()))
     local = {k: a["spill_bytes"] for k, a in attrs.items() if a["spill_bytes"]}
     if local:
-        fail(f"R0: a new kernel has local memory: {local}")
+        fail(f"R0: a rough kernel has local memory: {local}")
     w = stream_words_cuda(seed, 3, 2, 2048, 8, DEVICE, stream=RBERGOMI_STREAM)
     if not torch.equal(w.cpu(), stream_words(seed, 3, 2, 2048, 8, stream=RBERGOMI_STREAM)):
         fail("R0: the rough Bergomi stream's Philox words differ from the plain version's")
@@ -5656,51 +5689,87 @@ def phase_rough_kernels() -> dict:
     def rel(a, b):
         return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
 
-    for H, (n_paths, n_steps) in ((0.1, (2 * PATH_TILE, 50)), (0.5, (2 * PATH_TILE, 50)),
-                                  (0.1, RB_SHAPE)):
+    names = {"paths": ("S", "v", "hist"), "terminal": ("S_T", "v_T"), "cv": ("S_T", "G_T")}
+    modes = {"paths": dict(return_variance=True, return_dual_state=True),
+             "terminal": dict(return_variance=True), "cv": {}}
+
+    def held(tag, got, want, mode, what, e, prefix=""):
+        """got against want: finite, hist bit for bit, the rest within
+        RB_RTOL; the largest differences into e and printed."""
+        diffs = {}
+        for name, a, b in zip(names[mode], got, want):
+            if not bool(torch.isfinite(a).all()):
+                fail(f"R0: {tag} {mode} {what}: non-finite {name}")
+            if name == "hist":
+                if not torch.equal(a, b):
+                    fail(f"R0: {tag}'s dual state at {what} differs from plain")
+                continue
+            diffs[name] = (float((a - b).abs().max()), rel(a, b))
+            if diffs[name][1] > RB_RTOL:
+                fail(f"R0: {tag} {mode} {what}: {name} rel {diffs[name][1]:.3e} > {RB_RTOL}")
+            e[prefix + "max_abs_err"] = max(e[prefix + "max_abs_err"], diffs[name][0])
+            e[prefix + "max_rel_err"] = max(e[prefix + "max_rel_err"], diffs[name][1])
+        bits = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"[R0] {tag} {mode} at {what}: "
+            + ", ".join(f"{n} max |d| {d[0]:.3e} rel {d[1]:.3e}" for n, d in diffs.items())
+            + (" (bit for bit)" if bits else ""))
+
+    cases = ((0.1, 2 * PATH_TILE, 50), (0.5, 2 * PATH_TILE, 50), (0.1,) + RB_SHAPE,
+             (0.1, 2 * PATH_TILE, cr.MAX_STEPS))
+    for H, n_paths, n_steps in cases:
         p = RBergomiParams(**dict(RB_ROUGH, H=H))
         n_tiles = n_paths // PATH_TILE
+        for anti in (True, False):
+            what = f"H {H}, {n_paths} x {n_steps}, {'antithetic' if anti else 'plain'}"
+            for mode, kw in modes.items():
+                args = (seed, 100.0, 1.0, p, n_paths, n_steps, 0.05, mode, anti)
+                got = cr.rbergomi_fused(*args, 0, DEVICE, **kw)
+                want = cr.rbergomi_fused_reference(*args, 0, DEVICE, **kw)
+                torch.cuda.synchronize()
+                held("the fused kernel", got, want, mode, what, fused)
+                del want
+                tail = cr.rbergomi_fused(seed, 100.0, 1.0, p, n_paths - PATH_TILE, n_steps, 0.05,
+                                         mode, anti, 1, DEVICE, **kw)
+                if not all(torch.equal(a[..., PATH_TILE:], b) for a, b in zip(got, tail)):
+                    fail(f"R0: the fused kernel {mode} {what}: a first_tile chunk differs from "
+                         "the slice")
+                first = cr.rbergomi_simulate_first(*args, 0, DEVICE, **kw)
+                for name, a, b in zip(names[mode], got, first):
+                    if name != "hist":
+                        r = rel(a, b)
+                        fused["vs_first_max_rel_err"] = max(fused["vs_first_max_rel_err"], r)
+                        if r > RB_RTOL:
+                            fail(f"R0: the fused kernel {mode} {what}: {name} rel {r:.3e} from "
+                                 f"the first design's > {RB_RTOL}")
+                del got, tail, first
+            log(f"[R0] the fused kernel at {what}: first_tile=1 chunks bit for bit; S and v "
+                f"within {RB_RTOL} of the first design's (largest rel so far "
+                f"{fused['vs_first_max_rel_err']:.3e})")
+        if n_steps == cr.MAX_STEPS:
+            continue
         c = rbergomi_constants(100.0, 1.0, p, n_steps, 0.05)
+        what = f"H {H}, {n_paths} x {n_steps}"
         dW = cr.rbergomi_dw(seed, 0, n_tiles, n_steps, c["sqrt_dt"], True, DEVICE)
         ref = cr.rbergomi_dw_reference(seed, 0, n_tiles, n_steps, c["sqrt_dt"], True, DEVICE)
         torch.cuda.synchronize()
         if not torch.equal(dW, ref):
-            fail(f"R0: kernel 25's dW at H {H}, {n_paths} x {n_steps} differs from plain")
+            fail(f"R0: kernel 25's dW at {what} differs from plain")
         part = cr.rbergomi_dw(seed, 1, n_tiles - 1, n_steps, c["sqrt_dt"], True, DEVICE)
         if not torch.equal(part, dW[:, PATH_TILE:]):
             fail("R0: kernel 25's first_tile chunk differs from the full run's slice")
         G = volterra(torch.from_numpy(c["W_mat"]), dW)
-        what = f"H {H}, {n_paths} x {n_steps}"
-        for mode, kw in (("paths", dict(return_dual_state=True)),
-                         ("terminal", dict(return_variance=True)), ("cv", {})):
+        for mode, kw in modes.items():
             got = cr.rbergomi_paths(dW, G, c, seed, 0, True, mode, **kw)
             want = cr.rbergomi_paths_reference(dW, G, c, seed, 0, True, mode, **kw)
             torch.cuda.synchronize()
-            names = {"paths": ("S", "v", "hist"), "terminal": ("S_T", "v_T"),
-                     "cv": ("S_T", "G_T")}[mode]
-            diffs = {}
-            for name, a, b in zip(names, got, want):
-                if not bool(torch.isfinite(a).all()):
-                    fail(f"R0: kernel 26 {mode} {what}: non-finite {name}")
-                diffs[name] = (float((a - b).abs().max()), rel(a, b))
-                if name == "hist" and not torch.equal(a, b):
-                    fail(f"R0: kernel 26's dual state at {what} differs from plain")
-                if diffs[name][1] > RB_RTOL:
-                    fail(f"R0: kernel 26 {mode} {what}: {name} rel {diffs[name][1]:.3e} > "
-                         f"{RB_RTOL}")
-                e = errs["rbergomi_paths"]
-                e["max_abs_err"] = max(e["max_abs_err"], diffs[name][0])
-                e["max_rel_err"] = max(e["max_rel_err"], diffs[name][1])
-            bits = all(torch.equal(a, b) for a, b in zip(got, want))
-            log(f"[R0] kernel 26 {mode} at {what}: "
-                + ", ".join(f"{n} max |d| {d[0]:.3e} rel {d[1]:.3e}" for n, d in diffs.items())
-                + (" (bit for bit)" if bits else ""))
+            held("kernel 26 (first design)", got, want, mode, what, fused, "earlier_")
             tail = cr.rbergomi_paths(dW[:, PATH_TILE:].contiguous(), G[:, PATH_TILE:].contiguous(),
                                      c, seed, 1, True, mode, **kw)
             if not all(torch.equal(a[..., PATH_TILE:], b) for a, b in zip(got, tail)):
                 fail(f"R0: kernel 26 {mode} {what}: a first_tile chunk differs from the slice")
-        log(f"[R0] kernel 25 at {what}: dW == plain bit for bit; first_tile=1 chunks of both "
-            "kernels bit for bit")
+        log(f"[R0] kernel 25 (first design) at {what}: dW == plain bit for bit; first_tile=1 "
+            "chunks of kernels 25 and 26 bit for bit")
+        del dW, G, ref, part
 
     n_inner = 64
     for model in ROUGH_DUAL:
@@ -5768,7 +5837,8 @@ def phase_rough() -> dict:
     the European - 4 combined stderr; D6-D9 the VG, SABR, H = 1/2 and rough
     brackets at the JAX tests' configurations and bars; the full-width
     brackets (ROUGH_DUAL_SHAPE, n_inner 64). Fails if a rough kernel was
-    never launched after R0. Returns the errors, seconds and results."""
+    never launched after R0, or the first design of kernels 25-26 was.
+    Returns the errors, seconds and results."""
     import numpy as np
     import torch
 
@@ -5949,23 +6019,32 @@ def phase_rough() -> dict:
               f"{secs[label]:.3f} s a bracket")
 
     mine = {k["name"]: k["counter"][0][k["counter"][1]] for k in rough_specs()}
-    log(f"[R] kernel launches of the rough path after R0: {mine}")
+    first = {key: counts["cuda_rbergomi"][key] for key in RB_FIRST}
+    log(f"[R] kernel launches of the rough path after R0: {mine}; the first design of "
+        f"kernels 25-26: {first}")
     if not all(mine.values()):
         fail(f"a kernel of the rough path was never launched: {mine}")
+    if any(first.values()):
+        fail(f"the rough path reached the first design of kernels 25-26: {first}")
     res["phase_seconds"] = time.perf_counter() - t_phase
     log(f"[R] the rough path took {res['phase_seconds']:.1f} s in its process")
     return dict(errs=errs, secs=secs, res=res)
 
 
 def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
-    """CUDA-event medians (N_TIMED) of kernels 25 and 26 at R5's 2^20 x 50
-    (kernel 26 with v, R5's mode; its control-variate mode also at R4's
-    longest expiry), the Volterra product beside them, kernel 18's VG, SABR
-    and rough Bergomi families and VG's terminal step at ROUGH_DUAL_SHAPE x
-    64 inner draws, each beside its plain version (one run) and its bound
-    (bound(), from this run's inputs; VG's gamma attempts counted from its
-    clock draws); registers and occupancy; the full-width brackets' seconds
-    with kernel 18's share. Returns the rows by kernel name."""
+    """CUDA-event medians (N_TIMED) of the fused rough Bergomi kernel in
+    turns with its first design (first, fused, fused, first; the first
+    design's time the sum of kernel 25's, the Volterra matmul's and kernel
+    26's medians, each timed alone), at R5's 2^20 x 50 (with v, R5's mode)
+    and at R4's CV shapes (RB_CV_SHAPES), each beside its bound (bound(),
+    ops_rb_fused and DRAWS_RB_FUSED, from this run's shapes) and kernel 25
+    beside its own; the plain version (one run) at R5's shape and R4's
+    longest expiry; kernel 18's VG, SABR and rough Bergomi families and
+    VG's terminal step at ROUGH_DUAL_SHAPE x 64 inner draws, each beside
+    its plain version (one run) and its bound (VG's gamma attempts counted
+    from its clock draws); registers and occupancy; the full-width
+    brackets' seconds with kernel 18's share. Returns the rows by kernel
+    name."""
     import torch
 
     from options_model_tpu_torch.core.config import RBergomiParams
@@ -5976,8 +6055,7 @@ def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
     from options_model_tpu_torch.utils.profiling import time_per_call
 
     seed, tile = 0x5DEECE66D, 4096
-    attrs = cr.rbergomi_kernel_attrs()
-    attrs.update(cd.dual_kernel_attrs())
+    attrs = cd.dual_kernel_attrs()
     out = {}
 
     def row(name, ms, plain_ms, b, key, **extra):
@@ -5991,36 +6069,65 @@ def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
             + "".join(f"; {k} {v}" for k, v in extra.items()))
 
     P = RBergomiParams(**RB_ROUGH)
-    for shape, mode in ((RB_SHAPE + (0.5,), "paths"), (RB_CV_SHAPE, "cv")):
-        n, steps, T = shape
+    n_fused = launches.get("rbergomi_fused", 0)
+    shapes = {}
+    for (n, steps, T), mode in [(RB_SHAPE + (0.5,), "paths")] + [(c, "cv") for c in RB_CV_SHAPES]:
         n_tiles = n // PATH_TILE
         c = rbergomi_constants(100.0, T, P, steps, 0.05)
         W = torch.from_numpy(c["W_mat"]).to(DEVICE)
+        kw = dict(return_variance=True) if mode == "paths" else {}
+        args = (seed, 100.0, T, P, n, steps, 0.05, mode, True, 0, DEVICE)
         dW = cr.rbergomi_dw(seed, 0, n_tiles, steps, c["sqrt_dt"], True, DEVICE)
         G = volterra(W, dW)
-        kw = dict(return_variance=True) if mode == "paths" else {}
-        k26 = time_per_call(lambda: cr.rbergomi_paths(dW, G, c, seed, 0, True, mode, **kw),
-                            N_TIMED)
-        p26 = time_per_call(lambda: cr.rbergomi_paths_reference(dW, G, c, seed, 0, True, mode,
-                                                                **kw), 1, 0)
-        mm = time_per_call(lambda: volterra(W, dW), N_TIMED)
-        out_bytes = n * steps * 8 + (n * (steps + 1) * 8 if mode == "paths" else n * 8)
-        b26 = bound(n, steps, OPS_RB_PATHS, int_ops(DRAWS_RB_PATHS, per_call), out_bytes)
-        label = "rbergomi_paths" if mode == "paths" else "rbergomi_paths cv"
-        row(label, k26, p26, b26, "rbergomi_paths" if mode == "paths" else "rbergomi_paths cv",
-            shape=f"{n} x {steps}", volterra_matmul_ms=mm,
-            volterra_matmul_bound_ms=max(2 * steps * steps * n / 2 / PEAK_F32_OPS,
-                                         2 * n * steps * 4 / PEAK_BYTES) * 1e3)
-        if mode == "paths":
-            k25 = time_per_call(lambda: cr.rbergomi_dw(seed, 0, n_tiles, steps, c["sqrt_dt"],
-                                                       True, DEVICE), N_TIMED)
-            p25 = time_per_call(lambda: cr.rbergomi_dw_reference(seed, 0, n_tiles, steps,
-                                                                 c["sqrt_dt"], True, DEVICE),
-                                1, 0)
-            row("rbergomi_dw", k25, p25,
-                bound(n, steps, OPS_RB_DW, int_ops(DRAWS_RB_DW, per_call), n * steps * 4),
-                "rbergomi_dw", shape=f"{n} x {steps}")
+        parts = (lambda: cr.rbergomi_dw(seed, 0, n_tiles, steps, c["sqrt_dt"], True, DEVICE),
+                 lambda: volterra(W, dW),
+                 lambda: cr.rbergomi_paths(dW, G, c, seed, 0, True, mode, **kw))
+        turns = []
+        for which in ("first", "fused", "fused", "first"):
+            turns.append(time_per_call(lambda: cr.rbergomi_fused(*args, **kw), N_TIMED)
+                         if which == "fused" else [time_per_call(f, N_TIMED) for f in parts])
+        ms = (turns[1] + turns[2]) / 2
+        k25, mm, k26 = ((a + b) / 2 for a, b in zip(turns[0], turns[3]))
+        first_ms = k25 + mm + k26
+        out_bytes = 2 * (steps + 1) * n * 4 if mode == "paths" else 2 * n * 4
+        b = bound(n, steps, ops_rb_fused(steps, mode), int_ops(DRAWS_RB_FUSED, per_call),
+                  out_bytes)
+        b25 = bound(n, steps, OPS_RB_DW, int_ops(DRAWS_RB_DW, per_call), n * steps * 4)
+        a = cr.rbergomi_kernel_attrs(steps)["rbergomi_fused" if mode == "paths"
+                                            else "rbergomi_fused cv"]
+        occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
+        shape = f"{n} x {steps}"
+        row_ = dict(ms=ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                    bound_term=b["bound_term"], shape=shape, mode=mode,
+                    earlier_ms=first_ms, earlier_parts=dict(rbergomi_dw=k25, volterra=mm,
+                                                            rbergomi_paths=k26),
+                    rbergomi_dw_bound_ms=b25["bound_ms"],
+                    turns=[sum(turns[0]), turns[1], turns[2], sum(turns[3])],
+                    registers=a["registers"], spill_bytes=a["spill_bytes"], occupancy=occ)
+        if mode == "paths" or steps == RB_CV_SHAPES[-1][1]:
+            row_["plain_ms"] = time_per_call(lambda: cr.rbergomi_fused_reference(*args, **kw),
+                                             1, 0)
+        shapes[shape] = row_
+        log(f"[5] rbergomi_fused {mode} at {shape} (T {T}): fused {ms:.4f} ms ({turns[1]:.4f}, "
+            f"{turns[2]:.4f}), {b['bound_ms'] / ms * 100:.1f}% of its {b['bound_ms']:.4f} ms "
+            f"bound by {b['bound_term']}; first design {first_ms:.4f} ms ({sum(turns[0]):.4f}, "
+            f"{sum(turns[3]):.4f}: kernel 25 {k25:.4f}, the matmul {mm:.4f}, kernel 26 "
+            f"{k26:.4f}), {b['bound_ms'] / first_ms * 100:.1f}% of bound; {first_ms / ms:.2f}x; "
+            f"kernel 25 alone {b25['bound_ms'] / k25 * 100:.1f}% of its {b25['bound_ms']:.4f} ms "
+            f"bound by {b25['bound_term']}; {a['registers']} registers, {a['spill_bytes']} "
+            f"spill bytes, {a['blocks_per_sm']} blocks of {a['block']} per SM ({occ:.1%})"
+            + (f"; plain {row_['plain_ms']:.4f} ms" if "plain_ms" in row_ else ""))
         del dW, G
+    r5 = shapes[f"{RB_SHAPE[0]} x {RB_SHAPE[1]}"]
+    out["rbergomi_fused"] = dict(
+        r5, earlier_name="rbergomi_dw + volterra + rbergomi_paths (first design)",
+        earlier_source="options_model_tpu_torch/csrc/rbergomi.cu rbergomi_dw_kernel, "
+                       "rbergomi_paths_kernel; models/rbergomi.volterra",
+        cv_shapes={k: v for k, v in shapes.items() if v["mode"] == "cv"})
+    cv96 = shapes[f"{RB_CV_SHAPES[-1][0]} x {RB_CV_SHAPES[-1][1]}"]
+    log(f"[5] the rough path's {n_fused} fused launches: at R4's longest expiry "
+        f"launches x (ms - bound) {n_fused * (cv96['ms'] - cv96['bound_ms']):.2f} ms, the first "
+        f"design's {n_fused * (cv96['earlier_ms'] - cv96['bound_ms']):.2f} ms")
 
     n, steps = ROUGH_DUAL_SHAPE
     n_dates, n_inner = steps - 1, 64
@@ -6116,15 +6223,17 @@ def main() -> int:
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
     counted = specs + vjp + jumps + duals + normals + families + rough
-    # kernels 12-18's, 21's, 22's and 24's first designs: the yardsticks no path may reach
-    from options_model_tpu_torch.ops import cuda_dual, cuda_gbm, cuda_sabr, cuda_vg
+    # kernels 12-18's, 21's, 22's, 24's and 25-26's first designs: the yardsticks no path
+    # may reach
+    from options_model_tpu_torch.ops import cuda_dual, cuda_gbm, cuda_rbergomi, cuda_sabr, cuda_vg
 
     firsts = {"euler_paths_vjp_first": cuda_heston.launches,
               "gbm_paths_vjp_first": cuda_gbm.launches,
               **{key: cuda_jumps.launches for key in JUMP_FIRSTS},
               "dual_ce_first": cuda_dual.launches,
               **{FAMILY_FIRSTS[k]: cuda_vg.launches for k in ("vg_paths", "vg_terminal")},
-              FAMILY_FIRSTS["sabr_terminal"]: cuda_sabr.launches}
+              FAMILY_FIRSTS["sabr_terminal"]: cuda_sabr.launches,
+              **{key: cuda_rbergomi.launches for key in RB_FIRST}}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
     counters += [(d, key) for key, d in firsts.items()]
@@ -6132,8 +6241,8 @@ def main() -> int:
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
         was never launched, or if the first design of kernels 1, 3-8,
-        12-18, 21, 22 or 24, or of the variants, was. Returns (fn's result, that
-        path's counts)."""
+        12-18, 21, 22, 24 or 25-26, or of the variants, was. Returns (fn's
+        result, that path's counts)."""
         for d, key in counters:
             d[key] = 0
         cuda_jumps.shape_launches.clear()
@@ -6151,8 +6260,8 @@ def main() -> int:
         earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3-8, 12-18, 21, 22 or "
-                 f"24, or of the variants: {earlier}")
+            fail(f"the {path} path reached the first design of kernels 1, 3-8, 12-18, 21, 22, 24 "
+                 f"or 25-26, or of the variants: {earlier}")
         return out, mine
 
     (secs, euro), launches = drive("main", phase_main_path)
@@ -6303,9 +6412,7 @@ def main() -> int:
                 for k in families]
     entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
                      launches=launches_r[k["name"]], library_ms=None,
-                     **rough_res["errs"][k["name"]], **rough_times[k["name"]],
-                     **({"cv_mode": rough_times["rbergomi_paths cv"]}
-                        if k["name"] == "rbergomi_paths" else {}))
+                     **rough_res["errs"][k["name"]], **rough_times[k["name"]])
                 for k in rough]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

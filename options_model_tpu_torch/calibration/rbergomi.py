@@ -16,8 +16,8 @@ rBergomi is fitted in practice (Bayer-Friz-Gatheral 2016, section 5):
 3. a Nelder-Mead polish on (log xi0, log eta, logit-like H) of the
    vega-weighted IV RMSE plus an ATM-skew term-structure penalty, the model
    IVs priced by the hybrid scheme under common random numbers: one
-   fixed-seed terminal-CV simulation an expiry (``_expiry_ivs``: kernels 25
-   and 26 and the Volterra product, the conditional-Black control variate
+   fixed-seed terminal-CV simulation an expiry (``_expiry_ivs``: one launch of
+   the fused kernel in its CV mode, the conditional-Black control variate
    per strike at the pair-mean optimal beta, then implied_vol), so the MC
    objective is deterministic.
 

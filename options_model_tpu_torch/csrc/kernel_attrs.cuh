@@ -8,14 +8,16 @@
 namespace omt {
 
 // out: registers per thread, local (spill) bytes per thread, resident
-// blocks per SM at block_threads, block_threads.
+// blocks per SM at block_threads and dynamic_smem bytes of dynamic shared
+// memory a block, block_threads.
 template <typename Kernel>
-int kernel_attrs(Kernel kernel, int block_threads, int* out) {
+int kernel_attrs(Kernel kernel, int block_threads, int* out, size_t dynamic_smem = 0) {
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block_threads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block_threads,
+                                                      dynamic_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);

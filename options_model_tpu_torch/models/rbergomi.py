@@ -7,9 +7,12 @@ options_model_tpu/models/rbergomi.py:
 
 The Bennedsen-Lunde-Pakkanen hybrid scheme (kappa = 1) on n_steps
 left-point intervals:
-- the Volterra sum over past increments is one strictly lower-triangular
-  product G = W_mat dW (``volterra``: a float32 matrix product with TF32
-  off, as the reference runs it at Precision.HIGHEST);
+- the Volterra sum over past increments G[k] = sum_{i<k} w_{k-i+1} dW_i
+  is summed over i in ascending order, each product rounded and then added
+  (``volterra_ordered``): the order the card's kernel keeps, so the plain
+  version and the kernel agree bit for bit. ``volterra`` (one float32
+  matrix product, TF32 off, as the reference runs it at
+  Precision.HIGHEST) stays for the first design of the card's kernels;
 - the singular most-recent interval is its exact Gaussian, c1 dW + c2 z2;
 - the compensator is the scheme's discrete Var(Y_{t_k}) in float64, cast
   once (``_hybrid_weights`` ``var``), so E[v_t] = xi0 holds exactly under
@@ -19,12 +22,13 @@ left-point intervals:
   start of each interval.
 
 ``rbergomi_from_draws`` runs the scheme on given normals (z1, z2, zp), the
-plain version the kernels are held against and the function the tests feed
+plain version the kernel is held against and the function the tests feed
 the JAX package's own draws. ``simulate_rbergomi`` draws the rough
 Bergomi stream (ops/philox.rbergomi_path_draws, counter word 3 = 4) and on
-the card runs kernel 25 (the Brownian increments dW), the Volterra product, and kernel
-26 (the walk: Y, v, the spot, the dual state or the control-variate leg),
-ops/cuda_rbergomi.py. ``rbergomi_exact_chol`` is the reference's float64
+the card runs one fused kernel that draws dW, sums the Volterra history
+and walks Y, v and the spot (ops/cuda_rbergomi.rbergomi_fused; the first
+design, kernels 25 and 26 around ``volterra``, is the yardstick no pricer
+reaches). ``rbergomi_exact_chol`` is the reference's float64
 exact-covariance oracle, copied.
 """
 
@@ -113,11 +117,25 @@ def volterra(W_mat: torch.Tensor, dW: torch.Tensor) -> torch.Tensor:
     return torch.matmul(W_mat.to(device=dW.device, dtype=dW.dtype), dW)
 
 
+def volterra_ordered(W_mat: torch.Tensor, dW: torch.Tensor) -> torch.Tensor:
+    """G[k] = sum_{i<k} W_mat[k, i] dW_i (n_steps, P), summed over i in
+    ascending order with each product rounded and then added (no fused
+    multiply-add): ``G[i+1:] = G[i+1:] + W_mat[i+1:, i] dW_i`` for i = 0,
+    1, ... The fused kernel (csrc/rbergomi.cu rbergomi_fused_kernel) sums in
+    this order with __fmul_rn then __fadd_rn, so the two agree bit for bit;
+    mirrored columns give exactly -G (round to nearest is symmetric)."""
+    W = W_mat.to(device=dW.device, dtype=dW.dtype)
+    G = torch.zeros_like(dW)
+    for i in range(dW.shape[0] - 1):
+        G[i + 1:] = G[i + 1:] + W[i + 1:, i:i + 1] * dW[i]
+    return G
+
+
 def rbergomi_walk(dW: torch.Tensor, G: torch.Tensor, z2: torch.Tensor, zp: torch.Tensor,
                   c: dict, mode: str = "paths", return_variance: bool = False,
                   return_dual_state: bool = False):
     """The scheme's walk on the Brownian increments dW, the Volterra sums G and the
-    normals z2, zp (each (n_steps, P)), step by step in kernel 26's order:
+    normals z2, zp (each (n_steps, P)), step by step in the fused kernel's order:
     Y_{k+1} = sqrt2H ((G_k + c1 dW_k) + c2 z2_k), v_{k+1} = xi0 exp(eta
     Y_{k+1} - comp[k+1]), and x += (r - v_k/2) dt + sqrt(v_k) (rho dW_k +
     rbsd zp_k) from v_0 = xi0, S = exp(log S0 + x).
@@ -163,8 +181,8 @@ def rbergomi_from_draws(z1: torch.Tensor, z2: torch.Tensor, zp: torch.Tensor, S0
                         return_cv: bool = False):
     """The hybrid scheme on given normals z1 (the Volterra Brownian's), z2 (the singular
     term's orthogonal part) and zp (the price's orthogonal Brownian), each
-    (n_steps, n_paths) float32: dW = sqrt(dt) z1, G = volterra(W_mat, dW),
-    then rbergomi_walk. Returns S_T, or (S_T, v_T) with ``return_variance``,
+    (n_steps, n_paths) float32: dW = sqrt(dt) z1, G = volterra_ordered(W_mat,
+    dW), then rbergomi_walk. Returns S_T, or (S_T, v_T) with ``return_variance``,
     or (S_T, G_T) with ``return_cv``; with ``return_paths`` the matrices S,
     (S, v) or, with ``return_dual_state``, (S, v, hist)."""
     if return_dual_state and not return_paths:
@@ -173,7 +191,7 @@ def rbergomi_from_draws(z1: torch.Tensor, z2: torch.Tensor, zp: torch.Tensor, S0
         raise ValueError("the control variate's leg is a terminal output")
     c = rbergomi_constants(S0, T, params, z1.shape[0], rate)
     dW = float(c["sqrt_dt"]) * z1
-    G = volterra(torch.from_numpy(c["W_mat"]), dW)
+    G = volterra_ordered(torch.from_numpy(c["W_mat"]), dW)
     mode = "paths" if return_paths else ("cv" if return_cv else "terminal")
     return rbergomi_walk(dW, G, z2, zp, c, mode, return_variance, return_dual_state)
 
@@ -190,9 +208,8 @@ def simulate_rbergomi(seed: int, S0, T, params: RBergomiParams, cfg: MCConfig, r
                       device: Optional[torch.device] = None):
     """rBergomi to T on cfg.n_steps left-point intervals from the rough
     Bergomi stream (PATH_TILE tiles; ``first_tile`` the global tile of the
-    first, the reference's first_block): kernel 25, the Volterra product and
-    kernel 26 on a CUDA device (on the card by default), their plain
-    versions on the CPU. Returns S_T (n_pad,) [and v_T], or with
+    first, the reference's first_block): the fused kernel on a CUDA device
+    (on the card by default), its plain version on the CPU. Returns S_T (n_pad,) [and v_T], or with
     ``return_paths`` the (n_steps+1, n_pad) matrix [and v's]; with
     ``return_dual_state`` (paths and variance) also hist (n_steps, n_pad) =
     sqrt(2H) G, the frozen Volterra history the rough dual's inner sampler
@@ -213,8 +230,8 @@ def terminal_cv_core(seed: int, S0, r, T, params: RBergomiParams, n_steps: int, 
                      antithetic: bool = True, first_tile: int = 0,
                      device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(S_T, G_T) of n_paths (rounded up to PATH_TILE) at n_steps: one
-    kernel-26 launch in its control-variate mode (after kernel 25 and the
-    Volterra product), or its plain version on the CPU. The calibrator's
+    launch of the fused kernel in its control-variate mode, or its plain
+    version on the CPU. The calibrator's
     engine (calibration/rbergomi.py), one launch an expiry."""
     from options_model_tpu_torch.ops import cuda_rbergomi
 

@@ -25,6 +25,7 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -83,6 +84,7 @@ _SIGNATURES = {
     "omt_sabr_terminal_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P],
     "omt_rbergomi_dw": [_P, ctypes.c_float, _U64, _I, _I, _I, _I, _P],
     "omt_rbergomi_paths": [_P, _P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_rbergomi_fused": [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).
@@ -97,7 +99,7 @@ _ATTRS = {
     "omt_dual_attrs": [_I, _P],
     "omt_vg_attrs": [_I, _P],
     "omt_sabr_attrs": [_I, _P],
-    "omt_rbergomi_attrs": [_I, _P],
+    "omt_rbergomi_attrs": [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -228,3 +230,10 @@ def float_args(values) -> ctypes.Array:
     """A host float32 array for a kernel's constants (kept alive by the caller
     for the duration of the call)."""
     return (ctypes.c_float * len(values))(*map(float, values))
+
+
+def float_buffer(a: np.ndarray) -> ctypes.Array:
+    """float_args of a float32 NumPy array without a copy (the ctypes array
+    keeps ``a`` alive): a long table of constants costs the host no loop."""
+    a = np.ascontiguousarray(a, np.float32)
+    return (ctypes.c_float * a.size).from_buffer(a)

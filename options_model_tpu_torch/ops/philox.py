@@ -113,8 +113,9 @@ slot and step: draw 2t, (w0, w1) -> Box-Muller -> its first normal z1 (the
 Brownian increment dW = sqrt(dt) z1); draw 2t + 1, (w0, w1) -> (z2, zp)
 (the singular interval's orthogonal part and the price's orthogonal
 Brownian). All three
-are mirrored within the tile. Kernel 25 draws z1 alone and kernel 26 z2 and
-zp alone, each on its own counters.
+are mirrored within the tile. The fused rough Bergomi kernel makes both
+calls once a pair (csrc/rbergomi.cu); its first design drew z1 in kernel 25
+and z2, zp in kernel 26, each on its own counters.
 
 The SABR stream (``sabr_path_draws``, models/sabr.py) takes the main
 stream's counters (word 3 = 0) and one Philox call per pair slot and step:

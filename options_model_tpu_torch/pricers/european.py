@@ -60,8 +60,8 @@ def make_terminal_sampler(model: str, S0, r, T, *, sigma=None,
     terminal kernel of ``heston_scheme``, then the terminal jump overlay
     multiplied into its output in place), VG (kernel 22's one exact step,
     whatever ``n_steps``), SABR (kernel 24: the forward from F0 = S0 e^{(r -
-    q) T}, which is S_T at expiry), rough Bergomi (kernels 25 and 26 and the
-    Volterra product, on PATH_TILE tiles) or local vol, on the terminal
+    q) T}, which is S_T at expiry), rough Bergomi (the fused kernel in its
+    terminal mode, on PATH_TILE tiles) or local vol, on the terminal
     kernels: over a compiled Chebyshev ``localvol_table`` (which takes
     precedence), else under a bare ``sigma_fn(S, tau)``
     (models/localvol.simulate_local_vol's bare route, the same tiles and

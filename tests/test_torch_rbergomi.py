@@ -22,8 +22,9 @@ Tolerances, each with its reason:
 - The model's identities on the port's own stream, at the JAX tests' bars
   and sizes (tests/test_rbergomi.py): E[v_t] = xi0 within 5 stderr at
   every checked date, the spot martingale within 4 stderr.
-- The plain versions of kernels 25 and 26, first_tile chunks and the
-  simulator's routes: bit for bit (the same float32 operations).
+- The plain versions of kernels 25 and 26 (on G summed in ascending order),
+  first_tile chunks and the simulator's routes: bit for bit (the same
+  float32 operations).
 """
 
 import jax
@@ -209,8 +210,10 @@ def test_variance_lsm_on_jax_paths():
 
 def test_plain_kernels_are_the_scheme_on_the_stream():
     """Kernel 25's plain version is sqrt(dt) z1 of the stream, kernel 26's the
-    walk on the stream's (z2, zp): simulate_rbergomi on the CPU equals
-    rbergomi_from_draws on rbergomi_path_draws bit for bit, in every mode."""
+    walk on the stream's (z2, zp): simulate_rbergomi on the CPU (the fused
+    kernel's plain version) equals rbergomi_from_draws on rbergomi_path_draws
+    bit for bit, in every mode, and kernel 26's plain version on G summed in
+    ascending order (volterra_ordered) equals both."""
     cfg = MCConfig(n_paths=2 * PATH_TILE, n_steps=12)
     z1, z2, zp = rbergomi_path_draws(SEED, 0, 2, PATH_TILE, 12, True)
     c = rb.rbergomi_constants(100.0, 0.5, P, 12, 0.03)
@@ -228,7 +231,7 @@ def test_plain_kernels_are_the_scheme_on_the_stream():
     cv = rb.terminal_cv_core(SEED, 100.0, 0.03, 0.5, P, 12, 2 * PATH_TILE, device="cpu")
     want = rb.rbergomi_from_draws(z1, z2, zp, 100.0, 0.5, P, 0.03, return_cv=True)
     assert all(torch.equal(a, b) for a, b in zip(cv, want))
-    G = rb.volterra(torch.from_numpy(c["W_mat"]), dW)
+    G = rb.volterra_ordered(torch.from_numpy(c["W_mat"]), dW)
     ref = cr.rbergomi_paths_reference(dW, G, c, SEED, 0, True, "cv")
     assert all(torch.equal(a, b) for a, b in zip(ref, cv))
 
