@@ -761,6 +761,10 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "dual_ce heston, first design": "20dual_ce_first_kernelILi1EE",
                 "dual_ce merton": "14dual_ce_kernelILi2ELb0EE",
                 "dual_ce bates": "14dual_ce_kernelILi3ELb0EE",
+                "dual_ce vg": "17dual_ce_vg_kernelILb0ELb0EE",
+                "dual_ce vg, first design": "14dual_ce_kernelILi4ELb0EE",
+                "dual_ce rbergomi": "20dual_ce_rough_kernelILb0ELb0EE",
+                "dual_ce rbergomi, first design": "14dual_ce_kernelILi6ELb0EE",
                 "vg paths": "15vg_paths_kernelILb1ELb0EE",
                 "vg paths, first design": "21vg_paths_first_kernelILb1ELb0EE",
                 "vg terminal": "18vg_terminal_kernelILb1ELb0EE",
@@ -781,21 +785,30 @@ SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm term
 # terminal overlay's grid-stride loop four values.
 SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1, "overlay terminal": 4}
 # Surrogate evaluations a pass of kernel 18's calls loop covers (both
-# designs' put instances): a GBM or Merton call's four normals serve four
-# pairs, a Heston or Bates call's two pairs. The count is static: each
-# evaluation's Horner loop (the redesign's is not unrolled; one pass of it
-# at degree 1, two more at degree 3) and the jump families' Poisson
-# inversion are counted once.
+# designs' put instances): a GBM, Merton or VG call's four normals serve
+# four pairs, a Heston or Bates call's two pairs, a rough Bergomi call one.
+# The count is static: each evaluation's Horner loop (the redesign's is not
+# unrolled; one pass of it at degree 1, two more at degree 3), the jump
+# families' Poisson inversion and VG's first design's four attempt loops
+# are counted once (dual_vg_floors adds the attempts a warp repeats). VG's
+# redesign has no calls loop: its chunk loop holds the clock's three loops
+# and the walk's (SASS_NESTED; dual_vg_floors).
 SASS_EVALS = {"dual_ce gbm": 8, "dual_ce gbm, first design": 8, "dual_ce heston": 4,
-              "dual_ce heston, first design": 4, "dual_ce merton": 8, "dual_ce bates": 4}
+              "dual_ce heston, first design": 4, "dual_ce merton": 8, "dual_ce bates": 4,
+              "dual_ce vg, first design": 8, "dual_ce rbergomi": 2,
+              "dual_ce rbergomi, first design": 2}
 # Kernel 21's loops nest (sass_loops reads the largest and the loops
 # directly inside it): the redesign's chunk loop holds its first attempts
 # (a pass: one step's draw of both paths of a pair), its retries (a pass:
 # one attempt of one draw a lane) and its walk (a pass: a pair-step); the
 # first design's step loop (a pass: a pair-step) holds each path's attempt
 # loop (a pass: one attempt). Kernel 24's loops cover a pair-step, both
-# designs.
-SASS_NESTED = ("vg paths", "vg paths, first design")
+# designs. Kernel 18's VG redesign: its chunk loop (8 pairs a lane) holds
+# its first attempts (a pass: one pair's attempt 0 a lane), exact tests and
+# retries (a pass: one entry a lane) and walk (a pass: one call's four
+# pairs); its first design's calls loop (four pairs) its four attempt loops
+# (a pass: one attempt of one pair's draw) beside the Horner loops.
+SASS_NESTED = ("vg paths", "vg paths, first design", "dual_ce vg", "dual_ce vg, first design")
 # Kernel 22's designs have no time loop: sass_whole counts each whole
 # function (its called slow paths, its padding and its trap left out) and
 # the loops not inside another, in address order: the redesign's first
@@ -809,7 +822,7 @@ SASS_WHOLE = ("vg terminal", "vg terminal, first design")
 # local memory at all), and the redesigns of kernels 21 (its chunk loop,
 # all three inner loops with it) and 24.
 SASS_NO_LOCAL = ("gbm vjp", "dual_ce gbm", "dual_ce heston", "dual_ce merton", "dual_ce bates",
-                 "vg paths", "sabr terminal")
+                 "dual_ce vg", "dual_ce rbergomi", "vg paths", "sabr terminal")
 # The loops whose instructions phase_sass prints by unit.
 SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
               "localvol terminal, degree 3", "localvol paths, degree 3", "euler vjp",
@@ -817,8 +830,10 @@ SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol p
               "merton paths", "merton paths, first design", "overlay paths",
               "overlay paths, first design", "gbm vjp", "gbm vjp, first design",
               "overlay terminal", "dual_ce gbm", "dual_ce gbm, first design", "dual_ce heston",
-              "dual_ce heston, first design", "dual_ce merton", "dual_ce bates", "vg paths",
-              "vg paths, first design", "sabr terminal", "sabr terminal, first design")
+              "dual_ce heston, first design", "dual_ce merton", "dual_ce bates",
+              "dual_ce vg", "dual_ce vg, first design", "dual_ce rbergomi",
+              "dual_ce rbergomi, first design", "vg paths", "vg paths, first design",
+              "sabr terminal", "sabr terminal, first design")
 
 
 def per_step(key: str, n: int) -> str:
@@ -932,12 +947,24 @@ def _vg_terminal_roles(key: str, loops: list) -> dict:
 
 
 def _vg_roles(key: str, kids: list) -> dict:
-    """Kernel 21's inner loops by role (SASS_NESTED), {} unless they read as
-    expected: the redesign's walk holds the global stores (STG), its
-    retries the block barrier (BAR), its first attempts the ballot (VOTE);
-    the first design's two attempt loops hold no store."""
+    """Kernel 21's and kernel 18's VG inner loops by role (SASS_NESTED), {}
+    unless they read as expected. Kernel 21: the redesign's walk holds the
+    global stores (STG), its retries the block barrier (BAR), its first
+    attempts the ballot (VOTE); the first design's two attempt loops hold no
+    store. Kernel 18's VG redesign: four loops in source order, the first
+    attempts, exact tests and retries each with a ballot, the walk without;
+    its first design: the four loops that call libdevice's logf (MUFU) are
+    the attempt loops, the rest its Horner loops."""
     ops = [[opcode(ins) for ins in k] for k in kids]
     has = lambda i, pre: any(o.startswith(pre) for o in ops[i])  # noqa: E731
+    if key == "dual_ce vg":
+        roles = ("first attempts", "exact tests", "retries", "walk")
+        if len(kids) == 4 and all(has(i, "VOTE") for i in range(3)) and not has(3, "VOTE"):
+            return {role: i for i, role in enumerate(roles)}
+        return {}
+    if key == "dual_ce vg, first design":
+        tries = [i for i in range(len(kids)) if has(i, "MUFU")]
+        return {f"attempts {n}": i for n, i in enumerate(tries)} if len(tries) == 4 else {}
     if key == "vg paths":
         roles = {}
         for i in range(len(kids)):
@@ -1015,7 +1042,9 @@ def phase_sass() -> dict:
         "and terminal) cover two pair-steps, the redesigned overlay two path-steps of one "
         "path; a pair-step is both mirror paths' step; kernel 18's loop is one Philox call "
         "of the inner draws, eight surrogate evaluations under GBM and Merton, four under Heston "
-        "and Bates; kernel 21's redesign's largest loop is its chunk loop of 8 steps, its "
+        "and Bates, two under rough Bergomi, eight under VG's first design (its attempt loops "
+        "once); kernel 18's VG redesign's largest loop is its chunk loop of 8 pairs a lane; "
+        "kernel 21's redesign's largest loop is its chunk loop of 8 steps, its "
         "first design's a pair-step, each with its loops inside (below); kernel 24's loops a "
         "pair-step): "
         + ", ".join(f"{k} {len(v)}" + per_step(k, len(v)) for k, v in loops.items()))
@@ -1023,7 +1052,8 @@ def phase_sass() -> dict:
         if key in loops:
             unit = (f"{SASS_PATH_STEPS[key]} path-steps" if key in SASS_PATH_STEPS
                     else f"{SASS_EVALS[key]} evaluations" if key in SASS_EVALS
-                    else f"{SASS_STEPS.get(key, 1)} pair-steps")
+                    else f"{DUAL_VG_CHUNK} pairs a lane, each inner loop once"
+                    if key == "dual_ce vg" else f"{SASS_STEPS.get(key, 1)} pair-steps")
             local = sum(opcode(ins).startswith(("LDL", "STL")) for ins in loops[key])
             mix = pipe_mix(loops[key])
             log(f"[1] SASS {key} loop by unit (a pass of {unit}): "
@@ -1037,7 +1067,9 @@ def phase_sass() -> dict:
     nested = {}
     for key, kids in inner.items():
         parts = vg_loop_parts(key, kids)
-        log(f"[1] SASS {key}: loops inside its {'chunk' if key == 'vg paths' else 'step'} loop "
+        outer = {"vg paths": "chunk", "dual_ce vg": "chunk",
+                 "dual_ce vg, first design": "calls"}.get(key, "step")
+        log(f"[1] SASS {key}: loops inside its {outer} loop "
             f"({len(loops[key])} instructions): "
             + ", ".join(f"{len(k)} ({pipe_mix(k)['MUFU']} MUFU)" for k in kids)
             + (f"; read as {', '.join(f'{p} {n}' for p, n in parts.items())}" if parts
@@ -3837,28 +3869,33 @@ def dual_case(model: str, n_paths: int, seed: int = 5, cp: float = -1.0,
                 rows=cuda_dual.policy_rows(policy, taus))
 
 
-def dual_upper_both(model: str, case: dict, seed: int, tile: int) -> dict:
-    """The dual upper bound of a bracket's ``case`` (dual_case) assembled
-    (pricers/dual._dual_assemble, out of sample, pair-block stderr) from
-    kernel 18's redesign and from its first design on the same paths,
-    policy and stream; fails unless the two are within DUAL_UPPER_SE of the
-    redesign's stderr."""
+def dual_upper_both(model: str, case: dict, seed: int, tile: int, tag: str = "D0") -> dict:
+    """The dual upper bound of a bracket's ``case`` (dual_case or
+    rough_dual_case) assembled (pricers/dual._dual_assemble, out of sample,
+    pair-block stderr) from kernel 18's redesign and from its first design
+    on the same paths, policy and stream (VG's terminal step from
+    dual_vg_terminal, the same for both); fails unless the two are within
+    DUAL_UPPER_SE of the redesign's stderr."""
     from options_model_tpu_torch.ops import cuda_dual as cd
     from options_model_tpu_torch.pricers import american as pa
     from options_model_tpu_torch.pricers import dual as pd
 
     S, x, v, law = case["S"], case["x"], case["v"], case["law"]
+    hist, comp, n_dates = case.get("hist"), case.get("comp"), case["rows"].shape[0]
     w_vals, e_h = pd._observed_terms(x, v, law, case["policy"], case["taus"])
+    if e_h is None:
+        e_h = cd.dual_vg_terminal(x[n_dates].contiguous(), law, seed, 0, tile, DUAL_INNER, n_dates)
     _, eval_mask = pa.oos_masks(S.shape[1], tile, S.dtype, DEVICE)
     out = {}
     for name, fn in (("redesign", cd.dual_ce), ("first", cd.dual_ce_first)):
-        ce = fn(x, v, case["rows"], law, seed, 0, tile, DUAL_INNER)
-        up, se = pd._dual_assemble(S, case["spec"], 0.5, w_vals, ce, e_h, eval_mask, tile)
+        ce = fn(x, v, case["rows"], law, seed, 0, tile, DUAL_INNER, hist, comp)
+        up, se = pd._dual_assemble(S, case["spec"], case.get("T", 0.5), w_vals, ce, e_h,
+                                   eval_mask, tile)
         out[name] = (float(up), float(se))
     (up, se), (up1, se1) = out["redesign"], out["first"]
-    log(f"[D0] {model} at {S.shape[1]} x 50: the upper from the redesign's ce {up:.6f} +- "
-        f"{se:.6f}, from the first design's {up1:.6f} +- {se1:.6f}: |d| {abs(up - up1):.3e} = "
-        f"{abs(up - up1) / se:.4f} stderr (gate {DUAL_UPPER_SE})")
+    log(f"[{tag}] {model} at {S.shape[1]} x {S.shape[0] - 1}: the upper from the redesign's ce "
+        f"{up:.6f} +- {se:.6f}, from the first design's {up1:.6f} +- {se1:.6f}: |d| "
+        f"{abs(up - up1):.3e} = {abs(up - up1) / se:.4f} stderr (gate {DUAL_UPPER_SE})")
     if not (math.isfinite(up) and abs(up - up1) <= DUAL_UPPER_SE * se):
         fail(f"dual {model}: the upper from the redesign's ce differs from the first design's")
     return dict(upper=up, upper_first=up1, stderr=se, d_stderr=abs(up - up1) / se)
@@ -4097,6 +4134,46 @@ def sass_floors(sass: dict, key: str, evals: int) -> dict:
     return dict(instructions_per_eval=ipe, mufu_per_eval=mpe,
                 issue_floor_ms=evals * ipe / PEAK_ISSUE * 1e3,
                 mufu_floor_ms=evals * mpe / PEAK_MUFU * 1e3)
+
+
+def dual_vg_floors(sass: dict, key: str, evals: int, half: int, passes, warp_tries: float) -> dict:
+    """Issue and SFU floors of kernel 18's VG design ``key`` at ``evals``
+    surrogate evaluations, ``half`` pairs a (date, path), from its loops
+    (phase_sass, SASS_NESTED). The redesign, per warp and date: its first
+    attempts a pass a pair, its walk a pass four pairs, the rest of its
+    chunk loop once a chunk, its exact tests and retries at the run's
+    ``passes`` (their means a warp and date, from the debug instance). The
+    first design: its calls loop (SASS_EVALS, each attempt loop once) and
+    its attempt loops again for each attempt a warp repeats, ``warp_tries``
+    the mean over its pairs of the most attempts a lane's draw took. {}
+    where phase_sass read no loops."""
+    p = sass.get("nested", {}).get(key)
+    if not p:
+        return {}
+    parts, m = p["parts"], p["mufu"]
+    if key == "dual_ce vg":
+        chunks = -(-half // DUAL_VG_CHUNK)
+        walk = sum(-(-min(DUAL_VG_CHUNK, half - c) // 4) for c in range(0, half, DUAL_VG_CHUNK))
+        n = {"first attempts": half, "exact tests": passes[0], "retries": passes[1],
+             "walk": walk}
+        rest = p["outer"] - sum(parts.values())
+        rest_m = p["outer_mufu"] - sum(m.values())
+        by_part = {r: parts[r] * n[r] / (2 * half) for r in n}
+        by_part["rest"] = rest * chunks / (2 * half)
+        ipe = sum(by_part.values())
+        mpe = (rest_m * chunks + sum(m[r] * n[r] for r in n)) / (2 * half)
+    else:
+        tries = [r for r in parts if r.startswith("attempts")]
+        body = sum(parts[r] for r in tries) / len(tries)
+        body_m = sum(m[r] for r in tries) / len(tries)
+        by_part = {"calls loop": p["outer"] / SASS_EVALS[key],
+                   "repeated attempts": (warp_tries - 1) * body / 2}
+        ipe = sum(by_part.values())
+        mpe = p["outer_mufu"] / SASS_EVALS[key] + (warp_tries - 1) * body_m / 2
+    return dict(instructions_per_eval=ipe, mufu_per_eval=mpe,
+                issue_floor_ms=evals * ipe / PEAK_ISSUE * 1e3,
+                mufu_floor_ms=evals * mpe / PEAK_MUFU * 1e3,
+                instructions_per_eval_by_part=by_part)
 
 
 def phase_dual_timing(sass: dict, secs: dict, launches: dict, cases: dict) -> dict:
@@ -5520,6 +5597,7 @@ def phase_family_timing(sass: dict, attempts: dict, launches: dict) -> dict:
 # brackets run each family at D1's scale. The rough kernels are timed in
 # phase 5 of the main process, after the join.
 RB_ROUGH = dict(H=0.1, eta=1.5, rho=-0.7, xi0=0.04)
+RB_D8 = dict(H=0.5, eta=1.0, rho=-0.5, xi0=0.04)    # D8: H = 1/2 against the drift ADI
 # The fused kernel and kernel 26 against their plain versions on the card:
 # S and v rtol (each does the same _rn operations as its plain version with
 # the same libdevice expf and sqrtf, so they are expected bit for bit; the
@@ -5531,10 +5609,20 @@ RB_SHAPE = (1 << 20, 50)                # R5's paths, the rough kernels at the p
 # year, at least 32 (calibration/rbergomi._surface_ivs)
 RB_CV_SHAPES = ((1 << 16, 32, 0.1), (1 << 16, 48, 0.5), (1 << 16, 96, 1.0))
 RB_FIRST = ("rbergomi_dw, first design", "rbergomi_paths, first design")
+# Kernel 18's first designs of the VG and rough Bergomi families
+# (dual_ce_kernel's instances), the yardsticks of their redesigns: R0 and phase 5 alone.
+ROUGH_DUAL_FIRSTS = ("dual_ce vg, first design", "dual_ce rbergomi, first design")
 ROUGH_DUAL = {"vg": dict(vg=dict(sigma=0.18, theta=-0.14, nu=0.35)),
               "sabr": dict(sabr=dict(alpha=0.2, beta=1.0, rho=-0.4, nu=0.6)),
               "rbergomi": dict(rbergomi=RB_ROUGH)}
 ROUGH_DUAL_SHAPE = (1 << 17, 50)        # D1's scale, n_inner 64
+# Kernel 18's VG redesign: pairs a lane a chunk (csrc/dual.cu kClockChunk).
+DUAL_VG_CHUNK = 8
+# Kernel 18's rough Bergomi redesign: its v' = A e^{+-s} against the plain
+# version's, relative; the budget csrc/dual.cu states beside
+# dual_ce_rough_kernel (u0 (13 + 4 |eta h - comp| + 10 |s|), under 1e-5 on
+# the brackets' histories and normals).
+RB_VPRIME_RTOL = 1e-5
 ROUGH_DUAL_T = 0.5
 R1_Z = 4.0
 R2_SE, R2_MISS = 4.5, 10.0
@@ -5589,19 +5677,22 @@ def rough_specs():
     return specs
 
 
-def _rough_params(model: str):
+def _rough_params(model: str, params: dict = None):
+    """{model: its params}: ROUGH_DUAL's, or ``params``."""
     from options_model_tpu_torch.core.config import RBergomiParams, SABRParams, VGParams
 
     cls = {"vg": VGParams, "sabr": SABRParams, "rbergomi": RBergomiParams}[model]
-    return {model: cls(**ROUGH_DUAL[model][model])}
+    return {model: cls(**(params or ROUGH_DUAL[model][model]))}
 
 
 def rough_dual_case(model: str, n_paths: int, n_steps: int = 50, T: float = ROUGH_DUAL_T,
-                    seed: int = 5, cp: float = -1.0, degree: int = 3) -> dict:
+                    seed: int = 5, cp: float = -1.0, degree: int = 3,
+                    params: dict = None) -> dict:
     """A VG, SABR or rough Bergomi bracket's inputs at n_paths x n_steps:
     the port's paths (kernels 21, 23, or 25-26 with the dual state), the
     policy fitted on them, x = S / K, its rows, the law, rough Bergomi's
-    hist and comp. A put, or a call on a dividend payer (q 0.03)."""
+    hist and comp. A put, or a call on a dividend payer (q 0.03); the
+    model's params ROUGH_DUAL's, or ``params``."""
     import torch
 
     from options_model_tpu_torch.core.config import MCConfig, OptionSpec
@@ -5613,7 +5704,7 @@ def rough_dual_case(model: str, n_paths: int, n_steps: int = 50, T: float = ROUG
 
     q = 0.03 if cp > 0 else 0.0
     spec = OptionSpec(strike=100.0, rate=0.05, cp=cp, sigma=None, div_yield=q)
-    kw = _rough_params(model)
+    kw = _rough_params(model, params)
     mc = MCConfig(n_paths=n_paths, n_steps=n_steps, path_block=4096)
     gen = torch.Generator(DEVICE).manual_seed(seed)
     hist = comp = None
@@ -5647,12 +5738,16 @@ def phase_rough_kernels() -> dict:
     (2 tiles x 50 at both H and R5's shape): kernel 25's dW bit for bit,
     kernel 26 within RB_RTOL on S and v and hist bit for bit, first_tile
     chunks of both bit for bit. Kernel 18's families at 2 tiles (a put and
-    a call each, so every instance runs) and at their brackets' shapes: ce
-    within DUAL_CE_ATOL, the inner states (kernel 19's instances), VG's
-    clock draws and their attempts bit for bit, a first_tile chunk of ce
-    bit for bit, VG's terminal step within DUAL_CE_ATOL. Fails if an
-    instance of the rough kernels has local memory. Returns the largest
-    errors by kernel (the first design's under earlier_*)."""
+    a call each, so every instance runs) and at their brackets' shapes and
+    configurations (D6-D9): ce within DUAL_CE_ATOL, the inner states
+    (kernel 19's instances), VG's clock draws and their attempts bit for
+    bit, a first_tile chunk of ce bit for bit, VG's terminal step within
+    DUAL_CE_ATOL; the VG and rough Bergomi redesigns also through
+    rough_redesign_checks, and at the brackets' shapes their upper within
+    DUAL_UPPER_SE stderr of their first design's (dual_upper_both). Fails if
+    an instance of the rough kernels or of kernel 18's VG and rough Bergomi
+    designs has local memory. Returns the largest errors by kernel (the
+    first design's under earlier_*)."""
     import torch
 
     from options_model_tpu_torch.core.config import RBergomiParams
@@ -5772,14 +5867,29 @@ def phase_rough_kernels() -> dict:
         del dW, G, ref, part
 
     n_inner = 64
+    dual_attrs = {k: a for k, a in cd.dual_kernel_attrs().items() if k.startswith("dual_ce")
+                  and any(f" {m}" in k for m in cd.REDESIGNED_FAMILIES)}
+    log("[R0] kernel 18's VG and rough Bergomi instances, registers / local bytes a thread / "
+        "occupancy: " + ", ".join(
+            f"{k} {a['registers']} / {a['spill_bytes']} / "
+            f"{a['blocks_per_sm'] * a['block'] / THREADS_PER_SM:.1%}"
+            for k, a in dual_attrs.items()))
+    if any(a["spill_bytes"] for a in dual_attrs.values()):
+        fail("R0: an instance of kernel 18's VG or rough Bergomi designs has local memory")
+    # each family at 2 tiles (a put and a call) and at its brackets' shapes
+    # and configurations: D6 (VG), D7 (SABR), D8 and D9 (rough Bergomi)
+    brackets = {"vg": [(1 << 14, 20, None)], "sabr": [(1 << 15, 40, None)],
+                "rbergomi": [(1 << 15, 40, RB_D8), (1 << 14, 30, None)]}
     for model in ROUGH_DUAL:
-        n_d = {"vg": 1 << 14, "sabr": 1 << 15, "rbergomi": 1 << 15}[model]
-        for n, cp, steps, T in ((2 * tile, -1.0, 20, 0.5), (2 * tile, 1.0, 20, 0.5),
-                                (n_d, -1.0, 40 if model != "vg" else 20, 0.5)):
-            case = rough_dual_case(model, n, steps, T, cp=cp)
+        for n, cp, steps, T, params in ([(2 * tile, -1.0, 20, 0.5, None),
+                                         (2 * tile, 1.0, 20, 0.5, None)]
+                                        + [(n_b, -1.0, s_b, 0.5, p_b)
+                                           for n_b, s_b, p_b in brackets[model]]):
+            case = rough_dual_case(model, n, steps, T, cp=cp, params=params)
             x, v, rows, law = case["x"], case["v"], case["rows"], case["law"]
             hist, comp = case["hist"], case["comp"]
-            what = f"{model} {'call' if cp > 0 else 'put'}, {n} x {steps}"
+            what = (f"{model} {'call' if cp > 0 else 'put'}, {n} x {steps}"
+                    + (f" (H {params['H']}, eta {params['eta']})" if params else ""))
             args = (seed, 0, tile, n_inner)
             ce = cd.dual_ce(x, v, rows, law, *args, hist, comp)
             ref = cd.dual_ce_reference(x, v, rows, law, *args, hist, comp)
@@ -5817,10 +5927,59 @@ def phase_rough_kernels() -> dict:
                 extra = (f"; clock draws and attempts (dates 0-2, {cn.numel()}, mean attempt "
                          f"{float(cn.float().mean()):.4f}, max {int(cn.max())}) bit for bit; "
                          f"dual_vg_terminal within {DUAL_CE_ATOL} (max |d| {de:.3e})")
+            if model in cd.REDESIGNED_FAMILIES:
+                extra += rough_redesign_checks(model, case, args, ref, errs[f"dual_ce {model}"],
+                                               what)
+                if n != 2 * tile:
+                    e["upper_d_stderr"] = max(e.get("upper_d_stderr", 0.0), dual_upper_both(
+                        model, case, seed, tile, "R0")["d_stderr"])
             log(f"[R0] {what}, n_inner {n_inner}: dual_ce == plain within {DUAL_CE_ATOL} (max "
                 f"|d| {float(d.max()):.3e}, mean {float(d.mean()):.3e}); first_tile="
                 f"{h // tile} chunk bit for bit; inner states (dates 0-2) bit for bit{extra}")
     return errs
+
+
+def rough_redesign_checks(model: str, case: dict, args: tuple, ref, err: dict,
+                          what: str) -> str:
+    """R0's checks of kernel 18's VG or rough Bergomi redesign beyond its ce
+    (``ref`` the plain ce on ``args``): its first design's ce within
+    DUAL_CE_ATOL of plain; its debug instance's ce within DUAL_CE_ATOL, and
+    every date's clock G and accepting attempt (VG) or x' (rough Bergomi)
+    the plain version's bit for bit, v' within RB_VPRIME_RTOL. Returns the
+    log's part."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_dual as cd
+
+    x, v, rows, law = case["x"], case["v"], case["rows"], case["law"]
+    hist, comp, n_dates = case["hist"], case["comp"], case["rows"].shape[0]
+    ce1 = cd.dual_ce_first(x, v, rows, law, *args, hist, comp)
+    out = cd.dual_ce_debug(x, v, rows, law, *args, hist, comp)
+    xr, vr, cr_ = cd.dual_inner_states_reference(x, v, law, *args, 0, n_dates, True, hist, comp)
+    torch.cuda.synchronize()
+    d1, dd = float((ce1 - ref).abs().max()), float((out[0] - ref).abs().max())
+    err["earlier_max_abs_err"] = max(err.get("earlier_max_abs_err", 0.0), d1)
+    if not (d1 <= DUAL_CE_ATOL and dd <= DUAL_CE_ATOL and bool(torch.isfinite(out[0]).all())):
+        fail(f"R0: dual_ce {what}: the first design's ce ({d1:.3e}) or the debug instance's "
+             f"({dd:.3e}) differs from plain")
+    if model == "vg":
+        _, G, att, passes = out
+        if not (torch.equal(G.view(torch.int32), vr[:, 0].view(torch.int32))
+                and torch.equal(att, cr_)):
+            fail(f"R0: {what}: the redesign's clock G or accepting attempts differ from plain")
+        pm = passes.float().mean(dim=(0, 1))
+        return (f"; the redesign's clock G and attempts (all {n_dates} dates, mean attempt "
+                f"{float(att.float().mean()):.4f}) bit for bit, a warp's passes a date: exact "
+                f"tests {float(pm[0]):.3f}, retries {float(pm[1]):.3f}; first design within "
+                f"{d1:.3e}, debug instance {dd:.3e}")
+    _, xs, vs = out
+    rel = float(((vs - vr).abs() / vr.abs()).max())
+    if not (torch.equal(xs, xr) and rel <= RB_VPRIME_RTOL):
+        fail(f"R0: {what}: the redesign's x' differs from plain, or v' by {rel:.3e} relative "
+             f"(bound {RB_VPRIME_RTOL})")
+    return (f"; the redesign's x' (all {n_dates} dates) bit for bit, v' within {rel:.3e} "
+            f"relative (bound {RB_VPRIME_RTOL}); first design within {d1:.3e}, debug instance "
+            f"{dd:.3e}")
 
 
 def phase_rough() -> dict:
@@ -5981,7 +6140,7 @@ def phase_rough() -> dict:
     adi_bracket("D7", *br7, sabr_fd_price(100.0, 100.0, 0.5, 0.05, sabr, cp=-1.0),
                 "SABR bracket (0.2, 1, -0.4, 0.6), 2^15 x 40")
     # D8: rough Bergomi at H = 1/2 against the drift ADI (:512-530)
-    rb8 = RBergomiParams(H=0.5, eta=1.0, rho=-0.5, xi0=0.04)
+    rb8 = RBergomiParams(**RB_D8)
     br8 = [float(t) for t in timed("D8", price_american_bracket, gen(83), 100.0, 0.5, put, mc78,
                                    model="rbergomi", rbergomi=rb8, device=DEVICE)]
     adi_bracket("D8", *br8, sabr_fd_price(100.0, 100.0, 0.5, 0.05,
@@ -6020,18 +6179,20 @@ def phase_rough() -> dict:
 
     mine = {k["name"]: k["counter"][0][k["counter"][1]] for k in rough_specs()}
     first = {key: counts["cuda_rbergomi"][key] for key in RB_FIRST}
+    first.update({key: counts["cuda_dual"][key] for key in ROUGH_DUAL_FIRSTS})
     log(f"[R] kernel launches of the rough path after R0: {mine}; the first design of "
-        f"kernels 25-26: {first}")
+        f"kernels 25-26 and of kernel 18's VG and rough Bergomi families: {first}")
     if not all(mine.values()):
         fail(f"a kernel of the rough path was never launched: {mine}")
     if any(first.values()):
-        fail(f"the rough path reached the first design of kernels 25-26: {first}")
+        fail(f"the rough path reached the first design of kernels 25-26 or of kernel 18's VG "
+             f"or rough Bergomi family: {first}")
     res["phase_seconds"] = time.perf_counter() - t_phase
     log(f"[R] the rough path took {res['phase_seconds']:.1f} s in its process")
     return dict(errs=errs, secs=secs, res=res)
 
 
-def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
+def phase_rough_timing(sass: dict, rough: dict, launches: dict) -> dict:
     """CUDA-event medians (N_TIMED) of the fused rough Bergomi kernel in
     turns with its first design (first, fused, fused, first; the first
     design's time the sum of kernel 25's, the Volterra matmul's and kernel
@@ -6042,9 +6203,14 @@ def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
     longest expiry; kernel 18's VG, SABR and rough Bergomi families and
     VG's terminal step at ROUGH_DUAL_SHAPE x 64 inner draws, each beside
     its plain version (one run) and its bound (VG's gamma attempts counted
-    from its clock draws); registers and occupancy; the full-width
-    brackets' seconds with kernel 18's share. Returns the rows by kernel
-    name."""
+    from its clock draws), the VG and rough Bergomi redesigns in turns with
+    their first designs (first, new, new, first) and beside both designs'
+    issue and SFU floors from their SASS (VG's at the clock's passes and
+    attempts of the first 4 dates, through the redesign's debug instance),
+    and their uppers on the timed paths from either design within
+    DUAL_UPPER_SE stderr (dual_upper_both);
+    registers and occupancy; the full-width brackets' seconds with kernel
+    18's share. Returns the rows by kernel name."""
     import torch
 
     from options_model_tpu_torch.core.config import RBergomiParams
@@ -6055,6 +6221,7 @@ def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
     from options_model_tpu_torch.utils.profiling import time_per_call
 
     seed, tile = 0x5DEECE66D, 4096
+    per_call = sass["per_call"]
     attrs = cd.dual_kernel_attrs()
     out = {}
 
@@ -6136,16 +6303,30 @@ def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
         x, v, rows, law = case["x"], case["v"], case["rows"], case["law"]
         hist, comp = case["hist"], case["comp"]
         args = (seed, 0, tile, n_inner, hist, comp)
-        ms = time_per_call(lambda: cd.dual_ce(x, v, rows, law, *args), N_TIMED)
+        run = lambda: cd.dual_ce(x, v, rows, law, *args)  # noqa: E731
+        redesigned = model in cd.REDESIGNED_FAMILIES
+        if redesigned:
+            first = lambda: cd.dual_ce_first(x, v, rows, law, *args)  # noqa: E731
+            turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
+            ms = (turns[1] + turns[2]) / 2
+        else:
+            ms = time_per_call(run, N_TIMED)
         plain = time_per_call(lambda: cd.dual_ce_reference(x, v, rows, law, *args), 1, 0)
         per_eval = {"vg": OPS_DUAL["gbm"], "sabr": OPS_DUAL["heston"] - 8 + 6,
                     "rbergomi": OPS_DUAL["heston"] - 8 + 12}[model]
         draws = {"sabr": DRAWS_DUAL["heston"], "rbergomi": (1 / 2, 2)}.get(model)
         extra = {}
         if model == "vg":
-            _, _, att = cd.dual_inner_states(x, None, law, seed, 0, tile, n_inner, 0, 4, True)
+            # the clock of the first 4 dates through the redesign's debug instance
+            _, _, att, passes = cd.dual_ce_debug(x, None, rows[:4], law, *args)
             tries = float(att.float().mean()) + 1.0
-            extra["gamma_attempts_per_draw"] = tries
+            # the most attempts a warp's 32 lanes took a draw (kMaxAttempts when none accepted)
+            warp_tries = float(torch.clamp(att + 1, max=15).view(4, n_inner // 2, n // 32, 32)
+                               .amax(-1).float().mean())
+            passes = [float(t) for t in passes.float().mean(dim=(0, 1))]
+            extra.update(gamma_attempts_per_draw=tries, warp_attempts_per_draw=warp_tries,
+                         exact_passes_per_warp_date=passes[0],
+                         retry_passes_per_warp_date=passes[1])
             # a member's share of its pair's clock: tries attempts of
             # OPS_VG_ATTEMPT, the boost, one call and three words each
             per_eval += (tries * OPS_VG_ATTEMPT + OPS_VG_BOOST) / 2
@@ -6153,8 +6334,36 @@ def phase_rough_timing(per_call: float, rough: dict, launches: dict) -> dict:
         b = bound(n_dates * n, n_inner, per_eval, int_ops(draws, per_call),
                   n_dates * n * 4 * (3 if v is not None else 2)
                   + (n_dates * n * 4 if hist is not None else 0))
-        row(f"dual_ce {model}", ms, plain, b, f"dual_ce {model}",
-            shape=f"{n_dates} x {n} x {n_inner}", **extra)
+        shape = f"{n_dates} x {n} x {n_inner}"
+        row(f"dual_ce {model}", ms, plain, b, f"dual_ce {model}", shape=shape, **extra)
+        if redesigned:
+            r = out[f"dual_ce {model}"]
+            r.update(first_design_row(f"dual_ce {model}, first design",
+                                      "options_model_tpu_torch/csrc/dual.cu", shape, turns,
+                                      b["bound_ms"], attrs[f"dual_ce {model}, first design"]))
+            # the full-width bracket's upper from either design on these paths
+            r["upper_d_stderr_full_width"] = dual_upper_both(model, case, seed, tile,
+                                                             "5")["d_stderr"]
+            evals = n_dates * n * n_inner
+            for key, label, t in ((f"dual_ce {model}", "redesign", ms),
+                                  (f"dual_ce {model}, first design", "first design",
+                                   r["earlier_ms"])):
+                fl = (dual_vg_floors(sass, key, evals, n_inner // 2, passes, warp_tries)
+                      if model == "vg" else sass_floors(sass, key, evals))
+                if not fl:
+                    log(f"[5] dual_ce {model} {label}: no SASS loops read, no floors")
+                    continue
+                r.update(fl if label == "redesign"
+                         else {f"earlier_{k}": x_ for k, x_ in fl.items()})
+                log(f"[5] dual_ce {model} {label}: {fl['instructions_per_eval']:g} SASS "
+                    f"instructions an evaluation ({fl['mufu_per_eval']:g} MUFU)"
+                    + (" = " + ", ".join(f"{k} {x_:.2f}"
+                                         for k, x_ in fl["instructions_per_eval_by_part"].items())
+                       if "instructions_per_eval_by_part" in fl else "")
+                    + f": issue floor {fl['issue_floor_ms']:.4f} ms "
+                    f"({fl['issue_floor_ms'] / t * 100:.1f}% of its {t:.4f} ms), SFU floor "
+                    f"{fl['mufu_floor_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms "
+                    f"({b['bound_ms'] / t * 100:.1f}% of it)")
         if model == "vg":
             xl = x[steps - 1].contiguous()
             ms_t = time_per_call(lambda: cd.dual_vg_terminal(xl, law, seed, 0, tile, n_inner,
@@ -6233,7 +6442,8 @@ def main() -> int:
               "dual_ce_first": cuda_dual.launches,
               **{FAMILY_FIRSTS[k]: cuda_vg.launches for k in ("vg_paths", "vg_terminal")},
               FAMILY_FIRSTS["sabr_terminal"]: cuda_sabr.launches,
-              **{key: cuda_rbergomi.launches for key in RB_FIRST}}
+              **{key: cuda_rbergomi.launches for key in RB_FIRST},
+              **{key: cuda_dual.launches for key in ROUGH_DUAL_FIRSTS}}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
     counters += [(d, key) for key, d in firsts.items()]
@@ -6296,7 +6506,7 @@ def main() -> int:
     dual_times = phase_dual_timing(sass, secs_d, launches_d, dual_cases)
     normals_times = phase_normals_timing(sass["per_call"], launches_v)
     family_times = phase_family_timing(sass, family_f0["attempts"], launches_f)
-    rough_times = phase_rough_timing(sass["per_call"], rough_res, launches_r)
+    rough_times = phase_rough_timing(sass, rough_res, launches_r)
     log(f"[5] the kernel timings (phase 5) took {time.perf_counter() - t_timing:.1f} s")
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))

@@ -36,9 +36,27 @@
 //   alpha) with the exact lognormal alpha step; rough Bergomi's add each
 //   path's frozen Volterra history hist[t] and the date's compensator
 //   comp[t] (Y' = hist + sqrt(2H) (c1 dW' + c2 z2'), v' = xi0 exp(eta Y' -
-//   comp)) and mirror all three normals. The VG family's clock loop
-//   diverges within a warp where draws are rejected (~5% of attempts at
-//   the brackets' shapes); this design leaves it so.
+//   comp)) and mirror all three normals. Pricers take this kernel for
+//   GBM, Heston, Merton, Bates and SABR; for VG and rough Bergomi it is the
+//   first design, kept as the yardstick of their redesigns below
+//   (ops/cuda_dual.dual_ce_first); its VG clock loop diverges within a warp
+//   wherever a lane's draw is rejected (~5% of attempts at the brackets'
+//   shapes, so a warp runs ~1.9 attempts a draw for ~1.05).
+// - dual_ce_vg_kernel<kCall, kDebug> (kernel 18's VG redesign): the same
+//   thread and walk, with the clock drawn apart from it, warp-dense, on
+//   csrc/gamma.cuh's WarpClock (kernel 22's schedule): for a chunk of 8
+//   pairs a lane the warp draws attempt 0 of every lane's pairs and decides
+//   each by Marsaglia-Tsang's squeeze (its proven margin, no logf), queues
+//   the rest by ballot for the exact test a lane an entry, retries the
+//   rejections from a ring (attempts 1-14, then d), and only then walks
+//   the chunk from the clock in shared memory (the boost, sqrt_clock ==
+//   sqrtf without its slow path). Every G and accepting attempt is
+//   gamma_draw's, so every x' is too.
+// - dual_ce_rough_kernel<kCall, kDebug> (kernel 18's rough Bergomi
+//   redesign): the mirror's products once a pair (the down member's are
+//   the up member's negated exactly), x' bit for bit; v' = A e^{+-s} with A
+//   once a (date, path) and one ex2 and one reciprocal a pair, within the
+//   budget stated beside it.
 // - dual_vg_terminal_kernel: VG's terminal step, the Rao-Blackwellised
 //   one-step Black expectation over n_inner/2 clock draws a path (the
 //   same sampler at date n_dates), one thread a path.
@@ -83,10 +101,17 @@
 // gate, clip and maxima a few min/max, the side (cp) a template argument.
 // It stays held by its issue rate, the two erfcf about 90 of its 160
 // (GBM) to 262 (Bates) SASS instructions an evaluation (PERF.md row 18
-// has the counts). Kernel 19
+// has the counts). Under VG the first design's clock took ~70% of its
+// issue (one Philox call, the accurate Box-Muller and two logf an attempt,
+// the boost's logf, logf and expf, the warp waiting on its slowest lane);
+// the redesign keeps each attempt's Philox and Box-Muller and the boost,
+// and leaves the exact test's logf to the draws the squeeze does not
+// decide. Under rough Bergomi two expf a pair go (v') and the Philox round
+// keys come from the launch's constants, as in VG's. Kernel 19
 // writes 4 (8) bytes a state after ~20 operations and is held by its
 // stores.
 #include "gamma.cuh"
+#include "hopper_fast.cuh"
 #include "kernel_attrs.cuh"
 #include "philox.cuh"
 
@@ -94,12 +119,14 @@ namespace omt {
 namespace dual {
 
 using gamma::GammaK;
+using gamma::kAttemptBits;
+using gamma::kMaxAttempts;
 
 constexpr int kBlock = 128;
 constexpr uint32_t kDualStream = 2u;
-// The dual's gamma attempts (ops/philox.DUAL_GAMMA_STREAM, VG_MAX_ATTEMPTS).
+// The dual's gamma attempts (ops/philox.DUAL_GAMMA_STREAM; VG_MAX_ATTEMPTS
+// is csrc/gamma.cuh kMaxAttempts).
 constexpr uint32_t kGammaStream = 5u;
-constexpr int kMaxAttempts = 15;
 constexpr float kUClamp = 4.0f;
 // ops/philox.MAX_POISSON_TABLE, ops/cuda_dual.MAX_ROW and MAX_PAIRS.
 constexpr int kMaxTable = 120;
@@ -518,7 +545,9 @@ __device__ __forceinline__ float vhat_fast(float xq, float e, float vq, float a,
 // registers, 100% occupancy), Heston 10 (48, 62.5%), Merton 12 (40, 75%),
 // Bates 9 (56, 56.2%), none below the first design's. Left to itself nvcc
 // interleaves the clip's arithmetic over both members and takes up to 76
-// registers. VG, SABR and rough Bergomi 8 (64, 50%): their first cut.
+// registers. SABR 8 (64, 50%), and the first designs of VG and rough
+// Bergomi (this kernel's instances for them); their redesigns,
+// dual_ce_vg_kernel and dual_ce_rough_kernel below, take their own.
 // chip_smoke.py fails if any instance spills under its bound.
 template <int F>
 constexpr int kMinBlocks = F == kGbm      ? 16
@@ -560,6 +589,227 @@ dual_ce_kernel(float* __restrict__ ce, const float* __restrict__ x, const float*
                   acc += vhat_fast<F, kCall>(st.xu, st.eu, st.vu, a, f, beta, degree, rho, vr, k) +
                          vhat_fast<F, kCall>(st.xd, st.ed, st.vd, a, f, beta, degree, rho, vr, k);
                 });
+  ce[at] = acc / static_cast<float>(half) * 0.5f;
+}
+
+// The redesigns of the VG and rough Bergomi families draw their Philox
+// calls with the round keys computed once a launch (csrc/hopper_fast.cuh,
+// the same words).
+__device__ __forceinline__ Words keyed(uint32_t slot, uint32_t index, uint32_t global_tile,
+                                       uint32_t stream, const fast::PhiloxKeys& keys) {
+  return fast::philox_keyed(Words{slot, index, global_tile, stream}, keys);
+}
+
+// Kernel 18's VG redesign: a warp draws its lanes' clock kClockChunk pairs a
+// lane at a time (two diffusion calls' worth), entry e = i 32 + lane being
+// pair c0 + i of the lane's (date, path); csrc/gamma.cuh WarpClock, 5 KB a
+// warp.
+constexpr int kClockChunk = 8;
+constexpr int kClockEntries = 32 * kClockChunk;
+// Resident blocks an SM: 10 (at most 48 registers, 62.5%), which 20.5 KB of
+// shared memory a block also allows.
+constexpr int kMinBlocksVg = 10;
+
+// One (date, path) a thread, the grid and outputs of dual_ce_kernel. For
+// each chunk of pairs the warp draws attempt 0 of every lane's pairs,
+// dense, decided by the squeeze; the exact test of the rest, a lane an
+// entry; the retries from the warp's ring (attempts 1-14, then d); then each
+// lane walks its chunk's pairs from the clock in shared memory: the boost,
+// G = nu gamma, sqrt_clock, the plain version's _rn step and expf, and
+// vhat_fast at both members. With kDebug, each pair's G and accepting
+// attempt (n_dates, half, P) and each warp's passes of the exact tests and
+// of the retries (n_dates, ceil(P / 32), 2).
+template <bool kCall, bool kDebug>
+__global__ void __launch_bounds__(kBlock, kMinBlocksVg)
+dual_ce_vg_kernel(float* __restrict__ ce, float* __restrict__ gs, int* __restrict__ atts,
+                  int* __restrict__ passes, const float* __restrict__ x,
+                  const float* __restrict__ rows, const __grid_constant__ DualT k,
+                  const __grid_constant__ fast::PhiloxKeys keys, int first_tile, int tile,
+                  int n_paths, int width, int degree, int half) {
+  __shared__ float row[kMaxRow];
+  __shared__ FloorT fs;
+  __shared__ gamma::WarpClock<kClockEntries> clocks[kBlock / 32];
+  const int date = blockIdx.y;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    row[i] = rows[static_cast<size_t>(date) * width + i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) fs = floor_consts<kVg, kCall>(row, k);
+  __syncthreads();
+  // no early return: a lane past the last path draws nothing, but takes
+  // part in its warp's ballots
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = p < n_paths;
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int p0 = p - lane;
+  gamma::WarpClock<kClockEntries>& sh = clocks[threadIdx.x >> 5];
+  const uint32_t slot = static_cast<uint32_t>(p % tile);
+  const uint32_t global_tile = static_cast<uint32_t>(first_tile + p / tile);
+  const size_t at = static_cast<size_t>(date) * n_paths + p;
+  const float xp = live ? x[at] : 1.0f;
+  const FloorT f = fs;
+  const float* beta = row + kRowHead;
+  const float rho = row[2], vr = row[4];
+  const float a = fmaf(f.b, logf(xp), f.a0);
+  const GammaK gk{k.gamma_d, k.gamma_c, k.gamma_inv_a, k.gamma_boost != 0.0f};
+  const float one_m = gamma::squeeze_one(gk.d);
+  // the normals' calls of the date (walk_pairs' layout) and its clock pairs
+  const uint32_t normals = static_cast<uint32_t>(date) *
+                           static_cast<uint32_t>((half + 3) / 4 + (half + 1) / 2);
+  const uint32_t pairs = static_cast<uint32_t>(date) * static_cast<uint32_t>(half);
+  float acc = 0.0f;
+  unsigned int n_exact = 0u, n_retry = 0u;
+#pragma unroll 1
+  for (int c0 = 0; c0 < half; c0 += kClockChunk) {
+    const int cs = min(kClockChunk, half - c0);
+    // attempt att of entry e (the counter of dual_gamma_draws)
+    auto words = [&](int e, uint32_t att) {
+      const int q = p0 + (e & 31);
+      return keyed(static_cast<uint32_t>(q % tile),
+                   (pairs + static_cast<uint32_t>(c0 + (e >> 5))) * kMaxAttempts + att,
+                   static_cast<uint32_t>(first_tile + q / tile), kGammaStream, keys);
+    };
+    unsigned int pushed = 0u;  // the same in every lane
+#pragma unroll 1
+    for (int i = 0; i < cs; ++i) {
+      gamma::clock_first(sh, i * 32 + lane,
+                         keyed(slot, (pairs + static_cast<uint32_t>(c0 + i)) * kMaxAttempts,
+                               global_tile, kGammaStream, keys),
+                         live, gk, one_m, pushed);
+    }
+    __syncwarp();
+    const unsigned int tail = gamma::clock_exact(sh, pushed, gk, n_exact);
+    __syncwarp();
+    gamma::clock_retries(sh, tail, gk, one_m, words, n_retry);
+    if (live) {
+#pragma unroll 1
+      for (int j = 0; j < cs; j += 4) {
+        const Words w = keyed(slot, normals + static_cast<uint32_t>((c0 + j) / 4), global_tile,
+                              kDualStream, keys);
+        float n[4];
+        box_muller_stream(w.x, w.y, n[0], n[1]);
+        box_muller_stream(w.z, w.w, n[2], n[3]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (j + q >= cs) break;
+          const int e = (j + q) * 32 + lane;
+          const uint32_t tag = sh.tag[e];
+          const float G = mul(k.nu, gamma::clock_gamma(sh.g[e], tag, gk));
+          const float tb = mul(k.vg_theta, G);
+          const float tn = mul(mul(k.vg_sigma, gamma::sqrt_clock(G)), n[q]);
+          const float eu = add(add(k.mu, tb), tn), ed = sub(add(k.mu, tb), tn);
+          acc += vhat_fast<kVg, kCall>(mul(xp, expf(eu)), eu, 0.0f, a, f, beta, degree, rho, vr,
+                                       k) +
+                 vhat_fast<kVg, kCall>(mul(xp, expf(ed)), ed, 0.0f, a, f, beta, degree, rho, vr,
+                                       k);
+          if (kDebug) {
+            const size_t i = (static_cast<size_t>(date) * half + c0 + j + q) * n_paths + p;
+            gs[i] = G;
+            atts[i] = static_cast<int>(tag & kAttemptBits);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the next chunk writes the entries this walk read
+  }
+  if (kDebug && lane == 0 && p0 < n_paths) {
+    int* out = passes + (static_cast<size_t>(date) * ((n_paths + 31) / 32) + p0 / 32) * 2;
+    out[0] = static_cast<int>(n_exact);
+    out[1] = static_cast<int>(n_retry);
+  }
+  if (live) ce[at] = acc / static_cast<float>(half) * 0.5f;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Kernel 18's rough Bergomi redesign: resident blocks an SM, 10 (at most 48
+// registers, 62.5%).
+constexpr int kMinBlocksRough = 10;
+
+// One (date, path) a thread, the grid and outputs of dual_ce_kernel. The
+// pair mirrors z1, z2 and zp, so the down member's products are the up
+// member's negated exactly (_rn rounds both signs alike): the step forms p
+// = sv (rho du + rbsd zp) once, x'_up = xp e^{mu + p} and x'_down = xp
+// e^{mu - p} with the plain version's _rn operations and expf, bit for bit
+// (the in-the-money gate decides on x'). v' = xi0 e^{eta Y' - comp}, Y' = h
+// +- sqrt(2H) (c1 du + c2 z2), is A e^{+-s}: A = xi0 e^{eta h - comp} once a
+// (date, path) (expf), s = eta sqrt(2H) (c1 sqrt(dt) z1 + c2 z2) with the
+// constants folded and log2 e taken in, e^s by ex2.approx and e^-s by
+// rcp.approx. v' enters only the floor's variance (v' + xi0) / 2 and the
+// polynomial's w terms, both continuous. Its budget, u0 = 2^-24: A within
+// u0 (3 + |eta h - comp|) of its value, e^s within u0 (7 |s| + 4) (five
+// roundings of the folded constants and two of the multiply-add; ex2's 2
+// ulp), e^-s 2 u0 more (rcp's ulp), the products u0; the plain version's
+// own v' within u0 (3 + 3 (|eta h| + |comp| + |s|)) of the exact value. So
+// the two v' differ by at most delta = u0 (13 + 4 |eta h - comp| + 10 |s|)
+// relative, under 1e-5 wherever |eta h - comp| <= 10 and |s| <= 6 (the
+// brackets' histories and normals). A member's floor moves by vega sigma
+// delta / 2 at most (sigma^2 = (v' + xi0) / 2, vega < K sqrt(tau / 2 pi)),
+// the clamped w terms by |beta| v_rstd v' delta; ce, the mean over the
+// pairs, shares only A's part of delta across them. chip_smoke.py holds v'
+// at 1e-5 through the debug instance and ce at DUAL_CE_ATOL = 1e-4, as it
+// holds the floor. With kDebug, each pair's x' and v' (n_dates, 2, half,
+// P), up member first.
+template <bool kCall, bool kDebug>
+__global__ void __launch_bounds__(kBlock, kMinBlocksRough)
+dual_ce_rough_kernel(float* __restrict__ ce, float* __restrict__ xs, float* __restrict__ vs,
+                     const float* __restrict__ x, const float* __restrict__ v,
+                     const float* __restrict__ hist, const float* __restrict__ comp,
+                     const float* __restrict__ rows, const __grid_constant__ DualT k,
+                     const __grid_constant__ fast::PhiloxKeys keys, int first_tile, int tile,
+                     int n_paths, int width, int degree, int half) {
+  __shared__ float row[kMaxRow];
+  __shared__ FloorT fs;
+  const int date = blockIdx.y;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    row[i] = rows[static_cast<size_t>(date) * width + i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) fs = floor_consts<kRBergomi, kCall>(row, k);
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_paths) return;
+  const size_t at = static_cast<size_t>(date) * n_paths + p;
+  const float xp = x[at], vp = v[at];
+  const float sv = sqrtf(fmaxf(vp, 0.0f));
+  const float mu = mul(sub(k.drift, mul(0.5f, vp)), k.dt);
+  const float A = k.xi0 * expf(fmaf(k.eta, hist[at], -comp[date]));
+  const float ks = fast::kLog2e * k.eta * k.sqrt2H;
+  const float k1 = ks * k.c1 * k.sqrt_dt, k2 = ks * k.c2;
+  const FloorT f = fs;
+  const float* beta = row + kRowHead;
+  const float rho = row[2], vr = row[4];
+  const float a = kSide<kCall> * (logf(xp) + f.p0);
+  const uint32_t slot = static_cast<uint32_t>(p % tile);
+  const uint32_t global_tile = static_cast<uint32_t>(first_tile + p / tile);
+  const uint32_t base = static_cast<uint32_t>(date) * static_cast<uint32_t>(half + (half + 1) / 2);
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int c = 0; c < half; ++c) {
+    const Words w = keyed(slot, base + static_cast<uint32_t>(c), global_tile, kDualStream, keys);
+    float z1, z2, zp, unused;
+    box_muller_stream(w.x, w.y, z1, z2);
+    box_muller_stream(w.z, w.w, zp, unused);
+    const float pr = mul(sv, add(mul(k.rho, mul(k.sqrt_dt, z1)), mul(k.rbsd, zp)));
+    const float eu = add(mu, pr), ed = sub(mu, pr);
+    const float xu = mul(xp, expf(eu)), xd = mul(xp, expf(ed));
+    const float es = fast::ex2_approx(fmaf(k1, z1, k2 * z2));
+    const float vu = A * es, vd = A * rcp_approx(es);
+    acc += vhat_fast<kRBergomi, kCall>(xu, eu, vu, a, f, beta, degree, rho, vr, k) +
+           vhat_fast<kRBergomi, kCall>(xd, ed, vd, a, f, beta, degree, rho, vr, k);
+    if (kDebug) {
+      const size_t plane = static_cast<size_t>(half) * n_paths;
+      const size_t i = static_cast<size_t>(date) * 2 * plane + static_cast<size_t>(c) * n_paths + p;
+      xs[i] = xu;
+      xs[i + plane] = xd;
+      vs[i] = vu;
+      vs[i + plane] = vd;
+    }
+  }
   ce[at] = acc / static_cast<float>(half) * 0.5f;
 }
 
@@ -673,39 +923,66 @@ inline bool args_fit(int n_paths, int tile, int n_dates, int half, int first_til
          half >= 1 && half <= kMaxPairs && first_tile >= 0;
 }
 
-// Kernel 18: the redesign's instance for the law's side, or the first
-// design (GBM, Heston, Merton and Bates only).
+// Which of kernel 18's designs a launch takes: the redesign, the first
+// design (dual_ce_first_kernel for GBM, Heston, Merton and Bates;
+// dual_ce_kernel's instances for VG and rough Bergomi), or the VG and
+// rough Bergomi redesigns' debug instances.
+enum Design { kDesignNew = 0, kDesignFirst = 1, kDesignDebug = 2 };
+
+// Kernel 18 under ``design`` for the law's side; d0-d2 the debug outputs.
 template <int F>
-int launch_ce(bool first, void* ce, const void* x, const void* v, const void* hist,
-              const void* comp, const void* rows, const DualT& k, uint64_t seed, int first_tile,
-              int tile, int n_paths, int n_dates, int width, int degree, int half,
+int launch_ce(Design design, void* ce, void* d0, void* d1, void* d2, const void* x, const void* v,
+              const void* hist, const void* comp, const void* rows, const DualT& k, uint64_t seed,
+              int first_tile, int tile, int n_paths, int n_dates, int width, int degree, int half,
               cudaStream_t stream) {
   const bool call = k.cp > 0.0f;
   const dim3 grid((n_paths + kBlock - 1) / kBlock, n_dates);
   const auto* xp = static_cast<const float*>(x);
   const auto* vp = static_cast<const float*>(v);
+  const auto* hp = static_cast<const float*>(hist);
+  const auto* cp = static_cast<const float*>(comp);
   const auto* rp = static_cast<const float*>(rows);
   auto* out = static_cast<float*>(ce);
   if constexpr (F <= kBates) {
-    if (first) {
+    if (design == kDesignDebug) return static_cast<int>(cudaErrorInvalidValue);
+    if (design == kDesignFirst) {
       dual_ce_first_kernel<F><<<grid, kBlock, 0, stream>>>(out, xp, vp, rp, k, seed, first_tile,
                                                            tile, n_paths, width, degree, half);
       return static_cast<int>(cudaGetLastError());
     }
-  } else if (first) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  } else if constexpr (F == kSabr) {
+    if (design != kDesignNew) return static_cast<int>(cudaErrorInvalidValue);
+  } else if (design != kDesignFirst) {
+    const fast::PhiloxKeys keys = fast::philox_keys(seed);
+    const bool debug = design == kDesignDebug;
+    if constexpr (F == kVg) {
+      auto kernel = call ? (debug ? dual_ce_vg_kernel<true, true> : dual_ce_vg_kernel<true, false>)
+                         : (debug ? dual_ce_vg_kernel<false, true>
+                                  : dual_ce_vg_kernel<false, false>);
+      kernel<<<grid, kBlock, 0, stream>>>(out, static_cast<float*>(d0), static_cast<int*>(d1),
+                                          static_cast<int*>(d2), xp, rp, k, keys, first_tile,
+                                          tile, n_paths, width, degree, half);
+    } else {
+      auto kernel = call ? (debug ? dual_ce_rough_kernel<true, true>
+                                  : dual_ce_rough_kernel<true, false>)
+                         : (debug ? dual_ce_rough_kernel<false, true>
+                                  : dual_ce_rough_kernel<false, false>);
+      kernel<<<grid, kBlock, 0, stream>>>(out, static_cast<float*>(d0), static_cast<float*>(d1),
+                                          xp, vp, hp, cp, rp, k, keys, first_tile, tile, n_paths,
+                                          width, degree, half);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
   auto kernel = call ? dual_ce_kernel<F, true> : dual_ce_kernel<F, false>;
-  kernel<<<grid, kBlock, 0, stream>>>(out, xp, vp, static_cast<const float*>(hist),
-                                      static_cast<const float*>(comp), rp, k, seed, first_tile,
-                                      tile, n_paths, width, degree, half);
+  kernel<<<grid, kBlock, 0, stream>>>(out, xp, vp, hp, cp, rp, k, seed, first_tile, tile, n_paths,
+                                      width, degree, half);
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int ce_entry(bool first, void* ce, const void* x, const void* v, const void* hist,
-                    const void* comp, const void* rows, const void* law, uint64_t seed,
-                    int first_tile, int tile, int n_paths, int n_dates, int width, int degree,
-                    int half, int family, void* stream) {
+inline int ce_entry(Design design, void* ce, void* d0, void* d1, void* d2, const void* x,
+                    const void* v, const void* hist, const void* comp, const void* rows,
+                    const void* law, uint64_t seed, int first_tile, int tile, int n_paths,
+                    int n_dates, int width, int degree, int half, int family, void* stream) {
   if (!args_fit(n_paths, tile, n_dates, half, first_tile) || width > kMaxRow || degree < 1 ||
       width < kRowHead + degree + 2 || (family == kRBergomi && (hist == nullptr || comp == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -714,8 +991,8 @@ inline int ce_entry(bool first, void* ce, const void* x, const void* v, const vo
   const auto s = static_cast<cudaStream_t>(stream);
 #define OMT_CE(F)                                                                              \
   case F:                                                                                      \
-    return launch_ce<F>(first, ce, x, v, hist, comp, rows, k, seed, first_tile, tile, n_paths, \
-                        n_dates, width, degree, half, s);
+    return launch_ce<F>(design, ce, d0, d1, d2, x, v, hist, comp, rows, k, seed, first_tile,   \
+                        tile, n_paths, n_dates, width, degree, half, s);
   switch (family) {
     OMT_CE(kGbm)
     OMT_CE(kHeston)
@@ -762,17 +1039,39 @@ int omt_dual_ce(void* ce, const void* x, const void* v, const void* hist, const 
                 const void* rows, const void* law, uint64_t seed, int first_tile, int tile,
                 int n_paths, int n_dates, int width, int degree, int half, int family,
                 void* stream) {
-  return omt::dual::ce_entry(false, ce, x, v, hist, comp, rows, law, seed, first_tile, tile,
-                             n_paths, n_dates, width, degree, half, family, stream);
+  using namespace omt::dual;
+  return ce_entry(kDesignNew, ce, nullptr, nullptr, nullptr, x, v, hist, comp, rows, law, seed,
+                  first_tile, tile, n_paths, n_dates, width, degree, half, family, stream);
 }
 
-// Kernel 18's first design, the same arguments (families 0-3).
+// Kernel 18's first design, the same arguments (families 0-4 and 6: VG's
+// and rough Bergomi's is dual_ce_kernel).
 int omt_dual_ce_first(void* ce, const void* x, const void* v, const void* hist, const void* comp,
                       const void* rows, const void* law, uint64_t seed, int first_tile, int tile,
                       int n_paths, int n_dates, int width, int degree, int half, int family,
                       void* stream) {
-  return omt::dual::ce_entry(true, ce, x, v, hist, comp, rows, law, seed, first_tile, tile,
-                             n_paths, n_dates, width, degree, half, family, stream);
+  using namespace omt::dual;
+  return ce_entry(kDesignFirst, ce, nullptr, nullptr, nullptr, x, v, hist, comp, rows, law, seed,
+                  first_tile, tile, n_paths, n_dates, width, degree, half, family, stream);
+}
+
+// Kernel 18's VG (family 4) or rough Bergomi (6) redesign through its debug
+// instance: VG's d0 device (n_dates, half, n_paths) float32 the pairs' G,
+// d1 the same shape int32 their accepting attempts, d2 (n_dates,
+// ceil(n_paths / 32), 2) int32 each warp's passes of the exact tests and of
+// the retries; rough Bergomi's d0 and d1 device (n_dates, 2, half, n_paths)
+// float32 x' and v', d2 null. The rest as omt_dual_ce.
+int omt_dual_ce_debug(void* ce, void* d0, void* d1, void* d2, const void* x, const void* v,
+                      const void* hist, const void* comp, const void* rows, const void* law,
+                      uint64_t seed, int first_tile, int tile, int n_paths, int n_dates,
+                      int width, int degree, int half, int family, void* stream) {
+  using namespace omt::dual;
+  if ((family != kVg && family != kRBergomi) || d0 == nullptr || d1 == nullptr ||
+      (family == kVg && d2 == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return ce_entry(kDesignDebug, ce, d0, d1, d2, x, v, hist, comp, rows, law, seed, first_tile,
+                  tile, n_paths, n_dates, width, degree, half, family, stream);
 }
 
 // Kernel 19. xs (and vs under Heston, Bates, SABR, rough Bergomi; VG's
@@ -830,8 +1129,11 @@ int omt_dual_vg_terminal(void* e_h, const void* x_last, const void* law, uint64_
 // family for families 0-3, kernel 0 dual_ce_kernel's put instance, 1
 // dual_inner_states_kernel without counts, 2 dual_ce_first_kernel, 3
 // dual_ce_kernel's call instance; 16 + 3 kernel + (family - 4) for the
-// VG, SABR and rough Bergomi families, kernel 0 the put instance, 1 the
-// call instance, 2 the states kernel; 25 dual_vg_terminal_kernel.
+// VG, SABR and rough Bergomi families, kernel 0 the redesign's put
+// instance, 1 its call instance, 2 the states kernel; 25
+// dual_vg_terminal_kernel; 26 + 2 (family == 6) + call for the first
+// design of VG and rough Bergomi (dual_ce_kernel); 30 + (family == 6) for
+// their redesigns' debug instances (puts).
 int omt_dual_attrs(int which, int* out) {
   using namespace omt::dual;
   using omt::kernel_attrs;
@@ -852,16 +1154,22 @@ int omt_dual_attrs(int which, int* out) {
     case 13: return kernel_attrs(dual_ce_kernel<kHeston, true>, kBlock, out);
     case 14: return kernel_attrs(dual_ce_kernel<kMerton, true>, kBlock, out);
     case 15: return kernel_attrs(dual_ce_kernel<kBates, true>, kBlock, out);
-    case 16: return kernel_attrs(dual_ce_kernel<kVg, false>, kBlock, out);
+    case 16: return kernel_attrs(dual_ce_vg_kernel<false, false>, kBlock, out);
     case 17: return kernel_attrs(dual_ce_kernel<kSabr, false>, kBlock, out);
-    case 18: return kernel_attrs(dual_ce_kernel<kRBergomi, false>, kBlock, out);
-    case 19: return kernel_attrs(dual_ce_kernel<kVg, true>, kBlock, out);
+    case 18: return kernel_attrs(dual_ce_rough_kernel<false, false>, kBlock, out);
+    case 19: return kernel_attrs(dual_ce_vg_kernel<true, false>, kBlock, out);
     case 20: return kernel_attrs(dual_ce_kernel<kSabr, true>, kBlock, out);
-    case 21: return kernel_attrs(dual_ce_kernel<kRBergomi, true>, kBlock, out);
+    case 21: return kernel_attrs(dual_ce_rough_kernel<true, false>, kBlock, out);
     case 22: return kernel_attrs(dual_inner_states_kernel<kVg, false>, kBlock, out);
     case 23: return kernel_attrs(dual_inner_states_kernel<kSabr, false>, kBlock, out);
     case 24: return kernel_attrs(dual_inner_states_kernel<kRBergomi, false>, kBlock, out);
     case 25: return kernel_attrs(dual_vg_terminal_kernel, kBlock, out);
+    case 26: return kernel_attrs(dual_ce_kernel<kVg, false>, kBlock, out);
+    case 27: return kernel_attrs(dual_ce_kernel<kVg, true>, kBlock, out);
+    case 28: return kernel_attrs(dual_ce_kernel<kRBergomi, false>, kBlock, out);
+    case 29: return kernel_attrs(dual_ce_kernel<kRBergomi, true>, kBlock, out);
+    case 30: return kernel_attrs(dual_ce_vg_kernel<false, true>, kBlock, out);
+    case 31: return kernel_attrs(dual_ce_rough_kernel<false, true>, kBlock, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -72,6 +72,7 @@ _SIGNATURES = {
     "omt_jump_overlay_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _P],
     "omt_dual_ce": [_P] * 7 + [_U64] + [_I] * 8 + [_P],
     "omt_dual_ce_first": [_P] * 7 + [_U64] + [_I] * 8 + [_P],
+    "omt_dual_ce_debug": [_P] * 10 + [_U64] + [_I] * 8 + [_P],
     "omt_dual_inner_states": [_P] * 8 + [_U64] + [_I] * 7 + [_P],
     "omt_dual_vg_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_paths": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],

@@ -2,9 +2,13 @@
 versions:
 - 18 ``dual_ce``: the inner expectation ce[t, p] = E[W_{t+1}(x', v') |
   x_t, v_t] of the polynomial policy's surrogate, t = 0..n_steps-2, one
-  thread a (date, path) (dual_ce_kernel, the redesign; its first design
-  dual_ce_first_kernel stays built as its yardstick, ``dual_ce_first``,
-  and no pricer reaches it);
+  thread a (date, path) (dual_ce_kernel, the redesign; VG's and rough
+  Bergomi's redesigns dual_ce_vg_kernel, a warp-dense clock, and
+  dual_ce_rough_kernel, the mirror once a pair). The first designs stay
+  built as their yardsticks, ``dual_ce_first``: dual_ce_first_kernel for
+  GBM, Heston, Merton and Bates, dual_ce_kernel's instances for VG
+  and rough Bergomi; no pricer reaches them. ``dual_ce_debug`` runs the VG
+  and rough Bergomi redesigns' debug instances for a check;
 - 19 ``dual_inner_states``: the inner one-step states (x', and v' under
   Heston) of a chunk of dates, on which the NN policy's network is then
   evaluated (dual_inner_states_kernel); its VG, SABR and rough Bergomi
@@ -34,8 +38,11 @@ frozen histories (n_dates rows, P) and compensators (n_dates,) by pointer.
 Its redesign has a compile-time instance for each family and side (put or
 call, from the law's cp); the polynomial's degree is a run-time argument.
 Its launches count under "dual_ce" for GBM, Heston, Merton and Bates and
-under "dual_ce <family>" for VG, SABR and rough Bergomi. Both
-designs give the inner states bit for bit; their ce differ from the plain
+under "dual_ce <family>" for VG, SABR and rough Bergomi; the first designs'
+under "dual_ce_first" and "dual_ce <family>, first design", the debug
+instances' under "dual_ce debug". Every design gives the inner states x'
+bit for bit (and v', but for the rough Bergomi redesign's, within the
+relative budget csrc/dual.cu states); their ce differ from the plain
 version's in float32 rounding of the floor and the polynomial only.
 Kernel 19 can also return each inner pair's Poisson count (int32), so a
 check can hold the kernels' counts against the plain version's bit for
@@ -59,11 +66,18 @@ from options_model_tpu_torch.pricers.dual import (ROW_HEAD, InnerLaw, dual_ce_fr
 # Kernel launches since the last reset, one integer per kernel (kernel 18's
 # VG, SABR and rough Bergomi families apart).
 launches = {"dual_ce": 0, "dual_inner_states": 0, "dual_ce_first": 0, "dual_ce vg": 0,
-            "dual_ce sabr": 0, "dual_ce rbergomi": 0, "dual_vg_terminal": 0}
+            "dual_ce sabr": 0, "dual_ce rbergomi": 0, "dual_vg_terminal": 0,
+            "dual_ce vg, first design": 0, "dual_ce rbergomi, first design": 0,
+            "dual_ce debug": 0}
 # The kernels' family instances (csrc/dual.cu Family).
 FAMILIES = {"gbm": 0, "heston": 1, "merton": 2, "bates": 3, "vg": 4, "sabr": 5, "rbergomi": 6}
-# The families kernel 18's first design and the NN policy's states take.
+# The families of kernel 18's first design dual_ce_first_kernel and of the
+# NN policy's states.
 FIRST_FAMILIES = ("gbm", "heston", "merton", "bates")
+# The families with kernel-18 redesigns of their own (dual_ce_vg_kernel,
+# dual_ce_rough_kernel; dual_ce_first reaches their first design,
+# dual_ce_kernel's instances); they alone have debug instances.
+REDESIGNED_FAMILIES = ("vg", "rbergomi")
 # The law's floats before its Poisson table (csrc/dual.cu DualT), in order.
 LAW_FIELDS = ("K", "cp", "rate", "q", "dt", "drift", "mu", "a", "sig_f", "kappa", "theta",
               "xi", "rho", "rho_bar", "comp_dt", "jvar", "mu_j", "sig_j", "nu", "vg_theta",
@@ -155,10 +169,11 @@ def dual_ce_reference(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Te
 
 def _launch_ce(entry: str, x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor,
                law: InnerLaw, seed: int, first_tile: int, tile: int, n_inner: int,
-               hist: Optional[torch.Tensor] = None,
-               comp: Optional[torch.Tensor] = None) -> torch.Tensor:
+               hist: Optional[torch.Tensor] = None, comp: Optional[torch.Tensor] = None,
+               debug: tuple = ()) -> torch.Tensor:
     """Check the arguments and launch C entry ``entry`` of kernel 18 on x's
-    device; returns ce (n_dates, P)."""
+    device (the debug outputs ``debug`` passed before the inputs); returns
+    ce (n_dates, P)."""
     _build.require_cuda(x.device)
     n_dates, width = rows.shape
     _check(x, v, law, tile, n_inner, first_tile, seed, n_dates, hist, comp)
@@ -169,9 +184,9 @@ def _launch_ce(entry: str, x: torch.Tensor, v: Optional[torch.Tensor], rows: tor
     degree = width - ROW_HEAD - (5 if law.use_v else 2)
     ce = torch.empty((n_dates, x.shape[1]), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _build.launch(entry, x.device, ce.data_ptr(), x.data_ptr(), ptr(v), ptr(hist), ptr(comp),
-                  rows.data_ptr(), law_args(law), seed, first_tile, tile, x.shape[1], n_dates,
-                  width, degree, n_inner // 2, FAMILIES[law.model])
+    _build.launch(entry, x.device, ce.data_ptr(), *map(ptr, debug), x.data_ptr(), ptr(v),
+                  ptr(hist), ptr(comp), rows.data_ptr(), law_args(law), seed, first_tile, tile,
+                  x.shape[1], n_dates, width, degree, n_inner // 2, FAMILIES[law.model])
     return ce
 
 
@@ -179,9 +194,10 @@ def dual_ce(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor, law:
             seed: int, first_tile: int, tile: int, n_inner: int,
             hist: Optional[torch.Tensor] = None,
             comp: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """ce (n_dates, P) of kernel 18 (csrc/dual.cu dual_ce_kernel, the
-    redesign) on CUDA x (n_steps+1, P) = S / K [and v, SABR's alpha], or of
-    its plain version for CPU ones. ``rows`` (policy_rows) fixes n_dates,
+    """ce (n_dates, P) of kernel 18's redesign (csrc/dual.cu dual_ce_kernel;
+    dual_ce_vg_kernel under VG, dual_ce_rough_kernel under rough Bergomi) on
+    CUDA x (n_steps+1, P) = S / K [and v, SABR's alpha], or of its plain
+    version for CPU ones. ``rows`` (policy_rows) fixes n_dates,
     ``tile`` and ``first_tile`` the stream's tiles; rough Bergomi also takes
     ``hist`` and ``comp`` (pricers/dual.rbergomi_comp)."""
     if x.device.type == "cpu":
@@ -193,18 +209,58 @@ def dual_ce(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor, law:
 
 
 def dual_ce_first(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor,
-                  law: InnerLaw, seed: int, first_tile: int, tile: int,
-                  n_inner: int) -> torch.Tensor:
-    """Kernel 18's first design (csrc/dual.cu dual_ce_first_kernel) on CUDA
-    tensors, the plain version on CPU ones; the redesign's yardstick, which
-    no pricer calls. The arguments are dual_ce's."""
-    if law.model not in FIRST_FAMILIES:
-        raise ValueError(f"kernel 18's first design takes {', '.join(FIRST_FAMILIES)}")
+                  law: InnerLaw, seed: int, first_tile: int, tile: int, n_inner: int,
+                  hist: Optional[torch.Tensor] = None,
+                  comp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 18's first design on CUDA tensors (csrc/dual.cu
+    dual_ce_first_kernel for GBM, Heston, Merton and Bates; dual_ce_kernel,
+    its first design for VG and rough Bergomi), the plain version on CPU
+    ones; the redesigns' yardstick, which no pricer calls. The arguments
+    are dual_ce's."""
+    families = FIRST_FAMILIES + REDESIGNED_FAMILIES
+    if law.model not in families:
+        raise ValueError(f"kernel 18's first design takes {', '.join(families)}")
     if x.device.type == "cpu":
-        return dual_ce_reference(x, v, rows, law, seed, first_tile, tile, n_inner)
-    ce = _launch_ce("omt_dual_ce_first", x, v, rows, law, seed, first_tile, tile, n_inner)
-    launches["dual_ce_first"] += 1
+        return dual_ce_reference(x, v, rows, law, seed, first_tile, tile, n_inner, hist, comp)
+    ce = _launch_ce("omt_dual_ce_first", x, v, rows, law, seed, first_tile, tile, n_inner, hist,
+                    comp)
+    launches["dual_ce_first" if law.model in FIRST_FAMILIES
+             else f"dual_ce {law.model}, first design"] += 1
     return ce
+
+
+def dual_ce_debug(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor,
+                  law: InnerLaw, seed: int, first_tile: int, tile: int, n_inner: int,
+                  hist: Optional[torch.Tensor] = None, comp: Optional[torch.Tensor] = None):
+    """dual_ce's VG or rough Bergomi redesign through its debug instance
+    (CUDA tensors), or the plain version (CPU ones), for a check; the
+    arguments are dual_ce's. VG: (ce, G, attempts, passes), each pair's
+    clock G = nu gamma and accepting attempt (n_dates, n_inner/2, P), and
+    each warp's passes of the exact tests and of the retries (n_dates,
+    ceil(P / 32), 2) int32, which only the kernel has (None on the CPU).
+    Rough Bergomi: (ce, x', v'), each (n_dates, 2, n_inner/2, P), the pair's
+    up member first."""
+    if law.model not in REDESIGNED_FAMILIES:
+        raise ValueError(f"kernel 18's debug instances take {', '.join(REDESIGNED_FAMILIES)}")
+    n_dates, half, n = rows.shape[0], n_inner // 2, x.shape[1]
+    if x.device.type == "cpu":
+        ce = dual_ce_reference(x, v, rows, law, seed, first_tile, tile, n_inner, hist, comp)
+        xs, vs, counts = dual_inner_states_reference(x, v, law, seed, first_tile, tile, n_inner,
+                                                     0, n_dates, True, hist, comp)
+        if law.model == "vg":
+            return ce, vs[:, 0], counts, None
+        return ce, xs, vs
+    _build.require_cuda(x.device)
+    vg = law.model == "vg"
+    shape = (n_dates, half, n) if vg else (n_dates, 2, half, n)
+    d0 = torch.empty(shape, dtype=torch.float32, device=x.device)
+    d1 = torch.empty(shape, dtype=torch.int32 if vg else torch.float32, device=x.device)
+    d2 = (torch.empty((n_dates, -(-n // 32), 2), dtype=torch.int32, device=x.device) if vg
+          else None)
+    ce = _launch_ce("omt_dual_ce_debug", x, v, rows, law, seed, first_tile, tile, n_inner, hist,
+                    comp, debug=(d0, d1, d2))
+    launches["dual_ce debug"] += 1
+    return (ce, d0, d1, d2) if vg else (ce, d0, d1)
 
 
 def dual_inner_states_reference(x: torch.Tensor, v: Optional[torch.Tensor], law: InnerLaw,
@@ -305,8 +361,10 @@ def dual_kernel_attrs() -> dict:
     """Registers, spills and occupancy of kernels 18 and 19 as built, by
     name and family: kernel 18's redesign for a put (``dual_ce``) and for a
     call (``dual_ce_call``), kernel 19 without its counts output, kernel
-    18's first design (GBM, Heston, Merton, Bates), and VG's terminal
-    kernel (``dual_vg_terminal``)."""
+    18's first design (``dual_ce_first`` for GBM, Heston, Merton, Bates;
+    ``dual_ce[_call] <family>, first design`` for VG and rough Bergomi),
+    the VG and rough Bergomi redesigns' debug instances (puts, ``dual_ce
+    <family>, debug``), and VG's terminal kernel (``dual_vg_terminal``)."""
     out = {f"{name} {model}": _build.kernel_attrs("omt_dual_attrs", 4 * k + FAMILIES[model])
            for k, name in enumerate(("dual_ce", "dual_inner_states", "dual_ce_first",
                                      "dual_ce_call"))
@@ -316,4 +374,9 @@ def dual_kernel_attrs() -> dict:
             out[f"{name} {model}"] = _build.kernel_attrs("omt_dual_attrs",
                                                          16 + 3 * k + FAMILIES[model] - 4)
     out["dual_vg_terminal"] = _build.kernel_attrs("omt_dual_attrs", 25)
+    for i, model in enumerate(REDESIGNED_FAMILIES):
+        for k, name in enumerate(("dual_ce", "dual_ce_call")):
+            out[f"{name} {model}, first design"] = _build.kernel_attrs("omt_dual_attrs",
+                                                                      26 + 2 * i + k)
+        out[f"dual_ce {model}, debug"] = _build.kernel_attrs("omt_dual_attrs", 30 + i)
     return out

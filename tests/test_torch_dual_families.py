@@ -298,12 +298,32 @@ def test_cpu_wrappers_are_plain_and_launch_nothing(model):
         assert torch.equal(eh, cuda_dual.dual_vg_terminal_reference(xl, law, SEED, 0, 4096, 8, 7))
         gamma, _ = dual_gamma_draws(SEED, 0, 2, 4096, 4, 7, law.gamma_shape)
         assert torch.equal(eh, pd.vg_terminal_from_gamma(law, xl, gamma))
+    if model in cuda_dual.REDESIGNED_FAMILIES:
+        # the first design (dual_ce_kernel's instances) and the redesign's debug
+        # instance: on the CPU the plain version, the inner states its draws'
+        assert torch.equal(cuda_dual.dual_ce_first(x, v, rows, law, *args), ce)
+        out = cuda_dual.dual_ce_debug(x, v, rows, law, *args)
+        xs, vs, counts = cuda_dual.dual_inner_states_reference(x, v, law, *args[:4], 0, 7, True,
+                                                               hist, comp)
+        assert torch.equal(out[0], ce)
+        if model == "vg":
+            assert torch.equal(out[1], vs[:, 0]) and torch.equal(out[2], counts)
+            assert out[3] is None                # the warps' passes: the kernel's alone
+        else:
+            assert torch.equal(out[1], xs) and torch.equal(out[2], vs)
+    else:
+        with pytest.raises(ValueError, match="first design takes"):
+            cuda_dual.dual_ce_first(x, v, rows, law, SEED, 0, 4096, 8)
+        with pytest.raises(ValueError, match="debug instances take"):
+            cuda_dual.dual_ce_debug(x, v, rows, law, SEED, 0, 4096, 8)
     assert cuda_dual.launches == before
-    with pytest.raises(ValueError, match="first design takes"):
-        cuda_dual.dual_ce_first(x, v, rows, law, SEED, 0, 4096, 8)
     meta = x.to("meta")
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_dual.dual_ce(meta, None if v is None else v.to("meta"), rows, law, *args)
+    if model in cuda_dual.REDESIGNED_FAMILIES:
+        for fn in (cuda_dual.dual_ce_first, cuda_dual.dual_ce_debug):
+            with pytest.raises(ValueError, match="CUDA device"):
+                fn(meta, None if v is None else v.to("meta"), rows, law, *args)
     if model == "rbergomi":
         with pytest.raises(ValueError, match="hist and comp"):
             cuda_dual.dual_ce(x, v, rows, law, SEED, 0, 4096, 8)

@@ -30,7 +30,7 @@ from _torch_threads import one_torch_thread_module  # noqa: F401
 
 SEED = 0x243F6A8885A308D3
 BLOCK = 128                  # csrc/vg.cu kBlock
-ATTEMPT_BITS = 0x1FF         # csrc/vg.cu kAttemptBits
+ATTEMPT_BITS = 0x1FF         # csrc/gamma.cuh kAttemptBits
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 

@@ -49,7 +49,7 @@ SEED = 0x3C6EF372FE94F82B
 BLOCK = 128                  # csrc/vg.cu kTermBlock
 WARP = 32
 SLOTS = 4                    # csrc/vg.cu kTermSlots
-ATTEMPT_BITS = 0x1FF         # csrc/vg.cu kAttemptBits
+ATTEMPT_BITS = 0x1FF         # csrc/gamma.cuh kAttemptBits
 SHAPES = (0.01, 0.2, 1.0, 2.857, 5.0, 20.0)
 U0 = 2.0 ** -24
 # The least d gamma_constants makes (a = 1, and a < 1 at a + 1 >= 1).
