@@ -169,7 +169,11 @@ Phases, in order; any failure exits non-zero:
       dual state, the inner states and VG's clock draws and attempts bit
       for bit, S and v within RB_RTOL (the fused kernel also within RB_RTOL
       of the first design), ce and VG's terminal step within DUAL_CE_ATOL,
-      first_tile chunks bit for bit; the counts are zeroed after R0): R1
+      first_tile chunks bit for bit; the VG, SABR and rough Bergomi
+      redesigns of kernel 18 and VG's terminal redesign also through their
+      debug instances, x' and the clock bit for bit, alpha' and v' within
+      their budgets, the uppers within DUAL_UPPER_SE stderr of the first
+      designs'; the counts are zeroed after R0): R1
       the hybrid scheme against the exact Cholesky oracle, R2 H = 1/2
       against the drift-extended ADI, R3 the ATM-skew power law, R4
       bench.py's rBergomi calibration leg, R5 the American put at 2^20 x
@@ -177,9 +181,11 @@ Phases, in order; any failure exits non-zero:
       brackets, and the full-width brackets at D1's scale, at the JAX
       tests' bars;
 4. the launch counts of each path (the families path: kernels 21-24; the
-   rough path: the fused rough Bergomi kernel and kernel 18's new
-   families), none of its kernels at 0, the first design of kernels 1,
-   3-8, 12-18, 21, 22, 24 and 25-26 and of the variants at 0, and one
+   rough path: the fused rough Bergomi kernel, kernel 18's new families
+   and VG's terminal step), none of its kernels at 0, the first design of
+   kernels 1, 3-8, 12-18 (kernel 18's VG, SABR and rough Bergomi families
+   too), 21, 22, 24 and 25-26, of VG's terminal step and of the variants
+   at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -214,8 +220,12 @@ Phases, in order; any failure exits non-zero:
    25, the Volterra product and kernel 26, each timed alone) at R5's 2^20
    x 50 and at R4's CV shapes (2^16 x 32, 48 and 96), each beside its
    bound and kernel 25 beside its own, and kernel 18's new families and
-   VG's terminal step at 49 x 2^17 x 64, beside their bounds and plain
-   versions, with the full-width brackets' seconds and kernel 18's share.
+   VG's terminal step at 49 x 2^17 x 64 (the terminal at 2^17 x 32 draws),
+   beside their bounds and plain versions, each in turns with its first
+   design and beside both designs' issue and SFU floors, with the
+   full-width brackets' seconds and kernel 18's share. ``chip_smoke.py
+   --path rough`` run alone drives the rough path and then times its
+   kernels as phase 5 does.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
 per jump kernel, one per dual kernel, one for the normals kernel (20), one
@@ -425,11 +435,13 @@ def _jsonable(o):
     return o.tolist() if hasattr(o, "tolist") else float(o)
 
 
-def path_process(name: str) -> int:
+def path_process(name: str, joined: bool = False) -> int:
     """``chip_smoke.py --path name``: one path (SEPARATE_PATHS) in this
     process, every launch count at 0 before it; writes its result and its
     counts to PATH_DIR/name.json. Exits at once if the process that
-    started it ends first."""
+    started it ends first. Run alone (not ``joined`` by the whole script),
+    the rough path also times its kernels (phase_sass, then
+    phase_rough_timing), as phase 5 of the whole script does."""
     import os
     import threading
 
@@ -460,6 +472,9 @@ def path_process(name: str) -> int:
     (PATH_DIR / f"{name}.json").write_text(json.dumps(
         {"result": out, "launches": {m: dict(d) for m, d in counts.items()}},
         default=_jsonable))
+    if name == "rough" and not joined:
+        phase_rough_timing(phase_sass(), out, {k["name"]: k["counter"][0][k["counter"][1]]
+                                               for k in rough_specs()})
     return 0
 
 
@@ -473,8 +488,8 @@ def start_path(name: str):
     for suffix in (".json", ".log"):
         (PATH_DIR / f"{name}{suffix}").unlink(missing_ok=True)
     with open(PATH_DIR / f"{name}.log", "w") as f:
-        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--path", name],
-                                stdout=f, stderr=subprocess.STDOUT)
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--path", name,
+                                 "--joined"], stdout=f, stderr=subprocess.STDOUT)
 
     def stop():
         if proc.poll() is None:
@@ -765,6 +780,10 @@ SASS_KERNELS = {"euler": "18euler_paths_kernelILb1ELb1E", "qe": "15qe_paths_kern
                 "dual_ce vg, first design": "14dual_ce_kernelILi4ELb0EE",
                 "dual_ce rbergomi": "20dual_ce_rough_kernelILb0ELb0EE",
                 "dual_ce rbergomi, first design": "14dual_ce_kernelILi6ELb0EE",
+                "dual_ce sabr": "19dual_ce_sabr_kernelILb0ELb0EE",
+                "dual_ce sabr, first design": "14dual_ce_kernelILi5ELb0EE",
+                "dual_vg_terminal": "28dual_vg_terminal_warp_kernelILb0ELb0EE",
+                "dual_vg_terminal, first design": "23dual_vg_terminal_kernel",
                 "vg paths": "15vg_paths_kernelILb1ELb0EE",
                 "vg paths, first design": "21vg_paths_first_kernelILb1ELb0EE",
                 "vg terminal": "18vg_terminal_kernelILb1ELb0EE",
@@ -786,7 +805,8 @@ SASS_STEPS = {"euler": 2, "localvol terminal": 4, "euler terminal": 2, "gbm term
 SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1, "overlay terminal": 4}
 # Surrogate evaluations a pass of kernel 18's calls loop covers (both
 # designs' put instances): a GBM, Merton or VG call's four normals serve
-# four pairs, a Heston or Bates call's two pairs, a rough Bergomi call one.
+# four pairs, a Heston, Bates or SABR call's two pairs, a rough Bergomi
+# call one.
 # The count is static: each evaluation's Horner loop (the redesign's is not
 # unrolled; one pass of it at degree 1, two more at degree 3), the jump
 # families' Poisson inversion and VG's first design's four attempt loops
@@ -796,7 +816,8 @@ SASS_PATH_STEPS = {"overlay paths": 2, "overlay paths, first design": 1, "overla
 SASS_EVALS = {"dual_ce gbm": 8, "dual_ce gbm, first design": 8, "dual_ce heston": 4,
               "dual_ce heston, first design": 4, "dual_ce merton": 8, "dual_ce bates": 4,
               "dual_ce vg, first design": 8, "dual_ce rbergomi": 2,
-              "dual_ce rbergomi, first design": 2}
+              "dual_ce rbergomi, first design": 2, "dual_ce sabr": 4,
+              "dual_ce sabr, first design": 4}
 # Kernel 21's loops nest (sass_loops reads the largest and the loops
 # directly inside it): the redesign's chunk loop holds its first attempts
 # (a pass: one step's draw of both paths of a pair), its retries (a pass:
@@ -807,8 +828,14 @@ SASS_EVALS = {"dual_ce gbm": 8, "dual_ce gbm, first design": 8, "dual_ce heston"
 # its first attempts (a pass: one pair's attempt 0 a lane), exact tests and
 # retries (a pass: one entry a lane) and walk (a pass: one call's four
 # pairs); its first design's calls loop (four pairs) its four attempt loops
-# (a pass: one attempt of one pair's draw) beside the Horner loops.
-SASS_NESTED = ("vg paths", "vg paths, first design", "dual_ce vg", "dual_ce vg, first design")
+# (a pass: one attempt of one pair's draw) beside the Horner loops. VG's
+# terminal step in the dual: the redesign's chunk loop (8 entries a lane)
+# holds its first attempts (a pass: one entry a lane's attempt 0), exact
+# tests and retries (a pass: one entry a lane), walk (a pass: one entry a
+# lane) and sums (a pass: one value of a path); the first design's draw
+# loop (a pass: one draw of a path a lane) its attempt loop.
+SASS_NESTED = ("vg paths", "vg paths, first design", "dual_ce vg", "dual_ce vg, first design",
+               "dual_vg_terminal", "dual_vg_terminal, first design")
 # Kernel 22's designs have no time loop: sass_whole counts each whole
 # function (its called slow paths, its padding and its trap left out) and
 # the loops not inside another, in address order: the redesign's first
@@ -822,7 +849,8 @@ SASS_WHOLE = ("vg terminal", "vg terminal, first design")
 # local memory at all), and the redesigns of kernels 21 (its chunk loop,
 # all three inner loops with it) and 24.
 SASS_NO_LOCAL = ("gbm vjp", "dual_ce gbm", "dual_ce heston", "dual_ce merton", "dual_ce bates",
-                 "dual_ce vg", "dual_ce rbergomi", "vg paths", "sabr terminal")
+                 "dual_ce vg", "dual_ce rbergomi", "dual_ce sabr", "dual_vg_terminal",
+                 "vg paths", "sabr terminal")
 # The loops whose instructions phase_sass prints by unit.
 SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol paths",
               "localvol terminal, degree 3", "localvol paths, degree 3", "euler vjp",
@@ -832,8 +860,9 @@ SASS_PIPES = ("euler terminal", "gbm terminal", "localvol terminal", "localvol p
               "overlay terminal", "dual_ce gbm", "dual_ce gbm, first design", "dual_ce heston",
               "dual_ce heston, first design", "dual_ce merton", "dual_ce bates",
               "dual_ce vg", "dual_ce vg, first design", "dual_ce rbergomi",
-              "dual_ce rbergomi, first design", "vg paths", "vg paths, first design",
-              "sabr terminal", "sabr terminal, first design")
+              "dual_ce rbergomi, first design", "dual_ce sabr", "dual_ce sabr, first design",
+              "dual_vg_terminal", "dual_vg_terminal, first design", "vg paths",
+              "vg paths, first design", "sabr terminal", "sabr terminal, first design")
 
 
 def per_step(key: str, n: int) -> str:
@@ -954,9 +983,20 @@ def _vg_roles(key: str, kids: list) -> dict:
     store. Kernel 18's VG redesign: four loops in source order, the first
     attempts, exact tests and retries each with a ballot, the walk without;
     its first design: the four loops that call libdevice's logf (MUFU) are
-    the attempt loops, the rest its Horner loops."""
+    the attempt loops, the rest its Horner loops. VG's terminal step in the
+    dual: the redesign's five loops in source order, the first attempts,
+    exact tests and retries each with a ballot, the walk and the sums
+    without; its first design's one attempt loop."""
     ops = [[opcode(ins) for ins in k] for k in kids]
     has = lambda i, pre: any(o.startswith(pre) for o in ops[i])  # noqa: E731
+    if key == "dual_vg_terminal":
+        roles = ("first attempts", "exact tests", "retries", "walk", "sums")
+        if (len(kids) == 5 and all(has(i, "VOTE") for i in range(3))
+                and not has(3, "VOTE") and not has(4, "VOTE")):
+            return {role: i for i, role in enumerate(roles)}
+        return {}
+    if key == "dual_vg_terminal, first design":
+        return {"attempts": 0} if len(kids) == 1 and has(0, "MUFU") else {}
     if key == "dual_ce vg":
         roles = ("first attempts", "exact tests", "retries", "walk")
         if len(kids) == 4 and all(has(i, "VOTE") for i in range(3)) and not has(3, "VOTE"):
@@ -1041,9 +1081,11 @@ def phase_sass() -> dict:
         "the local-vol ones hold their Clenshaw loop; the redesigned Merton loops (paths "
         "and terminal) cover two pair-steps, the redesigned overlay two path-steps of one "
         "path; a pair-step is both mirror paths' step; kernel 18's loop is one Philox call "
-        "of the inner draws, eight surrogate evaluations under GBM and Merton, four under Heston "
-        "and Bates, two under rough Bergomi, eight under VG's first design (its attempt loops "
-        "once); kernel 18's VG redesign's largest loop is its chunk loop of 8 pairs a lane; "
+        "of the inner draws, eight surrogate evaluations under GBM and Merton, four under Heston, "
+        "Bates and SABR, two under rough Bergomi, eight under VG's first design (its attempt "
+        "loops once); kernel 18's VG redesign's largest loop is its chunk loop of 8 pairs a "
+        "lane; VG's terminal step's redesign's its chunk loop of 8 entries a lane, its first "
+        "design's a draw; "
         "kernel 21's redesign's largest loop is its chunk loop of 8 steps, its "
         "first design's a pair-step, each with its loops inside (below); kernel 24's loops a "
         "pair-step): "
@@ -1052,8 +1094,12 @@ def phase_sass() -> dict:
         if key in loops:
             unit = (f"{SASS_PATH_STEPS[key]} path-steps" if key in SASS_PATH_STEPS
                     else f"{SASS_EVALS[key]} evaluations" if key in SASS_EVALS
-                    else f"{DUAL_VG_CHUNK} pairs a lane, each inner loop once"
-                    if key == "dual_ce vg" else f"{SASS_STEPS.get(key, 1)} pair-steps")
+                    else {"dual_ce vg": f"{DUAL_VG_CHUNK} pairs a lane, each inner loop once",
+                          "dual_vg_terminal": f"{DUAL_VG_CHUNK} entries a lane, each inner "
+                                              "loop once",
+                          "dual_vg_terminal, first design": "one draw a lane, its attempt "
+                                                            "loop once"}.get(
+                              key, f"{SASS_STEPS.get(key, 1)} pair-steps"))
             local = sum(opcode(ins).startswith(("LDL", "STL")) for ins in loops[key])
             mix = pipe_mix(loops[key])
             log(f"[1] SASS {key} loop by unit (a pass of {unit}): "
@@ -1067,8 +1113,9 @@ def phase_sass() -> dict:
     nested = {}
     for key, kids in inner.items():
         parts = vg_loop_parts(key, kids)
-        outer = {"vg paths": "chunk", "dual_ce vg": "chunk",
-                 "dual_ce vg, first design": "calls"}.get(key, "step")
+        outer = {"vg paths": "chunk", "dual_ce vg": "chunk", "dual_ce vg, first design": "calls",
+                 "dual_vg_terminal": "chunk",
+                 "dual_vg_terminal, first design": "draws"}.get(key, "step")
         log(f"[1] SASS {key}: loops inside its {outer} loop "
             f"({len(loops[key])} instructions): "
             + ", ".join(f"{len(k)} ({pipe_mix(k)['MUFU']} MUFU)" for k in kids)
@@ -4176,6 +4223,72 @@ def dual_vg_floors(sass: dict, key: str, evals: int, half: int, passes, warp_tri
                 instructions_per_eval_by_part=by_part)
 
 
+def _terminal_warp_counts(n_live: int, half: int) -> tuple:
+    """One warp of VG's terminal redesign with ``n_live`` paths of ``half``
+    draws (0 to terminal_per_warp(half); every warp runs the chunks of that
+    many): its chunks, its slots of 32 entries (a pass of the first attempts
+    and of the walk each) and its sums' passes (a chunk's longest run of one
+    path's values)."""
+    from options_model_tpu_torch.ops.cuda_dual import CLOCK_ENTRIES, terminal_per_warp
+
+    chunked, chunks, slots, sums = terminal_per_warp(half) * half, 0, 0, 0
+    for c0 in range(0, chunked, CLOCK_ENTRIES):
+        n = max(min(CLOCK_ENTRIES, n_live * half - c0), 0)
+        chunks += 1
+        slots += -(-min(CLOCK_ENTRIES, chunked - c0) // 32)
+        sums += max((max(0, min((l + 1) * half - c0, n) - max(l * half - c0, 0))
+                     for l in range(n_live)), default=0)
+    return chunks, slots, sums
+
+
+def dual_terminal_floors(sass: dict, key: str, n_paths: int, half: int, passes,
+                         warp_tries: float) -> dict:
+    """Issue and SFU floors of VG's terminal step design ``key`` at
+    ``n_paths`` x ``half`` clock draws, per draw, from its loops (phase_sass,
+    SASS_NESTED). The redesign, per warp of terminal_per_warp(half) paths:
+    its first attempts and walk a pass a slot, its sums a pass a value of a
+    chunk's longest run (_terminal_warp_counts; the last block's warps past
+    the last path count too), the rest of its chunk loop once a chunk, its
+    exact tests and retries at the run's ``passes`` (their means a warp of
+    paths, from the debug instance). The first design: its draw loop
+    (its attempt loop once) and its attempt loop again for each attempt a
+    warp repeats, ``warp_tries`` the mean over draws and warps of the most
+    attempts a lane's draw took. {} where phase_sass read no loops."""
+    from options_model_tpu_torch.ops.cuda_dual import terminal_per_warp
+
+    p = sass.get("nested", {}).get(key)
+    if not p:
+        return {}
+    parts, m = p["parts"], p["mufu"]
+    draws = n_paths * half
+    if key == "dual_vg_terminal":
+        per_warp = terminal_per_warp(half)
+        full, rem = divmod(n_paths, per_warp)
+        warps = full + (rem > 0)
+        idle = -warps % 4                    # a block's warps past the last path
+        counts = [full * c + idle * z for c, z in zip(_terminal_warp_counts(per_warp, half),
+                                                       _terminal_warp_counts(0, half))]
+        if rem:
+            counts = [a + b for a, b in zip(counts, _terminal_warp_counts(rem, half))]
+        chunks, slots, sums = counts
+        n = {"first attempts": slots, "exact tests": passes[0] * warps,
+             "retries": passes[1] * warps, "walk": slots, "sums": sums}
+        by_part = {r: 32 * parts[r] * n[r] / draws for r in n}
+        by_part["rest"] = 32 * (p["outer"] - sum(parts.values())) * chunks / draws
+        ipe = sum(by_part.values())
+        mpe = 32 * ((p["outer_mufu"] - sum(m.values())) * chunks
+                    + sum(m[r] * n[r] for r in n)) / draws
+    else:
+        by_part = {"draw loop": p["outer"],
+                   "repeated attempts": (warp_tries - 1) * parts["attempts"]}
+        ipe = sum(by_part.values())
+        mpe = p["outer_mufu"] + (warp_tries - 1) * m["attempts"]
+    return dict(instructions_per_draw=ipe, mufu_per_draw=mpe,
+                issue_floor_ms=draws * ipe / PEAK_ISSUE * 1e3,
+                mufu_floor_ms=draws * mpe / PEAK_MUFU * 1e3,
+                instructions_per_draw_by_part=by_part)
+
+
 def phase_dual_timing(sass: dict, secs: dict, launches: dict, cases: dict) -> dict:
     """CUDA-event medians of kernel 18 at each bracket's shape (49 dates x
     DUAL_SHAPES x 64 inner draws, on D0's ``cases``), its redesign in turns
@@ -5609,9 +5722,11 @@ RB_SHAPE = (1 << 20, 50)                # R5's paths, the rough kernels at the p
 # year, at least 32 (calibration/rbergomi._surface_ivs)
 RB_CV_SHAPES = ((1 << 16, 32, 0.1), (1 << 16, 48, 0.5), (1 << 16, 96, 1.0))
 RB_FIRST = ("rbergomi_dw, first design", "rbergomi_paths, first design")
-# Kernel 18's first designs of the VG and rough Bergomi families
-# (dual_ce_kernel's instances), the yardsticks of their redesigns: R0 and phase 5 alone.
-ROUGH_DUAL_FIRSTS = ("dual_ce vg, first design", "dual_ce rbergomi, first design")
+# Kernel 18's first designs of the VG, SABR and rough Bergomi families
+# (dual_ce_kernel's instances) and VG's terminal step's (one thread a path),
+# the yardsticks of their redesigns: R0 and phase 5 alone.
+ROUGH_DUAL_FIRSTS = ("dual_ce vg, first design", "dual_ce sabr, first design",
+                     "dual_ce rbergomi, first design", "dual_vg_terminal, first design")
 ROUGH_DUAL = {"vg": dict(vg=dict(sigma=0.18, theta=-0.14, nu=0.35)),
               "sabr": dict(sabr=dict(alpha=0.2, beta=1.0, rho=-0.4, nu=0.6)),
               "rbergomi": dict(rbergomi=RB_ROUGH)}
@@ -5623,6 +5738,14 @@ DUAL_VG_CHUNK = 8
 # dual_ce_rough_kernel (u0 (13 + 4 |eta h - comp| + 10 |s|), under 1e-5 on
 # the brackets' histories and normals).
 RB_VPRIME_RTOL = 1e-5
+# Kernel 18's SABR redesign: its alpha' = A e^{+-s} against the plain
+# version's, relative; the budget csrc/dual.cu states beside
+# dual_ce_sabr_kernel (u0 (17 + 10 B + nu^2 dt / 2), 1.31e-6 at D7's nu and
+# dt, under 1e-5 wherever B = nu sqrt(dt) (|rho z1| + |rho_bar z2|) <= 15).
+SABR_APRIME_RTOL = 1e-5
+# VG's terminal step: the clock draws a path R0 checks beyond DUAL_INNER / 2,
+# D6's 16 and a tail of 5 (neither a warp nor a warp's chunk a multiple of it).
+TERMINAL_HALVES = (16, 5)
 ROUGH_DUAL_T = 0.5
 R1_Z = 4.0
 R2_SE, R2_MISS = 4.5, 10.0
@@ -5739,15 +5862,16 @@ def phase_rough_kernels() -> dict:
     kernel 26 within RB_RTOL on S and v and hist bit for bit, first_tile
     chunks of both bit for bit. Kernel 18's families at 2 tiles (a put and
     a call each, so every instance runs) and at their brackets' shapes and
-    configurations (D6-D9): ce within DUAL_CE_ATOL, the inner states
-    (kernel 19's instances), VG's clock draws and their attempts bit for
-    bit, a first_tile chunk of ce bit for bit, VG's terminal step within
-    DUAL_CE_ATOL; the VG and rough Bergomi redesigns also through
-    rough_redesign_checks, and at the brackets' shapes their upper within
-    DUAL_UPPER_SE stderr of their first design's (dual_upper_both). Fails if
-    an instance of the rough kernels or of kernel 18's VG and rough Bergomi
-    designs has local memory. Returns the largest errors by kernel (the
-    first design's under earlier_*)."""
+    configurations (D6-D9; VG and SABR also at the full-width 2^17 x 50):
+    ce within DUAL_CE_ATOL, the inner states (kernel 19's instances), VG's
+    clock draws and their attempts bit for bit, a first_tile chunk of ce
+    bit for bit; VG's terminal step through terminal_checks; the VG, SABR
+    and rough Bergomi redesigns also through rough_redesign_checks, and
+    beyond 2 tiles their upper within DUAL_UPPER_SE stderr of their first
+    design's (dual_upper_both). Fails if an instance of the rough kernels,
+    of kernel 18's VG, SABR and rough Bergomi designs or of VG's terminal
+    step has local memory. Returns the largest errors by kernel (the first
+    design's under earlier_*)."""
     import torch
 
     from options_model_tpu_torch.core.config import RBergomiParams
@@ -5767,7 +5891,7 @@ def phase_rough_kernels() -> dict:
                   for k, a in cr.rbergomi_kernel_attrs(cr.MAX_STEPS).items()
                   if k.startswith("rbergomi_fused")})
     attrs.update({k: a for k, a in cd.dual_kernel_attrs().items()
-                  if k.split()[-1] in ROUGH_DUAL or k == "dual_vg_terminal"})
+                  if k.split()[-1] in ROUGH_DUAL or k.startswith("dual_vg_terminal")})
     log("[R0] registers / local bytes a thread / resident blocks of threads an SM (occupancy): "
         + ", ".join(f"{k} {a['registers']} / {a['spill_bytes']} / {a['blocks_per_sm']} of "
                     f"{a['block']} ({a['blocks_per_sm'] * a['block'] / THREADS_PER_SM:.1%})"
@@ -5867,18 +5991,22 @@ def phase_rough_kernels() -> dict:
         del dW, G, ref, part
 
     n_inner = 64
-    dual_attrs = {k: a for k, a in cd.dual_kernel_attrs().items() if k.startswith("dual_ce")
-                  and any(f" {m}" in k for m in cd.REDESIGNED_FAMILIES)}
-    log("[R0] kernel 18's VG and rough Bergomi instances, registers / local bytes a thread / "
-        "occupancy: " + ", ".join(
+    dual_attrs = {k: a for k, a in cd.dual_kernel_attrs().items()
+                  if (k.startswith("dual_ce") and any(f" {m}" in k for m in cd.REDESIGNED_FAMILIES))
+                  or k.startswith("dual_vg_terminal")}
+    log("[R0] kernel 18's VG, SABR and rough Bergomi instances and VG's terminal step's, "
+        "registers / local bytes a thread / occupancy: " + ", ".join(
             f"{k} {a['registers']} / {a['spill_bytes']} / "
             f"{a['blocks_per_sm'] * a['block'] / THREADS_PER_SM:.1%}"
             for k, a in dual_attrs.items()))
     if any(a["spill_bytes"] for a in dual_attrs.values()):
-        fail("R0: an instance of kernel 18's VG or rough Bergomi designs has local memory")
+        fail("R0: an instance of kernel 18's VG, SABR or rough Bergomi designs or of VG's "
+             "terminal step has local memory")
     # each family at 2 tiles (a put and a call) and at its brackets' shapes
-    # and configurations: D6 (VG), D7 (SABR), D8 and D9 (rough Bergomi)
-    brackets = {"vg": [(1 << 14, 20, None)], "sabr": [(1 << 15, 40, None)],
+    # and configurations: D6 (VG), D7 (SABR), D8 and D9 (rough Bergomi); VG
+    # and SABR also at the full-width bracket's shape
+    brackets = {"vg": [(1 << 14, 20, None), ROUGH_DUAL_SHAPE + (None,)],
+                "sabr": [(1 << 15, 40, None), ROUGH_DUAL_SHAPE + (None,)],
                 "rbergomi": [(1 << 15, 40, RB_D8), (1 << 14, 30, None)]}
     for model in ROUGH_DUAL:
         for n, cp, steps, T, params in ([(2 * tile, -1.0, 20, 0.5, None),
@@ -5915,18 +6043,9 @@ def phase_rough_kernels() -> dict:
                      "differ from plain")
             extra = ""
             if model == "vg":
-                xl = x[case["n_steps"] - 1].contiguous()
-                eh = cd.dual_vg_terminal(xl, law, seed, 0, tile, n_inner, steps - 1)
-                ehr = cd.dual_vg_terminal_reference(xl, law, seed, 0, tile, n_inner, steps - 1)
-                torch.cuda.synchronize()
-                de = float((eh - ehr).abs().max())
-                if de > DUAL_CE_ATOL or not bool(torch.isfinite(eh).all()):
-                    fail(f"R0: dual_vg_terminal {what}: e_h differs from plain ({de:.3e})")
-                ev = errs["dual_vg_terminal"]
-                ev["max_abs_err"] = max(ev["max_abs_err"], de)
                 extra = (f"; clock draws and attempts (dates 0-2, {cn.numel()}, mean attempt "
-                         f"{float(cn.float().mean()):.4f}, max {int(cn.max())}) bit for bit; "
-                         f"dual_vg_terminal within {DUAL_CE_ATOL} (max |d| {de:.3e})")
+                         f"{float(cn.float().mean()):.4f}, max {int(cn.max())}) bit for bit"
+                         + terminal_checks(case, seed, tile, what, errs["dual_vg_terminal"]))
             if model in cd.REDESIGNED_FAMILIES:
                 extra += rough_redesign_checks(model, case, args, ref, errs[f"dual_ce {model}"],
                                                what)
@@ -5939,14 +6058,66 @@ def phase_rough_kernels() -> dict:
     return errs
 
 
+def terminal_checks(case: dict, seed: int, tile: int, what: str, err: dict) -> str:
+    """R0's checks of VG's terminal step on a VG case's last date (the clock
+    draws of date n_dates), at DUAL_INNER / 2 draws a path and at each of
+    TERMINAL_HALVES: the redesign's e_h and its first design's within
+    DUAL_CE_ATOL of plain; the redesign's debug instance's every clock G =
+    nu gamma and accepting attempt dual_gamma_draws' bit for bit, its e_h
+    within DUAL_CE_ATOL; a first_tile chunk of the redesign's e_h the full
+    run's slice bit for bit. Returns the log's part."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_dual as cd
+    from options_model_tpu_torch.ops.philox import dual_gamma_draws
+
+    x, law, n_dates = case["x"], case["law"], case["rows"].shape[0]
+    xl = x[n_dates].contiguous()
+    n = xl.shape[0]
+    h = n // 2 // tile * tile
+    parts = []
+    for half in (DUAL_INNER // 2,) + TERMINAL_HALVES:
+        args = (law, seed, 0, tile, 2 * half, n_dates)
+        eh = cd.dual_vg_terminal(xl, *args)
+        e1 = cd.dual_vg_terminal_first(xl, *args)
+        ed, G, att, passes = cd.dual_vg_terminal_debug(xl, *args)
+        ref = cd.dual_vg_terminal_reference(xl, *args)
+        gam, att_r = dual_gamma_draws(seed, 0, n // tile, tile, half, n_dates, law.gamma_shape,
+                                      xl.device)
+        part = cd.dual_vg_terminal(xl[h:].contiguous(), law, seed, h // tile, tile, 2 * half,
+                                   n_dates)
+        torch.cuda.synchronize()
+        d, d1, dd = (float((t - ref).abs().max()) for t in (eh, e1, ed))
+        err["max_abs_err"] = max(err["max_abs_err"], d)
+        err["earlier_max_abs_err"] = max(err.get("earlier_max_abs_err", 0.0), d1)
+        if not (max(d, d1, dd) <= DUAL_CE_ATOL and bool(torch.isfinite(eh).all())):
+            fail(f"R0: dual_vg_terminal {what}, {half} draws a path: e_h differs from plain "
+                 f"(redesign {d:.3e}, first design {d1:.3e}, debug instance {dd:.3e})")
+        if not (torch.equal(G.view(torch.int32), (law.nu * gam).view(torch.int32))
+                and torch.equal(att, att_r)):
+            fail(f"R0: dual_vg_terminal {what}, {half} draws a path: the redesign's clock G or "
+                 "accepting attempts differ from dual_gamma_draws'")
+        if not torch.equal(part, eh[h:]):
+            fail(f"R0: dual_vg_terminal {what}, {half} draws a path: a first_tile chunk differs "
+                 "from the full run's slice")
+        pm = passes.float().mean(dim=0)
+        parts.append(f"{half} draws: redesign {d:.3e}, first design {d1:.3e}, debug instance "
+                     f"{dd:.3e}{' (the redesign bit for bit)' if torch.equal(ed, eh) else ''}; "
+                     f"G and attempts (mean {float(att.float().mean()):.4f}, max "
+                     f"{int(att.max())}) bit for bit; a warp's passes: exact tests "
+                     f"{float(pm[0]):.3f}, retries {float(pm[1]):.3f}")
+    return (f"; dual_vg_terminal at date {n_dates} within {DUAL_CE_ATOL} of plain, first_tile="
+            f"{h // tile} chunks bit for bit: " + "; ".join(parts))
+
+
 def rough_redesign_checks(model: str, case: dict, args: tuple, ref, err: dict,
                           what: str) -> str:
-    """R0's checks of kernel 18's VG or rough Bergomi redesign beyond its ce
-    (``ref`` the plain ce on ``args``): its first design's ce within
+    """R0's checks of kernel 18's VG, SABR or rough Bergomi redesign beyond
+    its ce (``ref`` the plain ce on ``args``): its first design's ce within
     DUAL_CE_ATOL of plain; its debug instance's ce within DUAL_CE_ATOL, and
-    every date's clock G and accepting attempt (VG) or x' (rough Bergomi)
-    the plain version's bit for bit, v' within RB_VPRIME_RTOL. Returns the
-    log's part."""
+    every date's clock G and accepting attempt (VG) or x' (SABR, rough
+    Bergomi) the plain version's bit for bit, alpha' within
+    SABR_APRIME_RTOL and v' within RB_VPRIME_RTOL. Returns the log's part."""
     import torch
 
     from options_model_tpu_torch.ops import cuda_dual as cd
@@ -5974,11 +6145,13 @@ def rough_redesign_checks(model: str, case: dict, args: tuple, ref, err: dict,
                 f"{d1:.3e}, debug instance {dd:.3e}")
     _, xs, vs = out
     rel = float(((vs - vr).abs() / vr.abs()).max())
-    if not (torch.equal(xs, xr) and rel <= RB_VPRIME_RTOL):
-        fail(f"R0: {what}: the redesign's x' differs from plain, or v' by {rel:.3e} relative "
-             f"(bound {RB_VPRIME_RTOL})")
-    return (f"; the redesign's x' (all {n_dates} dates) bit for bit, v' within {rel:.3e} "
-            f"relative (bound {RB_VPRIME_RTOL}); first design within {d1:.3e}, debug instance "
+    name, bound_ = ("alpha'", SABR_APRIME_RTOL) if model == "sabr" else ("v'", RB_VPRIME_RTOL)
+    err["second_state_max_rel_err"] = max(err.get("second_state_max_rel_err", 0.0), rel)
+    if not (torch.equal(xs, xr) and rel <= bound_):
+        fail(f"R0: {what}: the redesign's x' differs from plain, or {name} by {rel:.3e} "
+             f"relative (bound {bound_})")
+    return (f"; the redesign's x' (all {n_dates} dates) bit for bit, {name} within {rel:.3e} "
+            f"relative (bound {bound_}); first design within {d1:.3e}, debug instance "
             f"{dd:.3e}")
 
 
@@ -5996,8 +6169,8 @@ def phase_rough() -> dict:
     the European - 4 combined stderr; D6-D9 the VG, SABR, H = 1/2 and rough
     brackets at the JAX tests' configurations and bars; the full-width
     brackets (ROUGH_DUAL_SHAPE, n_inner 64). Fails if a rough kernel was
-    never launched after R0, or the first design of kernels 25-26 was.
-    Returns the errors, seconds and results."""
+    never launched after R0, or a first design (ROUGH_DUAL_FIRSTS, kernels
+    25-26) was. Returns the errors, seconds and results."""
     import numpy as np
     import torch
 
@@ -6181,12 +6354,13 @@ def phase_rough() -> dict:
     first = {key: counts["cuda_rbergomi"][key] for key in RB_FIRST}
     first.update({key: counts["cuda_dual"][key] for key in ROUGH_DUAL_FIRSTS})
     log(f"[R] kernel launches of the rough path after R0: {mine}; the first design of "
-        f"kernels 25-26 and of kernel 18's VG and rough Bergomi families: {first}")
+        f"kernels 25-26, of kernel 18's VG, SABR and rough Bergomi families and of VG's "
+        f"terminal step: {first}")
     if not all(mine.values()):
         fail(f"a kernel of the rough path was never launched: {mine}")
     if any(first.values()):
-        fail(f"the rough path reached the first design of kernels 25-26 or of kernel 18's VG "
-             f"or rough Bergomi family: {first}")
+        fail(f"the rough path reached the first design of kernels 25-26, of kernel 18's VG, "
+             f"SABR or rough Bergomi family or of VG's terminal step: {first}")
     res["phase_seconds"] = time.perf_counter() - t_phase
     log(f"[R] the rough path took {res['phase_seconds']:.1f} s in its process")
     return dict(errs=errs, secs=secs, res=res)
@@ -6203,12 +6377,13 @@ def phase_rough_timing(sass: dict, rough: dict, launches: dict) -> dict:
     longest expiry; kernel 18's VG, SABR and rough Bergomi families and
     VG's terminal step at ROUGH_DUAL_SHAPE x 64 inner draws, each beside
     its plain version (one run) and its bound (VG's gamma attempts counted
-    from its clock draws), the VG and rough Bergomi redesigns in turns with
-    their first designs (first, new, new, first) and beside both designs'
-    issue and SFU floors from their SASS (VG's at the clock's passes and
-    attempts of the first 4 dates, through the redesign's debug instance),
-    and their uppers on the timed paths from either design within
-    DUAL_UPPER_SE stderr (dual_upper_both);
+    from its clock draws), the VG, SABR and rough Bergomi redesigns and
+    VG's terminal redesign in turns with their first designs (first, new,
+    new, first) and beside both designs' issue and SFU floors from their
+    SASS (VG's at the clock's passes and attempts of the first 4 dates, the
+    terminal's at its date's, through the redesigns' debug instances), and
+    the kernel-18 redesigns' uppers on the timed paths from either design
+    within DUAL_UPPER_SE stderr (dual_upper_both);
     registers and occupancy; the full-width brackets' seconds with kernel
     18's share. Returns the rows by kernel name."""
     import torch
@@ -6365,16 +6540,47 @@ def phase_rough_timing(sass: dict, rough: dict, launches: dict) -> dict:
                     f"{fl['mufu_floor_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms "
                     f"({b['bound_ms'] / t * 100:.1f}% of it)")
         if model == "vg":
-            xl = x[steps - 1].contiguous()
-            ms_t = time_per_call(lambda: cd.dual_vg_terminal(xl, law, seed, 0, tile, n_inner,
-                                                             n_dates), N_TIMED)
-            plain_t = time_per_call(lambda: cd.dual_vg_terminal_reference(
-                xl, law, seed, 0, tile, n_inner, n_dates), 1, 0)
+            half = n_inner // 2
+            targs = (x[steps - 1].contiguous(), law, seed, 0, tile, n_inner, n_dates)
+            new_t = lambda: cd.dual_vg_terminal(*targs)  # noqa: E731
+            first_t = lambda: cd.dual_vg_terminal_first(*targs)  # noqa: E731
+            turns_t = [time_per_call(f, N_TIMED) for f in (first_t, new_t, new_t, first_t)]
+            ms_t = (turns_t[1] + turns_t[2]) / 2
+            plain_t = time_per_call(lambda: cd.dual_vg_terminal_reference(*targs), 1, 0)
             tries = extra["gamma_attempts_per_draw"]
             b_t = bound(n, n_inner // 2, tries * OPS_VG_ATTEMPT + OPS_VG_BOOST + 40,
                         int_ops((tries, 3 * tries + 1), per_call), n * 8)
-            row("dual_vg_terminal", ms_t, plain_t, b_t, "dual_vg_terminal",
-                shape=f"{n} x {n_inner // 2}")
+            # the terminal clock through the redesign's debug instance
+            _, _, att_t, passes_t = cd.dual_vg_terminal_debug(*targs)
+            warp_tries_t = float(torch.clamp(att_t + 1, max=15).view(half, n // 32, 32)
+                                 .amax(-1).float().mean())
+            pm = [float(t) for t in passes_t.float().mean(dim=0)]
+            shape_t = f"{n} x {half}"
+            row("dual_vg_terminal", ms_t, plain_t, b_t, "dual_vg_terminal", shape=shape_t,
+                gamma_attempts_per_draw=float(att_t.float().mean()) + 1.0,
+                first_design_warp_attempts_per_draw=warp_tries_t,
+                exact_passes_per_warp=pm[0], retry_passes_per_warp=pm[1])
+            r = out["dual_vg_terminal"]
+            r.update(first_design_row("dual_vg_terminal, first design",
+                                      "options_model_tpu_torch/csrc/dual.cu", shape_t, turns_t,
+                                      b_t["bound_ms"], attrs["dual_vg_terminal, first design"]))
+            for key, label, t in (("dual_vg_terminal", "redesign", ms_t),
+                                  ("dual_vg_terminal, first design", "first design",
+                                   r["earlier_ms"])):
+                fl = dual_terminal_floors(sass, key, n, half, pm, warp_tries_t)
+                if not fl:
+                    log(f"[5] dual_vg_terminal {label}: no SASS loops read, no floors")
+                    continue
+                r.update(fl if label == "redesign"
+                         else {f"earlier_{k}": x_ for k, x_ in fl.items()})
+                log(f"[5] dual_vg_terminal {label}: {fl['instructions_per_draw']:g} SASS "
+                    f"instructions a draw ({fl['mufu_per_draw']:g} MUFU) = "
+                    + ", ".join(f"{k} {x_:.2f}"
+                                for k, x_ in fl["instructions_per_draw_by_part"].items())
+                    + f": issue floor {fl['issue_floor_ms']:.4f} ms "
+                    f"({fl['issue_floor_ms'] / t * 100:.1f}% of its {t:.4f} ms), SFU floor "
+                    f"{fl['mufu_floor_ms']:.4f} ms; bound {b_t['bound_ms']:.4f} ms "
+                    f"({b_t['bound_ms'] / t * 100:.1f}% of it)")
         del case
     for model in ROUGH_DUAL:
         label = f"FW {model}"
@@ -6633,5 +6839,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--path"]:
-        sys.exit(path_process(sys.argv[2]))
+        sys.exit(path_process(sys.argv[2], "--joined" in sys.argv[3:]))
     sys.exit(main())

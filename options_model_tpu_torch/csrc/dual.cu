@@ -37,7 +37,7 @@
 //   path's frozen Volterra history hist[t] and the date's compensator
 //   comp[t] (Y' = hist + sqrt(2H) (c1 dW' + c2 z2'), v' = xi0 exp(eta Y' -
 //   comp)) and mirror all three normals. Pricers take this kernel for
-//   GBM, Heston, Merton, Bates and SABR; for VG and rough Bergomi it is the
+//   GBM, Heston, Merton and Bates; for VG, SABR and rough Bergomi it is the
 //   first design, kept as the yardstick of their redesigns below
 //   (ops/cuda_dual.dual_ce_first); its VG clock loop diverges within a warp
 //   wherever a lane's draw is rejected (~5% of attempts at the brackets'
@@ -57,9 +57,18 @@
 //   the up member's negated exactly), x' bit for bit; v' = A e^{+-s} with A
 //   once a (date, path) and one ex2 and one reciprocal a pair, within the
 //   budget stated beside it.
-// - dual_vg_terminal_kernel: VG's terminal step, the Rao-Blackwellised
-//   one-step Black expectation over n_inner/2 clock draws a path (the
-//   same sampler at date n_dates), one thread a path.
+// - dual_ce_sabr_kernel<kCall, kDebug> (kernel 18's SABR redesign): the
+//   same mirror, x' bit for bit; alpha' = A e^{+-s} likewise, and the
+//   floor's sigma' sqrt(tau) and its reciprocal as (A sqrt tau) e^{+-s}
+//   and (1 / (A sqrt tau)) e^{-+s}, so no square, product by tau or rsqrtf
+//   a member; the Philox round keys from the launch's constants.
+// - dual_vg_terminal_warp_kernel<kCall, kDebug>: VG's terminal step, the
+//   Rao-Blackwellised one-step Black expectation over n_inner/2 clock
+//   draws a path (the same sampler at date n_dates), one entry a (path,
+//   draw) on the shared WarpClock, log x once a path, each path's values
+//   summed in draw order. Its first design, dual_vg_terminal_kernel (one
+//   thread a path walking its draws through gamma_draw), stays as its
+//   yardstick (ops/cuda_dual.dual_vg_terminal_first).
 // - dual_ce_first_kernel<F>: kernel 18's first design, kept as the
 //   redesign's yardstick (ops/cuda_dual.dual_ce_first); no pricer reaches it.
 // - dual_inner_states_kernel<F, kCounts> (kernel 19): the same walk and
@@ -107,9 +116,16 @@
 // the redesign keeps each attempt's Philox and Box-Muller and the boost,
 // and leaves the exact test's logf to the draws the squeeze does not
 // decide. Under rough Bergomi two expf a pair go (v') and the Philox round
-// keys come from the launch's constants, as in VG's. Kernel 19
+// keys come from the launch's constants, as in VG's; under SABR also the
+// two expf of alpha' and the floor's square, product and rsqrtf. VG's
+// terminal step's first design ran a warp per 32 paths, each lane's
+// attempts in turn (the warp waiting on its slowest lane), with a logf and
+// an IEEE division a draw; the redesign draws the clock warp-dense and
+// keeps the boost, the step's expf and two erfcf a draw. Kernel 19
 // writes 4 (8) bytes a state after ~20 operations and is held by its
 // stores.
+#include <algorithm>
+
 #include "gamma.cuh"
 #include "hopper_fast.cuh"
 #include "kernel_attrs.cuh"
@@ -504,7 +520,27 @@ __device__ __forceinline__ float poly(const float* beta, int degree, float u) {
 // memory; t = beta + degree + 1 their tail: the (x' - 1)^+ term, then the
 // variance terms w, w^2 and u w. max(h, clip(C, 0, cap)) is clip(C, h,
 // cap), as 0 <= h <= cap; off the in-the-money side h = 0, and a cap of 0
-// there makes the clip 0 without a branch.
+// there makes the clip 0 without a branch. vhat_from takes the floor's
+// arguments g1 = s d1 and g2 = s d2 (the SABR redesign forms its own).
+template <int F, bool kCall>
+__device__ __forceinline__ float vhat_from(float xq, float g1, float g2, float vq,
+                                           const FloorT& f, const float* beta, int degree,
+                                           float rho, float vr, const DualT& k) {
+  const float floor = fmaf(f.c1 * xq, erfcf(g1), -(f.c2 * erfcf(g2)));
+  const float u = clampf(fmaf(xq, rho, f.nmr), -kUClamp, kUClamp);
+  const float xm1 = xq - 1.0f;
+  const float* t = beta + degree + 1;
+  float c = fmaf(t[0], fmaxf(xm1, 0.0f), poly(beta, degree, u));
+  if (kUseV<F>) {
+    const float w = clampf(fmaf(vq, vr, f.nvr), -kUClamp, kUClamp);
+    c = fmaf(w, fmaf(t[2], w, fmaf(t[3], u, t[1])), c);
+  }
+  const float h = k.K * fmaxf(kCall ? xm1 : -xm1, 0.0f);
+  const bool itm = kCall ? xm1 >= 0.0f : xm1 <= 0.0f;
+  const float cap = itm ? (kCall ? k.K * xq : k.K) : 0.0f;
+  return fmaxf(floor, fminf(fmaxf(c, h), cap));
+}
+
 template <int F, bool kCall>
 __device__ __forceinline__ float vhat_fast(float xq, float e, float vq, float a,
                                            const FloorT& f, const float* beta, int degree,
@@ -526,28 +562,17 @@ __device__ __forceinline__ float vhat_fast(float xq, float e, float vq, float a,
     g1 = fmaf(f.b, e, a);
     g2 = g1 + f.g;
   }
-  const float floor = fmaf(f.c1 * xq, erfcf(g1), -(f.c2 * erfcf(g2)));
-  const float u = clampf(fmaf(xq, rho, f.nmr), -kUClamp, kUClamp);
-  const float xm1 = xq - 1.0f;
-  const float* t = beta + degree + 1;
-  float c = fmaf(t[0], fmaxf(xm1, 0.0f), poly(beta, degree, u));
-  if (kUseV<F>) {
-    const float w = clampf(fmaf(vq, vr, f.nvr), -kUClamp, kUClamp);
-    c = fmaf(w, fmaf(t[2], w, fmaf(t[3], u, t[1])), c);
-  }
-  const float h = k.K * fmaxf(kCall ? xm1 : -xm1, 0.0f);
-  const bool itm = kCall ? xm1 >= 0.0f : xm1 <= 0.0f;
-  const float cap = itm ? (kCall ? k.K * xq : k.K) : 0.0f;
-  return fmaxf(floor, fminf(fmaxf(c, h), cap));
+  return vhat_from<F, kCall>(xq, g1, g2, vq, f, beta, degree, rho, vr, k);
 }
 
 // Resident blocks an SM the redesign asks of nvcc: GBM 16 (at most 32
 // registers, 100% occupancy), Heston 10 (48, 62.5%), Merton 12 (40, 75%),
 // Bates 9 (56, 56.2%), none below the first design's. Left to itself nvcc
 // interleaves the clip's arithmetic over both members and takes up to 76
-// registers. SABR 8 (64, 50%), and the first designs of VG and rough
-// Bergomi (this kernel's instances for them); their redesigns,
-// dual_ce_vg_kernel and dual_ce_rough_kernel below, take their own.
+// registers. The first designs of VG, SABR and rough Bergomi (this
+// kernel's instances for them) 8 (64, 50%); their redesigns,
+// dual_ce_vg_kernel, dual_ce_sabr_kernel and dual_ce_rough_kernel below,
+// take their own.
 // chip_smoke.py fails if any instance spills under its bound.
 template <int F>
 constexpr int kMinBlocks = F == kGbm      ? 16
@@ -813,6 +838,114 @@ dual_ce_rough_kernel(float* __restrict__ ce, float* __restrict__ xs, float* __re
   ce[at] = acc / static_cast<float>(half) * 0.5f;
 }
 
+// Kernel 18's SABR redesign: resident blocks an SM, 10 (at most 48
+// registers, 62.5%).
+constexpr int kMinBlocksSabr = 10;
+
+// One (date, path) a thread, the grid and outputs of dual_ce_kernel; a
+// Philox call (the round keys once a launch) serves two pairs, as in
+// walk_pairs. The pair mirrors z1 and z2: the step forms p = sv z1 once,
+// x'_up = xp e^{mu + p} and x'_down = xp e^{mu - p} with the plain
+// version's _rn operations and expf, bit for bit (add(mu, mul(sv, -z1)) is
+// sub(mu, mul(sv, z1)): negation is exact and _rn rounds both signs
+// alike). alpha' = vp e^{+-nu sqrt(dt) w2 - nu^2 dt / 2} is A e^{+-s}: A =
+// vp e^{-nu^2 dt / 2} once a (date, path) (expf), s = nu sqrt(dt) (rho z1 +
+// rho_bar z2) with log2 e folded into the two constants, e^s by ex2.approx
+// and e^-s by rcp.approx. Under SABR the floor's vol is alpha', so its
+// sigma' sqrt(tau) is m = (A sqrt tau) e^{+-s} and 1 / m = (1 / (A sqrt
+// tau)) e^{-+s}, both once a (date, path) then a multiply: g1 = q / m +
+// s_d m / 2, g2 = q / m - s_d m / 2 (vhat_fast's without the square, the
+// product by tau and the rsqrtf). alpha' enters only that floor and the
+// polynomial's clamped w terms, both continuous. Its budget, u0 = 2^-24, B
+// = nu sqrt(dt) (|rho z1| + |rho_bar z2|) >= |s|, h = nu^2 dt / 2: A within
+// 5 u0 of its value (expf's 2 ulp, one product); the exponent s log2 e
+// within u0 (4 B + |s|) <= 5 u0 B (three roundings of each folded
+// constant, the product and the multiply-add), e^s within u0 (5 B + 4)
+// (ex2's 2 ulp), e^-s 2 u0 more (rcp's ulp), the product u0; the plain
+// version's alpha' within u0 (5 B + h + 5) of the exact value (its w2's
+// three roundings and the product's, the subtraction's, expf's, the
+// product's). So the two alpha' differ by at most delta = u0 (17 + 10 B +
+// h) relative: 1.31e-6 at D7's nu = 0.6, dt = 0.0125 and |z| <= 5.65 (the
+// stream's Box-Muller radius at 1 - u >= 2^-23; B <= 0.50), under 1e-5
+// wherever B <= 15. A
+// member's floor moves by vega alpha' delta at most, the clamped w terms by
+// |beta| v_rstd alpha' delta. chip_smoke.py holds alpha' at
+// SABR_APRIME_RTOL = 1e-5 through the debug instance and ce at DUAL_CE_ATOL
+// = 1e-4, as it holds the floor. With kDebug, each pair's x' and alpha'
+// (n_dates, 2, half, P), up member first.
+template <bool kCall, bool kDebug>
+__global__ void __launch_bounds__(kBlock, kMinBlocksSabr)
+dual_ce_sabr_kernel(float* __restrict__ ce, float* __restrict__ xs, float* __restrict__ vs,
+                    const float* __restrict__ x, const float* __restrict__ v,
+                    const float* __restrict__ rows, const __grid_constant__ DualT k,
+                    const __grid_constant__ fast::PhiloxKeys keys, int first_tile, int tile,
+                    int n_paths, int width, int degree, int half) {
+  __shared__ float row[kMaxRow];
+  __shared__ FloorT fs;
+  const int date = blockIdx.y;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    row[i] = rows[static_cast<size_t>(date) * width + i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) fs = floor_consts<kSabr, kCall>(row, k);
+  __syncthreads();
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_paths) return;
+  const size_t at = static_cast<size_t>(date) * n_paths + p;
+  const float xp = x[at], vp = v[at];
+  const float sv = mul(vp, k.sqrt_dt);
+  const float mu = mul(sub(k.drift, mul(0.5f, mul(vp, vp))), k.dt);
+  const FloorT f = fs;
+  const float A = vp * expf(-k.half_nu2_dt);
+  const float m0 = A * sqrtf(f.tau), r0 = 1.0f / m0;
+  const float ks = fast::kLog2e * k.nu_sqrt_dt;
+  const float k1 = ks * k.rho, k2 = ks * k.rho_bar;
+  const float* beta = row + kRowHead;
+  const float rho = row[2], vr = row[4];
+  constexpr float sd = kSide<kCall>;
+  const float a = sd * (logf(xp) + f.p0);
+  const uint32_t slot = static_cast<uint32_t>(p % tile);
+  const uint32_t global_tile = static_cast<uint32_t>(first_tile + p / tile);
+  const int calls = (half + 1) / 2;
+  const uint32_t base = static_cast<uint32_t>(date) * static_cast<uint32_t>(2 * calls);
+  // a member's surrogate at x' = xp e^e, alpha', its m and 1 / m
+  auto member = [&](float xq, float e, float aq, float m, float r) {
+    const float q = fmaf(sd, e, a);
+    return vhat_from<kSabr, kCall>(xq, fmaf(q, r, 0.5f * sd * m), fmaf(q, r, -0.5f * sd * m),
+                                   aq, f, beta, degree, rho, vr, k);
+  };
+  float acc = 0.0f;
+#pragma unroll 1
+  for (int c = 0; c < calls; ++c) {
+    const Words w = keyed(slot, base + static_cast<uint32_t>(c), global_tile, kDualStream, keys);
+    float n[4];
+    box_muller_stream(w.x, w.y, n[0], n[1]);
+    box_muller_stream(w.z, w.w, n[2], n[3]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pair = 2 * c + h;
+      if (pair >= half) break;
+      const float z1 = n[2 * h], z2 = n[2 * h + 1];
+      const float pr = mul(sv, z1);
+      const float eu = add(mu, pr), ed = sub(mu, pr);
+      const float xu = mul(xp, expf(eu)), xd = mul(xp, expf(ed));
+      const float es = fast::ex2_approx(fmaf(k1, z1, k2 * z2)), ei = rcp_approx(es);
+      const float au = A * es, ad = A * ei;
+      acc += member(xu, eu, au, m0 * es, r0 * ei) + member(xd, ed, ad, m0 * ei, r0 * es);
+      if (kDebug) {
+        const size_t plane = static_cast<size_t>(half) * n_paths;
+        const size_t i =
+            static_cast<size_t>(date) * 2 * plane + static_cast<size_t>(pair) * n_paths + p;
+        xs[i] = xu;
+        xs[i + plane] = xd;
+        vs[i] = au;
+        vs[i + plane] = ad;
+      }
+    }
+  }
+  ce[at] = acc / static_cast<float>(half) * 0.5f;
+}
+
 // Kernel 18's first design: the surrogate in the plain version's _rn order.
 template <int F>
 __global__ void __launch_bounds__(kBlock)
@@ -910,6 +1043,136 @@ dual_vg_terminal_kernel(float* __restrict__ e_h, const float* __restrict__ x_las
   e_h[p] = mul(k.K, dvd(acc, static_cast<float>(half)));
 }
 
+// The Black value of VG's terminal step at one clock G, up to its factor cp
+// / 2: fwd erfc(g1) - erfc(g2), g = s d with s = -cp / sqrt 2 (kSide), d2 =
+// (log x + mu) / a, d1 = d2 + a, fwd = x e^{mu + a^2 / 2}; mu = mu0 + theta
+// G and a = sigma sqrt(max(G, 1e-20)) in the plain version's _rn
+// operations, log x the path's, 1 / a by rcp.approx.
+template <bool kCall>
+__device__ __forceinline__ float terminal_black(float x, float lx, float G, const DualT& k) {
+  constexpr float sd = kSide<kCall>;
+  const float mu = add(k.mu, mul(k.vg_theta, G));
+  const float a = mul(k.vg_sigma, sqrtf(fmaxf(G, 1e-20f)));
+  const float g2 = (lx + mu) * (sd * rcp_approx(a));
+  const float fwd = x * expf(fmaf(0.5f * a, a, mu));
+  return fmaf(fwd, erfcf(fmaf(sd, a, g2)), -erfcf(g2));
+}
+
+// VG's terminal redesign: resident blocks an SM, 10 (at most 48 registers,
+// 62.5%), which its 20 KB of warp clocks a block also allows.
+constexpr int kMinBlocksTerminal = 10;
+
+// The paths a warp of the terminal redesign owns at ``half`` draws a path:
+// as many whole paths as a chunk of kClockEntries holds, 1 to 32.
+inline int terminal_per_warp(int half) {
+  return std::min(32, std::max(1, kClockEntries / half));
+}
+
+// One entry a (path, clock draw) on csrc/gamma.cuh's WarpClock. A warp owns
+// per_warp whole paths, lane l the path p0 + l (its x, log x once, its
+// counters, its sum), and their entries q = l half + j (path p0 + l, draw
+// j) in chunks of kClockEntries, entry e = i 32 + lane of a chunk being q
+// = c0 + e. For each chunk the warp draws attempt 0 of every entry, dense,
+// decided by the squeeze; the exact test of the rest, a lane an entry; the
+// retries from the ring (attempts 1-14, then d); then the walk: each
+// entry's clock (the boost), G = nu gamma, its Black value into the clock's
+// g; then each path's lane adds its values in draw order. A path's sum runs
+// over j = 0..half-1 in order wherever the path lies, so a first_tile chunk
+// is the full launch's slice bit for bit. No lane returns early: every
+// warp runs the chunks of per_warp paths (a trip count the compiler sees as
+// the same in every lane, so the ballots and shuffles need no divergence
+// fallback), and lanes past the warp's last entry join every ballot without
+// drawing. e_h = K cp / 2 sum / half. With
+// kDebug, each draw's G and accepting attempt (half, P) and each warp's
+// passes of the exact tests and of the retries (ceil(P / per_warp), 2).
+template <bool kCall, bool kDebug>
+__global__ void __launch_bounds__(kBlock, kMinBlocksTerminal)
+dual_vg_terminal_warp_kernel(float* __restrict__ e_h, float* __restrict__ gs,
+                             int* __restrict__ atts, int* __restrict__ passes,
+                             const float* __restrict__ x_last, const __grid_constant__ DualT k,
+                             const __grid_constant__ fast::PhiloxKeys keys, int first_tile,
+                             int tile, int n_paths, int date, int half, int per_warp) {
+  __shared__ gamma::WarpClock<kClockEntries> clocks[kBlock / 32];
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int warp = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int p0 = warp * per_warp;
+  const int n_live = max(min(per_warp, n_paths - p0), 0);
+  gamma::WarpClock<kClockEntries>& sh = clocks[threadIdx.x >> 5];
+  const bool owner = lane < n_live;
+  const int p = p0 + lane;
+  const float xp = owner ? x_last[p] : 1.0f;
+  const float lx = logf(xp);
+  const uint32_t slot = owner ? static_cast<uint32_t>(p % tile) : 0u;
+  const uint32_t gtile = owner ? static_cast<uint32_t>(first_tile + p / tile) : 0u;
+  const GammaK gk{k.gamma_d, k.gamma_c, k.gamma_inv_a, k.gamma_boost != 0.0f};
+  const float one_m = gamma::squeeze_one(gk.d);
+  const int n_entries = n_live * half, n_chunked = per_warp * half;
+  // the lane of entry q's path: q < 1024, so (q + 1/2) / half rounds well
+  // clear of an integer
+  const float inv_half = 1.0f / static_cast<float>(half);
+  auto lane_of = [&](int q) {
+    return min(static_cast<int>((static_cast<float>(q) + 0.5f) * inv_half), 31);
+  };
+  // the clock's pairs of the date (dual_gamma_draws' counter)
+  const uint32_t draws = static_cast<uint32_t>(date) * static_cast<uint32_t>(half);
+  float acc = 0.0f;
+  unsigned int n_exact = 0u, n_retry = 0u;
+#pragma unroll 1
+  for (int c0 = 0; c0 < n_chunked; c0 += kClockEntries) {
+    const int cs = (min(kClockEntries, n_chunked - c0) + 31) / 32;
+    const int len = max(min(kClockEntries, n_entries - c0), 0);
+    // attempt att of entry e, from any lane
+    auto words = [&](int e, uint32_t att) {
+      const int q = c0 + e, l = lane_of(q), pp = p0 + l;
+      return keyed(static_cast<uint32_t>(pp % tile),
+                   (draws + static_cast<uint32_t>(q - l * half)) * kMaxAttempts + att,
+                   static_cast<uint32_t>(first_tile + pp / tile), kGammaStream, keys);
+    };
+    unsigned int pushed = 0u;  // the same in every lane
+#pragma unroll 1
+    for (int i = 0; i < cs; ++i) {
+      const int q = c0 + i * 32 + lane, l = lane_of(q);
+      const uint32_t s = __shfl_sync(0xFFFFFFFFu, slot, l);
+      const uint32_t g = __shfl_sync(0xFFFFFFFFu, gtile, l);
+      gamma::clock_first(sh, i * 32 + lane,
+                         keyed(s, (draws + static_cast<uint32_t>(q - l * half)) * kMaxAttempts,
+                               g, kGammaStream, keys),
+                         q < n_entries, gk, one_m, pushed);
+    }
+    __syncwarp();
+    const unsigned int tail = gamma::clock_exact(sh, pushed, gk, n_exact);
+    __syncwarp();
+    gamma::clock_retries(sh, tail, gk, one_m, words, n_retry);
+#pragma unroll 1
+    for (int i = 0; i < cs; ++i) {
+      const int e = i * 32 + lane, q = c0 + e, l = lane_of(q);
+      const float xq = __shfl_sync(0xFFFFFFFFu, xp, l);
+      const float lq = __shfl_sync(0xFFFFFFFFu, lx, l);
+      if (q < n_entries) {
+        const uint32_t tag = sh.tag[e];
+        const float G = mul(k.nu, gamma::clock_gamma(sh.g[e], tag, gk));
+        sh.g[e] = terminal_black<kCall>(xq, lq, G, k);
+        if (kDebug) {
+          const size_t o = static_cast<size_t>(q - l * half) * n_paths + p0 + l;
+          gs[o] = G;
+          atts[o] = static_cast<int>(tag & kAttemptBits);
+        }
+      }
+    }
+    __syncwarp();
+    const int lo = max(lane * half - c0, 0);
+    const int hi = owner ? min((lane + 1) * half - c0, len) : 0;
+#pragma unroll 1
+    for (int e = lo; e < hi; ++e) acc += sh.g[e];
+    __syncwarp();  // the next chunk writes the entries this sum read
+  }
+  if (kDebug && lane == 0 && n_live > 0) {
+    passes[2 * warp] = static_cast<int>(n_exact);
+    passes[2 * warp + 1] = static_cast<int>(n_retry);
+  }
+  if (owner) e_h[p] = (0.5f * k.cp * k.K) * acc / static_cast<float>(half);
+}
+
 inline DualT law_from(const void* host) {
   DualT k;
   const float* f = static_cast<const float*>(host);
@@ -925,8 +1188,9 @@ inline bool args_fit(int n_paths, int tile, int n_dates, int half, int first_til
 
 // Which of kernel 18's designs a launch takes: the redesign, the first
 // design (dual_ce_first_kernel for GBM, Heston, Merton and Bates;
-// dual_ce_kernel's instances for VG and rough Bergomi), or the VG and
-// rough Bergomi redesigns' debug instances.
+// dual_ce_kernel's instances for VG, SABR and rough Bergomi), or the VG,
+// SABR and rough Bergomi redesigns' debug instances; the same for VG's
+// terminal step.
 enum Design { kDesignNew = 0, kDesignFirst = 1, kDesignDebug = 2 };
 
 // Kernel 18 under ``design`` for the law's side; d0-d2 the debug outputs.
@@ -950,8 +1214,6 @@ int launch_ce(Design design, void* ce, void* d0, void* d1, void* d2, const void*
                                                            tile, n_paths, width, degree, half);
       return static_cast<int>(cudaGetLastError());
     }
-  } else if constexpr (F == kSabr) {
-    if (design != kDesignNew) return static_cast<int>(cudaErrorInvalidValue);
   } else if (design != kDesignFirst) {
     const fast::PhiloxKeys keys = fast::philox_keys(seed);
     const bool debug = design == kDesignDebug;
@@ -962,6 +1224,14 @@ int launch_ce(Design design, void* ce, void* d0, void* d1, void* d2, const void*
       kernel<<<grid, kBlock, 0, stream>>>(out, static_cast<float*>(d0), static_cast<int*>(d1),
                                           static_cast<int*>(d2), xp, rp, k, keys, first_tile,
                                           tile, n_paths, width, degree, half);
+    } else if constexpr (F == kSabr) {
+      auto kernel = call ? (debug ? dual_ce_sabr_kernel<true, true>
+                                  : dual_ce_sabr_kernel<true, false>)
+                         : (debug ? dual_ce_sabr_kernel<false, true>
+                                  : dual_ce_sabr_kernel<false, false>);
+      kernel<<<grid, kBlock, 0, stream>>>(out, static_cast<float*>(d0), static_cast<float*>(d1),
+                                          xp, vp, rp, k, keys, first_tile, tile, n_paths, width,
+                                          degree, half);
     } else {
       auto kernel = call ? (debug ? dual_ce_rough_kernel<true, true>
                                   : dual_ce_rough_kernel<true, false>)
@@ -1023,6 +1293,37 @@ int launch_states(void* xs, void* vs, void* counts, const void* x, const void* v
   return static_cast<int>(cudaGetLastError());
 }
 
+// VG's terminal step under ``design``; the debug outputs G, its attempts
+// and the warps' passes.
+inline int launch_terminal(Design design, void* e_h, void* gs, void* atts, void* passes,
+                           const void* x_last, const void* law, uint64_t seed, int first_tile,
+                           int tile, int n_paths, int date, int half, cudaStream_t stream) {
+  if (!args_fit(n_paths, tile, 1, half, first_tile) || date < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DualT k = law_from(law);
+  auto* out = static_cast<float*>(e_h);
+  const auto* xp = static_cast<const float*>(x_last);
+  if (design == kDesignFirst) {
+    dual_vg_terminal_kernel<<<(n_paths + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
+        out, xp, k, seed, first_tile, tile, n_paths, date, half);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int per_warp = terminal_per_warp(half);
+  const int warps = (n_paths + per_warp - 1) / per_warp;
+  const int blocks = (warps + kBlock / 32 - 1) / (kBlock / 32);
+  const bool call = k.cp > 0.0f, debug = design == kDesignDebug;
+  auto kernel = call ? (debug ? dual_vg_terminal_warp_kernel<true, true>
+                              : dual_vg_terminal_warp_kernel<true, false>)
+                     : (debug ? dual_vg_terminal_warp_kernel<false, true>
+                              : dual_vg_terminal_warp_kernel<false, false>);
+  kernel<<<blocks, kBlock, 0, stream>>>(out, static_cast<float*>(gs), static_cast<int*>(atts),
+                                        static_cast<int*>(passes), xp, k,
+                                        fast::philox_keys(seed), first_tile, tile, n_paths,
+                                        date, half, per_warp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace dual
 }  // namespace omt
 
@@ -1044,7 +1345,7 @@ int omt_dual_ce(void* ce, const void* x, const void* v, const void* hist, const 
                   first_tile, tile, n_paths, n_dates, width, degree, half, family, stream);
 }
 
-// Kernel 18's first design, the same arguments (families 0-4 and 6: VG's
+// Kernel 18's first design, the same arguments (families 0-6: VG's, SABR's
 // and rough Bergomi's is dual_ce_kernel).
 int omt_dual_ce_first(void* ce, const void* x, const void* v, const void* hist, const void* comp,
                       const void* rows, const void* law, uint64_t seed, int first_tile, int tile,
@@ -1055,18 +1356,19 @@ int omt_dual_ce_first(void* ce, const void* x, const void* v, const void* hist, 
                   first_tile, tile, n_paths, n_dates, width, degree, half, family, stream);
 }
 
-// Kernel 18's VG (family 4) or rough Bergomi (6) redesign through its debug
-// instance: VG's d0 device (n_dates, half, n_paths) float32 the pairs' G,
-// d1 the same shape int32 their accepting attempts, d2 (n_dates,
+// Kernel 18's VG (family 4), SABR (5) or rough Bergomi (6) redesign through
+// its debug instance: VG's d0 device (n_dates, half, n_paths) float32 the
+// pairs' G, d1 the same shape int32 their accepting attempts, d2 (n_dates,
 // ceil(n_paths / 32), 2) int32 each warp's passes of the exact tests and of
-// the retries; rough Bergomi's d0 and d1 device (n_dates, 2, half, n_paths)
-// float32 x' and v', d2 null. The rest as omt_dual_ce.
+// the retries; SABR's and rough Bergomi's d0 and d1 device (n_dates, 2,
+// half, n_paths) float32 x' and alpha' (v'), d2 null. The rest as
+// omt_dual_ce.
 int omt_dual_ce_debug(void* ce, void* d0, void* d1, void* d2, const void* x, const void* v,
                       const void* hist, const void* comp, const void* rows, const void* law,
                       uint64_t seed, int first_tile, int tile, int n_paths, int n_dates,
                       int width, int degree, int half, int family, void* stream) {
   using namespace omt::dual;
-  if ((family != kVg && family != kRBergomi) || d0 == nullptr || d1 == nullptr ||
+  if (family < kVg || family > kRBergomi || d0 == nullptr || d1 == nullptr ||
       (family == kVg && d2 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1107,22 +1409,44 @@ int omt_dual_inner_states(void* xs, void* vs, void* counts, const void* x, const
 #undef OMT_STATES
 }
 
-// VG's terminal expectation. e_h: device (n_paths,) float32; x_last: device
-// (n_paths,) float32, x at date n_steps - 1; date: the clock draws' date
-// (n_dates); the rest as omt_dual_ce.
+// VG's terminal expectation (dual_vg_terminal_warp_kernel). e_h: device
+// (n_paths,) float32; x_last: device (n_paths,) float32, x at date n_steps -
+// 1; date: the clock draws' date (n_dates); the rest as omt_dual_ce.
 int omt_dual_vg_terminal(void* e_h, const void* x_last, const void* law, uint64_t seed,
                          int first_tile, int tile, int n_paths, int date, int half,
                          void* stream) {
   using namespace omt::dual;
-  if (!args_fit(n_paths, tile, 1, half, first_tile) || date < 0) {
+  return launch_terminal(kDesignNew, e_h, nullptr, nullptr, nullptr, x_last, law, seed,
+                         first_tile, tile, n_paths, date, half,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// Its first design (dual_vg_terminal_kernel, one thread a path), the same
+// arguments.
+int omt_dual_vg_terminal_first(void* e_h, const void* x_last, const void* law, uint64_t seed,
+                               int first_tile, int tile, int n_paths, int date, int half,
+                               void* stream) {
+  using namespace omt::dual;
+  return launch_terminal(kDesignFirst, e_h, nullptr, nullptr, nullptr, x_last, law, seed,
+                         first_tile, tile, n_paths, date, half,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The redesign through its debug instance: gs device (half, n_paths) float32
+// each draw's G = nu gamma, atts the same shape int32 its accepting
+// attempt, passes device (ceil(n_paths / per_warp), 2) int32 each warp's
+// passes of the exact tests and of the retries (per_warp = min(32, max(1,
+// 256 / half)), ops/cuda_dual.terminal_per_warp). The rest as
+// omt_dual_vg_terminal.
+int omt_dual_vg_terminal_debug(void* e_h, void* gs, void* atts, void* passes, const void* x_last,
+                               const void* law, uint64_t seed, int first_tile, int tile,
+                               int n_paths, int date, int half, void* stream) {
+  using namespace omt::dual;
+  if (gs == nullptr || atts == nullptr || passes == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const DualT k = law_from(law);
-  dual_vg_terminal_kernel<<<(n_paths + kBlock - 1) / kBlock, kBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(e_h), static_cast<const float*>(x_last), k, seed, first_tile, tile,
-      n_paths, date, half);
-  return static_cast<int>(cudaGetLastError());
+  return launch_terminal(kDesignDebug, e_h, gs, atts, passes, x_last, law, seed, first_tile,
+                         tile, n_paths, date, half, static_cast<cudaStream_t>(stream));
 }
 
 // Registers, spills and occupancy (omt::kernel_attrs): which = 4 kernel +
@@ -1130,10 +1454,11 @@ int omt_dual_vg_terminal(void* e_h, const void* x_last, const void* law, uint64_
 // dual_inner_states_kernel without counts, 2 dual_ce_first_kernel, 3
 // dual_ce_kernel's call instance; 16 + 3 kernel + (family - 4) for the
 // VG, SABR and rough Bergomi families, kernel 0 the redesign's put
-// instance, 1 its call instance, 2 the states kernel; 25
-// dual_vg_terminal_kernel; 26 + 2 (family == 6) + call for the first
-// design of VG and rough Bergomi (dual_ce_kernel); 30 + (family == 6) for
-// their redesigns' debug instances (puts).
+// instance, 1 its call instance, 2 the states kernel; 26 + 2 (family - 4)
+// + call for their first designs (dual_ce_kernel), 32 + (family - 4) for
+// their redesigns' debug instances (puts); VG's terminal step: 25 the
+// redesign's put instance, 35 its call instance, 36 its debug instance
+// (put), 37 the first design.
 int omt_dual_attrs(int which, int* out) {
   using namespace omt::dual;
   using omt::kernel_attrs;
@@ -1155,21 +1480,27 @@ int omt_dual_attrs(int which, int* out) {
     case 14: return kernel_attrs(dual_ce_kernel<kMerton, true>, kBlock, out);
     case 15: return kernel_attrs(dual_ce_kernel<kBates, true>, kBlock, out);
     case 16: return kernel_attrs(dual_ce_vg_kernel<false, false>, kBlock, out);
-    case 17: return kernel_attrs(dual_ce_kernel<kSabr, false>, kBlock, out);
+    case 17: return kernel_attrs(dual_ce_sabr_kernel<false, false>, kBlock, out);
     case 18: return kernel_attrs(dual_ce_rough_kernel<false, false>, kBlock, out);
     case 19: return kernel_attrs(dual_ce_vg_kernel<true, false>, kBlock, out);
-    case 20: return kernel_attrs(dual_ce_kernel<kSabr, true>, kBlock, out);
+    case 20: return kernel_attrs(dual_ce_sabr_kernel<true, false>, kBlock, out);
     case 21: return kernel_attrs(dual_ce_rough_kernel<true, false>, kBlock, out);
     case 22: return kernel_attrs(dual_inner_states_kernel<kVg, false>, kBlock, out);
     case 23: return kernel_attrs(dual_inner_states_kernel<kSabr, false>, kBlock, out);
     case 24: return kernel_attrs(dual_inner_states_kernel<kRBergomi, false>, kBlock, out);
-    case 25: return kernel_attrs(dual_vg_terminal_kernel, kBlock, out);
+    case 25: return kernel_attrs(dual_vg_terminal_warp_kernel<false, false>, kBlock, out);
     case 26: return kernel_attrs(dual_ce_kernel<kVg, false>, kBlock, out);
     case 27: return kernel_attrs(dual_ce_kernel<kVg, true>, kBlock, out);
-    case 28: return kernel_attrs(dual_ce_kernel<kRBergomi, false>, kBlock, out);
-    case 29: return kernel_attrs(dual_ce_kernel<kRBergomi, true>, kBlock, out);
-    case 30: return kernel_attrs(dual_ce_vg_kernel<false, true>, kBlock, out);
-    case 31: return kernel_attrs(dual_ce_rough_kernel<false, true>, kBlock, out);
+    case 28: return kernel_attrs(dual_ce_kernel<kSabr, false>, kBlock, out);
+    case 29: return kernel_attrs(dual_ce_kernel<kSabr, true>, kBlock, out);
+    case 30: return kernel_attrs(dual_ce_kernel<kRBergomi, false>, kBlock, out);
+    case 31: return kernel_attrs(dual_ce_kernel<kRBergomi, true>, kBlock, out);
+    case 32: return kernel_attrs(dual_ce_vg_kernel<false, true>, kBlock, out);
+    case 33: return kernel_attrs(dual_ce_sabr_kernel<false, true>, kBlock, out);
+    case 34: return kernel_attrs(dual_ce_rough_kernel<false, true>, kBlock, out);
+    case 35: return kernel_attrs(dual_vg_terminal_warp_kernel<true, false>, kBlock, out);
+    case 36: return kernel_attrs(dual_vg_terminal_warp_kernel<false, true>, kBlock, out);
+    case 37: return kernel_attrs(dual_vg_terminal_kernel, kBlock, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -75,6 +75,8 @@ _SIGNATURES = {
     "omt_dual_ce_debug": [_P] * 10 + [_U64] + [_I] * 8 + [_P],
     "omt_dual_inner_states": [_P] * 8 + [_U64] + [_I] * 7 + [_P],
     "omt_dual_vg_terminal": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_dual_vg_terminal_first": [_P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_dual_vg_terminal_debug": [_P] * 6 + [_U64] + [_I] * 5 + [_P],
     "omt_vg_paths": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_paths_first": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_vg_terminal": [_P, _P, _P, _P, _U64, _I, _I, _I, _P],

@@ -2,13 +2,14 @@
 versions:
 - 18 ``dual_ce``: the inner expectation ce[t, p] = E[W_{t+1}(x', v') |
   x_t, v_t] of the polynomial policy's surrogate, t = 0..n_steps-2, one
-  thread a (date, path) (dual_ce_kernel, the redesign; VG's and rough
-  Bergomi's redesigns dual_ce_vg_kernel, a warp-dense clock, and
-  dual_ce_rough_kernel, the mirror once a pair). The first designs stay
-  built as their yardsticks, ``dual_ce_first``: dual_ce_first_kernel for
-  GBM, Heston, Merton and Bates, dual_ce_kernel's instances for VG
-  and rough Bergomi; no pricer reaches them. ``dual_ce_debug`` runs the VG
-  and rough Bergomi redesigns' debug instances for a check;
+  thread a (date, path) (dual_ce_kernel, the redesign; VG's, SABR's and
+  rough Bergomi's redesigns dual_ce_vg_kernel, a warp-dense clock, and
+  dual_ce_sabr_kernel and dual_ce_rough_kernel, the mirror once a pair).
+  The first designs stay built as their yardsticks, ``dual_ce_first``:
+  dual_ce_first_kernel for GBM, Heston, Merton and Bates, dual_ce_kernel's
+  instances for VG, SABR and rough Bergomi; no pricer reaches them.
+  ``dual_ce_debug`` runs the VG, SABR and rough Bergomi redesigns' debug
+  instances for a check;
 - 19 ``dual_inner_states``: the inner one-step states (x', and v' under
   Heston) of a chunk of dates, on which the NN policy's network is then
   evaluated (dual_inner_states_kernel); its VG, SABR and rough Bergomi
@@ -17,7 +18,11 @@ versions:
   the count);
 - ``dual_vg_terminal``: VG's terminal step, the one-step Black expectation
   given the clock over n_inner/2 clock draws a path
-  (dual_vg_terminal_kernel, options_model_tpu/pricers/dual.py:676-686).
+  (options_model_tpu/pricers/dual.py:676-686): dual_vg_terminal_warp_kernel,
+  one entry a (path, draw) on the warp-dense clock;
+  ``dual_vg_terminal_first`` its first design (dual_vg_terminal_kernel, one
+  thread a path), the yardstick no pricer reaches;
+  ``dual_vg_terminal_debug`` the redesign's debug instance for a check;
 Both replace XLA code of the JAX package, not a Pallas kernel:
 options_model_tpu/pricers/dual.py:292 dual_upper_from_policy and :847
 dual_upper_from_nn_policy compute the inner expectation as a lax.scan over
@@ -41,9 +46,13 @@ Its launches count under "dual_ce" for GBM, Heston, Merton and Bates and
 under "dual_ce <family>" for VG, SABR and rough Bergomi; the first designs'
 under "dual_ce_first" and "dual_ce <family>, first design", the debug
 instances' under "dual_ce debug". Every design gives the inner states x'
-bit for bit (and v', but for the rough Bergomi redesign's, within the
-relative budget csrc/dual.cu states); their ce differ from the plain
-version's in float32 rounding of the floor and the polynomial only.
+bit for bit (and v', but for the SABR and rough Bergomi redesigns', within
+the relative budgets csrc/dual.cu states); their ce differ from the plain
+version's in float32 rounding of the floor and the polynomial only. VG's
+terminal step counts under "dual_vg_terminal", its first design under
+"dual_vg_terminal, first design" and its debug instance under
+"dual_vg_terminal debug"; each clock draw is the plain version's bit for
+bit, e_h differs in float32 rounding of the Black step.
 Kernel 19 can also return each inner pair's Poisson count (int32), so a
 check can hold the kernels' counts against the plain version's bit for
 bit.
@@ -67,17 +76,18 @@ from options_model_tpu_torch.pricers.dual import (ROW_HEAD, InnerLaw, dual_ce_fr
 # VG, SABR and rough Bergomi families apart).
 launches = {"dual_ce": 0, "dual_inner_states": 0, "dual_ce_first": 0, "dual_ce vg": 0,
             "dual_ce sabr": 0, "dual_ce rbergomi": 0, "dual_vg_terminal": 0,
-            "dual_ce vg, first design": 0, "dual_ce rbergomi, first design": 0,
-            "dual_ce debug": 0}
+            "dual_ce vg, first design": 0, "dual_ce sabr, first design": 0,
+            "dual_ce rbergomi, first design": 0, "dual_ce debug": 0,
+            "dual_vg_terminal, first design": 0, "dual_vg_terminal debug": 0}
 # The kernels' family instances (csrc/dual.cu Family).
 FAMILIES = {"gbm": 0, "heston": 1, "merton": 2, "bates": 3, "vg": 4, "sabr": 5, "rbergomi": 6}
 # The families of kernel 18's first design dual_ce_first_kernel and of the
 # NN policy's states.
 FIRST_FAMILIES = ("gbm", "heston", "merton", "bates")
 # The families with kernel-18 redesigns of their own (dual_ce_vg_kernel,
-# dual_ce_rough_kernel; dual_ce_first reaches their first design,
-# dual_ce_kernel's instances); they alone have debug instances.
-REDESIGNED_FAMILIES = ("vg", "rbergomi")
+# dual_ce_sabr_kernel, dual_ce_rough_kernel; dual_ce_first reaches their
+# first design, dual_ce_kernel's instances); they alone have debug instances.
+REDESIGNED_FAMILIES = ("vg", "sabr", "rbergomi")
 # The law's floats before its Poisson table (csrc/dual.cu DualT), in order.
 LAW_FIELDS = ("K", "cp", "rate", "q", "dt", "drift", "mu", "a", "sig_f", "kappa", "theta",
               "xi", "rho", "rho_bar", "comp_dt", "jvar", "mu_j", "sig_j", "nu", "vg_theta",
@@ -88,6 +98,15 @@ MAX_ROW = 64
 # The most inner pairs (csrc/dual.cu kMaxPairs) and dates of a launch.
 MAX_PAIRS = 1024
 MAX_DATES = 65535
+# A warp clock's entries (csrc/dual.cu kClockEntries).
+CLOCK_ENTRIES = 256
+
+
+def terminal_per_warp(half: int) -> int:
+    """The paths a warp of VG's terminal redesign owns at ``half`` clock
+    draws a path (csrc/dual.cu terminal_per_warp): as many whole paths as
+    its clock's CLOCK_ENTRIES hold, 1 to 32."""
+    return min(32, max(1, CLOCK_ENTRIES // half))
 
 
 def policy_rows(policy, taus: torch.Tensor) -> torch.Tensor:
@@ -195,7 +214,8 @@ def dual_ce(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor, law:
             hist: Optional[torch.Tensor] = None,
             comp: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ce (n_dates, P) of kernel 18's redesign (csrc/dual.cu dual_ce_kernel;
-    dual_ce_vg_kernel under VG, dual_ce_rough_kernel under rough Bergomi) on
+    dual_ce_vg_kernel under VG, dual_ce_sabr_kernel under SABR,
+    dual_ce_rough_kernel under rough Bergomi) on
     CUDA x (n_steps+1, P) = S / K [and v, SABR's alpha], or of its plain
     version for CPU ones. ``rows`` (policy_rows) fixes n_dates,
     ``tile`` and ``first_tile`` the stream's tiles; rough Bergomi also takes
@@ -214,12 +234,9 @@ def dual_ce_first(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor
                   comp: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel 18's first design on CUDA tensors (csrc/dual.cu
     dual_ce_first_kernel for GBM, Heston, Merton and Bates; dual_ce_kernel,
-    its first design for VG and rough Bergomi), the plain version on CPU
-    ones; the redesigns' yardstick, which no pricer calls. The arguments
+    its first design for VG, SABR and rough Bergomi), the plain version on
+    CPU ones; the redesigns' yardstick, which no pricer calls. The arguments
     are dual_ce's."""
-    families = FIRST_FAMILIES + REDESIGNED_FAMILIES
-    if law.model not in families:
-        raise ValueError(f"kernel 18's first design takes {', '.join(families)}")
     if x.device.type == "cpu":
         return dual_ce_reference(x, v, rows, law, seed, first_tile, tile, n_inner, hist, comp)
     ce = _launch_ce("omt_dual_ce_first", x, v, rows, law, seed, first_tile, tile, n_inner, hist,
@@ -232,14 +249,14 @@ def dual_ce_first(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor
 def dual_ce_debug(x: torch.Tensor, v: Optional[torch.Tensor], rows: torch.Tensor,
                   law: InnerLaw, seed: int, first_tile: int, tile: int, n_inner: int,
                   hist: Optional[torch.Tensor] = None, comp: Optional[torch.Tensor] = None):
-    """dual_ce's VG or rough Bergomi redesign through its debug instance
-    (CUDA tensors), or the plain version (CPU ones), for a check; the
-    arguments are dual_ce's. VG: (ce, G, attempts, passes), each pair's
+    """dual_ce's VG, SABR or rough Bergomi redesign through its debug
+    instance (CUDA tensors), or the plain version (CPU ones), for a check;
+    the arguments are dual_ce's. VG: (ce, G, attempts, passes), each pair's
     clock G = nu gamma and accepting attempt (n_dates, n_inner/2, P), and
     each warp's passes of the exact tests and of the retries (n_dates,
     ceil(P / 32), 2) int32, which only the kernel has (None on the CPU).
-    Rough Bergomi: (ce, x', v'), each (n_dates, 2, n_inner/2, P), the pair's
-    up member first."""
+    SABR and rough Bergomi: (ce, x', v'), each (n_dates, 2, n_inner/2, P),
+    the pair's up member first (v' SABR's alpha')."""
     if law.model not in REDESIGNED_FAMILIES:
         raise ValueError(f"kernel 18's debug instances take {', '.join(REDESIGNED_FAMILIES)}")
     n_dates, half, n = rows.shape[0], n_inner // 2, x.shape[1]
@@ -334,14 +351,9 @@ def dual_vg_terminal_reference(x_last: torch.Tensor, law: InnerLaw, seed: int, f
     return vg_terminal_from_gamma(law, x_last, gamma)
 
 
-def dual_vg_terminal(x_last: torch.Tensor, law: InnerLaw, seed: int, first_tile: int, tile: int,
-                     n_inner: int, date: int) -> torch.Tensor:
-    """VG's terminal expectation e_h (P,) on x_{n-1} = S_{n-1} / K (P,):
-    csrc/dual.cu dual_vg_terminal_kernel on a CUDA tensor, its plain version
-    on a CPU one; the clock draws of ``date`` (n_dates) on the dual's gamma
-    counters, n_inner/2 a path."""
-    if x_last.device.type == "cpu":
-        return dual_vg_terminal_reference(x_last, law, seed, first_tile, tile, n_inner, date)
+def _terminal_args(x_last: torch.Tensor, law: InnerLaw, seed: int, first_tile: int, tile: int,
+                   n_inner: int) -> None:
+    """Raise for what VG's terminal kernels refuse (CUDA x_last)."""
     _build.require_cuda(x_last.device)
     if (law.model != "vg" or x_last.dim() != 1 or x_last.dtype != torch.float32
             or not x_last.is_contiguous() or x_last.shape[0] % tile):
@@ -350,11 +362,69 @@ def dual_vg_terminal(x_last: torch.Tensor, law: InnerLaw, seed: int, first_tile:
     if n_inner < 2 or n_inner % 2 or n_inner // 2 > MAX_PAIRS:
         raise ValueError(f"n_inner must be even, in [2, {2 * MAX_PAIRS}], got {n_inner}")
     _build.check_launch(seed, first_tile, x_last.shape[0] // tile, 1)
+
+
+def _launch_terminal(entry: str, counter: str, x_last: torch.Tensor, law: InnerLaw, seed: int,
+                     first_tile: int, tile: int, n_inner: int, date: int) -> torch.Tensor:
+    """Check the arguments and launch C entry ``entry`` of VG's terminal step;
+    returns e_h (P,)."""
+    _terminal_args(x_last, law, seed, first_tile, tile, n_inner)
     e_h = torch.empty_like(x_last)
-    _build.launch("omt_dual_vg_terminal", x_last.device, e_h.data_ptr(), x_last.data_ptr(),
-                  law_args(law), seed, first_tile, tile, x_last.shape[0], date, n_inner // 2)
-    launches["dual_vg_terminal"] += 1
+    _build.launch(entry, x_last.device, e_h.data_ptr(), x_last.data_ptr(), law_args(law), seed,
+                  first_tile, tile, x_last.shape[0], date, n_inner // 2)
+    launches[counter] += 1
     return e_h
+
+
+def dual_vg_terminal(x_last: torch.Tensor, law: InnerLaw, seed: int, first_tile: int, tile: int,
+                     n_inner: int, date: int) -> torch.Tensor:
+    """VG's terminal expectation e_h (P,) on x_{n-1} = S_{n-1} / K (P,):
+    csrc/dual.cu dual_vg_terminal_warp_kernel on a CUDA tensor, its plain
+    version on a CPU one; the clock draws of ``date`` (n_dates) on the dual's
+    gamma counters, n_inner/2 a path."""
+    if x_last.device.type == "cpu":
+        return dual_vg_terminal_reference(x_last, law, seed, first_tile, tile, n_inner, date)
+    return _launch_terminal("omt_dual_vg_terminal", "dual_vg_terminal", x_last, law, seed,
+                            first_tile, tile, n_inner, date)
+
+
+def dual_vg_terminal_first(x_last: torch.Tensor, law: InnerLaw, seed: int, first_tile: int,
+                           tile: int, n_inner: int, date: int) -> torch.Tensor:
+    """VG's terminal step's first design on a CUDA tensor (csrc/dual.cu
+    dual_vg_terminal_kernel, one thread a path), the plain version on a CPU
+    one; the redesign's yardstick, which no pricer calls. The arguments are
+    dual_vg_terminal's."""
+    if x_last.device.type == "cpu":
+        return dual_vg_terminal_reference(x_last, law, seed, first_tile, tile, n_inner, date)
+    return _launch_terminal("omt_dual_vg_terminal_first", "dual_vg_terminal, first design",
+                            x_last, law, seed, first_tile, tile, n_inner, date)
+
+
+def dual_vg_terminal_debug(x_last: torch.Tensor, law: InnerLaw, seed: int, first_tile: int,
+                           tile: int, n_inner: int, date: int):
+    """dual_vg_terminal's redesign through its debug instance (a CUDA
+    tensor), or the plain version (a CPU one), for a check; the arguments
+    are dual_vg_terminal's. (e_h, G, attempts, passes): each clock draw's G
+    = nu gamma and accepting attempt (n_inner/2, P), and each warp's passes
+    of the exact tests and of the retries (ceil(P / terminal_per_warp), 2)
+    int32, which only the kernel has (None on the CPU)."""
+    half, n = n_inner // 2, x_last.shape[0]
+    if x_last.device.type == "cpu":
+        e_h = dual_vg_terminal_reference(x_last, law, seed, first_tile, tile, n_inner, date)
+        gamma, attempts = dual_gamma_draws(seed, first_tile, n // tile, tile, half, date,
+                                           law.gamma_shape, x_last.device)
+        return e_h, law.nu * gamma, attempts, None
+    _terminal_args(x_last, law, seed, first_tile, tile, n_inner)
+    e_h = torch.empty_like(x_last)
+    G = torch.empty((half, n), dtype=torch.float32, device=x_last.device)
+    att = torch.empty((half, n), dtype=torch.int32, device=x_last.device)
+    passes = torch.empty((-(-n // terminal_per_warp(half)), 2), dtype=torch.int32,
+                         device=x_last.device)
+    _build.launch("omt_dual_vg_terminal_debug", x_last.device, e_h.data_ptr(), G.data_ptr(),
+                  att.data_ptr(), passes.data_ptr(), x_last.data_ptr(), law_args(law), seed,
+                  first_tile, tile, n, date, half)
+    launches["dual_vg_terminal debug"] += 1
+    return e_h, G, att, passes
 
 
 def dual_kernel_attrs() -> dict:
@@ -362,21 +432,26 @@ def dual_kernel_attrs() -> dict:
     name and family: kernel 18's redesign for a put (``dual_ce``) and for a
     call (``dual_ce_call``), kernel 19 without its counts output, kernel
     18's first design (``dual_ce_first`` for GBM, Heston, Merton, Bates;
-    ``dual_ce[_call] <family>, first design`` for VG and rough Bergomi),
-    the VG and rough Bergomi redesigns' debug instances (puts, ``dual_ce
-    <family>, debug``), and VG's terminal kernel (``dual_vg_terminal``)."""
+    ``dual_ce[_call] <family>, first design`` for VG, SABR and rough
+    Bergomi), the VG, SABR and rough Bergomi redesigns' debug instances
+    (puts, ``dual_ce <family>, debug``), and VG's terminal step
+    (``dual_vg_terminal`` and ``dual_vg_terminal_call``, ``dual_vg_terminal,
+    debug``, ``dual_vg_terminal, first design``)."""
     out = {f"{name} {model}": _build.kernel_attrs("omt_dual_attrs", 4 * k + FAMILIES[model])
            for k, name in enumerate(("dual_ce", "dual_inner_states", "dual_ce_first",
                                      "dual_ce_call"))
            for model in FIRST_FAMILIES}
     for k, name in enumerate(("dual_ce", "dual_ce_call", "dual_inner_states")):
-        for model in ("vg", "sabr", "rbergomi"):
+        for model in REDESIGNED_FAMILIES:
             out[f"{name} {model}"] = _build.kernel_attrs("omt_dual_attrs",
                                                          16 + 3 * k + FAMILIES[model] - 4)
-    out["dual_vg_terminal"] = _build.kernel_attrs("omt_dual_attrs", 25)
-    for i, model in enumerate(REDESIGNED_FAMILIES):
+    for model in REDESIGNED_FAMILIES:
+        i = FAMILIES[model] - 4
         for k, name in enumerate(("dual_ce", "dual_ce_call")):
             out[f"{name} {model}, first design"] = _build.kernel_attrs("omt_dual_attrs",
                                                                       26 + 2 * i + k)
-        out[f"dual_ce {model}, debug"] = _build.kernel_attrs("omt_dual_attrs", 30 + i)
+        out[f"dual_ce {model}, debug"] = _build.kernel_attrs("omt_dual_attrs", 32 + i)
+    for name, which in (("dual_vg_terminal", 25), ("dual_vg_terminal_call", 35),
+                        ("dual_vg_terminal, debug", 36), ("dual_vg_terminal, first design", 37)):
+        out[name] = _build.kernel_attrs("omt_dual_attrs", which)
     return out

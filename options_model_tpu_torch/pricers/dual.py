@@ -26,7 +26,7 @@ from:
 - the terminal step: the one-step Black closed form (the Poisson mixture of
   Black terms under the jumps), exact, with no inner noise; under VG the
   Black expectation given the clock, averaged over n_inner/2 clock draws
-  (csrc/dual.cu dual_vg_terminal_kernel on the card).
+  (csrc/dual.cu dual_vg_terminal_warp_kernel on the card).
 The NN policy evaluates the shared continuation network at the inner
 states, which kernel 19 (dual_inner_states_kernel) writes a chunk of dates
 at a time; the network itself is a plain matrix product

@@ -298,32 +298,28 @@ def test_cpu_wrappers_are_plain_and_launch_nothing(model):
         assert torch.equal(eh, cuda_dual.dual_vg_terminal_reference(xl, law, SEED, 0, 4096, 8, 7))
         gamma, _ = dual_gamma_draws(SEED, 0, 2, 4096, 4, 7, law.gamma_shape)
         assert torch.equal(eh, pd.vg_terminal_from_gamma(law, xl, gamma))
-    if model in cuda_dual.REDESIGNED_FAMILIES:
-        # the first design (dual_ce_kernel's instances) and the redesign's debug
-        # instance: on the CPU the plain version, the inner states its draws'
-        assert torch.equal(cuda_dual.dual_ce_first(x, v, rows, law, *args), ce)
-        out = cuda_dual.dual_ce_debug(x, v, rows, law, *args)
-        xs, vs, counts = cuda_dual.dual_inner_states_reference(x, v, law, *args[:4], 0, 7, True,
-                                                               hist, comp)
-        assert torch.equal(out[0], ce)
-        if model == "vg":
-            assert torch.equal(out[1], vs[:, 0]) and torch.equal(out[2], counts)
-            assert out[3] is None                # the warps' passes: the kernel's alone
-        else:
-            assert torch.equal(out[1], xs) and torch.equal(out[2], vs)
+    # the first design (dual_ce_kernel's instances) and the redesign's debug
+    # instance: on the CPU the plain version, the inner states its draws'
+    assert torch.equal(cuda_dual.dual_ce_first(x, v, rows, law, *args), ce)
+    out = cuda_dual.dual_ce_debug(x, v, rows, law, *args)
+    xs, vs, counts = cuda_dual.dual_inner_states_reference(x, v, law, *args[:4], 0, 7, True,
+                                                           hist, comp)
+    assert torch.equal(out[0], ce)
+    if model == "vg":
+        assert torch.equal(out[1], vs[:, 0]) and torch.equal(out[2], counts)
+        assert out[3] is None                # the warps' passes: the kernel's alone
     else:
-        with pytest.raises(ValueError, match="first design takes"):
-            cuda_dual.dual_ce_first(x, v, rows, law, SEED, 0, 4096, 8)
-        with pytest.raises(ValueError, match="debug instances take"):
-            cuda_dual.dual_ce_debug(x, v, rows, law, SEED, 0, 4096, 8)
+        assert torch.equal(out[1], xs) and torch.equal(out[2], vs)
+    gbm = pd.inner_law("gbm", OptionSpec(strike=K, rate=R, cp=PUT, sigma=0.2), T, 8)
+    with pytest.raises(ValueError, match="debug instances take"):
+        cuda_dual.dual_ce_debug(x, None, rows, gbm, SEED, 0, 4096, 8)
     assert cuda_dual.launches == before
     meta = x.to("meta")
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_dual.dual_ce(meta, None if v is None else v.to("meta"), rows, law, *args)
-    if model in cuda_dual.REDESIGNED_FAMILIES:
-        for fn in (cuda_dual.dual_ce_first, cuda_dual.dual_ce_debug):
-            with pytest.raises(ValueError, match="CUDA device"):
-                fn(meta, None if v is None else v.to("meta"), rows, law, *args)
+    for fn in (cuda_dual.dual_ce_first, cuda_dual.dual_ce_debug):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(meta, None if v is None else v.to("meta"), rows, law, *args)
     if model == "rbergomi":
         with pytest.raises(ValueError, match="hist and comp"):
             cuda_dual.dual_ce(x, v, rows, law, SEED, 0, 4096, 8)
@@ -331,6 +327,48 @@ def test_cpu_wrappers_are_plain_and_launch_nothing(model):
                                        v_paths=v, rb_hist=hist, inner_block=4096,
                                        **{model: params})
     assert np.isfinite(float(up)) and float(se) > 0
+
+
+@pytest.mark.parametrize("wrapper", ["dual_ce_first sabr", "dual_ce_debug sabr",
+                                     "dual_vg_terminal_first", "dual_vg_terminal_debug"])
+def test_cpu_first_and_debug_wrappers_are_plain(wrapper):
+    """The yardsticks and debug entries of kernel 18's SABR redesign and of
+    VG's terminal redesign on CPU tensors: the plain version, bit for bit,
+    no launch; on another device they raise before any launch."""
+    model = "sabr" if "sabr" in wrapper else "vg"
+    S, v, hist, spec, policy, params = _port_case(model)
+    law = pd.inner_law(model, spec, T, 8, **{model: params})
+    rows = cuda_dual.policy_rows(policy, torch.from_numpy(pd.date_taus(T, 8)))
+    x = S / K
+    before = dict(cuda_dual.launches)
+    if model == "sabr":
+        args = (SEED, 0, 4096, 8)
+        ref = cuda_dual.dual_ce_reference(x, v, rows, law, *args)
+        if wrapper.startswith("dual_ce_first"):
+            assert torch.equal(cuda_dual.dual_ce_first(x, v, rows, law, *args), ref)
+        else:
+            ce, xs, alphas = cuda_dual.dual_ce_debug(x, v, rows, law, *args)
+            xr, vr = cuda_dual.dual_inner_states_reference(x, v, law, *args, 0, 7)
+            assert torch.equal(ce, ref) and torch.equal(xs, xr) and torch.equal(alphas, vr)
+            assert xs.shape == (7, 2, 4, 8192)
+        fn = getattr(cuda_dual, wrapper.split()[0])
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(x.to("meta"), v.to("meta"), rows, law, *args)
+    else:
+        xl = x[7].contiguous()
+        args = (law, SEED, 0, 4096, 8, 7)
+        ref = cuda_dual.dual_vg_terminal_reference(xl, *args)
+        gamma, attempts = dual_gamma_draws(SEED, 0, 2, 4096, 4, 7, law.gamma_shape)
+        if wrapper == "dual_vg_terminal_first":
+            assert torch.equal(cuda_dual.dual_vg_terminal_first(xl, *args), ref)
+        else:
+            e_h, G, att, passes = cuda_dual.dual_vg_terminal_debug(xl, *args)
+            assert torch.equal(e_h, ref) and torch.equal(att, attempts)
+            assert torch.equal(G, law.nu * gamma) and G.shape == (4, 8192)
+            assert passes is None                # the warps' passes: the kernel's alone
+        with pytest.raises(ValueError, match="CUDA device"):
+            getattr(cuda_dual, wrapper)(xl.to("meta"), *args)
+    assert cuda_dual.launches == before
 
 
 def test_reference_rejections():
