@@ -73,10 +73,11 @@ Phases, in order; any failure exits non-zero:
    and the redesign's decision (omt_vg_decide) against torch's exact test
    on the card over an adversarial grid of 2^24 pairs and more;
 3. the paths, each driven with every launch count set to 0 just before it
-   and read just after (the NN-LSM, calibration and rough paths, c, f and
-   k, run in processes of their own, ``chip_smoke.py --path nn``, ``--path
-   calibration`` and ``--path rough``, started after b and joined after
-   the families path, so their seconds overlap d and g-j; each zeroes
+   and read just after (the NN-LSM, calibration, rough and exotics paths,
+   c, f, k and l, run in processes of their own, ``chip_smoke.py --path
+   nn``, ``--path calibration``, ``--path rough`` and ``--path exotics``,
+   started after b and joined after the families path, so their seconds
+   overlap d and g-j; each zeroes
    every count before its path and hands its counts back, which the parent
    checks as for any path; their log lines print at the join):
    a. the main path through ``price_american``: the pooled Heston American
@@ -180,6 +181,17 @@ Phases, in order; any failure exits non-zero:
       50 on the (S, v) basis, D6-D9 the VG, SABR, H = 1/2 and rough
       brackets, and the full-width brackets at D1's scale, at the JAX
       tests' bars;
+   l. the exotics path (the [X0], [B] and [E] lines; models/multiasset.py,
+      pricers/basket.py, american_basket.py, exotics.py, barrier.py,
+      american_asian.py, fd_asian.py, varswap.py), after X0 held kernels
+      27-28 (csrc/basket.cu) against their plain versions at 1, 2, 3, 5 and
+      12 assets (antithetic and not), at the timed shapes and at 128: W and
+      the log-states bit for bit, S within BASKET_S_ULPS, the terminal the
+      paths' last row, first_tile chunks bit for bit, no local memory at 1-8
+      assets: B1 the Andersen-Broadie Bermudan max-call at 2^20 x 9, B2 the
+      3-asset basket at 2^22, E1 the Asian, E2 the barriers, E3 the
+      American Asian, E4 the lookbacks and variance swaps, at the JAX
+      tests' bars; the plain versions of 27-28 counted and held at 0;
 4. the launch counts of each path (the families path: kernels 21-24; the
    rough path: the fused rough Bergomi kernel, kernel 18's new families
    and VG's terminal step), none of its kernels at 0, the first design of
@@ -223,15 +235,19 @@ Phases, in order; any failure exits non-zero:
    VG's terminal step at 49 x 2^17 x 64 (the terminal at 2^17 x 32 draws),
    beside their bounds and plain versions, each in turns with its first
    design and beside both designs' issue and SFU floors, with the
-   full-width brackets' seconds and kernel 18's share. ``chip_smoke.py
-   --path rough`` run alone drives the rough path and then times its
-   kernels as phase 5 does.
+   full-width brackets' seconds and kernel 18's share; kernels 27-28 at
+   5 x 2^20 x 50, 3 x 2^22 (one exact step) and B1's 2 x 2^20 x 9 beside
+   their bounds and plain versions, and the exotics path's seconds per
+   price. ``chip_smoke.py --path rough`` (``--path exotics``) run alone
+   drives the rough (exotics) path and then times its kernels as phase 5
+   does.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
 per jump kernel, one per dual kernel, one for the normals kernel (20), one
 per family kernel (21-24) and one per rough-path kernel (the fused rough
 Bergomi kernel, rows 25-26, its first design under earlier_*; kernel 18's
-VG, SABR and rough Bergomi families, VG's terminal step);
+VG, SABR and rough Bergomi families, VG's terminal step) and one per
+multi-asset kernel (27-28);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -417,8 +433,9 @@ def fail(msg: str) -> None:
 
 # The ops modules whose wrappers count their launches, each in a dict
 # ``launches``: what a path run in a process of its own hands back.
-COUNTED_MODULES = ("cuda_dual", "cuda_gbm", "cuda_heston", "cuda_heston_variants", "cuda_jumps",
-                   "cuda_localvol", "cuda_rbergomi", "cuda_sabr", "cuda_vg", "philox")
+COUNTED_MODULES = ("cuda_basket", "cuda_dual", "cuda_gbm", "cuda_heston", "cuda_heston_variants",
+                   "cuda_jumps", "cuda_localvol", "cuda_rbergomi", "cuda_sabr", "cuda_vg",
+                   "philox")
 PATH_DIR = Path(__file__).resolve().parent / "build" / "paths"
 PATH_TIMEOUT = 900
 
@@ -475,6 +492,10 @@ def path_process(name: str, joined: bool = False) -> int:
     if name == "rough" and not joined:
         phase_rough_timing(phase_sass(), out, {k["name"]: k["counter"][0][k["counter"][1]]
                                                for k in rough_specs()})
+    if name == "exotics" and not joined:
+        phase_exotics_timing(phase_sass()["per_call"],
+                             {k["name"]: k["counter"][0][k["counter"][1]]
+                              for k in exotics_specs()})
     return 0
 
 
@@ -645,7 +666,7 @@ def kernel_specs():
         dict(name="heston_paths", source=src + "heston_paths.cu", scheme="euler",
              run=paths_run(cuda_heston.heston_paths, cuda_heston.heston_paths_reference),
              replaces="options_model_tpu/ops/pallas_heston.py:319",
-             paths=("main", "nn", "greeks", "calibration", "jumps", "dual"),
+             paths=("main", "nn", "greeks", "calibration", "jumps", "dual", "exotics"),
              tile=cuda_heston.PATH_TILE, main=(256, 50), timed=(256, 50), variance=(False, True),
              ops=OPS_HESTON + OPS_EXP, draws=DRAWS_HESTON, tol=euler_tol,
              counter=(L, "heston_paths"),
@@ -663,7 +684,7 @@ def kernel_specs():
                           counter=(L, "heston_terminal_accurate"))),
         dict(name="gbm_paths", run=gbm_paths, source=src + "gbm.cu",
              replaces="options_model_tpu/ops/pallas_gbm.py:126",
-             paths=("main", "nn", "greeks", "dual"),
+             paths=("main", "nn", "greeks", "dual", "exotics"),
              tile=cuda_heston.PATH_TILE, main=(512, 50), timed=(256, 50), variance=(False,),
              ops=OPS_GBM_PATHS, draws=DRAWS_GBM, counter=(G, "gbm_paths")),
         dict(name="gbm_terminal", run=gbm_terminal(cuda_gbm.gbm_terminal),
@@ -3307,7 +3328,7 @@ def jump_specs():
     n20, n22 = 1 << 20, 1 << 22
     return [
         dict(name="merton_paths", source=src, replaces="options_model_tpu/models/merton.py:27",
-             paths=("jumps", "dual"), counter=(L, "merton_paths"), timed=(n20, 50),
+             paths=("jumps", "dual", "exotics"), counter=(L, "merton_paths"), timed=(n20, 50),
              ops=OPS_MERTON + OPS_EXP, draws=DRAWS_MERTON, bytes=51 * n20 * 4),
         dict(name="merton_terminal", source=src,
              replaces="options_model_tpu/models/merton.py:27", paths=("jumps",),
@@ -6596,8 +6617,495 @@ def phase_rough_timing(sass: dict, rough: dict, launches: dict) -> dict:
     return out
 
 
+# ---- the exotics path (``--path exotics``): kernels 27-28 and their pricers -----------------
+# Kernels 27-28 (csrc/basket.cu) draw the basket stream (counter word 3 =
+# 6), correlate with the Cholesky factor over ascending b with _rn
+# intrinsics and walk the log-states; the plain version
+# (models/multiasset.basket_chain) does the same float32 operations in the
+# same order, so W and the log-states are expected bit for bit and S =
+# s0 expf(acc) within BASKET_S_ULPS ulps (torch.exp against the kernel's
+# expf). X0 holds them at these asset counts; B1-B2 drive the basket
+# pricers and E1-E4 the path-dependent exotics and variance swaps at the
+# JAX tests' configurations and bars (tests/test_basket_american.py,
+# tests/test_basket.py, tests/test_exotics.py, tests/test_american_asian.py,
+# tests/test_pricers.py:194-243, tests/test_varswap.py). The kernels are
+# timed in phase 5 of the main process, after the join.
+BASKET_ASSETS = (1, 2, 3, 5, 12)
+BASKET_S_ULPS = 2
+# (assets, paths, steps): kernel 27 at 5 x 2^20 x 50, kernel 28 at 3 x 2^22
+# (one exact step), and B1's Andersen-Broadie shape (2 x 2^20 x 9, kernel 27).
+BASKET_SHAPES = {"basket_paths": (5, 1 << 20, 50), "basket_terminal": (3, 1 << 22, 1),
+                 "andersen_broadie": (2, 1 << 20, 9)}
+AB_TRUE = {90.0: 8.075, 100.0: 13.902, 110.0: 21.345}   # tests/test_basket_american.py:13
+AB_GATE, AB_OOS_GATE = 0.01, 0.015
+B2_S0 = [100.0, 95.0, 110.0]                             # tests/test_basket.py:17-21
+B2_SIGS = [0.2, 0.3, 0.25]
+B2_CORR = [[1.0, 0.5, 0.3], [0.5, 1.0, 0.4], [0.3, 0.4, 1.0]]
+ASIAN_ANCHOR_GATE = 0.01                                # tests/test_american_asian.py:117
+# f32 operations a path-step, from csrc/basket.cu: per asset a Box-Muller
+# share (11 per two normals of a pair: 11/4 a path), the log step (3: a
+# product and two sums) and the stored S (expf and a product: 2, paths
+# mode); per pair n^2 for W (n(n+1)/2 products, n(n-1)/2 sums), n^2/2 a
+# path. Philox: ceil(n/4) calls and n words a pair-step.
+
+
+def ops_basket(n: int, paths: bool) -> float:
+    return n * (11 / 4 + 3 + (2 if paths else 0)) + n * n / 2
+
+
+def draws_basket(n: int) -> tuple:
+    return (math.ceil(n / 4) / 2, n / 2)
+
+
+def exotics_specs():
+    """Kernels 27-28 (csrc/basket.cu): name, source, the XLA function each
+    replaces, the paths that run them, their counters."""
+    from options_model_tpu_torch.ops import cuda_basket
+
+    src = "options_model_tpu_torch/csrc/basket.cu"
+    return [dict(name="basket_paths", source=src,
+                 replaces="options_model_tpu/models/multiasset.py:48 simulate_gbm_basket",
+                 paths=("exotics",), counter=(cuda_basket.launches, "basket_paths")),
+            dict(name="basket_terminal", source=src,
+                 replaces="options_model_tpu/models/multiasset.py:107 gbm_basket_terminal_exact",
+                 paths=("exotics",), counter=(cuda_basket.launches, "basket_terminal"))]
+
+
+def _basket_assets(n: int):
+    """n assets: B2's three, the Andersen-Broadie pair's, or a random valid
+    correlation from a seed."""
+    import numpy as np
+
+    if n <= 3:
+        return B2_S0[:n], B2_SIGS[:n], [row[:n] for row in B2_CORR[:n]]
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n + 2))
+    cov = A @ A.T
+    d = np.sqrt(np.diag(cov))
+    corr = cov / np.outer(d, d)
+    np.fill_diagonal(corr, 1.0)
+    return list(80.0 + 40.0 * rng.random(n)), list(0.1 + 0.3 * rng.random(n)), corr
+
+
+def _basket_consts(n: int, n_steps: int, T: float = 0.5):
+    from options_model_tpu_torch.models import multiasset as ma
+
+    S0, sig, corr = _basket_assets(n)
+    return ma.basket_constants(S0, 0.05, sig, ma.correlation_cholesky(corr), T, n_steps,
+                               [0.02] * n)
+
+
+def phase_exotics_kernels() -> dict:
+    """X0: kernels 27-28 against their plain versions on the card. At
+    BASKET_ASSETS (the generic instance at 12), antithetic and not, 2 tiles
+    x 7 steps: W and the log-states bit for bit (the debug launch), S within
+    BASKET_S_ULPS ulps (the largest printed), the terminal equal to the
+    paths' last row, a first_tile = 1 chunk bit for bit. At the timed shapes
+    (BASKET_SHAPES): the same, on 128 assets the generic instance at 2
+    tiles. Registers and local bytes of every instance; fails on local
+    memory in an instance of 1-8 assets. Returns the largest errors by
+    kernel."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_basket as cb
+    from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
+
+    errs = {k: dict(s_abs=0.0, s_ulps=0.0) for k in ("basket_paths", "basket_terminal")}
+    dev = torch.device(DEVICE)
+
+    def ulps(a, b):
+        return float(((a - b).abs() / torch.finfo(torch.float32).eps / b.abs()).max())
+
+    def one(n, n_paths, n_steps, anti, tile=4096, T=0.5):
+        c = _basket_consts(n, n_steps, T)
+        acc, W = cb.basket_launch(9, c, n_paths, n_steps, anti, 0, tile, dev, "debug")
+        acc_r, W_r = cb.basket_reference(9, c, n_paths, n_steps, anti, 0, tile, dev, "debug")
+        bits = torch.equal(acc, acc_r) and torch.equal(W, W_r)
+        del acc, W, acc_r, W_r
+        S = cb.basket_paths(9, c, n_paths, n_steps, anti, 0, tile, dev)
+        S_r = cb.basket_paths_reference(9, c, n_paths, n_steps, anti, 0, tile, dev)
+        S_T = cb.basket_terminal(9, c, n_paths, n_steps, anti, 0, tile, dev)
+        S_Tr = cb.basket_terminal_reference(9, c, n_paths, n_steps, anti, 0, tile, dev)
+        chunk = cb.basket_paths(9, c, tile, n_steps, anti, 1, tile, dev)
+        same = (torch.equal(S_T, S[-1]) and torch.equal(chunk, S[:, :, tile:2 * tile])
+                and bool(torch.isfinite(S).all()))
+        u, ut = ulps(S, S_r), ulps(S_T, S_Tr)
+        errs["basket_paths"]["s_abs"] = max(errs["basket_paths"]["s_abs"],
+                                            float((S - S_r).abs().max()))
+        errs["basket_terminal"]["s_abs"] = max(errs["basket_terminal"]["s_abs"],
+                                               float((S_T - S_Tr).abs().max()))
+        errs["basket_paths"]["s_ulps"] = max(errs["basket_paths"]["s_ulps"], u)
+        errs["basket_terminal"]["s_ulps"] = max(errs["basket_terminal"]["s_ulps"], ut)
+        ok = bits and same and u <= BASKET_S_ULPS and ut <= BASKET_S_ULPS
+        log(f"[X0] {n} assets x {n_paths} x {n_steps}, antithetic {anti}: W and log-states "
+            f"bit for bit {bits}; S within {u:.2f} ulps, S_T {ut:.2f} (bar {BASKET_S_ULPS}); "
+            f"terminal == the paths' last row, first_tile chunk bit for bit: {same}")
+        if not ok:
+            fail(f"X0: kernels 27-28 at {n} assets x {n_paths} x {n_steps} (antithetic {anti})")
+        del S, S_r, S_T, S_Tr, chunk
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for n in BASKET_ASSETS:
+        for anti in (True, False):
+            one(n, 2 * 4096, 7, anti)
+    for n, n_paths, n_steps in BASKET_SHAPES.values():
+        T = 3.0 if n_steps == 9 else 0.5
+        if n_steps == 1:   # the exact terminal law's tile
+            one(n, n_paths, n_steps, True, TERMINAL_TILE, T)
+        else:
+            one(n, n_paths, n_steps, True, T=T)
+    one(cb.MAX_ASSETS, 2 * 4096, 3, True)
+    attrs = {}
+    for n in (*range(1, cb.REGISTER_ASSETS + 1), 12, cb.MAX_ASSETS):
+        attrs[n] = cb.basket_kernel_attrs(n)
+    log("[X0] registers / local bytes / blocks per SM by assets: "
+        + "; ".join(f"{n}: paths {a['basket_paths']['registers']}/"
+                    f"{a['basket_paths']['spill_bytes']}/{a['basket_paths']['blocks_per_sm']}, "
+                    f"terminal {a['basket_terminal']['registers']}/"
+                    f"{a['basket_terminal']['spill_bytes']}/"
+                    f"{a['basket_terminal']['blocks_per_sm']}" for n, a in attrs.items()))
+    local = {n: a for n, a in attrs.items() if n <= cb.REGISTER_ASSETS
+             and any(k["spill_bytes"] for k in a.values())}
+    if local:
+        fail(f"X0: an instance of 1-{cb.REGISTER_ASSETS} assets has local memory: {local}")
+    log(f"[X0] kernels 27-28 held in {time.perf_counter() - t0:.1f} s")
+    for k in errs:
+        errs[k]["attrs"] = {str(n): a[k] for n, a in attrs.items()}
+    return errs
+
+
+def phase_exotics() -> dict:
+    """The exotics path (``--path exotics``): X0 (phase_exotics_kernels),
+    then, every launch count at 0 and the plain versions of kernels 27-28
+    counted (any call fails the path), the entry points a user calls. B1
+    the Andersen-Broadie 2-asset Bermudan max-call at 2^20 paths x 9 dates,
+    S0 90/100/110, within AB_GATE of 8.075 / 13.902 / 21.345, the
+    out-of-sample estimator within AB_OOS_GATE at 100 and below the
+    in-sample price + 3 stderr, the no-dividend max-call equal to its
+    European best-of (5 combined stderr or 0.3%) at the test's 2^16 x 12
+    (at 2^20 printed beside); B2 the 3-asset basket at
+    2^22: the geometric leg within 4 stderr + 1e-3 of its closed form, the
+    CV price within 4 combined stderr of the plain one with its stderr cut
+    over 5x, put-call parity (6 combined stderr or 2e-3), worst <= basket
+    <= best; E1 bench.py's GBM Asian put (S0 = K = 100, T = 0.5, 50 steps)
+    at 2^20: the Kemna-Vorst price within 4 stderr of the plain estimate,
+    the stderr cut over 10x, the geometric average within 4 stderr of its
+    closed form; E2 the four continuity-corrected barriers at 2^20 x 50
+    within 4 stderr of Reiner-Rubinstein and closer than the discrete
+    estimator, in + out = the vanilla on the same paths; E3 the American
+    Asian put at the reference default 2^17 x 25 within 1% of the MC
+    European + the lattice's premium, the Heston American Asian above its
+    European - 2 stderr; E4 the lookback orderings at 2^17 x 64 and
+    varswap_mc for GBM (2^18 x 64), Heston (2^18 x 128) and Merton (2^18 x
+    64) at tests/test_varswap.py's bars. Returns the errors, seconds and
+    results."""
+    import numpy as np
+    import torch
+
+    from options_model_tpu_torch.core.config import (HestonParams, MCConfig, MertonParams,
+                                                      OptionSpec)
+    from options_model_tpu_torch.core.stats import masked_mean_stderr
+    from options_model_tpu_torch.models.multiasset import gbm_basket_terminal_exact
+    from options_model_tpu_torch.ops import cuda_basket as cb
+    from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
+    from options_model_tpu_torch.pricers import american as pa
+    from options_model_tpu_torch.pricers import (american_asian, barrier, basket, exotics,
+                                                 fd_asian, varswap)
+    from options_model_tpu_torch.pricers.american_basket import price_american_basket
+    from options_model_tpu_torch.pricers.blackscholes import bs_price
+
+    t_phase = time.perf_counter()
+    errs = phase_exotics_kernels()
+    counts = launch_counts()
+    for d in counts.values():
+        for key in d:
+            d[key] = 0
+    plain_calls = [0]
+    reference = cb.basket_reference
+
+    def counted_reference(*args, **kwargs):
+        plain_calls[0] += 1
+        return reference(*args, **kwargs)
+
+    cb.basket_reference = counted_reference
+    gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    secs, res = {}, {}
+
+    def timed(label, fn, *args, **kwargs):
+        """fn's result and its seconds, host clock to synchronize, on a
+        second call (the first pays the one-time costs: cuBLAS handles,
+        allocator growth; the same seed gives the same result)."""
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        return out
+
+    def check(tag, ok, msg):
+        log(f"[{tag}] {msg}")
+        if not ok:
+            fail(f"{tag}: {msg}")
+
+    def f2(x):
+        return float(x[0]), float(x[1])
+
+    # B1: Andersen-Broadie, 16x the test's paths
+    mcb = MCConfig(n_paths=BASKET_SHAPES["andersen_broadie"][1], n_steps=9)
+    ab = dict(K=100.0, T=3.0, r=0.05, sigmas=[0.2, 0.2], corr=np.eye(2), cp=1.0)
+    for s0 in (90.0, 100.0, 110.0):
+        p, se = f2(timed(f"B1 {s0:g}", price_american_basket, gen(3), [s0, s0], ab["K"],
+                         ab["T"], ab["r"], ab["sigmas"], ab["corr"], ab["cp"], mcb, kind="max",
+                         div_yields=[0.1, 0.1], device=DEVICE))
+        rel = (p - AB_TRUE[s0]) / AB_TRUE[s0]
+        res[f"B1 {s0:g}"] = dict(price=p, stderr=se, rel=rel)
+        check("B1", abs(rel) < AB_GATE,
+              f"2-asset Bermudan max-call S0 {s0:g}, 2^20 x 9: {p:.6f} +- {se:.6f} against "
+              f"{AB_TRUE[s0]} ({rel * 100:+.3f}%, bar {AB_GATE * 100:g}%; "
+              f"{secs[f'B1 {s0:g}']:.3f} s a price)")
+    p_in = res["B1 100"]["price"]
+    p_oos, se_oos = f2(timed("B1 oos", price_american_basket, gen(3), [100.0, 100.0], ab["K"],
+                             ab["T"], ab["r"], ab["sigmas"], ab["corr"], ab["cp"], mcb,
+                             kind="max", div_yields=[0.1, 0.1], out_of_sample=True,
+                             device=DEVICE))
+    rel = (p_oos - AB_TRUE[100.0]) / AB_TRUE[100.0]
+    res["B1 oos"] = dict(price=p_oos, stderr=se_oos, rel=rel)
+    check("B1", abs(rel) < AB_OOS_GATE and p_oos < p_in + 3 * se_oos,
+          f"out-of-sample at S0 100: {p_oos:.6f} +- {se_oos:.6f} ({rel * 100:+.3f}%, bar "
+          f"{AB_OOS_GATE * 100:g}%), in-sample {p_in:.6f}")
+    corr = [[1.0, 0.3], [0.3, 1.0]]
+    nodiv = {}
+    for n_am in (1 << 16, 1 << 20):
+        p_am, se_am = f2(timed(f"B1 no dividend {n_am}", price_american_basket, gen(3),
+                               [100.0, 100.0], 100.0, 1.0, 0.05, [0.2, 0.25], corr, 1.0,
+                               MCConfig(n_paths=n_am, n_steps=12), kind="max", device=DEVICE))
+        p_eu, se_eu = f2(timed(f"B1 best_of {2 * n_am}", basket.price_basket_mc, gen(4),
+                               [100.0, 100.0], [0.5, 0.5], 100.0, 1.0, 0.05, [0.2, 0.25], corr,
+                               1.0, kind="best_of", n_paths=2 * n_am, device=DEVICE))
+        nodiv[n_am] = dict(american=p_am, stderr=se_am, european=p_eu, eu_stderr=se_eu,
+                           gap=(p_am - p_eu) / p_eu)
+        log(f"[B1] no-dividend max-call ({n_am} x 12) {p_am:.6f} +- {se_am:.6f} against its "
+            f"European best-of ({2 * n_am}) {p_eu:.6f} +- {se_eu:.6f}: "
+            f"{(p_am - p_eu) / p_eu * 100:+.3f}%, {(p_am - p_eu) / math.hypot(se_am, se_eu):+.2f}"
+            f" combined stderr")
+    res["B1 no dividend"] = nodiv
+    # the test's own size and bar (tests/test_basket_american.py:44-59); at
+    # 2^20 the in-sample policy's low bias (~0.5%, the JAX package's too)
+    # passes 5 combined stderr and is printed, not gated
+    t = nodiv[1 << 16]
+    check("B1", abs(t["american"] - t["european"])
+          < max(5 * math.hypot(t["stderr"], t["eu_stderr"]), 0.003 * t["european"]),
+          f"no-dividend max-call at the test's 2^16 x 12: within 5 combined stderr or 0.3% of "
+          f"its European best-of")
+
+    # B2: the 3-asset basket at 2^22
+    w = [1.0 / 3] * 3
+    bk = (B2_S0, w, 100.0, 0.5, 0.05, B2_SIGS, B2_CORR)
+    S_T = gbm_basket_terminal_exact(5, B2_S0, 0.05, B2_SIGS, B2_CORR, 0.5, 1 << 22,
+                                    device=DEVICE)
+    wt = torch.tensor(w, dtype=torch.float32, device=DEVICE)
+    geo = torch.exp(torch.tensordot(wt, torch.log(S_T), dims=1))
+    g_mean, g_se, _ = masked_mean_stderr(torch.clamp_min(geo - 100.0, 0.0) * math.exp(-0.025),
+                                         pair_block=TERMINAL_TILE)
+    cf = basket.geometric_basket_bs_price(B2_S0, w, 100.0, 0.5, 0.05, B2_SIGS, B2_CORR)
+    check("B2", abs(float(g_mean) - cf) < 4 * float(g_se) + 1e-3,
+          f"geometric basket call, 2^22: MC {float(g_mean):.6f} +- {float(g_se):.6f}, closed "
+          f"form {cf:.6f}")
+    del S_T, geo
+    p_cv, se_cv = f2(timed("B2 cv", basket.price_basket_mc, gen(7), *bk, n_paths=1 << 22,
+                           device=DEVICE))
+    p_pl, se_pl = f2(timed("B2 plain", basket.price_basket_mc, gen(7), *bk, n_paths=1 << 22,
+                           control_variate=False, device=DEVICE))
+    res["B2"] = dict(cv=p_cv, cv_stderr=se_cv, plain=p_pl, plain_stderr=se_pl,
+                     geometric=float(g_mean), closed_form=cf)
+    check("B2", abs(p_cv - p_pl) < max(4 * math.hypot(se_cv, se_pl), 1e-3)
+          and 5 * se_cv < se_pl,
+          f"basket call 2^22: CV {p_cv:.6f} +- {se_cv:.6f} ({secs['B2 cv']:.3f} s), plain "
+          f"{p_pl:.6f} +- {se_pl:.6f}: stderr cut {se_pl / se_cv:.1f}x (bar 5x)")
+    p_put, se_put = f2(basket.price_basket_mc(gen(7), *bk, cp=-1.0, n_paths=1 << 22,
+                                              device=DEVICE))
+    rhs = math.exp(-0.025) * (float(np.dot(w, np.asarray(B2_S0) * math.exp(0.025))) - 100.0)
+    check("B2", abs((p_cv - p_put) - rhs) < max(6 * math.hypot(se_cv, se_put), 2e-3),
+          f"put-call parity: C - P {p_cv - p_put:.6f} against {rhs:.6f}")
+    best = f2(basket.price_basket_mc(gen(7), *bk, kind="best_of", n_paths=1 << 22,
+                                     device=DEVICE))[0]
+    worst = f2(basket.price_basket_mc(gen(7), *bk, kind="worst_of", n_paths=1 << 22,
+                                      device=DEVICE))[0]
+    res["B2"].update(put=p_put, best_of=best, worst_of=worst)
+    check("B2", worst <= p_cv <= best, f"worst-of {worst:.6f} <= basket {p_cv:.6f} <= best-of "
+          f"{best:.6f}")
+
+    # E1: bench.py:326-328's Asian at 2^20 x 50
+    put = OptionSpec(strike=100.0, rate=0.05, cp=-1.0, sigma=0.2)
+    call = OptionSpec(strike=100.0, rate=0.05, cp=1.0, sigma=0.2)
+    mce = MCConfig(n_paths=1 << 20, n_steps=50)
+    pk, sek = f2(timed("E1 cv", exotics.price_asian_mc, gen(17), 100.0, 0.5, put, mce,
+                       device=DEVICE))
+    pp, sep = f2(timed("E1 plain", exotics.price_asian_mc, gen(17), 100.0, 0.5, put, mce,
+                       control_variate="off", device=DEVICE))
+    pg, seg = f2(exotics.price_asian_mc(gen(17), 100.0, 0.5, put, mce, average="geometric",
+                                        device=DEVICE))
+    cfg = float(exotics.geometric_asian_bs_price(100.0, 100.0, 0.5, 0.05, 0.2, 50, -1.0,
+                                                 device=DEVICE))
+    res["E1"] = dict(cv=pk, cv_stderr=sek, plain=pp, plain_stderr=sep, geometric=pg,
+                     geometric_stderr=seg, closed_form=cfg)
+    check("E1", abs(pk - pp) < 4 * sep and sek < sep / 10 and abs(pg - cfg) < 4 * seg,
+          f"Asian put 2^20 x 50: Kemna-Vorst {pk:.6f} +- {sek:.6f} ({secs['E1 cv']:.3f} s), "
+          f"plain {pp:.6f} +- {sep:.6f} (cut {sep / sek:.1f}x, bar 10x); geometric {pg:.6f} "
+          f"+- {seg:.6f} against its closed form {cfg:.6f}")
+
+    # E2: the barriers at 2^20 x 50
+    for btype, B, cp in (("up-and-out", 120.0, 1.0), ("down-and-out", 85.0, -1.0),
+                         ("up-and-in", 115.0, 1.0), ("down-and-in", 90.0, -1.0)):
+        spec = call if cp > 0 else put
+        rr = float(barrier.barrier_price_rr(100.0, 100.0, 0.5, 0.05, 0.2, B, btype, cp,
+                                            device=DEVICE))
+        p, se = f2(timed(f"E2 {btype}", barrier.price_barrier_mc, gen(18), 100.0, 0.5, spec,
+                         B, btype, mce, continuity_correction=True, device=DEVICE))
+        pd_, _ = f2(barrier.price_barrier_mc(gen(18), 100.0, 0.5, spec, B, btype, mce,
+                                             device=DEVICE))
+        res[f"E2 {btype}"] = dict(price=p, stderr=se, rr=rr, discrete=pd_)
+        check("E2", abs(p - rr) < 4 * max(se, 1e-4) and abs(pd_ - rr) > abs(p - rr),
+              f"{btype} B {B:g}: corrected {p:.6f} +- {se:.6f} ({(p - rr) / se:+.2f} stderr; "
+              f"{secs[f'E2 {btype}']:.3f} s), Reiner-Rubinstein {rr:.6f}, discrete {pd_:.6f}")
+    ko, _ = f2(barrier.price_barrier_mc(gen(19), 100.0, 0.5, call, 120.0, "up-and-out", mce,
+                                        device=DEVICE))
+    ki, _ = f2(barrier.price_barrier_mc(gen(19), 100.0, 0.5, call, 120.0, "up-and-in", mce,
+                                        device=DEVICE))
+    S = pa.simulate_paths(gen(19), 100.0, 0.5, mce, "gbm", sigma=0.2, rate=0.05, device=DEVICE)
+    van = float(masked_mean_stderr(torch.clamp_min(S[-1] - 100.0, 0.0) * math.exp(-0.025),
+                                   pair_block=pa._pair_block(mce, "gbm"))[0])
+    del S
+    check("E2", abs(ko + ki - van) < 1e-5 * van,
+          f"in + out on the same paths {ko + ki:.6f} = the vanilla {van:.6f}")
+
+    # E3: the American Asian put at the reference default
+    mc3 = MCConfig(n_paths=1 << 17, n_steps=25)
+    am, sam = f2(timed("E3", american_asian.price_american_asian, gen(7), 100.0, 1.0, put,
+                       mc3, device=DEVICE))
+    eu, seu = f2(exotics.price_asian_mc(gen(7), 100.0, 1.0, put, mc3, device=DEVICE))
+    t0 = time.perf_counter()
+    tree = [fd_asian.asian_binomial_price(100.0, 100.0, 1.0, 0.05, 0.2, 25, cp=-1.0,
+                                          substeps=6, n_avg=400, american=a)
+            for a in (False, True)]
+    secs["E3 lattice"] = time.perf_counter() - t0
+    anchor = eu + tree[1] - tree[0]
+    res["E3"] = dict(american=am, stderr=sam, european=eu, eu_stderr=seu, lattice=tree,
+                     anchor=anchor)
+    check("E3", abs(am - anchor) / anchor < ASIAN_ANCHOR_GATE and am > eu + 0.1,
+          f"American Asian put 2^17 x 25: {am:.6f} +- {sam:.6f} ({secs['E3']:.3f} s), anchor "
+          f"{anchor:.6f} (European {eu:.6f} + lattice premium {tree[1] - tree[0]:.6f}): "
+          f"{(am - anchor) / anchor * 100:+.3f}% (bar {ASIAN_ANCHOR_GATE * 100:g}%)")
+    hp = HestonParams(kappa=2.0, theta=0.04, xi=0.5, rho=-0.7, v0=0.04)
+    amh, _ = f2(timed("E3 heston", american_asian.price_american_asian, gen(7), 100.0, 1.0,
+                      put, mc3, model="heston", heston=hp, device=DEVICE))
+    euh, seh = f2(exotics.price_asian_mc(gen(7), 100.0, 1.0, put, mc3, model="heston",
+                                         heston=hp, device=DEVICE))
+    res["E3 heston"] = dict(american=amh, european=euh, eu_stderr=seh)
+    check("E3", amh >= euh - 2 * seh and 0.5 < amh < 10.0,
+          f"Heston American Asian put {amh:.6f} ({secs['E3 heston']:.3f} s) against its "
+          f"European {euh:.6f} +- {seh:.6f}")
+
+    # E4: lookbacks and variance swaps, 4x the tests' sizes
+    mc4 = MCConfig(n_paths=1 << 17, n_steps=64)
+    vanilla = float(bs_price(100.0, 100.0, 0.5, 0.05, 0.2, 1.0, device=DEVICE))
+    fl_c, _ = f2(timed("E4 lookback", exotics.price_lookback_mc, gen(2), 100.0, 0.5, call,
+                       mc4, device=DEVICE))
+    fl_p, _ = f2(exotics.price_lookback_mc(gen(2), 100.0, 0.5, put, mc4, device=DEVICE))
+    fx_c, _ = f2(exotics.price_lookback_mc(gen(2), 100.0, 0.5, call, mc4, strike_type="fixed",
+                                           device=DEVICE))
+    res["E4 lookback"] = dict(floating_call=fl_c, floating_put=fl_p, fixed_call=fx_c,
+                              vanilla=vanilla)
+    check("E4", fl_c > vanilla and fl_p > 0 and fx_c >= vanilla - 0.05,
+          f"lookbacks 2^17 x 64: floating call {fl_c:.6f} > vanilla {vanilla:.6f}, floating "
+          f"put {fl_p:.6f} > 0, fixed call {fx_c:.6f} >= vanilla - 0.05")
+    mp = MertonParams(sigma=0.2, lam=0.5, mu_j=-0.1, sigma_j=0.15)
+    hpv = HestonParams(kappa=2.0, theta=0.04, xi=0.4, rho=-0.6, v0=0.09)
+    g = timed("E4 varswap gbm", varswap.varswap_mc, gen(21), 100.0, 0.7,
+              MCConfig(n_paths=1 << 18, n_steps=64), "gbm", sigma=0.25, rate=0.05,
+              device=DEVICE)
+    bias = (0.05 - 0.5 * 0.25**2) ** 2 * 0.7 / 64
+    check("E4", abs(g["var_strike"] - 0.0625 - bias) < 4 * g["var_stderr"]
+          and g["vol_strike"] <= math.sqrt(g["var_strike"]) + 1e-9
+          and abs(g["vol_strike"] - 0.25) < 0.01,
+          f"GBM varswap 2^18 x 64: {g['var_strike']:.6f} +- {g['var_stderr']:.6f} against "
+          f"0.0625 + {bias:.6f}; vol {g['vol_strike']:.6f} ({secs['E4 varswap gbm']:.3f} s)")
+    h = timed("E4 varswap heston", varswap.varswap_mc, gen(22), 100.0, 0.5,
+              MCConfig(n_paths=1 << 18, n_steps=128), "heston", heston=hpv, rate=0.05,
+              device=DEVICE)
+    kh = varswap.varswap_strike(0.5, "heston", heston=hpv)
+    check("E4", abs(h["var_strike"] - kh) < 4 * h["var_stderr"] + 2e-3,
+          f"Heston varswap 2^18 x 128: {h['var_strike']:.6f} +- {h['var_stderr']:.6f} against "
+          f"{kh:.6f} ({secs['E4 varswap heston']:.3f} s)")
+    m = timed("E4 varswap merton", varswap.varswap_mc, gen(23), 100.0, 1.0,
+              MCConfig(n_paths=1 << 18, n_steps=64), "merton", merton=mp, rate=0.05,
+              device=DEVICE)
+    km = varswap.varswap_strike(1.0, "merton", merton=mp)
+    check("E4", abs(m["var_strike"] - km) < 4 * m["var_stderr"] + 1e-3
+          and m["var_strike"] > mp.sigma**2 + 2 * m["var_stderr"],
+          f"Merton varswap 2^18 x 64: {m['var_strike']:.6f} +- {m['var_stderr']:.6f} against "
+          f"{km:.6f} ({secs['E4 varswap merton']:.3f} s)")
+    res["E4 varswap"] = dict(gbm=g, heston=h, merton=m, heston_strike=kh, merton_strike=km)
+
+    cb.basket_reference = reference
+    if plain_calls[0]:
+        fail(f"the exotics path ran the plain version of kernels 27-28 {plain_calls[0]} times")
+    log(f"[E] the plain versions of kernels 27-28 ran 0 times on the path; kernel launches "
+        f"{dict(cb.launches)}")
+    log("[E] seconds per price: " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
+    phase = time.perf_counter() - t_phase
+    log(f"[E] the exotics path took {phase:.1f} s")
+    return dict(errs=errs, secs=secs, res=res, phase_seconds=phase)
+
+
+def phase_exotics_timing(per_call: float, launches: dict) -> dict:
+    """CUDA-event medians (N_TIMED) of kernels 27-28 at BASKET_SHAPES (27 at
+    5 x 2^20 x 50 and at B1's 2 x 2^20 x 9, 28 at 3 x 2^22 exact), each
+    beside its plain version (one run), its bound (bound(), ops_basket and
+    draws_basket from this run's shapes, the output written once) and its
+    registers and occupancy. Returns the rows by kernel name."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_basket as cb
+    from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    out = {}
+    dev = torch.device(DEVICE)
+    for key, (n, n_paths, n_steps) in BASKET_SHAPES.items():
+        name = "basket_terminal" if n_steps == 1 else "basket_paths"
+        paths = name == "basket_paths"
+        tile = 4096 if paths else TERMINAL_TILE
+        c = _basket_consts(n, n_steps, 3.0 if n_steps == 9 else 0.5)
+        fn = cb.basket_paths if paths else cb.basket_terminal
+        ref = cb.basket_paths_reference if paths else cb.basket_terminal_reference
+        ms = time_per_call(lambda: fn(11, c, n_paths, n_steps, True, 0, tile, dev), N_TIMED)
+        plain = time_per_call(lambda: ref(11, c, n_paths, n_steps, True, 0, tile, dev), 1, 0)
+        out_bytes = (n_steps + 1 if paths else 1) * n * n_paths * 4
+        b = bound(n_paths, n_steps, ops_basket(n, paths), int_ops(draws_basket(n), per_call),
+                  out_bytes)
+        a = cb.basket_kernel_attrs(n)[name]
+        occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
+        row = dict(ms=ms, plain_ms=plain, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                   bound_term=b["bound_term"], shape=f"{n} x {n_paths} x {n_steps}",
+                   registers=a["registers"], spill_bytes=a["spill_bytes"], occupancy=occ)
+        log(f"[5] {name} at {row['shape']}: kernel {ms:.4f} ms, plain {plain:.2f} ms; bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_term']}, {b['bound_ms'] / ms * 100:.1f}% of "
+            f"bound, {out_bytes / ms / 1e6:.1f} GB/s written; {a['registers']} registers, "
+            f"{a['spill_bytes']} local bytes, {occ:.1%} occupancy")
+        if key == "andersen_broadie":
+            out[name]["andersen_broadie"] = row
+        else:
+            out[name] = row
+    log(f"[5] kernels 27-28's launches on the exotics path: {launches}")
+    return out
+
+
 # The paths run in processes of their own (``chip_smoke.py --path name``).
-SEPARATE_PATHS = {"nn": phase_nn, "calibration": phase_calibration, "rough": phase_rough}
+SEPARATE_PATHS = {"nn": phase_nn, "calibration": phase_calibration, "rough": phase_rough,
+                  "exotics": phase_exotics}
 
 
 def main() -> int:
@@ -6632,12 +7140,13 @@ def main() -> int:
     families = family_specs()
     family_f0 = phase_family_kernels()
     rough = rough_specs()
+    exotics = exotics_specs()
 
     from options_model_tpu_torch.ops import cuda_heston_variants as hv
 
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
-    counted = specs + vjp + jumps + duals + normals + families + rough
+    counted = specs + vjp + jumps + duals + normals + families + rough + exotics
     # kernels 12-18's, 21's, 22's, 24's and 25-26's first designs: the yardsticks no path
     # may reach
     from options_model_tpu_torch.ops import cuda_dual, cuda_gbm, cuda_rbergomi, cuda_sabr, cuda_vg
@@ -6699,6 +7208,7 @@ def main() -> int:
     secs_nn, launches_nn = drive("nn", lambda: join_path(started["nn"]))
     cal_res, launches_c = drive("calibration", lambda: join_path(started["calibration"]))
     rough_res, launches_r = drive("rough", lambda: join_path(started["rough"]))
+    exo_res, launches_x = drive("exotics", lambda: join_path(started["exotics"]))
     experiments = phase_experiments(sass["per_call"])
 
     phase_earlier_cells(surface_cells)
@@ -6713,6 +7223,8 @@ def main() -> int:
     normals_times = phase_normals_timing(sass["per_call"], launches_v)
     family_times = phase_family_timing(sass, family_f0["attempts"], launches_f)
     rough_times = phase_rough_timing(sass, rough_res, launches_r)
+    exo_times = phase_exotics_timing(sass["per_call"], {k["name"]: launches_x[k["name"]]
+                                                        for k in exotics})
     log(f"[5] the kernel timings (phase 5) took {time.perf_counter() - t_timing:.1f} s")
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
@@ -6756,6 +7268,9 @@ def main() -> int:
         + f"; kernel launches {launches_v}")
     log("[5] families path seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs_f.items())
         + f"; the phase {family_res['phase_seconds']:.1f} s; kernel launches {launches_f}")
+    log("[5] exotics path seconds: " + ", ".join(f"{k} {v:.4f}"
+                                                 for k, v in exo_res["secs"].items())
+        + f"; the phase {exo_res['phase_seconds']:.1f} s; kernel launches {launches_x}")
     log(f"[5] card: {card_line()}")
     log(f"[5] the whole script took {time.perf_counter() - t_script:.1f} s")
 
@@ -6830,6 +7345,11 @@ def main() -> int:
                      launches=launches_r[k["name"]], library_ms=None,
                      **rough_res["errs"][k["name"]], **rough_times[k["name"]])
                 for k in rough]
+    entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
+                     launches=launches_x[k["name"]], library_ms=None,
+                     max_abs_err=exo_res["errs"][k["name"]]["s_abs"],
+                     max_ulps=exo_res["errs"][k["name"]]["s_ulps"], **exo_times[k["name"]])
+                for k in exotics]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Path simulators: GBM, Heston (full-truncation Euler, QE-M), local vol,
-Merton, Bates, Variance Gamma, SABR and rough Bergomi, with the names the reference
+Merton, Bates, Variance Gamma, SABR, rough Bergomi and correlated
+multi-asset GBM, with the names the reference
 exports (options_model_tpu/models/__init__.py) that are ported. Each name
 is imported from its module at first access, so importing the package
 imports no simulator (the simulators and the kernel wrappers of ops/
@@ -18,6 +19,8 @@ _EXPORTS = {
     "hagan_lognormal_iv": "sabr", "calibrate_sabr": "sabr",
     "simulate_rbergomi": "rbergomi", "rbergomi_european_mc": "rbergomi",
     "rbergomi_exact_chol": "rbergomi",
+    "correlation_cholesky": "multiasset", "simulate_gbm_basket": "multiasset",
+    "gbm_basket_terminal_exact": "multiasset",
     "num_blocks": "blocks", "paths_rounded": "blocks",
 }
 __all__ = list(_EXPORTS)

@@ -88,6 +88,7 @@ _SIGNATURES = {
     "omt_rbergomi_dw": [_P, ctypes.c_float, _U64, _I, _I, _I, _I, _P],
     "omt_rbergomi_paths": [_P, _P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
     "omt_rbergomi_fused": [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P],
+    "omt_basket": [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # Registers, spills and occupancy of a built kernel (csrc/kernel_attrs.cuh).
@@ -103,6 +104,7 @@ _ATTRS = {
     "omt_vg_attrs": [_I, _P],
     "omt_sabr_attrs": [_I, _P],
     "omt_rbergomi_attrs": [_I, _I, _P],
+    "omt_basket_attrs": [_I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -123,6 +123,16 @@ stream's counters (word 3 = 0) and one Philox call per pair slot and step:
 are unused. The forward and vol Brownian increments are z1 and rho z1 +
 sqrt(1 - rho^2) z2.
 
+The multi-asset GBM stream (``basket_path_draws``, models/multiasset.py)
+has the fourth counter word BASKET_STREAM = 6 and ceil(n / 4) Philox calls
+per slot and step for n assets: asset a's normal at step t is normal
+a mod 4 of the call t ceil(n / 4) + a // 4, (w0, w1) -> Box-Muller ->
+normals 0 and 1, (w2, w3) -> normals 2 and 3. So a normal is a function of
+(seed, global tile, slot, step, asset). With antithetics slot j of a tile
+drives path j and its mirror j + tile/2 with -z for every asset: the whole
+correlated vector is mirrored, as in the reference
+(options_model_tpu/models/multiasset.py:55-58).
+
 Poisson counts are drawn by inversion against a table the host builds once
 per launch (``poisson_table``): the float64 CDF of Poisson(lam dt), each
 entry rounded to float32, up to the first entry that rounds to 1. The count
@@ -164,6 +174,8 @@ VG_DRAWS_A_STEP = 1 + VG_MAX_ATTEMPTS
 # The rough Bergomi stream's and the dual's gamma attempts' counter words.
 RBERGOMI_STREAM = 4
 DUAL_GAMMA_STREAM = 5
+# The multi-asset GBM stream's counter word.
+BASKET_STREAM = 6
 # Inner pairs one Philox call of the dual's stream serves: the diffusion
 # calls per family, the jump calls of Merton and Bates.
 DUAL_PAIRS_A_CALL = {"gbm": 4, "merton": 4, "heston": 2, "bates": 2, "vg": 4, "sabr": 2,
@@ -615,3 +627,33 @@ def sabr_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int, n_steps
     if antithetic:
         return mirror_tiles(z1, n_tiles), mirror_tiles(z2, n_tiles)
     return z1, z2
+
+
+def basket_calls(n_assets: int) -> int:
+    """Philox calls a slot makes per step for ``n_assets`` normals."""
+    return (n_assets + 3) // 4
+
+
+def basket_path_draws(seed: int, first_tile: int, n_tiles: int, tile: int, n_steps: int,
+                      n_assets: int, antithetic: bool, device=None) -> torch.Tensor:
+    """(n_steps, n_assets, n_tiles * tile) uncorrelated normals in path
+    order: the multi-asset GBM stream of the module docstring (counter word 3
+    = BASKET_STREAM), every asset's normal mirrored within the tile when
+    ``antithetic``."""
+    width = tile // 2 if antithetic else tile
+    j, g = _slot_counters(first_tile, n_tiles, width, device)
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    calls = basket_calls(n_assets)
+    rows = []
+    for t in range(n_steps):
+        z = []
+        for c in range(calls):
+            w = [uniform_from_bits(x)
+                 for x in philox4x32(j, t * calls + c, g, BASKET_STREAM, k0, k1)]
+            z += [*box_muller(w[0], w[1]), *box_muller(w[2], w[3])]
+        rows.append(torch.stack(z[:n_assets]))
+    z = torch.stack(rows)
+    if not antithetic:
+        return z
+    zt = z.reshape(n_steps, n_assets, n_tiles, width)
+    return torch.cat([zt, -zt], dim=3).reshape(n_steps, n_assets, n_tiles * tile)

@@ -1,8 +1,24 @@
-"""Pricers: Black-Scholes, European MC, American LSM, the dual bracket, the
-surfaces and the host oracles, with the names the reference exports
-(options_model_tpu/pricers/__init__.py) that are ported. Each name is
-imported from its module at first access, so importing the package
-imports no pricer."""
+"""Pricers, with the names the reference exports
+(options_model_tpu/pricers/__init__.py) that are ported:
+
+- blackscholes: closed form, Greeks (closed form and autograd), implied vol
+- binomial:     CRR binomial oracle (native C++ build)
+- european:     Monte-Carlo Europeans on the terminal kernels
+- american:     Longstaff-Schwartz (poly and NN regressors) with the CV legs
+- dual:         the martingale-dual upper bound and the primal-dual bracket
+- fd_heston:    the Heston ADI oracle; fd_sabr: the SABR ADI oracle
+- surface_american: strike x maturity surfaces on shared paths
+- basket:       multi-asset European baskets, rainbows and spreads (kernel 28,
+                the geometric-basket CV)
+- american_basket: multi-asset Bermudan LSM on kernel 27's paths
+- exotics:      Asian (Kemna-Vorst CV) and lookback options
+- barrier:      barrier options (Brownian-bridge correction, Reiner-Rubinstein)
+- american_asian: American Asian LSM on the (S, running average) state
+- fd_asian:     the Hull-White representative-average binomial oracle (float64)
+- varswap:      variance and volatility swaps (closed forms per family, MC)
+
+Each name is imported from its module at first access, so importing the
+package imports no pricer."""
 
 import importlib
 
@@ -18,6 +34,15 @@ _EXPORTS = {
     "heston_fd_price": "fd_heston", "sabr_fd_price": "fd_sabr",
     "price_american_surface": "surface_american",
     "price_european_surface_mc": "surface_american",
+    "price_barrier_mc": "barrier",
+    "price_basket_mc": "basket", "geometric_basket_bs_price": "basket",
+    "price_american_basket": "american_basket",
+    "price_american_asian": "american_asian",
+    "price_asian_mc": "exotics", "price_lookback_mc": "exotics",
+    "geometric_asian_bs_price": "exotics",
+    "asian_binomial_price": "fd_asian",
+    "forward_varswap_strike": "varswap", "varswap_mc": "varswap", "varswap_pv": "varswap",
+    "varswap_strike": "varswap", "varswap_strike_replication": "varswap",
 }
 __all__ = list(_EXPORTS)
 
