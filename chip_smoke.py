@@ -188,16 +188,20 @@ Phases, in order; any failure exits non-zero:
       12 assets (antithetic and not), at the timed shapes and at 128: W and
       the log-states bit for bit, S within BASKET_S_ULPS, the terminal the
       paths' last row, first_tile chunks bit for bit, no local memory at 1-8
-      assets: B1 the Andersen-Broadie Bermudan max-call at 2^20 x 9, B2 the
-      3-asset basket at 2^22, E1 the Asian, E2 the barriers, E3 the
-      American Asian, E4 the lookbacks and variance swaps, at the JAX
-      tests' bars; the plain versions of 27-28 counted and held at 0;
+      assets; kernel 28's redesign and its first design bit for bit the
+      plain version at 1, 2, 3, 5, 8 and 12 assets, antithetic and not, at
+      one step on TERMINAL_TILE and seven on PATH_TILE, and on a tile no K
+      divides, with their first_tile chunks: B1 the Andersen-Broadie
+      Bermudan max-call at 2^20 x 9, B2 the 3-asset basket at 2^22, E1 the
+      Asian, E2 the barriers, E3 the American Asian, E4 the lookbacks and
+      variance swaps, at the JAX tests' bars; the plain versions of 27-28
+      and kernel 28's first design counted and held at 0;
 4. the launch counts of each path (the families path: kernels 21-24; the
    rough path: the fused rough Bergomi kernel, kernel 18's new families
    and VG's terminal step), none of its kernels at 0, the first design of
    kernels 1, 3-8, 12-18 (kernel 18's VG, SABR and rough Bergomi families
-   too), 21, 22, 24 and 25-26, of VG's terminal step and of the variants
-   at 0, and one
+   too), 21, 22, 24, 25-26 and 28, of VG's terminal step and of the
+   variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -237,10 +241,12 @@ Phases, in order; any failure exits non-zero:
    design and beside both designs' issue and SFU floors, with the
    full-width brackets' seconds and kernel 18's share; kernels 27-28 at
    5 x 2^20 x 50, 3 x 2^22 (one exact step) and B1's 2 x 2^20 x 9 beside
-   their bounds and plain versions, and the exotics path's seconds per
-   price. ``chip_smoke.py --path rough`` (``--path exotics``) run alone
-   drives the rough (exotics) path and then times its kernels as phase 5
-   does.
+   their bounds and plain versions, kernel 28 at 3 x 2^22 and at B1's
+   European 2 x 2^21 in turns with its first design beside fill_ on the
+   same output, the generic instance at 12 assets (terminal 12 x 2^22,
+   paths 12 x 2^18 x 50), and the exotics path's seconds per price.
+   ``chip_smoke.py --path rough`` (``--path exotics``) run alone drives
+   the rough (exotics) path and then times its kernels as phase 5 does.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
 variants of kernels 9 and 10 listed under theirs), one per VJP kernel, one
 per jump kernel, one per dual kernel, one for the normals kernel (20), one
@@ -493,9 +499,8 @@ def path_process(name: str, joined: bool = False) -> int:
         phase_rough_timing(phase_sass(), out, {k["name"]: k["counter"][0][k["counter"][1]]
                                                for k in rough_specs()})
     if name == "exotics" and not joined:
-        phase_exotics_timing(phase_sass()["per_call"],
-                             {k["name"]: k["counter"][0][k["counter"][1]]
-                              for k in exotics_specs()})
+        phase_exotics_timing(phase_sass(), {k["name"]: k["counter"][0][k["counter"][1]]
+                                            for k in exotics_specs()})
     return 0
 
 
@@ -977,6 +982,30 @@ def sass_whole(text: str) -> dict:
     return out
 
 
+# Kernel 28's two designs at 3 assets, antithetic (B2's instance): the
+# mangled-name piece of each and the slots a thread of it.
+SASS_BASKET = {"basket terminal": ("22basket_terminal_kernelILi3ELi4ELb1EE", 4),
+               "basket terminal, first design": ("13basket_kernelILi3ELi0EE", 1)}
+
+
+def sass_basket(text: str) -> dict:
+    """Static instructions a pair of each SASS_BASKET kernel: its whole
+    function (the NOPs and the closing self-branch left out; the slow paths
+    of its libdevice calls in, which this stream's arguments never take)
+    over its slots a thread. At one step every other instruction runs once
+    a thread."""
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        for key, (piece, slots) in SASS_BASKET.items():
+            if piece in name:
+                code, branches = _sass_code(chunk)
+                n = sum(1 for a, ins in code if opcode(ins) != "NOP"
+                        and not any(a == b == t for b, t in branches))
+                out[key] = n / slots
+    return out
+
+
 def _vg_terminal_roles(key: str, loops: list) -> dict:
     """Kernel 22's loops by role (SASS_WHOLE), {} unless they read as
     expected: the redesign's four in source order, the first attempts,
@@ -1161,6 +1190,10 @@ def phase_sass() -> dict:
             whole[key] = dict(parts=parts, mufu={r: pipe_mix(w["loops"][i])["MUFU"]
                                                  for r, i in roles.items()},
                               outer=w["total"], outer_mufu=w["mufu"])
+    basket = sass_basket(text)
+    log("[1] SASS kernel 28 at 3 assets, antithetic, static instructions a pair (the whole "
+        "function over its slots a thread): "
+        + (", ".join(f"{k} {v:g}" for k, v in basket.items()) or "not found"))
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -1194,7 +1227,7 @@ def phase_sass() -> dict:
     return dict(per_call=per_call, source="sass", multiplies=kinds, xors=len(xors),
                 loops={k: len(v) for k, v in loops.items()},
                 mufu={k: pipe_mix(v)["MUFU"] for k, v in loops.items()}, nested=nested,
-                whole=whole)
+                whole=whole, basket=basket)
 
 
 def phase_philox() -> None:
@@ -6632,6 +6665,20 @@ def phase_rough_timing(sass: dict, rough: dict, launches: dict) -> dict:
 # timed in phase 5 of the main process, after the join.
 BASKET_ASSETS = (1, 2, 3, 5, 12)
 BASKET_S_ULPS = 2
+# Kernel 28's redesign (csrc/basket.cu basket_terminal_kernel) and its first
+# design against the plain version, bit for bit: at BASKET_ASSETS and 8 (the
+# largest register instance), antithetic and not, at one exact step on 2
+# TERMINAL_TILE tiles and at 7 steps on 2 PATH_TILE tiles, and at tiles whose
+# half no K divides (one slot a thread), each with a first_tile = 1 chunk.
+BASKET_TERMINAL_ASSETS = BASKET_ASSETS + (8,)
+BASKET_ODD_TILE = 1030
+# B1's European leg (its best-of at 2 x 2^20 paths, one exact step), where
+# phase 5 also times both designs of kernel 28.
+BASKET_B1_EUROPEAN = (2, 1 << 21, 1)
+# The generic instance (9-128 assets, state in shared memory) at 12 assets,
+# measured beside its bound in phase 5: terminal 12 x 2^22 x 1, paths
+# 12 x 2^18 x 50.
+BASKET_GENERIC = {"basket_terminal": (12, 1 << 22, 1), "basket_paths": (12, 1 << 18, 50)}
 # (assets, paths, steps): kernel 27 at 5 x 2^20 x 50, kernel 28 at 3 x 2^22
 # (one exact step), and B1's Andersen-Broadie shape (2 x 2^20 x 9, kernel 27).
 BASKET_SHAPES = {"basket_paths": (5, 1 << 20, 50), "basket_terminal": (3, 1 << 22, 1),
@@ -6710,7 +6757,8 @@ def phase_exotics_kernels() -> dict:
     from options_model_tpu_torch.ops import cuda_basket as cb
     from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
 
-    errs = {k: dict(s_abs=0.0, s_ulps=0.0) for k in ("basket_paths", "basket_terminal")}
+    errs = {k: dict(s_abs=0.0, s_ulps=0.0)
+            for k in ("basket_paths", "basket_terminal", "basket_terminal_first")}
     dev = torch.device(DEVICE)
 
     def ulps(a, b):
@@ -6726,26 +6774,53 @@ def phase_exotics_kernels() -> dict:
         S_r = cb.basket_paths_reference(9, c, n_paths, n_steps, anti, 0, tile, dev)
         S_T = cb.basket_terminal(9, c, n_paths, n_steps, anti, 0, tile, dev)
         S_Tr = cb.basket_terminal_reference(9, c, n_paths, n_steps, anti, 0, tile, dev)
+        S_T1 = cb.basket_terminal_first(9, c, n_paths, n_steps, anti, 0, tile, dev)
         chunk = cb.basket_paths(9, c, tile, n_steps, anti, 1, tile, dev)
-        same = (torch.equal(S_T, S[-1]) and torch.equal(chunk, S[:, :, tile:2 * tile])
+        same = (torch.equal(S_T, S[-1]) and torch.equal(S_T1, S_T)
+                and torch.equal(chunk, S[:, :, tile:2 * tile])
                 and bool(torch.isfinite(S).all()))
         u, ut = ulps(S, S_r), ulps(S_T, S_Tr)
         errs["basket_paths"]["s_abs"] = max(errs["basket_paths"]["s_abs"],
                                             float((S - S_r).abs().max()))
         errs["basket_terminal"]["s_abs"] = max(errs["basket_terminal"]["s_abs"],
                                                float((S_T - S_Tr).abs().max()))
+        errs["basket_terminal_first"]["s_abs"] = max(errs["basket_terminal_first"]["s_abs"],
+                                                     float((S_T1 - S_Tr).abs().max()))
         errs["basket_paths"]["s_ulps"] = max(errs["basket_paths"]["s_ulps"], u)
         errs["basket_terminal"]["s_ulps"] = max(errs["basket_terminal"]["s_ulps"], ut)
         ok = bits and same and u <= BASKET_S_ULPS and ut <= BASKET_S_ULPS
         log(f"[X0] {n} assets x {n_paths} x {n_steps}, antithetic {anti}: W and log-states "
             f"bit for bit {bits}; S within {u:.2f} ulps, S_T {ut:.2f} (bar {BASKET_S_ULPS}); "
-            f"terminal == the paths' last row, first_tile chunk bit for bit: {same}")
+            f"terminal == the paths' last row and 28's first design's, first_tile chunk bit for "
+            f"bit: {same}")
         if not ok:
             fail(f"X0: kernels 27-28 at {n} assets x {n_paths} x {n_steps} (antithetic {anti})")
-        del S, S_r, S_T, S_Tr, chunk
+        del S, S_r, S_T, S_Tr, S_T1, chunk
         torch.cuda.empty_cache()
 
+    def designs(n, n_steps, anti, tile):
+        """Kernel 28's redesign and first design == the plain version bit for
+        bit on 2 tiles, and their first_tile = 1 chunks == the second tile."""
+        c = _basket_consts(n, n_steps)
+        want = cb.basket_terminal_reference(9, c, 2 * tile, n_steps, anti, 0, tile, dev)
+        ok = True
+        for fn in (cb.basket_terminal, cb.basket_terminal_first):
+            got = fn(9, c, 2 * tile, n_steps, anti, 0, tile, dev)
+            chunk = fn(9, c, tile, n_steps, anti, 1, tile, dev)
+            ok = ok and torch.equal(got, want) and torch.equal(chunk, want[:, tile:])
+        return ok
+
     t0 = time.perf_counter()
+    cases = [(n, steps, anti, tile) for n in BASKET_TERMINAL_ASSETS for anti in (True, False)
+             for steps, tile in ((1, TERMINAL_TILE), (7, 4096))]
+    cases += [(n, 3, anti, BASKET_ODD_TILE) for n in (3, 6) for anti in (True, False)]
+    bad = [case for case in cases if not designs(*case)]
+    log(f"[X0] kernel 28's redesign and first design == the plain version bit for bit, and "
+        f"their first_tile chunks, at {len(cases)} cases ((assets, steps, antithetic, tile): "
+        f"{BASKET_TERMINAL_ASSETS} assets, 1 step on {TERMINAL_TILE} and 7 on 4096, "
+        f"antithetic and not, and 3 and 6 assets on {BASKET_ODD_TILE}); failing: {bad}")
+    if bad:
+        fail(f"X0: kernel 28's designs differ from the plain version at {bad}")
     for n in BASKET_ASSETS:
         for anti in (True, False):
             one(n, 2 * 4096, 7, anti)
@@ -6764,7 +6839,10 @@ def phase_exotics_kernels() -> dict:
                     f"{a['basket_paths']['spill_bytes']}/{a['basket_paths']['blocks_per_sm']}, "
                     f"terminal {a['basket_terminal']['registers']}/"
                     f"{a['basket_terminal']['spill_bytes']}/"
-                    f"{a['basket_terminal']['blocks_per_sm']}" for n, a in attrs.items()))
+                    f"{a['basket_terminal']['blocks_per_sm']} (first design "
+                    f"{a['basket_terminal_first']['registers']}/"
+                    f"{a['basket_terminal_first']['spill_bytes']}/"
+                    f"{a['basket_terminal_first']['blocks_per_sm']})" for n, a in attrs.items()))
     local = {n: a for n, a in attrs.items() if n <= cb.REGISTER_ASSETS
              and any(k["spill_bytes"] for k in a.values())}
     if local:
@@ -6778,7 +6856,8 @@ def phase_exotics_kernels() -> dict:
 def phase_exotics() -> dict:
     """The exotics path (``--path exotics``): X0 (phase_exotics_kernels),
     then, every launch count at 0 and the plain versions of kernels 27-28
-    counted (any call fails the path), the entry points a user calls. B1
+    counted (any call, or a launch of kernel 28's first design, fails the
+    path), the entry points a user calls. B1
     the Andersen-Broadie 2-asset Bermudan max-call at 2^20 paths x 9 dates,
     S0 90/100/110, within AB_GATE of 8.075 / 13.902 / 21.345, the
     out-of-sample estimator within AB_OOS_GATE at 100 and below the
@@ -7052,53 +7131,113 @@ def phase_exotics() -> dict:
     cb.basket_reference = reference
     if plain_calls[0]:
         fail(f"the exotics path ran the plain version of kernels 27-28 {plain_calls[0]} times")
-    log(f"[E] the plain versions of kernels 27-28 ran 0 times on the path; kernel launches "
-        f"{dict(cb.launches)}")
+    if cb.launches["basket_terminal_first"]:
+        fail(f"the exotics path launched kernel 28's first design "
+             f"{cb.launches['basket_terminal_first']} times")
+    log(f"[E] the plain versions of kernels 27-28 and kernel 28's first design ran 0 times on "
+        f"the path; kernel launches {dict(cb.launches)}")
     log("[E] seconds per price: " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
     phase = time.perf_counter() - t_phase
     log(f"[E] the exotics path took {phase:.1f} s")
     return dict(errs=errs, secs=secs, res=res, phase_seconds=phase)
 
 
-def phase_exotics_timing(per_call: float, launches: dict) -> dict:
+def phase_exotics_timing(sass: dict, launches: dict) -> dict:
     """CUDA-event medians (N_TIMED) of kernels 27-28 at BASKET_SHAPES (27 at
     5 x 2^20 x 50 and at B1's 2 x 2^20 x 9, 28 at 3 x 2^22 exact), each
     beside its plain version (one run), its bound (bound(), ops_basket and
     draws_basket from this run's shapes, the output written once) and its
-    registers and occupancy. Returns the rows by kernel name."""
+    registers and occupancy. Kernel 28 at 3 x 2^22 and at B1's European
+    leg (BASKET_B1_EUROPEAN) in turns with its first design (first, new,
+    new, first), each design's share of its bound, GB/s written, registers,
+    local bytes, occupancy and static SASS instructions a pair (phase_sass,
+    3 assets), beside ``fill_`` on an output of the same shape (the write
+    floor: the bytes alone, not the function; timed before and after the
+    turns). The generic instance at BASKET_GENERIC beside its bounds and
+    plain versions. Returns the rows by kernel name."""
     import torch
 
     from options_model_tpu_torch.ops import cuda_basket as cb
     from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
     from options_model_tpu_torch.utils.profiling import time_per_call
 
+    per_call = sass["per_call"]
+    pairs = sass.get("basket", {})
     out = {}
     dev = torch.device(DEVICE)
-    for key, (n, n_paths, n_steps) in BASKET_SHAPES.items():
-        name = "basket_terminal" if n_steps == 1 else "basket_paths"
+    src = "options_model_tpu_torch/csrc/basket.cu"
+
+    def row_of(name, n, n_paths, n_steps, T, tile):
         paths = name == "basket_paths"
-        tile = 4096 if paths else TERMINAL_TILE
-        c = _basket_consts(n, n_steps, 3.0 if n_steps == 9 else 0.5)
+        designs = not paths and n <= cb.REGISTER_ASSETS
+        c = _basket_consts(n, n_steps, T)
         fn = cb.basket_paths if paths else cb.basket_terminal
         ref = cb.basket_paths_reference if paths else cb.basket_terminal_reference
-        ms = time_per_call(lambda: fn(11, c, n_paths, n_steps, True, 0, tile, dev), N_TIMED)
-        plain = time_per_call(lambda: ref(11, c, n_paths, n_steps, True, 0, tile, dev), 1, 0)
         out_bytes = (n_steps + 1 if paths else 1) * n * n_paths * 4
         b = bound(n_paths, n_steps, ops_basket(n, paths), int_ops(draws_basket(n), per_call),
                   out_bytes)
+        shape = f"{n} x {n_paths} x {n_steps}"
+
+        def run():
+            return fn(11, c, n_paths, n_steps, True, 0, tile, dev)
+
+        extra = {}
+        if designs:
+            # kernel 28's two designs in turns, fill_ on the same output
+            # before and after them
+            def first():
+                return cb.basket_terminal_first(11, c, n_paths, n_steps, True, 0, tile, dev)
+
+            buf = torch.empty((n, n_paths), dtype=torch.float32, device=dev)
+            fills = [time_per_call(lambda: buf.fill_(1.0), N_TIMED)]
+            turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
+            fills.append(time_per_call(lambda: buf.fill_(1.0), N_TIMED))
+            del buf
+            ms = (turns[1] + turns[2]) / 2
+            extra = first_design_row("basket_terminal_first", src, shape, turns, b["bound_ms"],
+                                     cb.basket_kernel_attrs(n)["basket_terminal_first"])
+            extra.update(earlier_written_gb_s=out_bytes / extra["earlier_ms"] / 1e6,
+                         fill_ms=sum(fills) / 2)
+            if n == 3 and pairs:
+                extra.update(sass_per_pair=pairs.get("basket terminal"),
+                             earlier_sass_per_pair=pairs.get("basket terminal, first design"))
+        else:
+            ms = time_per_call(run, N_TIMED)
+        plain = time_per_call(lambda: ref(11, c, n_paths, n_steps, True, 0, tile, dev), 1, 0)
         a = cb.basket_kernel_attrs(n)[name]
         occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
         row = dict(ms=ms, plain_ms=plain, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                   bound_term=b["bound_term"], shape=f"{n} x {n_paths} x {n_steps}",
-                   registers=a["registers"], spill_bytes=a["spill_bytes"], occupancy=occ)
-        log(f"[5] {name} at {row['shape']}: kernel {ms:.4f} ms, plain {plain:.2f} ms; bound "
+                   bound_term=b["bound_term"], shape=shape, written_gb_s=out_bytes / ms / 1e6,
+                   registers=a["registers"], spill_bytes=a["spill_bytes"], occupancy=occ,
+                   **extra)
+        log(f"[5] {name} at {shape}: kernel {ms:.4f} ms, plain {plain:.2f} ms; bound "
             f"{b['bound_ms']:.4f} ms by {b['bound_term']}, {b['bound_ms'] / ms * 100:.1f}% of "
-            f"bound, {out_bytes / ms / 1e6:.1f} GB/s written; {a['registers']} registers, "
-            f"{a['spill_bytes']} local bytes, {occ:.1%} occupancy")
+            f"bound, {row['written_gb_s']:.1f} GB/s written; {a['registers']} registers, "
+            f"{a['spill_bytes']} local bytes, {occ:.1%} occupancy"
+            + (f"; first design {row['earlier_ms']:.4f} ms, "
+               f"{b['bound_ms'] / row['earlier_ms'] * 100:.1f}% of bound, "
+               f"{row['earlier_written_gb_s']:.1f} GB/s written; fill_ on the same output "
+               f"{row['fill_ms']:.4f} ms ({fills[0]:.4f}, {fills[1]:.4f}), "
+               f"{b['bound_ms'] / row['fill_ms'] * 100:.1f}% of bound" if designs else "")
+            + (f"; static SASS instructions a pair {row['sass_per_pair']:g} (first design "
+               f"{row['earlier_sass_per_pair']:g})" if row.get("sass_per_pair") else ""))
+        return row
+
+    for key, (n, n_paths, n_steps) in BASKET_SHAPES.items():
+        name = "basket_terminal" if n_steps == 1 else "basket_paths"
+        tile = 4096 if name == "basket_paths" else TERMINAL_TILE
+        row = row_of(name, n, n_paths, n_steps, 3.0 if n_steps == 9 else 0.5, tile)
         if key == "andersen_broadie":
             out[name]["andersen_broadie"] = row
         else:
             out[name] = row
+    n, n_paths, n_steps = BASKET_B1_EUROPEAN
+    out["basket_terminal"]["b1_european"] = row_of("basket_terminal", n, n_paths, n_steps, 1.0,
+                                                   TERMINAL_TILE)
+    for name, (n, n_paths, n_steps) in BASKET_GENERIC.items():
+        tile = TERMINAL_TILE if n_steps == 1 else 4096
+        out[name]["generic"] = row_of(name, n, n_paths, n_steps, 0.5, tile)
+        torch.cuda.empty_cache()
     log(f"[5] kernels 27-28's launches on the exotics path: {launches}")
     return out
 
@@ -7147,9 +7286,10 @@ def main() -> int:
     from options_model_tpu_torch.ops import cuda_heston, cuda_jumps
 
     counted = specs + vjp + jumps + duals + normals + families + rough + exotics
-    # kernels 12-18's, 21's, 22's, 24's and 25-26's first designs: the yardsticks no path
-    # may reach
-    from options_model_tpu_torch.ops import cuda_dual, cuda_gbm, cuda_rbergomi, cuda_sabr, cuda_vg
+    # kernels 12-18's, 21's, 22's, 24's, 25-26's and 28's first designs: the yardsticks no
+    # path may reach
+    from options_model_tpu_torch.ops import (cuda_basket, cuda_dual, cuda_gbm, cuda_rbergomi,
+                                              cuda_sabr, cuda_vg)
 
     firsts = {"euler_paths_vjp_first": cuda_heston.launches,
               "gbm_paths_vjp_first": cuda_gbm.launches,
@@ -7158,7 +7298,8 @@ def main() -> int:
               **{FAMILY_FIRSTS[k]: cuda_vg.launches for k in ("vg_paths", "vg_terminal")},
               FAMILY_FIRSTS["sabr_terminal"]: cuda_sabr.launches,
               **{key: cuda_rbergomi.launches for key in RB_FIRST},
-              **{key: cuda_dual.launches for key in ROUGH_DUAL_FIRSTS}}
+              **{key: cuda_dual.launches for key in ROUGH_DUAL_FIRSTS},
+              "basket_terminal_first": cuda_basket.launches}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
     counters += [(d, key) for key, d in firsts.items()]
@@ -7166,8 +7307,8 @@ def main() -> int:
     def drive(path, fn):
         """Run one path with every count at 0; fail if a kernel of that path
         was never launched, or if the first design of kernels 1, 3-8,
-        12-18, 21, 22, 24 or 25-26, or of the variants, was. Returns (fn's
-        result, that path's counts)."""
+        12-18, 21, 22, 24, 25-26 or 28, or of the variants, was. Returns
+        (fn's result, that path's counts)."""
         for d, key in counters:
             d[key] = 0
         cuda_jumps.shape_launches.clear()
@@ -7185,8 +7326,8 @@ def main() -> int:
         earlier.update({key: d[key] for key, d in firsts.items()})
         log(f"[4] first-design launches during the {path} path: {earlier}")
         if any(earlier.values()):
-            fail(f"the {path} path reached the first design of kernels 1, 3-8, 12-18, 21, 22, 24 "
-                 f"or 25-26, or of the variants: {earlier}")
+            fail(f"the {path} path reached the first design of kernels 1, 3-8, 12-18, 21, 22, 24, "
+                 f"25-26 or 28, or of the variants: {earlier}")
         return out, mine
 
     (secs, euro), launches = drive("main", phase_main_path)
@@ -7223,8 +7364,7 @@ def main() -> int:
     normals_times = phase_normals_timing(sass["per_call"], launches_v)
     family_times = phase_family_timing(sass, family_f0["attempts"], launches_f)
     rough_times = phase_rough_timing(sass, rough_res, launches_r)
-    exo_times = phase_exotics_timing(sass["per_call"], {k["name"]: launches_x[k["name"]]
-                                                        for k in exotics})
+    exo_times = phase_exotics_timing(sass, {k["name"]: launches_x[k["name"]] for k in exotics})
     log(f"[5] the kernel timings (phase 5) took {time.perf_counter() - t_timing:.1f} s")
     log("[5] main path seconds per price: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
@@ -7348,7 +7488,11 @@ def main() -> int:
     entries += [dict(name=k["name"], route="cuda", source=k["source"], replaces=k["replaces"],
                      launches=launches_x[k["name"]], library_ms=None,
                      max_abs_err=exo_res["errs"][k["name"]]["s_abs"],
-                     max_ulps=exo_res["errs"][k["name"]]["s_ulps"], **exo_times[k["name"]])
+                     max_ulps=exo_res["errs"][k["name"]]["s_ulps"],
+                     **({"earlier_max_abs_err":
+                         exo_res["errs"][k["name"] + "_first"]["s_abs"]}
+                        if k["name"] + "_first" in exo_res["errs"] else {}),
+                     **exo_times[k["name"]])
                 for k in exotics]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,32 @@
 // bit. The constants (float32) are s0[n], drift[n], vol[n] and L's rows
 // packed (row a holds a + 1 entries from a (a + 1) / 2).
 //
+// Kernel 28 has two designs. The redesign, basket_terminal_kernel<N, K,
+// kAnti> (1-8 assets), serves every terminal launch; the first design,
+// basket_kernel<N, kTerminal>, stays built as its yardstick (mode
+// kTerminalFirst, which no pricer reaches). A terminal launch writes 12 n
+// bytes a pair: at 3 x 2^22 its bound is 0.0150 ms (50.3 MB at 3.35
+// TB/s), and fill_ writes those bytes in 0.0204 ms on an H100. What holds
+// it on the card is the instructions of its exact arithmetic (two
+// Box-Mullers and six expf a pair at 3 assets): the same with no stores
+// took 0.0276 ms (scripts/exp_basket_terminal.py), the redesign 0.0277,
+// the first design 0.036 (PERF.md). The redesign keeps every operation
+// that fixes the bits (box_muller_stream, W over ascending b with _rn,
+// log_step, s0 expf(acc)) and cuts what surrounds them:
+//   * K adjacent slots a thread, their Philox chains interleaved, each
+//     asset row written as one float2 / float4 at the path's column and one
+//     at the mirror's (K = 1 where the tile's half is not a multiple of K);
+//     slot j keeps its counter (j, t ceil(n / 4) + c, global tile, 6);
+//   * the ten round keys once per launch (hopper_fast.cuh's PhiloxKeys,
+//     by value as a __grid_constant__), not rebuilt at every call;
+//   * a 2-D grid, x the local tile and y a block of items in it: the slot
+//     and global tile from blockIdx with no division (the first design's
+//     long long slot / width and slot % width were ~120 of its ~570 static
+//     instructions a slot), one 64-bit row pointer a thread, bumped by
+//     n_pad from asset to asset.
+// A grid of whole waves walked at its stride measured no faster (PERF.md,
+// scripts/exp_basket_terminal.py).
+//
 // Instances: n = 1..8 take the constants by value (kernel parameters, read
 // from the constant bank as instruction operands, so they hold no
 // registers: held in shared memory, nvcc kept all 42 of n = 7 in registers
@@ -33,8 +59,8 @@
 // unrolled); the generic instance copies the constants from the card to
 // shared memory and keeps its state there too, strided by the block so
 // that a thread's entries sit in one bank column, up to kMaxAssets.
+#include "hopper_fast.cuh"
 #include "kernel_attrs.cuh"
-#include "philox.cuh"
 
 namespace omt {
 namespace basket {
@@ -43,9 +69,14 @@ constexpr uint32_t kStream = 6u;
 constexpr int kBlock = 256;
 constexpr int kGenericBlock = 64;
 constexpr int kMaxAssets = 128;
-// What a launch writes: S_T (kernel 28), S paths (kernel 27), or the
-// log-states and W (debug).
-enum Mode { kTerminal = 0, kPaths = 1, kDebug = 2 };
+// What a launch writes: S_T (kernel 28), S paths (kernel 27), the
+// log-states and W (debug), or S_T by kernel 28's first design.
+enum Mode { kTerminal = 0, kPaths = 1, kDebug = 2, kTerminalFirst = 3 };
+// Kernel 28's redesign: threads a block, and adjacent slots a thread by
+// assets (kTermSlots: ops/cuda_basket.terminal_slots): 4 up to 3 assets, 2
+// above (4 assets at 4 slots took 80 registers and 8 bytes of local memory).
+constexpr int kTermBlock = 256;
+__host__ __device__ constexpr int kTermSlots(int n) { return n <= 3 ? 4 : 2; }
 
 __host__ __device__ constexpr int n_consts(int n) { return 3 * n + n * (n + 1) / 2; }
 
@@ -244,6 +275,126 @@ basket_generic_kernel(float* __restrict__ out, float* __restrict__ aux,
   }
 }
 
+// Kernel 28's redesign covers its slots with a 2-D grid: x the local tile,
+// y a block of items (K adjacent slots of the tile's first half, or of the
+// whole tile without antithetics), so a thread finds its slot with no
+// division.
+struct TermGrid {
+  uint32_t first_tile, tile, width, items;
+  size_t n_pad;
+};
+
+template <int K>
+__device__ __forceinline__ void store_slots(float* p, const float (&v)[K]) {
+  if constexpr (K == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (K == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// Kernel 28's redesign: S_T of K adjacent slots a thread, N assets in
+// registers, the constants by value, the round keys once per launch.
+template <int N, int K, bool kAnti>
+__global__ void __launch_bounds__(kTermBlock)
+basket_terminal_kernel(float* __restrict__ out, const Consts<N> p,
+                       const __grid_constant__ fast::PhiloxKeys keys, const TermGrid g,
+                       int n_steps) {
+  const uint32_t item = blockIdx.y * kTermBlock + threadIdx.x;
+  if (item >= g.items) return;
+  const float* c = p.c;
+  const float* s0 = c;
+  const float* drift = c + N;
+  const float* vol = c + 2 * N;
+  const float* L = c + 3 * N;
+  constexpr int kCalls = (N + 3) / 4;
+  const uint32_t j = item * K, gt = g.first_tile + blockIdx.x;
+  float acc[N][K], accm[N][K];
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int s = 0; s < K; ++s) acc[a][s] = accm[a][s] = 0.0f;
+  for (int t = 0; t < n_steps; ++t) {
+    // z padded to whole calls: the padding is written and never read
+    float z[K][4 * kCalls];
+#pragma unroll
+    for (int k = 0; k < kCalls; ++k) {
+      const uint32_t draw = static_cast<uint32_t>(t * kCalls + k);
+      Words w[K];
+#pragma unroll
+      for (int s = 0; s < K; ++s) w[s] = fast::philox_keyed(Words{j + s, draw, gt, kStream}, keys);
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        box_muller_stream(w[s].x, w[s].y, z[s][4 * k], z[s][4 * k + 1]);
+        if (4 * k + 2 < N) box_muller_stream(w[s].z, w[s].w, z[s][4 * k + 2], z[s][4 * k + 3]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s)
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        float W = __fmul_rn(L[a * (a + 1) / 2], z[s][0]);
+#pragma unroll
+        for (int b = 1; b <= a; ++b) W = __fadd_rn(W, __fmul_rn(L[a * (a + 1) / 2 + b], z[s][b]));
+        acc[a][s] = log_step(acc[a][s], drift[a], vol[a], W);
+        if (kAnti) accm[a][s] = log_step(accm[a][s], drift[a], vol[a], -W);
+      }
+  }
+  float* row = out + (static_cast<size_t>(blockIdx.x) * g.tile + j);
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    float v[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) v[s] = __fmul_rn(s0[a], expf(acc[a][s]));
+    store_slots<K>(row, v);
+    if (kAnti) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) v[s] = __fmul_rn(s0[a], expf(accm[a][s]));
+      store_slots<K>(row + g.width, v);
+    }
+    row += g.n_pad;
+  }
+}
+
+template <int N, int K, bool kAnti>
+int launch_terminal_k(float* out, const float* host_consts, uint64_t seed, int first_tile,
+                      int n_tiles, int tile, int n_steps, cudaStream_t st) {
+  Consts<N> p;
+  for (int i = 0; i < n_consts(N); ++i) p.c[i] = host_consts[i];
+  TermGrid g;
+  g.first_tile = static_cast<uint32_t>(first_tile);
+  g.tile = static_cast<uint32_t>(tile);
+  g.width = kAnti ? g.tile / 2 : g.tile;
+  g.items = g.width / K;
+  g.n_pad = static_cast<size_t>(n_tiles) * tile;
+  const dim3 grid(static_cast<unsigned>(n_tiles), (g.items + kTermBlock - 1) / kTermBlock);
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  basket_terminal_kernel<N, K, kAnti><<<grid, kTermBlock, 0, st>>>(out, p, fast::philox_keys(seed),
+                                                                   g, n_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K = kTermSlots(N) where the tile's half (its width without antithetics)
+// takes it, else one slot a thread.
+template <int N>
+int launch_terminal(float* out, const float* host_consts, uint64_t seed, int first_tile,
+                    int n_tiles, int tile, int n_steps, bool anti, cudaStream_t st) {
+  constexpr int K = kTermSlots(N);
+  const int width = anti ? tile / 2 : tile;
+  if (width % K == 0) {
+    return anti ? launch_terminal_k<N, K, true>(out, host_consts, seed, first_tile, n_tiles,
+                                                tile, n_steps, st)
+                : launch_terminal_k<N, K, false>(out, host_consts, seed, first_tile, n_tiles,
+                                                 tile, n_steps, st);
+  }
+  return anti ? launch_terminal_k<N, 1, true>(out, host_consts, seed, first_tile, n_tiles, tile,
+                                              n_steps, st)
+              : launch_terminal_k<N, 1, false>(out, host_consts, seed, first_tile, n_tiles, tile,
+                                               n_steps, st);
+}
+
 template <int N, int kMode>
 int launch_fixed(float* out, float* aux, const float* host_consts, uint64_t seed,
                  int first_tile, int n_tiles, int tile, int n_steps, bool antithetic,
@@ -268,47 +419,65 @@ int prepare_generic(int n, size_t& smem) {
 #define OMT_BASKET_CASES(ACTION) \
   ACTION(1) ACTION(2) ACTION(3) ACTION(4) ACTION(5) ACTION(6) ACTION(7) ACTION(8)
 
+// The instances of basket_kernel and basket_generic_kernel a mode runs:
+// kernel 28's first design is basket_kernel's terminal mode.
+constexpr int kernel_mode(int mode) { return mode == kTerminalFirst ? kTerminal : mode; }
+
+// A launch in ``kMode``: kernel 28's redesign (kTerminal, 1-8 assets), its
+// first design (kTerminalFirst), kernel 27 (kPaths) or the debug mode, the
+// generic instance from 9 assets in every mode.
 template <int kMode>
 int launch(float* out, float* aux, const float* host_consts, const float* consts,
            uint64_t seed, int first_tile, int n_tiles, int tile, int n_steps, int n,
            int antithetic, void* stream) {
+  constexpr int kKernel = kernel_mode(kMode);
   const bool anti = antithetic != 0;
   const long long n_slots = static_cast<long long>(n_tiles) * (anti ? tile / 2 : tile);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n) {
 #define OMT_BASKET_LAUNCH(K) \
   case K: \
-    return launch_fixed<K, kMode>(out, aux, host_consts, seed, first_tile, n_tiles, tile, \
-                                  n_steps, anti, n_slots, st);
+    if constexpr (kMode == kTerminal) \
+      return launch_terminal<K>(out, host_consts, seed, first_tile, n_tiles, tile, n_steps, \
+                                anti, st); \
+    else \
+      return launch_fixed<K, kKernel>(out, aux, host_consts, seed, first_tile, n_tiles, tile, \
+                                    n_steps, anti, n_slots, st);
     OMT_BASKET_CASES(OMT_BASKET_LAUNCH)
 #undef OMT_BASKET_LAUNCH
     default:
       break;
   }
   size_t smem = 0;
-  const int err = prepare_generic<kMode>(n, smem);
+  const int err = prepare_generic<kKernel>(n, smem);
   if (err != 0) return err;
   const unsigned grid = static_cast<unsigned>((n_slots + kGenericBlock - 1) / kGenericBlock);
-  basket_generic_kernel<kMode><<<grid, kGenericBlock, smem, st>>>(
+  basket_generic_kernel<kKernel><<<grid, kGenericBlock, smem, st>>>(
       out, aux, consts, seed, first_tile, n_tiles, tile, n_steps, n, anti);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instance a launch in kMode at n assets runs (kernel 28's redesign:
+// antithetic, kTermSlots(n) slots a thread).
 template <int kMode>
 int attrs(int n, int* out) {
+  constexpr int kKernel = kernel_mode(kMode);
   switch (n) {
 #define OMT_BASKET_ATTR(K) \
   case K: \
-    return kernel_attrs(basket_kernel<K, kMode>, kBlock, out);
+    if constexpr (kMode == kTerminal) \
+      return kernel_attrs(basket_terminal_kernel<K, kTermSlots(K), true>, kTermBlock, out); \
+    else \
+      return kernel_attrs(basket_kernel<K, kKernel>, kBlock, out);
     OMT_BASKET_CASES(OMT_BASKET_ATTR)
 #undef OMT_BASKET_ATTR
     default:
       break;
   }
   size_t smem = 0;
-  const int err = prepare_generic<kMode>(n, smem);
+  const int err = prepare_generic<kKernel>(n, smem);
   if (err != 0) return err;
-  return kernel_attrs(basket_generic_kernel<kMode>, kGenericBlock, out, smem);
+  return kernel_attrs(basket_generic_kernel<kKernel>, kGenericBlock, out, smem);
 }
 
 }  // namespace basket
@@ -318,11 +487,11 @@ extern "C" {
 
 // out: device float32, (n_steps+1, n_assets, n_tiles*tile) for mode 1 (S
 // paths, kernel 27) and 2 (the log-states, debug), (n_assets, n_tiles*tile)
-// for mode 0 (S_T, kernel 28); aux: W (n_steps, n_assets, n_tiles*tile) in
-// mode 2, else unused; host_consts: host float32, s0, drift, vol and L's
-// packed rows (3 n + n (n + 1) / 2), read by value up to 8 assets; consts:
-// the same on the card, read by the generic instance (9 assets or more;
-// may be null below).
+// for modes 0 (S_T, kernel 28) and 3 (S_T, kernel 28's first design); aux:
+// W (n_steps, n_assets, n_tiles*tile) in mode 2, else unused; host_consts:
+// host float32, s0, drift, vol and L's packed rows (3 n + n (n + 1) / 2),
+// read by value up to 8 assets; consts: the same on the card, read by the
+// generic instance (9 assets or more; may be null below).
 int omt_basket(void* out, void* aux, const void* host_consts, const void* consts,
                uint64_t seed, int first_tile, int n_tiles, int tile, int n_steps, int n_assets,
                int antithetic, int mode, void* stream) {
@@ -332,26 +501,35 @@ int omt_basket(void* out, void* aux, const void* host_consts, const void* consts
   const float* h = static_cast<const float*>(host_consts);
   const float* c = static_cast<const float*>(consts);
   switch (mode) {
-    case kTerminal:
-      return launch<kTerminal>(o, x, h, c, seed, first_tile, n_tiles, tile, n_steps, n_assets,
-                               antithetic, stream);
-    case kPaths:
-      return launch<kPaths>(o, x, h, c, seed, first_tile, n_tiles, tile, n_steps, n_assets,
-                            antithetic, stream);
-    case kDebug:
-      return launch<kDebug>(o, x, h, c, seed, first_tile, n_tiles, tile, n_steps, n_assets,
-                            antithetic, stream);
+#define OMT_BASKET_MODE(M) \
+  case M: \
+    return launch<M>(o, x, h, c, seed, first_tile, n_tiles, tile, n_steps, n_assets, \
+                     antithetic, stream);
+    OMT_BASKET_MODE(kTerminal)
+    OMT_BASKET_MODE(kPaths)
+    OMT_BASKET_MODE(kDebug)
+    OMT_BASKET_MODE(kTerminalFirst)
+#undef OMT_BASKET_MODE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The instance a launch at n_assets and mode 0 or 1 runs: registers per
+// The instance a launch at n_assets and mode 0, 1 or 3 runs: registers per
 // thread, local bytes, resident blocks per SM, block threads
 // (csrc/kernel_attrs.cuh).
 int omt_basket_attrs(int n_assets, int mode, int* out) {
   using namespace omt::basket;
-  return mode == kPaths ? attrs<kPaths>(n_assets, out) : attrs<kTerminal>(n_assets, out);
+  switch (mode) {
+    case kTerminal:
+      return attrs<kTerminal>(n_assets, out);
+    case kPaths:
+      return attrs<kPaths>(n_assets, out);
+    case kTerminalFirst:
+      return attrs<kTerminalFirst>(n_assets, out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -2,7 +2,12 @@
 PyTorch versions: kernel 27 (``basket_paths``, the path matrix) and kernel
 28 (``basket_terminal``, S_T only), the port's own for
 options_model_tpu/models/multiasset.py:48 simulate_gbm_basket and :107
-gbm_basket_terminal_exact, which the reference computes in XLA.
+gbm_basket_terminal_exact, which the reference computes in XLA. Kernel 28
+has two designs: ``basket_terminal`` launches the redesign
+(basket_terminal_kernel: terminal_slots(n) adjacent slots a thread, the
+round keys once per launch, a 2-D grid with no division),
+``basket_terminal_first`` the first design (basket_kernel's terminal mode), its yardstick, which no
+pricer calls; both give the same bits.
 
 The wrappers take the plain version (``basket_*_reference``: the basket
 stream's normals, ops/philox.basket_path_draws, through
@@ -25,12 +30,19 @@ from options_model_tpu_torch.ops.engine import resolve_device
 from options_model_tpu_torch.ops.philox import basket_calls, basket_path_draws
 
 # Kernel launches since the last reset, one integer per kernel.
-launches = {"basket_paths": 0, "basket_terminal": 0}
+launches = {"basket_paths": 0, "basket_terminal": 0, "basket_terminal_first": 0}
 # The most assets the generic instance holds (csrc/basket.cu kMaxAssets);
 # up to REGISTER_ASSETS the state lives in registers.
 MAX_ASSETS = 128
 REGISTER_ASSETS = 8
-_MODES = {"terminal": 0, "paths": 1, "debug": 2}
+_MODES = {"terminal": 0, "paths": 1, "debug": 2, "terminal_first": 3}
+
+
+def terminal_slots(n_assets: int) -> int:
+    """Adjacent slots a thread of kernel 28's redesign at n_assets (1-8;
+    csrc/basket.cu kTermSlots), where the tile's half (its width without
+    antithetics) is a multiple of it; one slot a thread elsewhere."""
+    return 4 if n_assets <= 3 else 2
 
 
 def _n_assets(c: dict) -> int:
@@ -82,12 +94,13 @@ def _packed(c: dict) -> np.ndarray:
 def basket_launch(seed: int, c: dict, n_paths: int, n_steps: int, antithetic: bool,
                   first_tile: int, tile: int, device, mode: str):
     """One launch of csrc/basket.cu on a CUDA device in ``mode``: S
-    (terminal, paths) or (log-states, W) (debug). Counts the launches of
-    the terminal and paths modes."""
+    (terminal: kernel 28's redesign; terminal_first: its first design;
+    paths) or (log-states, W) (debug). Counts the launches of every mode
+    but debug."""
     _build.require_cuda(device)
     n, n_tiles = _geometry(seed, c, n_paths, n_steps, first_tile, tile)
     n_pad = n_tiles * tile
-    shape = (n, n_pad) if mode == "terminal" else (n_steps + 1, n, n_pad)
+    shape = (n, n_pad) if mode.startswith("terminal") else (n_steps + 1, n, n_pad)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     aux = (torch.empty((n_steps, n, n_pad), dtype=torch.float32, device=device)
            if mode == "debug" else out)
@@ -115,20 +128,37 @@ def basket_paths(seed: int, c: dict, n_paths: int, n_steps: int, antithetic: boo
                          "paths")
 
 
-def basket_terminal(seed: int, c: dict, n_paths: int, n_steps: int, antithetic: bool = True,
-                    first_tile: int = 0, tile: int = PATH_TILE, device=None) -> torch.Tensor:
-    """Kernel 28: S_T (n, n_pad) on a CUDA device, the plain version on the
-    CPU; on the same stream the paths kernel's last row bit for bit."""
+def _terminal(mode: str, seed: int, c: dict, n_paths: int, n_steps: int, antithetic: bool,
+              first_tile: int, tile: int, device) -> torch.Tensor:
     device = resolve_device(device)
     if device.type == "cpu":
         return basket_terminal_reference(seed, c, n_paths, n_steps, antithetic, first_tile,
                                          tile, device)
-    return basket_launch(seed, c, n_paths, n_steps, antithetic, first_tile, tile, device,
-                         "terminal")
+    return basket_launch(seed, c, n_paths, n_steps, antithetic, first_tile, tile, device, mode)
+
+
+def basket_terminal(seed: int, c: dict, n_paths: int, n_steps: int, antithetic: bool = True,
+                    first_tile: int = 0, tile: int = PATH_TILE, device=None) -> torch.Tensor:
+    """Kernel 28 (its redesign): S_T (n, n_pad) on a CUDA device, the plain
+    version on the CPU; on the same stream the paths kernel's last row and
+    the first design's output bit for bit."""
+    return _terminal("terminal", seed, c, n_paths, n_steps, antithetic, first_tile, tile, device)
+
+
+def basket_terminal_first(seed: int, c: dict, n_paths: int, n_steps: int,
+                          antithetic: bool = True, first_tile: int = 0, tile: int = PATH_TILE,
+                          device=None) -> torch.Tensor:
+    """Kernel 28's first design on a CUDA device, the plain version on the
+    CPU: the redesign's yardstick, which no pricer calls. The arguments are
+    basket_terminal's."""
+    return _terminal("terminal_first", seed, c, n_paths, n_steps, antithetic, first_tile, tile,
+                     device)
 
 
 def basket_kernel_attrs(n_assets: int) -> dict:
     """Registers, local bytes and occupancy of the instances a launch at
-    n_assets runs, by kernel name."""
+    n_assets runs, by kernel name (kernel 28's redesign: its antithetic
+    instance at terminal_slots(n_assets))."""
     return {name: _build.kernel_attrs("omt_basket_attrs", n_assets, mode)
-            for name, mode in (("basket_paths", 1), ("basket_terminal", 0))}
+            for name, mode in (("basket_paths", 1), ("basket_terminal", 0),
+                               ("basket_terminal_first", 3))}
