@@ -184,24 +184,28 @@ Phases, in order; any failure exits non-zero:
    l. the exotics path (the [X0], [B] and [E] lines; models/multiasset.py,
       pricers/basket.py, american_basket.py, exotics.py, barrier.py,
       american_asian.py, fd_asian.py, varswap.py), after X0 held kernels
-      27-28 (csrc/basket.cu) against their plain versions at 1, 2, 3, 5 and
-      12 assets (antithetic and not), at the timed shapes and at 128: W and
-      the log-states bit for bit, S within BASKET_S_ULPS, the terminal the
-      paths' last row, first_tile chunks bit for bit, no local memory at 1-8
-      assets; kernel 28's redesign and its first design bit for bit the
-      plain version at 1, 2, 3, 5, 8 and 12 assets, antithetic and not, at
-      one step on TERMINAL_TILE and seven on PATH_TILE, and on a tile no K
-      divides, with their first_tile chunks: B1 the Andersen-Broadie
-      Bermudan max-call at 2^20 x 9, B2 the 3-asset basket at 2^22, E1 the
-      Asian, E2 the barriers, E3 the American Asian, E4 the lookbacks and
-      variance swaps, at the JAX tests' bars; the plain versions of 27-28
-      and kernel 28's first design counted and held at 0;
+      27-28 (csrc/basket.cu, csrc/basket.cuh) against their plain versions
+      at 1, 2, 3 and 5 assets and on the routes from 9 assets at 9, 12, 16,
+      17, 33, 50, 64 and 128 (antithetic and not, the latter also on a
+      1,030 tile), and at the timed shapes: W and the log-states bit for
+      bit, S within BASKET_S_ULPS, the terminal the paths' last row,
+      first_tile chunks bit for bit, from 9 assets the generic instance
+      (their first design) equal to both, no local memory at 1-16 assets;
+      kernel 28's redesign and its first design bit for bit the plain
+      version at those assets and 8, antithetic and not, at one step on
+      TERMINAL_TILE and seven on PATH_TILE, and on a tile no K divides,
+      with their first_tile chunks: B1 the Andersen-Broadie Bermudan
+      max-call at 2^20 x 9, B2 the 3-asset basket at 2^22, B3-B4 the 12-
+      and 50-asset baskets (the routes from 9 assets), E1 the Asian, E2 the
+      barriers, E3 the American Asian, E4 the lookbacks and variance swaps,
+      at the JAX tests' bars; the plain versions of 27-28, kernel 28's first
+      design and the generic instance counted and held at 0;
 4. the launch counts of each path (the families path: kernels 21-24; the
    rough path: the fused rough Bergomi kernel, kernel 18's new families
    and VG's terminal step), none of its kernels at 0, the first design of
    kernels 1, 3-8, 12-18 (kernel 18's VG, SABR and rough Bergomi families
-   too), 21, 22, 24, 25-26 and 28, of VG's terminal step and of the
-   variants at 0, and one
+   too), 21, 22, 24, 25-26 and 28, of VG's terminal step, of the generic
+   instance of 27-28 and of the variants at 0, and one
    paths launch per 64x64 Heston, Bates or Merton surface; the experiments
    reach the variants' first design only in their first-design rows;
 5. each kernel's time and its plain version's (CUDA events, median of 7
@@ -243,8 +247,10 @@ Phases, in order; any failure exits non-zero:
    5 x 2^20 x 50, 3 x 2^22 (one exact step) and B1's 2 x 2^20 x 9 beside
    their bounds and plain versions, kernel 28 at 3 x 2^22 and at B1's
    European 2 x 2^21 in turns with its first design beside fill_ on the
-   same output, the generic instance at 12 assets (terminal 12 x 2^22,
-   paths 12 x 2^18 x 50), and the exotics path's seconds per price.
+   same output, both routes from 9 assets at 12 and 64 assets (terminal
+   12 x 2^22 and 64 x 2^20, paths 12 x 2^18 x 50 and 64 x 2^16 x 50) in
+   turns with the generic instance, beside their bounds and the SASS
+   issue floor, and the exotics path's seconds per price.
    ``chip_smoke.py --path rough`` (``--path exotics``) run alone drives
    the rough (exotics) path and then times its kernels as phase 5 does.
 The second-to-last line is a JSON object with one entry per TPU kernel (the
@@ -1006,6 +1012,84 @@ def sass_basket(text: str) -> dict:
     return out
 
 
+# The routes of kernels 27-28 from 9 assets, the instances phase 5 times:
+# the register instances at 12 assets (antithetic terminal, K = 1) and the
+# wide route's (csrc/basket.cuh basket_wide_kernel<kMode, 8>).
+SASS_BASKET_ROUTES = {"basket_paths_9_16": "13basket_kernelILi12ELi1EE",
+                      "basket_terminal_9_16": "22basket_terminal_kernelILi12ELi1ELb1EE",
+                      "basket_paths_17_128": "18basket_wide_kernelILi1ELi8EE",
+                      "basket_terminal_17_128": "18basket_wide_kernelILi0ELi8EE"}
+WIDE_SASS_ROWS, WIDE_SASS_UNROLL = 8, 2
+
+
+def sass_basket_routes(text: str) -> dict:
+    """The static SASS of each SASS_BASKET_ROUTES kernel, read for its
+    instructions a pair-step. The register instances: the paths kernel's
+    step loop (fully unrolled: every instruction of it runs once a
+    pair-step), the terminal kernel's whole function (one pair a thread).
+    The wide route by parts, each a thread's static code: its step loop
+    less the loops inside it ("step": the barrier, both row blocks'
+    diagonals (the first block's and any other's, of which a group runs
+    one), log steps and stores, the chunk loops' remainders), the draw loop
+    a Philox call ("draw", the loop inside the step loop that holds MUFU),
+    the chunk loops' body a chunk (four columns of eight rows; "chunk", the
+    mean of the other loops inside it over WIDE_SASS_UNROLL chunks an
+    iteration), and outside every loop the rest ("once"). Empty for a
+    kernel whose loops do not read so."""
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        key = next((k for k, piece in SASS_BASKET_ROUTES.items() if piece in name), None)
+        if key is None or key in out:
+            continue
+        code, branches = _sass_code(chunk)
+        code = [(a, i) for a, i in code if opcode(i) != "NOP"
+                and not any(a == b == t for b, t in branches)]
+        spans = sorted({(t, a) for a, t in branches if t <= a})
+        if not spans:
+            continue
+        count = lambda lo, hi: sum(1 for a, _ in code if lo <= a <= hi)  # noqa: E731
+        body = lambda lo, hi: [i for a, i in code if lo <= a <= hi]  # noqa: E731
+        step = max(spans, key=lambda sp: sp[1] - sp[0])
+        if key.endswith("9_16"):
+            out[key] = dict(per_pair_step=count(*step) if "paths" in key else len(code))
+            continue
+        inside = [sp for sp in spans if step[0] <= sp[0] and sp[1] <= step[1] and sp != step]
+        kids = [sp for sp in inside if not any(o != sp and o[0] <= sp[0] and sp[1] <= o[1]
+                                               for o in inside)]
+        draws = [sp for sp in kids if pipe_mix(body(*sp))["MUFU"]]
+        chunks = [sp for sp in kids if sp not in draws]
+        if len(draws) != 1 or not chunks:
+            continue
+        loops = [sp for sp in spans if not any(o != sp and o[0] <= sp[0] and sp[1] <= o[1]
+                                               for o in spans)]
+        out[key] = dict(step=count(*step) - sum(count(*sp) for sp in kids),
+                        draw=count(*draws[0]),
+                        chunk=sum(count(*sp) for sp in chunks) / len(chunks) / WIDE_SASS_UNROLL,
+                        chunk_loops=len(chunks),
+                        once=len(code) - sum(count(*sp) for sp in loops))
+    return out
+
+
+def basket_issue_floor(parts: dict, n: int, pairs: int, steps: int) -> dict:
+    """Instructions a pair-step of a SASS_BASKET_ROUTES kernel at n assets
+    (sass_basket_routes' parts) and its issue floor at ``pairs`` pairs x
+    ``steps`` steps. The register instances: every instruction of their
+    step. The wide route, a lower bound: the draws (ceil(n / 4) passes of
+    the draw loop) and the correlate's n (n + 1) / 2 products at the chunk
+    loop's instructions a product (a chunk is 32 products with their loads),
+    over the G threads of a slot; the log steps, stores, diagonals and the
+    row blocks' padding rows are left out."""
+    if not parts:
+        return {}
+    if "per_pair_step" in parts:
+        ips = parts["per_pair_step"]
+    else:
+        ips = -(-n // 4) * parts["draw"] + n * (n + 1) / 2 / 32 * parts["chunk"]
+    return dict(instructions_per_pair_step=ips,
+                issue_floor_ms=pairs * steps * ips / PEAK_ISSUE * 1e3)
+
+
 def _vg_terminal_roles(key: str, loops: list) -> dict:
     """Kernel 22's loops by role (SASS_WHOLE), {} unless they read as
     expected: the redesign's four in source order, the first attempts,
@@ -1194,6 +1278,11 @@ def phase_sass() -> dict:
     log("[1] SASS kernel 28 at 3 assets, antithetic, static instructions a pair (the whole "
         "function over its slots a thread): "
         + (", ".join(f"{k} {v:g}" for k, v in basket.items()) or "not found"))
+    routes = sass_basket_routes(text)
+    log("[1] SASS kernels 27-28 from 9 assets (sass_basket_routes: the 12-asset register "
+        "instances' instructions a pair-step, the wide route's parts): "
+        + ("; ".join(f"{k} " + ", ".join(f"{p} {v}" for p, v in d.items())
+                     for k, d in routes.items()) or "not read"))
     usage = subprocess.run([tool, "-res-usage", str(_build.library_path())],
                            capture_output=True, text=True, timeout=300).stdout
     regs = {}
@@ -1227,7 +1316,7 @@ def phase_sass() -> dict:
     return dict(per_call=per_call, source="sass", multiplies=kinds, xors=len(xors),
                 loops={k: len(v) for k, v in loops.items()},
                 mufu={k: pipe_mix(v)["MUFU"] for k, v in loops.items()}, nested=nested,
-                whole=whole, basket=basket)
+                whole=whole, basket=basket, basket_routes=routes)
 
 
 def phase_philox() -> None:
@@ -6663,26 +6752,49 @@ def phase_rough_timing(sass: dict, rough: dict, launches: dict) -> dict:
 # tests/test_basket.py, tests/test_exotics.py, tests/test_american_asian.py,
 # tests/test_pricers.py:194-243, tests/test_varswap.py). The kernels are
 # timed in phase 5 of the main process, after the join.
-BASKET_ASSETS = (1, 2, 3, 5, 12)
+BASKET_ASSETS = (1, 2, 3, 5)
 BASKET_S_ULPS = 2
+# The routes from 9 assets (csrc/basket.cu's register instances to 16, the
+# wide route of csrc/basket.cuh to 128) and their yardstick, the generic
+# instance: at these asset counts, antithetic and not, on 2 tiles of 4,096 x
+# 7 steps and of BASKET_ODD_TILE x 3 steps, each with a first_tile = 1 chunk.
+BASKET_ROUTE_ASSETS = (9, 12, 16, 17, 33, 50, 64, 128)
 # Kernel 28's redesign (csrc/basket.cu basket_terminal_kernel) and its first
-# design against the plain version, bit for bit: at BASKET_ASSETS and 8 (the
-# largest register instance), antithetic and not, at one exact step on 2
-# TERMINAL_TILE tiles and at 7 steps on 2 PATH_TILE tiles, and at tiles whose
-# half no K divides (one slot a thread), each with a first_tile = 1 chunk.
-BASKET_TERMINAL_ASSETS = BASKET_ASSETS + (8,)
+# design against the plain version, bit for bit: at BASKET_ASSETS, 8 (the
+# largest first-design register instance) and BASKET_ROUTE_ASSETS,
+# antithetic and not, at one exact step on 2 TERMINAL_TILE tiles and at 7
+# steps on 2 PATH_TILE tiles, and at tiles whose half no K divides (one slot
+# a thread), each with a first_tile = 1 chunk.
+BASKET_TERMINAL_ASSETS = BASKET_ASSETS + (8,) + BASKET_ROUTE_ASSETS
 BASKET_ODD_TILE = 1030
 # B1's European leg (its best-of at 2 x 2^20 paths, one exact step), where
 # phase 5 also times both designs of kernel 28.
 BASKET_B1_EUROPEAN = (2, 1 << 21, 1)
-# The generic instance (9-128 assets, state in shared memory) at 12 assets,
-# measured beside its bound in phase 5: terminal 12 x 2^22 x 1, paths
-# 12 x 2^18 x 50.
-BASKET_GENERIC = {"basket_terminal": (12, 1 << 22, 1), "basket_paths": (12, 1 << 18, 50)}
+# The routes from 9 assets, timed in turns with their first design, the
+# generic instance, in phase 5: (assets, paths, steps) of each kernel.
+BASKET_ROUTE_SHAPES = {"basket_terminal_9_16": (12, 1 << 22, 1),
+                       "basket_paths_9_16": (12, 1 << 18, 50),
+                       "basket_terminal_17_128": (64, 1 << 20, 1),
+                       "basket_paths_17_128": (64, 1 << 16, 50)}
 # (assets, paths, steps): kernel 27 at 5 x 2^20 x 50, kernel 28 at 3 x 2^22
 # (one exact step), and B1's Andersen-Broadie shape (2 x 2^20 x 9, kernel 27).
 BASKET_SHAPES = {"basket_paths": (5, 1 << 20, 50), "basket_terminal": (3, 1 << 22, 1),
                  "andersen_broadie": (2, 1 << 20, 9)}
+# B3 and B4, wide equal-weight baskets (a sector basket of a dozen names, an
+# index basket of fifty): S0 = 100, sigma_i = 0.15 + step i, pairwise rho
+# 0.4, q 2%, r 5%, T 1, the call at K 100 and the Bermudan put at K 105 (12
+# dates); (assets, sigma step, European paths, Bermudan paths). B3 runs the
+# 9-16 route of kernels 27-28, B4 the 17-128 route; B4's Bermudan regresses
+# in float64 (pricers/american_basket.FLOAT32_GRAM_ASSETS).
+BASKET_WIDE_LEGS = {"B3": (12, 0.01, 1 << 22, 1 << 18),
+                    "B4": (50, 0.003, 1 << 21, 1 << 17)}
+# X0 also holds the routes from 9 assets at the shapes the exotics path and
+# phase 5 give them: B3's and B4's (the European's one exact step, the
+# Bermudan's 12 dates) and BASKET_ROUTE_SHAPES.
+BASKET_ROUTE_HELD = tuple(dict.fromkeys(
+    [(n, n_paths, steps) for n, _, n_eu, n_am in BASKET_WIDE_LEGS.values()
+     for n_paths, steps in ((n_eu, 1), (n_am, 12))] + list(BASKET_ROUTE_SHAPES.values())))
+BASKET_WIDE_RHO = 0.4
 AB_TRUE = {90.0: 8.075, 100.0: 13.902, 110.0: 21.345}   # tests/test_basket_american.py:13
 AB_GATE, AB_OOS_GATE = 0.01, 0.015
 B2_S0 = [100.0, 95.0, 110.0]                             # tests/test_basket.py:17-21
@@ -6705,17 +6817,19 @@ def draws_basket(n: int) -> tuple:
 
 
 def exotics_specs():
-    """Kernels 27-28 (csrc/basket.cu): name, source, the XLA function each
-    replaces, the paths that run them, their counters."""
+    """Kernels 27-28 (csrc/basket.cu) on each route by assets: name, source,
+    the XLA function each replaces, the paths that run them, their
+    counters."""
     from options_model_tpu_torch.ops import cuda_basket
 
     src = "options_model_tpu_torch/csrc/basket.cu"
-    return [dict(name="basket_paths", source=src,
-                 replaces="options_model_tpu/models/multiasset.py:48 simulate_gbm_basket",
-                 paths=("exotics",), counter=(cuda_basket.launches, "basket_paths")),
-            dict(name="basket_terminal", source=src,
-                 replaces="options_model_tpu/models/multiasset.py:107 gbm_basket_terminal_exact",
-                 paths=("exotics",), counter=(cuda_basket.launches, "basket_terminal"))]
+    wide = "options_model_tpu_torch/csrc/basket.cuh"
+    paths = "options_model_tpu/models/multiasset.py:48 simulate_gbm_basket"
+    terminal = "options_model_tpu/models/multiasset.py:107 gbm_basket_terminal_exact"
+    return [dict(name=f"basket_{kind}{suffix}", source=source, replaces=replaces,
+                 paths=("exotics",), counter=(cuda_basket.launches, f"basket_{kind}{suffix}"))
+            for suffix, source in (("", src), ("_9_16", src), ("_17_128", wide))
+            for kind, replaces in (("paths", paths), ("terminal", terminal))]
 
 
 def _basket_assets(n: int):
@@ -6744,25 +6858,32 @@ def _basket_consts(n: int, n_steps: int, T: float = 0.5):
 
 def phase_exotics_kernels() -> dict:
     """X0: kernels 27-28 against their plain versions on the card. At
-    BASKET_ASSETS (the generic instance at 12), antithetic and not, 2 tiles
-    x 7 steps: W and the log-states bit for bit (the debug launch), S within
-    BASKET_S_ULPS ulps (the largest printed), the terminal equal to the
-    paths' last row, a first_tile = 1 chunk bit for bit. At the timed shapes
-    (BASKET_SHAPES): the same, on 128 assets the generic instance at 2
-    tiles. Registers and local bytes of every instance; fails on local
-    memory in an instance of 1-8 assets. Returns the largest errors by
-    kernel."""
+    BASKET_ASSETS and BASKET_ROUTE_ASSETS (the register instances to 16
+    assets, the wide route above), antithetic and not, 2 tiles x 7 steps
+    and 2 BASKET_ODD_TILE tiles x 3 steps: W and the log-states bit for bit
+    (the debug launch), S within BASKET_S_ULPS ulps (the largest printed),
+    the terminal equal to the paths' last row, a first_tile = 1 chunk bit
+    for bit, and from 9 assets the generic instance (the first design,
+    paths and terminal) equal to both. At the timed shapes (BASKET_SHAPES)
+    and at the shapes the path and phase 5 give the routes from 9 assets
+    (BASKET_ROUTE_HELD): the same. Registers, local bytes and warps an SM of every instance;
+    fails on local memory in an instance of 1-16 assets. Returns the
+    largest errors by kernel."""
     import torch
 
     from options_model_tpu_torch.ops import cuda_basket as cb
     from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
 
-    errs = {k: dict(s_abs=0.0, s_ulps=0.0)
-            for k in ("basket_paths", "basket_terminal", "basket_terminal_first")}
+    errs = {k["name"]: dict(s_abs=0.0, s_ulps=0.0) for k in exotics_specs()}
+    errs["basket_terminal_first"] = dict(s_abs=0.0, s_ulps=0.0)
     dev = torch.device(DEVICE)
 
     def ulps(a, b):
         return float(((a - b).abs() / torch.finfo(torch.float32).eps / b.abs()).max())
+
+    def suffix(n):
+        r = cb.route(n)
+        return "" if r == "1_8" else f"_{r}"
 
     def one(n, n_paths, n_steps, anti, tile=4096, T=0.5):
         c = _basket_consts(n, n_steps, T)
@@ -6774,37 +6895,52 @@ def phase_exotics_kernels() -> dict:
         S_r = cb.basket_paths_reference(9, c, n_paths, n_steps, anti, 0, tile, dev)
         S_T = cb.basket_terminal(9, c, n_paths, n_steps, anti, 0, tile, dev)
         S_Tr = cb.basket_terminal_reference(9, c, n_paths, n_steps, anti, 0, tile, dev)
-        S_T1 = cb.basket_terminal_first(9, c, n_paths, n_steps, anti, 0, tile, dev)
+        S_T1 = (cb.basket_terminal_first(9, c, n_paths, n_steps, anti, 0, tile, dev)
+                if n <= cb.FIRST_REGISTER_ASSETS else None)
         chunk = cb.basket_paths(9, c, tile, n_steps, anti, 1, tile, dev)
-        same = (torch.equal(S_T, S[-1]) and torch.equal(S_T1, S_T)
+        chunk_t = cb.basket_terminal(9, c, tile, n_steps, anti, 1, tile, dev)
+        same = (torch.equal(S_T, S[-1]) and (S_T1 is None or torch.equal(S_T1, S_T))
                 and torch.equal(chunk, S[:, :, tile:2 * tile])
+                and torch.equal(chunk_t, S_T[:, tile:2 * tile])
                 and bool(torch.isfinite(S).all()))
+        first = ""
+        if n > cb.FIRST_REGISTER_ASSETS:
+            G = cb.basket_generic_first(9, c, n_paths, n_steps, anti, 0, tile, dev, paths=True)
+            GT = cb.basket_generic_first(9, c, n_paths, n_steps, anti, 0, tile, dev)
+            same = same and torch.equal(G, S) and torch.equal(GT, S_T)
+            first = ", the generic instance's paths and terminal"
+            del G, GT
         u, ut = ulps(S, S_r), ulps(S_T, S_Tr)
-        errs["basket_paths"]["s_abs"] = max(errs["basket_paths"]["s_abs"],
-                                            float((S - S_r).abs().max()))
-        errs["basket_terminal"]["s_abs"] = max(errs["basket_terminal"]["s_abs"],
-                                               float((S_T - S_Tr).abs().max()))
-        errs["basket_terminal_first"]["s_abs"] = max(errs["basket_terminal_first"]["s_abs"],
-                                                     float((S_T1 - S_Tr).abs().max()))
-        errs["basket_paths"]["s_ulps"] = max(errs["basket_paths"]["s_ulps"], u)
-        errs["basket_terminal"]["s_ulps"] = max(errs["basket_terminal"]["s_ulps"], ut)
+        p, t = f"basket_paths{suffix(n)}", f"basket_terminal{suffix(n)}"
+        errs[p]["s_abs"] = max(errs[p]["s_abs"], float((S - S_r).abs().max()))
+        errs[t]["s_abs"] = max(errs[t]["s_abs"], float((S_T - S_Tr).abs().max()))
+        if S_T1 is not None:
+            errs["basket_terminal_first"]["s_abs"] = max(
+                errs["basket_terminal_first"]["s_abs"], float((S_T1 - S_Tr).abs().max()))
+        errs[p]["s_ulps"] = max(errs[p]["s_ulps"], u)
+        errs[t]["s_ulps"] = max(errs[t]["s_ulps"], ut)
         ok = bits and same and u <= BASKET_S_ULPS and ut <= BASKET_S_ULPS
-        log(f"[X0] {n} assets x {n_paths} x {n_steps}, antithetic {anti}: W and log-states "
-            f"bit for bit {bits}; S within {u:.2f} ulps, S_T {ut:.2f} (bar {BASKET_S_ULPS}); "
-            f"terminal == the paths' last row and 28's first design's, first_tile chunk bit for "
-            f"bit: {same}")
+        log(f"[X0] {n} assets ({cb.route(n)}) x {n_paths} x {n_steps} on {tile}, antithetic "
+            f"{anti}: W and log-states bit for bit {bits}; S within {u:.2f} ulps, S_T {ut:.2f} "
+            f"(bar {BASKET_S_ULPS}); terminal == the paths' last row"
+            + (", 28's first design's" if S_T1 is not None else "")
+            + f"{first}, first_tile chunks bit for bit: {same}")
         if not ok:
-            fail(f"X0: kernels 27-28 at {n} assets x {n_paths} x {n_steps} (antithetic {anti})")
-        del S, S_r, S_T, S_Tr, S_T1, chunk
+            fail(f"X0: kernels 27-28 at {n} assets x {n_paths} x {n_steps} on {tile} "
+                 f"(antithetic {anti})")
+        del S, S_r, S_T, S_Tr, S_T1, chunk, chunk_t
         torch.cuda.empty_cache()
 
     def designs(n, n_steps, anti, tile):
-        """Kernel 28's redesign and first design == the plain version bit for
-        bit on 2 tiles, and their first_tile = 1 chunks == the second tile."""
+        """Kernel 28's redesign and first design (the generic instance from 9
+        assets) == the plain version bit for bit on 2 tiles, and their
+        first_tile = 1 chunks == the second tile."""
         c = _basket_consts(n, n_steps)
         want = cb.basket_terminal_reference(9, c, 2 * tile, n_steps, anti, 0, tile, dev)
         ok = True
-        for fn in (cb.basket_terminal, cb.basket_terminal_first):
+        first = (cb.basket_terminal_first if n <= cb.FIRST_REGISTER_ASSETS
+                 else cb.basket_generic_first)
+        for fn in (cb.basket_terminal, first):
             got = fn(9, c, 2 * tile, n_steps, anti, 0, tile, dev)
             chunk = fn(9, c, tile, n_steps, anti, 1, tile, dev)
             ok = ok and torch.equal(got, want) and torch.equal(chunk, want[:, tile:])
@@ -6815,49 +6951,73 @@ def phase_exotics_kernels() -> dict:
              for steps, tile in ((1, TERMINAL_TILE), (7, 4096))]
     cases += [(n, 3, anti, BASKET_ODD_TILE) for n in (3, 6) for anti in (True, False)]
     bad = [case for case in cases if not designs(*case)]
-    log(f"[X0] kernel 28's redesign and first design == the plain version bit for bit, and "
+    log(f"[X0] kernel 28's redesign and first design (from 9 assets the generic instance) == "
+        f"the plain version bit for bit, and "
         f"their first_tile chunks, at {len(cases)} cases ((assets, steps, antithetic, tile): "
         f"{BASKET_TERMINAL_ASSETS} assets, 1 step on {TERMINAL_TILE} and 7 on 4096, "
         f"antithetic and not, and 3 and 6 assets on {BASKET_ODD_TILE}); failing: {bad}")
     if bad:
         fail(f"X0: kernel 28's designs differ from the plain version at {bad}")
-    for n in BASKET_ASSETS:
+    for n in BASKET_ASSETS + BASKET_ROUTE_ASSETS:
         for anti in (True, False):
             one(n, 2 * 4096, 7, anti)
+            if n in BASKET_ROUTE_ASSETS:
+                one(n, 2 * BASKET_ODD_TILE, 3, anti, BASKET_ODD_TILE)
     for n, n_paths, n_steps in BASKET_SHAPES.values():
         T = 3.0 if n_steps == 9 else 0.5
         if n_steps == 1:   # the exact terminal law's tile
             one(n, n_paths, n_steps, True, TERMINAL_TILE, T)
         else:
             one(n, n_paths, n_steps, True, T=T)
-    one(cb.MAX_ASSETS, 2 * 4096, 3, True)
+    for n, n_paths, n_steps in BASKET_ROUTE_HELD:
+        one(n, n_paths, n_steps, True, TERMINAL_TILE if n_steps == 1 else 4096)
     attrs = {}
-    for n in (*range(1, cb.REGISTER_ASSETS + 1), 12, cb.MAX_ASSETS):
+    for n in (*range(1, cb.REGISTER_ASSETS + 1), 17, 33, 50, 64, cb.MAX_ASSETS):
         attrs[n] = cb.basket_kernel_attrs(n)
-    log("[X0] registers / local bytes / blocks per SM by assets: "
+
+    def warps(a):
+        return a["blocks_per_sm"] * a["block"] / 32
+
+    log("[X0] registers / local bytes / warps an SM by assets: "
         + "; ".join(f"{n}: paths {a['basket_paths']['registers']}/"
-                    f"{a['basket_paths']['spill_bytes']}/{a['basket_paths']['blocks_per_sm']}, "
+                    f"{a['basket_paths']['spill_bytes']}/{warps(a['basket_paths']):g}, "
                     f"terminal {a['basket_terminal']['registers']}/"
-                    f"{a['basket_terminal']['spill_bytes']}/"
-                    f"{a['basket_terminal']['blocks_per_sm']} (first design "
-                    f"{a['basket_terminal_first']['registers']}/"
-                    f"{a['basket_terminal_first']['spill_bytes']}/"
-                    f"{a['basket_terminal_first']['blocks_per_sm']})" for n, a in attrs.items()))
+                    f"{a['basket_terminal']['spill_bytes']}/{warps(a['basket_terminal']):g}"
+                    + (f" (kernel 28's first design "
+                       f"{a['basket_terminal_first']['registers']}/"
+                       f"{a['basket_terminal_first']['spill_bytes']}/"
+                       f"{warps(a['basket_terminal_first']):g})"
+                       if n <= cb.FIRST_REGISTER_ASSETS else
+                       f" (the generic instance, paths "
+                       f"{a['basket_generic_first_paths']['registers']}/"
+                       f"{a['basket_generic_first_paths']['spill_bytes']}/"
+                       f"{warps(a['basket_generic_first_paths']):g}, terminal "
+                       f"{a['basket_generic_first_terminal']['registers']}/"
+                       f"{a['basket_generic_first_terminal']['spill_bytes']}/"
+                       f"{warps(a['basket_generic_first_terminal']):g})")
+                    for n, a in attrs.items()))
     local = {n: a for n, a in attrs.items() if n <= cb.REGISTER_ASSETS
-             and any(k["spill_bytes"] for k in a.values())}
+             and any(a[k]["spill_bytes"] for k in ("basket_paths", "basket_terminal",
+                                                   "basket_terminal_first") if k in a)}
     if local:
         fail(f"X0: an instance of 1-{cb.REGISTER_ASSETS} assets has local memory: {local}")
     log(f"[X0] kernels 27-28 held in {time.perf_counter() - t0:.1f} s")
     for k in errs:
-        errs[k]["attrs"] = {str(n): a[k] for n, a in attrs.items()}
+        key = "basket_terminal_first" if k == "basket_terminal_first" else (
+            "basket_paths" if k.startswith("basket_paths") else "basket_terminal")
+        errs[k]["attrs"] = {str(n): dict(a[key], warps_per_sm=warps(a[key]))
+                            for n, a in attrs.items() if cb.route(n) == (
+                                "1_8" if k in ("basket_paths", "basket_terminal",
+                                               "basket_terminal_first")
+                                else k.rsplit("_", 2)[-2] + "_" + k.rsplit("_", 2)[-1])}
     return errs
 
 
 def phase_exotics() -> dict:
     """The exotics path (``--path exotics``): X0 (phase_exotics_kernels),
     then, every launch count at 0 and the plain versions of kernels 27-28
-    counted (any call, or a launch of kernel 28's first design, fails the
-    path), the entry points a user calls. B1
+    counted (any call, or a launch of kernel 28's first design or of the
+    generic instance, fails the path), the entry points a user calls. B1
     the Andersen-Broadie 2-asset Bermudan max-call at 2^20 paths x 9 dates,
     S0 90/100/110, within AB_GATE of 8.075 / 13.902 / 21.345, the
     out-of-sample estimator within AB_OOS_GATE at 100 and below the
@@ -6867,7 +7027,13 @@ def phase_exotics() -> dict:
     2^22: the geometric leg within 4 stderr + 1e-3 of its closed form, the
     CV price within 4 combined stderr of the plain one with its stderr cut
     over 5x, put-call parity (6 combined stderr or 2e-3), worst <= basket
-    <= best; E1 bench.py's GBM Asian put (S0 = K = 100, T = 0.5, 50 steps)
+    <= best; B3 and B4 (BASKET_WIDE_LEGS), a 12- and a 50-asset equal-weight
+    basket, pairwise rho 0.4: the geometric leg within 4 stderr + 1e-3 of
+    its closed form, the CV and plain calls within 4 combined stderr with
+    the stderr cut over 5x, the Bermudan basket put at K 105 (12 dates)
+    above its European + 3 stderr and its out-of-sample estimator below the
+    in-sample price + 3 stderr (B4's regressions in float64); E1 bench.py's
+    GBM Asian put (S0 = K = 100, T = 0.5, 50 steps)
     at 2^20: the Kemna-Vorst price within 4 stderr of the plain estimate,
     the stderr cut over 10x, the geometric average within 4 stderr of its
     closed form; E2 the four continuity-corrected barriers at 2^20 x 50
@@ -6891,7 +7057,8 @@ def phase_exotics() -> dict:
     from options_model_tpu_torch.pricers import american as pa
     from options_model_tpu_torch.pricers import (american_asian, barrier, basket, exotics,
                                                  fd_asian, varswap)
-    from options_model_tpu_torch.pricers.american_basket import price_american_basket
+    from options_model_tpu_torch.pricers.american_basket import (FLOAT32_GRAM_ASSETS,
+                                                                 price_american_basket)
     from options_model_tpu_torch.pricers.blackscholes import bs_price
 
     t_phase = time.perf_counter()
@@ -7016,6 +7183,56 @@ def phase_exotics() -> dict:
     check("B2", worst <= p_cv <= best, f"worst-of {worst:.6f} <= basket {p_cv:.6f} <= best-of "
           f"{best:.6f}")
 
+    # B3-B4: the 12- and 50-asset baskets, the routes from 9 assets
+    for tag, (n, step, n_eu, n_am) in BASKET_WIDE_LEGS.items():
+        w = [1.0 / n] * n
+        S0, sig, q = [100.0] * n, [0.15 + step * i for i in range(n)], [0.02] * n
+        corr = np.full((n, n), BASKET_WIDE_RHO) + (1.0 - BASKET_WIDE_RHO) * np.eye(n)
+        bk = (S0, w, 100.0, 1.0, 0.05, sig, corr)
+        S_T = gbm_basket_terminal_exact(5, S0, 0.05, sig, corr, 1.0, n_eu, div_yields=q,
+                                        device=DEVICE)
+        wt = torch.tensor(w, dtype=torch.float32, device=DEVICE)
+        geo = torch.exp(torch.tensordot(wt, torch.log(S_T), dims=1))
+        g_mean, g_se, _ = masked_mean_stderr(
+            torch.clamp_min(geo - 100.0, 0.0) * math.exp(-0.05), pair_block=TERMINAL_TILE)
+        cf = basket.geometric_basket_bs_price(S0, w, 100.0, 1.0, 0.05, sig, corr,
+                                              div_yields=q)
+        check(tag, abs(float(g_mean) - cf) < 4 * float(g_se) + 1e-3,
+              f"{n}-asset geometric basket call, {n_eu} paths: MC {float(g_mean):.6f} +- "
+              f"{float(g_se):.6f}, closed form {cf:.6f}")
+        del S_T, geo
+        p_cv, se_cv = f2(timed(f"{tag} cv", basket.price_basket_mc, gen(7), *bk, n_paths=n_eu,
+                               div_yields=q, device=DEVICE))
+        p_pl, se_pl = f2(timed(f"{tag} plain", basket.price_basket_mc, gen(7), *bk,
+                               n_paths=n_eu, div_yields=q, control_variate=False,
+                               device=DEVICE))
+        check(tag, abs(p_cv - p_pl) < max(4 * math.hypot(se_cv, se_pl), 1e-3)
+              and 5 * se_cv < se_pl,
+              f"{n}-asset basket call, {n_eu} paths: CV {p_cv:.6f} +- {se_cv:.6f} "
+              f"({secs[f'{tag} cv']:.4f} s), plain {p_pl:.6f} +- {se_pl:.6f}: stderr cut "
+              f"{se_pl / se_cv:.1f}x (bar 5x)")
+        p_eu, se_eu = f2(basket.price_basket_mc(gen(8), S0, w, 105.0, 1.0, 0.05, sig, corr,
+                                                cp=-1.0, n_paths=n_eu, div_yields=q,
+                                                device=DEVICE))
+        mca = MCConfig(n_paths=n_am, n_steps=12)
+        p_am, se_am = f2(timed(f"{tag} bermudan", price_american_basket, gen(3), S0, 105.0, 1.0,
+                               0.05, sig, corr, -1.0, mca, kind="basket", weights=w,
+                               div_yields=q, device=DEVICE))
+        p_oos, se_oos = f2(timed(f"{tag} bermudan oos", price_american_basket, gen(3), S0, 105.0,
+                                 1.0, 0.05, sig, corr, -1.0, mca, kind="basket", weights=w,
+                                 div_yields=q, out_of_sample=True, device=DEVICE))
+        res[tag] = dict(assets=n, geometric=float(g_mean), geometric_stderr=float(g_se),
+                        closed_form=cf, cv=p_cv, cv_stderr=se_cv, plain=p_pl,
+                        plain_stderr=se_pl, european_put=p_eu, european_put_stderr=se_eu,
+                        bermudan=p_am, bermudan_stderr=se_am, oos=p_oos, oos_stderr=se_oos)
+        check(tag, p_am > p_eu + 3 * se_eu and p_oos < p_am + 3 * se_oos,
+              f"{n}-asset Bermudan basket put K 105, {n_am} x 12, regressions in "
+              + ("float64" if n > FLOAT32_GRAM_ASSETS else "float32")
+              + f": {p_am:.6f} +- {se_am:.6f} "
+              f"({secs[f'{tag} bermudan']:.3f} s) above its European {p_eu:.6f} +- "
+              f"{se_eu:.6f} + 3 stderr (premium {p_am - p_eu:+.6f}); out-of-sample "
+              f"{p_oos:.6f} +- {se_oos:.6f} below the in-sample + 3 stderr")
+
     # E1: bench.py:326-328's Asian at 2^20 x 50
     put = OptionSpec(strike=100.0, rate=0.05, cp=-1.0, sigma=0.2)
     call = OptionSpec(strike=100.0, rate=0.05, cp=1.0, sigma=0.2)
@@ -7131,11 +7348,11 @@ def phase_exotics() -> dict:
     cb.basket_reference = reference
     if plain_calls[0]:
         fail(f"the exotics path ran the plain version of kernels 27-28 {plain_calls[0]} times")
-    if cb.launches["basket_terminal_first"]:
-        fail(f"the exotics path launched kernel 28's first design "
-             f"{cb.launches['basket_terminal_first']} times")
-    log(f"[E] the plain versions of kernels 27-28 and kernel 28's first design ran 0 times on "
-        f"the path; kernel launches {dict(cb.launches)}")
+    for key in ("basket_terminal_first", "basket_generic_first"):
+        if cb.launches[key]:
+            fail(f"the exotics path launched {key} (a first design) {cb.launches[key]} times")
+    log(f"[E] the plain versions of kernels 27-28, kernel 28's first design and the generic "
+        f"instance ran 0 times on the path; kernel launches by route {dict(cb.launches)}")
     log("[E] seconds per price: " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()))
     phase = time.perf_counter() - t_phase
     log(f"[E] the exotics path took {phase:.1f} s")
@@ -7153,8 +7370,9 @@ def phase_exotics_timing(sass: dict, launches: dict) -> dict:
     local bytes, occupancy and static SASS instructions a pair (phase_sass,
     3 assets), beside ``fill_`` on an output of the same shape (the write
     floor: the bytes alone, not the function; timed before and after the
-    turns). The generic instance at BASKET_GENERIC beside its bounds and
-    plain versions. Returns the rows by kernel name."""
+    turns). The routes from 9 assets at BASKET_ROUTE_SHAPES (route_row), in
+    turns with their first design, the generic instance. Returns the rows
+    by kernel name."""
     import torch
 
     from options_model_tpu_torch.ops import cuda_basket as cb
@@ -7169,7 +7387,7 @@ def phase_exotics_timing(sass: dict, launches: dict) -> dict:
 
     def row_of(name, n, n_paths, n_steps, T, tile):
         paths = name == "basket_paths"
-        designs = not paths and n <= cb.REGISTER_ASSETS
+        designs = not paths and n <= cb.FIRST_REGISTER_ASSETS
         c = _basket_consts(n, n_steps, T)
         fn = cb.basket_paths if paths else cb.basket_terminal
         ref = cb.basket_paths_reference if paths else cb.basket_terminal_reference
@@ -7234,12 +7452,75 @@ def phase_exotics_timing(sass: dict, launches: dict) -> dict:
     n, n_paths, n_steps = BASKET_B1_EUROPEAN
     out["basket_terminal"]["b1_european"] = row_of("basket_terminal", n, n_paths, n_steps, 1.0,
                                                    TERMINAL_TILE)
-    for name, (n, n_paths, n_steps) in BASKET_GENERIC.items():
-        tile = TERMINAL_TILE if n_steps == 1 else 4096
-        out[name]["generic"] = row_of(name, n, n_paths, n_steps, 0.5, tile)
+    routes = sass.get("basket_routes", {})
+    for name, (n, n_paths, n_steps) in BASKET_ROUTE_SHAPES.items():
+        out[name] = route_row(name, n, n_paths, n_steps, routes.get(name, {}), per_call)
         torch.cuda.empty_cache()
     log(f"[5] kernels 27-28's launches on the exotics path: {launches}")
     return out
+
+
+def route_row(name: str, n: int, n_paths: int, n_steps: int, parts: dict,
+              per_call: float) -> dict:
+    """Phase 5's row of kernel 27 or 28 on a route from 9 assets (``name``
+    of exotics_specs) at n x n_paths x n_steps, antithetic: CUDA-event
+    medians of launches on buffers made once (cuda_basket.basket_launcher:
+    at 64 assets the wrapper's host work, packing and copying the
+    constants, can outlast the device spin that hides it) in turns with the
+    first design, the generic instance (first, new, new, first), each
+    beside the bound (bytes, f32 and int32 terms)
+    and its share, the SASS issue floor at this shape (basket_issue_floor;
+    the correlate's _rn products and sums issue apart, never as FMAs),
+    registers, local bytes, warps an SM; the plain version once."""
+    import torch
+
+    from options_model_tpu_torch.ops import cuda_basket as cb
+    from options_model_tpu_torch.ops.cuda_heston import TERMINAL_TILE
+    from options_model_tpu_torch.utils.profiling import time_per_call
+
+    paths = name.startswith("basket_paths")
+    tile = 4096 if paths else TERMINAL_TILE
+    dev = torch.device(DEVICE)
+    c = _basket_consts(n, n_steps)
+    ref = cb.basket_paths_reference if paths else cb.basket_terminal_reference
+    out_bytes = (n_steps + 1 if paths else 1) * n * n_paths * 4
+    b = bound(n_paths, n_steps, ops_basket(n, paths), int_ops(draws_basket(n), per_call),
+              out_bytes)
+    shape = f"{n} x {n_paths} x {n_steps}"
+
+    run, _, _ = cb.basket_launcher(11, c, n_paths, n_steps, True, 0, tile, dev,
+                                   "paths" if paths else "terminal")
+    first, _, _ = cb.basket_launcher(11, c, n_paths, n_steps, True, 0, tile, dev,
+                                     "generic_paths" if paths else "generic_terminal")
+    turns = [time_per_call(f, N_TIMED) for f in (first, run, run, first)]
+    del run, first
+    ms = (turns[1] + turns[2]) / 2
+    attrs = cb.basket_kernel_attrs(n)
+    a = attrs["basket_paths" if paths else "basket_terminal"]
+    g = attrs["basket_generic_first_paths" if paths else "basket_generic_first_terminal"]
+    extra = first_design_row("basket_generic_first", "options_model_tpu_torch/csrc/basket.cu",
+                             shape, turns, b["bound_ms"], g)
+    plain = time_per_call(lambda: ref(11, c, n_paths, n_steps, True, 0, tile, dev), 1, 0)
+    floor = basket_issue_floor(parts, n, n_paths // 2, n_steps)
+    occ = a["blocks_per_sm"] * a["block"] / THREADS_PER_SM
+    row = dict(ms=ms, plain_ms=plain, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               bound_term=b["bound_term"], bound_ms_f32_bytes=b["bound_ms_f32_bytes"],
+               shape=shape, assets_route=cb.route(n), written_gb_s=out_bytes / ms / 1e6,
+               registers=a["registers"], spill_bytes=a["spill_bytes"], occupancy=occ,
+               warps_per_sm=a["blocks_per_sm"] * a["block"] / 32,
+               earlier_warps_per_sm=g["blocks_per_sm"] * g["block"] / 32, **floor, **extra)
+    log(f"[5] {name} ({cb.route(n)}) at {shape}: kernel {ms:.4f} ms, plain {plain:.2f} ms; "
+        f"bound {b['bound_ms']:.4f} ms by {b['bound_term']} (bytes and f32 alone "
+        f"{b['bound_ms_f32_bytes']:.4f}), {b['bound_ms'] / ms * 100:.1f}% of bound, "
+        f"{row['written_gb_s']:.1f} GB/s written; "
+        + (f"SASS {floor['instructions_per_pair_step']:.1f} instructions a pair-step, issue "
+           f"floor {floor['issue_floor_ms']:.4f} ms ({floor['issue_floor_ms'] / ms * 100:.1f}% "
+           f"of its time); " if floor else "SASS not read, no issue floor; ")
+        + f"{a['registers']} registers, {a['spill_bytes']} local bytes, "
+        f"{row['warps_per_sm']:g} warps an SM; the generic instance {row['earlier_ms']:.4f} ms "
+        f"({b['bound_ms'] / row['earlier_ms'] * 100:.1f}% of bound, "
+        f"{row['earlier_warps_per_sm']:g} warps an SM), {row['earlier_ms'] / ms:.2f}x")
+    return row
 
 
 # The paths run in processes of their own (``chip_smoke.py --path name``).
@@ -7299,7 +7580,8 @@ def main() -> int:
               FAMILY_FIRSTS["sabr_terminal"]: cuda_sabr.launches,
               **{key: cuda_rbergomi.launches for key in RB_FIRST},
               **{key: cuda_dual.launches for key in ROUGH_DUAL_FIRSTS},
-              "basket_terminal_first": cuda_basket.launches}
+              "basket_terminal_first": cuda_basket.launches,
+              "basket_generic_first": cuda_basket.launches}
     counters = [k["counter"] for k in counted + earlier_specs(specs)]
     counters += [(hv.launches, key) for key in hv.launches]
     counters += [(d, key) for key, d in firsts.items()]

@@ -27,9 +27,10 @@
 // packed (row a holds a + 1 entries from a (a + 1) / 2).
 //
 // Kernel 28 has two designs. The redesign, basket_terminal_kernel<N, K,
-// kAnti> (1-8 assets), serves every terminal launch; the first design,
-// basket_kernel<N, kTerminal>, stays built as its yardstick (mode
-// kTerminalFirst, which no pricer reaches). A terminal launch writes 12 n
+// kAnti> (1-16 assets; the wide route above), serves every terminal
+// launch; the first design, basket_kernel<N, kTerminal> (1-8 assets),
+// stays built as its yardstick (mode kTerminalFirst, which no pricer
+// reaches). A terminal launch writes 12 n
 // bytes a pair: at 3 x 2^22 its bound is 0.0150 ms (50.3 MB at 3.35
 // TB/s), and fill_ writes those bytes in 0.0204 ms on an H100. What holds
 // it on the card is the instructions of its exact arithmetic (two
@@ -52,33 +53,33 @@
 // A grid of whole waves walked at its stride measured no faster (PERF.md,
 // scripts/exp_basket_terminal.py).
 //
-// Instances: n = 1..8 take the constants by value (kernel parameters, read
-// from the constant bank as instruction operands, so they hold no
+// Instances: n = 1..16 take the constants by value (kernel parameters,
+// read from the constant bank as instruction operands, so they hold no
 // registers: held in shared memory, nvcc kept all 42 of n = 7 in registers
 // and spilled) and keep z and both log-states in registers (loops fully
-// unrolled); the generic instance copies the constants from the card to
-// shared memory and keeps its state there too, strided by the block so
-// that a thread's entries sit in one bank column, up to kMaxAssets.
-#include "hopper_fast.cuh"
-#include "kernel_attrs.cuh"
+// unrolled, so the W rows of a step run as independent chains); kernel 28's
+// redesign takes kTermSlots(n) slots a thread. From 17 to kMaxAssets assets
+// every mode runs the wide route (basket.cuh basket_wide_kernel: a slot
+// split across groups of threads that hold its log-states in registers, z
+// alone in shared memory, the correlate R rows at a time, kernel 28's
+// launch shape). The first design of the route from 9 assets, the generic
+// instance (the constants and the state in shared memory, one 64-thread
+// block a slot range, a runtime loop over every row and column), stays
+// built as the yardstick of both (modes kGenericTerminal and
+// kGenericPaths), which no pricer reaches.
+#include "basket.cuh"
 
 namespace omt {
 namespace basket {
 
-constexpr uint32_t kStream = 6u;
 constexpr int kBlock = 256;
 constexpr int kGenericBlock = 64;
-constexpr int kMaxAssets = 128;
-// What a launch writes: S_T (kernel 28), S paths (kernel 27), the
-// log-states and W (debug), or S_T by kernel 28's first design.
-enum Mode { kTerminal = 0, kPaths = 1, kDebug = 2, kTerminalFirst = 3 };
 // Kernel 28's redesign: threads a block, and adjacent slots a thread by
 // assets (kTermSlots: ops/cuda_basket.terminal_slots): 4 up to 3 assets, 2
-// above (4 assets at 4 slots took 80 registers and 8 bytes of local memory).
+// to 8 (4 assets at 4 slots took 80 registers and 8 bytes of local memory),
+// 1 to 16.
 constexpr int kTermBlock = 256;
-__host__ __device__ constexpr int kTermSlots(int n) { return n <= 3 ? 4 : 2; }
-
-__host__ __device__ constexpr int n_consts(int n) { return 3 * n + n * (n + 1) / 2; }
+__host__ __device__ constexpr int kTermSlots(int n) { return n <= 3 ? 4 : n <= 8 ? 2 : 1; }
 
 // The constants of an instance of N assets, by value.
 template <int N>
@@ -141,10 +142,6 @@ __device__ __forceinline__ float correlate(const float* L, int a, Z zat) {
   float W = __fmul_rn(row[0], zat(0));
   for (int b = 1; b <= a; ++b) W = __fadd_rn(W, __fmul_rn(row[b], zat(b)));
   return W;
-}
-
-__device__ __forceinline__ float log_step(float acc, float drift, float vol, float W) {
-  return __fadd_rn(acc, __fadd_rn(drift, __fmul_rn(vol, W)));
 }
 
 __device__ __forceinline__ void load_consts(float* c, const float* __restrict__ consts, int n) {
@@ -416,68 +413,110 @@ int prepare_generic(int n, size_t& smem) {
                                                static_cast<int>(smem)));
 }
 
-#define OMT_BASKET_CASES(ACTION) \
+// The register instances: kernel 28's first design at 1-8 assets, every
+// other mode at 1-16.
+#define OMT_BASKET_FIRST_CASES(ACTION) \
   ACTION(1) ACTION(2) ACTION(3) ACTION(4) ACTION(5) ACTION(6) ACTION(7) ACTION(8)
+#define OMT_BASKET_CASES(ACTION) \
+  OMT_BASKET_FIRST_CASES(ACTION) \
+  ACTION(9) ACTION(10) ACTION(11) ACTION(12) ACTION(13) ACTION(14) ACTION(15) ACTION(16)
 
-// The instances of basket_kernel and basket_generic_kernel a mode runs:
-// kernel 28's first design is basket_kernel's terminal mode.
-constexpr int kernel_mode(int mode) { return mode == kTerminalFirst ? kTerminal : mode; }
-
-// A launch in ``kMode``: kernel 28's redesign (kTerminal, 1-8 assets), its
-// first design (kTerminalFirst), kernel 27 (kPaths) or the debug mode, the
-// generic instance from 9 assets in every mode.
-template <int kMode>
-int launch(float* out, float* aux, const float* host_consts, const float* consts,
-           uint64_t seed, int first_tile, int n_tiles, int tile, int n_steps, int n,
-           int antithetic, void* stream) {
-  constexpr int kKernel = kernel_mode(kMode);
-  const bool anti = antithetic != 0;
-  const long long n_slots = static_cast<long long>(n_tiles) * (anti ? tile / 2 : tile);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n) {
-#define OMT_BASKET_LAUNCH(K) \
-  case K: \
-    if constexpr (kMode == kTerminal) \
-      return launch_terminal<K>(out, host_consts, seed, first_tile, n_tiles, tile, n_steps, \
-                                anti, st); \
-    else \
-      return launch_fixed<K, kKernel>(out, aux, host_consts, seed, first_tile, n_tiles, tile, \
-                                    n_steps, anti, n_slots, st);
-    OMT_BASKET_CASES(OMT_BASKET_LAUNCH)
-#undef OMT_BASKET_LAUNCH
-    default:
-      break;
-  }
+// The generic instance (the yardstick) in kKernel (kTerminal or kPaths).
+template <int kKernel>
+int launch_generic(float* out, float* aux, const float* consts, uint64_t seed, int first_tile,
+                   int n_tiles, int tile, int n_steps, int n, bool anti, long long n_slots,
+                   cudaStream_t st) {
   size_t smem = 0;
   const int err = prepare_generic<kKernel>(n, smem);
   if (err != 0) return err;
+  if (consts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned grid = static_cast<unsigned>((n_slots + kGenericBlock - 1) / kGenericBlock);
   basket_generic_kernel<kKernel><<<grid, kGenericBlock, smem, st>>>(
       out, aux, consts, seed, first_tile, n_tiles, tile, n_steps, n, anti);
   return static_cast<int>(cudaGetLastError());
 }
 
+// A launch in ``kMode``: kernel 28's redesign (kTerminal), kernel 27
+// (kPaths) or the debug mode, by register instance up to kRegisterAssets
+// and by the wide route above; kernel 28's first design (kTerminalFirst:
+// basket_kernel, 1-8 assets); the generic instance at any n
+// (kGenericTerminal, kGenericPaths).
+template <int kMode>
+int launch(float* out, float* aux, const float* host_consts, const float* consts,
+           uint64_t seed, int first_tile, int n_tiles, int tile, int n_steps, int n,
+           int antithetic, void* stream) {
+  if (n < 1 || n > kMaxAssets) return static_cast<int>(cudaErrorInvalidValue);
+  const bool anti = antithetic != 0;
+  const long long n_slots = static_cast<long long>(n_tiles) * (anti ? tile / 2 : tile);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (kMode == kGenericTerminal || kMode == kGenericPaths) {
+    return launch_generic<kMode == kGenericPaths ? kPaths : kTerminal>(
+        out, aux, consts, seed, first_tile, n_tiles, tile, n_steps, n, anti, n_slots, st);
+  } else if constexpr (kMode == kTerminalFirst) {
+    switch (n) {
+#define OMT_BASKET_FIRST(K) \
+  case K: \
+    return launch_fixed<K, kTerminal>(out, aux, host_consts, seed, first_tile, n_tiles, tile, \
+                                      n_steps, anti, n_slots, st);
+      OMT_BASKET_FIRST_CASES(OMT_BASKET_FIRST)
+#undef OMT_BASKET_FIRST
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (n) {
+#define OMT_BASKET_LAUNCH(K) \
+  case K: \
+    if constexpr (kMode == kTerminal) \
+      return launch_terminal<K>(out, host_consts, seed, first_tile, n_tiles, tile, n_steps, \
+                                anti, st); \
+    else \
+      return launch_fixed<K, kMode>(out, aux, host_consts, seed, first_tile, n_tiles, tile, \
+                                    n_steps, anti, n_slots, st);
+      OMT_BASKET_CASES(OMT_BASKET_LAUNCH)
+#undef OMT_BASKET_LAUNCH
+      default:
+        return launch_wide<kMode, kWideRows>(out, aux, consts, seed, first_tile, n_tiles, tile,
+                                             n_steps, n, anti, st);
+    }
+  }
+}
+
 // The instance a launch in kMode at n assets runs (kernel 28's redesign:
 // antithetic, kTermSlots(n) slots a thread).
 template <int kMode>
 int attrs(int n, int* out) {
-  constexpr int kKernel = kernel_mode(kMode);
-  switch (n) {
+  if (n < 1 || n > kMaxAssets) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  if constexpr (kMode == kGenericTerminal || kMode == kGenericPaths) {
+    constexpr int kKernel = kMode == kGenericPaths ? kPaths : kTerminal;
+    const int err = prepare_generic<kKernel>(n, smem);
+    if (err != 0) return err;
+    return kernel_attrs(basket_generic_kernel<kKernel>, kGenericBlock, out, smem);
+  } else if constexpr (kMode == kTerminalFirst) {
+    switch (n) {
+#define OMT_BASKET_FIRST_ATTR(K) \
+  case K: \
+    return kernel_attrs(basket_kernel<K, kTerminal>, kBlock, out);
+      OMT_BASKET_FIRST_CASES(OMT_BASKET_FIRST_ATTR)
+#undef OMT_BASKET_FIRST_ATTR
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (n) {
 #define OMT_BASKET_ATTR(K) \
   case K: \
     if constexpr (kMode == kTerminal) \
       return kernel_attrs(basket_terminal_kernel<K, kTermSlots(K), true>, kTermBlock, out); \
     else \
-      return kernel_attrs(basket_kernel<K, kKernel>, kBlock, out);
-    OMT_BASKET_CASES(OMT_BASKET_ATTR)
+      return kernel_attrs(basket_kernel<K, kMode>, kBlock, out);
+      OMT_BASKET_CASES(OMT_BASKET_ATTR)
 #undef OMT_BASKET_ATTR
-    default:
-      break;
+      default:
+        return wide_attrs<kMode, kWideRows>(n, out);
+    }
   }
-  size_t smem = 0;
-  const int err = prepare_generic<kKernel>(n, smem);
-  if (err != 0) return err;
-  return kernel_attrs(basket_generic_kernel<kKernel>, kGenericBlock, out, smem);
 }
 
 }  // namespace basket
@@ -485,13 +524,17 @@ int attrs(int n, int* out) {
 
 extern "C" {
 
-// out: device float32, (n_steps+1, n_assets, n_tiles*tile) for mode 1 (S
-// paths, kernel 27) and 2 (the log-states, debug), (n_assets, n_tiles*tile)
-// for modes 0 (S_T, kernel 28) and 3 (S_T, kernel 28's first design); aux:
-// W (n_steps, n_assets, n_tiles*tile) in mode 2, else unused; host_consts:
+// out: device float32, (n_steps+1, n_assets, n_tiles*tile) for modes 1 (S
+// paths, kernel 27), 2 (the log-states, debug) and 5 (S paths, the generic
+// instance), (n_assets, n_tiles*tile) for modes 0 (S_T, kernel 28), 3 (S_T,
+// kernel 28's first design) and 4 (S_T, the generic instance); aux: W
+// (n_steps, n_assets, n_tiles*tile) in mode 2, else unused; host_consts:
 // host float32, s0, drift, vol and L's packed rows (3 n + n (n + 1) / 2),
-// read by value up to 8 assets; consts: the same on the card, read by the
-// generic instance (9 assets or more; may be null below).
+// read by value up to 16 assets (8 in mode 3), else unused (may be null);
+// consts: on the card, the same
+// for the generic instance (modes 4 and 5), the wide
+// route's constants (basket.cuh wide_consts4(n, kWideRows) float4s,
+// 16-byte aligned) from 17 assets in modes 0-2, else unused (may be null).
 int omt_basket(void* out, void* aux, const void* host_consts, const void* consts,
                uint64_t seed, int first_tile, int n_tiles, int tile, int n_steps, int n_assets,
                int antithetic, int mode, void* stream) {
@@ -509,14 +552,16 @@ int omt_basket(void* out, void* aux, const void* host_consts, const void* consts
     OMT_BASKET_MODE(kPaths)
     OMT_BASKET_MODE(kDebug)
     OMT_BASKET_MODE(kTerminalFirst)
+    OMT_BASKET_MODE(kGenericTerminal)
+    OMT_BASKET_MODE(kGenericPaths)
 #undef OMT_BASKET_MODE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The instance a launch at n_assets and mode 0, 1 or 3 runs: registers per
-// thread, local bytes, resident blocks per SM, block threads
+// The instance a launch at n_assets and mode 0, 1, 3, 4 or 5 runs: registers
+// per thread, local bytes, resident blocks per SM, block threads
 // (csrc/kernel_attrs.cuh).
 int omt_basket_attrs(int n_assets, int mode, int* out) {
   using namespace omt::basket;
@@ -527,6 +572,10 @@ int omt_basket_attrs(int n_assets, int mode, int* out) {
       return attrs<kPaths>(n_assets, out);
     case kTerminalFirst:
       return attrs<kTerminalFirst>(n_assets, out);
+    case kGenericTerminal:
+      return attrs<kGenericTerminal>(n_assets, out);
+    case kGenericPaths:
+      return attrs<kGenericPaths>(n_assets, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,7 +12,12 @@ american_basket.py:59-64). Validated by the reference against Andersen and
 Broadie's (2004) 2-asset Bermudan max-call.
 
 The Grams run in full float32 (or the paths' float64): this raises if TF32
-matmuls are on, as ``lsm_poly_backward`` does.
+matmuls are on, as ``lsm_poly_backward`` does. Above FLOAT32_GRAM_ASSETS
+assets float32 paths regress in float64: the basis's 1 + 2n + n(n-1)/2 + 1
+columns of collinear order statistics leave a float32 Gram without a
+usable Cholesky factor at 50 assets (1,327 columns), where no path then
+exercises and the price is the European's. The reference solves in float32
+at every width; this is the port's departure from it.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from options_model_tpu_torch.pricers.american import (_oos_split, _pair_block,
 from options_model_tpu_torch.pricers.regressors import masked_wls_predict_centered
 
 _KINDS = ("max", "min", "basket")
+# The most assets whose float32 paths regress in float32 (154 columns).
+FLOAT32_GRAM_ASSETS = 16
 
 
 def _underlying(S_t: torch.Tensor, kind: str, w: Optional[torch.Tensor]) -> torch.Tensor:
@@ -81,11 +88,15 @@ def _discount_step(r, T, n_steps: int, dtype) -> float:
 def lsm_basket_backward(S_paths: torch.Tensor, K, r, T, cp, *, kind: str = "max",
                         weights=None, out_of_sample: bool = False,
                         pair_block: Optional[int] = None,
-                        stat_pair_block: Optional[int] = None):
+                        stat_pair_block: Optional[int] = None,
+                        gram_dtype: Optional[torch.dtype] = None):
     """LSM backward induction on joint paths S_paths (n_steps+1, n_assets, P).
-    Returns (price, stderr), the stderr over antithetic pair means when
-    ``stat_pair_block`` is given. ``out_of_sample`` fits on alternating
-    ``pair_block`` blocks and prices on the others."""
+    Returns (price, stderr) in the paths' dtype, the stderr over antithetic
+    pair means when ``stat_pair_block`` is given. ``out_of_sample`` fits on
+    alternating ``pair_block`` blocks and prices on the others.
+    ``gram_dtype``: the dtype the backward runs in; by default the paths'
+    own, but float64 for float32 paths of more than FLOAT32_GRAM_ASSETS
+    assets."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("lsm_basket_backward needs full float32 matmuls: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
@@ -93,6 +104,11 @@ def lsm_basket_backward(S_paths: torch.Tensor, K, r, T, cp, *, kind: str = "max"
         raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
     if kind == "basket" and weights is None:
         raise ValueError("kind='basket' requires weights")
+    out_dtype = S_paths.dtype
+    if gram_dtype is None:
+        gram_dtype = (torch.float64 if out_dtype == torch.float32
+                      and S_paths.shape[1] > FLOAT32_GRAM_ASSETS else out_dtype)
+    S_paths = S_paths.to(gram_dtype)
     n_steps = S_paths.shape[0] - 1
     dtype, device = S_paths.dtype, S_paths.device
     disc = _discount_step(r, T, n_steps, dtype)
@@ -114,7 +130,7 @@ def lsm_basket_backward(S_paths: torch.Tensor, K, r, T, cp, *, kind: str = "max"
         cash = torch.where(exercise, immediate, cash)
     cash = cash * disc
     price, stderr, _ = masked_mean_stderr(cash, eval_mask, stat_pair_block)
-    return price, stderr
+    return price.to(out_dtype), stderr.to(out_dtype)
 
 
 def price_american_basket(generator: torch.Generator, S0s, K, T, r, sigmas, corr, cp=1.0,

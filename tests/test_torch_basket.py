@@ -150,7 +150,7 @@ def test_terminal_equals_paths_last_row_and_chunks(n, anti):
     assert torch.equal(chunk, S[:, :, 256:512])
     assert torch.equal(cb.basket_terminal(SEED, c, 512, 9, anti, 1, 256, "cpu"),
                        S_T[:, 256:])
-    assert cb.launches == {"basket_paths": 0, "basket_terminal": 0, "basket_terminal_first": 0}
+    assert cb.launches == dict.fromkeys(cb.launches, 0)
 
 
 def test_simulate_modes_share_the_stream():
@@ -264,7 +264,7 @@ def test_wrappers_route_and_raise():
     with pytest.raises(RuntimeError, match="CUDA"):
         tab.price_american_basket(_gen(1), [100.0, 100.0], 100.0, 1.0, R, [0.2, 0.2],
                                   np.eye(2), mc=MCConfig(1 << 12, 4))
-    assert cb.launches == {"basket_paths": 0, "basket_terminal": 0, "basket_terminal_first": 0}
+    assert cb.launches == dict.fromkeys(cb.launches, 0)
 
 
 # ---- the geometric-basket closed form ----------------------------------------------------

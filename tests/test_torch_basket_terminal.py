@@ -148,9 +148,16 @@ def test_both_designs_on_the_cpu_are_the_plain_version(n_steps, tile, first_tile
     c = _consts(n, n_steps)
     want = cb.basket_terminal_reference(SEED, c, 2 * tile, n_steps, anti, first_tile, tile,
                                         "cpu")
-    for fn in (cb.basket_terminal, cb.basket_terminal_first):
+    # from 9 assets the first design is the generic instance's, and kernel
+    # 28's own first design (register instances to 8 assets) refuses them
+    first = (cb.basket_terminal_first if n <= cb.FIRST_REGISTER_ASSETS
+             else cb.basket_generic_first)
+    for fn in (cb.basket_terminal, first):
         assert torch.equal(fn(SEED, c, 2 * tile, n_steps, anti, first_tile, tile, "cpu"), want)
-    assert cb.launches == {"basket_paths": 0, "basket_terminal": 0, "basket_terminal_first": 0}
+    if n > cb.FIRST_REGISTER_ASSETS:
+        with pytest.raises(ValueError, match="1 to 8 assets"):
+            cb.basket_terminal_first(SEED, c, 2 * tile, n_steps, anti, first_tile, tile, "cpu")
+    assert cb.launches == dict.fromkeys(cb.launches, 0)
 
 
 @pytest.mark.parametrize("fn", [cb.basket_terminal, cb.basket_terminal_first])
@@ -162,7 +169,7 @@ def test_both_designs_raise_without_cuda(fn):
         fn(SEED, c, 256, 1, True, 0, 256, "cuda")
     with pytest.raises(ValueError, match="CUDA device"):
         cb.basket_launch(SEED, c, 256, 1, True, 0, 256, torch.device("cpu"), "terminal_first")
-    assert cb.launches == {"basket_paths": 0, "basket_terminal": 0, "basket_terminal_first": 0}
+    assert cb.launches == dict.fromkeys(cb.launches, 0)
 
 
 @pytest.mark.parametrize("anti", [True, False])
